@@ -1,0 +1,39 @@
+"""Architecture registry of the PyTorch port.
+
+``get_config(arch)`` / ``get_smoke_config(arch)`` return the same
+``ModelConfig`` values as :mod:`repro.configs`, for the architectures the
+port serves so far.  The reference registry also builds JAX input specs,
+so the port keeps its own, free of JAX.
+"""
+
+from __future__ import annotations
+
+import importlib
+from typing import List
+
+from repro_torch.configs.base import ModelConfig
+
+_ARCH_MODULES = {
+    "qwen3-1.7b": "qwen3_1_7b",
+    "gpt2-124m": "gpt2_124m",
+}
+
+ALL_ARCHS: List[str] = list(_ARCH_MODULES)
+
+
+def _module(arch: str):
+    if arch not in _ARCH_MODULES:
+        raise KeyError(
+            f"unknown arch {arch!r}; the port has {sorted(_ARCH_MODULES)} "
+            f"(the other reference archs are ROADMAP item 1.10)"
+        )
+    return importlib.import_module(
+        f"repro_torch.configs.{_ARCH_MODULES[arch]}")
+
+
+def get_config(arch: str) -> ModelConfig:
+    return _module(arch).FULL
+
+
+def get_smoke_config(arch: str) -> ModelConfig:
+    return _module(arch).SMOKE

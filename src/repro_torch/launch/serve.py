@@ -1,0 +1,207 @@
+"""Serving CLI of the port: init a model, serve sampled requests.
+
+Usage:
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch gpt2-124m \\
+        --no-smoke --max-batch 8 --requests 16 --max-new 32
+
+The same defaults, prompt sampling (``np.random.default_rng(seed)``),
+summary lines and ``--out`` report fields as ``repro.launch.serve``, on
+``--device cuda`` (the default) or ``cpu``.  The weights come from the
+port's own seeded init, so the token streams differ from the reference
+CLI's; the tests hold the engine to the reference's streams with the
+reference's weights.  Options the port does not serve yet are refused.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+
+import numpy as np
+
+import repro_torch.configs as configs
+from repro_torch.models import transformer
+from repro_torch.serve.engine import (SCHEDULERS, Request, RequestTooLong,
+                                      ServeEngine)
+
+
+def build_report(args: argparse.Namespace, engine: ServeEngine,
+                 rejections: list = ()) -> dict:
+    """Machine-readable serve report (the fields of the reference's)."""
+    return {
+        "kind": "serve_report",
+        "arch": args.arch,
+        "scheduler": engine.scheduler,
+        "max_batch": engine.max_batch,
+        "max_len": engine.max_len,
+        "block_size": engine.block_size,
+        "prefill_chunk": engine.prefill_chunk,
+        "prefill_budget": engine.prefill_budget,
+        "kv_dtype": engine.kv_dtype,
+        "share_prefixes": engine.share_prefixes,
+        "draft": getattr(args, "draft", None),
+        "spec_k": engine.spec_k,
+        "spec_adaptive": engine.spec_adaptive,
+        "mesh": engine.mesh_shape,
+        "temperature": engine.temperature,
+        "top_k": engine.top_k,
+        "sample_seed": engine.sample_seed,
+        "rejected": len(rejections),
+        "rejections": [{"uid": u, "reason": reason} for u, reason in rejections],
+        "stats": engine.stats(),
+        "requests": [
+            {
+                "uid": r.uid,
+                "prompt_len": int(len(r.prompt)),
+                "new_tokens": len(r.generated),
+                "tokens": [int(t) for t in r.generated],
+                "latency_s": r.latency_s,
+                "ttft_s": r.ttft_s,
+            }
+            for _, r in sorted(engine.completed.items())
+        ],
+    }
+
+
+#: reference options the port refuses, with the ROADMAP item porting them
+_UNPORTED = {
+    "scheduler": ("continuous", "--scheduler wave: ROADMAP item 1.12"),
+    "prefill_chunk": (1, "--prefill-chunk > 1: ROADMAP item 1.9"),
+    "prefill_budget": (None, "--prefill-budget: ROADMAP item 1.9"),
+    "kv_dtype": ("f32", "--kv-dtype bf16/int8: ROADMAP item 1.11"),
+    "share_prefixes": (False, "--share-prefixes: ROADMAP item 1.11"),
+    "draft": (None, "--draft: ROADMAP item 1.13"),
+    "spec_k": (0, "--spec-k: ROADMAP item 1.13"),
+    "spec_adaptive": (False, "--spec-adaptive: ROADMAP item 1.13"),
+    "mesh": (None, "--mesh: ROADMAP item 1.16"),
+    "temperature": (0.0, "--temperature > 0: ROADMAP item 1.13"),
+    "record": (False, "--record (perf ledger): ROADMAP item 1.15"),
+}
+
+
+def parse_args(argv=None) -> argparse.Namespace:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="gpt2-124m",
+                    choices=configs.ALL_ARCHS)
+    ap.add_argument("--smoke", action=argparse.BooleanOptionalAction,
+                    default=True,
+                    help="smoke-sized config (--no-smoke for the real one)")
+    ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
+    ap.add_argument("--scheduler", choices=list(SCHEDULERS),
+                    default="continuous")
+    ap.add_argument("--requests", type=int, default=8)
+    ap.add_argument("--max-new", type=int, default=12)
+    ap.add_argument("--max-batch", type=int, default=4)
+    ap.add_argument("--max-len", type=int, default=128)
+    ap.add_argument("--block-size", type=int, default=16)
+    ap.add_argument("--prompt-lo", type=int, default=4,
+                    help="minimum sampled prompt length")
+    ap.add_argument("--prompt-hi", type=int, default=16,
+                    help="maximum sampled prompt length (inclusive)")
+    ap.add_argument("--prefill-chunk", type=int, default=1)
+    ap.add_argument("--prefill-budget", type=int, default=None)
+    ap.add_argument("--kv-dtype", choices=["f32", "bf16", "int8"],
+                    default="f32")
+    ap.add_argument("--share-prefixes", action="store_true")
+    ap.add_argument("--shared-prefix-len", type=int, default=0,
+                    help="sample all prompts with a common prefix of this "
+                         "length (0 = fully random prompts)")
+    ap.add_argument("--draft", default=None)
+    ap.add_argument("--spec-k", type=int, default=0)
+    ap.add_argument("--spec-adaptive", action="store_true")
+    ap.add_argument("--mesh", default=None, metavar="DxM")
+    ap.add_argument("--temperature", type=float, default=0.0,
+                    help="sampling temperature (0 = greedy argmax)")
+    ap.add_argument("--top-k", type=int, default=0)
+    ap.add_argument("--sample-seed", type=int, default=0)
+    ap.add_argument("--warmup", action=argparse.BooleanOptionalAction,
+                    default=True,
+                    help="run one throwaway step before serving so TTFT "
+                         "measures scheduling, not set-up")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--out", default=None,
+                    help="write the serve report JSON here")
+    ap.add_argument("--record", action="store_true")
+    args = ap.parse_args(argv)
+    for name, (default, why) in _UNPORTED.items():
+        if getattr(args, name) != default:
+            ap.error(f"not ported yet: {why}")
+    return args
+
+
+def make_engine(args: argparse.Namespace) -> ServeEngine:
+    """The engine the arguments ask for, with the port's seeded init."""
+    cfg = (configs.get_smoke_config(args.arch) if args.smoke
+           else configs.get_config(args.arch))
+    params = transformer.init_lm(cfg, seed=args.seed, device=args.device)
+    return ServeEngine(cfg, params, max_batch=args.max_batch,
+                       max_len=args.max_len, block_size=args.block_size,
+                       top_k=args.top_k, sample_seed=args.sample_seed,
+                       device=args.device)
+
+
+def serve(args: argparse.Namespace, engine: ServeEngine) -> dict:
+    """Submit the sampled requests, drain the engine, print the summary,
+    and return (and with ``--out`` write) the serve report."""
+    cfg = engine.cfg
+    rng = np.random.default_rng(args.seed)
+    shared_prefix = (
+        rng.integers(0, cfg.vocab,
+                     size=args.shared_prefix_len).astype(np.int32)
+        if args.shared_prefix_len > 0 else None)
+    rejections: list = []
+    for uid in range(args.requests):
+        plen = int(rng.integers(args.prompt_lo, args.prompt_hi + 1))
+        prompt = rng.integers(0, cfg.vocab, size=plen).astype(np.int32)
+        if shared_prefix is not None:
+            prompt = np.concatenate([shared_prefix, prompt])
+        try:
+            engine.submit(Request(
+                uid=uid,
+                prompt=prompt,
+                max_new_tokens=args.max_new,
+            ))
+        except RequestTooLong as e:
+            # an oversized submission is a counted rejection, not a crash:
+            # the remaining requests still get served and reported
+            rejections.append((uid, str(e)))
+    done = engine.run_until_drained()
+    stats = engine.stats()
+    print(f"[{args.scheduler}] served {stats['requests']} requests, "
+          f"{stats['new_tokens']} tokens, {stats['fused_steps']} fused steps "
+          f"in {stats['wall_s']:.2f}s ({stats['tok_s']:.1f} tok/s)")
+    print(f"  slot utilization {stats['slot_utilization']:.3f} "
+          f"({stats['busy_slot_steps']}/{stats['slot_steps']} slot-steps), "
+          f"latency p50 {stats['p50_latency_s']:.3f}s "
+          f"p95 {stats['p95_latency_s']:.3f}s, "
+          f"ttft p50 {stats['ttft_p50_s']:.3f}s "
+          f"p95 {stats['ttft_p95_s']:.3f}s")
+    if rejections:
+        print(f"  rejected {len(rejections)} oversized request(s) at submit:")
+        for uid, reason in rejections:
+            print(f"    req {uid}: {reason}")
+    for uid in sorted(done):
+        r = done[uid]
+        lat = f"{r.latency_s:.3f}s" if r.latency_s is not None else "n/a"
+        print(f"  req {uid}: prompt[{len(r.prompt)}] latency {lat} "
+              f"-> {r.generated}")
+
+    report = build_report(args, engine, rejections)
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump(report, f, indent=1)
+        print(f"serve report -> {args.out}")
+    return report
+
+
+def main(argv=None) -> int:
+    args = parse_args(argv)
+    engine = make_engine(args)
+    if args.warmup:
+        engine.warmup()
+    serve(args, engine)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,0 +1,74 @@
+"""Grouped-query attention with RoPE, qk-norm and bias: paged decode.
+
+Port of ``init_attention`` and ``_project_qkv`` of
+``repro/models/attention.py``, and of the attention the reference's paged
+cell runs over its gathered view of the block pool.  The reference reads
+the cache read-only and merges the new token in a second softmax step; the
+port first writes the new token's K/V row into the pool and then attends
+over the pool with the paged flash-decode kernel.  The two agree within
+floating-point tolerance, not bit for bit.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.flash_decode import flash_decode_paged
+from repro_torch.models import layers
+
+
+def init_attention(gen: torch.Generator, cfg, dtype, device) -> dict:
+    d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    p = {
+        "wq": layers.dense_init(gen, d, h * hd, dtype, device,
+                                bias=cfg.qkv_bias),
+        "wk": layers.dense_init(gen, d, kv * hd, dtype, device,
+                                bias=cfg.qkv_bias),
+        "wv": layers.dense_init(gen, d, kv * hd, dtype, device,
+                                bias=cfg.qkv_bias),
+        "wo": layers.dense_init(gen, h * hd, d, dtype, device),
+    }
+    if cfg.qk_norm:
+        p["q_norm"] = layers.rms_norm_init(hd, dtype, device)
+        p["k_norm"] = layers.rms_norm_init(hd, dtype, device)
+    return p
+
+
+def _project_qkv(params: dict, cfg, x: torch.Tensor,
+                 positions: torch.Tensor):
+    """x (B, S, d), positions (B, S) -> q (B,S,H,D), k and v (B,S,KV,D)."""
+    B, S, _ = x.shape
+    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = layers.dense(params["wq"], x).reshape(B, S, h, hd)
+    k = layers.dense(params["wk"], x).reshape(B, S, kv, hd)
+    v = layers.dense(params["wv"], x).reshape(B, S, kv, hd)
+    if cfg.qk_norm:
+        q = layers.rms_norm(params["q_norm"], q, cfg.norm_eps)
+        k = layers.rms_norm(params["k_norm"], k, cfg.norm_eps)
+    cos, sin = layers.rope_cos_sin(positions, hd, cfg.rope_theta)
+    return layers.apply_rope(q, cos, sin), layers.apply_rope(k, cos, sin), v
+
+
+def attention_decode_paged(params: dict, cfg, x: torch.Tensor,
+                           k_pool: torch.Tensor, v_pool: torch.Tensor,
+                           positions: torch.Tensor,
+                           block_tables: torch.Tensor,
+                           flat_idx: torch.Tensor) -> torch.Tensor:
+    """One-token decode over one layer's block pool, committing in place.
+
+    x (B, 1, d); k/v_pool (n_blocks, bs, KV, D), this layer's pools,
+    written at ``flat_idx`` (B,) of the flattened (n_blocks * bs) row axis;
+    positions (B,) int32 per-slot cache lengths before this token;
+    block_tables (B, nb) int32.  Each slot attends over its rows
+    ``[0, positions[b]]``, the new token included.  Returns (B, 1, d).
+    """
+    B = x.shape[0]
+    kv, hd = cfg.n_kv_heads, cfg.head_dim
+    g = cfg.n_heads // kv
+    q, k_new, v_new = _project_qkv(params, cfg, x, positions[:, None])
+    rows = k_pool.shape[0] * k_pool.shape[1]
+    k_pool.view(rows, kv, hd)[flat_idx] = k_new[:, 0].to(k_pool.dtype)
+    v_pool.view(rows, kv, hd)[flat_idx] = v_new[:, 0].to(v_pool.dtype)
+    out = flash_decode_paged(q.reshape(B, kv, g, hd), k_pool, v_pool,
+                             block_tables, positions + 1)
+    return layers.dense(params["wo"], out.reshape(B, 1, kv * g * hd))

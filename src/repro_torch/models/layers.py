@@ -1,0 +1,150 @@
+"""Shared layers: dense, norms, rotary embeddings, SwiGLU, embeddings.
+
+Port of ``repro/models/layers.py``.  Parameters are plain dictionaries of
+tensors with the reference's names and layouts (a dense weight is
+``(d_in, d_out)``), so the reference's parameter tree maps onto them leaf
+by leaf.  Norm math runs in fp32 whatever the compute dtype and is cast
+back.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Tuple
+
+import torch
+import torch.nn.functional as F
+
+
+def truncated_normal(gen: torch.Generator, shape, scale: float, dtype,
+                     device) -> torch.Tensor:
+    """Fan-in scaled normal, clipped at two standard deviations; drawn in
+    fp32 on the CPU from ``gen`` (so the draw does not depend on the
+    device) and then cast and moved."""
+    fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
+    std = scale / max(1.0, fan_in ** 0.5)
+    x = torch.randn(shape, generator=gen, dtype=torch.float32)
+    return (x.clamp_(-2.0, 2.0) * std).to(device=device, dtype=dtype)
+
+
+def dense_init(gen, d_in: int, d_out: int, dtype, device, *,
+               bias: bool = False) -> dict:
+    p = {"w": truncated_normal(gen, (d_in, d_out), 1.0, dtype, device)}
+    if bias:
+        p["b"] = torch.zeros((d_out,), dtype=dtype, device=device)
+    return p
+
+
+def dense(params: dict, x: torch.Tensor) -> torch.Tensor:
+    y = x @ params["w"].to(x.dtype)
+    if "b" in params:
+        y = y + params["b"].to(x.dtype)
+    return y
+
+
+# --- norms -------------------------------------------------------------------
+
+
+def rms_norm_init(d: int, dtype, device) -> dict:
+    return {"scale": torch.ones((d,), dtype=dtype, device=device)}
+
+
+def rms_norm(params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    x32 = x.float()
+    var = x32.square().mean(dim=-1, keepdim=True)
+    y = x32 * torch.rsqrt(var + eps)
+    if params is not None and "scale" in params:
+        y = y * params["scale"].float()
+    return y.to(x.dtype)
+
+
+def layer_norm_init(d: int, dtype, device) -> dict:
+    return {"scale": torch.ones((d,), dtype=dtype, device=device),
+            "bias": torch.zeros((d,), dtype=dtype, device=device)}
+
+
+def layer_norm(params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm with the population variance; with empty params this is
+    OLMo's non-parametric LN."""
+    x32 = x.float()
+    mu = x32.mean(dim=-1, keepdim=True)
+    var = x32.var(dim=-1, keepdim=True, unbiased=False)
+    y = (x32 - mu) * torch.rsqrt(var + eps)
+    if params and "scale" in params:
+        y = y * params["scale"].float() + params["bias"].float()
+    return y.to(x.dtype)
+
+
+def make_norm(cfg) -> Tuple[Callable, Callable]:
+    """Returns (init_fn(dtype, device) -> params, apply_fn(params, x) -> x)
+    for the config's norm."""
+    if cfg.nonparam_ln:
+        return ((lambda dtype, device: {}),
+                (lambda p, x: layer_norm({}, x, cfg.norm_eps)))
+    if cfg.rms_norm:
+        return ((lambda dtype, device: rms_norm_init(cfg.d_model, dtype,
+                                                     device)),
+                (lambda p, x: rms_norm(p, x, cfg.norm_eps)))
+    return ((lambda dtype, device: layer_norm_init(cfg.d_model, dtype,
+                                                   device)),
+            (lambda p, x: layer_norm(p, x, cfg.norm_eps)))
+
+
+# --- rotary ------------------------------------------------------------------
+
+
+def rope_cos_sin(positions: torch.Tensor, dim: int, theta: float):
+    """cos/sin tables for the given positions: (..., dim//2), fp32."""
+    half = dim // 2
+    exponents = torch.arange(half, dtype=torch.float32,
+                             device=positions.device) / half
+    freqs = 1.0 / (theta ** exponents)
+    angles = positions.float()[..., None] * freqs
+    return torch.cos(angles), torch.sin(angles)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor
+               ) -> torch.Tensor:
+    """x: (B, S, H, D); cos/sin: (B, S, D/2) or (S, D/2).  Split-half
+    convention: the first and second halves of D form the pairs."""
+    x32 = x.float()
+    x1, x2 = x32.chunk(2, dim=-1)
+    if cos.dim() == 2:  # (S, D/2) -> broadcast over batch and heads
+        cos = cos[None, :, None, :]
+        sin = sin[None, :, None, :]
+    else:  # (B, S, D/2)
+        cos = cos[:, :, None, :]
+        sin = sin[:, :, None, :]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# --- FFN and embeddings ------------------------------------------------------
+
+
+def swiglu_init(gen, d_model: int, d_ff: int, dtype, device) -> dict:
+    return {
+        "wi_gate": truncated_normal(gen, (d_model, d_ff), 1.0, dtype, device),
+        "wi_up": truncated_normal(gen, (d_model, d_ff), 1.0, dtype, device),
+        "wo": truncated_normal(gen, (d_ff, d_model), 1.0, dtype, device),
+    }
+
+
+def swiglu(params: dict, x: torch.Tensor) -> torch.Tensor:
+    g = x @ params["wi_gate"].to(x.dtype)
+    u = x @ params["wi_up"].to(x.dtype)
+    return (F.silu(g) * u) @ params["wo"].to(x.dtype)
+
+
+def embed_init(gen, vocab: int, d_model: int, dtype, device) -> dict:
+    return {"embedding": truncated_normal(gen, (vocab, d_model), 1.0, dtype,
+                                          device)}
+
+
+def embed(params: dict, tokens: torch.Tensor) -> torch.Tensor:
+    return params["embedding"][tokens]
+
+
+def unembed(params: dict, x: torch.Tensor) -> torch.Tensor:
+    """Project to vocab logits: the matmul runs in x's dtype, the logits
+    come out fp32."""
+    return (x @ params["embedding"].to(x.dtype).T).float()

@@ -1,0 +1,507 @@
+"""Slot-level continuously batched serving engine over a paged KV cache.
+
+Port of the continuous scheduler of ``repro/serve/engine.py``.  A fixed
+set of ``max_batch`` slots advances through one fused
+:func:`~repro_torch.models.transformer.decode_step_paged` per token, every
+slot at its own cache position.  When a request finishes (EOS or token
+budget) its slot takes the next queued request on the very next step and
+its blocks go back to the :class:`~repro_torch.serve.block_pool.BlockPool`
+(LIFO, so the next admission reuses them first).
+
+Scheduling state (positions, block tables, the pool's free list) is
+host-side numpy; only the parameters and the K/V pools live on the device.
+Each step hands the scheduler arrays to the device as private copies: the
+drain mutates them in place right after the call.
+
+The reference's other paths are refused with a ``ValueError`` that names
+the ROADMAP item that will port them: the wave scheduler (1.12), chunked
+prefill (1.9), quantized pools and prefix sharing (1.11), speculative
+decoding (1.13), the device mesh (1.16) and non-dense architectures (1.10).
+Sampling with ``temperature > 0`` raises ``NotImplementedError`` (1.13).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from collections import deque
+from typing import Any, Callable, Deque, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core import metrics as core_metrics
+from repro_torch.core.device import resolve_device
+from repro_torch.models import transformer
+from repro_torch.serve.block_pool import BlockPool
+from repro_torch.serve.sampling import SlotSampler
+
+SCHEDULERS = ("continuous", "wave")
+
+#: A step hook: called once per scheduling iteration with (engine, busy);
+#: returns True while it may still deliver work (keeps the drain alive).
+StepHook = Callable[["ServeEngine", bool], bool]
+
+#: Spin cap for a fully idle engine whose hooks keep claiming pending
+#: work without ever submitting any — a misbehaving hook, not traffic.
+_MAX_IDLE_SPINS = 100_000
+
+
+class RequestTooLong(ValueError):
+    """Raised at submit() time when prompt + budget exceed one slot's
+    cache."""
+
+
+@dataclasses.dataclass
+class Request:
+    uid: int
+    prompt: np.ndarray  # (S,) int32
+    max_new_tokens: int = 16
+    eos_id: int = -1  # -1: never stops early
+
+    def __post_init__(self):
+        self.prompt = np.asarray(self.prompt, np.int32)
+        self.generated: List[int] = []
+        self.done = False
+        self.submitted_s: Optional[float] = None
+        self.started_s: Optional[float] = None
+        self.first_token_s: Optional[float] = None
+        self.finished_s: Optional[float] = None
+        # step-clock twins of the wall-clock stamps: fused-step counter at
+        # submit and at first token, deterministic given the trace
+        self.submitted_step: Optional[int] = None
+        self.first_token_step: Optional[int] = None
+
+    @property
+    def latency_s(self) -> Optional[float]:
+        """Submit -> finish wall time (queue wait included)."""
+        if self.submitted_s is None or self.finished_s is None:
+            return None
+        return self.finished_s - self.submitted_s
+
+    @property
+    def ttft_s(self) -> Optional[float]:
+        """Submit -> first generated token; replayed tokens never restamp
+        it."""
+        if self.submitted_s is None or self.first_token_s is None:
+            return None
+        return self.first_token_s - self.submitted_s
+
+    @property
+    def ttft_steps(self) -> Optional[int]:
+        """Fused steps between submit and first generated token."""
+        if self.submitted_step is None or self.first_token_step is None:
+            return None
+        return self.first_token_step - self.submitted_step
+
+
+def _refuse_unported(cfg, scheduler, prefill_chunk, prefill_budget,
+                     kv_dtype, share_prefixes, spec_k, draft_cfg,
+                     draft_params, spec_adaptive, mesh) -> None:
+    """Raise ValueError for every reference option the port lacks."""
+    transformer.check_dense(cfg)
+    if scheduler not in SCHEDULERS:
+        raise ValueError(f"scheduler must be one of {SCHEDULERS}, "
+                         f"got {scheduler!r}")
+    refused = [
+        (scheduler == "wave", "the wave scheduler is ROADMAP item 1.12"),
+        (prefill_chunk != 1,
+         "chunked prefill (prefill_chunk != 1) is ROADMAP item 1.9"),
+        (prefill_budget is not None,
+         "prefill budgets belong to chunked prefill, ROADMAP item 1.9"),
+        (kv_dtype != "f32",
+         f"kv_dtype {kv_dtype!r}: quantized paging is ROADMAP item 1.11"),
+        (share_prefixes, "prefix sharing is ROADMAP item 1.11"),
+        (spec_k != 0 or draft_cfg is not None or draft_params is not None
+         or spec_adaptive, "speculative decoding is ROADMAP item 1.13"),
+        (mesh is not None, "mesh serving is ROADMAP item 1.16"),
+    ]
+    for hit, why in refused:
+        if hit:
+            raise ValueError(f"not ported yet: {why}")
+
+
+class ServeEngine:
+    def __init__(self, cfg: ModelConfig, params, *, max_batch: int = 4,
+                 max_len: int = 256, scheduler: str = "continuous",
+                 block_size: int = 16, prefill_chunk: int = 1,
+                 prefill_budget: Optional[int] = None,
+                 kv_dtype: str = "f32", share_prefixes: bool = False,
+                 temperature: float = 0.0, top_k: int = 0,
+                 sample_seed: int = 0, spec_k: int = 0,
+                 draft_cfg: Optional[ModelConfig] = None,
+                 draft_params=None, spec_adaptive: bool = False,
+                 mesh=None, device="cuda"):
+        _refuse_unported(cfg, scheduler, prefill_chunk, prefill_budget,
+                         kv_dtype, share_prefixes, spec_k, draft_cfg,
+                         draft_params, spec_adaptive, mesh)
+        if max_len % block_size:
+            raise ValueError(f"max_len {max_len} must be a multiple of "
+                             f"block_size {block_size}")
+        self.device = resolve_device(device)
+        misplaced = [t.device for t in _leaves(params)
+                     if t.device != self.device]
+        if misplaced:
+            raise ValueError(f"params lie on {misplaced[0]}, the engine on "
+                             f"{self.device}")
+        self.cfg = cfg
+        self.params = params
+        self.max_batch = max_batch
+        self.max_len = max_len
+        self.scheduler = scheduler
+        self.block_size = block_size
+        self.prefill_chunk = prefill_chunk
+        self.prefill_budget = prefill_budget
+        self.kv_dtype = kv_dtype
+        self.share_prefixes = share_prefixes
+        self._sampler = SlotSampler(cfg.vocab, temperature=temperature,
+                                    top_k=top_k, seed=sample_seed)
+        self.temperature = self._sampler.temperature
+        self.top_k = self._sampler.top_k
+        self.sample_seed = self._sampler.seed
+        self.spec_k = 0
+        self.spec_adaptive = False
+        self.mesh = None
+        self.queue: Deque[Request] = deque()
+        self.completed: Dict[int, Request] = {}
+        # slot accounting: fused steps are vector issues, slots are lanes,
+        # busy_slot_steps counts the useful lane-steps
+        self.steps = 0
+        self.busy_slot_steps = 0
+        self.wall_s = 0.0
+        self.preemptions = 0
+        # block-pool accounting, accumulated across drains
+        self.logical_blocks = 0
+        self.physical_blocks = 0
+        #: step hooks (see the reference module): traffic feeders, faults
+        self.step_hooks: List[StepHook] = []
+        #: uid -> physical block ids the request occupied, in allocation
+        #: order (pool-reuse introspection)
+        self.block_history: Dict[int, List[int]] = {}
+        # token-work budget for the drain-loop runaway guard: grows with
+        # every submit (and preemption replay)
+        self._submitted_work = 0
+        # live drain state; only non-None while _drain_continuous runs —
+        # preempt() needs it
+        self._live: Optional[Dict[str, Any]] = None
+
+    # -- bookkeeping -----------------------------------------------------------
+
+    @property
+    def total_slot_steps(self) -> int:
+        return self.steps * self.max_batch
+
+    @property
+    def slot_utilization(self) -> float:
+        return core_metrics.slot_utilization(
+            self.busy_slot_steps, self.steps, self.max_batch
+        )
+
+    @property
+    def mesh_shape(self) -> Optional[str]:
+        """Always None: the port serves on one device."""
+        return None
+
+    def _dev(self, x: np.ndarray) -> torch.Tensor:
+        """A private device copy of a scheduler array.
+
+        ``torch.from_numpy`` would alias the host buffer, which the drain
+        mutates in place right after the step is issued; ``torch.tensor``
+        always copies.
+        """
+        return torch.tensor(x, device=self.device)
+
+    def _new_cache(self):
+        return transformer.init_paged_cache(
+            self.cfg, self.max_batch, self.max_len, self.block_size,
+            self.device,
+        )
+
+    def _step(self, tokens, cache, positions, block_tables):
+        return transformer.decode_step_paged(
+            self.params, self.cfg, self._dev(tokens), cache,
+            self._dev(positions), self._dev(block_tables),
+            block_size=self.block_size,
+        )
+
+    def submit(self, req: Request) -> None:
+        horizon = len(req.prompt) + req.max_new_tokens
+        if horizon > self.max_len:
+            raise RequestTooLong(
+                f"request {req.uid}: prompt[{len(req.prompt)}] + "
+                f"max_new_tokens[{req.max_new_tokens}] = {horizon} exceeds "
+                f"the per-slot cache ({self.max_len} tokens)"
+            )
+        if len(req.prompt) == 0:
+            raise ValueError(f"request {req.uid}: empty prompt")
+        req.submitted_s = time.time()
+        req.submitted_step = self.steps
+        self._submitted_work += horizon
+        self.queue.append(req)
+
+    def add_step_hook(self, hook: StepHook) -> None:
+        self.step_hooks.append(hook)
+
+    def warmup(self) -> None:
+        """Run one throwaway step on a dummy cache before traffic arrives.
+
+        All block tables point at the null block and the cache is thrown
+        away.  On CUDA this builds and loads the kernel library and warms
+        the matmul libraries, so the first request's TTFT measures
+        scheduling and not set-up.  No-op on engine counters.
+        """
+        B = self.max_batch
+        logits, _ = self._step(
+            np.zeros((B, 1), np.int32), self._new_cache(),
+            np.zeros(B, np.int32),
+            np.zeros((B, self.max_len // self.block_size), np.int32),
+        )
+        logits.cpu()
+
+    def _call_hooks(self, busy: bool) -> bool:
+        """Run every step hook; True while any may still deliver work."""
+        pending = False
+        for hook in self.step_hooks:
+            pending = bool(hook(self, busy)) or pending
+        return pending
+
+    def _finish(self, req: Request) -> None:
+        req.done = True
+        if req.finished_s is None:
+            req.finished_s = time.time()
+        self.completed[req.uid] = req
+
+    def _note_first_token(self, req: Request) -> None:
+        if req.first_token_s is None:
+            req.first_token_s = time.time()
+            req.first_token_step = self.steps  # the call that produced it
+
+    def preempt(self, uid: Optional[int] = None) -> Optional[int]:
+        """Evict one in-flight request from its slot.
+
+        The request is requeued at the FRONT of the queue with its
+        ``generated`` tokens intact; on re-admission the engine replays
+        prompt + generated through the rebuilt cache and only then starts
+        appending, so the served stream is unchanged.  Picks ``uid``'s
+        slot, or the deepest busy slot (max cache position, lowest slot
+        index on ties).  Returns the preempted uid, or None when nothing
+        was preemptible.  Only callable from a step hook while draining.
+        """
+        live = self._live
+        if live is None:
+            raise RuntimeError(
+                "preempt() is only available from a step hook while the "
+                "continuous scheduler is draining"
+            )
+        slot_req, positions = live["slot_req"], live["positions"]
+        block_tables, pool = live["block_tables"], live["pool"]
+        if uid is not None:
+            picks = [b for b, r in enumerate(slot_req)
+                     if r is not None and r.uid == uid]
+        else:
+            picks = sorted(
+                (b for b, r in enumerate(slot_req) if r is not None),
+                key=lambda b: (-int(positions[b]), b),
+            )
+        if not picks:
+            return None
+        b = picks[0]
+        req = slot_req[b]
+        # replay budget: the resumed run re-spends prompt + generated steps
+        self._submitted_work += len(req.prompt) + req.max_new_tokens
+        for j in range(block_tables.shape[1]):
+            if block_tables[b, j] != 0:
+                pool.decref(int(block_tables[b, j]))
+        block_tables[b] = 0
+        positions[b] = 0
+        live["tokens"][b, :] = 0
+        slot_req[b] = None
+        self.queue.appendleft(req)
+        self.preemptions += 1
+        return req.uid
+
+    # -- continuous scheduler (per-slot positions, paged blocks) ---------------
+
+    def _drain_continuous(self, max_steps: Optional[int]) -> None:
+        B, bs = self.max_batch, self.block_size
+        nb_slot = self.max_len // bs
+        cache = self._new_cache()
+        positions = np.zeros(B, np.int32)
+        block_tables = np.zeros((B, nb_slot), np.int32)  # 0 = null block
+        pool = BlockPool(1 + B * nb_slot, bs)
+        slot_req: List[Optional[Request]] = [None] * B
+        tokens = np.zeros((B, 1), np.int32)
+        self._live = {
+            "positions": positions, "block_tables": block_tables,
+            "pool": pool, "slot_req": slot_req, "tokens": tokens,
+        }
+        idle_spins = 0
+
+        try:
+            while True:
+                pending = self._call_hooks(
+                    busy=any(r is not None for r in slot_req)
+                )
+                # refill: finished slots take the next queued request now
+                for b in range(B):
+                    if slot_req[b] is None and self.queue:
+                        r = self.queue.popleft()
+                        slot_req[b] = r
+                        if r.started_s is None:
+                            r.started_s = time.time()
+                        positions[b] = 0
+                        block_tables[b] = 0
+                        tokens[b, 0] = r.prompt[0]
+                if all(r is None for r in slot_req):
+                    if not pending:
+                        break
+                    idle_spins += 1  # hooks promise work; let them deliver
+                    if idle_spins > _MAX_IDLE_SPINS:
+                        raise RuntimeError(
+                            "step hooks report pending work but never submit"
+                        )
+                    continue
+                idle_spins = 0
+                # exact occupancy bound: a request holds its slot for at
+                # most prompt + max_new - 1 steps (replays re-budgeted at
+                # preemption), so submitted work is a hard cap
+                budget = (max_steps if max_steps is not None
+                          else self._submitted_work + B)
+                if self.steps >= budget:
+                    raise RuntimeError("serve loop did not drain")
+                # map the write block of any slot whose position entered
+                # an unmapped logical block (fresh admissions at 0 too)
+                for b, r in enumerate(slot_req):
+                    if r is not None:
+                        j = positions[b] // bs
+                        if block_tables[b, j] == 0:
+                            blk = pool.acquire(r.prompt, j)
+                            block_tables[b, j] = blk
+                            self.block_history.setdefault(r.uid, []).append(blk)
+
+                self.busy_slot_steps += sum(r is not None for r in slot_req)
+                logits, cache = self._step(tokens, cache, positions,
+                                           block_tables)
+                self.steps += 1
+                nxt = self._sampler.select(logits)[:, 0]
+                for b, r in enumerate(slot_req):
+                    if r is None:
+                        continue
+                    t = int(positions[b])
+                    positions[b] = t + 1
+                    if t + 1 < len(r.prompt):
+                        tokens[b, 0] = r.prompt[t + 1]  # still consuming prompt
+                        continue
+                    gi = t + 1 - len(r.prompt)
+                    if gi < len(r.generated):
+                        # replay after preemption: this token was already
+                        # served — feed it back, never re-append
+                        tokens[b, 0] = r.generated[gi]
+                        continue
+                    tok = int(nxt[b])
+                    self._note_first_token(r)
+                    r.generated.append(tok)
+                    tokens[b, 0] = tok
+                    if (len(r.generated) >= r.max_new_tokens
+                            or tok == r.eos_id):
+                        self._finish(r)
+                        # release the slot's blocks (LIFO: the next
+                        # admission reuses this request's blocks first)
+                        for j in range(nb_slot):
+                            if block_tables[b, j] != 0:
+                                pool.decref(int(block_tables[b, j]))
+                        block_tables[b] = 0
+                        positions[b] = 0
+                        tokens[b, 0] = 0
+                        slot_req[b] = None
+        finally:
+            self.logical_blocks += pool.logical_blocks
+            self.physical_blocks += pool.physical_blocks
+            self._live = None
+
+    # -- public ----------------------------------------------------------------
+
+    def run_until_drained(self, *, max_steps: Optional[int] = None
+                          ) -> Dict[int, Request]:
+        t0 = time.time()
+        self._drain_continuous(max_steps)
+        self.wall_s += time.time() - t0
+        return self.completed
+
+    def stats(self) -> Dict[str, Any]:
+        """Serving metrics, with the keys of the reference engine's
+        ``stats()``."""
+        lat = sorted(
+            r.latency_s for r in self.completed.values()
+            if r.latency_s is not None
+        )
+        ttft = sorted(
+            r.ttft_s for r in self.completed.values()
+            if r.ttft_s is not None
+        )
+        ttft_steps = sorted(
+            r.ttft_steps for r in self.completed.values()
+            if r.ttft_steps is not None
+        )
+        new_tokens = sum(len(r.generated) for r in self.completed.values())
+        block_bytes = transformer.paged_block_bytes(self.cfg, self.block_size)
+        kv_bytes_served = self.logical_blocks * block_bytes
+        kv_bytes_stored = self.physical_blocks * block_bytes
+        return {
+            "scheduler": self.scheduler,
+            "prefill_chunk": self.prefill_chunk,
+            "prefill_budget": self.prefill_budget,
+            "kv_dtype": self.kv_dtype,
+            "share_prefixes": self.share_prefixes,
+            "mesh": self.mesh_shape,
+            "mesh_devices": 1,
+            "device_lane_utilization": core_metrics.device_lane_utilization(
+                [self.busy_slot_steps], self.steps, self.max_batch
+            ),
+            "spec_adaptive": self.spec_adaptive,
+            "requests": len(self.completed),
+            "new_tokens": new_tokens,
+            "fused_steps": self.steps,
+            "busy_slot_steps": self.busy_slot_steps,
+            "slot_steps": self.total_slot_steps,
+            "slot_utilization": self.slot_utilization,
+            "preemptions": self.preemptions,
+            "logical_blocks": self.logical_blocks,
+            "physical_blocks": self.physical_blocks,
+            "shared_block_hits": 0,
+            "cow_copies": 0,
+            "kv_bytes_served": kv_bytes_served,
+            "kv_bytes_stored": kv_bytes_stored,
+            "spec_k": self.spec_k,
+            "drafted_tokens": 0,
+            "accepted_tokens": 0,
+            "rejected_tokens": 0,
+            "draft_steps": 0,
+            "target_steps": self.steps,
+            "acceptance_rate": core_metrics.acceptance_rate(0, 0),
+            "block_dedup_ratio": core_metrics.block_dedup_ratio(
+                kv_bytes_served, kv_bytes_stored
+            ),
+            "wall_s": self.wall_s,
+            "tok_s": new_tokens / self.wall_s if self.wall_s > 0 else 0.0,
+            "p50_latency_s": float(np.percentile(lat, 50)) if lat else 0.0,
+            "p95_latency_s": float(np.percentile(lat, 95)) if lat else 0.0,
+            "ttft_p50_s": float(np.percentile(ttft, 50)) if ttft else 0.0,
+            "ttft_p95_s": float(np.percentile(ttft, 95)) if ttft else 0.0,
+            "ttft_p50_steps": (float(np.percentile(ttft_steps, 50))
+                               if ttft_steps else 0.0),
+            "ttft_p95_steps": (float(np.percentile(ttft_steps, 95))
+                               if ttft_steps else 0.0),
+        }
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree

@@ -1,0 +1,82 @@
+"""``python -m repro_torch.launch.serve`` on the CPU: it serves, writes the
+reference CLI's report fields, and refuses what the port lacks."""
+
+import argparse
+import json
+
+import jax
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import repro.configs as ref_configs  # noqa: E402
+from repro.launch import serve as ref_serve  # noqa: E402
+from repro.serve.engine import ServeEngine as RefEngine  # noqa: E402
+from repro.train import steps as ref_steps  # noqa: E402
+from repro_torch.launch import serve  # noqa: E402
+
+torch.set_num_threads(2)
+
+
+def test_cli_serves_on_cpu_and_writes_the_reference_report(tmp_path,
+                                                            capsys):
+    out = tmp_path / "report.json"
+    assert serve.main(["--device", "cpu", "--requests", "3", "--max-new",
+                       "4", "--out", str(out)]) == 0
+    report = json.loads(out.read_text())
+    printed = capsys.readouterr().out
+    assert "[continuous] served 3 requests, 12 tokens" in printed
+    assert [r["new_tokens"] for r in report["requests"]] == [4, 4, 4]
+
+    # field for field the reference CLI's report (built here from an
+    # engine that has not served, which builds no step)
+    args = argparse.Namespace(arch="gpt2-124m")
+    cfg = ref_configs.get_smoke_config("gpt2-124m")
+    ref_engine = RefEngine(cfg, ref_steps.init_model(jax.random.PRNGKey(0),
+                                                     cfg))
+    want = ref_serve.build_report(args, ref_engine)
+    assert set(report) == set(want)
+    assert set(report["stats"]) == set(want["stats"])
+    assert set(report["requests"][0]) == {
+        "uid", "prompt_len", "new_tokens", "tokens", "latency_s", "ttft_s"}
+    for key in ("scheduler", "kv_dtype", "share_prefixes", "spec_k", "mesh",
+                "temperature", "prefill_chunk"):
+        assert report[key] == want[key], key
+
+
+def test_cli_prompts_follow_the_reference_sampling(tmp_path):
+    """Same seed, same prompt lengths as the reference CLI's traffic."""
+    out = tmp_path / "report.json"
+    serve.main(["--device", "cpu", "--requests", "5", "--max-new", "2",
+                "--prompt-lo", "3", "--prompt-hi", "30", "--seed", "4",
+                "--max-len", "64", "--no-warmup", "--out", str(out)])
+    rng = np.random.default_rng(4)
+    lens = []
+    for _ in range(5):
+        n = int(rng.integers(3, 31))
+        rng.integers(0, 256, size=n)
+        lens.append(n)
+    got = [r["prompt_len"] for r in json.loads(out.read_text())["requests"]]
+    assert got == lens
+
+
+@pytest.mark.parametrize("flags", [
+    ["--scheduler", "wave"], ["--prefill-chunk", "4"],
+    ["--prefill-budget", "8"], ["--kv-dtype", "int8"],
+    ["--share-prefixes"], ["--draft", "gpt2-124m", "--spec-k", "2"],
+    ["--spec-adaptive"], ["--mesh", "2x2"], ["--temperature", "0.8"],
+    ["--record"],
+])
+def test_cli_refuses_unported_options(flags, capsys):
+    with pytest.raises(SystemExit) as exc:
+        serve.main(["--device", "cpu"] + flags)
+    assert exc.value.code == 2
+    assert "ROADMAP item" in capsys.readouterr().err
+
+
+def test_cli_defaults_to_cuda_and_raises_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a card")
+    with pytest.raises(RuntimeError, match="cuda"):
+        serve.main(["--requests", "1"])
