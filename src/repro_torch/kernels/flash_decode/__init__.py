@@ -1,5 +1,7 @@
-"""Paged flash-decode: the CUDA kernel's wrapper and its plain version."""
+"""Paged flash-decode and chunked prefill: the CUDA kernels' wrappers and
+their plain versions."""
 
-from repro_torch.kernels.flash_decode.kernel import flash_decode_paged
+from repro_torch.kernels.flash_decode.kernel import (flash_decode_paged,
+                                                     flash_prefill_paged)
 
-__all__ = ["flash_decode_paged"]
+__all__ = ["flash_decode_paged", "flash_prefill_paged"]

@@ -1,11 +1,14 @@
-"""Plain PyTorch version of the paged flash-decode kernel, and its
-analytic work terms.
+"""Plain PyTorch versions of the paged flash-decode and chunked-prefill
+kernels, and their analytic work terms.
 
 :func:`flash_decode_paged_ref` ports ``decode_paged_ref`` of
 ``repro/kernels/flash_decode/ref.py``: gather each slot's logical view
-through its block table, run a fp32 masked softmax, cast back.  The CPU
-path and the tests use it; on the card it serves only as the yardstick the
-kernel is compared with.
+through its block table, run a fp32 masked softmax, cast back.
+:func:`flash_prefill_paged_ref` ports ``prefill_paged_ref`` (f32 and bf16
+pools): commit the chunk's K/V rows into the pools in place, then causal
+attention over each slot's gathered view.  The CPU path and the tests use
+them; on the card they serve only as the yardsticks the kernels are
+compared with.
 """
 
 from __future__ import annotations
@@ -58,3 +61,102 @@ def work_terms(q: torch.Tensor, k_pool: torch.Tensor,
               + 4 * tiles + 4 * B)             # table entries, valid_len
     flops = 4.0 * live * KV * G * D
     return {"bytes": float(bytes_), "flops": flops}
+
+
+def chunk_positions(q_start: torch.Tensor, C: int, nb: int, bs: int):
+    """Global positions (B, C) of a chunk's rows and the logical block
+    (B, C) each falls in, clamped to the table's last entry: padded rows
+    past ``q_len`` may run past the table, and are never committed."""
+    pos = q_start.long()[:, None] + torch.arange(C, device=q_start.device)
+    return pos, torch.clamp(pos // bs, max=nb - 1)
+
+
+def commit_rows(block_tables: torch.Tensor, q_start: torch.Tensor,
+                q_len: torch.Tensor, C: int, bs: int):
+    """(src, dst): the chunk rows ``c < q_len[b]`` as indices into the
+    (B*C) rows of k/v_new and the (n_blocks*bs) rows of a pool.  Selecting
+    them waits for the device to count them."""
+    B, nb = block_tables.shape
+    pos, j = chunk_positions(q_start, C, nb, bs)
+    flat = block_tables.long().gather(1, j) * bs + pos % bs   # (B, C)
+    valid = (torch.arange(C, device=q_start.device)[None, :]
+             < q_len.long()[:, None])                         # (B, C)
+    src = valid.reshape(-1).nonzero().squeeze(1)
+    return src, flat.reshape(-1)[src]
+
+
+def flash_prefill_paged_ref(q: torch.Tensor, k_new: torch.Tensor,
+                            v_new: torch.Tensor, k_pool: torch.Tensor,
+                            v_pool: torch.Tensor, block_tables: torch.Tensor,
+                            q_start: torch.Tensor, q_len: torch.Tensor, *,
+                            rows=None) -> torch.Tensor:
+    """Chunked prefill over a paged cache: commit, then causal attention.
+
+    q (B,C,KV,G,D); k/v_new (B,C,KV,D); k/v_pool (n_blocks, bs, KV, D),
+    all one dtype; block_tables (B, nb) int32; q_start, q_len (B,) int32.
+    Rows ``c < q_len[b]`` of slot ``b`` are written in place into the
+    pools at position ``q_start[b] + c`` through the block table; each
+    such row then attends to its slot's keys at positions ``<= q_start[b]
+    + c``.  Rows at or past ``q_len[b]`` commit nothing and come out as
+    zeros.  Returns (B,C,KV,G,D) in q's dtype.  ``rows`` is
+    :func:`commit_rows` of these inputs, computed here when not given;
+    with it given the call never waits for the device.
+    """
+    B, C, KV, G, D = q.shape
+    bs = k_pool.shape[1]
+    nb = block_tables.shape[1]
+    src, dst = rows if rows is not None else commit_rows(
+        block_tables, q_start, q_len, C, bs)
+    n = k_pool.shape[0] * bs
+    k_pool.view(n, KV, D)[dst] = k_new.reshape(B * C, KV, D)[src]
+    v_pool.view(n, KV, D)[dst] = v_new.reshape(B * C, KV, D)[src]
+    pos, _ = chunk_positions(q_start, C, nb, bs)
+    idx = block_tables.long()
+    valid = (torch.arange(C, device=q.device)[None, :]
+             < q_len.long()[:, None])                         # (B, C)
+
+    k = k_pool[idx].reshape(B, nb * bs, KV, D).float()
+    v = v_pool[idx].reshape(B, nb * bs, KV, D).float()
+    s = torch.einsum("bckgd,bskd->bckgs", q.float(), k) / math.sqrt(D)
+    keys = torch.arange(nb * bs, device=q.device)
+    causal = keys[None, None, :] <= pos[:, :, None]           # (B, C, S)
+    s = s.masked_fill(~causal[:, :, None, None, :], NEG_INF)
+    out = torch.einsum("bckgs,bskd->bckgd", torch.softmax(s, dim=-1), v)
+    out = out.masked_fill(~valid[:, :, None, None, None], 0.0)
+    return out.to(q.dtype)
+
+
+def prefill_work_terms(q: torch.Tensor, k_pool: torch.Tensor,
+                       block_tables: torch.Tensor, q_start,
+                       q_len) -> dict:
+    """Bytes the chunked-prefill call must move and flops it must do, for
+    these inputs.
+
+    Each byte is counted once: the query rows and K/V chunk rows below
+    ``q_len``, the same chunk rows written into the pools, the K and V
+    rows already in each slot's cache read once (``q_start`` rows; none
+    for a slot with ``q_len`` 0, and the new rows are attended from what
+    was read of k/v_new, not read back), the table entries those rows
+    need, ``q_start`` and ``q_len``, and the whole output.  Flops: 4 per
+    element and query head for every (query row, causal key) pair,
+    ``q_start + c + 1`` keys for row ``c``.
+    """
+    B, C, KV, G, D = q.shape
+    bs = k_pool.shape[1]
+    nb = block_tables.shape[1]
+    item = q.element_size()
+    lens = [min(int(n), C) for n in q_len]
+    # a slot with no rows this call reads none of its cache
+    cached = [min(int(s), nb * bs) if n else 0
+              for s, n in zip(q_start, lens)]
+    rows = sum(lens)
+    tiles = sum(-(-min(s + n, nb * bs) // bs) if n else 0
+                for s, n in zip(cached, lens))
+    pairs = sum(int(s) * n + n * (n + 1) // 2
+                for s, n in zip(q_start, lens))
+    bytes_ = ((rows + B * C) * KV * G * D * item   # q rows in, output out
+              + 2 * rows * KV * D * item         # k/v_new rows in
+              + 2 * rows * KV * D * item         # the same rows committed
+              + 2 * sum(cached) * KV * D * item  # cached K and V rows read
+              + 4 * tiles + 8 * B)               # table, q_start, q_len
+    return {"bytes": float(bytes_), "flops": 4.0 * pairs * KV * G * D}

@@ -3,6 +3,9 @@
 Usage:
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gpt2-124m \\
         --no-smoke --max-batch 8 --requests 16 --max-new 32
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b \\
+        --no-smoke --max-batch 8 --max-len 1024 --prompt-lo 64 \\
+        --prompt-hi 512 --max-new 32 --prefill-chunk 64 --prefill-budget 256
 
 The same defaults, prompt sampling (``np.random.default_rng(seed)``),
 summary lines and ``--out`` report fields as ``repro.launch.serve``, on
@@ -66,8 +69,6 @@ def build_report(args: argparse.Namespace, engine: ServeEngine,
 #: reference options the port refuses, with the ROADMAP item porting them
 _UNPORTED = {
     "scheduler": ("continuous", "--scheduler wave: ROADMAP item 1.12"),
-    "prefill_chunk": (1, "--prefill-chunk > 1: ROADMAP item 1.9"),
-    "prefill_budget": (None, "--prefill-budget: ROADMAP item 1.9"),
     "kv_dtype": ("f32", "--kv-dtype bf16/int8: ROADMAP item 1.11"),
     "share_prefixes": (False, "--share-prefixes: ROADMAP item 1.11"),
     "draft": (None, "--draft: ROADMAP item 1.13"),
@@ -136,8 +137,9 @@ def make_engine(args: argparse.Namespace) -> ServeEngine:
     params = transformer.init_lm(cfg, seed=args.seed, device=args.device)
     return ServeEngine(cfg, params, max_batch=args.max_batch,
                        max_len=args.max_len, block_size=args.block_size,
-                       top_k=args.top_k, sample_seed=args.sample_seed,
-                       device=args.device)
+                       prefill_chunk=args.prefill_chunk,
+                       prefill_budget=args.prefill_budget, top_k=args.top_k,
+                       sample_seed=args.sample_seed, device=args.device)
 
 
 def serve(args: argparse.Namespace, engine: ServeEngine) -> dict:
@@ -175,7 +177,11 @@ def serve(args: argparse.Namespace, engine: ServeEngine) -> dict:
           f"latency p50 {stats['p50_latency_s']:.3f}s "
           f"p95 {stats['p95_latency_s']:.3f}s, "
           f"ttft p50 {stats['ttft_p50_s']:.3f}s "
-          f"p95 {stats['ttft_p95_s']:.3f}s")
+          f"p95 {stats['ttft_p95_s']:.3f}s"
+          + (f" [prefill chunk {engine.prefill_chunk}"
+             + (f", budget {engine.prefill_budget}"
+                if engine.prefill_budget else "") + "]"
+             if engine.prefill_chunk > 1 else ""))
     if rejections:
         print(f"  rejected {len(rejections)} oversized request(s) at submit:")
         for uid, reason in rejections:

@@ -1,19 +1,24 @@
-"""Grouped-query attention with RoPE, qk-norm and bias: paged decode.
+"""Grouped-query attention with RoPE, qk-norm and bias: paged decode and
+chunked prefill.
 
 Port of ``init_attention`` and ``_project_qkv`` of
 ``repro/models/attention.py``, and of the attention the reference's paged
 cell runs over its gathered view of the block pool.  The reference reads
 the cache read-only and merges the new token in a second softmax step; the
 port first writes the new token's K/V row into the pool and then attends
-over the pool with the paged flash-decode kernel.  The two agree within
-floating-point tolerance, not bit for bit.
+over the pool with the paged flash-decode kernel.  A chunk of tokens per
+slot goes the same way in one call: all its rows are projected together,
+committed, and attended causally by the chunked-prefill kernel, where the
+reference scans its one-token cell over the chunk.  Both agree with the
+reference within floating-point tolerance, not bit for bit.
 """
 
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.flash_decode import flash_decode_paged
+from repro_torch.kernels.flash_decode import (flash_decode_paged,
+                                              flash_prefill_paged)
 from repro_torch.models import layers
 
 
@@ -72,3 +77,32 @@ def attention_decode_paged(params: dict, cfg, x: torch.Tensor,
     out = flash_decode_paged(q.reshape(B, kv, g, hd), k_pool, v_pool,
                              block_tables, positions + 1)
     return layers.dense(params["wo"], out.reshape(B, 1, kv * g * hd))
+
+
+def attention_prefill_paged(params: dict, cfg, x: torch.Tensor,
+                            k_pool: torch.Tensor, v_pool: torch.Tensor,
+                            positions: torch.Tensor,
+                            block_tables: torch.Tensor,
+                            lengths: torch.Tensor) -> torch.Tensor:
+    """A chunk of ``w`` tokens per slot over one layer's block pool,
+    committing in place.
+
+    x (B, w, d); k/v_pool (n_blocks, bs, KV, D), this layer's pools;
+    positions (B,) int32 per-slot cache lengths before the chunk;
+    block_tables (B, nb) int32; lengths (B,) int32 in [0, w], the slot's
+    real rows.  Row ``c < lengths[b]`` sits at ``positions[b] + c``, is
+    committed there and attends over the slot's rows up to it; rows past
+    ``lengths[b]`` commit nothing and their attention output is zero.
+    Returns (B, w, d).
+    """
+    B, w, _ = x.shape
+    kv, hd = cfg.n_kv_heads, cfg.head_dim
+    g = cfg.n_heads // kv
+    pos = positions[:, None] + torch.arange(w, dtype=positions.dtype,
+                                            device=positions.device)
+    q, k_new, v_new = _project_qkv(params, cfg, x, pos)
+    out = flash_prefill_paged(
+        q.reshape(B, w, kv, g, hd), k_new.to(k_pool.dtype).contiguous(),
+        v_new.to(v_pool.dtype).contiguous(), k_pool, v_pool, block_tables,
+        positions, lengths)
+    return layers.dense(params["wo"], out.reshape(B, w, kv * g * hd))

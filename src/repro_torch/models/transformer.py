@@ -1,18 +1,22 @@
-"""Decoder-only LM core of the port: dense attention models, paged decode.
+"""Decoder-only LM core of the port: dense attention models, paged decode
+and chunked prefill.
 
 Port of the paged serving path of ``repro/models/transformer.py`` for
 dense architectures (one attention layer per superblock, dense SwiGLU
-FFN): ``init_lm``, ``init_paged_cache``, ``paged_block_bytes`` and
-``decode_step_paged``.  The reference's ``lax.scan`` over stacked
-superblocks becomes a loop over a list of per-layer parameter dicts, and
-the paged pools are updated in place instead of being rebuilt, which saves
-a copy of the pool per step.  :func:`params_from_numpy` carries the
+FFN): ``init_lm``, ``init_paged_cache``, ``paged_block_bytes``,
+``decode_step_paged`` and ``prefill_step_paged``.  The reference's
+``lax.scan`` over stacked superblocks becomes a loop over a list of
+per-layer parameter dicts, and the paged pools are updated in place
+instead of being rebuilt, which saves a copy of the pool per step.  The
+reference's ``prefill_step_paged`` scans its one-token cell over the
+chunk; the port computes the chunk in parallel, every row of every slot
+through each layer at once.  :func:`params_from_numpy` carries the
 reference's parameters across.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping, Tuple
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -174,9 +178,56 @@ def decode_step_paged(params: Dict[str, Any], cfg: ModelConfig,
             block_tables, flat_idx,
         )
         x = x + layers.swiglu(p["ffn"], norm_fn(p["norm2"], x))
+    return _lm_head(params, cfg, x), cache
+
+
+def _lm_head(params: Dict[str, Any], cfg: ModelConfig,
+             x: torch.Tensor) -> torch.Tensor:
+    """Final norm and LM head: (B, S, d) -> fp32 logits (B, S,
+    vocab_padded)."""
+    _, norm_fn = layers.make_norm(cfg)
     x = norm_fn(params["final_norm"], x)
     if cfg.tie_embeddings:
-        logits = layers.unembed(params["embed"], x)
-    else:
-        logits = layers.dense(params["lm_head"], x).float()
-    return logits, cache
+        return layers.unembed(params["embed"], x)
+    return layers.dense(params["lm_head"], x).float()
+
+
+def prefill_step_paged(params: Dict[str, Any], cfg: ModelConfig,
+                       tokens: torch.Tensor, cache: Dict[str, Any],
+                       positions: torch.Tensor, block_tables: torch.Tensor,
+                       lengths: torch.Tensor, *, block_size: int,
+                       last_rows: Optional[torch.Tensor] = None
+                       ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """Commit a chunk of up to ``w`` known tokens per slot in one call.
+
+    tokens (B, w): slot ``b``'s next ``lengths[b]`` tokens, padded past
+    them; positions (B,) int32 per-slot cache lengths before the chunk;
+    block_tables (B, nb) int32, mapping every position a real row lands
+    in; lengths (B,) int32 in [0, w].  Every layer projects all B*w rows
+    at once and attends with the chunked-prefill kernel; rows past
+    ``lengths[b]`` commit nothing.  The pools in ``cache`` are updated in
+    place and the same dict is returned.
+
+    Returns fp32 logits (B, w, vocab_padded), row ``c`` that of slot
+    ``b``'s token ``c`` (rows past ``lengths[b]`` are finite and
+    meaningless).  With ``last_rows`` (B,) only row ``last_rows[b]`` of
+    each slot goes through the final norm and LM head, and the logits are
+    (B, 1, vocab_padded): a serving step reads no other row.
+    """
+    if cache["k"].shape[2] != block_size:
+        raise ValueError(f"block_size {block_size} != the pools' "
+                         f"{cache['k'].shape[2]}")
+    x = layers.embed(params["embed"], tokens).to(
+        torch_dtype(cfg.compute_dtype))
+    _, norm_fn = layers.make_norm(cfg)
+    for i, p in enumerate(params["layers"]):
+        h = norm_fn(p["norm1"], x)
+        x = x + attention.attention_prefill_paged(
+            p["attn"], cfg, h, cache["k"][i], cache["v"][i], positions,
+            block_tables, lengths,
+        )
+        x = x + layers.swiglu(p["ffn"], norm_fn(p["norm2"], x))
+    if last_rows is not None:
+        rows = torch.arange(x.shape[0], device=x.device)
+        x = x[rows, last_rows.long()][:, None]
+    return _lm_head(params, cfg, x), cache

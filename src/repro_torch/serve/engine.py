@@ -1,12 +1,20 @@
 """Slot-level continuously batched serving engine over a paged KV cache.
 
-Port of the continuous scheduler of ``repro/serve/engine.py``.  A fixed
-set of ``max_batch`` slots advances through one fused
-:func:`~repro_torch.models.transformer.decode_step_paged` per token, every
-slot at its own cache position.  When a request finishes (EOS or token
-budget) its slot takes the next queued request on the very next step and
-its blocks go back to the :class:`~repro_torch.serve.block_pool.BlockPool`
-(LIFO, so the next admission reuses them first).
+Port of the continuous schedulers of ``repro/serve/engine.py``.  A fixed
+set of ``max_batch`` slots advances through fused steps, every slot at its
+own cache position.  With ``prefill_chunk == 1`` every step is one
+:func:`~repro_torch.models.transformer.decode_step_paged`, one token per
+slot.  With ``prefill_chunk > 1`` (chunked prefill) a slot with known
+tokens left (prompt, or a replay after preemption) feeds up to
+``prefill_chunk`` of them per step, under a per-step ``prefill_budget`` of
+prompt tokens that decode slots never count against; steps that carry a
+chunk run :func:`~repro_torch.models.transformer.prefill_step_paged` at the
+smallest power-of-two width that holds the widest chunk, and steps where
+every busy slot decodes run ``decode_step_paged``.  When a request
+finishes (EOS or token budget) its slot takes the next queued request on
+the very next step and its blocks go back to the
+:class:`~repro_torch.serve.block_pool.BlockPool` (LIFO, so the next
+admission reuses them first).
 
 Scheduling state (positions, block tables, the pool's free list) is
 host-side numpy; only the parameters and the K/V pools live on the device.
@@ -14,10 +22,10 @@ Each step hands the scheduler arrays to the device as private copies: the
 drain mutates them in place right after the call.
 
 The reference's other paths are refused with a ``ValueError`` that names
-the ROADMAP item that will port them: the wave scheduler (1.12), chunked
-prefill (1.9), quantized pools and prefix sharing (1.11), speculative
-decoding (1.13), the device mesh (1.16) and non-dense architectures (1.10).
-Sampling with ``temperature > 0`` raises ``NotImplementedError`` (1.13).
+the ROADMAP item that will port them: the wave scheduler (1.12), quantized
+pools and prefix sharing (1.11), speculative decoding (1.13), the device
+mesh (1.16) and non-dense architectures (1.10).  Sampling with
+``temperature > 0`` raises ``NotImplementedError`` (1.13).
 """
 
 from __future__ import annotations
@@ -46,6 +54,15 @@ StepHook = Callable[["ServeEngine", bool], bool]
 #: Spin cap for a fully idle engine whose hooks keep claiming pending
 #: work without ever submitting any — a misbehaving hook, not traffic.
 _MAX_IDLE_SPINS = 100_000
+
+
+def _bucket_width(m: int, cap: int) -> int:
+    """Smallest power of two >= m, clamped to cap: a prefill step's width,
+    so partial chunks do not pay for the full chunk's padded rows."""
+    w = 1
+    while w < m:
+        w *= 2
+    return min(w, cap)
 
 
 class RequestTooLong(ValueError):
@@ -99,17 +116,20 @@ class Request:
 def _refuse_unported(cfg, scheduler, prefill_chunk, prefill_budget,
                      kv_dtype, share_prefixes, spec_k, draft_cfg,
                      draft_params, spec_adaptive, mesh) -> None:
-    """Raise ValueError for every reference option the port lacks."""
+    """Raise ValueError for a bad option and for every reference option the
+    port lacks."""
     transformer.check_dense(cfg)
     if scheduler not in SCHEDULERS:
         raise ValueError(f"scheduler must be one of {SCHEDULERS}, "
                          f"got {scheduler!r}")
+    if prefill_chunk < 1:
+        raise ValueError(f"prefill_chunk must be >= 1, got {prefill_chunk}")
+    if prefill_budget is not None and prefill_budget < 1:
+        raise ValueError(
+            f"prefill_budget must be >= 1 (or None), got {prefill_budget}"
+        )
     refused = [
         (scheduler == "wave", "the wave scheduler is ROADMAP item 1.12"),
-        (prefill_chunk != 1,
-         "chunked prefill (prefill_chunk != 1) is ROADMAP item 1.9"),
-        (prefill_budget is not None,
-         "prefill budgets belong to chunked prefill, ROADMAP item 1.9"),
         (kv_dtype != "f32",
          f"kv_dtype {kv_dtype!r}: quantized paging is ROADMAP item 1.11"),
         (share_prefixes, "prefix sharing is ROADMAP item 1.11"),
@@ -182,7 +202,7 @@ class ServeEngine:
         # token-work budget for the drain-loop runaway guard: grows with
         # every submit (and preemption replay)
         self._submitted_work = 0
-        # live drain state; only non-None while _drain_continuous runs —
+        # live drain state; only non-None while a continuous drain runs —
         # preempt() needs it
         self._live: Optional[Dict[str, Any]] = None
 
@@ -225,6 +245,16 @@ class ServeEngine:
             block_size=self.block_size,
         )
 
+    def _prefill(self, tokens, cache, positions, block_tables, lengths):
+        """A chunk step: logits (B, 1, vocab_padded) of each slot's last
+        fed row (row 0 for a slot fed nothing)."""
+        return transformer.prefill_step_paged(
+            self.params, self.cfg, self._dev(tokens), cache,
+            self._dev(positions), self._dev(block_tables),
+            self._dev(lengths), block_size=self.block_size,
+            last_rows=self._dev(np.maximum(lengths - 1, 0)),
+        )
+
     def submit(self, req: Request) -> None:
         horizon = len(req.prompt) + req.max_new_tokens
         if horizon > self.max_len:
@@ -244,19 +274,30 @@ class ServeEngine:
         self.step_hooks.append(hook)
 
     def warmup(self) -> None:
-        """Run one throwaway step on a dummy cache before traffic arrives.
+        """Run throwaway steps on a dummy cache before traffic arrives.
 
-        All block tables point at the null block and the cache is thrown
-        away.  On CUDA this builds and loads the kernel library and warms
-        the matmul libraries, so the first request's TTFT measures
+        One decode step and, with chunked prefill, one chunk step at every
+        bucket width the drain can use (2, 4, ... up to
+        ``prefill_chunk``), each feeding no rows.  All block tables point
+        at the null block and the cache is thrown away.  On CUDA this
+        builds and loads the kernel libraries and warms the matmul
+        libraries at each width, so the first request's TTFT measures
         scheduling and not set-up.  No-op on engine counters.
         """
         B = self.max_batch
-        logits, _ = self._step(
-            np.zeros((B, 1), np.int32), self._new_cache(),
-            np.zeros(B, np.int32),
-            np.zeros((B, self.max_len // self.block_size), np.int32),
-        )
+        cache = self._new_cache()
+        pos = np.zeros(B, np.int32)
+        bt = np.zeros((B, self.max_len // self.block_size), np.int32)
+        w = 2
+        while self.prefill_chunk > 1:
+            w = min(w, self.prefill_chunk)
+            logits, _ = self._prefill(np.zeros((B, w), np.int32), cache,
+                                      pos, bt, np.zeros(B, np.int32))
+            logits.cpu()
+            if w == self.prefill_chunk:
+                break
+            w *= 2
+        logits, _ = self._step(np.zeros((B, 1), np.int32), cache, pos, bt)
         logits.cpu()
 
     def _call_hooks(self, busy: bool) -> bool:
@@ -295,7 +336,6 @@ class ServeEngine:
                 "continuous scheduler is draining"
             )
         slot_req, positions = live["slot_req"], live["positions"]
-        block_tables, pool = live["block_tables"], live["pool"]
         if uid is not None:
             picks = [b for b, r in enumerate(slot_req)
                      if r is not None and r.uid == uid]
@@ -310,28 +350,54 @@ class ServeEngine:
         req = slot_req[b]
         # replay budget: the resumed run re-spends prompt + generated steps
         self._submitted_work += len(req.prompt) + req.max_new_tokens
-        for j in range(block_tables.shape[1]):
-            if block_tables[b, j] != 0:
-                pool.decref(int(block_tables[b, j]))
-        block_tables[b] = 0
-        positions[b] = 0
-        live["tokens"][b, :] = 0
-        slot_req[b] = None
+        self._vacate(b)
         self.queue.appendleft(req)
         self.preemptions += 1
         return req.uid
 
+    def _vacate(self, b: int) -> None:
+        """Release slot ``b`` of the live drain: its blocks go back to the
+        pool in table order (LIFO, so the next admission reuses them
+        first), and its row is cleared."""
+        live = self._live
+        table = live["block_tables"][b]
+        for blk in table[table != 0]:
+            live["pool"].decref(int(blk))
+        table[:] = 0
+        live["positions"][b] = 0
+        live["tokens"][b, :] = 0
+        live["slot_req"][b] = None
+
     # -- continuous scheduler (per-slot positions, paged blocks) ---------------
 
     def _drain_continuous(self, max_steps: Optional[int]) -> None:
-        B, bs = self.max_batch, self.block_size
+        """Drain the queue through the slots, one fused step at a time.
+
+        Port of both continuous drains of the reference,
+        ``_drain_continuous`` (``prefill_chunk == 1``) and
+        ``_drain_continuous_chunked``: the first is the second with chunks
+        of one token, which no budget stalls.  Every busy slot feeds its
+        known tokens (prompt, then any tokens already generated, i.e. a
+        preemption replay) in order: a slot at position ``t0`` with
+        ``n_rem`` known tokens left receives ``n_b = min(chunk, n_rem)`` of
+        them this step.  Decode slots (``n_rem == 1``) always advance and
+        never count against ``prefill_budget``; prefill slots share the
+        budget in slot order and stall at ``n_b = 0`` when it runs out, so
+        decode never queues behind a long prompt.  A slot appends a new
+        token only on the step that consumes its last known token, from
+        that token's logits row.  Busy slot-steps count the slots fed this
+        step, as the reference counts them (a budget-stalled slot is not
+        busy).
+        """
+        B, bs, C = self.max_batch, self.block_size, self.prefill_chunk
         nb_slot = self.max_len // bs
         cache = self._new_cache()
         positions = np.zeros(B, np.int32)
         block_tables = np.zeros((B, nb_slot), np.int32)  # 0 = null block
         pool = BlockPool(1 + B * nb_slot, bs)
         slot_req: List[Optional[Request]] = [None] * B
-        tokens = np.zeros((B, 1), np.int32)
+        tokens = np.zeros((B, C), np.int32)
+        lengths = np.zeros(B, np.int32)
         self._live = {
             "positions": positions, "block_tables": block_tables,
             "pool": pool, "slot_req": slot_req, "tokens": tokens,
@@ -343,7 +409,6 @@ class ServeEngine:
                 pending = self._call_hooks(
                     busy=any(r is not None for r in slot_req)
                 )
-                # refill: finished slots take the next queued request now
                 for b in range(B):
                     if slot_req[b] is None and self.queue:
                         r = self.queue.popleft()
@@ -352,7 +417,6 @@ class ServeEngine:
                             r.started_s = time.time()
                         positions[b] = 0
                         block_tables[b] = 0
-                        tokens[b, 0] = r.prompt[0]
                 if all(r is None for r in slot_req):
                     if not pending:
                         break
@@ -364,57 +428,75 @@ class ServeEngine:
                     continue
                 idle_spins = 0
                 # exact occupancy bound: a request holds its slot for at
-                # most prompt + max_new - 1 steps (replays re-budgeted at
-                # preemption), so submitted work is a hard cap
+                # most prompt + max_new - 1 steps unless budget-stalled
+                # (replays re-budgeted at preemption), and at least one
+                # slot advances every step
                 budget = (max_steps if max_steps is not None
                           else self._submitted_work + B)
                 if self.steps >= budget:
                     raise RuntimeError("serve loop did not drain")
-                # map the write block of any slot whose position entered
-                # an unmapped logical block (fresh admissions at 0 too)
-                for b, r in enumerate(slot_req):
-                    if r is not None:
-                        j = positions[b] // bs
-                        if block_tables[b, j] == 0:
-                            blk = pool.acquire(r.prompt, j)
-                            block_tables[b, j] = blk
-                            self.block_history.setdefault(r.uid, []).append(blk)
-
-                self.busy_slot_steps += sum(r is not None for r in slot_req)
-                logits, cache = self._step(tokens, cache, positions,
-                                           block_tables)
-                self.steps += 1
-                nxt = self._sampler.select(logits)[:, 0]
+                # admission: each slot's next known tokens under the
+                # per-step prefill budget, and the blocks they land in
+                tokens[:] = 0
+                lengths[:] = 0
+                budget_left = (self.prefill_budget
+                               if self.prefill_budget is not None else B * C)
                 for b, r in enumerate(slot_req):
                     if r is None:
                         continue
-                    t = int(positions[b])
-                    positions[b] = t + 1
-                    if t + 1 < len(r.prompt):
-                        tokens[b, 0] = r.prompt[t + 1]  # still consuming prompt
+                    t0 = int(positions[b])
+                    n_rem = len(r.prompt) + len(r.generated) - t0
+                    if n_rem <= 1 or C == 1:
+                        n_b = 1  # decode or one token: never budgeted
+                    else:
+                        n_b = min(C, n_rem, budget_left)
+                        budget_left -= n_b
+                    if n_b <= 0:
+                        continue  # prefill stalled by the budget this step
+                    # known tokens t0 .. t0 + n_b: prompt, then generated
+                    head = r.prompt[t0:t0 + n_b]
+                    tokens[b, :len(head)] = head
+                    if len(head) < n_b:
+                        g0 = max(t0 - len(r.prompt), 0)
+                        tokens[b, len(head):n_b] = (
+                            r.generated[g0:g0 + n_b - len(head)])
+                    lengths[b] = n_b
+                    for j in range(t0 // bs, (t0 + n_b - 1) // bs + 1):
+                        if block_tables[b, j] == 0:
+                            blk = pool.acquire(r.prompt, j)
+                            block_tables[b, j] = blk
+                            self.block_history.setdefault(
+                                r.uid, []).append(blk)
+
+                self.busy_slot_steps += int((lengths > 0).sum())
+                # a step where every busy slot decodes runs the one-token
+                # step; a step that carries a chunk (or a budget-stalled
+                # slot, which must feed nothing) runs the chunk step at the
+                # smallest power-of-two width >= the widest chunk
+                if all(lengths[b] == 1 for b, r in enumerate(slot_req)
+                       if r is not None):
+                    logits, cache = self._step(tokens[:, :1], cache,
+                                               positions, block_tables)
+                else:
+                    w = _bucket_width(int(lengths.max()), C)
+                    logits, cache = self._prefill(
+                        tokens[:, :w], cache, positions, block_tables,
+                        lengths)
+                self.steps += 1
+                nxt = self._sampler.select(logits)[:, 0]
+                for b, r in enumerate(slot_req):
+                    if r is None or lengths[b] == 0:
                         continue
-                    gi = t + 1 - len(r.prompt)
-                    if gi < len(r.generated):
-                        # replay after preemption: this token was already
-                        # served — feed it back, never re-append
-                        tokens[b, 0] = r.generated[gi]
-                        continue
+                    positions[b] += lengths[b]
+                    if positions[b] < len(r.prompt) + len(r.generated):
+                        continue  # still prefilling (or replaying)
                     tok = int(nxt[b])
                     self._note_first_token(r)
                     r.generated.append(tok)
-                    tokens[b, 0] = tok
                     if (len(r.generated) >= r.max_new_tokens
                             or tok == r.eos_id):
                         self._finish(r)
-                        # release the slot's blocks (LIFO: the next
-                        # admission reuses this request's blocks first)
-                        for j in range(nb_slot):
-                            if block_tables[b, j] != 0:
-                                pool.decref(int(block_tables[b, j]))
-                        block_tables[b] = 0
-                        positions[b] = 0
-                        tokens[b, 0] = 0
-                        slot_req[b] = None
+                        self._vacate(b)
         finally:
             self.logical_blocks += pool.logical_blocks
             self.physical_blocks += pool.physical_blocks

@@ -1,5 +1,6 @@
-"""``python -m repro_torch.launch.serve`` on the CPU: it serves, writes the
-reference CLI's report fields, and refuses what the port lacks."""
+"""``python -m repro_torch.launch.serve`` on the CPU: it serves (chunked
+prefill included), writes the reference CLI's report fields, and refuses
+what the port lacks."""
 
 import argparse
 import json
@@ -62,8 +63,7 @@ def test_cli_prompts_follow_the_reference_sampling(tmp_path):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--scheduler", "wave"], ["--prefill-chunk", "4"],
-    ["--prefill-budget", "8"], ["--kv-dtype", "int8"],
+    ["--scheduler", "wave"], ["--kv-dtype", "int8"],
     ["--share-prefixes"], ["--draft", "gpt2-124m", "--spec-k", "2"],
     ["--spec-adaptive"], ["--mesh", "2x2"], ["--temperature", "0.8"],
     ["--record"],
@@ -73,6 +73,19 @@ def test_cli_refuses_unported_options(flags, capsys):
         serve.main(["--device", "cpu"] + flags)
     assert exc.value.code == 2
     assert "ROADMAP item" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("flags", [["--prefill-chunk", "4"],
+                                   ["--prefill-budget", "8"]])
+def test_cli_serves_chunked_prefill_options(flags, tmp_path):
+    """Chunked prefill (ROADMAP 1.9) is ported: the flags the refusal cases
+    above used to name are served and land in the report."""
+    out = tmp_path / "report.json"
+    assert serve.main(["--device", "cpu", "--requests", "2", "--max-new",
+                       "3", "--out", str(out)] + flags) == 0
+    report = json.loads(out.read_text())
+    assert [r["new_tokens"] for r in report["requests"]] == [3, 3]
+    assert report[flags[0][2:].replace("-", "_")] == int(flags[1])
 
 
 def test_cli_defaults_to_cuda_and_raises_without_a_card():

@@ -154,8 +154,6 @@ def test_request_too_long_rejected_at_submit(gpt2):
 
 @pytest.mark.parametrize("kw,item", [
     (dict(scheduler="wave"), "1.12"),
-    (dict(prefill_chunk=4), "1.9"),
-    (dict(prefill_budget=8), "1.9"),
     (dict(kv_dtype="bf16"), "1.11"),
     (dict(kv_dtype="int8"), "1.11"),
     (dict(share_prefixes=True), "1.11"),
@@ -166,6 +164,23 @@ def test_unported_options_name_their_roadmap_item(gpt2, kw, item):
     cfg, params = gpt2
     with pytest.raises(ValueError, match=item.replace(".", r"\.")):
         ServeEngine(cfg, params, device="cpu", **kw)
+
+
+@pytest.mark.parametrize("kw", [dict(prefill_chunk=4),
+                                dict(prefill_budget=8)])
+def test_chunked_prefill_options_are_served(gpt2, kw):
+    """Chunked prefill (ROADMAP 1.9) is ported: the options the refusal
+    cases above used to name are served, with the token-by-token streams."""
+    cfg, params = gpt2
+    prompts = _prompts(6, 3, lo=5, hi=14)
+    base = _serve(ServeEngine, Request, cfg, params, prompts, max_batch=2,
+                  max_len=32, block_size=8, device="cpu")
+    eng = _serve(ServeEngine, Request, cfg, params, prompts, max_batch=2,
+                 max_len=32, block_size=8, device="cpu", **kw)
+    for uid in range(len(prompts)):
+        assert eng.completed[uid].generated == base.completed[uid].generated
+    assert eng.stats()["prefill_chunk"] == kw.get("prefill_chunk", 1)
+    assert eng.stats()["prefill_budget"] == kw.get("prefill_budget")
 
 
 def test_non_dense_arch_and_sampling_are_refused(gpt2):
