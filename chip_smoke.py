@@ -10,7 +10,8 @@ Phases, each printing one JSON line (any failure raises and exits
 non-zero):
 
 1. env      torch/CUDA versions and the card's name and power limit.
-2. build    nvcc builds of both kernel libraries for sm_90a, in parallel.
+2. build    nvcc builds of the six kernel libraries for sm_90a, in
+            parallel.
 3. kernel   each kernel against its plain version at gpt2-124m's and
             qwen3-1.7b's attention shapes, in bf16 and f32: the paged
             flash-decode on shuffled block tables with ragged lengths; the
@@ -19,6 +20,17 @@ non-zero):
             through the tables and blocks no table names left untouched.
             Then timings at the serve phases' shapes (median of CUDA-event
             timings) beside each kernel's bound and a library yardstick.
+   kernel-hpc  the STREAM, Jacobi2D, GEMM and SpMV kernels against their
+            plain versions: odd, misaligned and edge shapes, fp32/bf16
+            (and fp16 for STREAM), SpMV rows of 0, 1 and 128 nonzeros.
+   timing   the four at full size (STREAM 2^21 x 128 fp32, GEMM 8192^3
+            fp32, Jacobi2D 16384^2 fp32, SpMV 2^20 rows of block-ELL width
+            128, Zipf nnz up to 64): kernel, plain and library ms beside
+            the least time at the H100's peaks.
+   analysis the paper's method through ``AnalysisService`` over those
+            workloads on the h100 and grace-core models, ROIs timed on the
+            card: every HPC kernel launches, and no roofline share is
+            above 1.05.
 4. serve    ``repro_torch.launch.serve`` at the full width of gpt2-124m
             (bf16): every request completes, and the decode kernel runs 12
             times (once per layer) per fused step.
@@ -53,9 +65,8 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
-H100_BYTES_PER_S = 3.35e12
-#: dense peak FLOP/s of one H100 SXM by dtype (NVIDIA's data sheet)
-H100_PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+#: the H100 ChipSpec's peak key of each torch dtype name
+PEAK_KEY = {"float32": "fp32", "bfloat16": "bf16", "float16": "fp16"}
 
 ARCH_HEADS = {"gpt2-124m": (12, 1, 64), "qwen3-1.7b": (8, 2, 128)}
 KERNEL_B, KERNEL_BS, KERNEL_NB = 32, 16, 256
@@ -139,9 +150,12 @@ def host_waits(torch, fn, calls: int = 3) -> list:
 
 
 def bound(terms, dtype_name):
-    """(least ms the card could take, "bytes" or "operations")."""
-    t_bytes = terms["bytes"] / H100_BYTES_PER_S * 1e3
-    t_ops = terms["flops"] / H100_PEAK_FLOPS[dtype_name] * 1e3
+    """(least ms the card could take, "bytes" or "operations") at the
+    ``repro_torch.core.hw.H100`` peaks (NVIDIA's data sheet)."""
+    from repro_torch.core.hw import H100
+
+    t_bytes = terms["bytes"] / H100.hbm_bw * 1e3
+    t_ops = terms["flops"] / H100.peak(PEAK_KEY[dtype_name]) * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else
                                  "operations")
 
@@ -402,6 +416,432 @@ def prefill_timing(torch, np, kernel, ref):
           "rows_per_block": kernel.prefill_rows_per_block(C, G, D, bs, nb),
           "q_start": q_start.tolist(), "host_waits": waits, **row})
     return row
+
+
+# -- HPC kernels: the analysis suite --------------------------------------------
+
+#: full sizes: every array well past the 50 MB L2 (SpMV's x excepted)
+STREAM_SHAPE = (1 << 21, 128)  # 2^28 fp32 a array, 1 GiB
+STREAM_Q = 3.0
+GEMM_N = 8192
+JACOBI_N = 16384
+SPMV_ROWS, SPMV_MAX_NNZ, SPMV_WIDTH = 1 << 20, 64, 128
+HPC_SOURCES = "src/repro_torch/kernels/"
+TPU_HPC = "src/repro/kernels/"
+STREAM_OPS = ("copy", "scale", "add", "triad")
+
+
+def hpc_modules():
+    from repro_torch.kernels.gemm import kernel as gemm
+    from repro_torch.kernels.jacobi2d import kernel as jacobi
+    from repro_torch.kernels.spmv import kernel as spmv
+    from repro_torch.kernels.stream import kernel as stream
+
+    return gemm, jacobi, spmv, stream
+
+
+def hpc_entries():
+    """{counter name: wrapper} of every HPC kernel entry point."""
+    gemm, jacobi, spmv, stream = hpc_modules()
+    entries = {f"stream_{op}": getattr(stream, f"stream_{op}")
+               for op in STREAM_OPS}
+    entries.update(gemm=gemm.gemm, jacobi_step=jacobi.jacobi_step,
+                   spmv_blockell=spmv.spmv_blockell,
+                   spmv_fixed_width=spmv.spmv_fixed_width)
+    return entries
+
+
+def ulp(torch, x, dtype):
+    """Spacing of ``dtype`` numbers at |x| (normal range), as fp32."""
+    mantissa = {torch.float32: 23, torch.bfloat16: 7, torch.float16: 10}
+    e = torch.floor(torch.log2(x.abs().float().clamp_min(1e-30)))
+    return torch.exp2(e - mantissa[dtype])
+
+
+def exact_close(torch, got, want):
+    """STREAM and Jacobi2D: the kernel and its plain version round the same
+    fp32 values, so fp32 must be bit-equal and 16-bit within one ulp.
+    Returns (max abs err, ok, bit-equal)."""
+    err = (got.float() - want.float()).abs()
+    tol = 0.0 if got.dtype == torch.float32 else ulp(torch, want, got.dtype)
+    return (err.max().item(), bool((err <= tol).all()),
+            bool(torch.equal(got, want)))
+
+
+def gemm_close(torch, got, want):
+    """fp32 sums along K in another order: 1e-5 * max|want|, plus one ulp
+    of the result in bf16 (one rounding at the flush)."""
+    err = (got.float() - want.float()).abs()
+    tol = 1e-5 * want.float().abs().max()
+    if got.dtype == torch.bfloat16:
+        tol = tol + ulp(torch, want, got.dtype)
+    return err.max().item(), bool((err <= tol).all())
+
+
+def spmv_close(torch, got, want, scale):
+    """Row sums in another order: 1e-6 of the row's sum of |terms|
+    (``scale``; an fp32 sum of 128 lanes reordered as a tree is off by at
+    most about log2(128) + 1 roundings of it), plus rtol 1e-5 in fp32 or
+    one ulp of the result in bf16."""
+    err = (got.float() - want.float()).abs()
+    tol = 1e-6 * scale.float()
+    tol = tol + (1e-5 * want.float().abs() if got.dtype == torch.float32
+                 else ulp(torch, want, got.dtype))
+    return err.max().item(), bool((err <= tol).all())
+
+
+def spmv_scale(ref, values, cols, nnz, x, **kw):
+    """Each row's sum of |terms|, by the plain version."""
+    return ref.spmv_plain(values.abs(), cols, nnz, x.abs(), **kw)
+
+
+def check_hpc(torch, np):
+    """Each HPC kernel against its plain version on the card: STREAM in
+    fp32/bf16/fp16 on aligned, odd and misaligned arrays (the 16-byte and
+    the one-element paths); Jacobi2D in fp32/bf16 on odd sizes and grids
+    with H or W below 3; GEMM in fp32/bf16 on sizes no tile divides; SpMV
+    in fp32/bf16, predicated (repeat 1, 4, 20) and fixed width, with rows
+    of 0, 1 and 128 nonzeros, and predicated lanes poisoned with NaN."""
+    from repro_torch.kernels.spmv import ref as spmv_ref
+
+    gemm, jacobi, spmv, stream = hpc_modules()
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    f32, bf16, f16 = torch.float32, torch.bfloat16, torch.float16
+
+    def randn(shape, dtype):
+        return torch.randn(shape, device="cuda", generator=gen).to(dtype)
+
+    def report(kernel, cases):
+        bad = [c for c in cases if not c["ok"]]
+        emit({"phase": "kernel-hpc", "kernel": kernel, "cases": len(cases),
+              "max_abs_err": max(c["max_abs_err"] for c in cases),
+              "bit_equal": all(c.get("bit_equal", False) for c in cases),
+              "failed": bad})
+        require(not bad, f"{kernel} kernel != plain: {bad}")
+
+    cases = []
+    for dtype in (f32, bf16, f16):
+        for rows, width, offset in ((64, 128, 0), (37, 100, 0), (37, 100, 1)):
+            n = rows * width
+            a, b = (randn((n + offset,), dtype)[offset:].view(rows, width)
+                    for _ in range(2))
+            for op in STREAM_OPS:
+                args = {"copy": (a,), "scale": (a, 0.3), "add": (a, b),
+                        "triad": (a, b, 0.3)}[op]
+                got = getattr(stream, f"stream_{op}")(*args, block_rows=rows)
+                want = getattr(stream, f"stream_{op}_plain")(
+                    *args, block_rows=rows)
+                torch.cuda.synchronize()
+                err, ok, bit = exact_close(torch, got, want)
+                cases.append({"op": op, "dtype": dtype_name(dtype),
+                              "shape": [rows, width], "offset": offset,
+                              "max_abs_err": err, "ok": ok, "bit_equal": bit})
+    report("stream", cases)
+
+    cases = []
+    for dtype in (f32, bf16):
+        for H, W in ((1, 5), (2, 7), (7, 2), (3, 3), (67, 1001), (300, 129)):
+            u = randn((H, W), dtype)
+            got = jacobi.jacobi_step(u, block_rows=H)
+            want = jacobi.jacobi_step_plain(u, block_rows=H)
+            torch.cuda.synchronize()
+            err, ok, bit = exact_close(torch, got, want)
+            ring = bool(torch.equal(got[[0, -1]], u[[0, -1]])
+                        and torch.equal(got[:, [0, -1]], u[:, [0, -1]]))
+            cases.append({"dtype": dtype_name(dtype), "shape": [H, W],
+                          "max_abs_err": err, "ok": ok and ring,
+                          "bit_equal": bit, "ring_passes": ring})
+    report("jacobi_step", cases)
+
+    cases = []
+    for dtype in (f32, bf16):
+        for M, N, K in ((1, 1, 1), (100, 130, 70), (257, 129, 33),
+                        (128, 128, 256)):
+            x, y = randn((M, K), dtype), randn((K, N), dtype)
+            got = gemm.gemm(x, y, bm=M, bn=N, bk=K)
+            want = gemm.gemm_plain(x, y, bm=M, bn=N, bk=K)
+            torch.cuda.synchronize()
+            err, ok = gemm_close(torch, got, want)
+            cases.append({"dtype": dtype_name(dtype), "shape": [M, N, K],
+                          "max_abs_err": err, "ok": ok})
+    report("gemm", cases)
+
+    cases = []
+    for dtype in (f32, bf16):
+        vals, cols, nnz = spmv_ref.make_problem(
+            1000, 3000, row_block=8, max_nnz=64, width_pad=128, dtype=dtype,
+            generator=gen, device="cuda")
+        nnz[0, :3] = torch.tensor([0, 1, 128], dtype=torch.int32)
+        vals[0, 0] = 0
+        vals[0, 1, 1:] = 0
+        vals[0, 2] = randn((128,), dtype)
+        x = randn((3000,), dtype)
+        lane = torch.arange(128, device="cuda")
+        poisoned = torch.where(lane < nnz[..., None], vals,
+                               torch.tensor(float("nan"), dtype=dtype,
+                                            device="cuda"))
+        for repeat in (1, 4, 20):
+            args = (vals, cols, nnz, x)
+            got = spmv.spmv_blockell(*args, repeat=repeat)
+            want = spmv.spmv_blockell_plain(*args, repeat=repeat)
+            inert = spmv.spmv_blockell(poisoned, cols, nnz, x, repeat=repeat)
+            torch.cuda.synchronize()
+            err, ok = spmv_close(torch, got, want,
+                                 spmv_scale(spmv_ref, *args, repeat=repeat))
+            cases.append({"variant": "predicated", "repeat": repeat,
+                          "dtype": dtype_name(dtype), "max_abs_err": err,
+                          "ok": ok and bool(torch.equal(inert, got)),
+                          "poisoned_lanes_inert": bool(torch.equal(inert,
+                                                                   got)),
+                          "row_nnz_0_1_128": got[:3].float().tolist()})
+        got = spmv.spmv_fixed_width(vals, cols, nnz, x)
+        want = spmv.spmv_fixed_width_plain(vals, cols, nnz, x)
+        torch.cuda.synchronize()
+        err, ok = spmv_close(torch, got, want,
+                             spmv_scale(spmv_ref, vals, cols, nnz, x,
+                                        predicated=False))
+        cases.append({"variant": "fixed_width", "dtype": dtype_name(dtype),
+                      "max_abs_err": err, "ok": ok})
+    report("spmv", cases)
+
+
+def hpc_problems(torch):
+    """The full-size inputs of the four kernels, made on the card from
+    seeded generators."""
+    from repro_torch.kernels.spmv import ref as spmv_ref
+
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    kw = dict(device="cuda", generator=gen)
+    vals, cols, nnz = spmv_ref.make_problem(
+        SPMV_ROWS, SPMV_ROWS, row_block=8, max_nnz=SPMV_MAX_NNZ,
+        width_pad=SPMV_WIDTH, generator=gen, device="cuda")
+    return {
+        "stream": (torch.randn(STREAM_SHAPE, **kw),
+                   torch.randn(STREAM_SHAPE, **kw)),
+        "gemm": (torch.randn((GEMM_N, GEMM_N), **kw),
+                 torch.randn((GEMM_N, GEMM_N), **kw)),
+        "jacobi": (torch.randn((JACOBI_N, JACOBI_N), **kw),),
+        "spmv": (vals, cols, nnz, torch.randn((SPMV_ROWS,), **kw)),
+    }
+
+
+def hpc_timing(torch, problems):
+    """Each kernel at full size: held against its plain version, then
+    device ms (median of CUDA events) of the kernel, the plain version and
+    one PyTorch library call computing the same function, beside the
+    least time at the H100's peaks.  Returns {kernel: row}."""
+    from repro_torch.kernels.gemm import ref as gemm_ref
+    from repro_torch.kernels.jacobi2d import ref as jacobi_ref
+    from repro_torch.kernels.spmv import ref as spmv_ref
+    from repro_torch.kernels.stream import ref as stream_ref
+
+    gemm, jacobi, spmv, stream = hpc_modules()
+    rows = {}
+
+    a, b = problems["stream"]
+    c = torch.empty_like(a)
+    q = STREAM_Q
+    library = {"copy": lambda: c.copy_(a),
+               "scale": lambda: torch.mul(a, q, out=c),
+               "add": lambda: torch.add(a, b, out=c),
+               "triad": lambda: torch.add(a, b, alpha=q, out=c)}
+    for op in STREAM_OPS:
+        args = {"copy": (a,), "scale": (a, q), "add": (a, b),
+                "triad": (a, b, q)}[op]
+        kern = getattr(stream, f"stream_{op}")
+        plain = getattr(stream, f"stream_{op}_plain")
+        want = plain(*args)
+        err, ok, bit = exact_close(torch, kern(*args), want)
+        require(ok, f"stream {op} kernel != plain at full size: {err}")
+        library[op]()
+        require(torch.allclose(c, want, rtol=1e-6, atol=1e-6),
+                f"stream {op} library yardstick disagrees")
+        del want
+        bound_ms, bound_by = bound(stream_ref.work_terms(op, a), "float32")
+        rows[f"stream_{op}"] = {
+            "max_abs_err": err, "bit_equal": bit,
+            "ms": device_ms(torch, lambda: kern(*args), reps=30),
+            "plain_ms": device_ms(torch, lambda: plain(*args), reps=30),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": device_ms(torch, library[op], reps=30)}
+        emit({"phase": "timing", "kernel": f"stream_{op}",
+              "shape": list(STREAM_SHAPE), "dtype": "float32",
+              **rows[f"stream_{op}"]})
+    del c
+
+    x, y = problems["gemm"]
+    want = gemm.gemm_plain(x, y)
+    err, ok = gemm_close(torch, gemm.gemm(x, y), want)
+    require(ok, f"gemm kernel != plain at full size: {err}")
+    lib_err, lib_ok = gemm_close(torch, torch.matmul(x, y), want)
+    require(lib_ok, f"gemm library yardstick disagrees: {lib_err}")
+    del want
+    bound_ms, bound_by = bound(gemm_ref.work_terms(x, y), "float32")
+    rows["gemm"] = {
+        "max_abs_err": err,
+        "ms": device_ms(torch, lambda: gemm.gemm(x, y), reps=5, warmup=2),
+        "plain_ms": device_ms(torch, lambda: gemm.gemm_plain(x, y), reps=5,
+                              warmup=2),
+        "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": device_ms(torch, lambda: torch.matmul(x, y), reps=5,
+                                warmup=2)}
+    emit({"phase": "timing", "kernel": "gemm", "shape": [GEMM_N] * 3,
+          "dtype": "float32", "tf32": torch.backends.cuda.matmul.allow_tf32,
+          **rows["gemm"]})
+
+    (u,) = problems["jacobi"]
+    err, ok, bit = exact_close(torch, jacobi.jacobi_step(u),
+                               jacobi.jacobi_step_plain(u))
+    require(ok, f"jacobi kernel != plain at full size: {err}")
+    bound_ms, bound_by = bound(jacobi_ref.work_terms(u), "float32")
+    rows["jacobi_step"] = {
+        "max_abs_err": err, "bit_equal": bit,
+        "ms": device_ms(torch, lambda: jacobi.jacobi_step(u), reps=30),
+        "plain_ms": device_ms(torch, lambda: jacobi.jacobi_step_plain(u),
+                              reps=30),
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+    emit({"phase": "timing", "kernel": "jacobi_step",
+          "shape": [JACOBI_N, JACOBI_N], "dtype": "float32",
+          **rows["jacobi_step"]})
+
+    vals, cols, nnz, xs = problems["spmv"]
+    width = vals.shape[-1]
+    live = torch.arange(width, device="cuda") < nnz[..., None]
+    counts = nnz.reshape(-1).long().clamp(0, width)
+    crow = torch.zeros(counts.numel() + 1, dtype=torch.int64, device="cuda")
+    crow[1:] = counts.cumsum(0)
+    csr = torch.sparse_csr_tensor(crow, cols[live].long(), vals[live],
+                                  size=(SPMV_ROWS, SPMV_ROWS))
+    xcol = xs[:, None]
+    for variant, kern, plain, predicated in (
+            ("spmv_blockell", spmv.spmv_blockell, spmv.spmv_blockell_plain,
+             True),
+            ("spmv_fixed_width", spmv.spmv_fixed_width,
+             spmv.spmv_fixed_width_plain, False)):
+        want = plain(vals, cols, nnz, xs)
+        scale = spmv_scale(spmv_ref, vals, cols, nnz, xs,
+                           predicated=predicated)
+        err, ok = spmv_close(torch, kern(vals, cols, nnz, xs), want, scale)
+        require(ok, f"{variant} kernel != plain at full size: {err}")
+        lib_err, lib_ok = spmv_close(
+            torch, torch.sparse.mm(csr, xcol)[:, 0], want, scale)
+        require(lib_ok, f"spmv library yardstick disagrees: {lib_err}")
+        bound_ms, bound_by = bound(
+            spmv_ref.work_terms(vals, nnz, xs, predicated=predicated),
+            "float32")
+        rows[variant] = {
+            "max_abs_err": err,
+            "ms": device_ms(torch, lambda: kern(vals, cols, nnz, xs),
+                            reps=50),
+            "plain_ms": device_ms(torch, lambda: plain(vals, cols, nnz, xs),
+                                  reps=30),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": device_ms(torch,
+                                    lambda: torch.sparse.mm(csr, xcol),
+                                    reps=50)}
+        emit({"phase": "timing", "kernel": variant,
+              "rows": SPMV_ROWS, "width": width, "max_nnz": SPMV_MAX_NNZ,
+              "nnz": int(counts.sum()), "dtype": "float32", **rows[variant]})
+    return rows
+
+
+def hpc_workloads(torch, problems):
+    """The four kernels at full size as ad-hoc Workloads, with the
+    reference's analytic models (STREAM's four ops, and SpMV's predicated
+    and fixed-width entry points), and the least work of each call."""
+    from repro_torch.analysis import Workload
+    from repro_torch.kernels import registry
+    from repro_torch.kernels.gemm import ref as gemm_ref
+    from repro_torch.kernels.jacobi2d import ref as jacobi_ref
+    from repro_torch.kernels.spmv import ref as spmv_ref
+    from repro_torch.kernels.stream import ref as stream_ref
+
+    out = []
+    a, b = problems["stream"]
+    for op in STREAM_OPS:
+        fb = stream_ref.flops_bytes(op, a.numel(), 4)
+        args = {"copy": (a,), "scale": (a, STREAM_Q), "add": (a, b),
+                "triad": (a, b, STREAM_Q)}[op]
+        out.append((Workload(
+            name=f"full/stream-{op}", fn=registry.get_kernel(f"stream-{op}"),
+            args=args, flops=fb["flops"], hbm_bytes=fb["bytes"],
+            problem="2^21x128"), stream_ref.work_terms(op, a)))
+    x, y = problems["gemm"]
+    fb = gemm_ref.flops_bytes(GEMM_N, GEMM_N, GEMM_N, 4)
+    out.append((Workload(name="full/gemm", fn=registry.GEMM, args=(x, y),
+                         flops=fb["flops"], hbm_bytes=fb["bytes"],
+                         problem=f"{GEMM_N}^3"),
+                gemm_ref.work_terms(x, y)))
+    (u,) = problems["jacobi"]
+    fb = jacobi_ref.flops_bytes(JACOBI_N, JACOBI_N, 4)
+    out.append((Workload(name="full/jacobi2d", fn=registry.JACOBI_STEP,
+                         args=(u,), flops=fb["flops"], hbm_bytes=fb["bytes"],
+                         problem=f"{JACOBI_N}^2"),
+                jacobi_ref.work_terms(u)))
+    vals, cols, nnz, xs = problems["spmv"]
+    for name, fn, entries, predicated in (
+            ("full/spmv", registry.SPMV,
+             float(nnz.clamp(0, vals.shape[-1]).sum()), True),
+            ("full/spmv-fixed-width", registry.SPMV_FIXED,
+             float(vals.numel()), False)):
+        out.append((Workload(
+            name=name, fn=fn, args=(vals, cols, nnz, xs),
+            flops=2.0 * entries, hbm_bytes=entries * 12.0,
+            gather_bytes=entries * 4.0, problem="2^20^2 zipf"),
+            spmv_ref.work_terms(vals, nnz, xs, predicated=predicated)))
+    return out
+
+
+def phase_analysis(torch, problems):
+    """The paper's method through its service entry point: the full-size
+    workloads on the h100 and grace-core models, each ROI timed on the card
+    (jobs 1).  The launch counts are set to 0 just before the drain and
+    read just after: every HPC kernel runs.  The share of the H100's
+    roofline attained (least time for the least bytes or flops, over
+    wall_s) above 1.05 fails the run."""
+    from repro_torch.serve.analysis_service import AnalysisService
+
+    workloads = hpc_workloads(torch, problems)
+    svc = AnalysisService(max_batch=8, jobs=1, device="cuda")
+    for wl, _ in workloads:
+        svc.submit(wl, chips=("h100", "grace-core"), time_roi=True)
+    entries = hpc_entries()
+    for fn in entries.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    svc.run_until_drained()
+    torch.cuda.synchronize()
+    counts = {name: fn.launches for name, fn in entries.items()}
+    report = svc.report()
+    require(report["service"]["errors"] == 0,
+            f"analysis errors: {[r['error'] for r in report['requests']]}")
+    require(report["service"]["cells"] == 2 * len(workloads),
+            f"{report['service']['cells']} cells")
+    require(all(n > 0 for n in counts.values()),
+            f"a kernel of the path never launched: {counts}")
+    least = {wl.name: terms for wl, terms in workloads}
+    cells = []
+    for req in svc.completed.values():
+        for res in req.results:
+            wall = res.wall_s
+            require(wall is not None and wall > 0, f"{res.workload} wall_s")
+            bound_ms, bound_by = bound(least[res.workload], "float32")
+            share = bound_ms / 1e3 / wall
+            cells.append({"workload": res.workload, "chip": res.chip,
+                          "class": int(res.perf_class),
+                          "class_name": res.perf_class.name,
+                          "ai": res.ai, "knee": res.ai_inflection,
+                          "region": res.bound, "vb": res.vb,
+                          "r_ins": res.r_ins, "wall_s": wall,
+                          "bound_ms": bound_ms, "bound_by": bound_by,
+                          "roofline_share": share})
+            require(share <= 1.05,
+                    f"{res.workload}: {share:.3f} of the H100 roofline, "
+                    f"above 1.05")
+    emit({"phase": "analysis", "cells": cells, "launches": counts,
+          "waves": report["service"]["waves"],
+          "wall_s": report["service"]["wall_s"]})
+    return counts
 
 
 # -- serving ------------------------------------------------------------------
@@ -666,6 +1106,7 @@ def main() -> int:
 
     import repro_torch
     from repro_torch.core.device import resolve_device
+    from repro_torch.kernels import build
     from repro_torch.kernels.flash_decode import kernel, ref
 
     require(Path(repro_torch.__file__).resolve().is_relative_to(SRC),
@@ -679,7 +1120,7 @@ def main() -> int:
           "tf32": torch.backends.cuda.matmul.allow_tf32})
 
     t0 = time.time()
-    built = kernel.build(force=True)
+    built = build.build(force=True)
     emit({"phase": "build", "seconds": time.time() - t0, "libraries": {
         name: {"library": str(lib.relative_to(ROOT)),
                "ptxas": [ln.strip() for ln in log.splitlines()
@@ -692,6 +1133,13 @@ def main() -> int:
                                512 + 32, seed=8)
     check_prefill(torch, np, kernel, ref)
     prefill_row = prefill_timing(torch, np, kernel, ref)
+
+    check_hpc(torch, np)
+    problems = hpc_problems(torch)
+    hpc_rows = hpc_timing(torch, problems)
+    hpc_counts = phase_analysis(torch, problems)
+    del problems
+    torch.cuda.empty_cache()
 
     engine, _ = phase_serve(torch, SERVE_ARGV, "serve")
     phase_profile(torch, np, engine, "profile", 4, 64)
@@ -712,6 +1160,26 @@ def main() -> int:
          "source": SOURCE_DIR + "flash_prefill_paged.cu",
          "replaces": f"{TPU_KERNELS}:573,620",
          "launches": counts["flash_prefill_paged"], **prefill_row},
+        {"name": "stream", "op": "triad", "route": "cuda",
+         "source": HPC_SOURCES + "stream/csrc/stream.cu",
+         "replaces": f"{TPU_HPC}stream/kernel.py:38",
+         "launches": sum(hpc_counts[f"stream_{op}"] for op in STREAM_OPS),
+         **hpc_rows["stream_triad"]},
+        {"name": "gemm", "route": "cuda",
+         "source": HPC_SOURCES + "gemm/csrc/gemm.cu",
+         "replaces": f"{TPU_HPC}gemm/kernel.py:56",
+         "launches": hpc_counts["gemm"], **hpc_rows["gemm"]},
+        {"name": "spmv_blockell", "route": "cuda",
+         "source": HPC_SOURCES + "spmv/csrc/spmv.cu",
+         "replaces": f"{TPU_HPC}spmv/kernel.py:52,82",
+         "launches": (hpc_counts["spmv_blockell"]
+                      + hpc_counts["spmv_fixed_width"]),
+         "fixed_width_ms": hpc_rows["spmv_fixed_width"]["ms"],
+         **hpc_rows["spmv_blockell"]},
+        {"name": "jacobi_step", "route": "cuda",
+         "source": HPC_SOURCES + "jacobi2d/csrc/jacobi2d.cu",
+         "replaces": f"{TPU_HPC}jacobi2d/kernel.py:52",
+         "launches": hpc_counts["jacobi_step"], **hpc_rows["jacobi_step"]},
     ]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

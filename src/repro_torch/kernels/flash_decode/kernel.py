@@ -1,10 +1,8 @@
 """Paged flash-decode and chunked prefill: the wrappers of the CUDA kernels
 in ``csrc/``.
 
-Each CUDA source is compiled with ``nvcc`` for ``sm_90a`` into a shared
-library with a plain C interface, at first use, into ``build/`` beside this
-file, and loaded with ``ctypes``.  Nothing is built when the module is
-imported, so the CPU tests import it on machines without ``nvcc``.
+Both CUDA sources are built and loaded at first use by
+:mod:`repro_torch.kernels.build`, into ``build/`` beside ``csrc/``.
 
 :func:`flash_decode_paged` and :func:`flash_prefill_paged` take CPU tensors
 to their plain versions in ``ref.py`` and launch their kernels for CUDA
@@ -15,26 +13,13 @@ tensors; there is no fallback from one to the other.  Each wrapper's
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-from pathlib import Path
-from typing import Dict, Tuple
+from typing import Dict
 
 import torch
 
+from repro_torch.kernels import build
 from repro_torch.kernels.flash_decode import ref
 
-CSRC = Path(__file__).resolve().parent / "csrc"
-#: library name -> CUDA source
-SOURCES = {
-    "flash_decode_paged": CSRC / "flash_decode_paged.cu",
-    "flash_prefill_paged": CSRC / "flash_prefill_paged.cu",
-}
-BUILD_DIR = Path(__file__).resolve().parent / "build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 #: dtype codes of the C interface
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 #: head dims the kernels are instantiated for
@@ -44,94 +29,16 @@ _SMEM_LIMIT = 48 * 1024
 #: chunk rows per thread block of the prefill attention, at most
 PREFILL_ROWS = 16
 
-_libs: Dict[str, ctypes.CDLL] = {}
-
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    path = Path(cuda_home) / "bin" / "nvcc"
-    if not path.exists():
-        raise RuntimeError(
-            f"nvcc not found on PATH or at {path}; the CUDA toolkit is "
-            f"needed to build the flash-decode kernels")
-    return str(path)
-
-
-def _tag() -> str:
-    """Hash of every source and the flags: editing any of them rebuilds
-    every library."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in sorted(SOURCES):
-        h.update(SOURCES[name].read_bytes())
-    return h.hexdigest()[:16]
-
-
-def build(force: bool = False) -> Dict[str, Tuple[Path, str]]:
-    """Compile every kernel library; returns {name: (path, compiler
-    output)}, the output empty for a library that was already built.
-
-    One ``nvcc`` per source, all started together.  ``force`` rebuilds
-    existing libraries.  Each build goes to a temporary name first, so a
-    concurrent loader never sees half a file.
-    """
-    tag = _tag()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    result: Dict[str, Tuple[Path, str]] = {}
-    running = {}
-    for name, source in SOURCES.items():
-        lib = BUILD_DIR / f"lib{name}_{tag}.so"
-        if lib.exists() and not force:
-            result[name] = (lib, "")
-            continue
-        tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-        proc = subprocess.Popen(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        running[name] = (proc, tmp, lib)
-    failed = []
-    for name, (proc, tmp, lib) in running.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            failed.append(f"{name}: nvcc exit code {proc.returncode}:\n{log}")
-            continue
-        os.replace(tmp, lib)
-        result[name] = (lib, log)
-    if failed:
-        raise RuntimeError("nvcc failed\n" + "\n".join(failed))
-    return result
-
-
-_ARGTYPES = {
+_ARGTYPES: Dict[str, list] = {
     "flash_decode_paged": ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
                            + [ctypes.c_void_p]),
     "flash_prefill_paged": ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 11
                             + [ctypes.c_void_p]),
 }
-_ERROR_STRING = {"flash_decode_paged": "flash_decode_error_string",
-                 "flash_prefill_paged": "flash_prefill_error_string"}
 
 
-def _library(name: str) -> ctypes.CDLL:
-    if name not in _libs:
-        path, _ = build()[name]
-        lib = ctypes.CDLL(str(path))
-        fn = getattr(lib, f"{name}_launch")
-        fn.argtypes = _ARGTYPES[name]
-        fn.restype = ctypes.c_int
-        err = getattr(lib, _ERROR_STRING[name])
-        err.argtypes = [ctypes.c_int]
-        err.restype = ctypes.c_char_p
-        _libs[name] = lib
-    return _libs[name]
-
-
-def _raise_on(name: str, lib: ctypes.CDLL, err: int) -> None:
-    if err != 0:
-        msg = getattr(lib, _ERROR_STRING[name])(err).decode()
-        raise RuntimeError(f"{name} launch failed: CUDA error {err} ({msg})")
+def _launcher(name: str):
+    return build.function(name, f"{name}_launch", _ARGTYPES[name])
 
 
 def _check_common(q, k_pool, v_pool, block_tables, per_slot, KV, D,
@@ -199,14 +106,13 @@ def flash_decode_paged(q: torch.Tensor, k_pool: torch.Tensor,
         raise ValueError(f"G={G}, D={D}, bs={bs}, nb={nb} need {smem} bytes "
                          f"of shared memory, over {_SMEM_LIMIT}")
     out = torch.empty_like(q)
-    lib = _library("flash_decode_paged")
-    err = lib.flash_decode_paged_launch(
+    err = _launcher("flash_decode_paged")(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         block_tables.data_ptr(), valid_len.data_ptr(), out.data_ptr(),
         B, KV, G, D, bs, nb, _DTYPE_CODE[q.dtype], q.device.index or 0,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
-    _raise_on("flash_decode_paged", lib, err)
+    build.raise_on("flash_decode_paged", err)
     flash_decode_paged.launches += 1
     return out
 
@@ -294,8 +200,7 @@ def flash_prefill_paged(q: torch.Tensor, k_new: torch.Tensor,
     out = torch.empty_like(q)
     if q.numel() == 0:
         return out
-    lib = _library("flash_prefill_paged")
-    err = lib.flash_prefill_paged_launch(
+    err = _launcher("flash_prefill_paged")(
         q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), k_pool.data_ptr(),
         v_pool.data_ptr(), block_tables.data_ptr(), q_start.data_ptr(),
         q_len.data_ptr(), out.data_ptr(), B, C, KV, G, D, bs, nb, bc,
@@ -303,7 +208,7 @@ def flash_prefill_paged(q: torch.Tensor, k_new: torch.Tensor,
         q.device.index or 0,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
-    _raise_on("flash_prefill_paged", lib, err)
+    build.raise_on("flash_prefill_paged", err)
     flash_prefill_paged.launches += 1
     return out
 

@@ -227,3 +227,109 @@ def test_prefill_step_on_the_card_matches_the_cpu(cuda):
             torch.testing.assert_close(b, a, rtol=1e-4, atol=1e-4)
     for a, b in zip(got["cpu"][1:], got["cuda"][1:]):
         torch.testing.assert_close(b, a, rtol=1e-4, atol=1e-4)
+
+
+# -- the HPC kernels (STREAM, Jacobi2D, GEMM, SpMV) -----------------------------
+# Tolerances are chip_smoke.py's: STREAM and Jacobi2D fp32 bit-equal and
+# 16-bit one ulp; GEMM 1e-5 * max|plain| (+ one ulp in bf16); SpMV 1e-6 of
+# each row's sum of |terms| + rtol 1e-5 (fp32) or one ulp (bf16).
+
+import chip_smoke  # noqa: E402
+from repro_torch.kernels import registry  # noqa: E402
+from repro_torch.kernels.spmv import ref as spmv_ref  # noqa: E402
+
+
+def _randn(device, shape, dtype, seed):
+    g = torch.Generator(device=device).manual_seed(seed)
+    return torch.randn(shape, device=device, generator=g).to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("rows,width,offset", [(64, 128, 0), (37, 100, 0),
+                                               (37, 100, 1)])
+@pytest.mark.parametrize("name,n_in,q", [("stream-copy", 1, None),
+                                         ("stream-scale", 1, 0.3),
+                                         ("stream-add", 2, None),
+                                         ("stream-triad", 2, 0.3)])
+def test_stream_kernel_matches_plain(cuda, dtype, rows, width, offset, name,
+                                     n_in, q):
+    n = rows * width
+    arrays = [_randn(cuda, (n + offset,), dtype, s)[offset:].view(rows, width)
+              for s in range(n_in)]
+    args = arrays + ([q] if q is not None else [])
+    ops = registry.get_kernel(name)
+    before = ops.raw.launches
+    got = ops.kernel(*args, block_rows=rows)
+    torch.cuda.synchronize()
+    assert ops.raw.launches == before + 1
+    _, ok, _ = chip_smoke.exact_close(torch, got,
+                                      ops.interpret(*args, block_rows=rows))
+    assert ok and got.dtype == dtype
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,W", [(1, 5), (2, 7), (7, 2), (67, 1001),
+                                 (300, 129)])
+def test_jacobi_kernel_matches_plain(cuda, dtype, H, W):
+    u = _randn(cuda, (H, W), dtype, 1)
+    got = registry.JACOBI_STEP.kernel(u, block_rows=H)
+    _, ok, _ = chip_smoke.exact_close(
+        torch, got, registry.JACOBI_STEP.interpret(u, block_rows=H))
+    assert ok
+    torch.testing.assert_close(got[[0, -1]], u[[0, -1]], rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M,N,K", [(1, 1, 1), (100, 130, 70), (257, 129, 33),
+                                   (256, 256, 512)])
+def test_gemm_kernel_matches_plain(cuda, dtype, M, N, K):
+    x, y = _randn(cuda, (M, K), dtype, 2), _randn(cuda, (K, N), dtype, 3)
+    got = registry.GEMM.kernel(x, y, bm=M, bn=N, bk=K)
+    err, ok = chip_smoke.gemm_close(
+        torch, got, registry.GEMM.interpret(x, y, bm=M, bn=N, bk=K))
+    assert ok, err
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("repeat", [1, 4, 20])
+def test_spmv_kernels_match_plain(cuda, dtype, repeat):
+    g = torch.Generator(device=cuda).manual_seed(4)
+    vals, cols, nnz = spmv_ref.make_problem(
+        1000, 3000, dtype=dtype, generator=g, device=cuda)
+    nnz[0, :3] = torch.tensor([0, 1, 128], dtype=torch.int32)
+    vals[0, 0] = 0
+    vals[0, 1, 1:] = 0
+    x = _randn(cuda, (3000,), dtype, 5)
+    args = (vals, cols, nnz, x)
+    got = registry.SPMV.kernel(*args, repeat=repeat)
+    err, ok = chip_smoke.spmv_close(
+        torch, got, registry.SPMV.interpret(*args, repeat=repeat),
+        chip_smoke.spmv_scale(spmv_ref, *args, repeat=repeat))
+    assert ok, err
+    assert got[0].item() == 0.0
+    fixed = registry.SPMV_FIXED.kernel(*args)
+    err, ok = chip_smoke.spmv_close(
+        torch, fixed, registry.SPMV_FIXED.interpret(*args),
+        chip_smoke.spmv_scale(spmv_ref, *args, predicated=False))
+    assert ok, err
+
+
+def test_hpc_kernels_refuse_what_they_were_not_built_for(cuda):
+    a = torch.ones((8, 128), dtype=torch.float64, device=cuda)
+    with pytest.raises(TypeError):
+        registry.STREAM_COPY(a)
+    with pytest.raises(ValueError, match="one device"):
+        registry.STREAM_ADD(a.float(), a.float().cpu())
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        registry.GEMM.kernel(torch.ones(4, 4), torch.ones(4, 4))
+
+
+def test_analysis_times_the_roi_on_the_card(cuda):
+    from repro_torch.analysis import analyze
+    from repro_torch.core import hw
+    from repro_torch.kernels.gemm import kernel as gemm_kernel
+
+    before = gemm_kernel.gemm.launches
+    r = analyze("kernel/gemm", hw.H100, time_roi=True, device="cuda")
+    assert r.wall_s > 0 and gemm_kernel.gemm.launches == before + 2
