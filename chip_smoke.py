@@ -10,7 +10,7 @@ Phases, each printing one JSON line (any failure raises and exits
 non-zero):
 
 1. env      torch/CUDA versions and the card's name and power limit.
-2. build    nvcc builds of the six kernel libraries for sm_90a, in
+2. build    nvcc builds of the seven kernel libraries for sm_90a, in
             parallel.
 3. kernel   each kernel against its plain version at gpt2-124m's and
             qwen3-1.7b's attention shapes, in bf16 and f32: the paged
@@ -27,10 +27,22 @@ non-zero):
             fp32, Jacobi2D 16384^2 fp32, SpMV 2^20 rows of block-ELL width
             128, Zipf nnz up to 64): kernel, plain and library ms beside
             the least time at the H100's peaks.
+   kernel-dense  the RX gate (n 6, 12, 22; qubits 0, 1, 4, 5, n-1; theta
+            0.25, 1.1, 2 pi) bit-equal to its plain version, and the
+            contiguous flash-decode (D 16/32/64/128, G 1/2/4/8, ragged
+            lengths 0, 1 and S, K/V past them poisoned with 1e4/NaN)
+            against its plain version, both in fp32 and bf16; the paged
+            kernels of phase 3 also run at D 16 and 32.
+   timing-dense  the RX gate at 28 qubits on qubits 0, 5, 13 and 27, the RX
+            layer at 21 and 28 qubits, and the contiguous flash-decode
+            (bf16, 32 slots of 4096 rows, gpt2-124m and qwen3-1.7b heads,
+            lengths ragged in [1, S] and all S) with the same columns.
    analysis the paper's method through ``AnalysisService`` over those
-            workloads on the h100 and grace-core models, ROIs timed on the
-            card: every HPC kernel launches, and no roofline share is
-            above 1.05.
+            workloads, the RX layer at 28 qubits, the flash-decode at full
+            size and the registry's qc-gate, flash-decode and flash-prefill
+            workloads, on the h100 and grace-core models, ROIs timed on the
+            card: every kernel of the suite launches, and no roofline share
+            is above 1.05.
 4. serve    ``repro_torch.launch.serve`` at the full width of gpt2-124m
             (bf16): every request completes, and the decode kernel runs 12
             times (once per layer) per fused step.
@@ -41,6 +53,9 @@ non-zero):
             the decode and prefill kernels together run 28 times per fused
             step, each at least once.
    profile  the same profile over a second drain of that engine.
+   serve-smoke  ``python -m repro_torch.launch.serve`` with its defaults
+            (gpt2-124m smoke, head dim 16, f32) on the card: its greedy
+            streams equal the same command's with ``--device cpu``.
 6. parity   GPU and CPU engines must give the same greedy streams: gpt2-124m
             at full width token by token, and qwen3-1.7b at full width cut
             to 4 layers, chunked on the card, chunked on the CPU and token
@@ -69,6 +84,12 @@ SRC = ROOT / "src"
 PEAK_KEY = {"float32": "fp32", "bfloat16": "bf16", "float16": "fp16"}
 
 ARCH_HEADS = {"gpt2-124m": (12, 1, 64), "qwen3-1.7b": (8, 2, 128)}
+#: the smoke configs' heads (head dim 16), the registry's flash workloads'
+#: heads (16 with 4 query heads a KV head) and a head dim of 32, checked on
+#: the paged kernels beside the full widths
+SMALL_HEADS = {"gpt2-124m smoke": (4, 1, 16), "qwen3-1.7b smoke": (2, 2, 16),
+               "kernel/flash-* workloads": (2, 4, 16),
+               "head dim 32": (4, 2, 32)}
 KERNEL_B, KERNEL_BS, KERNEL_NB = 32, 16, 256
 PREFILL_B, PREFILL_C, PREFILL_NB = 8, 64, 64
 TOLERANCE = {"bfloat16": 2e-2, "float32": 1e-5}
@@ -193,7 +214,7 @@ def check_decode(torch, np, kernel, ref):
     rng = np.random.default_rng(0)
     valid = rng.integers(1, nb * bs + 1, size=B)
     valid[:4] = (1, bs, bs + 1, nb * bs)  # one row, a block edge, full
-    for arch, (KV, G, D) in ARCH_HEADS.items():
+    for arch, (KV, G, D) in {**ARCH_HEADS, **SMALL_HEADS}.items():
         for dtype in (torch.bfloat16, torch.float32):
             name = dtype_name(dtype)
             args = paged_inputs(torch, B, KV, G, D, bs, nb, dtype,
@@ -312,7 +333,7 @@ def check_prefill(torch, np, kernel, ref):
     q_start = rng.integers(0, nb * bs - C + 1, size=B)
     # 0 (fed nothing), 0, a block edge, a chunk across three blocks
     q_start[:4] = (5, 0, bs, 3 * bs - 7)
-    for arch, (KV, G, D) in ARCH_HEADS.items():
+    for arch, (KV, G, D) in {**ARCH_HEADS, **SMALL_HEADS}.items():
         for dtype in (torch.bfloat16, torch.float32):
             name = dtype_name(dtype)
             args = prefill_inputs(torch, B, C, KV, G, D, bs, nb, dtype,
@@ -495,6 +516,17 @@ def spmv_scale(ref, values, cols, nnz, x, **kw):
     return ref.spmv_plain(values.abs(), cols, nnz, x.abs(), **kw)
 
 
+def report_cases(phase, kernel, cases):
+    """One line for a kernel's checks against its plain version; fails the
+    run if any case failed."""
+    bad = [c for c in cases if not c["ok"]]
+    emit({"phase": phase, "kernel": kernel, "cases": len(cases),
+          "max_abs_err": max(c["max_abs_err"] for c in cases),
+          "bit_equal": all(c.get("bit_equal", False) for c in cases),
+          "failed": bad})
+    require(not bad, f"{kernel} kernel != plain: {bad}")
+
+
 def check_hpc(torch, np):
     """Each HPC kernel against its plain version on the card: STREAM in
     fp32/bf16/fp16 on aligned, odd and misaligned arrays (the 16-byte and
@@ -510,14 +542,6 @@ def check_hpc(torch, np):
 
     def randn(shape, dtype):
         return torch.randn(shape, device="cuda", generator=gen).to(dtype)
-
-    def report(kernel, cases):
-        bad = [c for c in cases if not c["ok"]]
-        emit({"phase": "kernel-hpc", "kernel": kernel, "cases": len(cases),
-              "max_abs_err": max(c["max_abs_err"] for c in cases),
-              "bit_equal": all(c.get("bit_equal", False) for c in cases),
-              "failed": bad})
-        require(not bad, f"{kernel} kernel != plain: {bad}")
 
     cases = []
     for dtype in (f32, bf16, f16):
@@ -536,7 +560,7 @@ def check_hpc(torch, np):
                 cases.append({"op": op, "dtype": dtype_name(dtype),
                               "shape": [rows, width], "offset": offset,
                               "max_abs_err": err, "ok": ok, "bit_equal": bit})
-    report("stream", cases)
+    report_cases("kernel-hpc", "stream", cases)
 
     cases = []
     for dtype in (f32, bf16):
@@ -551,7 +575,7 @@ def check_hpc(torch, np):
             cases.append({"dtype": dtype_name(dtype), "shape": [H, W],
                           "max_abs_err": err, "ok": ok and ring,
                           "bit_equal": bit, "ring_passes": ring})
-    report("jacobi_step", cases)
+    report_cases("kernel-hpc", "jacobi_step", cases)
 
     cases = []
     for dtype in (f32, bf16):
@@ -564,7 +588,7 @@ def check_hpc(torch, np):
             err, ok = gemm_close(torch, got, want)
             cases.append({"dtype": dtype_name(dtype), "shape": [M, N, K],
                           "max_abs_err": err, "ok": ok})
-    report("gemm", cases)
+    report_cases("kernel-hpc", "gemm", cases)
 
     cases = []
     for dtype in (f32, bf16):
@@ -602,7 +626,7 @@ def check_hpc(torch, np):
                                         predicated=False))
         cases.append({"variant": "fixed_width", "dtype": dtype_name(dtype),
                       "max_abs_err": err, "ok": ok})
-    report("spmv", cases)
+    report_cases("kernel-hpc", "spmv", cases)
 
 
 def hpc_problems(torch):
@@ -792,20 +816,377 @@ def hpc_workloads(torch, problems):
     return out
 
 
-def phase_analysis(torch, problems):
+# -- the last kernels: the RX gate and the contiguous flash-decode -------------
+
+RX_FULL_QUBITS = 28            # two 1 GiB fp32 planes in, two out
+RX_TIMED_QUBITS = (0, 5, 13, 27)
+RX_LAYER_QUBITS = (21, 28)     # the paper's problem (fits the L2) and full
+RX_THETA = 1.1
+DENSE_B, DENSE_S = 32, 4096
+TPU_QC = "src/repro/kernels/qc_gate/kernel.py"
+
+
+def rx_equal(torch, got, want):
+    """(max abs err, bit-equal) of two (re, im) results."""
+    err = max((g.float() - w.float()).abs().max().item()
+              for g, w in zip(got, want))
+    return err, all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+def check_rx_gate(torch, np):
+    """The RX gate against its plain version on the card, in fp32 and
+    bf16: both round every product, sum and difference to the planes'
+    dtype, so they must be bit-equal; fp32 results up to 2^12 amplitudes
+    also within 1e-5 of the complex128 oracle (the reference's own
+    tolerance)."""
+    import math
+
+    from repro_torch.kernels.qc_gate import kernel as qc
+    from repro_torch.kernels.qc_gate import ref as qc_ref
+
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    cases = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for n in (6, 12, 22):
+            re, im = (torch.randn((1 << n,), device="cuda",
+                                  generator=gen).to(dtype) for _ in range(2))
+            for qubit in sorted({0, 1, 4, 5, n - 1}):
+                for theta in (0.25, 1.1, 2 * math.pi):
+                    got = qc.rx_gate(re, im, qubit, theta)
+                    want = qc.rx_gate_plain(re, im, qubit, theta)
+                    torch.cuda.synchronize()
+                    err, bit = rx_equal(torch, got, want)
+                    case = {"dtype": dtype_name(dtype), "qubits": n,
+                            "qubit": qubit, "theta": theta,
+                            "max_abs_err": err, "bit_equal": bit, "ok": bit}
+                    if dtype == torch.float32 and n <= 12:
+                        oracle = qc_ref.rx_ref(re, im, qubit, theta)
+                        case["oracle_err"] = max(
+                            float(np.abs(g.cpu().numpy() - o).max())
+                            for g, o in zip(got, oracle))
+                        case["ok"] = bit and case["oracle_err"] <= 1e-5
+                    cases.append(case)
+    report_cases("kernel-dense", "rx_gate", cases)
+
+
+def check_flash_decode(torch, np):
+    """The contiguous flash-decode against its plain version on the card:
+    D 16/32/64/128, G 1/2/4/8, fp32 and bf16, 6 slots of 300 rows (tiles
+    of 64 with a ragged last one) with lengths 0 (zeros out), 1, S, a tile
+    edge and two drawn ones.  The K/V rows past each length are then
+    poisoned with 1e4 / NaN: the output must not change by a bit."""
+    from repro_torch.kernels.flash_decode import kernel as fd
+
+    B, KV, S = 6, 2, 300
+    rng = np.random.default_rng(41)
+    valid = rng.integers(1, S + 1, size=B)
+    valid[:4] = (0, 1, S, fd.DECODE_TILE)
+    gen = torch.Generator(device="cuda").manual_seed(42)
+    vl = torch.tensor(valid, dtype=torch.int32, device="cuda")
+    live = torch.arange(S, device="cuda")[None, :] < vl[:, None]   # (B, S)
+    cases = []
+    for dtype in (torch.float32, torch.bfloat16):
+        name = dtype_name(dtype)
+        tol = TOLERANCE[name]
+        for D in (16, 32, 64, 128):
+            for G in (1, 2, 4, 8):
+                q = torch.randn((B, KV, G, D), device="cuda",
+                                generator=gen).to(dtype)
+                k, v = (torch.randn((B, S, KV, D), device="cuda",
+                                    generator=gen).to(dtype)
+                        for _ in range(2))
+                out = fd.flash_decode(q, k, v, vl)
+                want = fd.flash_decode_plain(q, k, v, vl)
+                k2, v2 = k.clone(), v.clone()
+                k2[~live] = 1e4
+                v2[~live] = float("nan")
+                poisoned = fd.flash_decode(q, k2, v2, vl)
+                torch.cuda.synchronize()
+                err = (out.float() - want.float()).abs().max().item()
+                close = torch.allclose(out.float(), want.float(), atol=tol,
+                                       rtol=tol)
+                inert = torch.equal(poisoned, out)
+                empty = not out[0].any().item()
+                cases.append({"dtype": name, "D": D, "G": G,
+                              "max_abs_err": err, "tol": tol,
+                              "poisoned_tail_inert": inert,
+                              "empty_slot_zeros": empty,
+                              "ok": bool(close and inert and empty)})
+    emit({"phase": "kernel-dense", "kernel": "flash_decode", "B": B,
+          "KV": KV, "S": S, "valid_len": valid.tolist()})
+    report_cases("kernel-dense", "flash_decode", cases)
+
+
+def rx_timing(torch):
+    """The RX gate at 28 qubits on qubits 0, 5, 13 and 27, and the RX layer
+    (one gate a qubit) at 21 and 28 qubits, fp32: kernel and plain ms
+    beside the least time at the H100's peaks (each plane read once and
+    written once); no single PyTorch call computes a gate.  Returns (rows
+    by qubit, rows by layer size)."""
+    from repro_torch.kernels.qc_gate import kernel as qc
+    from repro_torch.kernels.qc_gate import ops as qc_ops
+    from repro_torch.kernels.qc_gate import ref as qc_ref
+
+    gen = torch.Generator(device="cuda").manual_seed(33)
+    re, im = (torch.randn((1 << RX_FULL_QUBITS,), device="cuda",
+                          generator=gen) for _ in range(2))
+    gates = {}
+    for qubit in RX_TIMED_QUBITS:
+        def kern(q=qubit):
+            return qc.rx_gate(re, im, q, RX_THETA)
+
+        def plain(q=qubit):
+            return qc.rx_gate_plain(re, im, q, RX_THETA)
+
+        err, bit = rx_equal(torch, kern(), plain())
+        require(bit, f"rx_gate != plain at 28 qubits, qubit {qubit}: {err}")
+        bound_ms, bound_by = bound(qc_ref.work_terms(re), "float32")
+        gates[qubit] = {"max_abs_err": err, "bit_equal": bit,
+                        "ms": device_ms(torch, kern, reps=20),
+                        "plain_ms": device_ms(torch, plain, reps=5,
+                                              warmup=2),
+                        "bound_ms": bound_ms, "bound_by": bound_by,
+                        "library_ms": None}
+        emit({"phase": "timing-dense", "kernel": "rx_gate",
+              "qubits": RX_FULL_QUBITS, "qubit": qubit, "dtype": "float32",
+              **gates[qubit]})
+    layers = {}
+    for n in RX_LAYER_QUBITS:
+        r, i = re[: 1 << n], im[: 1 << n]
+
+        def kern(n=n, r=r, i=i):
+            return qc_ops.rx_layer(r, i, n, RX_THETA)
+
+        def plain(n=n, r=r, i=i):
+            for q in range(n):
+                r, i = qc.rx_gate_plain(r, i, q, RX_THETA)
+            return r, i
+
+        err, bit = rx_equal(torch, kern(), plain())
+        require(bit, f"rx_layer != plain at {n} qubits: {err}")
+        reps = 20 if n < RX_FULL_QUBITS else 3
+        bound_ms, bound_by = bound(qc_ref.work_terms(r, gates=n), "float32")
+        layers[n] = {"max_abs_err": err, "bit_equal": bit,
+                     "ms": device_ms(torch, kern, reps=reps, warmup=2),
+                     "plain_ms": device_ms(torch, plain, reps=3, warmup=1),
+                     "bound_ms": bound_ms, "bound_by": bound_by,
+                     "library_ms": None}
+        emit({"phase": "timing-dense", "kernel": "rx_layer", "qubits": n,
+              "gates": n, "dtype": "float32", "state_bytes": 8 << n,
+              **layers[n]})
+    return gates, layers
+
+
+def decode_close(torch, got, want):
+    """The decode against its plain version: fp32 accumulators summed in
+    another order (atol = rtol = 1e-5, the fp32 tolerance), then one
+    rounding to the output's dtype (one ulp of it in bf16).  Returns (max
+    abs err, ok)."""
+    err = (got.float() - want.float()).abs()
+    tol = 1e-5 + 1e-5 * want.float().abs()
+    if got.dtype != torch.float32:
+        tol = tol + ulp(torch, want, got.dtype)
+    return err.max().item(), bool((err <= tol).all())
+
+
+def decode_problem(torch, np, heads, lengths, seed):
+    """bf16 q, k, v of 32 slots of 4096 rows with ``heads`` (KV, G, D),
+    made on the card; lengths uniform in [1, S] ("ragged") or all S."""
+    KV, G, D = heads
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    kw = dict(device="cuda", generator=gen)
+    valid = (np.random.default_rng(seed).integers(1, DENSE_S + 1,
+                                                  size=DENSE_B)
+             if lengths == "ragged" else np.full(DENSE_B, DENSE_S))
+    q = torch.randn((DENSE_B, KV, G, D), **kw).to(torch.bfloat16)
+    k, v = (torch.randn((DENSE_B, DENSE_S, KV, D), **kw).to(torch.bfloat16)
+            for _ in range(2))
+    vl = torch.tensor(valid, dtype=torch.int32, device="cuda")
+    return (q, k, v, vl), valid
+
+
+def flash_decode_timing(torch, np):
+    """The contiguous flash-decode in bf16 at 32 slots of 4096 rows, for
+    gpt2-124m's and qwen3-1.7b's heads, with lengths uniform in [1, S] and
+    all at S: kernel, plain and library ms beside the least time for the
+    live rows.  The library yardstick is one SDPA call with a boolean
+    length mask on K/V transposed (and repeated per query head) before
+    the timed calls.  Returns {(arch, lengths): row}."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_decode import kernel as fd
+    from repro_torch.kernels.flash_decode import ref as fd_ref
+
+    rows = {}
+    for arch, heads in ARCH_HEADS.items():
+        KV, G, D = heads
+        for lengths in ("ragged", "full"):
+            args, valid = decode_problem(torch, np, heads, lengths, seed=61)
+            q, k, v, vl = args
+            out = fd.flash_decode(*args)
+            want = fd.flash_decode_plain(*args)
+            err, ok = decode_close(torch, out, want)
+            rms = want.float().pow(2).mean().sqrt().item()
+            require(ok, f"flash_decode != plain at {arch} {lengths}: {err}")
+            del want
+            # the same data in fp32, held at the fp32 tolerance
+            args32 = [x.float() if x.is_floating_point() else x
+                      for x in args]
+            err32, ok32 = decode_close(torch, fd.flash_decode(*args32),
+                                       fd.flash_decode_plain(*args32))
+            require(ok32, f"flash_decode != plain at {arch} {lengths} in "
+                          f"fp32: {err32}")
+            del args32
+            qh = q.reshape(DENSE_B, KV * G, 1, D)
+            kh, vh = (x.transpose(1, 2).repeat_interleave(G, dim=1)
+                      .contiguous() for x in (k, v))
+            mask = (torch.arange(DENSE_S, device="cuda")[None, :]
+                    < vl[:, None])[:, None, None, :]
+
+            def library():
+                return F.scaled_dot_product_attention(qh, kh, vh,
+                                                      attn_mask=mask)
+
+            lib_err = (library().reshape(out.shape).float()
+                       - out.float()).abs().max().item()
+            require(lib_err <= 2 * TOLERANCE["bfloat16"],
+                    f"SDPA yardstick disagrees: {lib_err}")
+            bound_ms, bound_by = bound(fd_ref.decode_work_terms(q, k, valid),
+                                       "bfloat16")
+            row = {"max_abs_err": err, "err_over_rms": err / rms,
+                   "fp32_max_abs_err": err32,
+                   "ms": device_ms(torch, lambda: fd.flash_decode(*args),
+                                   reps=30),
+                   "plain_ms": device_ms(
+                       torch, lambda: fd.flash_decode_plain(*args), reps=10),
+                   "bound_ms": bound_ms, "bound_by": bound_by,
+                   "library_ms": device_ms(torch, library, reps=30)}
+            rows[arch, lengths] = row
+            emit({"phase": "timing-dense", "kernel": "flash_decode",
+                  "arch_heads": arch, "lengths": lengths, "B": DENSE_B,
+                  "S": DENSE_S, "KV": KV, "G": G, "D": D,
+                  "dtype": "bfloat16", "live_rows": int(valid.sum()),
+                  "tile_issues": fd_ref.issue_counts(valid, DENSE_S,
+                                                     fd.DECODE_TILE),
+                  **row})
+        emit({"phase": "timing-dense", "kernel": "flash_decode",
+              "arch_heads": arch,
+              "full_over_ragged_ms": (rows[arch, "full"]["ms"]
+                                      / rows[arch, "ragged"]["ms"])})
+    return rows
+
+
+def check_registry_workloads(torch):
+    """The registry's qc-gate, flash-decode and flash-prefill workloads as
+    the analysis phase runs them on the card (the workload's function on
+    its example arguments, moved to the card), against the op's plain
+    version on a second copy of the same arguments: the RX gate bit-equal,
+    the attention outputs within 1e-5 (fp32), and the pools the prefill
+    commits bit-equal."""
+    from repro_torch.analysis import get_workload
+    from repro_torch.kernels import registry
+
+    plain = {"kernel/qc-gate": (registry.RX_GATE, dict(qubit=0, theta=0.25)),
+             "kernel/flash-decode": (registry.FLASH_DECODE,
+                                     dict(block_s=16)),
+             "kernel/flash-prefill": (registry.FLASH_PREFILL,
+                                      dict(block_c=8))}
+    cases = []
+    for name, (op, kw) in plain.items():
+        wl = get_workload(name)
+        got_args, want_args = ([a.to("cuda", copy=True)
+                                for a in wl.example_args()]
+                               for _ in range(2))
+        got = wl.fn(*got_args)
+        want = op.interpret(*want_args, **kw)
+        torch.cuda.synchronize()
+        case = {"workload": name, "problem": wl.problem}
+        if name == "kernel/qc-gate":
+            err, bit = rx_equal(torch, got, want)
+            case.update(max_abs_err=err, bit_equal=bit, ok=bit)
+        else:
+            if name == "kernel/flash-prefill":
+                # the kernel commits into got_args' pools in place
+                pools = (torch.equal(got_args[3], want[1])
+                         and torch.equal(got_args[4], want[2]))
+                case["pools_equal"] = pools
+                want = want[0]
+            err = (got - want).abs().max().item()
+            ok = torch.allclose(got, want, atol=1e-5, rtol=1e-5)
+            case.update(max_abs_err=err, tol=1e-5,
+                        bit_equal=bool(torch.equal(got, want)),
+                        ok=bool(ok and case.get("pools_equal", True)))
+        cases.append(case)
+    report_cases("kernel-dense", "registry workloads", cases)
+
+
+def dense_workloads(torch, np):
+    """(workload, least work, dtype name) of this slice's analysis path:
+    the RX layer at 28 qubits (the paper's circuit driver), the
+    flash-decode at full size (qwen3-1.7b heads, ragged), and the
+    registry's qc-gate, flash-decode and flash-prefill workloads at the
+    reference's sizes, with the reference's analytic models."""
+    from repro_torch.analysis import Workload, get_workload
+    from repro_torch.kernels import registry
+    from repro_torch.kernels.flash_decode import ref as fd_ref
+    from repro_torch.kernels.qc_gate import ops as qc_ops
+    from repro_torch.kernels.qc_gate import ref as qc_ref
+
+    n = RX_FULL_QUBITS
+    gen = torch.Generator(device="cuda").manual_seed(71)
+    re, im = (torch.randn((1 << n,), device="cuda", generator=gen)
+              for _ in range(2))
+    fb = qc_ref.flops_bytes(n, 4)
+    out = [(Workload(name="full/qc-gate",
+                     fn=lambda r, i: qc_ops.rx_layer(r, i, n, RX_THETA),
+                     args=(re, im), dtype="fp32", flops=n * fb["flops"],
+                     hbm_bytes=n * fb["bytes"],
+                     problem=f"{n} qubits, RX on each"),
+            qc_ref.work_terms(re, gates=n), "float32")]
+    KV, G, D = ARCH_HEADS["qwen3-1.7b"]
+    args, valid = decode_problem(torch, np, (KV, G, D), "ragged", seed=72)
+    fb = fd_ref.flops_bytes(DENSE_B, KV, G, D, valid, dtype_bytes=2)
+    out.append((Workload(name="full/flash-decode", fn=registry.FLASH_DECODE,
+                         args=args, dtype="bf16", flops=fb["flops"],
+                         hbm_bytes=fb["bytes"],
+                         problem=f"B{DENSE_B} KV{KV} G{G} D{D} S{DENSE_S} "
+                                 f"ragged"),
+                fd_ref.decode_work_terms(args[0], args[1], valid),
+                "bfloat16"))
+    wl = get_workload("kernel/qc-gate")
+    out.append((wl, qc_ref.work_terms(wl.example_args()[0]), "float32"))
+    wl = get_workload("kernel/flash-decode")
+    q, k, _, vl = wl.example_args()
+    out.append((wl, fd_ref.decode_work_terms(q, k, vl.tolist()), "float32"))
+    wl = get_workload("kernel/flash-prefill")
+    q, _, _, kp, _, bt, qs = wl.example_args()
+    B, C = q.shape[:2]
+    out.append((wl, fd_ref.prefill_work_terms(q, kp, bt, qs.tolist(),
+                                              [C] * B), "float32"))
+    return out
+
+
+def phase_analysis(torch, np, problems):
     """The paper's method through its service entry point: the full-size
-    workloads on the h100 and grace-core models, each ROI timed on the card
-    (jobs 1).  The launch counts are set to 0 just before the drain and
-    read just after: every HPC kernel runs.  The share of the H100's
-    roofline attained (least time for the least bytes or flops, over
-    wall_s) above 1.05 fails the run."""
+    workloads and this slice's (:func:`dense_workloads`) on the h100 and
+    grace-core models, each ROI timed on the card (jobs 1).  The launch
+    counts are set to 0 just before the drain and read just after: every
+    kernel of the suite runs.  The share of the H100's roofline attained
+    (least time for the least bytes or flops, over wall_s) above 1.05
+    fails the run."""
+    from repro_torch.kernels.flash_decode import kernel as fd
+    from repro_torch.kernels.qc_gate import kernel as qc
     from repro_torch.serve.analysis_service import AnalysisService
 
-    workloads = hpc_workloads(torch, problems)
+    workloads = [(wl, terms, "float32")
+                 for wl, terms in hpc_workloads(torch, problems)]
+    workloads += dense_workloads(torch, np)
     svc = AnalysisService(max_batch=8, jobs=1, device="cuda")
-    for wl, _ in workloads:
+    for wl, _, _ in workloads:
         svc.submit(wl, chips=("h100", "grace-core"), time_roi=True)
-    entries = hpc_entries()
+    entries = {**hpc_entries(), "rx_gate": qc.rx_gate,
+               "flash_decode": fd.flash_decode,
+               "flash_prefill_paged": fd.flash_prefill_paged}
     for fn in entries.values():
         fn.launches = 0
     torch.cuda.synchronize()
@@ -819,15 +1200,16 @@ def phase_analysis(torch, problems):
             f"{report['service']['cells']} cells")
     require(all(n > 0 for n in counts.values()),
             f"a kernel of the path never launched: {counts}")
-    least = {wl.name: terms for wl, terms in workloads}
+    least = {wl.name: (terms, dtype) for wl, terms, dtype in workloads}
     cells = []
     for req in svc.completed.values():
         for res in req.results:
             wall = res.wall_s
             require(wall is not None and wall > 0, f"{res.workload} wall_s")
-            bound_ms, bound_by = bound(least[res.workload], "float32")
+            bound_ms, bound_by = bound(*least[res.workload])
             share = bound_ms / 1e3 / wall
             cells.append({"workload": res.workload, "chip": res.chip,
+                          "dtype": res.dtype,
                           "class": int(res.perf_class),
                           "class_name": res.perf_class.name,
                           "ai": res.ai, "knee": res.ai_inflection,
@@ -940,6 +1322,48 @@ def phase_serve(torch, argv, phase):
           "init_s": init_s,
           "peak_memory_bytes": torch.cuda.max_memory_allocated()})
     return engine, counts
+
+
+def phase_serve_smoke(torch):
+    """``python -m repro_torch.launch.serve`` with its defaults (gpt2-124m
+    smoke, head dim 16, f32, ``--device cuda``), as its ``main`` runs it,
+    and the same command with ``--device cpu``: the greedy streams must be
+    equal, and on the card the decode kernel runs once per layer per fused
+    step (counts set to 0 just before each drain, read just after)."""
+    from repro_torch.kernels.flash_decode import kernel
+    from repro_torch.launch import serve as serve_cli
+
+    runs = {}
+    for argv in ([], ["--device", "cpu"]):
+        args = serve_cli.parse_args(argv)
+        engine = serve_cli.make_engine(args)
+        if args.warmup:
+            engine.warmup()
+        torch.cuda.synchronize()
+        reset_counts(kernel)
+        report = serve_cli.serve(args, engine)
+        torch.cuda.synchronize()
+        runs[args.device] = {
+            "streams": [r["tokens"] for r in report["requests"]],
+            "launches": read_counts(kernel),
+            "fused_steps": report["stats"]["fused_steps"],
+            "tok_s": report["stats"]["tok_s"]}
+        layers, head_dim = engine.cfg.n_layers, engine.cfg.head_dim
+    card, cpu = runs["cuda"], runs["cpu"]
+    require(card["streams"] == cpu["streams"],
+            f"default serve streams differ: card {card['streams']} cpu "
+            f"{cpu['streams']}")
+    require(card["launches"]["flash_decode_paged"]
+            == layers * card["fused_steps"] > 0,
+            f"{card['launches']} decode launches for "
+            f"{card['fused_steps']} steps of {layers} layers")
+    require(not any(cpu["launches"].values()),
+            f"the CPU run launched kernels: {cpu['launches']}")
+    emit({"phase": "serve-smoke", "argv": [], "head_dim": head_dim,
+          "layers": layers, "streams_equal": True,
+          "requests": len(card["streams"]),
+          **{f"{dev}_{key}": run[key] for dev, run in runs.items()
+             for key in ("launches", "fused_steps", "tok_s")}})
 
 
 def phase_profile(torch, np, engine, phase, prompt_lo, prompt_hi):
@@ -1135,9 +1559,15 @@ def main() -> int:
     prefill_row = prefill_timing(torch, np, kernel, ref)
 
     check_hpc(torch, np)
+    check_rx_gate(torch, np)
+    check_flash_decode(torch, np)
+    check_registry_workloads(torch)
     problems = hpc_problems(torch)
     hpc_rows = hpc_timing(torch, problems)
-    hpc_counts = phase_analysis(torch, problems)
+    rx_gates, rx_layers = rx_timing(torch)
+    fd_rows = flash_decode_timing(torch, np)
+    torch.cuda.empty_cache()
+    hpc_counts = phase_analysis(torch, np, problems)
     del problems
     torch.cuda.empty_cache()
 
@@ -1148,6 +1578,7 @@ def main() -> int:
     phase_profile(torch, np, engine, "profile-chunked", 64, 256)
     del engine
     torch.cuda.empty_cache()
+    phase_serve_smoke(torch)
     phase_parity(torch, np)
     phase_parity_chunked(torch, np)
 
@@ -1180,6 +1611,22 @@ def main() -> int:
          "source": HPC_SOURCES + "jacobi2d/csrc/jacobi2d.cu",
          "replaces": f"{TPU_HPC}jacobi2d/kernel.py:52",
          "launches": hpc_counts["jacobi_step"], **hpc_rows["jacobi_step"]},
+        {"name": "flash_decode", "route": "cuda",
+         "source": SOURCE_DIR + "flash_decode_paged.cu",
+         "replaces": f"{TPU_KERNELS}:89",
+         "launches": hpc_counts["flash_decode"],
+         "shape": "qwen3-1.7b heads, B32 S4096 ragged, bf16",
+         "ms_by_shape": {f"{arch} {lengths}": row["ms"]
+                         for (arch, lengths), row in fd_rows.items()},
+         **fd_rows["qwen3-1.7b", "ragged"]},
+        {"name": "rx_gate", "route": "cuda",
+         "source": HPC_SOURCES + "qc_gate/csrc/rx_gate.cu",
+         "replaces": f"{TPU_QC}:63",
+         "launches": hpc_counts["rx_gate"],
+         "shape": "28 qubits, qubit 13, fp32",
+         "ms_by_qubit": {q: row["ms"] for q, row in rx_gates.items()},
+         "layer_ms": {n: row["ms"] for n, row in rx_layers.items()},
+         **rx_gates[13]},
     ]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -1,11 +1,17 @@
-// Paged flash-decode for Hopper (sm_90a): attention of one query token per
-// serving slot over that slot's KV cache, read through its block table.
+// Flash-decode for Hopper (sm_90a): attention of one query token per
+// serving slot over that slot's KV cache, read through its block table
+// (paged) or in place from a contiguous (B, S, KV, D) cache.
 //
-// Replaces the TPU kernel src/repro/kernels/flash_decode/kernel.py ::
-// flash_decode_paged (body _decode_kernel_paged), for f32 and bf16 pools
-// without scales and without head sharding.
+// Replaces two TPU kernels of src/repro/kernels/flash_decode/kernel.py:
+//   * flash_decode_paged (body _decode_kernel_paged), for f32 and bf16
+//     pools without scales and without head sharding;
+//   * flash_decode (body _decode_kernel), the contiguous cache.  The TPU
+//     wrapper makes a head-major copy of K and V first (kernel.py:87-88);
+//     this kernel reads (B, S, KV, D) in place with a row stride of KV * D.
+// One body serves both: the template flag kPaged picks table or stride
+// addressing of a tile's first row, and nothing else differs.
 //
-// Contract (that of the TPU kernel):
+// Paged contract (that of the TPU kernel flash_decode_paged):
 //   q            (B, KV, G, D)            f32 or bf16
 //   k_pool/v_pool (n_blocks, bs, KV, D)   same dtype as q
 //   block_tables (B, nb) int32            logical block -> pool block
@@ -13,6 +19,20 @@
 //   out          (B, KV, G, D)            dtype of q
 // Row t of slot b lives at pool block block_tables[b, t / bs], row t % bs.
 // Rows at or past valid_len[b] are never read.
+//
+// Contiguous contract (that of the TPU kernel flash_decode):
+//   q            (B, KV, G, D)            f32 or bf16
+//   k/v          (B, S, KV, D)            same dtype as q
+//   valid_len    (B,) int32               live rows of each slot; a slot
+//                                         with valid_len <= 0 gives zeros,
+//                                         as the TPU kernel's clamped l does
+//   out          (B, KV, G, D)            dtype of q
+// Row t of slot b lives at k[b, t]; the kernel walks tiles of bs rows and
+// issues none past valid_len[b] (the TPU kernel's predicated block skip).
+//
+// Head dims 16, 32, 64 and 128: a warp reads a K row with D / 32 elements
+// a lane, or one element a lane below D = 32, the lanes at or past D
+// loading nothing and adding nothing (predicated lanes).
 //
 // What bounds it on an H100: the bytes of the live K and V rows,
 // sum_b valid_len[b] * KV * D * 2 * sizeof(T), over 3.35 TB/s.  The
@@ -24,14 +44,19 @@
 // Design, simple first:
 //   * one thread block per (KV head, slot): all heads of all slots run in
 //     parallel, and no reduction crosses blocks;
-//   * the block loads its own block-table row into shared memory and walks
-//     only the logical blocks j < ceil(valid_len / bs), the TPU kernel's
-//     skip of tiles past the live length;
+//   * paged, the block loads its own block-table row into shared memory;
+//     either way it walks only the tiles j < ceil(valid_len / bs), the TPU
+//     kernel's skip of tiles past the live length;
 //   * each warp reads whole K rows, lanes on consecutive elements
 //     (coalesced), and the G query heads of the KV head share every K and V
 //     row it reads;
-//   * running max, sum and accumulator stay in fp32; the output is written
-//     in q's dtype.
+//   * running max, sum and accumulator stay in fp32, and p stays fp32 in
+//     the p @ V product (decode_ref's arithmetic; the TPU kernel rounds p
+//     to V's dtype first, kernel.py:59); the output is written in q's
+//     dtype.
+// B * KV blocks on 132 SMs: 4 at the registry's example, 256 to 384 at
+// 32 slots of gpt2-124m or qwen3-1.7b heads, each walking its slot's
+// tiles in series.
 // Left for later: wgmma/TMA, splitting long contexts across blocks, and
 // removing the launch latency by capturing the whole decode step in a CUDA
 // graph.
@@ -75,17 +100,19 @@ __device__ __forceinline__ float warp_max(float v) {
 }
 
 // Shared memory, in floats: q (G*D), acc (G*D), p (G*bs), m, l, corr (G
-// each), then the block-table row (nb ints).
-template <typename T, int D>
+// each), then, paged, the block-table row (nb ints).  Paged, k/v are the
+// pools (n_blocks, bs, KV, D) and a slot holds nb * bs rows; contiguous,
+// k/v are (B, S, KV, D), block_tables is unused and a slot holds S rows.
+template <typename T, int D, bool kPaged>
 __global__ void __launch_bounds__(kThreads)
-    flash_decode_paged_kernel(const T* __restrict__ q,
-                              const T* __restrict__ k_pool,
-                              const T* __restrict__ v_pool,
-                              const int* __restrict__ block_tables,
-                              const int* __restrict__ valid_len,
-                              T* __restrict__ out, int KV, int G, int bs,
-                              int nb) {
-  constexpr int kPerLane = D / 32;
+    flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
+                        const T* __restrict__ v_pool,
+                        const int* __restrict__ block_tables,
+                        const int* __restrict__ valid_len,
+                        T* __restrict__ out, int KV, int G, int bs, int nb,
+                        int S) {
+  // elements of a K row per lane; below D = 32 the lanes >= D idle
+  constexpr int kPerLane = (D + 31) / 32;
   const int h = blockIdx.x;
   const int b = blockIdx.y;
   const int tid = threadIdx.x;
@@ -101,7 +128,7 @@ __global__ void __launch_bounds__(kThreads)
   float* c_s = l_s + G;
   int* table = reinterpret_cast<int*>(c_s + G);
 
-  const int valid = min(valid_len[b], nb * bs);
+  const int valid = min(valid_len[b], kPaged ? nb * bs : S);
   const int n_tiles = valid > 0 ? (valid + bs - 1) / bs : 0;
   const float scale = rsqrtf(static_cast<float>(D));
 
@@ -114,28 +141,32 @@ __global__ void __launch_bounds__(kThreads)
     m_s[g] = kNegInf;
     l_s[g] = 0.f;
   }
-  for (int j = tid; j < n_tiles; j += kThreads)
-    table[j] = block_tables[static_cast<size_t>(b) * nb + j];
+  if (kPaged)
+    for (int j = tid; j < n_tiles; j += kThreads)
+      table[j] = block_tables[static_cast<size_t>(b) * nb + j];
   __syncthreads();
 
   const size_t row_stride = static_cast<size_t>(KV) * D;
   for (int j = 0; j < n_tiles; ++j) {
     const int rows = min(bs, valid - j * bs);
-    // element offset of row 0, head h, of this pool block
-    const size_t base =
-        (static_cast<size_t>(table[j]) * bs * KV + h) * static_cast<size_t>(D);
+    // element offset of the tile's row 0, head h: in its pool block, or
+    // row j * bs of slot b
+    const size_t first = kPaged ? static_cast<size_t>(table[j]) * bs
+                                : static_cast<size_t>(b) * S + j * bs;
+    const size_t base = (first * KV + h) * static_cast<size_t>(D);
 
     // scores: one warp per K row, all G query heads at once
     for (int r = warp; r < rows; r += kWarps) {
       const T* k_row = k_pool + base + r * row_stride;
       float kr[kPerLane];
 #pragma unroll
-      for (int e = 0; e < kPerLane; ++e) kr[e] = to_float(k_row[lane + 32 * e]);
+      for (int e = 0; e < kPerLane; ++e)
+        kr[e] = (D >= 32 || lane < D) ? to_float(k_row[lane + 32 * e]) : 0.f;
       for (int g = 0; g < G; ++g) {
         float s = 0.f;
 #pragma unroll
         for (int e = 0; e < kPerLane; ++e)
-          s += q_s[g * D + lane + 32 * e] * kr[e];
+          if (D >= 32 || lane < D) s += q_s[g * D + lane + 32 * e] * kr[e];
         s = warp_sum(s);
         if (lane == 0) p_s[g * bs + r] = s * scale;
       }
@@ -183,53 +214,89 @@ __global__ void __launch_bounds__(kThreads)
     o_head[i] = from_float<T>(acc[i] / fmaxf(l_s[i / D], 1e-30f));
 }
 
-template <typename T>
-cudaError_t launch(const void* q, const void* k_pool, const void* v_pool,
+template <typename T, bool kPaged, int D>
+void launch_d(const dim3 grid, size_t smem, cudaStream_t stream,
+              const void* q, const void* k, const void* v,
+              const void* block_tables, const void* valid_len, void* out,
+              int KV, int G, int bs, int nb, int S) {
+  flash_decode_kernel<T, D, kPaged><<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const int*>(block_tables),
+      static_cast<const int*>(valid_len), static_cast<T*>(out), KV, G, bs, nb,
+      S);
+}
+
+// Paged: nb table entries of bs rows; contiguous: nb = 0, tiles of bs rows
+// over S.
+template <typename T, bool kPaged>
+cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* block_tables, const void* valid_len, void* out,
-                   int B, int KV, int G, int D, int bs, int nb,
+                   int B, int KV, int G, int D, int bs, int nb, int S,
                    cudaStream_t stream) {
   const dim3 grid(KV, B);
   const size_t smem =
       sizeof(float) * (2 * G * D + G * bs + 3 * G) + sizeof(int) * nb;
-  const T* qt = static_cast<const T*>(q);
-  const T* kt = static_cast<const T*>(k_pool);
-  const T* vt = static_cast<const T*>(v_pool);
-  const int* bt = static_cast<const int*>(block_tables);
-  const int* vl = static_cast<const int*>(valid_len);
-  T* ot = static_cast<T*>(out);
-  if (D == 64) {
-    flash_decode_paged_kernel<T, 64><<<grid, kThreads, smem, stream>>>(
-        qt, kt, vt, bt, vl, ot, KV, G, bs, nb);
-  } else if (D == 128) {
-    flash_decode_paged_kernel<T, 128><<<grid, kThreads, smem, stream>>>(
-        qt, kt, vt, bt, vl, ot, KV, G, bs, nb);
-  } else {
-    return cudaErrorInvalidValue;
+  switch (D) {
+    case 16:
+      launch_d<T, kPaged, 16>(grid, smem, stream, q, k, v, block_tables,
+                              valid_len, out, KV, G, bs, nb, S);
+      break;
+    case 32:
+      launch_d<T, kPaged, 32>(grid, smem, stream, q, k, v, block_tables,
+                              valid_len, out, KV, G, bs, nb, S);
+      break;
+    case 64:
+      launch_d<T, kPaged, 64>(grid, smem, stream, q, k, v, block_tables,
+                              valid_len, out, KV, G, bs, nb, S);
+      break;
+    case 128:
+      launch_d<T, kPaged, 128>(grid, smem, stream, q, k, v, block_tables,
+                               valid_len, out, KV, G, bs, nb, S);
+      break;
+    default:
+      return cudaErrorInvalidValue;
   }
   return cudaGetLastError();
 }
 
+template <bool kPaged>
+int launch_dtype(const void* q, const void* k, const void* v,
+                 const void* block_tables, const void* valid_len, void* out,
+                 int B, int KV, int G, int D, int bs, int nb, int S,
+                 int dtype, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return static_cast<int>(launch<float, kPaged>(
+        q, k, v, block_tables, valid_len, out, B, KV, G, D, bs, nb, S, st));
+  if (dtype == 1)
+    return static_cast<int>(launch<__nv_bfloat16, kPaged>(
+        q, k, v, block_tables, valid_len, out, B, KV, G, D, bs, nb, S, st));
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  Returns cudaGetLastError() after the
-// launch (0 when the launch was accepted); never synchronises.
+// dtype: 0 = float32, 1 = bfloat16.  Each returns cudaGetLastError() after
+// the launch (0 when the launch was accepted); never synchronises.
 extern "C" int flash_decode_paged_launch(
     const void* q, const void* k_pool, const void* v_pool,
     const void* block_tables, const void* valid_len, void* out, int B,
     int KV, int G, int D, int bs, int nb, int dtype, int device,
     void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return static_cast<int>(launch<float>(q, k_pool, v_pool, block_tables,
-                                          valid_len, out, B, KV, G, D, bs,
-                                          nb, s));
-  if (dtype == 1)
-    return static_cast<int>(launch<__nv_bfloat16>(
-        q, k_pool, v_pool, block_tables, valid_len, out, B, KV, G, D, bs, nb,
-        s));
-  return static_cast<int>(cudaErrorInvalidValue);
+  return launch_dtype<true>(q, k_pool, v_pool, block_tables, valid_len, out,
+                            B, KV, G, D, bs, nb, 0, dtype, device, stream);
+}
+
+// The contiguous cache k/v (B, S, KV, D), walked in tiles of ``tile`` rows.
+extern "C" int flash_decode_launch(const void* q, const void* k,
+                                   const void* v, const void* valid_len,
+                                   void* out, int B, int KV, int G, int D,
+                                   int S, int tile, int dtype, int device,
+                                   void* stream) {
+  return launch_dtype<false>(q, k, v, nullptr, valid_len, out, B, KV, G, D,
+                             tile, 0, S, dtype, device, stream);
 }
 
 extern "C" const char* flash_decode_error_string(int code) {

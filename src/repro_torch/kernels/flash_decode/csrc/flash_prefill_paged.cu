@@ -48,7 +48,11 @@
 //     vector of the tile; each V tile is staged once in shared memory as
 //     fp32 and read by all query vectors;
 //   * running max, sum and accumulator stay in fp32; the output is written
-//     in q's dtype.
+//     in q's dtype;
+//   * head dims 16, 32, 64 and 128: below D = 32 a K row takes one element
+//     a lane and the lanes at or past D load nothing (predicated lanes); the
+//     commit's 16-byte words hold for any KV * D * sizeof(T) that 16
+//     divides (32 bytes a row at D = 16 in bf16).
 // Left for later: wgmma/TMA tiles, splitting long prefixes across blocks.
 
 #include <cuda_bf16.h>
@@ -129,7 +133,8 @@ __global__ void __launch_bounds__(kThreads)
                           const int* __restrict__ q_len,
                           T* __restrict__ out, int C, int KV, int G, int bs,
                           int nb, int bc) {
-  constexpr int kPerLane = D / 32;
+  // elements of a K row per lane; below D = 32 the lanes >= D idle
+  constexpr int kPerLane = (D + 31) / 32;
   const int h = blockIdx.x;
   const int b = blockIdx.y;
   const int row0 = blockIdx.z * bc;
@@ -201,7 +206,8 @@ __global__ void __launch_bounds__(kThreads)
       const T* k_row = k_pool + base + r * kv_row_stride;
       float kr[kPerLane];
 #pragma unroll
-      for (int e = 0; e < kPerLane; ++e) kr[e] = to_float(k_row[lane + 32 * e]);
+      for (int e = 0; e < kPerLane; ++e)
+        kr[e] = (D >= 32 || lane < D) ? to_float(k_row[lane + 32 * e]) : 0.f;
       const int key = j * bs + r;
       for (int v = 0; v < R; ++v) {
         if (key > first + v / G) {  // past this row's causal frontier
@@ -211,7 +217,7 @@ __global__ void __launch_bounds__(kThreads)
         float s = 0.f;
 #pragma unroll
         for (int e = 0; e < kPerLane; ++e)
-          s += q_s[v * D + lane + 32 * e] * kr[e];
+          if (D >= 32 || lane < D) s += q_s[v * D + lane + 32 * e] * kr[e];
         s = warp_sum(s);
         if (lane == 0) p_s[v * bs + r] = s * scale;
       }
@@ -285,14 +291,25 @@ cudaError_t launch(const void* q, const void* k_new, const void* v_new,
   const T* kt = static_cast<const T*>(k_pool);
   const T* vt = static_cast<const T*>(v_pool);
   T* ot = static_cast<T*>(out);
-  if (D == 64) {
-    prefill_attend_kernel<T, 64><<<grid, kThreads, smem, stream>>>(
-        qt, kt, vt, bt, qs, ql, ot, C, KV, G, bs, nb, bc);
-  } else if (D == 128) {
-    prefill_attend_kernel<T, 128><<<grid, kThreads, smem, stream>>>(
-        qt, kt, vt, bt, qs, ql, ot, C, KV, G, bs, nb, bc);
-  } else {
-    return cudaErrorInvalidValue;
+  switch (D) {
+    case 16:
+      prefill_attend_kernel<T, 16><<<grid, kThreads, smem, stream>>>(
+          qt, kt, vt, bt, qs, ql, ot, C, KV, G, bs, nb, bc);
+      break;
+    case 32:
+      prefill_attend_kernel<T, 32><<<grid, kThreads, smem, stream>>>(
+          qt, kt, vt, bt, qs, ql, ot, C, KV, G, bs, nb, bc);
+      break;
+    case 64:
+      prefill_attend_kernel<T, 64><<<grid, kThreads, smem, stream>>>(
+          qt, kt, vt, bt, qs, ql, ot, C, KV, G, bs, nb, bc);
+      break;
+    case 128:
+      prefill_attend_kernel<T, 128><<<grid, kThreads, smem, stream>>>(
+          qt, kt, vt, bt, qs, ql, ot, C, KV, G, bs, nb, bc);
+      break;
+    default:
+      return cudaErrorInvalidValue;
   }
   return cudaGetLastError();
 }

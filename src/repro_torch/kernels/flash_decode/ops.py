@@ -1,0 +1,27 @@
+"""Flash-decode kernel call surface (served by the kernel registry), across
+from :mod:`repro.kernels.flash_decode.ops`.
+
+``flash_decode`` (the contiguous-cache decode) and ``flash_prefill`` (the
+chunked prefill with the reference's argument list) are
+:class:`~repro_torch.kernels.registry.KernelOps` objects: call directly to
+run the CUDA kernel on CUDA tensors (the plain version on CPU tensors),
+``.kernel(...)`` for the CUDA kernel alone, ``.interpret(...)`` for the
+plain version, ``.ref(...)`` for the oracle.  The paged wrappers the
+serving path calls are exported from the kernel module as they are.  The
+reference's ``flash_decode_paged_sharded`` waits for tensor-parallel
+serving (ROADMAP 1.16).
+"""
+
+from __future__ import annotations
+
+from repro_torch.kernels.flash_decode.kernel import (flash_decode_paged,
+                                                     flash_prefill_paged)
+from repro_torch.kernels.registry import FLASH_DECODE as flash_decode
+from repro_torch.kernels.registry import FLASH_PREFILL as flash_prefill
+
+__all__ = [
+    "flash_decode",
+    "flash_decode_paged",
+    "flash_prefill",
+    "flash_prefill_paged",
+]

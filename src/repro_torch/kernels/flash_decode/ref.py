@@ -1,12 +1,17 @@
-"""Plain PyTorch versions of the paged flash-decode and chunked-prefill
-kernels, and their analytic work terms.
+"""Plain PyTorch versions of the flash-decode and chunked-prefill kernels,
+their oracles and their analytic work terms, across from
+:mod:`repro.kernels.flash_decode.ref`.
 
-:func:`flash_decode_paged_ref` ports ``decode_paged_ref`` of
-``repro/kernels/flash_decode/ref.py``: gather each slot's logical view
-through its block table, run a fp32 masked softmax, cast back.
-:func:`flash_prefill_paged_ref` ports ``prefill_paged_ref`` (f32 and bf16
-pools): commit the chunk's K/V rows into the pools in place, then causal
-attention over each slot's gathered view.  The CPU path and the tests use
+:func:`decode_ref` ports the reference's contiguous-cache oracle, and
+:func:`decode_plain` is the kernel's function: the same fp32 masked
+softmax, with zeros for a slot whose ``valid_len`` is 0 (the Pallas
+kernel's clamped sum; the oracle gives the mean of v there).
+:func:`flash_decode_paged_ref` ports ``decode_paged_ref`` (f32 and bf16
+pools): gather each slot's logical view through its block table, then the
+oracle.  :func:`flash_prefill_paged_ref` ports ``prefill_paged_ref`` (f32
+and bf16 pools): commit the chunk's K/V rows into the pools in place, then
+causal attention over each slot's gathered view; :func:`prefill_paged_ref`
+is the reference's functional form of it.  The CPU path and the tests use
 them; on the card they serve only as the yardsticks the kernels are
 compared with.
 """
@@ -20,47 +25,77 @@ import torch
 NEG_INF = -1e30
 
 
+def decode_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               valid_len: torch.Tensor) -> torch.Tensor:
+    """q (B,KV,G,D); k/v (B,S,KV,D); valid_len (B,) -> (B,KV,G,D) in q's
+    dtype: fp32 scores, masked past ``valid_len``, fp32 softmax and p @ v.
+    """
+    D = q.shape[-1]
+    S = k.shape[1]
+    s = torch.einsum("bkgd,bskd->bkgs", q.float(), k.float()) / math.sqrt(D)
+    mask = (torch.arange(S, device=q.device)[None, :]
+            < valid_len.long()[:, None])  # (B, S)
+    s = s.masked_fill(~mask[:, None, None, :], NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bkgs,bskd->bkgd", p, v.float()).to(q.dtype)
+
+
+def decode_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 valid_len: torch.Tensor) -> torch.Tensor:
+    """The contiguous decode kernel's function: :func:`decode_ref`, with
+    zeros for every slot whose ``valid_len`` is 0 or less."""
+    out = decode_ref(q, k, v, valid_len)
+    return out.masked_fill((valid_len <= 0)[:, None, None, None], 0.0)
+
+
 def flash_decode_paged_ref(q: torch.Tensor, k_pool: torch.Tensor,
                            v_pool: torch.Tensor, block_tables: torch.Tensor,
                            valid_len: torch.Tensor) -> torch.Tensor:
     """q (B,KV,G,D); k/v_pool (n_blocks, bs, KV, D); block_tables (B, nb)
     int32; valid_len (B,) int32 with every slot >= 1 -> (B,KV,G,D) in q's
     dtype."""
-    B, KV, G, D = q.shape
+    B, KV, _, D = q.shape
     nb = block_tables.shape[1]
     bs = k_pool.shape[1]
     idx = block_tables.long()
-    k = k_pool[idx].reshape(B, nb * bs, KV, D).float()
-    v = v_pool[idx].reshape(B, nb * bs, KV, D).float()
-    s = torch.einsum("bkgd,bskd->bkgs", q.float(), k) / math.sqrt(D)
-    pos = torch.arange(nb * bs, device=q.device)
-    mask = pos[None, :] < valid_len.long()[:, None]  # (B, S)
-    s = s.masked_fill(~mask[:, None, None, :], NEG_INF)
-    p = torch.softmax(s, dim=-1)
-    return torch.einsum("bkgs,bskd->bkgd", p, v).to(q.dtype)
+    k = k_pool[idx].reshape(B, nb * bs, KV, D)
+    v = v_pool[idx].reshape(B, nb * bs, KV, D)
+    return decode_ref(q, k, v, valid_len)
+
+
+def _decode_terms(q: torch.Tensor, lens, extra_bytes: int) -> dict:
+    B, KV, G, D = q.shape
+    live = sum(lens)
+    item = q.element_size()
+    bytes_ = (2 * B * KV * G * D * item        # q in, output out
+              + 2 * live * KV * D * item       # live K and V rows
+              + 4 * B + extra_bytes)           # valid_len, tables
+    return {"bytes": float(bytes_), "flops": 4.0 * live * KV * G * D}
 
 
 def work_terms(q: torch.Tensor, k_pool: torch.Tensor,
                block_tables: torch.Tensor, valid_len) -> dict:
-    """Bytes the call must move and flops it must do, for these inputs.
+    """Bytes the paged call must move and flops it must do, for these
+    inputs.
 
     Each input is counted once: q, the live K and V rows (``valid_len``
     rows per slot and KV head), the block-table entries those rows need,
     ``valid_len`` itself, and the output.  Flops: 2 for q.k and 2 for p.v
     per live row, query head and element.
     """
-    B, KV, G, D = q.shape
     bs = k_pool.shape[1]
     nb = block_tables.shape[1]
     lens = [min(int(v), nb * bs) for v in valid_len]
-    live = sum(lens)
     tiles = sum(-(-n // bs) for n in lens)
-    item = q.element_size()
-    bytes_ = (2 * B * KV * G * D * item        # q in, output out
-              + 2 * live * KV * D * item       # live K and V rows
-              + 4 * tiles + 4 * B)             # table entries, valid_len
-    flops = 4.0 * live * KV * G * D
-    return {"bytes": float(bytes_), "flops": flops}
+    return _decode_terms(q, lens, 4 * tiles)
+
+
+def decode_work_terms(q: torch.Tensor, k: torch.Tensor, valid_len) -> dict:
+    """Bytes the contiguous call must move and flops it must do, for these
+    inputs: q, the live K and V rows (``valid_len`` rows per slot and KV
+    head, clamped to [0, S]), ``valid_len`` and the output, each once."""
+    S = k.shape[1]
+    return _decode_terms(q, [min(max(int(v), 0), S) for v in valid_len], 0)
 
 
 def chunk_positions(q_start: torch.Tensor, C: int, nb: int, bs: int):
@@ -160,3 +195,50 @@ def prefill_work_terms(q: torch.Tensor, k_pool: torch.Tensor,
               + 2 * sum(cached) * KV * D * item  # cached K and V rows read
               + 4 * tiles + 8 * B)               # table, q_start, q_len
     return {"bytes": float(bytes_), "flops": 4.0 * pairs * KV * G * D}
+
+
+def prefill_paged_ref(q, k_new, v_new, k_pool, v_pool, block_tables, q_start,
+                      q_len=None):
+    """The reference's functional chunked-prefill oracle: returns (out,
+    k_pool', v_pool') and leaves the given pools as they are.  ``q_len``
+    defaults to the chunk width C.  Rows at or past ``q_len`` come out as
+    zeros (the reference leaves them undefined)."""
+    B, C = q.shape[:2]
+    if q_len is None:
+        q_len = torch.full((B,), C, dtype=torch.int32, device=q.device)
+    kp, vp = k_pool.clone(), v_pool.clone()
+    out = flash_prefill_paged_ref(q, k_new, v_new, kp, vp, block_tables,
+                                  q_start, q_len)
+    return out, kp, vp
+
+
+# -- the reference's analytic models, verbatim -----------------------------
+
+
+def prefill_flops_bytes(B, C, KV, G, D, q_start, dtype_bytes: int = 2) -> dict:
+    """Per chunk: every query row attends its causal prefix; traffic = the
+    committed chunk write plus the live K+V reads up to each row."""
+    live = float(sum(int(s) * C + C * (C + 1) / 2 for s in q_start))
+    flops = 4.0 * KV * G * D * live
+    bytes_ = 2.0 * KV * D * dtype_bytes * (live + B * C)
+    return {"flops": flops, "bytes": bytes_,
+            "ai": flops / bytes_ if bytes_ else 0}
+
+
+def flops_bytes(B, KV, G, D, valid_len, dtype_bytes: int = 2) -> dict:
+    """Per decode step: 2*2*H*D flops per live cache token; traffic = live
+    K+V reads (the q/output traffic is negligible)."""
+    live = float(sum(int(v) for v in valid_len))
+    flops = 4.0 * KV * G * D * live
+    bytes_ = 2.0 * KV * D * dtype_bytes * live
+    return {"flops": flops, "bytes": bytes_,
+            "ai": flops / bytes_ if bytes_ else 0}
+
+
+def issue_counts(valid_len, S: int, block_s: int) -> dict:
+    """Predicated vs fixed-width block issues (the SVE lesson at token
+    level)."""
+    pred = sum(math.ceil(max(int(v), 1) / block_s) for v in valid_len)
+    fixed = len(valid_len) * (S // block_s)
+    return {"predicated": pred, "fixed": fixed,
+            "r_issue": fixed / pred if pred else 0.0}

@@ -20,7 +20,7 @@ the CPU; ``analyze(..., time_roi=True)`` moves them to the card.
 
 The reference's autotuner state (tuned configs, tuning spaces) is not
 ported yet (ROADMAP 1.17).  The tile keywords (``bm/bn/bk``,
-``block_rows``) are checked as the reference checks them, so the same
+``block_rows``, ``block_outer``, ``block_s``, ``block_c``) are checked as the reference checks them, so the same
 calls fail, but each CUDA kernel's tile is its own: mapping tiling axes to
 CUDA launch configurations is the tuning port's job.
 """
@@ -33,8 +33,10 @@ from typing import Any, Callable, Dict, Optional
 import torch
 
 from repro_torch.analysis.workload import Workload, register_lazy
+from repro_torch.kernels.flash_decode import kernel as _fd_k, ref as _fd_r
 from repro_torch.kernels.gemm import kernel as _gemm_k, ref as _gemm_r
 from repro_torch.kernels.jacobi2d import kernel as _jac_k, ref as _jac_r
+from repro_torch.kernels.qc_gate import kernel as _qc_k, ref as _qc_r
 from repro_torch.kernels.spmv import kernel as _spmv_k, ref as _spmv_r
 from repro_torch.kernels.stream import kernel as _stream_k, ref as _stream_r
 
@@ -201,6 +203,77 @@ def _jacobi_workload() -> Workload:
     )
 
 
+def _qc_workload() -> Workload:
+    n_qubits = 14
+    fb = _qc_r.flops_bytes(n_qubits, 4)
+
+    def args():
+        n_amp = 1 << n_qubits
+        re = torch.zeros((n_amp,))
+        re[0] = 1.0
+        return (re, torch.zeros((n_amp,)))
+
+    def one_gate(re, im):
+        return RX_GATE(re, im, qubit=0, theta=0.25)
+
+    return Workload(
+        name="kernel/qc-gate", fn=one_gate, args=args, dtype="fp32",
+        flops=fb["flops"], hbm_bytes=fb["bytes"],
+        problem=f"{n_qubits} qubits", tags=("kernel",),
+        notes="single RX gate over the state vector; streaming Class 2",
+    )
+
+
+def _flash_prefill_workload() -> Workload:
+    B, C, KV, G, D = 2, 16, 2, 4, 16
+    bs, nb = 8, 8  # 64-token view per slot
+    q_start = (24, 0)
+    fb = _fd_r.prefill_flops_bytes(B, C, KV, G, D, q_start, dtype_bytes=4)
+
+    def args():
+        n_blocks = 1 + B * nb
+        q = torch.randn((B, C, KV, G, D), generator=_generator(0))
+        kn = torch.randn((B, C, KV, D), generator=_generator(1))
+        vn = torch.randn((B, C, KV, D), generator=_generator(2))
+        kp = torch.randn((n_blocks, bs, KV, D), generator=_generator(3))
+        vp = torch.randn((n_blocks, bs, KV, D), generator=_generator(4))
+        bt = 1 + torch.arange(B * nb, dtype=torch.int32).reshape(B, nb)
+        return (q, kn, vn, kp, vp, bt, torch.tensor(q_start,
+                                                     dtype=torch.int32))
+
+    def one_chunk(q, kn, vn, kp, vp, bt, qs):
+        return FLASH_PREFILL(q, kn, vn, kp, vp, bt, qs, block_c=8)[0]
+
+    return Workload(
+        name="kernel/flash-prefill", fn=one_chunk, args=args, dtype="fp32",
+        flops=fb["flops"], hbm_bytes=fb["bytes"],
+        problem=f"B{B} C{C} KV{KV} G{G} D{D} bs{bs}", tags=("kernel",),
+        notes="chunked causal prefill committing K/V into paged blocks",
+    )
+
+
+def _flash_decode_workload() -> Workload:
+    B, KV, G, D, S = 2, 2, 4, 16, 64
+    valid = (40, 64)
+    fb = _fd_r.flops_bytes(B, KV, G, D, valid, dtype_bytes=4)
+
+    def args():
+        q = torch.randn((B, KV, G, D), generator=_generator(0))
+        k = torch.randn((B, S, KV, D), generator=_generator(1))
+        v = torch.randn((B, S, KV, D), generator=_generator(2))
+        return (q, k, v, torch.tensor(valid, dtype=torch.int32))
+
+    def one_step(q, k, v, vl):
+        return FLASH_DECODE(q, k, v, vl, block_s=16)
+
+    return Workload(
+        name="kernel/flash-decode", fn=one_step, args=args, dtype="fp32",
+        flops=fb["flops"], hbm_bytes=fb["bytes"],
+        problem=f"B{B} KV{KV} G{G} D{D} S{S}", tags=("kernel",),
+        notes="predicated KV-cache attention decode; GQA reuse lifts AI",
+    )
+
+
 GEMM = register_kernel(
     "gemm", _gemm_k.gemm, plain=_gemm_k.gemm_plain, ref=_gemm_r.gemm_ref,
     workload=_gemm_workload,
@@ -236,4 +309,19 @@ SPMV_FIXED = register_kernel(
 JACOBI_STEP = register_kernel(
     "jacobi2d", _jac_k.jacobi_step, plain=_jac_k.jacobi_step_plain,
     ref=_jac_r.jacobi_ref, workload=_jacobi_workload,
+)
+
+RX_GATE = register_kernel(
+    "qc-gate", _qc_k.rx_gate, plain=_qc_k.rx_gate_plain,
+    workload=_qc_workload,
+)
+
+FLASH_DECODE = register_kernel(
+    "flash-decode", _fd_k.flash_decode, plain=_fd_k.flash_decode_plain,
+    ref=_fd_r.decode_ref, workload=_flash_decode_workload,
+)
+
+FLASH_PREFILL = register_kernel(
+    "flash-prefill", _fd_k.flash_prefill, plain=_fd_k.flash_prefill_plain,
+    ref=_fd_r.prefill_paged_ref, workload=_flash_prefill_workload,
 )

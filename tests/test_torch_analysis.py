@@ -26,6 +26,7 @@ torch = pytest.importorskip("torch")
 from repro.analysis import ArtifactCache  # noqa: E402
 from repro.analysis import analyze as ref_analyze  # noqa: E402
 from repro.analysis import analyze_events as ref_analyze_events  # noqa: E402
+from repro.analysis import list_workloads as ref_list_workloads  # noqa: E402
 from repro.core import decision_tree as ref_tree  # noqa: E402
 from repro.core import hw as ref_hw  # noqa: E402
 from repro.core import metrics as ref_metrics  # noqa: E402
@@ -50,7 +51,8 @@ from repro_torch.serve.analysis_service import (  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 REF_CHIPS = ("grace-core", "grace-socket", "tpu-v5e", "tpu-v5p")
-EXACT = ("kernel/gemm", "kernel/stream-triad", "kernel/jacobi2d")
+EXACT = ("kernel/gemm", "kernel/stream-triad", "kernel/jacobi2d",
+         "kernel/qc-gate", "kernel/flash-decode", "kernel/flash-prefill")
 #: event fields only the reference's compiled (XLA) source fills
 HLO_ONLY = ("census", "xla_raw_flops", "xla_raw_bytes", "hlo_traffic_bytes",
             "while_trip_counts", "unknown_trip_counts",
@@ -209,9 +211,12 @@ def test_profiler_api_times_an_roi():
 
 def test_registry_lists_the_ported_kernel_workloads():
     names = list_workloads()
-    for k in ("gemm", "stream-triad", "spmv", "jacobi2d"):
+    for k in ("gemm", "stream-triad", "spmv", "jacobi2d", "qc-gate",
+              "flash-decode", "flash-prefill"):
         assert f"kernel/{k}" in names
-    assert list_workloads(tags=("kernel",)) == sorted(names)
+    assert list_workloads(tags=("kernel",)) == \
+        ref_list_workloads(tags=("kernel",))
+    assert len(list_workloads(tags=("kernel",))) == 7
     with pytest.raises(KeyError, match="unknown workload"):
         get_workload("kernel/nope")
 
@@ -295,6 +300,9 @@ def test_spmv_analysis_matches_reference_per_nonzero(chip):
     ("kernel/jacobi2d", PerfClass.MEMORY_BANDWIDTH_BOUND),      # Class 2
     ("kernel/spmv", PerfClass.MEMORY_LATENCY_BOUND),            # Class 3
     ("kernel/gemm", PerfClass.SPEEDUP),                         # Class 4
+    ("kernel/qc-gate", PerfClass.MEMORY_BANDWIDTH_BOUND),       # Class 2
+    ("kernel/flash-decode", PerfClass.SPEEDUP),                 # Class 4
+    ("kernel/flash-prefill", PerfClass.SPEEDUP),                # Class 4
 ])
 def test_analyze_golden_classes(name, expected):
     result = analyze(name)  # default chip: the paper's grace-core model
@@ -310,6 +318,9 @@ def test_analyze_golden_classes(name, expected):
     ("kernel/jacobi2d", PerfClass.MEMORY_BANDWIDTH_BOUND, "memory-bound"),
     ("kernel/spmv", PerfClass.MEMORY_LATENCY_BOUND, "memory-bound"),
     ("kernel/gemm", PerfClass.SPEEDUP, "compute-bound"),
+    ("kernel/qc-gate", PerfClass.MEMORY_BANDWIDTH_BOUND, "memory-bound"),
+    ("kernel/flash-decode", PerfClass.SPEEDUP, "memory-bound"),
+    ("kernel/flash-prefill", PerfClass.SPEEDUP, "memory-bound"),
 ])
 def test_h100_classes_are_pinned(name, expected, bound):
     """fp32 on the H100 model: VB 32, scalar knee 2.094 TFLOP/s / 3.35 TB/s
@@ -384,7 +395,8 @@ def test_analyze_sweep_order_and_jobs():
 
 def test_service_waves_and_report_equal_reference():
     names = ["kernel/gemm", "kernel/stream-triad", "kernel/jacobi2d",
-             "kernel/spmv"]
+             "kernel/spmv", "kernel/qc-gate", "kernel/flash-decode",
+             "kernel/flash-prefill"]
     svc = AnalysisService(max_batch=3, device="cpu")
     ref = RefService(max_batch=3, cache=ArtifactCache())
     for n in names:
@@ -392,7 +404,7 @@ def test_service_waves_and_report_equal_reference():
         ref.submit(n, chips=("grace-core", "tpu-v5e"), dtypes=("fp32", "bf16"))
     svc.run_until_drained()
     ref.run_until_drained()
-    assert svc.waves == ref.waves == 2
+    assert svc.waves == ref.waves == 3
     got, want = svc.report(), ref.report()
     assert got["kind"] == want["kind"] and got["schema"] == want["schema"]
     for key in ("requests", "cells", "waves", "max_batch", "jobs", "errors"):
@@ -452,17 +464,36 @@ def _cli(*argv):
 
 def test_cli_prints_a_json_report():
     proc = _cli("--device", "cpu", "--workloads", "kernel/gemm",
-                "kernel/spmv", "--chips", "grace-core", "h100")
+                "kernel/spmv", "kernel/qc-gate", "--chips", "grace-core",
+                "h100")
     assert proc.returncode == 0, proc.stderr
     report = json.loads(proc.stdout)
-    assert report["service"]["cells"] == 4
+    assert report["service"]["cells"] == 6
     classes = {(r["workload"], r["chip"]): r["perf_class"]
                for req in report["requests"] for r in req["results"]}
     assert classes == {("kernel/gemm", "grace-core"): 4,
                        ("kernel/gemm", "h100"): 4,
                        ("kernel/spmv", "grace-core"): 3,
-                       ("kernel/spmv", "h100"): 3}
+                       ("kernel/spmv", "h100"): 3,
+                       ("kernel/qc-gate", "grace-core"): 2,
+                       ("kernel/qc-gate", "h100"): 2}
     assert "MEMORY_LATENCY_BOUND" in proc.stderr  # the table
+
+
+def test_cli_drains_every_kernel_workload_by_default():
+    """With no --workloads the service analyses the seven kernel workloads,
+    the reference's, timing each ROI on --device."""
+    proc = _cli("--device", "cpu", "--chips", "h100", "--time-roi")
+    assert proc.returncode == 0, proc.stderr
+    report = json.loads(proc.stdout)
+    got = {r["workload"]: (r["perf_class"], r["wall_s"] > 0)
+           for req in report["requests"] for r in req["results"]}
+    assert sorted(got) == ref_list_workloads(tags=("kernel",))
+    assert all(timed for _, timed in got.values())
+    assert {n: c for n, (c, _) in got.items()} == {
+        "kernel/flash-decode": 4, "kernel/flash-prefill": 4,
+        "kernel/gemm": 4, "kernel/jacobi2d": 2, "kernel/qc-gate": 2,
+        "kernel/spmv": 3, "kernel/stream-triad": 2}
 
 
 def test_cli_refuses_what_is_not_ported_and_unknown_workloads(tmp_path):

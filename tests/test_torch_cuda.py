@@ -50,7 +50,8 @@ def _inputs(device, B, KV, G, D, bs, nb, dtype, seed=0):
 
 @pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2),
                                        (torch.float32, 1e-5)])
-@pytest.mark.parametrize("KV,G,D", [(12, 1, 64), (8, 2, 128), (2, 8, 64)])
+@pytest.mark.parametrize("KV,G,D", [(12, 1, 64), (8, 2, 128), (2, 8, 64),
+                                    (4, 1, 16), (2, 4, 16), (4, 2, 32)])
 @pytest.mark.parametrize("bs,nb", [(16, 8), (8, 5), (32, 3)])
 def test_kernel_matches_plain(cuda, dtype, tol, KV, G, D, bs, nb):
     args = _inputs(cuda, 4, KV, G, D, bs, nb, dtype)
@@ -79,7 +80,7 @@ def test_kernel_never_reads_rows_past_valid_len(cuda):
 
 
 def test_kernel_refuses_what_it_was_not_built_for(cuda):
-    args = _inputs(cuda, 2, 2, 1, 32, 16, 2, torch.float32)
+    args = _inputs(cuda, 2, 2, 1, 48, 16, 2, torch.float32)
     with pytest.raises(ValueError, match="head dim"):
         kernel.flash_decode_paged(*args)
     args = _inputs(cuda, 2, 2, 1, 64, 16, 2, torch.float32)
@@ -139,7 +140,8 @@ def _run_prefill(fn, args):
 
 @pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2),
                                        (torch.float32, 1e-5)])
-@pytest.mark.parametrize("KV,G,D", [(12, 1, 64), (8, 2, 128), (2, 8, 64)])
+@pytest.mark.parametrize("KV,G,D", [(12, 1, 64), (8, 2, 128), (2, 8, 64),
+                                    (4, 1, 16), (2, 4, 16), (4, 2, 32)])
 @pytest.mark.parametrize("C,bs,nb", [(11, 16, 8), (32, 8, 9), (5, 32, 3)])
 def test_prefill_kernel_matches_plain(cuda, dtype, tol, KV, G, D, C, bs, nb):
     args = _prefill_inputs(cuda, 4, C, KV, G, D, bs, nb, dtype)
@@ -177,7 +179,7 @@ def test_prefill_kernel_stale_and_foreign_blocks_are_inert(cuda):
 
 
 def test_prefill_kernel_refuses_what_it_was_not_built_for(cuda):
-    args = _prefill_inputs(cuda, 3, 4, 2, 1, 32, 16, 2, torch.float32)
+    args = _prefill_inputs(cuda, 3, 4, 2, 1, 48, 16, 2, torch.float32)
     with pytest.raises(ValueError, match="head dim"):
         kernel.flash_prefill_paged(*args)
     args = _prefill_inputs(cuda, 3, 4, 1, 1, 128, 128, 2, torch.float32)
@@ -333,3 +335,131 @@ def test_analysis_times_the_roi_on_the_card(cuda):
     before = gemm_kernel.gemm.launches
     r = analyze("kernel/gemm", hw.H100, time_roi=True, device="cuda")
     assert r.wall_s > 0 and gemm_kernel.gemm.launches == before + 2
+
+
+# -- the contiguous flash-decode and the RX gate --------------------------------
+# Tolerances: flash-decode as the paged kernel's (bf16 2e-2, f32 1e-5); the
+# RX gate bit-equal to its plain version (both round every operation to
+# the planes' dtype).
+
+from repro_torch.kernels.flash_decode import kernel as fd_kernel  # noqa: E402
+from repro_torch.kernels.qc_gate import kernel as qc_kernel  # noqa: E402
+from repro_torch.kernels.qc_gate import ops as qc_ops  # noqa: E402
+
+
+def _dense_inputs(device, B, KV, G, D, S, dtype, seed=0):
+    """q, k, v and ragged lengths with 0, 1, S and a tile edge among them."""
+    rng = np.random.default_rng(seed)
+    q, k, v = [torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+               .to(device=device, dtype=dtype)
+               for s in ((B, KV, G, D), (B, S, KV, D), (B, S, KV, D))]
+    valid = rng.integers(1, S + 1, size=B)
+    valid[:4] = (0, 1, S, fd_kernel.DECODE_TILE)
+    return [q, k, v, torch.from_numpy(valid.astype(np.int32)).to(device)]
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2),
+                                       (torch.float32, 1e-5)])
+@pytest.mark.parametrize("D", [16, 32, 64, 128])
+@pytest.mark.parametrize("G", [1, 2, 4, 8])
+def test_dense_decode_kernel_matches_plain(cuda, dtype, tol, D, G):
+    args = _dense_inputs(cuda, 5, 2, G, D, 200, dtype)
+    before = fd_kernel.flash_decode.launches
+    out = fd_kernel.flash_decode(*args)
+    torch.cuda.synchronize()
+    assert fd_kernel.flash_decode.launches == before + 1
+    assert out.dtype == dtype and not out[0].any()
+    torch.testing.assert_close(out.float(),
+                               fd_kernel.flash_decode_plain(*args).float(),
+                               rtol=tol, atol=tol)
+
+
+def test_dense_decode_kernel_never_reads_rows_past_valid_len(cuda):
+    q, k, v, valid = _dense_inputs(cuda, 6, 2, 4, 64, 300, torch.float32,
+                                   seed=1)
+    out1 = fd_kernel.flash_decode(q, k, v, valid)
+    live = torch.arange(300, device=cuda)[None, :] < valid[:, None]
+    k2, v2 = k.clone(), v.clone()
+    k2[~live] = 1e4
+    v2[~live] = float("nan")
+    out2 = fd_kernel.flash_decode(q, k2, v2, valid)
+    torch.testing.assert_close(out1, out2, rtol=0, atol=0)
+
+
+def test_dense_decode_kernel_refuses_what_it_was_not_built_for(cuda):
+    args = _dense_inputs(cuda, 4, 2, 1, 48, 64, torch.float32)
+    with pytest.raises(ValueError, match="head dim"):
+        fd_kernel.flash_decode(*args)
+    args = _dense_inputs(cuda, 4, 2, 1, 64, 64, torch.float32)
+    with pytest.raises(ValueError, match="one device"):
+        fd_kernel.flash_decode(*args[:3], args[3].cpu())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [6, 12, 20])
+@pytest.mark.parametrize("theta", [0.25, 1.1, 6.283185307179586])
+def test_rx_gate_kernel_matches_plain(cuda, dtype, n, theta):
+    g = torch.Generator(device=cuda).manual_seed(n)
+    re, im = (torch.randn((1 << n,), device=cuda, generator=g).to(dtype)
+              for _ in range(2))
+    for qubit in sorted({0, 1, 4, 5, n - 1}):
+        before = qc_kernel.rx_gate.launches
+        got = qc_kernel.rx_gate(re, im, qubit, theta)
+        torch.cuda.synchronize()
+        assert qc_kernel.rx_gate.launches == before + 1
+        want = qc_kernel.rx_gate_plain(re, im, qubit, theta)
+        for a, b in zip(got, want):
+            assert a.dtype == dtype and torch.equal(a, b), qubit
+
+
+def test_rx_layer_on_the_card_matches_plain_and_keeps_the_norm(cuda):
+    re, im = qc_ops.zero_state(16, device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    re, im = (torch.randn(re.shape, device=cuda, generator=g)
+              for _ in range(2))
+    o_re, o_im = qc_ops.rx_layer(re, im, 16, 0.3)
+    p_re, p_im = re, im
+    for q in range(16):
+        p_re, p_im = qc_kernel.rx_gate_plain(p_re, p_im, q, 0.3)
+    assert torch.equal(o_re, p_re) and torch.equal(o_im, p_im)
+    norm = lambda a, b: float((a.double() ** 2 + b.double() ** 2).sum())  # noqa: E731
+    assert norm(o_re, o_im) == pytest.approx(norm(re, im), rel=1e-5)
+
+
+@pytest.mark.parametrize("name,counter", [
+    ("kernel/qc-gate", lambda: qc_kernel.rx_gate),
+    ("kernel/flash-decode", lambda: fd_kernel.flash_decode),
+    ("kernel/flash-prefill", lambda: fd_kernel.flash_prefill_paged),
+])
+def test_new_workloads_time_their_rois_on_the_card(cuda, name, counter):
+    from repro_torch.analysis import analyze
+    from repro_torch.core import hw
+
+    before = counter().launches
+    r = analyze(name, hw.H100, time_roi=True, device="cuda")
+    assert r.wall_s > 0 and counter().launches == before + 2
+
+
+def test_default_serve_cli_on_the_card_matches_the_cpu(cuda):
+    """``python -m repro_torch.launch.serve`` with its defaults (gpt2-124m
+    smoke, head dim 16, f32, ``--device cuda``) gives the streams of the
+    same command on the CPU."""
+    import contextlib
+    import io
+
+    from repro_torch.launch import serve as serve_cli
+
+    streams = {}
+    for argv in ([], ["--device", "cpu"]):
+        args = serve_cli.parse_args(argv)
+        engine = serve_cli.make_engine(args)
+        engine.warmup()
+        before = kernel.flash_decode_paged.launches
+        with contextlib.redirect_stdout(io.StringIO()):
+            report = serve_cli.serve(args, engine)
+        launched = kernel.flash_decode_paged.launches - before
+        assert launched == (engine.cfg.n_layers
+                            * report["stats"]["fused_steps"]
+                            if args.device == "cuda" else 0)
+        streams[args.device] = [r["tokens"] for r in report["requests"]]
+    assert streams["cuda"] == streams["cpu"]

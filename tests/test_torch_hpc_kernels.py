@@ -420,13 +420,11 @@ def test_kernel_surface_raises_on_cpu_tensors(name, args):
 
 
 def test_registry_lists_the_ported_kernels():
-    assert registry.list_kernels() == sorted([
-        "gemm", "stream-copy", "stream-scale", "stream-add", "stream-triad",
-        "spmv", "spmv-fixed-width", "jacobi2d"])
-    for name in registry.list_kernels():
-        assert name in jreg.KERNELS
+    """Every kernel of the reference's registry is ported (its 11 names)."""
+    assert registry.list_kernels() == sorted(jreg.KERNELS)
+    assert len(registry.list_kernels()) == 11
     with pytest.raises(KeyError, match="unknown kernel"):
-        registry.get_kernel("qc-gate")
+        registry.get_kernel("nope")
 
 
 def test_plain_versions_do_not_launch_kernels():

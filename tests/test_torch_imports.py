@@ -41,7 +41,7 @@ def test_port_modules_import_no_jax_and_no_reference():
                           timeout=120)
     assert proc.returncode == 0, proc.stderr
     n_modules = int(proc.stdout.split()[0])
-    assert n_modules >= 49  # every module of the three slices was walked
+    assert n_modules >= 54  # every module of the four slices was walked
 
 
 @pytest.mark.parametrize(
