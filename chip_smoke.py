@@ -18,8 +18,20 @@ non-zero):
             chunked prefill (commit + causal attention) with ragged
             q_start and q_len (0, 1 and the whole chunk), pools compared
             through the tables and blocks no table names left untouched.
-            Then timings at the serve phases' shapes (median of CUDA-event
-            timings) beside each kernel's bound and a library yardstick.
+            Then the same two kernels on int8 pools (per-row fp32 scales)
+            and on bf16 pools under an f32 q, at every head shape (D 16,
+            32, 64, 128): outputs within tolerance, committed codes, rows
+            and scales bit-equal through the tables, unnamed blocks and
+            scales untouched, and rows and scales past each slot's length
+            poisoned (codes +-127, scales 1e4 / NaN) without effect.
+            The quantized cases are held per element to 1e-5 plus one ulp
+            of a bf16 output (``decode_close``).  Then timings at the
+            serve phases' shapes (median of CUDA-event timings) beside
+            each kernel's bound and a library yardstick: bf16 pools, then
+            int8 pools beside the same-shape bf16 call, and the commit
+            kernel alone at a decode step's shapes into bf16 pools (beside
+            the two ``index_put_`` calls that write the same rows) and
+            int8 pools.
    kernel-hpc  the STREAM, Jacobi2D, GEMM and SpMV kernels against their
             plain versions: odd, misaligned and edge shapes, fp32/bf16
             (and fp16 for STREAM), SpMV rows of 0, 1 and 128 nonzeros.
@@ -45,7 +57,9 @@ non-zero):
             is above 1.05.
 4. serve    ``repro_torch.launch.serve`` at the full width of gpt2-124m
             (bf16): every request completes, and the decode kernel runs 12
-            times (once per layer) per fused step.
+            times (once per layer) per fused step, each launch after one
+            of the commit kernel (every serve phase commits a decode
+            step's rows through it).
    profile  a second, shorter drain of that engine under torch.profiler:
             the device's busy time by kernel against the wall time.
 5. serve-chunked  the same CLI at the full width of qwen3-1.7b (bf16, all
@@ -53,6 +67,16 @@ non-zero):
             the decode and prefill kernels together run 28 times per fused
             step, each at least once.
    profile  the same profile over a second drain of that engine.
+   serve-shared-int8  the same CLI at qwen3-1.7b's full width with int8 KV
+            pools and a shared 256-token prompt prefix (prompts 64..256
+            after it), with ``--share-prefixes`` and then without, on the
+            same weights: every request completes, the streams are equal,
+            sharing stores fewer physical blocks (dedup ratio > 1), the
+            int8 kernels launch 28 times a fused step (one commit a decode
+            launch); then two identical prompts copy on write at their
+            first generated token with the unshared streams.  Prints the
+            int8 pool bytes beside a bf16 pool's for the same blocks, and
+            the phase's seconds.
    serve-smoke  ``python -m repro_torch.launch.serve`` with its defaults
             (gpt2-124m smoke, head dim 16, f32) on the card: its greedy
             streams equal the same command's with ``--device cpu``.
@@ -60,6 +84,11 @@ non-zero):
             at full width token by token, and qwen3-1.7b at full width cut
             to 4 layers, chunked on the card, chunked on the CPU and token
             by token on the card, all in float32.
+   parity-int8  qwen3-1.7b at full width cut to 4 layers, float32, int8
+            pools: teacher-forced logits on the card within 0.03 of the
+            CPU's, and within the reference's qwen3 int8 budget (0.11) of
+            the card's f32 cache; the card's int8 run launches the commit,
+            decode and prefill kernels on int8 pools.
 
 Then the ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last the
 ``{"ok": true, "device": ...}`` line.  Without CUDA, or outside a checkout,
@@ -102,7 +131,21 @@ CHUNKED_ARGV = ["--arch", "qwen3-1.7b", "--no-smoke", "--max-batch", "8",
                 "--prompt-lo", "64", "--prompt-hi", "512", "--max-new", "32",
                 "--prefill-chunk", "64", "--prefill-budget", "256",
                 "--device", "cuda"]
+SHARED_ARGV = ["--arch", "qwen3-1.7b", "--no-smoke", "--max-batch", "8",
+               "--max-len", "1024", "--block-size", "16", "--requests", "16",
+               "--prompt-lo", "64", "--prompt-hi", "256", "--max-new", "32",
+               "--prefill-chunk", "64", "--prefill-budget", "256",
+               "--kv-dtype", "int8", "--shared-prefix-len", "256",
+               "--device", "cuda"]
 PARITY_REQUESTS, PARITY_NEW, PARITY_TOP2_GAP = 4, 8, 1e-3
+#: the reference's teacher-forced budget for qwen3-1.7b int8 pools against
+#: its f32 cache
+PARITY_INT8_BUDGET = 0.11
+#: int8 logits on the card against the CPU's: about twice the 0.0144
+#: measured on an H100, and below the 0.085 that int8 is from f32 there
+PARITY_INT8_CARD_CPU = 0.03
+#: decode_close's tolerance, as printed beside a kernel's error
+CLOSE_TOL = "1e-5 abs + 1e-5 rel, + one ulp of a bf16 output"
 PROFILE_REQUESTS, PROFILE_NEW = 8, 16
 SOURCE_DIR = "src/repro_torch/kernels/flash_decode/csrc/"
 TPU_KERNELS = "src/repro/kernels/flash_decode/kernel.py"
@@ -145,6 +188,23 @@ def device_ms(torch, fn, reps: int = 100, warmup: int = 10) -> float:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def host_us(torch, fn, reps: int = 200, rounds: int = 5) -> float:
+    """Median host time of one call of ``fn()`` in us: ``reps`` calls
+    enqueued back to back on an idle card, over ``rounds`` rounds.  Valid
+    while the host is slower than the card, so the queue never fills."""
+    for _ in range(10):
+        fn()
+    times = []
+    for _ in range(rounds):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        times.append((time.perf_counter() - t0) / reps * 1e6)
+    torch.cuda.synchronize()
     return statistics.median(times)
 
 
@@ -436,6 +496,358 @@ def prefill_timing(torch, np, kernel, ref):
           "G": G, "D": D, "bs": bs, "nb": nb, "dtype": "bfloat16",
           "rows_per_block": kernel.prefill_rows_per_block(C, G, D, bs, nb),
           "q_start": q_start.tolist(), "host_waits": waits, **row})
+    return row
+
+
+# -- quantized paging: int8 and bf16-under-f32 pools --------------------------
+
+def as_pools(torch, ref, k_pool, v_pool, pool_dtype):
+    """(k_pool, v_pool, k_scale, v_scale) in ``pool_dtype`` from pools of
+    another dtype: int8 by the plain quantizer, with its scales, or a
+    cast with no scales."""
+    if pool_dtype == torch.int8:
+        (kq, ks), (vq, vs) = (ref.quantize_rows(k_pool),
+                              ref.quantize_rows(v_pool))
+        return kq, vq, ks, vs
+    return k_pool.to(pool_dtype), v_pool.to(pool_dtype), None, None
+
+
+def poison_rows(torch, pools, bt, first, bs):
+    """Copies of ``pools`` (k, v, k_scale, v_scale; None kept) with every
+    row of each slot's table at or past position ``first[b]`` poisoned:
+    int8 codes +127 / -127, scales 1e4 / NaN, float rows 1e4 / NaN."""
+    nb = bt.shape[1]
+    pos = torch.arange(nb * bs, device=bt.device)
+    mask = pos[None, :] >= first.long()[:, None]
+    blk = bt.long()[:, pos // bs][mask]
+    row = (pos % bs)[None, :].expand_as(mask)[mask]
+    out = [None if t is None else t.clone() for t in pools]
+    for t, value in zip(out, (1e4, float("nan"), 1e4, float("nan"))):
+        if t is not None:
+            t[blk, row] = (127 if value == 1e4 else -127) \
+                if t.dtype == torch.int8 else value
+    return out
+
+
+def mixed_pairs(kernel) -> list:
+    """The kernels' (q dtype, pool dtype) pairs whose pools are not in q's
+    dtype, as dtype names."""
+    return [(dtype_name(q), dtype_name(p)) for q, p in kernel.POOL_PAIRS
+            if q != p]
+
+
+def check_quantized_decode(torch, np, kernel, ref):
+    """Kernel #1 on int8 pools (per-row scales) and bf16 pools under an f32
+    q against its plain version at every head shape, shuffled tables and
+    ragged lengths; then the rows and scales past each slot's length
+    poisoned, which must leave the kernel's output bit-identical."""
+    B, bs, nb = KERNEL_B, KERNEL_BS, KERNEL_NB
+    rng = np.random.default_rng(0)
+    valid = rng.integers(1, nb * bs + 1, size=B)
+    valid[:4] = (1, bs, bs + 1, nb * bs)
+    for arch, (KV, G, D) in {**ARCH_HEADS, **SMALL_HEADS}.items():
+        for q_name, pool_name in mixed_pairs(kernel):
+            q, kp, vp, bt, vl = paged_inputs(torch, B, KV, G, D, bs, nb,
+                                             torch.float32, valid.tolist(),
+                                             seed=1)
+            q = q.to(getattr(torch, q_name))
+            pools = as_pools(torch, ref, kp, vp, getattr(torch, pool_name))
+            out = kernel.flash_decode_paged(q, pools[0], pools[1], bt, vl,
+                                            *pools[2:])
+            torch.cuda.synchronize()
+            want = ref.flash_decode_paged_ref(q, pools[0], pools[1], bt, vl,
+                                              *pools[2:])
+            err, ok = decode_close(torch, out, want)
+            rms = want.float().square().mean().sqrt().item()
+            bad = poison_rows(torch, pools, bt, vl, bs)
+            out2 = kernel.flash_decode_paged(q, bad[0], bad[1], bt, vl,
+                                             *bad[2:])
+            inert = torch.equal(out, out2)
+            emit({"phase": "kernel", "kernel": "flash_decode_paged",
+                  "arch_heads": arch, "dtype": q_name, "pool": pool_name,
+                  "B": B, "KV": KV, "G": G, "D": D, "bs": bs, "nb": nb,
+                  "max_abs_err": err, "err_over_rms": err / rms,
+                  "tol": CLOSE_TOL, "ok": ok,
+                  "poisoned_past_valid_len_inert": inert})
+            require(ok and inert,
+                    f"decode kernel != plain for {arch} {q_name} q, "
+                    f"{pool_name} pools: max abs err {err} (tolerance "
+                    f"{CLOSE_TOL}), poisoned rows inert {inert}")
+
+
+def check_quantized_prefill(torch, np, kernel, ref):
+    """Kernel #2 on int8 pools and bf16 pools under an f32 q against its
+    plain version: rows below q_len within tolerance and zeros past it,
+    committed codes, rows and scales bit-equal through the tables, blocks
+    and scales no table names untouched; then the rows and scales past
+    each slot's chunk frontier poisoned, which must leave the output
+    bit-identical."""
+    B, C, bs, nb = PREFILL_B, PREFILL_C, KERNEL_BS, PREFILL_NB
+    rng = np.random.default_rng(4)
+    q_len = rng.integers(0, C + 1, size=B)
+    q_len[:4] = (0, 1, C, C)
+    q_start = rng.integers(0, nb * bs - C + 1, size=B)
+    q_start[:4] = (5, 0, bs, 3 * bs - 7)
+    for arch, (KV, G, D) in {**ARCH_HEADS, **SMALL_HEADS}.items():
+        for q_name, pool_name in mixed_pairs(kernel):
+            args = prefill_inputs(torch, B, C, KV, G, D, bs, nb,
+                                  torch.float32, q_start.tolist(),
+                                  q_len.tolist(), seed=5)
+            dt = getattr(torch, q_name)
+            q, k_new, v_new = (t.to(dt) for t in args[:3])
+            pools = as_pools(torch, ref, args[3], args[4],
+                             getattr(torch, pool_name))
+            bt, qs, ql = args[5:]
+
+            def run(fn, pools):
+                mine = [None if t is None else t.clone() for t in pools]
+                out = fn(q, k_new, v_new, mine[0], mine[1], bt, qs, ql,
+                         *mine[2:])
+                torch.cuda.synchronize()
+                return out, mine
+
+            out, got = run(kernel.flash_prefill_paged, pools)
+            want, exp = run(ref.flash_prefill_paged_ref, pools)
+            valid = (torch.arange(C, device="cuda")[None, :]
+                     < ql[:, None])
+            err, ok_rows = decode_close(torch, out[valid], want[valid])
+            rms = want[valid].float().square().mean().sqrt().item()
+            ok_zeros = not out[~valid].any().item()
+            named = bt.long()
+            unnamed = torch.ones(pools[0].shape[0], dtype=torch.bool,
+                                 device="cuda")
+            unnamed[named.reshape(-1)] = False
+            ok_pools = ok_foreign = True
+            for g, e, before in zip(got, exp, pools):
+                if g is None:
+                    continue
+                ok_pools &= torch.equal(g[named], e[named])
+                ok_foreign &= torch.equal(g[unnamed], before[unnamed])
+            bad = poison_rows(torch, got, bt, qs + ql, bs)
+            out2, _ = run(kernel.flash_prefill_paged, bad)
+            inert = torch.equal(out, out2)
+            emit({"phase": "kernel", "kernel": "flash_prefill_paged",
+                  "arch_heads": arch, "dtype": q_name, "pool": pool_name,
+                  "B": B, "C": C, "KV": KV, "G": G, "D": D, "bs": bs,
+                  "nb": nb, "max_abs_err": err, "err_over_rms": err / rms,
+                  "tol": CLOSE_TOL, "rows_ok": ok_rows,
+                  "zeros_past_q_len": ok_zeros,
+                  "codes_scales_equal": bool(ok_pools),
+                  "unnamed_blocks_untouched": bool(ok_foreign),
+                  "poisoned_past_frontier_inert": inert})
+            require(ok_rows and ok_zeros and ok_pools and ok_foreign
+                    and inert,
+                    f"prefill kernel != plain for {arch} {q_name} q, "
+                    f"{pool_name} pools: rows {ok_rows} (max abs err {err}, "
+                    f"tolerance {CLOSE_TOL}), zeros {ok_zeros}, pools "
+                    f"{ok_pools}, "
+                    f"unnamed {ok_foreign}, poisoned inert {inert}")
+
+
+def quantized_decode_timing(torch, np, kernel, ref):
+    """Kernel #1 on int8 pools at the qwen3-1.7b serve shapes of row 1 (8
+    slots, 64 blocks of 16, bf16 q, lengths over 1..544), beside the same
+    call on bf16 pools, its plain version, and a library composite:
+    dequantize the gathered, expanded codes to bf16, then one SDPA call."""
+    import torch.nn.functional as F
+
+    B, bs, nb = 8, 16, 64
+    KV, G, D = ARCH_HEADS["qwen3-1.7b"]
+    valid = np.random.default_rng(8).integers(1, 512 + 32 + 1, size=B)
+    q, kp, vp, bt, vl = paged_inputs(torch, B, KV, G, D, bs, nb,
+                                     torch.float32, valid.tolist(), seed=9)
+    q = q.to(torch.bfloat16)
+    kq, vq, ks, vs = as_pools(torch, ref, kp, vp, torch.int8)
+    kb, vb = kp.to(torch.bfloat16), vp.to(torch.bfloat16)
+    args = (q, kq, vq, bt, vl, ks, vs)
+    out = kernel.flash_decode_paged(*args)
+    want = ref.flash_decode_paged_ref(*args)
+    err, ok = decode_close(torch, out, want)
+    rms = want.float().square().mean().sqrt().item()
+    require(ok, f"int8 decode kernel != plain at serve shapes: max abs err "
+                f"{err} (tolerance {CLOSE_TOL})")
+    tol = TOLERANCE["bfloat16"]
+
+    S = nb * bs
+    idx = bt.long()
+
+    def expand(pool):  # (B, KV*G, S, ...) gathered beforehand
+        g = pool[idx].reshape(B, S, KV, *pool.shape[3:]).transpose(1, 2)
+        return g.repeat_interleave(G, dim=1).contiguous()
+
+    kc, vc = expand(kq), expand(vq)
+    ksc = ks[idx].reshape(B, 1, S, 1).expand(B, KV * G, S, 1).contiguous()
+    vsc = vs[idx].reshape(B, 1, S, 1).expand(B, KV * G, S, 1).contiguous()
+    qh = q.reshape(B, KV * G, 1, D)
+    mask = (torch.arange(S, device="cuda")[None, :] < vl[:, None])
+    mask = mask[:, None, None, :]
+
+    def library():
+        k = (kc.float() * ksc).to(torch.bfloat16)
+        v = (vc.float() * vsc).to(torch.bfloat16)
+        return F.scaled_dot_product_attention(qh, k, v, attn_mask=mask)
+
+    lib_err = (library().reshape(out.shape).float()
+               - want.float()).abs().max().item()
+    require(lib_err <= 2 * tol, f"dequantize + SDPA disagrees: {lib_err}")
+    bound_ms, bound_by = bound(ref.work_terms(q, kq, bt, valid, True),
+                               "bfloat16")
+    row = {
+        "max_abs_err": err, "err_over_rms": err / rms,
+        "ms": device_ms(torch, lambda: kernel.flash_decode_paged(*args)),
+        "bf16_pools_ms": device_ms(torch, lambda: kernel.flash_decode_paged(
+            q, kb, vb, bt, vl)),
+        "plain_ms": device_ms(torch,
+                              lambda: ref.flash_decode_paged_ref(*args)),
+        "bound_ms": bound_ms, "bound_by": bound_by,
+        "bf16_pools_bound_ms": bound(ref.work_terms(q, kb, bt, valid),
+                                     "bfloat16")[0],
+        "library_ms": device_ms(torch, library),
+    }
+    emit({"phase": "kernel", "kernel": "flash_decode_paged",
+          "shapes": "serve qwen3-1.7b", "B": B, "KV": KV, "G": G, "D": D,
+          "bs": bs, "nb": nb, "dtype": "bfloat16", "pool": "int8",
+          "valid_len": valid.tolist(), **row})
+    return row
+
+
+def quantized_prefill_timing(torch, np, kernel, ref):
+    """Kernel #2 with the quantizing commit and the dequantizing attend at
+    row 2's shapes (8 slots, chunks of 64, qwen3-1.7b heads, 64 blocks of
+    16, bf16 q, int8 pools), beside the same call on bf16 pools, its plain
+    version, and a library composite: quantize the rows, ``index_put_``
+    codes and scales, dequantize the gathered codes to bf16, one causal
+    SDPA call."""
+    import torch.nn.functional as F
+
+    B, C, bs, nb = PREFILL_B, PREFILL_C, KERNEL_BS, PREFILL_NB
+    KV, G, D = ARCH_HEADS["qwen3-1.7b"]
+    q_start = np.random.default_rng(6).integers(0, 449, size=B)
+    q_len = np.full(B, C)
+    args = prefill_inputs(torch, B, C, KV, G, D, bs, nb, torch.bfloat16,
+                          q_start.tolist(), q_len.tolist(), seed=7)
+    q, k_new, v_new, kb, vb, bt, qs, ql = args
+    kq, vq, ks, vs = as_pools(torch, ref, kb.float(), vb.float(), torch.int8)
+    qargs = (q, k_new, v_new, kq, vq, bt, qs, ql, ks, vs)
+    out = kernel.flash_prefill_paged(*qargs)   # commits into the pools
+    want = ref.flash_prefill_paged_ref(*qargs)
+    err, ok = decode_close(torch, out, want)
+    rms = want.float().square().mean().sqrt().item()
+    require(ok, f"int8 prefill kernel != plain at serve shapes: max abs err "
+                f"{err} (tolerance {CLOSE_TOL})")
+    tol = TOLERANCE["bfloat16"]
+
+    S = nb * bs
+    pos = qs.long()[:, None] + torch.arange(C, device="cuda")
+    flat = (bt.long().gather(1, pos // bs) * bs + pos % bs).reshape(-1)
+    k_rows = k_new.reshape(-1, KV, D)
+    v_rows = v_new.reshape(-1, KV, D)
+    idx = bt.long()
+
+    def expand(pool):
+        g = pool[idx].reshape(B, S, KV, *pool.shape[3:]).transpose(1, 2)
+        return g.repeat_interleave(G, dim=1).contiguous()
+
+    kc, vc = expand(kq), expand(vq)
+    ksc = ks[idx].reshape(B, 1, S, 1).expand(B, KV * G, S, 1).contiguous()
+    vsc = vs[idx].reshape(B, 1, S, 1).expand(B, KV * G, S, 1).contiguous()
+    qh = q.reshape(B, C, KV * G, D).transpose(1, 2)
+    mask = (torch.arange(S, device="cuda")[None, None, :]
+            <= pos[:, :, None])[:, None]
+
+    def library():
+        for rows, pool, scale in ((k_rows, kq, ks), (v_rows, vq, vs)):
+            codes, s = ref.quantize_rows(rows)
+            pool.view(-1, KV, D).index_put_((flat,), codes)
+            scale.view(-1).index_put_((flat,), s)
+        k = (kc.float() * ksc).to(torch.bfloat16)
+        v = (vc.float() * vsc).to(torch.bfloat16)
+        return F.scaled_dot_product_attention(qh, k, v, attn_mask=mask)
+
+    lib = library().transpose(1, 2).reshape(out.shape)
+    lib_err = (lib.float() - want.float()).abs().max().item()
+    require(lib_err <= 2 * tol, f"library composite disagrees: {lib_err}")
+    bound_ms, bound_by = bound(ref.prefill_work_terms(
+        q, kq, bt, q_start, q_len, True), "bfloat16")
+    rows = ref.commit_rows(bt, qs, ql, C, bs)
+    timed = {"ms": lambda: kernel.flash_prefill_paged(*qargs),
+             "bf16_pools_ms": lambda: kernel.flash_prefill_paged(*args),
+             "plain_ms": lambda: ref.flash_prefill_paged_ref(*qargs,
+                                                             rows=rows),
+             "library_ms": library}
+    waits = {key: host_waits(torch, fn) for key, fn in timed.items()}
+    require(not any(waits["plain_ms"]),
+            f"the timed plain version waits for the device: {waits}")
+    row = {"max_abs_err": err, "err_over_rms": err / rms,
+           **{key: device_ms(torch, fn) for key, fn in timed.items()},
+           "bound_ms": bound_ms, "bound_by": bound_by}
+    emit({"phase": "kernel", "kernel": "flash_prefill_paged",
+          "shapes": "serve qwen3-1.7b chunked", "B": B, "C": C, "KV": KV,
+          "G": G, "D": D, "bs": bs, "nb": nb, "dtype": "bfloat16",
+          "pool": "int8", "rows_per_block": kernel.prefill_rows_per_block(
+              C, G, D, bs, nb, True),
+          "q_start": q_start.tolist(), "host_waits": waits, **row})
+    return row
+
+
+def commit_timing(torch, np, kernel, ref, pool_dtype):
+    """The commit kernel alone, as a decode step of the serve phases runs
+    it: one row for each of 8 slots, qwen3-1.7b heads, bf16 rows into
+    pools of 64 blocks of 16 in ``pool_dtype`` (bf16 or int8); checked
+    bit-equal to its plain version (codes and scales for int8), and timed
+    beside it.  With bf16 pools the library yardstick is the two
+    ``index_put_`` calls that write the same rows; no one library call
+    quantizes rows.  The host's time a call is measured too, for the
+    commit as a decode layer calls it (with its ``q_len`` of ones made
+    there) and for the two ``index_put_`` calls: the serve steps are
+    host-bound."""
+    B, bs, nb = 8, 16, 64
+    KV, G, D = ARCH_HEADS["qwen3-1.7b"]
+    q_start = np.random.default_rng(10).integers(0, nb * bs, size=B)
+    args = prefill_inputs(torch, B, 1, KV, G, D, bs, nb, torch.bfloat16,
+                          q_start.tolist(), [1] * B, seed=11)
+    _, k_new, v_new, kb, vb, bt, qs, ql = args
+    pools = as_pools(torch, ref, kb.float(), vb.float(), pool_dtype)
+    quantized = pool_dtype == torch.int8
+    got = [None if t is None else t.clone() for t in pools]
+    exp = [None if t is None else t.clone() for t in pools]
+    kernel.commit_paged(k_new, v_new, got[0], got[1], bt, qs, ql, *got[2:])
+    ref.commit_paged_ref(k_new, v_new, exp[0], exp[1], bt, qs, ql, *exp[2:])
+    torch.cuda.synchronize()
+    pairs = [(g, e) for g, e in zip(got, exp) if g is not None]
+    err = max((g.float() - e.float()).abs().max().item() for g, e in pairs)
+    require(all(torch.equal(g, e) for g, e in pairs),
+            f"commit kernel != plain into {dtype_name(pool_dtype)} pools: "
+            f"pools or scales differ by up to {err}")
+    src, dst = ref.commit_rows(bt, qs, ql, 1, bs)
+    k_rows = k_new.reshape(-1, KV, D)[src]
+    v_rows = v_new.reshape(-1, KV, D)[src]
+
+    def library():
+        got[0].view(-1, KV, D).index_put_((dst,), k_rows)
+        got[1].view(-1, KV, D).index_put_((dst,), v_rows)
+
+    bound_ms, bound_by = bound(ref.commit_work_terms(k_new, got[0], [1] * B,
+                                                     quantized), "bfloat16")
+    def layer_commit():
+        kernel.commit_paged(k_new, v_new, got[0], got[1], bt, qs,
+                            torch.ones_like(qs), *got[2:])
+
+    row = {"max_abs_err": err,
+           "ms": device_ms(torch, lambda: kernel.commit_paged(
+               k_new, v_new, got[0], got[1], bt, qs, ql, *got[2:])),
+           "plain_ms": device_ms(torch, lambda: ref.commit_paged_ref(
+               k_new, v_new, exp[0], exp[1], bt, qs, ql, *exp[2:],
+               rows=(src, dst))),
+           "bound_ms": bound_ms, "bound_by": bound_by,
+           "library_ms": None if quantized else device_ms(torch, library)}
+    host = {"commit_paged": host_us(torch, layer_commit)}
+    if not quantized:
+        host["index_put_x2"] = host_us(torch, library)
+    emit({"phase": "kernel", "kernel": "commit_paged", "host_us": host,
+          "shapes": "serve qwen3-1.7b decode step", "B": B, "C": 1,
+          "KV": KV, "D": D, "bs": bs, "nb": nb, "dtype": "bfloat16",
+          "pool": dtype_name(pool_dtype), **row})
     return row
 
 
@@ -1229,14 +1641,17 @@ def phase_analysis(torch, np, problems):
 # -- serving ------------------------------------------------------------------
 
 
+#: the serve path's kernel wrappers, each with its launch count
+SERVE_KERNELS = ("flash_decode_paged", "flash_prefill_paged", "commit_paged")
+
+
 def reset_counts(kernel) -> None:
-    kernel.flash_decode_paged.launches = 0
-    kernel.flash_prefill_paged.launches = 0
+    for name in SERVE_KERNELS:
+        getattr(kernel, name).launches = 0
 
 
 def read_counts(kernel) -> dict:
-    return {"flash_decode_paged": kernel.flash_decode_paged.launches,
-            "flash_prefill_paged": kernel.flash_prefill_paged.launches}
+    return {name: getattr(kernel, name).launches for name in SERVE_KERNELS}
 
 
 def check_first_step(torch, engine, args) -> None:
@@ -1247,14 +1662,16 @@ def check_first_step(torch, engine, args) -> None:
     cfg = engine.cfg
     B, nb = args.max_batch, args.max_len // args.block_size
     cache = transformer.init_paged_cache(cfg, B, args.max_len,
-                                         args.block_size, "cuda")
+                                         args.block_size, "cuda",
+                                         kv_dtype=args.kv_dtype)
     bt = torch.arange(1, 1 + B * nb, dtype=torch.int32,
                       device="cuda").reshape(B, nb)
     zeros = torch.zeros(B, dtype=torch.int32, device="cuda")
     logits, _ = transformer.decode_step_paged(
         engine.params, cfg, torch.ones((B, 1), dtype=torch.int32,
                                        device="cuda"),
-        cache, zeros, bt, block_size=args.block_size)
+        cache, zeros, bt, block_size=args.block_size,
+        kv_dtype=args.kv_dtype)
     checks = [logits]
     if args.prefill_chunk > 1:
         C = args.prefill_chunk
@@ -1263,7 +1680,7 @@ def check_first_step(torch, engine, args) -> None:
             engine.params, cfg, torch.ones((B, C), dtype=torch.int32,
                                            device="cuda"),
             cache, zeros + 1, bt, lens, block_size=args.block_size,
-            last_rows=lens - 1)
+            kv_dtype=args.kv_dtype, last_rows=lens - 1)
         checks.append(logits)
     for logits in checks:
         require(tuple(logits.shape) == (B, 1, cfg.vocab_padded),
@@ -1274,8 +1691,9 @@ def check_first_step(torch, engine, args) -> None:
 def phase_serve(torch, argv, phase):
     """Serve the CLI's traffic on the card.  The launch counts are set to
     0 just before the drain and read just after: every layer of every
-    fused step runs exactly one of the kernels, and each kernel the path
-    uses runs at least once."""
+    fused step runs exactly one of the attention kernels, each kernel the
+    path uses runs at least once, and every decode launch follows one
+    commit launch.  Returns (engine, counts, report)."""
     from repro_torch.kernels.flash_decode import kernel
     from repro_torch.launch import serve as serve_cli
 
@@ -1300,16 +1718,26 @@ def phase_serve(torch, argv, phase):
                 and all(0 <= t < cfg.vocab for t in r["tokens"])
                 for r in reqs), "a request's tokens are short or invalid")
     steps = stats["fused_steps"]
-    require(sum(counts.values()) == cfg.n_layers * steps,
+    attend = counts["flash_decode_paged"] + counts["flash_prefill_paged"]
+    require(attend == cfg.n_layers * steps,
             f"{counts} kernel launches for {steps} fused steps of "
             f"{cfg.n_layers} layers")
-    used = (["flash_decode_paged", "flash_prefill_paged"]
-            if args.prefill_chunk > 1 else ["flash_decode_paged"])
+    require(counts["commit_paged"] == counts["flash_decode_paged"],
+            f"{counts}: one commit launch per decode launch")
+    used = ["flash_decode_paged", "commit_paged"]
+    used += ["flash_prefill_paged"] if args.prefill_chunk > 1 else []
     require(all(counts[k] > 0 for k in used),
             f"a kernel of the path never launched: {counts}")
     emit({"phase": phase, "arch": cfg.name, "dtype": cfg.compute_dtype,
           "layers": cfg.n_layers, "prefill_chunk": args.prefill_chunk,
-          "prefill_budget": args.prefill_budget,
+          "prefill_budget": args.prefill_budget, "kv_dtype": args.kv_dtype,
+          "share_prefixes": args.share_prefixes,
+          "logical_blocks": stats["logical_blocks"],
+          "physical_blocks": stats["physical_blocks"],
+          "shared_block_hits": stats["shared_block_hits"],
+          "cow_copies": stats["cow_copies"],
+          "block_dedup_ratio": stats["block_dedup_ratio"],
+          "kv_bytes_stored": stats["kv_bytes_stored"],
           "requests": stats["requests"], "new_tokens": stats["new_tokens"],
           "prompt_tokens": sum(r["prompt_len"] for r in reqs),
           "fused_steps": steps, "launches": counts,
@@ -1321,7 +1749,7 @@ def phase_serve(torch, argv, phase):
           "slot_utilization": stats["slot_utilization"],
           "init_s": init_s,
           "peak_memory_bytes": torch.cuda.max_memory_allocated()})
-    return engine, counts
+    return engine, counts, report
 
 
 def phase_serve_smoke(torch):
@@ -1401,6 +1829,158 @@ def phase_profile(torch, np, engine, phase, prompt_lo, prompt_hi):
           "kernels_per_step": sum(r[2] for r in rows) / steps,
           "top": [{"kernel": k[:80], "device_ms": ms, "calls": n}
                   for k, ms, n in rows[:10]]})
+
+
+# -- quantized and shared serving --------------------------------------------
+
+
+def phase_serve_shared(torch, np):
+    """The CLI at qwen3-1.7b's full width (bf16, 28 layers) with int8 KV
+    pools, chunked prefill and a shared 256-token prefix, with prefix
+    sharing and then, on the same weights, without: every request
+    completes, the streams are equal, sharing stores strictly fewer
+    physical blocks (dedup ratio > 1), and the int8 kernels launch (28
+    decode or prefill calls a fused step, one commit a decode call).  Then
+    two identical prompts drained with and without sharing: copy-on-write
+    at the first generated token, equal streams.  Both runs init the same
+    seeded weights."""
+    from repro_torch.models import transformer
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    t0 = time.time()
+    runs = {}
+    for share in (True, False):
+        argv = SHARED_ARGV + (["--share-prefixes"] if share else [])
+        params = None  # the last run's weights go before the next init
+        engine, counts, report = phase_serve(
+            torch, argv, "serve-shared-int8" if share else
+            "serve-unshared-int8")
+        runs[share] = (engine.stats(), counts,
+                       [r["tokens"] for r in report["requests"]])
+        params, cfg = engine.params, engine.cfg
+        del engine
+    (on, counts, streams), (off, _, streams_off) = runs[True], runs[False]
+    require(streams == streams_off,
+            "int8 streams differ with and without prefix sharing")
+    require(on["physical_blocks"] < off["physical_blocks"]
+            and on["block_dedup_ratio"] > 1.0
+            and on["logical_blocks"] == off["logical_blocks"],
+            f"sharing stored {on['physical_blocks']} of "
+            f"{on['logical_blocks']} blocks, unshared "
+            f"{off['physical_blocks']}")
+
+    rng = np.random.default_rng(3)
+    prompt = rng.integers(0, cfg.vocab, size=100).astype(np.int32)
+    twins = {}
+    for share in (True, False):
+        engine = ServeEngine(cfg, params, max_batch=2, max_len=256,
+                             block_size=16, prefill_chunk=64,
+                             kv_dtype="int8", share_prefixes=share,
+                             device="cuda")
+        for uid in range(2):
+            engine.submit(Request(uid=uid, prompt=prompt.copy(),
+                                  max_new_tokens=8))
+        done = engine.run_until_drained()
+        twins[share] = ([done[u].generated for u in range(2)],
+                        engine.stats())
+    cow = twins[True][1]
+    require(twins[True][0] == twins[False][0] and cow["cow_copies"] >= 1,
+            f"identical prompts: streams equal "
+            f"{twins[True][0] == twins[False][0]}, "
+            f"{cow['cow_copies']} copy-on-write copies")
+    bf16_bytes = transformer.paged_block_bytes(cfg, 16, "bf16")
+    emit({"phase": "serve-shared-int8-summary", "arch": cfg.name,
+          "streams_equal": True, "launches": counts,
+          "physical_blocks": {"shared": on["physical_blocks"],
+                              "unshared": off["physical_blocks"]},
+          "logical_blocks": on["logical_blocks"],
+          "block_dedup_ratio": on["block_dedup_ratio"],
+          "shared_block_hits": on["shared_block_hits"],
+          "kv_bytes_stored": on["kv_bytes_stored"],
+          "kv_bytes_stored_bf16_pools": on["physical_blocks"] * bf16_bytes,
+          "block_bytes": {"int8": transformer.paged_block_bytes(
+              cfg, 16, "int8"), "bf16": bf16_bytes},
+          "identical_prompts": {"cow_copies": cow["cow_copies"],
+                                "shared_block_hits":
+                                    cow["shared_block_hits"],
+                                "streams_equal": True},
+          "seconds": time.time() - t0})
+    return counts
+
+
+def phase_parity_int8(torch, np):
+    """qwen3-1.7b at full width cut to 4 layers, float32: 14 teacher-forced
+    tokens for 2 slots, token by token and as one chunk, on int8 pools on
+    the card and on the CPU, and on f32 pools on the card.  The card's
+    int8 logits must lie within ``PARITY_INT8_CARD_CPU`` of the CPU's and
+    within the reference's qwen3 int8 budget (0.11) of its f32 cache's;
+    the launch counts, set to 0 before the card's int8 run, must show one
+    commit and one decode launch a layer and step and one prefill launch
+    a layer, on int8 pools."""
+    import repro_torch.configs as configs
+    from repro_torch.kernels.flash_decode import kernel
+    from repro_torch.models import transformer
+
+    cfg = dataclasses.replace(configs.get_config("qwen3-1.7b"), n_layers=4,
+                              param_dtype="float32",
+                              compute_dtype="float32")
+    T = 14
+    toks = np.random.default_rng(13).integers(0, cfg.vocab, (2, T))
+    toks = torch.from_numpy(toks.astype(np.int32))
+    got = {}
+    for dev in ("cuda", "cpu"):
+        params = transformer.init_lm(cfg, seed=0, device=dev)
+        bt = torch.arange(1, 9, dtype=torch.int32).reshape(2, 4).to(dev)
+        for kv_dtype in (("int8", "f32") if dev == "cuda" else ("int8",)):
+            reset_counts(kernel)
+            cache = transformer.init_paged_cache(cfg, 2, 64, 16, dev,
+                                                 kv_dtype=kv_dtype)
+            rows = []
+            for t in range(T):
+                out, cache = transformer.decode_step_paged(
+                    params, cfg, toks[:, t:t + 1].to(dev), cache,
+                    torch.full((2,), t, dtype=torch.int32).to(dev), bt,
+                    block_size=16, kv_dtype=kv_dtype)
+                rows.append(out[:, 0].cpu())
+            pools = (cache["k"].dtype, "k_scale" in cache)
+            cache = transformer.init_paged_cache(cfg, 2, 64, 16, dev,
+                                                 kv_dtype=kv_dtype)
+            chunk, _ = transformer.prefill_step_paged(
+                params, cfg, toks.to(dev), cache,
+                torch.zeros(2, dtype=torch.int32).to(dev), bt,
+                torch.full((2,), T, dtype=torch.int32).to(dev),
+                block_size=16, kv_dtype=kv_dtype)
+            got[dev, kv_dtype] = (torch.stack(rows, 1), chunk.cpu())
+            if (dev, kv_dtype) == ("cuda", "int8"):
+                counts = read_counts(kernel)
+                int8_pools = pools == (torch.int8, True)
+        del params
+    diff = {name: max((a - b).abs().max().item() for a, b in
+                      zip(got[x], got[y]))
+            for name, x, y in (("card_vs_cpu_int8", ("cuda", "int8"),
+                                ("cpu", "int8")),
+                               ("card_int8_vs_card_f32", ("cuda", "int8"),
+                                ("cuda", "f32")))}
+    token_vs_chunk = (got["cuda", "int8"][0]
+                      - got["cuda", "int8"][1]).abs().max().item()
+    L = cfg.n_layers
+    want = {"flash_decode_paged": T * L, "flash_prefill_paged": L,
+            "commit_paged": T * L}
+    emit({"phase": "parity-int8", "arch": cfg.name, "layers": L,
+          "dtype": "float32", "kv_dtype": "int8", "slots": 2, "tokens": T,
+          "max_abs_diff": diff, "card_token_vs_chunk": token_vs_chunk,
+          "limits": {"card_vs_cpu_int8": PARITY_INT8_CARD_CPU,
+                     "card_int8_vs_card_f32": PARITY_INT8_BUDGET},
+          "launches": counts, "int8_pools": int8_pools})
+    require(int8_pools and counts == want,
+            f"the card's int8 run: int8 pools with scales {int8_pools}, "
+            f"launches {counts}, want {want}")
+    require(diff["card_vs_cpu_int8"] <= PARITY_INT8_CARD_CPU,
+            f"int8 logits on the card {diff['card_vs_cpu_int8']} from the "
+            f"CPU's, over {PARITY_INT8_CARD_CPU}")
+    require(diff["card_int8_vs_card_f32"] <= PARITY_INT8_BUDGET,
+            f"int8 logits on the card {diff['card_int8_vs_card_f32']} from "
+            f"its f32 cache's, over {PARITY_INT8_BUDGET}")
 
 
 # -- parity -------------------------------------------------------------------
@@ -1496,7 +2076,8 @@ def phase_parity_chunked(torch, np):
     streams = {"cuda_chunked": _drain(cfg, params["cuda"], prompts, "cuda",
                                       **chunked)}
     counts = read_counts(kernel)
-    require(all(n > 0 for n in counts.values()),
+    require(counts["flash_decode_paged"] > 0
+            and counts["flash_prefill_paged"] > 0,
             f"the chunked parity run skipped a kernel: {counts}")
     streams["cpu_chunked"] = _drain(cfg, params["cpu"], prompts, "cpu",
                                     **chunked)
@@ -1557,6 +2138,12 @@ def main() -> int:
                                512 + 32, seed=8)
     check_prefill(torch, np, kernel, ref)
     prefill_row = prefill_timing(torch, np, kernel, ref)
+    check_quantized_decode(torch, np, kernel, ref)
+    check_quantized_prefill(torch, np, kernel, ref)
+    qdecode_row = quantized_decode_timing(torch, np, kernel, ref)
+    qprefill_row = quantized_prefill_timing(torch, np, kernel, ref)
+    commit_row = commit_timing(torch, np, kernel, ref, torch.bfloat16)
+    qcommit_row = commit_timing(torch, np, kernel, ref, torch.int8)
 
     check_hpc(torch, np)
     check_rx_gate(torch, np)
@@ -1571,16 +2158,19 @@ def main() -> int:
     del problems
     torch.cuda.empty_cache()
 
-    engine, _ = phase_serve(torch, SERVE_ARGV, "serve")
+    engine, _, _ = phase_serve(torch, SERVE_ARGV, "serve")
     phase_profile(torch, np, engine, "profile", 4, 64)
     del engine
-    engine, counts = phase_serve(torch, CHUNKED_ARGV, "serve-chunked")
+    engine, counts, _ = phase_serve(torch, CHUNKED_ARGV, "serve-chunked")
     phase_profile(torch, np, engine, "profile-chunked", 64, 256)
     del engine
+    torch.cuda.empty_cache()
+    shared_counts = phase_serve_shared(torch, np)
     torch.cuda.empty_cache()
     phase_serve_smoke(torch)
     phase_parity(torch, np)
     phase_parity_chunked(torch, np)
+    phase_parity_int8(torch, np)
 
     emit({"kernels": [
         {"name": "flash_decode_paged", "route": "cuda",
@@ -1591,6 +2181,22 @@ def main() -> int:
          "source": SOURCE_DIR + "flash_prefill_paged.cu",
          "replaces": f"{TPU_KERNELS}:573,620",
          "launches": counts["flash_prefill_paged"], **prefill_row},
+        {"name": "flash_decode_paged_int8", "route": "cuda",
+         "source": SOURCE_DIR + "flash_decode_paged.cu",
+         "replaces": f"{TPU_KERNELS}:256",
+         "launches": shared_counts["flash_decode_paged"], **qdecode_row},
+        {"name": "flash_prefill_paged_int8", "route": "cuda",
+         "source": SOURCE_DIR + "flash_prefill_paged.cu",
+         "replaces": f"{TPU_KERNELS}:573,620",
+         "launches": shared_counts["flash_prefill_paged"], **qprefill_row},
+        {"name": "commit_paged", "route": "cuda",
+         "source": SOURCE_DIR + "flash_prefill_paged.cu",
+         "replaces": f"{TPU_KERNELS}:573",
+         "launches": counts["commit_paged"], **commit_row},
+        {"name": "commit_paged_int8", "route": "cuda",
+         "source": SOURCE_DIR + "flash_prefill_paged.cu",
+         "replaces": f"{TPU_KERNELS}:573",
+         "launches": shared_counts["commit_paged"], **qcommit_row},
         {"name": "stream", "op": "triad", "route": "cuda",
          "source": HPC_SOURCES + "stream/csrc/stream.cu",
          "replaces": f"{TPU_HPC}stream/kernel.py:38",

@@ -3,8 +3,10 @@
 // (paged) or in place from a contiguous (B, S, KV, D) cache.
 //
 // Replaces two TPU kernels of src/repro/kernels/flash_decode/kernel.py:
-//   * flash_decode_paged (body _decode_kernel_paged), for f32 and bf16
-//     pools without scales and without head sharding;
+//   * flash_decode_paged (body _decode_kernel_paged), for pools in q's
+//     dtype, bf16 pools under an f32 q (widened, :140-142) and int8 pools
+//     with per-row fp32 scales (the quantized branch, :120-139), without
+//     head sharding;
 //   * flash_decode (body _decode_kernel), the contiguous cache.  The TPU
 //     wrapper makes a head-major copy of K and V first (kernel.py:87-88);
 //     this kernel reads (B, S, KV, D) in place with a row stride of KV * D.
@@ -12,13 +14,18 @@
 // addressing of a tile's first row, and nothing else differs.
 //
 // Paged contract (that of the TPU kernel flash_decode_paged):
-//   q            (B, KV, G, D)            f32 or bf16
-//   k_pool/v_pool (n_blocks, bs, KV, D)   same dtype as q
+//   q            (B, KV, G, D)            T: f32 or bf16
+//   k_pool/v_pool (n_blocks, bs, KV, D)   P: T, bf16 under an f32 T, or
+//                                         int8 under either
+//   k_scale/v_scale (n_blocks, bs) f32    int8 pools only: one scale a
+//                                         pool row, over all its KV heads
 //   block_tables (B, nb) int32            logical block -> pool block
 //   valid_len    (B,) int32, >= 1         live rows of each slot
 //   out          (B, KV, G, D)            dtype of q
 // Row t of slot b lives at pool block block_tables[b, t / bs], row t % bs.
-// Rows at or past valid_len[b] are never read.
+// Rows at or past valid_len[b], and their scales, are never read.  An int8
+// element is dequantized to fp32 at load as code * scale, as the TPU
+// kernel widens its tile in VMEM; a bf16 pool element is widened to fp32.
 //
 // Contiguous contract (that of the TPU kernel flash_decode):
 //   q            (B, KV, G, D)            f32 or bf16
@@ -35,7 +42,8 @@
 // loading nothing and adding nothing (predicated lanes).
 //
 // What bounds it on an H100: the bytes of the live K and V rows,
-// sum_b valid_len[b] * KV * D * 2 * sizeof(T), over 3.35 TB/s.  The
+// sum_b valid_len[b] * (KV * D * 2 * sizeof(P) + 8 bytes of scales when
+// P is int8), over 3.35 TB/s.  The
 // arithmetic, 4 * G * D flops per live row and head, is far below what the
 // card computes in that time.  At serving sizes (a few hundred live rows per
 // slot) those bytes take about a microsecond, so one launch is bound by the
@@ -44,7 +52,8 @@
 // Design, simple first:
 //   * one thread block per (KV head, slot): all heads of all slots run in
 //     parallel, and no reduction crosses blocks;
-//   * paged, the block loads its own block-table row into shared memory;
+//   * paged, the block loads its own block-table row into shared memory,
+//     and with int8 pools each tile's K and V scales before the tile;
 //     either way it walks only the tiles j < ceil(valid_len / bs), the TPU
 //     kernel's skip of tiles past the live length;
 //   * each warp reads whole K rows, lanes on consecutive elements
@@ -65,6 +74,8 @@
 #include <cuda_runtime.h>
 
 #include <cstddef>
+#include <cstdint>
+#include <type_traits>
 
 namespace {
 
@@ -75,6 +86,21 @@ constexpr float kNegInf = -1e30f;
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
   return __bfloat162float(x);
+}
+__device__ __forceinline__ float to_float(int8_t x) {
+  return static_cast<float>(x);
+}
+
+// A pool element widened to fp32: code * scale for int8 pools (P = int8),
+// the element itself otherwise (scale unused).  It takes the loaded value,
+// not a pointer, so each load is made through the kernel's __restrict__
+// pointers, as read-only loads.
+template <typename P>
+__device__ __forceinline__ float dequant(P x, float scale) {
+  if constexpr (std::is_same_v<P, int8_t>)
+    return to_float(x) * scale;
+  else
+    return to_float(x);
 }
 
 template <typename T>
@@ -100,17 +126,21 @@ __device__ __forceinline__ float warp_max(float v) {
 }
 
 // Shared memory, in floats: q (G*D), acc (G*D), p (G*bs), m, l, corr (G
-// each), then, paged, the block-table row (nb ints).  Paged, k/v are the
-// pools (n_blocks, bs, KV, D) and a slot holds nb * bs rows; contiguous,
-// k/v are (B, S, KV, D), block_tables is unused and a slot holds S rows.
-template <typename T, int D, bool kPaged>
+// each), with int8 pools the tile's K and V scales (bs each), then, paged,
+// the block-table row (nb ints).  Paged, k/v are the pools (n_blocks, bs,
+// KV, D) and a slot holds nb * bs rows; contiguous, k/v are (B, S, KV, D),
+// block_tables is unused and a slot holds S rows.
+template <typename T, typename P, int D, bool kPaged>
 __global__ void __launch_bounds__(kThreads)
-    flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
-                        const T* __restrict__ v_pool,
+    flash_decode_kernel(const T* __restrict__ q, const P* __restrict__ k_pool,
+                        const P* __restrict__ v_pool,
+                        const float* __restrict__ k_scale,
+                        const float* __restrict__ v_scale,
                         const int* __restrict__ block_tables,
                         const int* __restrict__ valid_len,
                         T* __restrict__ out, int KV, int G, int bs, int nb,
                         int S) {
+  constexpr bool kQuant = std::is_same_v<P, int8_t>;
   // elements of a K row per lane; below D = 32 the lanes >= D idle
   constexpr int kPerLane = (D + 31) / 32;
   const int h = blockIdx.x;
@@ -126,7 +156,9 @@ __global__ void __launch_bounds__(kThreads)
   float* m_s = p_s + G * bs;
   float* l_s = m_s + G;
   float* c_s = l_s + G;
-  int* table = reinterpret_cast<int*>(c_s + G);
+  float* ks_s = c_s + G;                 // int8 pools only
+  float* vs_s = ks_s + (kQuant ? bs : 0);
+  int* table = reinterpret_cast<int*>(vs_s + (kQuant ? bs : 0));
 
   const int valid = min(valid_len[b], kPaged ? nb * bs : S);
   const int n_tiles = valid > 0 ? (valid + bs - 1) / bs : 0;
@@ -154,14 +186,23 @@ __global__ void __launch_bounds__(kThreads)
     const size_t first = kPaged ? static_cast<size_t>(table[j]) * bs
                                 : static_cast<size_t>(b) * S + j * bs;
     const size_t base = (first * KV + h) * static_cast<size_t>(D);
+    if constexpr (kQuant) {  // the live rows' scales, none past valid
+      for (int r = tid; r < rows; r += kThreads) {
+        ks_s[r] = k_scale[first + r];
+        vs_s[r] = v_scale[first + r];
+      }
+      __syncthreads();
+    }
 
     // scores: one warp per K row, all G query heads at once
     for (int r = warp; r < rows; r += kWarps) {
-      const T* k_row = k_pool + base + r * row_stride;
+      const P* k_row = k_pool + base + r * row_stride;
+      const float ks = kQuant ? ks_s[r] : 1.f;
       float kr[kPerLane];
 #pragma unroll
       for (int e = 0; e < kPerLane; ++e)
-        kr[e] = (D >= 32 || lane < D) ? to_float(k_row[lane + 32 * e]) : 0.f;
+        kr[e] = (D >= 32 || lane < D) ? dequant(k_row[lane + 32 * e], ks)
+                                      : 0.f;
       for (int g = 0; g < G; ++g) {
         float s = 0.f;
 #pragma unroll
@@ -200,10 +241,11 @@ __global__ void __launch_bounds__(kThreads)
     for (int i = tid; i < G * D; i += kThreads) {
       const int g = i / D;
       const int d = i - g * D;
-      const T* v_col = v_pool + base + d;
+      const P* v_col = v_pool + base + d;
       float a = acc[i] * c_s[g];
       for (int r = 0; r < rows; ++r)
-        a += p_s[g * bs + r] * to_float(v_col[r * row_stride]);
+        a += p_s[g * bs + r] *
+             dequant(v_col[r * row_stride], kQuant ? vs_s[r] : 1.f);
       acc[i] = a;
     }
     __syncthreads();
@@ -214,44 +256,55 @@ __global__ void __launch_bounds__(kThreads)
     o_head[i] = from_float<T>(acc[i] / fmaxf(l_s[i / D], 1e-30f));
 }
 
-template <typename T, bool kPaged, int D>
+template <typename T, typename P, bool kPaged, int D>
 void launch_d(const dim3 grid, size_t smem, cudaStream_t stream,
               const void* q, const void* k, const void* v,
+              const float* k_scale, const float* v_scale,
               const void* block_tables, const void* valid_len, void* out,
               int KV, int G, int bs, int nb, int S) {
-  flash_decode_kernel<T, D, kPaged><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const int*>(block_tables),
-      static_cast<const int*>(valid_len), static_cast<T*>(out), KV, G, bs, nb,
-      S);
+  flash_decode_kernel<T, P, D, kPaged><<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const P*>(k),
+      static_cast<const P*>(v), k_scale, v_scale,
+      static_cast<const int*>(block_tables),
+      static_cast<const int*>(valid_len), static_cast<T*>(out), KV, G, bs,
+      nb, S);
 }
 
 // Paged: nb table entries of bs rows; contiguous: nb = 0, tiles of bs rows
 // over S.
-template <typename T, bool kPaged>
+template <typename T, typename P, bool kPaged>
 cudaError_t launch(const void* q, const void* k, const void* v,
+                   const float* k_scale, const float* v_scale,
                    const void* block_tables, const void* valid_len, void* out,
                    int B, int KV, int G, int D, int bs, int nb, int S,
                    cudaStream_t stream) {
+  constexpr bool kQuant = std::is_same_v<P, int8_t>;
+  if (kQuant && (k_scale == nullptr || v_scale == nullptr))
+    return cudaErrorInvalidValue;
   const dim3 grid(KV, B);
   const size_t smem =
-      sizeof(float) * (2 * G * D + G * bs + 3 * G) + sizeof(int) * nb;
+      sizeof(float) * (2 * G * D + G * bs + 3 * G + (kQuant ? 2 * bs : 0)) +
+      sizeof(int) * nb;
   switch (D) {
     case 16:
-      launch_d<T, kPaged, 16>(grid, smem, stream, q, k, v, block_tables,
-                              valid_len, out, KV, G, bs, nb, S);
+      launch_d<T, P, kPaged, 16>(grid, smem, stream, q, k, v, k_scale,
+                                 v_scale, block_tables, valid_len, out, KV, G,
+                                 bs, nb, S);
       break;
     case 32:
-      launch_d<T, kPaged, 32>(grid, smem, stream, q, k, v, block_tables,
-                              valid_len, out, KV, G, bs, nb, S);
+      launch_d<T, P, kPaged, 32>(grid, smem, stream, q, k, v, k_scale,
+                                 v_scale, block_tables, valid_len, out, KV, G,
+                                 bs, nb, S);
       break;
     case 64:
-      launch_d<T, kPaged, 64>(grid, smem, stream, q, k, v, block_tables,
-                              valid_len, out, KV, G, bs, nb, S);
+      launch_d<T, P, kPaged, 64>(grid, smem, stream, q, k, v, k_scale,
+                                 v_scale, block_tables, valid_len, out, KV, G,
+                                 bs, nb, S);
       break;
     case 128:
-      launch_d<T, kPaged, 128>(grid, smem, stream, q, k, v, block_tables,
-                               valid_len, out, KV, G, bs, nb, S);
+      launch_d<T, P, kPaged, 128>(grid, smem, stream, q, k, v, k_scale,
+                                  v_scale, block_tables, valid_len, out, KV,
+                                  G, bs, nb, S);
       break;
     default:
       return cudaErrorInvalidValue;
@@ -259,44 +312,54 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-template <bool kPaged>
-int launch_dtype(const void* q, const void* k, const void* v,
-                 const void* block_tables, const void* valid_len, void* out,
-                 int B, int KV, int G, int D, int bs, int nb, int S,
-                 int dtype, int device, void* stream) {
+}  // namespace
+
+// dtype / pool_dtype: 0 = float32, 1 = bfloat16, 2 = int8.  Each returns
+// cudaGetLastError() after the launch (0 when the launch was accepted, an
+// invalid-value code for a pair that has no instantiation); never
+// synchronises.
+extern "C" int flash_decode_paged_launch(
+    const void* q, const void* k_pool, const void* v_pool,
+    const void* k_scale, const void* v_scale, const void* block_tables,
+    const void* valid_len, void* out, int B, int KV, int G, int D, int bs,
+    int nb, int dtype, int pool_dtype, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return static_cast<int>(launch<float, kPaged>(
-        q, k, v, block_tables, valid_len, out, B, KV, G, D, bs, nb, S, st));
-  if (dtype == 1)
-    return static_cast<int>(launch<__nv_bfloat16, kPaged>(
-        q, k, v, block_tables, valid_len, out, B, KV, G, D, bs, nb, S, st));
+  const float* ks = static_cast<const float*>(k_scale);
+  const float* vs = static_cast<const float*>(v_scale);
+#define FD_PAGED(T, P)                                                      \
+  return static_cast<int>(launch<T, P, true>(q, k_pool, v_pool, ks, vs,     \
+                                             block_tables, valid_len, out,  \
+                                             B, KV, G, D, bs, nb, 0, st))
+  if (dtype == 0 && pool_dtype == 0) FD_PAGED(float, float);
+  if (dtype == 0 && pool_dtype == 1) FD_PAGED(float, __nv_bfloat16);
+  if (dtype == 0 && pool_dtype == 2) FD_PAGED(float, int8_t);
+  if (dtype == 1 && pool_dtype == 1) FD_PAGED(__nv_bfloat16, __nv_bfloat16);
+  if (dtype == 1 && pool_dtype == 2) FD_PAGED(__nv_bfloat16, int8_t);
+#undef FD_PAGED
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-}  // namespace
-
-// dtype: 0 = float32, 1 = bfloat16.  Each returns cudaGetLastError() after
-// the launch (0 when the launch was accepted); never synchronises.
-extern "C" int flash_decode_paged_launch(
-    const void* q, const void* k_pool, const void* v_pool,
-    const void* block_tables, const void* valid_len, void* out, int B,
-    int KV, int G, int D, int bs, int nb, int dtype, int device,
-    void* stream) {
-  return launch_dtype<true>(q, k_pool, v_pool, block_tables, valid_len, out,
-                            B, KV, G, D, bs, nb, 0, dtype, device, stream);
-}
-
-// The contiguous cache k/v (B, S, KV, D), walked in tiles of ``tile`` rows.
+// The contiguous cache k/v (B, S, KV, D) in q's dtype (0 or 1), walked in
+// tiles of ``tile`` rows.
 extern "C" int flash_decode_launch(const void* q, const void* k,
                                    const void* v, const void* valid_len,
                                    void* out, int B, int KV, int G, int D,
                                    int S, int tile, int dtype, int device,
                                    void* stream) {
-  return launch_dtype<false>(q, k, v, nullptr, valid_len, out, B, KV, G, D,
-                             tile, 0, S, dtype, device, stream);
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return static_cast<int>(launch<float, float, false>(
+        q, k, v, nullptr, nullptr, nullptr, valid_len, out, B, KV, G, D,
+        tile, 0, S, st));
+  if (dtype == 1)
+    return static_cast<int>(launch<__nv_bfloat16, __nv_bfloat16, false>(
+        q, k, v, nullptr, nullptr, nullptr, valid_len, out, B, KV, G, D,
+        tile, 0, S, st));
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 extern "C" const char* flash_decode_error_string(int code) {

@@ -5,39 +5,54 @@
 //
 // Replaces both passes of the TPU kernel
 // src/repro/kernels/flash_decode/kernel.py :: flash_prefill_paged: the
-// commit (pallas_call at :573, body _prefill_commit_kernel) and the
-// attention (pallas_call at :620, body _prefill_attn_kernel), for f32 and
-// bf16 pools without scales.
+// commit (pallas_call at :573, bodies _prefill_commit_kernel and, for int8
+// pools, _prefill_commit_kernel_q with _quantize_rows_kernel) and the
+// attention (pallas_call at :620, body _prefill_attn_kernel, with its
+// dequantizing branch), without head sharding.
 //
 // Contract (that of the TPU kernel, with zeros for the rows it leaves
 // undefined):
-//   q             (B, C, KV, G, D)       f32 or bf16
-//   k_new/v_new   (B, C, KV, D)          dtype of q
-//   k_pool/v_pool (n_blocks, bs, KV, D)  dtype of q, written in place
+//   q             (B, C, KV, G, D)       T: f32 or bf16
+//   k_new/v_new   (B, C, KV, D)          T
+//   k_pool/v_pool (n_blocks, bs, KV, D)  P: T, bf16 under an f32 T, or
+//                                        int8 under either; written in
+//                                        place
+//   k_scale/v_scale (n_blocks, bs) f32   int8 pools only, written in place
 //   block_tables  (B, nb) int32          logical block -> pool block
 //   q_start/q_len (B,) int32             rows c < q_len[b] of slot b sit
 //                                        at positions q_start[b] + c
 //   out           (B, C, KV, G, D)       dtype of q
 // Row c < q_len[b] is committed at pool block block_tables[b, pos / bs],
 // row pos % bs, with pos = q_start[b] + c, and attends to its slot's keys
-// at positions <= pos.  Rows c >= q_len[b] commit nothing and come out as
-// zeros.  The two kernels run on one stream, commit first, so a row sees
-// the rows its own chunk committed.
+// at positions <= pos.  An int8 row is quantized as the TPU kernel does:
+// s = max(amax / 127, 1e-8) over the row's KV * D elements, codes
+// clip(round_half_even(x / s), -127, 127), s stored at the same pool row.
+// XLA compiles amax / 127 as amax times the fp32 reciprocal of 127, and so
+// does this kernel; x / s is an IEEE division (no --use_fast_math) and
+// rintf rounds half to even, so codes and scales are bit-equal to the
+// Pallas commit's.  Rows c >= q_len[b] commit nothing and come out as
+// zeros; every other pool row keeps its bytes and its scale.  The two
+// kernels run on one stream, commit first, so a row sees the rows its own
+// chunk committed (as stored: quantized, or rounded to bf16).
 //
 // What bounds it on an H100: the K and V rows already cached, q_start per
-// slot, read once, and the chunk's rows read once and written once,
-// KV * D * 2 * sizeof(T) bytes each, over 3.35 TB/s, or the
+// slot, read once, and the chunk's rows read once (in T) and written once
+// (in P, with 8 bytes of scales a row for int8), over 3.35 TB/s, or the
 // 4 * G * D * KV flops per (query row, causal key) pair at the tensor
 // cores' rate, whichever is larger.  This kernel does its arithmetic in
 // fp32 on the CUDA cores (67 TFLOP/s), with a warp reduction per score,
 // so at serving sizes it is bound by that arithmetic and its barriers.
 //
 // Design, simple first:
-//   * commit: one thread block per (chunk row, slot), which copies the
-//     row's K and V as 16-byte words to their pool row.  Unlike the TPU
-//     commit (grid (B, nb), kernel.py:332) it never reads or rewrites the
-//     rest of a block, so blocks no table names keep their bytes without
-//     aliasing;
+//   * commit: one thread block per (chunk row, slot).  It converts the
+//     row's K and V elements to P, or, for int8, reduces |x| over the row
+//     to its amax first (one block reduction each for K and V) and then
+//     writes the codes and the scale.  Unlike the TPU commit (grid (B, nb),
+//     kernel.py:332) it never reads or rewrites the rest of a block, so
+//     blocks no table names keep their bytes without aliasing.  A decode
+//     step commits its row through the same kernel, as a chunk of one
+//     (flash_commit_paged_launch), so decode and chunk rows are converted
+//     or quantized by one code path;
 //   * attend: one thread block per (KV head, slot, tile of bc chunk rows):
 //     the decode kernel (flash_decode_paged.cu) with bc * G query vectors
 //     and a per-row causal frontier.  The block loads the tile's queries
@@ -46,13 +61,12 @@
 //     kernel's skip of tiles past the causal frontier (kernel.py:449);
 //   * one warp per K row computes that key's scores for every query
 //     vector of the tile; each V tile is staged once in shared memory as
-//     fp32 and read by all query vectors;
+//     fp32 and read by all query vectors; int8 K and V are dequantized at
+//     load with the tile's scales, staged in shared memory beside it;
 //   * running max, sum and accumulator stay in fp32; the output is written
 //     in q's dtype;
 //   * head dims 16, 32, 64 and 128: below D = 32 a K row takes one element
-//     a lane and the lanes at or past D load nothing (predicated lanes); the
-//     commit's 16-byte words hold for any KV * D * sizeof(T) that 16
-//     divides (32 bytes a row at D = 16 in bf16).
+//     a lane and the lanes at or past D load nothing (predicated lanes).
 // Left for later: wgmma/TMA tiles, splitting long prefixes across blocks.
 
 #include <cuda_bf16.h>
@@ -60,6 +74,7 @@
 
 #include <cstddef>
 #include <cstdint>
+#include <type_traits>
 
 namespace {
 
@@ -71,6 +86,9 @@ constexpr float kNegInf = -1e30f;
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
   return __bfloat162float(x);
+}
+__device__ __forceinline__ float to_float(int8_t x) {
+  return static_cast<float>(x);
 }
 
 template <typename T>
@@ -84,6 +102,18 @@ __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
 
+// A pool element widened to fp32: code * scale for int8 pools (P = int8),
+// the element itself otherwise (scale unused).  It takes the loaded value,
+// not a pointer, so each load is made through the kernel's __restrict__
+// pointers, as read-only loads.
+template <typename P>
+__device__ __forceinline__ float dequant(P x, float scale) {
+  if constexpr (std::is_same_v<P, int8_t>)
+    return to_float(x) * scale;
+  else
+    return to_float(x);
+}
+
 __device__ __forceinline__ float warp_sum(float v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
@@ -95,44 +125,91 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-// Copies row c of slot b of k_new/v_new, row_words 16-byte words each, to
-// its pool row.  Grid (C, B).
-__global__ void __launch_bounds__(kCommitThreads)
-    prefill_commit_kernel(const uint4* __restrict__ k_new,
-                          const uint4* __restrict__ v_new,
-                          uint4* __restrict__ k_pool,
-                          uint4* __restrict__ v_pool,
-                          const int* __restrict__ block_tables,
-                          const int* __restrict__ q_start,
-                          const int* __restrict__ q_len, int C,
-                          int row_words, int bs, int nb) {
-  const int c = blockIdx.x;
-  const int b = blockIdx.y;
-  if (c >= q_len[b]) return;
-  const int pos = q_start[b] + c;
-  const int j = min(pos / bs, nb - 1);
-  const size_t blk = block_tables[static_cast<size_t>(b) * nb + j];
-  const size_t dst = (blk * bs + pos % bs) * row_words;
-  const size_t src = (static_cast<size_t>(b) * C + c) * row_words;
-  for (int i = threadIdx.x; i < row_words; i += kCommitThreads) {
-    k_pool[dst + i] = k_new[src + i];
-    v_pool[dst + i] = v_new[src + i];
+// max over the block of each thread's v; every thread gets it.  red holds
+// kCommitThreads / 32 floats.
+__device__ __forceinline__ float block_max(float v, float* red) {
+  v = warp_max(v);
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  if (lane == 0) red[warp] = v;
+  __syncthreads();
+  float m = red[0];
+  for (int w = 1; w < kCommitThreads / 32; ++w) m = fmaxf(m, red[w]);
+  __syncthreads();  // red is reused by the next call
+  return m;
+}
+
+// One row of n elements from x (in T) to dst (in P): converted, or for
+// int8 quantized with a fresh scale written to *scale.
+template <typename T, typename P>
+__device__ __forceinline__ void commit_row(const T* __restrict__ x,
+                                           P* __restrict__ dst,
+                                           float* __restrict__ scale, int n,
+                                           float* red) {
+  if constexpr (std::is_same_v<P, int8_t>) {
+    float amax = 0.f;
+    for (int i = threadIdx.x; i < n; i += kCommitThreads)
+      amax = fmaxf(amax, fabsf(to_float(x[i])));
+    amax = block_max(amax, red);
+    // XLA's amax / 127: the product with 127's fp32 reciprocal
+    const float s = fmaxf(amax * (1.f / 127.f), 1e-8f);
+    for (int i = threadIdx.x; i < n; i += kCommitThreads) {
+      const float c = fminf(fmaxf(rintf(to_float(x[i]) / s), -127.f), 127.f);
+      dst[i] = static_cast<int8_t>(c);
+    }
+    if (threadIdx.x == 0) *scale = s;
+  } else {
+    for (int i = threadIdx.x; i < n; i += kCommitThreads)
+      dst[i] = from_float<P>(to_float(x[i]));
   }
 }
 
+// Commits row c of slot b of k_new/v_new (KV * D elements each) to its
+// pool row, and for int8 pools its two scales.  Grid (C, B).
+template <typename T, typename P>
+__global__ void __launch_bounds__(kCommitThreads)
+    prefill_commit_kernel(const T* __restrict__ k_new,
+                          const T* __restrict__ v_new, P* __restrict__ k_pool,
+                          P* __restrict__ v_pool, float* __restrict__ k_scale,
+                          float* __restrict__ v_scale,
+                          const int* __restrict__ block_tables,
+                          const int* __restrict__ q_start,
+                          const int* __restrict__ q_len, int C, int row,
+                          int bs, int nb) {
+  __shared__ float red[kCommitThreads / 32];
+  const int c = blockIdx.x;
+  const int b = blockIdx.y;
+  if (c >= q_len[b]) return;  // uniform across the block
+  const int pos = q_start[b] + c;
+  const int j = min(pos / bs, nb - 1);
+  const size_t dst_row =
+      static_cast<size_t>(block_tables[static_cast<size_t>(b) * nb + j]) *
+          bs + pos % bs;
+  const size_t src = (static_cast<size_t>(b) * C + c) * row;
+  constexpr bool kQuant = std::is_same_v<P, int8_t>;
+  commit_row(k_new + src, k_pool + dst_row * row,
+             kQuant ? k_scale + dst_row : nullptr, row, red);
+  commit_row(v_new + src, v_pool + dst_row * row,
+             kQuant ? v_scale + dst_row : nullptr, row, red);
+}
+
 // Shared memory, in floats, for R = bc * G query vectors: q (R*D), acc
-// (R*D), the V tile (bs*D), p (R*bs), m, l, corr (R each), then the
-// block-table row (nb ints).  Grid (KV, B, ceil(C / bc)).
-template <typename T, int D>
+// (R*D), the V tile (bs*D), p (R*bs), m, l, corr (R each), with int8 pools
+// the tile's K and V scales (bs each), then the block-table row (nb ints).
+// Grid (KV, B, ceil(C / bc)).
+template <typename T, typename P, int D>
 __global__ void __launch_bounds__(kThreads)
     prefill_attend_kernel(const T* __restrict__ q,
-                          const T* __restrict__ k_pool,
-                          const T* __restrict__ v_pool,
+                          const P* __restrict__ k_pool,
+                          const P* __restrict__ v_pool,
+                          const float* __restrict__ k_scale,
+                          const float* __restrict__ v_scale,
                           const int* __restrict__ block_tables,
                           const int* __restrict__ q_start,
                           const int* __restrict__ q_len,
                           T* __restrict__ out, int C, int KV, int G, int bs,
                           int nb, int bc) {
+  constexpr bool kQuant = std::is_same_v<P, int8_t>;
   // elements of a K row per lane; below D = 32 the lanes >= D idle
   constexpr int kPerLane = (D + 31) / 32;
   const int h = blockIdx.x;
@@ -166,7 +243,9 @@ __global__ void __launch_bounds__(kThreads)
   float* m_s = p_s + r_max * bs;
   float* l_s = m_s + r_max;
   float* c_s = l_s + r_max;
-  int* table = reinterpret_cast<int*>(c_s + r_max);
+  float* ks_s = c_s + r_max;             // int8 pools only
+  float* vs_s = ks_s + (kQuant ? bs : 0);
+  int* table = reinterpret_cast<int*>(vs_s + (kQuant ? bs : 0));
 
   // last key position each query vector v may see: start + row0 + v / G
   const int first = q_start[b] + row0;
@@ -192,22 +271,32 @@ __global__ void __launch_bounds__(kThreads)
   const size_t kv_row_stride = static_cast<size_t>(KV) * D;
   for (int j = 0; j < n_tiles; ++j) {
     const int rows = min(bs, frontier - j * bs);
+    const size_t blk_row = static_cast<size_t>(table[j]) * bs;
     // element offset of row 0, head h, of this pool block
-    const size_t base =
-        (static_cast<size_t>(table[j]) * bs * KV + h) * static_cast<size_t>(D);
+    const size_t base = (blk_row * KV + h) * static_cast<size_t>(D);
+    if constexpr (kQuant) {  // the tile's scales, none past the frontier
+      for (int r = tid; r < rows; r += kThreads) {
+        ks_s[r] = k_scale[blk_row + r];
+        vs_s[r] = v_scale[blk_row + r];
+      }
+      __syncthreads();
+    }
 
     for (int i = tid; i < rows * D; i += kThreads) {
       const int r = i / D;
-      v_s[i] = to_float(v_pool[base + r * kv_row_stride + (i - r * D)]);
+      v_s[i] = dequant(v_pool[base + r * kv_row_stride + (i - r * D)],
+                       kQuant ? vs_s[r] : 1.f);
     }
 
     // scores: one warp per K row, every query vector of the tile
     for (int r = warp; r < rows; r += kWarps) {
-      const T* k_row = k_pool + base + r * kv_row_stride;
+      const P* k_row = k_pool + base + r * kv_row_stride;
+      const float ks = kQuant ? ks_s[r] : 1.f;
       float kr[kPerLane];
 #pragma unroll
       for (int e = 0; e < kPerLane; ++e)
-        kr[e] = (D >= 32 || lane < D) ? to_float(k_row[lane + 32 * e]) : 0.f;
+        kr[e] = (D >= 32 || lane < D) ? dequant(k_row[lane + 32 * e], ks)
+                                      : 0.f;
       const int key = j * bs + r;
       for (int v = 0; v < R; ++v) {
         if (key > first + v / G) {  // past this row's causal frontier
@@ -268,45 +357,62 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T>
+template <typename T, typename P>
+cudaError_t commit(const void* k_new, const void* v_new, void* k_pool,
+                   void* v_pool, void* k_scale, void* v_scale,
+                   const void* block_tables, const void* q_start,
+                   const void* q_len, int B, int C, int KV, int D, int bs,
+                   int nb, cudaStream_t stream) {
+  if (std::is_same_v<P, int8_t> && (k_scale == nullptr || v_scale == nullptr))
+    return cudaErrorInvalidValue;
+  prefill_commit_kernel<T, P><<<dim3(C, B), kCommitThreads, 0, stream>>>(
+      static_cast<const T*>(k_new), static_cast<const T*>(v_new),
+      static_cast<P*>(k_pool), static_cast<P*>(v_pool),
+      static_cast<float*>(k_scale), static_cast<float*>(v_scale),
+      static_cast<const int*>(block_tables), static_cast<const int*>(q_start),
+      static_cast<const int*>(q_len), C, KV * D, bs, nb);
+  return cudaGetLastError();
+}
+
+template <typename T, typename P>
 cudaError_t launch(const void* q, const void* k_new, const void* v_new,
-                   void* k_pool, void* v_pool, const void* block_tables,
-                   const void* q_start, const void* q_len, void* out, int B,
-                   int C, int KV, int G, int D, int bs, int nb, int bc,
-                   int smem, cudaStream_t stream) {
-  const int row_bytes = KV * D * static_cast<int>(sizeof(T));
-  if (row_bytes % 16 != 0 || bc < 1 || smem < 1) return cudaErrorInvalidValue;
-  const int* bt = static_cast<const int*>(block_tables);
-  const int* qs = static_cast<const int*>(q_start);
-  const int* ql = static_cast<const int*>(q_len);
-  prefill_commit_kernel<<<dim3(C, B), kCommitThreads, 0, stream>>>(
-      static_cast<const uint4*>(k_new), static_cast<const uint4*>(v_new),
-      static_cast<uint4*>(k_pool), static_cast<uint4*>(v_pool), bt, qs, ql,
-      C, row_bytes / 16, bs, nb);
-  cudaError_t err = cudaGetLastError();
+                   void* k_pool, void* v_pool, void* k_scale, void* v_scale,
+                   const void* block_tables, const void* q_start,
+                   const void* q_len, void* out, int B, int C, int KV, int G,
+                   int D, int bs, int nb, int bc, int smem,
+                   cudaStream_t stream) {
+  if (bc < 1 || smem < 1) return cudaErrorInvalidValue;
+  cudaError_t err = commit<T, P>(k_new, v_new, k_pool, v_pool, k_scale,
+                                 v_scale, block_tables, q_start, q_len, B, C,
+                                 KV, D, bs, nb, stream);
   if (err != cudaSuccess) return err;
 
   const dim3 grid(KV, B, (C + bc - 1) / bc);
   const T* qt = static_cast<const T*>(q);
-  const T* kt = static_cast<const T*>(k_pool);
-  const T* vt = static_cast<const T*>(v_pool);
+  const P* kt = static_cast<const P*>(k_pool);
+  const P* vt = static_cast<const P*>(v_pool);
+  const float* ks = static_cast<const float*>(k_scale);
+  const float* vs = static_cast<const float*>(v_scale);
+  const int* bt = static_cast<const int*>(block_tables);
+  const int* qs = static_cast<const int*>(q_start);
+  const int* ql = static_cast<const int*>(q_len);
   T* ot = static_cast<T*>(out);
   switch (D) {
     case 16:
-      prefill_attend_kernel<T, 16><<<grid, kThreads, smem, stream>>>(
-          qt, kt, vt, bt, qs, ql, ot, C, KV, G, bs, nb, bc);
+      prefill_attend_kernel<T, P, 16><<<grid, kThreads, smem, stream>>>(
+          qt, kt, vt, ks, vs, bt, qs, ql, ot, C, KV, G, bs, nb, bc);
       break;
     case 32:
-      prefill_attend_kernel<T, 32><<<grid, kThreads, smem, stream>>>(
-          qt, kt, vt, bt, qs, ql, ot, C, KV, G, bs, nb, bc);
+      prefill_attend_kernel<T, P, 32><<<grid, kThreads, smem, stream>>>(
+          qt, kt, vt, ks, vs, bt, qs, ql, ot, C, KV, G, bs, nb, bc);
       break;
     case 64:
-      prefill_attend_kernel<T, 64><<<grid, kThreads, smem, stream>>>(
-          qt, kt, vt, bt, qs, ql, ot, C, KV, G, bs, nb, bc);
+      prefill_attend_kernel<T, P, 64><<<grid, kThreads, smem, stream>>>(
+          qt, kt, vt, ks, vs, bt, qs, ql, ot, C, KV, G, bs, nb, bc);
       break;
     case 128:
-      prefill_attend_kernel<T, 128><<<grid, kThreads, smem, stream>>>(
-          qt, kt, vt, bt, qs, ql, ot, C, KV, G, bs, nb, bc);
+      prefill_attend_kernel<T, P, 128><<<grid, kThreads, smem, stream>>>(
+          qt, kt, vt, ks, vs, bt, qs, ql, ot, C, KV, G, bs, nb, bc);
       break;
     default:
       return cudaErrorInvalidValue;
@@ -316,30 +422,60 @@ cudaError_t launch(const void* q, const void* k_new, const void* v_new,
 
 }  // namespace
 
-// Launches the commit, then the attention, on ``stream``.  dtype: 0 =
-// float32, 1 = bfloat16.  smem: the attention block's dynamic shared
-// memory in bytes for this bc, G, D, bs and nb, as laid out above
-// prefill_attend_kernel (the caller computes it: prefill_smem_bytes in
-// kernel.py).  Returns the first cudaGetLastError() that is not 0 (0 when
-// both launches were accepted); never synchronises.
+// The (q, pool) dtype pairs with an instantiation; dtype / pool_dtype: 0 =
+// float32, 1 = bfloat16, 2 = int8.  Any other pair returns an
+// invalid-value code.
+#define FP_DISPATCH(CALL)                                            \
+  if (dtype == 0 && pool_dtype == 0)                                 \
+    return static_cast<int>(CALL(float, float));                     \
+  if (dtype == 0 && pool_dtype == 1)                                 \
+    return static_cast<int>(CALL(float, __nv_bfloat16));             \
+  if (dtype == 0 && pool_dtype == 2)                                 \
+    return static_cast<int>(CALL(float, int8_t));                    \
+  if (dtype == 1 && pool_dtype == 1)                                 \
+    return static_cast<int>(CALL(__nv_bfloat16, __nv_bfloat16));     \
+  if (dtype == 1 && pool_dtype == 2)                                 \
+    return static_cast<int>(CALL(__nv_bfloat16, int8_t));            \
+  return static_cast<int>(cudaErrorInvalidValue)
+
+// Launches the commit, then the attention, on ``stream``.  k_scale and
+// v_scale are NULL unless the pools are int8.  smem: the attention block's
+// dynamic shared memory in bytes for this bc, G, D, bs, nb and pool dtype,
+// as laid out above prefill_attend_kernel (the caller computes it:
+// prefill_smem_bytes in kernel.py).  Returns the first cudaGetLastError()
+// that is not 0 (0 when both launches were accepted); never synchronises.
 extern "C" int flash_prefill_paged_launch(
     const void* q, const void* k_new, const void* v_new, void* k_pool,
-    void* v_pool, const void* block_tables, const void* q_start,
-    const void* q_len, void* out, int B, int C, int KV, int G, int D, int bs,
-    int nb, int bc, int smem, int dtype, int device, void* stream) {
+    void* v_pool, void* k_scale, void* v_scale, const void* block_tables,
+    const void* q_start, const void* q_len, void* out, int B, int C, int KV,
+    int G, int D, int bs, int nb, int bc, int smem, int dtype, int pool_dtype,
+    int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return static_cast<int>(launch<float>(q, k_new, v_new, k_pool, v_pool,
-                                          block_tables, q_start, q_len, out,
-                                          B, C, KV, G, D, bs, nb, bc, smem,
-                                          s));
-  if (dtype == 1)
-    return static_cast<int>(launch<__nv_bfloat16>(
-        q, k_new, v_new, k_pool, v_pool, block_tables, q_start, q_len, out,
-        B, C, KV, G, D, bs, nb, bc, smem, s));
-  return static_cast<int>(cudaErrorInvalidValue);
+#define FP_LAUNCH(T, P)                                                    \
+  launch<T, P>(q, k_new, v_new, k_pool, v_pool, k_scale, v_scale,          \
+               block_tables, q_start, q_len, out, B, C, KV, G, D, bs, nb,  \
+               bc, smem, s)
+  FP_DISPATCH(FP_LAUNCH);
+#undef FP_LAUNCH
+}
+
+// The commit alone (a decode step's row is a chunk of one): k/v_new (B, C,
+// KV, D) into the pools, and scales for int8 pools, on ``stream``.
+extern "C" int flash_commit_paged_launch(
+    const void* k_new, const void* v_new, void* k_pool, void* v_pool,
+    void* k_scale, void* v_scale, const void* block_tables,
+    const void* q_start, const void* q_len, int B, int C, int KV, int D,
+    int bs, int nb, int dtype, int pool_dtype, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define FP_COMMIT(T, P)                                                    \
+  commit<T, P>(k_new, v_new, k_pool, v_pool, k_scale, v_scale,             \
+               block_tables, q_start, q_len, B, C, KV, D, bs, nb, s)
+  FP_DISPATCH(FP_COMMIT);
+#undef FP_COMMIT
 }
 
 extern "C" const char* flash_prefill_error_string(int code) {

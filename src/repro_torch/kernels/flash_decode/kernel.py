@@ -4,11 +4,14 @@ the CUDA kernels in ``csrc/``.
 Both CUDA sources are built and loaded at first use by
 :mod:`repro_torch.kernels.build`, into ``build/`` beside ``csrc/``.
 
-:func:`flash_decode_paged`, :func:`flash_decode` and
-:func:`flash_prefill_paged` take CPU tensors to their plain versions in
-``ref.py`` and launch their kernels for CUDA tensors; there is no fallback
-from one to the other.  Each wrapper's ``launches`` attribute counts the
-calls that launched its kernels.  :func:`flash_decode` and
+:func:`flash_decode_paged`, :func:`flash_decode`,
+:func:`flash_prefill_paged` and :func:`commit_paged` take CPU tensors to
+their plain versions in ``ref.py`` and launch their kernels for CUDA
+tensors; there is no fallback from one to the other, and a (q, pool) dtype
+pair outside :data:`POOL_PAIRS` raises.  The paged kernels take pools in
+q's dtype, bf16 pools under an f32 q, and int8 pools with one fp32 scale a
+pool row.  Each wrapper's ``launches`` attribute counts the calls that
+launched its kernels.  :func:`flash_decode` and
 :func:`flash_prefill` take the reference's argument lists and check its
 tile arguments (``block_s``, ``block_c``) as it does; the CUDA kernels'
 tiles are their own.  ``*_plain`` are the same functions, with the same
@@ -26,7 +29,13 @@ from repro_torch.kernels import build
 from repro_torch.kernels.flash_decode import ref
 
 #: dtype codes of the C interface
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+#: (q dtype, pool dtype) pairs the paged kernels are instantiated for: pools
+#: in q's dtype, bf16 under an f32 q, and int8 (with per-row fp32 scales)
+#: under either
+POOL_PAIRS = ((torch.float32, torch.float32), (torch.float32, torch.bfloat16),
+              (torch.float32, torch.int8), (torch.bfloat16, torch.bfloat16),
+              (torch.bfloat16, torch.int8))
 #: head dims the kernels are instantiated for
 HEAD_DIMS = (16, 32, 64, 128)
 #: dynamic shared memory a block may use without an opt-in attribute
@@ -36,14 +45,18 @@ PREFILL_ROWS = 16
 #: cache rows per tile of the contiguous decode kernel
 DECODE_TILE = 64
 
+_P = ctypes.c_void_p
+_I = ctypes.c_int
 #: (library, C function) -> argument types
 _ARGTYPES: Dict[tuple, list] = {
     ("flash_decode_paged", "flash_decode_paged_launch"):
-        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p],
+        [_P] * 8 + [_I] * 9 + [_P],
     ("flash_decode_paged", "flash_decode_launch"):
-        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p],
+        [_P] * 5 + [_I] * 8 + [_P],
     ("flash_prefill_paged", "flash_prefill_paged_launch"):
-        [ctypes.c_void_p] * 9 + [ctypes.c_int] * 11 + [ctypes.c_void_p],
+        [_P] * 11 + [_I] * 12 + [_P],
+    ("flash_prefill_paged", "flash_commit_paged_launch"):
+        [_P] * 9 + [_I] * 9 + [_P],
 }
 
 
@@ -51,17 +64,25 @@ def _launcher(library: str, symbol: str):
     return build.function(library, symbol, _ARGTYPES[library, symbol])
 
 
+def _ptr(t) -> int:
+    """Device address of ``t``, or 0 (NULL) for None."""
+    return 0 if t is None else t.data_ptr()
+
+
 def _check_head_dim(D: int) -> None:
     if D not in HEAD_DIMS:
         raise ValueError(f"head dim {D} not in the kernel's {HEAD_DIMS}")
 
 
-def _decode_smem_bytes(G: int, D: int, rows: int, table: int) -> int:
+def _decode_smem_bytes(G: int, D: int, rows: int, table: int,
+                       quantized: bool = False) -> int:
     """Dynamic shared memory of one decode block: q and acc (G*D each),
-    the scores of a tile (G*rows) and m, l, corr (G each) in fp32, and
-    ``table`` block-table entries, as ``flash_decode_kernel`` lays them
-    out; raises above the limit without an opt-in."""
-    smem = 4 * (2 * G * D + G * rows + 3 * G) + 4 * table
+    the scores of a tile (G*rows) and m, l, corr (G each) in fp32, the
+    tile's K and V scales (rows each) when ``quantized``, and ``table``
+    block-table entries, as ``flash_decode_kernel`` lays them out; raises
+    above the limit without an opt-in."""
+    smem = (4 * (2 * G * D + G * rows + 3 * G + (2 * rows if quantized
+                                                  else 0)) + 4 * table)
     if smem > _SMEM_LIMIT:
         raise ValueError(f"G={G}, D={D}, tile rows={rows}, table={table} "
                          f"need {smem} bytes of shared memory, over "
@@ -72,13 +93,14 @@ def _decode_smem_bytes(G: int, D: int, rows: int, table: int) -> int:
 def _check_tensors(q, kv: dict, ints: dict, tensors) -> None:
     """q float32 or bfloat16, the ``kv`` tensors in q's dtype, the ``ints``
     int32, and every tensor on one device and contiguous."""
-    if q.dtype not in _DTYPE_CODE:
+    if q.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"q must be float32 or bfloat16, got {q.dtype}")
     if any(t.dtype != q.dtype for t in kv.values()):
         raise TypeError(f"{'/'.join(kv)} must have q's dtype {q.dtype}, got "
                         f"{[str(t.dtype) for t in kv.values()]}")
     if any(t.dtype != torch.int32 for t in ints.values()):
         raise TypeError(f"{'/'.join(ints)} must be int32")
+    tensors = [t for t in tensors if t is not None]
     if len({t.device for t in tensors}) != 1:
         raise ValueError("all inputs must lie on one device, got "
                          f"{[str(t.device) for t in tensors]}")
@@ -86,60 +108,93 @@ def _check_tensors(q, kv: dict, ints: dict, tensors) -> None:
         raise ValueError("all inputs must be contiguous")
 
 
-def _check_common(q, k_pool, v_pool, block_tables, per_slot, KV, D,
-                  tensors) -> None:
-    B = q.shape[0]
+def _check_pools(q, k_pool, v_pool, k_scale, v_scale, KV, D) -> bool:
+    """Pools (n_blocks, bs, KV, D) of one shape whose dtype pairs with q's
+    (:data:`POOL_PAIRS`), and scales (n_blocks, bs) float32 passed together
+    exactly when the pools are int8.  Returns whether they are."""
     if k_pool.dim() != 4 or k_pool.shape[2:] != (KV, D):
         raise ValueError(f"k_pool must be (n_blocks, bs, {KV}, {D}), got "
                          f"{tuple(k_pool.shape)}")
-    if v_pool.shape != k_pool.shape:
-        raise ValueError(f"v_pool {tuple(v_pool.shape)} != k_pool "
-                         f"{tuple(k_pool.shape)}")
+    if v_pool.shape != k_pool.shape or v_pool.dtype != k_pool.dtype:
+        raise ValueError(f"v_pool {tuple(v_pool.shape)} {v_pool.dtype} != "
+                         f"k_pool {tuple(k_pool.shape)} {k_pool.dtype}")
+    if (q.dtype, k_pool.dtype) not in POOL_PAIRS:
+        raise TypeError(f"pools of {k_pool.dtype} under a {q.dtype} q are "
+                        f"not served; pairs: {POOL_PAIRS}")
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError("k_scale and v_scale must be passed together")
+    quantized = k_pool.dtype == torch.int8
+    if quantized != (k_scale is not None):
+        raise ValueError("int8 pools need k_scale/v_scale, and only int8 "
+                         "pools take them")
+    if quantized:
+        for name, t in (("k_scale", k_scale), ("v_scale", v_scale)):
+            if tuple(t.shape) != tuple(k_pool.shape[:2]):
+                raise ValueError(f"{name} must be {tuple(k_pool.shape[:2])}"
+                                 f", got {tuple(t.shape)}")
+            if t.dtype != torch.float32:
+                raise TypeError(f"{name} must be float32, got {t.dtype}")
+    return quantized
+
+
+def _check_common(q, k_pool, v_pool, k_scale, v_scale, block_tables,
+                  per_slot, KV, D, tensors) -> bool:
+    B = q.shape[0]
+    quantized = _check_pools(q, k_pool, v_pool, k_scale, v_scale, KV, D)
     if block_tables.dim() != 2 or block_tables.shape[0] != B:
         raise ValueError(f"block_tables must be ({B}, nb), got "
                          f"{tuple(block_tables.shape)}")
     for name, t in per_slot.items():
         if tuple(t.shape) != (B,):
             raise ValueError(f"{name} must be ({B},), got {tuple(t.shape)}")
-    _check_tensors(q, {"k_pool": k_pool, "v_pool": v_pool},
-                   {"block_tables": block_tables, **per_slot}, tensors)
+    _check_tensors(q, {}, {"block_tables": block_tables, **per_slot},
+                   tensors)
+    return quantized
 
 
-def _check(q, k_pool, v_pool, block_tables, valid_len) -> None:
+def _check(q, k_pool, v_pool, block_tables, valid_len, k_scale,
+           v_scale) -> bool:
     if q.dim() != 4:
         raise ValueError(f"q must be (B, KV, G, D), got {tuple(q.shape)}")
     _, KV, _, D = q.shape
-    _check_common(q, k_pool, v_pool, block_tables, {"valid_len": valid_len},
-                  KV, D, (q, k_pool, v_pool, block_tables, valid_len))
+    return _check_common(q, k_pool, v_pool, k_scale, v_scale, block_tables,
+                         {"valid_len": valid_len}, KV, D,
+                         (q, k_pool, v_pool, k_scale, v_scale, block_tables,
+                          valid_len))
 
 
 def flash_decode_paged(q: torch.Tensor, k_pool: torch.Tensor,
                        v_pool: torch.Tensor, block_tables: torch.Tensor,
-                       valid_len: torch.Tensor) -> torch.Tensor:
+                       valid_len: torch.Tensor, k_scale=None,
+                       v_scale=None) -> torch.Tensor:
     """One-token GQA attention over a paged KV cache.
 
-    q (B, KV, G, D); k/v_pool (n_blocks, bs, KV, D) in q's dtype;
-    block_tables (B, nb) int32; valid_len (B,) int32, every entry >= 1 and
-    every table entry a block of the pool (not checked: both live on the
-    device).  Returns (B, KV, G, D) in q's dtype.
+    q (B, KV, G, D); k/v_pool (n_blocks, bs, KV, D) in q's dtype, bf16
+    under an f32 q, or int8 with ``k_scale``/``v_scale`` (n_blocks, bs)
+    float32, one scale a pool row, dequantized in fp32 as ``code *
+    scale``; block_tables (B, nb) int32; valid_len (B,) int32, every entry
+    >= 1 and every table entry a block of the pool (not checked: both live
+    on the device).  Rows at or past ``valid_len`` and their scales are
+    never read.  Returns (B, KV, G, D) in q's dtype.
     """
-    _check(q, k_pool, v_pool, block_tables, valid_len)
+    quantized = _check(q, k_pool, v_pool, block_tables, valid_len, k_scale,
+                       v_scale)
     if q.device.type == "cpu":
         return ref.flash_decode_paged_ref(q, k_pool, v_pool, block_tables,
-                                          valid_len)
+                                          valid_len, k_scale, v_scale)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     B, KV, G, D = q.shape
     bs = k_pool.shape[1]
     nb = block_tables.shape[1]
     _check_head_dim(D)
-    _decode_smem_bytes(G, D, bs, nb)
+    _decode_smem_bytes(G, D, bs, nb, quantized)
     out = torch.empty_like(q)
     err = _launcher("flash_decode_paged", "flash_decode_paged_launch")(
-        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-        block_tables.data_ptr(), valid_len.data_ptr(), out.data_ptr(),
-        B, KV, G, D, bs, nb, _DTYPE_CODE[q.dtype], q.device.index or 0,
-        torch.cuda.current_stream(q.device).cuda_stream,
+        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), _ptr(k_scale),
+        _ptr(v_scale), block_tables.data_ptr(), valid_len.data_ptr(),
+        out.data_ptr(), B, KV, G, D, bs, nb, _DTYPE_CODE[q.dtype],
+        _DTYPE_CODE[k_pool.dtype], q.device.index or 0, build.stream_of(q),
     )
     build.raise_on("flash_decode_paged", err)
     flash_decode_paged.launches += 1
@@ -211,24 +266,29 @@ def flash_decode_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return ref.decode_plain(q, k, v, valid_len)
 
 
-def prefill_smem_bytes(bc: int, G: int, D: int, bs: int, nb: int) -> int:
+def prefill_smem_bytes(bc: int, G: int, D: int, bs: int, nb: int,
+                       quantized: bool = False) -> int:
     """Dynamic shared memory of one prefill attention block of ``bc``
     chunk rows: q and acc (bc*G*D each), the V tile (bs*D), the scores
-    (bc*G*bs) and m, l, corr (bc*G each) in fp32, and the table row, as
+    (bc*G*bs), m, l, corr (bc*G each) and, when ``quantized``, the tile's
+    K and V scales (bs each) in fp32, and the table row, as
     ``prefill_attend_kernel`` lays them out.  The launch is given this
     size; nothing else computes it."""
     r = bc * G
-    return 4 * (2 * r * D + bs * D + r * bs + 3 * r) + 4 * nb
+    scales = 2 * bs if quantized else 0
+    return 4 * (2 * r * D + bs * D + r * bs + 3 * r + scales) + 4 * nb
 
 
-def prefill_rows_per_block(C: int, G: int, D: int, bs: int, nb: int) -> int:
+def prefill_rows_per_block(C: int, G: int, D: int, bs: int, nb: int,
+                           quantized: bool = False) -> int:
     """Chunk rows per attention block: at most :data:`PREFILL_ROWS` and
     ``C``, halved until the block's shared memory fits without an opt-in;
     raises when one row does not fit."""
     bc = min(PREFILL_ROWS, C)
-    while bc > 1 and prefill_smem_bytes(bc, G, D, bs, nb) > _SMEM_LIMIT:
+    while bc > 1 and prefill_smem_bytes(bc, G, D, bs, nb,
+                                        quantized) > _SMEM_LIMIT:
         bc //= 2
-    smem = prefill_smem_bytes(bc, G, D, bs, nb)
+    smem = prefill_smem_bytes(bc, G, D, bs, nb, quantized)
     if smem > _SMEM_LIMIT:
         raise ValueError(f"G={G}, D={D}, bs={bs}, nb={nb} need {smem} bytes "
                          f"of shared memory for one chunk row, over "
@@ -236,11 +296,8 @@ def prefill_rows_per_block(C: int, G: int, D: int, bs: int, nb: int) -> int:
     return bc
 
 
-def _check_prefill(q, k_new, v_new, k_pool, v_pool, block_tables, q_start,
-                   q_len) -> None:
-    if q.dim() != 5:
-        raise ValueError(f"q must be (B, C, KV, G, D), got {tuple(q.shape)}")
-    B, C, KV, _, D = q.shape
+def _check_chunk(q, k_new, v_new, k_pool, v_pool, k_scale, v_scale,
+                 block_tables, q_start, q_len, B, C, KV, D) -> bool:
     for name, t in (("k_new", k_new), ("v_new", v_new)):
         if tuple(t.shape) != (B, C, KV, D):
             raise ValueError(f"{name} must be ({B}, {C}, {KV}, {D}), got "
@@ -248,55 +305,110 @@ def _check_prefill(q, k_new, v_new, k_pool, v_pool, block_tables, q_start,
         if t.dtype != q.dtype:
             raise TypeError(f"{name} must have q's dtype {q.dtype}, got "
                             f"{t.dtype}")
-    _check_common(q, k_pool, v_pool, block_tables,
-                  {"q_start": q_start, "q_len": q_len}, KV, D,
-                  (q, k_new, v_new, k_pool, v_pool, block_tables, q_start,
-                   q_len))
+    return _check_common(q, k_pool, v_pool, k_scale, v_scale, block_tables,
+                         {"q_start": q_start, "q_len": q_len}, KV, D,
+                         (q, k_new, v_new, k_pool, v_pool, k_scale, v_scale,
+                          block_tables, q_start, q_len))
+
+
+def _check_prefill(q, k_new, v_new, k_pool, v_pool, block_tables, q_start,
+                   q_len, k_scale=None, v_scale=None) -> bool:
+    if q.dim() != 5:
+        raise ValueError(f"q must be (B, C, KV, G, D), got {tuple(q.shape)}")
+    B, C, KV, _, D = q.shape
+    return _check_chunk(q, k_new, v_new, k_pool, v_pool, k_scale, v_scale,
+                        block_tables, q_start, q_len, B, C, KV, D)
+
+
+def commit_paged(k_new: torch.Tensor, v_new: torch.Tensor,
+                 k_pool: torch.Tensor, v_pool: torch.Tensor,
+                 block_tables: torch.Tensor, q_start: torch.Tensor,
+                 q_len: torch.Tensor, k_scale=None, v_scale=None) -> None:
+    """Commit a chunk's K/V rows into the paged pools in place, alone: the
+    first pass of :func:`flash_prefill_paged`, which a decode step runs as
+    a chunk of one.
+
+    k/v_new (B, C, KV, D) float32 or bfloat16; pools and scales as
+    :func:`flash_prefill_paged` takes them.  Rows ``c < q_len[b]`` land at
+    position ``q_start[b] + c`` through the block table, converted to the
+    pools' dtype or, for int8 pools, quantized with a fresh scale a row
+    (:func:`ref.quantize_rows`'s formula); every other row keeps its bytes
+    and its scale.
+    """
+    if k_new.dim() != 4:
+        raise ValueError(f"k_new must be (B, C, KV, D), got "
+                         f"{tuple(k_new.shape)}")
+    B, C, KV, D = k_new.shape
+    _check_chunk(k_new, k_new, v_new, k_pool, v_pool, k_scale, v_scale,
+                 block_tables, q_start, q_len, B, C, KV, D)
+    if k_new.device.type == "cpu":
+        ref.commit_paged_ref(k_new, v_new, k_pool, v_pool, block_tables,
+                             q_start, q_len, k_scale, v_scale)
+        return
+    build.require_cuda("flash_prefill_paged", (k_new,))
+    if k_new.numel() == 0:
+        return
+    err = _launcher("flash_prefill_paged", "flash_commit_paged_launch")(
+        k_new.data_ptr(), v_new.data_ptr(), k_pool.data_ptr(),
+        v_pool.data_ptr(), _ptr(k_scale), _ptr(v_scale),
+        block_tables.data_ptr(), q_start.data_ptr(), q_len.data_ptr(), B, C,
+        KV, D, k_pool.shape[1], block_tables.shape[1],
+        _DTYPE_CODE[k_new.dtype], _DTYPE_CODE[k_pool.dtype],
+        k_new.device.index or 0, build.stream_of(k_new))
+    build.raise_on("flash_prefill_paged", err)
+    commit_paged.launches += 1
+
+
+commit_paged.launches = 0
 
 
 def flash_prefill_paged(q: torch.Tensor, k_new: torch.Tensor,
                         v_new: torch.Tensor, k_pool: torch.Tensor,
                         v_pool: torch.Tensor, block_tables: torch.Tensor,
-                        q_start: torch.Tensor,
-                        q_len: torch.Tensor) -> torch.Tensor:
+                        q_start: torch.Tensor, q_len: torch.Tensor,
+                        k_scale=None, v_scale=None) -> torch.Tensor:
     """Chunked prefill over a paged KV cache: commit, then causal
     attention.
 
-    q (B, C, KV, G, D); k/v_new (B, C, KV, D) and k/v_pool (n_blocks, bs,
-    KV, D) in q's dtype; block_tables (B, nb), q_start and q_len (B,)
-    int32.  Rows ``c < q_len[b]`` are written into the pools in place at
-    position ``q_start[b] + c`` through the block table, which must map
-    every such position (not checked: the values live on the device); each
-    such row then attends to its slot's keys up to its own position.  Rows
-    at or past ``q_len[b]`` commit nothing and come out as zeros.  Returns
-    (B, C, KV, G, D) in q's dtype.  On the card: the commit kernel, then
-    the attention kernel, on the current stream.
+    q (B, C, KV, G, D); k/v_new (B, C, KV, D) in q's dtype; k/v_pool
+    (n_blocks, bs, KV, D) in q's dtype, bf16 under an f32 q, or int8 with
+    ``k_scale``/``v_scale`` (n_blocks, bs) float32; block_tables (B, nb),
+    q_start and q_len (B,) int32.  Rows ``c < q_len[b]`` are written into
+    the pools in place at position ``q_start[b] + c`` through the block
+    table, which must map every such position (not checked: the values
+    live on the device): converted to the pools' dtype, or quantized with
+    a fresh scale a row for int8 pools.  Each such row then attends to its
+    slot's keys up to its own position, dequantized in fp32.  Rows at or
+    past ``q_len[b]`` commit nothing and come out as zeros; every other
+    pool row keeps its bytes and its scale.  Returns (B, C, KV, G, D) in
+    q's dtype.  On the card: the commit kernel, then the attention kernel,
+    on the current stream.
     """
-    _check_prefill(q, k_new, v_new, k_pool, v_pool, block_tables, q_start,
-                   q_len)
+    quantized = _check_prefill(q, k_new, v_new, k_pool, v_pool,
+                               block_tables, q_start, q_len, k_scale,
+                               v_scale)
     if q.device.type == "cpu":
         return ref.flash_prefill_paged_ref(q, k_new, v_new, k_pool, v_pool,
-                                           block_tables, q_start, q_len)
+                                           block_tables, q_start, q_len,
+                                           k_scale, v_scale)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     B, C, KV, G, D = q.shape
     bs = k_pool.shape[1]
     nb = block_tables.shape[1]
     _check_head_dim(D)
-    bc = prefill_rows_per_block(C, G, D, bs, nb)
-    # the commit copies rows as 16-byte words
-    if any(t.data_ptr() % 16 for t in (k_new, v_new, k_pool, v_pool)):
-        raise ValueError("k/v_new and the pools must be 16-byte aligned")
+    bc = prefill_rows_per_block(C, G, D, bs, nb, quantized)
     out = torch.empty_like(q)
     if q.numel() == 0:
         return out
     err = _launcher("flash_prefill_paged", "flash_prefill_paged_launch")(
         q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), k_pool.data_ptr(),
-        v_pool.data_ptr(), block_tables.data_ptr(), q_start.data_ptr(),
-        q_len.data_ptr(), out.data_ptr(), B, C, KV, G, D, bs, nb, bc,
-        prefill_smem_bytes(bc, G, D, bs, nb), _DTYPE_CODE[q.dtype],
-        q.device.index or 0,
-        torch.cuda.current_stream(q.device).cuda_stream,
+        v_pool.data_ptr(), _ptr(k_scale), _ptr(v_scale),
+        block_tables.data_ptr(), q_start.data_ptr(), q_len.data_ptr(),
+        out.data_ptr(), B, C, KV, G, D, bs, nb, bc,
+        prefill_smem_bytes(bc, G, D, bs, nb, quantized),
+        _DTYPE_CODE[q.dtype], _DTYPE_CODE[k_pool.dtype],
+        q.device.index or 0, build.stream_of(q),
     )
     build.raise_on("flash_prefill_paged", err)
     flash_prefill_paged.launches += 1
@@ -308,9 +420,6 @@ flash_prefill_paged.launches = 0
 
 def _prefill_op(fn, q, k_new, v_new, k_pool, v_pool, block_tables, q_start,
                 q_len, k_scale, v_scale, block_c, block_s):
-    if k_scale is not None or v_scale is not None:
-        raise ValueError("not ported yet: int8 pools with k_scale/v_scale "
-                         "are ROADMAP item 1.11")
     if q.dim() != 5:
         raise ValueError(f"q must be (B, C, KV, G, D), got {tuple(q.shape)}")
     B, C = q.shape[:2]
@@ -323,8 +432,10 @@ def _prefill_op(fn, q, k_new, v_new, k_pool, v_pool, block_tables, q_start,
         raise ValueError(f"block size {bs} not divisible by block_s {bks}")
     if q_len is None:
         q_len = torch.full((B,), C, dtype=torch.int32, device=q.device)
-    out = fn(q, k_new, v_new, k_pool, v_pool, block_tables, q_start, q_len)
-    return out, k_pool, v_pool
+    out = fn(q, k_new, v_new, k_pool, v_pool, block_tables, q_start, q_len,
+             k_scale, v_scale)
+    scales = () if k_scale is None else (k_scale, v_scale)
+    return (out, k_pool, v_pool, *scales)
 
 
 def flash_prefill(q: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor,
@@ -333,12 +444,12 @@ def flash_prefill(q: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor,
                   q_len=None, *, k_scale=None, v_scale=None,
                   block_c: int = 8, block_s: int = 0):
     """Chunked prefill with the reference's argument list: returns (out,
-    k_pool, v_pool), the pools committed in place by
-    :func:`flash_prefill_paged` (the reference returns new pools).
-    ``q_len`` defaults to the chunk width C.  ``block_c`` and ``block_s``
-    are the TPU kernel's tiles, checked as the reference checks them (C
-    divisible by ``min(block_c, C)``, the block size by ``block_s`` when
-    it is not 0); int8 pools with scales are not ported (ROADMAP 1.11).
+    k_pool, v_pool), and ``k_scale, v_scale`` after them with int8 pools,
+    committed in place by :func:`flash_prefill_paged` (the reference
+    returns new arrays).  ``q_len`` defaults to the chunk width C.
+    ``block_c`` and ``block_s`` are the TPU kernel's tiles, checked as the
+    reference checks them (C divisible by ``min(block_c, C)``, the block
+    size by ``block_s`` when it is not 0).
     """
     return _prefill_op(flash_prefill_paged, q, k_new, v_new, k_pool, v_pool,
                        block_tables, q_start, q_len, k_scale, v_scale,

@@ -14,12 +14,14 @@ serving (ROADMAP 1.16).
 
 from __future__ import annotations
 
-from repro_torch.kernels.flash_decode.kernel import (flash_decode_paged,
+from repro_torch.kernels.flash_decode.kernel import (commit_paged,
+                                                     flash_decode_paged,
                                                      flash_prefill_paged)
 from repro_torch.kernels.registry import FLASH_DECODE as flash_decode
 from repro_torch.kernels.registry import FLASH_PREFILL as flash_prefill
 
 __all__ = [
+    "commit_paged",
     "flash_decode",
     "flash_decode_paged",
     "flash_prefill",

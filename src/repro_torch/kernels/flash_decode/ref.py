@@ -6,14 +6,16 @@ their oracles and their analytic work terms, across from
 :func:`decode_plain` is the kernel's function: the same fp32 masked
 softmax, with zeros for a slot whose ``valid_len`` is 0 (the Pallas
 kernel's clamped sum; the oracle gives the mean of v there).
-:func:`flash_decode_paged_ref` ports ``decode_paged_ref`` (f32 and bf16
-pools): gather each slot's logical view through its block table, then the
-oracle.  :func:`flash_prefill_paged_ref` ports ``prefill_paged_ref`` (f32
-and bf16 pools): commit the chunk's K/V rows into the pools in place, then
+:func:`flash_decode_paged_ref` ports ``decode_paged_ref``: gather each
+slot's logical view through its block table, then the oracle.
+:func:`flash_prefill_paged_ref` ports ``prefill_paged_ref``: commit the
+chunk's K/V rows into the pools in place (:func:`commit_paged_ref`), then
 causal attention over each slot's gathered view; :func:`prefill_paged_ref`
-is the reference's functional form of it.  The CPU path and the tests use
-them; on the card they serve only as the yardsticks the kernels are
-compared with.
+is the reference's functional form of it.  Pools are in q's dtype, bf16
+under an f32 q, or int8 with one fp32 scale per pool row
+(:func:`quantize_rows`, dequantized in fp32 as ``code * scale`` by
+:func:`dequantize_pool`).  The CPU path and the tests use them; on the
+card they serve only as the yardsticks the kernels are compared with.
 """
 
 from __future__ import annotations
@@ -48,46 +50,87 @@ def decode_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.masked_fill((valid_len <= 0)[:, None, None, None], 0.0)
 
 
+def quantize_rows(x: torch.Tensor):
+    """Per-row symmetric int8 of a pool-layout array ``x`` (..., KV, D):
+    one fp32 scale per row, amax over the row's (KV, D) extent, as the
+    reference's Pallas commit and its serving cell compute it (``s =
+    max(amax / 127, 1e-8)``, codes ``clip(round_half_even(x / s), -127,
+    127)``), bit for bit.  Compiled by XLA, the division by the constant
+    127 becomes a product with its fp32 reciprocal, which the port
+    follows; the reference's eager ``quantize_rows`` divides, and its
+    scale then differs by one ulp in a few percent of rows.  Returns (int8
+    codes, fp32 scales shaped like ``x`` minus its last two axes)."""
+    xf = x.float()
+    amax = xf.abs().amax(dim=(-2, -1))
+    s = torch.clamp(amax * (1.0 / 127.0), min=1e-8)
+    codes = torch.clamp(torch.round(xf / s[..., None, None]), -127, 127)
+    return codes.to(torch.int8), s
+
+
+def dequantize_pool(pool: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """Widen an int8 pool (n_blocks, bs, KV, D) to fp32 with its per-row
+    scales (n_blocks, bs)."""
+    return pool.float() * scale[..., None, None]
+
+
+def _widen(pool: torch.Tensor, scale) -> torch.Tensor:
+    return pool.float() if scale is None else dequantize_pool(pool, scale)
+
+
 def flash_decode_paged_ref(q: torch.Tensor, k_pool: torch.Tensor,
                            v_pool: torch.Tensor, block_tables: torch.Tensor,
-                           valid_len: torch.Tensor) -> torch.Tensor:
+                           valid_len: torch.Tensor, k_scale=None,
+                           v_scale=None) -> torch.Tensor:
     """q (B,KV,G,D); k/v_pool (n_blocks, bs, KV, D); block_tables (B, nb)
     int32; valid_len (B,) int32 with every slot >= 1 -> (B,KV,G,D) in q's
-    dtype."""
+    dtype.  With int8 pools, ``k_scale``/``v_scale`` (n_blocks, bs) fp32
+    dequantize the gathered rows."""
     B, KV, _, D = q.shape
     nb = block_tables.shape[1]
     bs = k_pool.shape[1]
     idx = block_tables.long()
-    k = k_pool[idx].reshape(B, nb * bs, KV, D)
-    v = v_pool[idx].reshape(B, nb * bs, KV, D)
-    return decode_ref(q, k, v, valid_len)
+    k = _widen(k_pool[idx], None if k_scale is None else k_scale[idx])
+    v = _widen(v_pool[idx], None if v_scale is None else v_scale[idx])
+    return decode_ref(q, k.reshape(B, nb * bs, KV, D),
+                      v.reshape(B, nb * bs, KV, D), valid_len)
 
 
-def _decode_terms(q: torch.Tensor, lens, extra_bytes: int) -> dict:
+def _row_bytes(pool: torch.Tensor, quantized: bool) -> int:
+    """Bytes of one cached position: its K and V rows over every KV head
+    in the pool's dtype, plus their two fp32 scales when the pools are
+    int8."""
+    KV, D = pool.shape[-2:]
+    return 2 * KV * D * pool.element_size() + (8 if quantized else 0)
+
+
+def _decode_terms(q: torch.Tensor, lens, extra_bytes: int,
+                  row_bytes: float) -> dict:
     B, KV, G, D = q.shape
     live = sum(lens)
     item = q.element_size()
     bytes_ = (2 * B * KV * G * D * item        # q in, output out
-              + 2 * live * KV * D * item       # live K and V rows
+              + live * row_bytes               # live K and V rows
               + 4 * B + extra_bytes)           # valid_len, tables
     return {"bytes": float(bytes_), "flops": 4.0 * live * KV * G * D}
 
 
 def work_terms(q: torch.Tensor, k_pool: torch.Tensor,
-               block_tables: torch.Tensor, valid_len) -> dict:
+               block_tables: torch.Tensor, valid_len,
+               quantized: bool = False) -> dict:
     """Bytes the paged call must move and flops it must do, for these
     inputs.
 
     Each input is counted once: q, the live K and V rows (``valid_len``
-    rows per slot and KV head), the block-table entries those rows need,
-    ``valid_len`` itself, and the output.  Flops: 2 for q.k and 2 for p.v
-    per live row, query head and element.
+    rows per slot and KV head, in the pools' dtype), their fp32 scales
+    when ``quantized`` (one K and one V scale a live row), the block-table
+    entries those rows need, ``valid_len`` itself, and the output.  Flops:
+    2 for q.k and 2 for p.v per live row, query head and element.
     """
     bs = k_pool.shape[1]
     nb = block_tables.shape[1]
     lens = [min(int(v), nb * bs) for v in valid_len]
     tiles = sum(-(-n // bs) for n in lens)
-    return _decode_terms(q, lens, 4 * tiles)
+    return _decode_terms(q, lens, 4 * tiles, _row_bytes(k_pool, quantized))
 
 
 def decode_work_terms(q: torch.Tensor, k: torch.Tensor, valid_len) -> dict:
@@ -95,7 +138,8 @@ def decode_work_terms(q: torch.Tensor, k: torch.Tensor, valid_len) -> dict:
     inputs: q, the live K and V rows (``valid_len`` rows per slot and KV
     head, clamped to [0, S]), ``valid_len`` and the output, each once."""
     S = k.shape[1]
-    return _decode_terms(q, [min(max(int(v), 0), S) for v in valid_len], 0)
+    return _decode_terms(q, [min(max(int(v), 0), S) for v in valid_len], 0,
+                         _row_bytes(k, False))
 
 
 def chunk_positions(q_start: torch.Tensor, C: int, nb: int, bs: int):
@@ -120,38 +164,67 @@ def commit_rows(block_tables: torch.Tensor, q_start: torch.Tensor,
     return src, flat.reshape(-1)[src]
 
 
+def commit_paged_ref(k_new: torch.Tensor, v_new: torch.Tensor,
+                     k_pool: torch.Tensor, v_pool: torch.Tensor,
+                     block_tables: torch.Tensor, q_start: torch.Tensor,
+                     q_len: torch.Tensor, k_scale=None, v_scale=None, *,
+                     rows=None) -> None:
+    """Write rows ``c < q_len[b]`` of k/v_new (B, C, KV, D) into the pools
+    in place at position ``q_start[b] + c`` through the block table:
+    converted to the pools' dtype, or, with ``k_scale``/``v_scale``
+    (n_blocks, bs) fp32 beside int8 pools, quantized by
+    :func:`quantize_rows` with each row's scale written at the same pool
+    row.  Every other row keeps its bytes and its scale.  ``rows`` is
+    :func:`commit_rows` of these inputs, computed here when not given."""
+    B, C, KV, D = k_new.shape
+    bs = k_pool.shape[1]
+    src, dst = rows if rows is not None else commit_rows(
+        block_tables, q_start, q_len, C, bs)
+    n = k_pool.shape[0] * bs
+    for new, pool, scale in ((k_new, k_pool, k_scale),
+                             (v_new, v_pool, v_scale)):
+        x = new.reshape(B * C, KV, D)[src]
+        if scale is None:
+            pool.view(n, KV, D)[dst] = x.to(pool.dtype)
+        else:
+            codes, s = quantize_rows(x)
+            pool.view(n, KV, D)[dst] = codes
+            scale.view(n)[dst] = s
+
+
 def flash_prefill_paged_ref(q: torch.Tensor, k_new: torch.Tensor,
                             v_new: torch.Tensor, k_pool: torch.Tensor,
                             v_pool: torch.Tensor, block_tables: torch.Tensor,
-                            q_start: torch.Tensor, q_len: torch.Tensor, *,
+                            q_start: torch.Tensor, q_len: torch.Tensor,
+                            k_scale=None, v_scale=None, *,
                             rows=None) -> torch.Tensor:
     """Chunked prefill over a paged cache: commit, then causal attention.
 
-    q (B,C,KV,G,D); k/v_new (B,C,KV,D); k/v_pool (n_blocks, bs, KV, D),
-    all one dtype; block_tables (B, nb) int32; q_start, q_len (B,) int32.
-    Rows ``c < q_len[b]`` of slot ``b`` are written in place into the
-    pools at position ``q_start[b] + c`` through the block table; each
-    such row then attends to its slot's keys at positions ``<= q_start[b]
-    + c``.  Rows at or past ``q_len[b]`` commit nothing and come out as
-    zeros.  Returns (B,C,KV,G,D) in q's dtype.  ``rows`` is
-    :func:`commit_rows` of these inputs, computed here when not given;
+    q (B,C,KV,G,D); k/v_new (B,C,KV,D) in q's dtype; k/v_pool (n_blocks,
+    bs, KV, D) in q's dtype, bf16, or int8 with ``k_scale``/``v_scale``
+    (n_blocks, bs) fp32; block_tables (B, nb) int32; q_start, q_len (B,)
+    int32.  Rows ``c < q_len[b]`` of slot ``b`` are committed in place
+    (:func:`commit_paged_ref`) at position ``q_start[b] + c``; each such
+    row then attends to its slot's keys at positions ``<= q_start[b] +
+    c``, dequantized in fp32.  Rows at or past ``q_len[b]`` commit nothing
+    and come out as zeros.  Returns (B,C,KV,G,D) in q's dtype.  ``rows``
+    is :func:`commit_rows` of these inputs, computed here when not given;
     with it given the call never waits for the device.
     """
     B, C, KV, G, D = q.shape
     bs = k_pool.shape[1]
     nb = block_tables.shape[1]
-    src, dst = rows if rows is not None else commit_rows(
-        block_tables, q_start, q_len, C, bs)
-    n = k_pool.shape[0] * bs
-    k_pool.view(n, KV, D)[dst] = k_new.reshape(B * C, KV, D)[src]
-    v_pool.view(n, KV, D)[dst] = v_new.reshape(B * C, KV, D)[src]
+    commit_paged_ref(k_new, v_new, k_pool, v_pool, block_tables, q_start,
+                     q_len, k_scale, v_scale, rows=rows)
     pos, _ = chunk_positions(q_start, C, nb, bs)
     idx = block_tables.long()
     valid = (torch.arange(C, device=q.device)[None, :]
              < q_len.long()[:, None])                         # (B, C)
 
-    k = k_pool[idx].reshape(B, nb * bs, KV, D).float()
-    v = v_pool[idx].reshape(B, nb * bs, KV, D).float()
+    k = _widen(k_pool[idx], None if k_scale is None else k_scale[idx])
+    v = _widen(v_pool[idx], None if v_scale is None else v_scale[idx])
+    k = k.reshape(B, nb * bs, KV, D)
+    v = v.reshape(B, nb * bs, KV, D)
     s = torch.einsum("bckgd,bskd->bckgs", q.float(), k) / math.sqrt(D)
     keys = torch.arange(nb * bs, device=q.device)
     causal = keys[None, None, :] <= pos[:, :, None]           # (B, C, S)
@@ -163,23 +236,25 @@ def flash_prefill_paged_ref(q: torch.Tensor, k_new: torch.Tensor,
 
 def prefill_work_terms(q: torch.Tensor, k_pool: torch.Tensor,
                        block_tables: torch.Tensor, q_start,
-                       q_len) -> dict:
+                       q_len, quantized: bool = False) -> dict:
     """Bytes the chunked-prefill call must move and flops it must do, for
     these inputs.
 
     Each byte is counted once: the query rows and K/V chunk rows below
-    ``q_len``, the same chunk rows written into the pools, the K and V
-    rows already in each slot's cache read once (``q_start`` rows; none
-    for a slot with ``q_len`` 0, and the new rows are attended from what
-    was read of k/v_new, not read back), the table entries those rows
-    need, ``q_start`` and ``q_len``, and the whole output.  Flops: 4 per
-    element and query head for every (query row, causal key) pair,
-    ``q_start + c + 1`` keys for row ``c``.
+    ``q_len`` (in q's dtype), the same chunk rows written into the pools
+    (in the pools' dtype, with their fp32 scales when ``quantized``), the
+    K and V rows already in each slot's cache read once (``q_start`` rows,
+    likewise; none for a slot with ``q_len`` 0, and the new rows are
+    attended from what was read of k/v_new, not read back), the table
+    entries those rows need, ``q_start`` and ``q_len``, and the whole
+    output.  Flops: 4 per element and query head for every (query row,
+    causal key) pair, ``q_start + c + 1`` keys for row ``c``.
     """
     B, C, KV, G, D = q.shape
     bs = k_pool.shape[1]
     nb = block_tables.shape[1]
     item = q.element_size()
+    pool_row = _row_bytes(k_pool, quantized)
     lens = [min(int(n), C) for n in q_len]
     # a slot with no rows this call reads none of its cache
     cached = [min(int(s), nb * bs) if n else 0
@@ -191,25 +266,42 @@ def prefill_work_terms(q: torch.Tensor, k_pool: torch.Tensor,
                 for s, n in zip(q_start, lens))
     bytes_ = ((rows + B * C) * KV * G * D * item   # q rows in, output out
               + 2 * rows * KV * D * item         # k/v_new rows in
-              + 2 * rows * KV * D * item         # the same rows committed
-              + 2 * sum(cached) * KV * D * item  # cached K and V rows read
+              + rows * pool_row                  # the same rows committed
+              + sum(cached) * pool_row           # cached K and V rows read
               + 4 * tiles + 8 * B)               # table, q_start, q_len
     return {"bytes": float(bytes_), "flops": 4.0 * pairs * KV * G * D}
 
 
+def commit_work_terms(k_new: torch.Tensor, k_pool: torch.Tensor, q_len,
+                      quantized: bool = False) -> dict:
+    """Bytes the commit alone must move, for these inputs: the K/V rows
+    below ``q_len`` read once (in k_new's dtype) and written once (in the
+    pools' dtype, with their fp32 scales when ``quantized``), one table
+    entry a row, ``q_start`` and ``q_len``.  Its arithmetic (an amax and a
+    division an element for int8) is not counted: the call is bound by
+    bytes and launch latency."""
+    B, C, KV, D = k_new.shape
+    rows = sum(min(int(n), C) for n in q_len)
+    bytes_ = (2 * rows * KV * D * k_new.element_size()
+              + rows * _row_bytes(k_pool, quantized) + 4 * rows + 8 * B)
+    return {"bytes": float(bytes_), "flops": 0.0}
+
+
 def prefill_paged_ref(q, k_new, v_new, k_pool, v_pool, block_tables, q_start,
-                      q_len=None):
+                      q_len=None, k_scale=None, v_scale=None):
     """The reference's functional chunked-prefill oracle: returns (out,
-    k_pool', v_pool') and leaves the given pools as they are.  ``q_len``
+    k_pool', v_pool'), and ``k_scale', v_scale'`` after them with int8
+    pools, and leaves the given pools and scales as they are.  ``q_len``
     defaults to the chunk width C.  Rows at or past ``q_len`` come out as
     zeros (the reference leaves them undefined)."""
     B, C = q.shape[:2]
     if q_len is None:
         q_len = torch.full((B,), C, dtype=torch.int32, device=q.device)
     kp, vp = k_pool.clone(), v_pool.clone()
+    scales = () if k_scale is None else (k_scale.clone(), v_scale.clone())
     out = flash_prefill_paged_ref(q, k_new, v_new, kp, vp, block_tables,
-                                  q_start, q_len)
-    return out, kp, vp
+                                  q_start, q_len, *scales)
+    return (out, kp, vp, *scales)
 
 
 # -- the reference's analytic models, verbatim -----------------------------

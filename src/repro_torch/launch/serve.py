@@ -6,13 +6,19 @@ Usage:
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b \\
         --no-smoke --max-batch 8 --max-len 1024 --prompt-lo 64 \\
         --prompt-hi 512 --max-new 32 --prefill-chunk 64 --prefill-budget 256
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
+        --kv-dtype int8 --share-prefixes --shared-prefix-len 16
 
 The same defaults, prompt sampling (``np.random.default_rng(seed)``),
 summary lines and ``--out`` report fields as ``repro.launch.serve``, on
 ``--device cuda`` (the default) or ``cpu``.  The weights come from the
 port's own seeded init, so the token streams differ from the reference
 CLI's; the tests hold the engine to the reference's streams with the
-reference's weights.  Options the port does not serve yet are refused.
+reference's weights.  ``--kv-dtype bf16/int8`` stores the KV pools in bf16
+or int8 with per-row scales; ``--share-prefixes`` maps identical prompt
+prefixes onto shared pool blocks with copy-on-write (``--shared-prefix-len
+N`` samples traffic with a common N-token prefix), and the summary then
+prints the dedup line.  Options the port does not serve yet are refused.
 """
 
 from __future__ import annotations
@@ -69,8 +75,6 @@ def build_report(args: argparse.Namespace, engine: ServeEngine,
 #: reference options the port refuses, with the ROADMAP item porting them
 _UNPORTED = {
     "scheduler": ("continuous", "--scheduler wave: ROADMAP item 1.12"),
-    "kv_dtype": ("f32", "--kv-dtype bf16/int8: ROADMAP item 1.11"),
-    "share_prefixes": (False, "--share-prefixes: ROADMAP item 1.11"),
     "draft": (None, "--draft: ROADMAP item 1.13"),
     "spec_k": (0, "--spec-k: ROADMAP item 1.13"),
     "spec_adaptive": (False, "--spec-adaptive: ROADMAP item 1.13"),
@@ -138,7 +142,9 @@ def make_engine(args: argparse.Namespace) -> ServeEngine:
     return ServeEngine(cfg, params, max_batch=args.max_batch,
                        max_len=args.max_len, block_size=args.block_size,
                        prefill_chunk=args.prefill_chunk,
-                       prefill_budget=args.prefill_budget, top_k=args.top_k,
+                       prefill_budget=args.prefill_budget,
+                       kv_dtype=args.kv_dtype,
+                       share_prefixes=args.share_prefixes, top_k=args.top_k,
                        sample_seed=args.sample_seed, device=args.device)
 
 
@@ -182,6 +188,14 @@ def serve(args: argparse.Namespace, engine: ServeEngine) -> dict:
              + (f", budget {engine.prefill_budget}"
                 if engine.prefill_budget else "") + "]"
              if engine.prefill_chunk > 1 else ""))
+    if engine.kv_dtype != "f32" or engine.share_prefixes:
+        print(f"  kv_dtype {stats['kv_dtype']}, "
+              f"prefix sharing {'on' if stats['share_prefixes'] else 'off'}: "
+              f"{stats['logical_blocks']} logical / "
+              f"{stats['physical_blocks']} physical blocks "
+              f"({stats['shared_block_hits']} shared hits, "
+              f"{stats['cow_copies']} COW copies, "
+              f"dedup {stats['block_dedup_ratio']:.3f})")
     if rejections:
         print(f"  rejected {len(rejections)} oversized request(s) at submit:")
         for uid, reason in rejections:

@@ -11,13 +11,22 @@ slot goes the same way in one call: all its rows are projected together,
 committed, and attended causally by the chunked-prefill kernel, where the
 reference scans its one-token cell over the chunk.  Both agree with the
 reference within floating-point tolerance, not bit for bit.
+
+Pools may be stored in another dtype than the model computes in (the
+reference's ``kv_dtype``): bf16, or int8 with one fp32 scale a pool row.
+Every row is committed by the commit kernel of the chunked prefill (a
+decode step's row is a chunk of one), converted to the pools' dtype or,
+for int8, quantized, so the new token attends to its own stored K/V, as
+the Pallas kernels do; the reference's cell merges the fresh row
+unconverted instead.
 """
 
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.flash_decode import (flash_decode_paged,
+from repro_torch.kernels.flash_decode import (commit_paged,
+                                              flash_decode_paged,
                                               flash_prefill_paged)
 from repro_torch.models import layers
 
@@ -57,25 +66,28 @@ def _project_qkv(params: dict, cfg, x: torch.Tensor,
 def attention_decode_paged(params: dict, cfg, x: torch.Tensor,
                            k_pool: torch.Tensor, v_pool: torch.Tensor,
                            positions: torch.Tensor,
-                           block_tables: torch.Tensor,
-                           flat_idx: torch.Tensor) -> torch.Tensor:
+                           block_tables: torch.Tensor, k_scale=None,
+                           v_scale=None) -> torch.Tensor:
     """One-token decode over one layer's block pool, committing in place.
 
-    x (B, 1, d); k/v_pool (n_blocks, bs, KV, D), this layer's pools,
-    written at ``flat_idx`` (B,) of the flattened (n_blocks * bs) row axis;
+    x (B, 1, d); k/v_pool (n_blocks, bs, KV, D), this layer's pools, with
+    their ``k_scale``/``v_scale`` (n_blocks, bs) when they are int8;
     positions (B,) int32 per-slot cache lengths before this token;
-    block_tables (B, nb) int32.  Each slot attends over its rows
-    ``[0, positions[b]]``, the new token included.  Returns (B, 1, d).
+    block_tables (B, nb) int32.  The commit kernel writes each slot's new
+    K/V row at ``positions[b]`` through its table (an idle slot's all-zero
+    row names the null block), converted to the pools' dtype or
+    quantized; then each slot attends over its rows ``[0,
+    positions[b]]``, the new token included.  Returns (B, 1, d).
     """
     B = x.shape[0]
     kv, hd = cfg.n_kv_heads, cfg.head_dim
     g = cfg.n_heads // kv
     q, k_new, v_new = _project_qkv(params, cfg, x, positions[:, None])
-    rows = k_pool.shape[0] * k_pool.shape[1]
-    k_pool.view(rows, kv, hd)[flat_idx] = k_new[:, 0].to(k_pool.dtype)
-    v_pool.view(rows, kv, hd)[flat_idx] = v_new[:, 0].to(v_pool.dtype)
+    commit_paged(k_new.contiguous(), v_new.contiguous(), k_pool, v_pool,
+                 block_tables, positions, torch.ones_like(positions),
+                 k_scale, v_scale)
     out = flash_decode_paged(q.reshape(B, kv, g, hd), k_pool, v_pool,
-                             block_tables, positions + 1)
+                             block_tables, positions + 1, k_scale, v_scale)
     return layers.dense(params["wo"], out.reshape(B, 1, kv * g * hd))
 
 
@@ -83,11 +95,13 @@ def attention_prefill_paged(params: dict, cfg, x: torch.Tensor,
                             k_pool: torch.Tensor, v_pool: torch.Tensor,
                             positions: torch.Tensor,
                             block_tables: torch.Tensor,
-                            lengths: torch.Tensor) -> torch.Tensor:
+                            lengths: torch.Tensor, k_scale=None,
+                            v_scale=None) -> torch.Tensor:
     """A chunk of ``w`` tokens per slot over one layer's block pool,
     committing in place.
 
-    x (B, w, d); k/v_pool (n_blocks, bs, KV, D), this layer's pools;
+    x (B, w, d); k/v_pool (n_blocks, bs, KV, D), this layer's pools, with
+    their ``k_scale``/``v_scale`` (n_blocks, bs) when they are int8;
     positions (B,) int32 per-slot cache lengths before the chunk;
     block_tables (B, nb) int32; lengths (B,) int32 in [0, w], the slot's
     real rows.  Row ``c < lengths[b]`` sits at ``positions[b] + c``, is
@@ -102,7 +116,6 @@ def attention_prefill_paged(params: dict, cfg, x: torch.Tensor,
                                             device=positions.device)
     q, k_new, v_new = _project_qkv(params, cfg, x, pos)
     out = flash_prefill_paged(
-        q.reshape(B, w, kv, g, hd), k_new.to(k_pool.dtype).contiguous(),
-        v_new.to(v_pool.dtype).contiguous(), k_pool, v_pool, block_tables,
-        positions, lengths)
+        q.reshape(B, w, kv, g, hd), k_new.contiguous(), v_new.contiguous(),
+        k_pool, v_pool, block_tables, positions, lengths, k_scale, v_scale)
     return layers.dense(params["wo"], out.reshape(B, w, kv * g * hd))

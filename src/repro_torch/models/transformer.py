@@ -4,8 +4,9 @@ and chunked prefill.
 Port of the paged serving path of ``repro/models/transformer.py`` for
 dense architectures (one attention layer per superblock, dense SwiGLU
 FFN): ``init_lm``, ``init_paged_cache``, ``paged_block_bytes``,
-``decode_step_paged`` and ``prefill_step_paged``.  The reference's
-``lax.scan`` over stacked superblocks becomes a loop over a list of
+``copy_paged_block``, ``decode_step_paged`` and ``prefill_step_paged``,
+with the reference's pool storage dtypes (:data:`KV_DTYPES`).  The
+reference's ``lax.scan`` over stacked superblocks becomes a loop over a list of
 per-layer parameter dicts, and the paged pools are updated in place
 instead of being rebuilt, which saves a copy of the pool per step.  The
 reference's ``prefill_step_paged`` scans its one-token cell over the
@@ -29,6 +30,11 @@ from repro_torch.models import attention, layers
 #: serving slots point at it, so their writes land in rows no live request
 #: reads.
 NULL_BLOCK = 0
+
+#: KV pool storage dtypes: "f32" keeps the pool in the model's compute
+#: dtype, "bf16" stores bf16, "int8" stores int8 codes with one fp32 scale
+#: a pool row (``k_scale``/``v_scale`` pools beside ``k``/``v``).
+KV_DTYPES = ("f32", "bf16", "int8")
 
 
 def check_dense(cfg: ModelConfig) -> None:
@@ -116,58 +122,100 @@ def params_from_numpy(tree: Mapping, cfg: ModelConfig, device="cuda"
     return params
 
 
+def _pool_dtype(cfg: ModelConfig, kv_dtype: str) -> torch.dtype:
+    if kv_dtype not in KV_DTYPES:
+        raise ValueError(f"kv_dtype must be one of {KV_DTYPES}, "
+                         f"got {kv_dtype!r}")
+    if kv_dtype == "bf16":
+        return torch.bfloat16
+    if kv_dtype == "int8":
+        return torch.int8
+    return torch_dtype(cfg.compute_dtype)
+
+
 def init_paged_cache(cfg: ModelConfig, slots: int, max_len: int,
-                     block_size: int, device="cuda") -> Dict[str, Any]:
+                     block_size: int, device="cuda", *,
+                     kv_dtype: str = "f32") -> Dict[str, Any]:
     """Zeroed paged K/V pools ``(n_layers, n_blocks, block_size, KV, D)``
-    in the compute dtype, with ``n_blocks = 1 + slots * max_len /
-    block_size``: every slot at full length plus the :data:`NULL_BLOCK`."""
+    with ``n_blocks = 1 + slots * max_len / block_size``: every slot at
+    full length plus the :data:`NULL_BLOCK`.  ``kv_dtype`` (one of
+    :data:`KV_DTYPES`) selects their storage dtype; ``"int8"`` adds
+    zeroed fp32 ``k_scale``/``v_scale`` pools ``(n_layers, n_blocks,
+    block_size)``, one scale a committed row."""
     check_dense(cfg)
     if max_len % block_size:
         raise ValueError(f"max_len {max_len} not a multiple of block_size "
                          f"{block_size}")
+    dtype = _pool_dtype(cfg, kv_dtype)
     dev = resolve_device(device)
     n_blocks = 1 + slots * (max_len // block_size)
     shape = (cfg.n_layers, n_blocks, block_size, cfg.n_kv_heads,
              cfg.head_dim)
-    dtype = torch_dtype(cfg.compute_dtype)
-    return {"k": torch.zeros(shape, dtype=dtype, device=dev),
-            "v": torch.zeros(shape, dtype=dtype, device=dev)}
+    cache = {"k": torch.zeros(shape, dtype=dtype, device=dev),
+             "v": torch.zeros(shape, dtype=dtype, device=dev)}
+    if kv_dtype == "int8":
+        for key in ("k_scale", "v_scale"):
+            cache[key] = torch.zeros(shape[:3], dtype=torch.float32,
+                                     device=dev)
+    return cache
 
 
-def paged_block_bytes(cfg: ModelConfig, block_size: int) -> int:
-    """Bytes one physical block stores across every attention layer."""
-    itemsize = torch_dtype(cfg.compute_dtype).itemsize
-    return (cfg.n_layers * block_size * 2 * cfg.n_kv_heads * cfg.head_dim
-            * itemsize)
+def paged_block_bytes(cfg: ModelConfig, block_size: int,
+                      kv_dtype: str = "f32") -> int:
+    """Bytes one physical block stores across every attention layer, its
+    fp32 scales included for int8."""
+    itemsize = _pool_dtype(cfg, kv_dtype).itemsize
+    per_layer = block_size * 2 * cfg.n_kv_heads * cfg.head_dim * itemsize
+    if kv_dtype == "int8":
+        per_layer += 2 * block_size * 4  # one fp32 scale a row, K and V
+    return cfg.n_layers * per_layer
 
 
-def _flat_index(positions: torch.Tensor, block_tables: torch.Tensor,
-                block_size: int) -> torch.Tensor:
-    """Pool row (B,) of each slot's new token: the block its position falls
-    in, looked up in its table row, times the block size, plus the offset.
-    Idle slots have all-zero table rows and so write into NULL_BLOCK."""
-    pos = positions.long()
-    nb = block_tables.shape[1]
-    j = torch.clamp(pos // block_size, max=nb - 1)
-    blk = block_tables.long().gather(1, j[:, None])[:, 0]
-    return blk * block_size + pos % block_size
+def copy_paged_block(cache: Dict[str, Any], src: int, dst: int
+                     ) -> Dict[str, Any]:
+    """Copy physical block ``src`` into ``dst`` on every pool of every
+    layer, scales included, in place; returns the same dict.  The device
+    half of copy-on-write."""
+    for pool in cache.values():
+        pool[:, dst] = pool[:, src]
+    return cache
+
+
+def _kv_scales(cache: Dict[str, Any], cfg: ModelConfig, kv_dtype: str,
+               block_size: int) -> Tuple[Any, Any]:
+    """The scale pools of ``cache`` (None, None without them), after
+    checking that its pools have ``block_size`` rows a block and are
+    stored as ``kv_dtype`` asks."""
+    if cache["k"].shape[2] != block_size:
+        raise ValueError(f"block_size {block_size} != the pools' "
+                         f"{cache['k'].shape[2]}")
+    want = _pool_dtype(cfg, kv_dtype)
+    if cache["k"].dtype != want:
+        raise ValueError(f"kv_dtype {kv_dtype!r} wants {want} pools, the "
+                         f"cache holds {cache['k'].dtype}")
+    return cache.get("k_scale"), cache.get("v_scale")
+
+
+def _layer(pool, i: int):
+    return None if pool is None else pool[i]
 
 
 def decode_step_paged(params: Dict[str, Any], cfg: ModelConfig,
                       tokens: torch.Tensor, cache: Dict[str, Any],
                       positions: torch.Tensor, block_tables: torch.Tensor,
-                      *, block_size: int
+                      *, block_size: int, kv_dtype: str = "f32"
                       ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """One continuous-batching serve step over the paged cache.
 
     tokens (B, 1); positions (B,) int32 per-slot cache lengths;
-    block_tables (B, nb) int32 logical->physical block map.  Each slot
+    block_tables (B, nb) int32 logical->physical block map; ``kv_dtype``
+    the pools' storage dtype, as ``cache`` was made with.  Each slot
     commits its new token at ``positions[b]`` and attends over its own
     rows ``[0, positions[b]]``.  The pools in ``cache`` are updated in
     place and the same dict is returned.  Returns logits (B, 1,
     vocab_padded) fp32.
     """
-    flat_idx = _flat_index(positions, block_tables, block_size)
+    ks, vs = _kv_scales(cache, cfg, kv_dtype, block_size)
     x = layers.embed(params["embed"], tokens).to(
         torch_dtype(cfg.compute_dtype))
     _, norm_fn = layers.make_norm(cfg)
@@ -175,7 +223,7 @@ def decode_step_paged(params: Dict[str, Any], cfg: ModelConfig,
         h = norm_fn(p["norm1"], x)
         x = x + attention.attention_decode_paged(
             p["attn"], cfg, h, cache["k"][i], cache["v"][i], positions,
-            block_tables, flat_idx,
+            block_tables, _layer(ks, i), _layer(vs, i),
         )
         x = x + layers.swiglu(p["ffn"], norm_fn(p["norm2"], x))
     return _lm_head(params, cfg, x), cache
@@ -196,6 +244,7 @@ def prefill_step_paged(params: Dict[str, Any], cfg: ModelConfig,
                        tokens: torch.Tensor, cache: Dict[str, Any],
                        positions: torch.Tensor, block_tables: torch.Tensor,
                        lengths: torch.Tensor, *, block_size: int,
+                       kv_dtype: str = "f32",
                        last_rows: Optional[torch.Tensor] = None
                        ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """Commit a chunk of up to ``w`` known tokens per slot in one call.
@@ -203,7 +252,8 @@ def prefill_step_paged(params: Dict[str, Any], cfg: ModelConfig,
     tokens (B, w): slot ``b``'s next ``lengths[b]`` tokens, padded past
     them; positions (B,) int32 per-slot cache lengths before the chunk;
     block_tables (B, nb) int32, mapping every position a real row lands
-    in; lengths (B,) int32 in [0, w].  Every layer projects all B*w rows
+    in; lengths (B,) int32 in [0, w]; ``kv_dtype`` the pools' storage
+    dtype, as ``cache`` was made with.  Every layer projects all B*w rows
     at once and attends with the chunked-prefill kernel; rows past
     ``lengths[b]`` commit nothing.  The pools in ``cache`` are updated in
     place and the same dict is returned.
@@ -214,9 +264,7 @@ def prefill_step_paged(params: Dict[str, Any], cfg: ModelConfig,
     each slot goes through the final norm and LM head, and the logits are
     (B, 1, vocab_padded): a serving step reads no other row.
     """
-    if cache["k"].shape[2] != block_size:
-        raise ValueError(f"block_size {block_size} != the pools' "
-                         f"{cache['k'].shape[2]}")
+    ks, vs = _kv_scales(cache, cfg, kv_dtype, block_size)
     x = layers.embed(params["embed"], tokens).to(
         torch_dtype(cfg.compute_dtype))
     _, norm_fn = layers.make_norm(cfg)
@@ -224,7 +272,7 @@ def prefill_step_paged(params: Dict[str, Any], cfg: ModelConfig,
         h = norm_fn(p["norm1"], x)
         x = x + attention.attention_prefill_paged(
             p["attn"], cfg, h, cache["k"][i], cache["v"][i], positions,
-            block_tables, lengths,
+            block_tables, lengths, _layer(ks, i), _layer(vs, i),
         )
         x = x + layers.swiglu(p["ffn"], norm_fn(p["norm2"], x))
     if last_rows is not None:

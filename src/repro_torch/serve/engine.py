@@ -16,15 +16,23 @@ the very next step and its blocks go back to the
 :class:`~repro_torch.serve.block_pool.BlockPool` (LIFO, so the next
 admission reuses them first).
 
+``kv_dtype`` stores the K/V pools in the compute dtype ("f32"), bf16, or
+int8 with one fp32 scale a pool row (quantized paging).  With
+``share_prefixes`` the pool maps a prompt span that another slot already
+holds to the same physical block (prefix sharing); a block that is about
+to receive a generated-token row while other slots still reference it is
+first copied to a private block (copy-on-write), so sharing changes where
+rows are stored and never what a slot reads.
+
 Scheduling state (positions, block tables, the pool's free list) is
 host-side numpy; only the parameters and the K/V pools live on the device.
 Each step hands the scheduler arrays to the device as private copies: the
 drain mutates them in place right after the call.
 
 The reference's other paths are refused with a ``ValueError`` that names
-the ROADMAP item that will port them: the wave scheduler (1.12), quantized
-pools and prefix sharing (1.11), speculative decoding (1.13), the device
-mesh (1.16) and non-dense architectures (1.10).  Sampling with
+the ROADMAP item that will port them: the wave scheduler (1.12),
+speculative decoding (1.13), the device mesh (1.16) and non-dense
+architectures (1.10).  Sampling with
 ``temperature > 0`` raises ``NotImplementedError`` (1.13).
 """
 
@@ -114,8 +122,8 @@ class Request:
 
 
 def _refuse_unported(cfg, scheduler, prefill_chunk, prefill_budget,
-                     kv_dtype, share_prefixes, spec_k, draft_cfg,
-                     draft_params, spec_adaptive, mesh) -> None:
+                     kv_dtype, spec_k, draft_cfg, draft_params,
+                     spec_adaptive, mesh) -> None:
     """Raise ValueError for a bad option and for every reference option the
     port lacks."""
     transformer.check_dense(cfg)
@@ -128,11 +136,11 @@ def _refuse_unported(cfg, scheduler, prefill_chunk, prefill_budget,
         raise ValueError(
             f"prefill_budget must be >= 1 (or None), got {prefill_budget}"
         )
+    if kv_dtype not in transformer.KV_DTYPES:
+        raise ValueError(f"kv_dtype must be one of {transformer.KV_DTYPES}, "
+                         f"got {kv_dtype!r}")
     refused = [
         (scheduler == "wave", "the wave scheduler is ROADMAP item 1.12"),
-        (kv_dtype != "f32",
-         f"kv_dtype {kv_dtype!r}: quantized paging is ROADMAP item 1.11"),
-        (share_prefixes, "prefix sharing is ROADMAP item 1.11"),
         (spec_k != 0 or draft_cfg is not None or draft_params is not None
          or spec_adaptive, "speculative decoding is ROADMAP item 1.13"),
         (mesh is not None, "mesh serving is ROADMAP item 1.16"),
@@ -154,8 +162,8 @@ class ServeEngine:
                  draft_params=None, spec_adaptive: bool = False,
                  mesh=None, device="cuda"):
         _refuse_unported(cfg, scheduler, prefill_chunk, prefill_budget,
-                         kv_dtype, share_prefixes, spec_k, draft_cfg,
-                         draft_params, spec_adaptive, mesh)
+                         kv_dtype, spec_k, draft_cfg, draft_params,
+                         spec_adaptive, mesh)
         if max_len % block_size:
             raise ValueError(f"max_len {max_len} must be a multiple of "
                              f"block_size {block_size}")
@@ -194,6 +202,8 @@ class ServeEngine:
         # block-pool accounting, accumulated across drains
         self.logical_blocks = 0
         self.physical_blocks = 0
+        self.shared_block_hits = 0
+        self.cow_copies = 0
         #: step hooks (see the reference module): traffic feeders, faults
         self.step_hooks: List[StepHook] = []
         #: uid -> physical block ids the request occupied, in allocation
@@ -235,14 +245,14 @@ class ServeEngine:
     def _new_cache(self):
         return transformer.init_paged_cache(
             self.cfg, self.max_batch, self.max_len, self.block_size,
-            self.device,
+            self.device, kv_dtype=self.kv_dtype,
         )
 
     def _step(self, tokens, cache, positions, block_tables):
         return transformer.decode_step_paged(
             self.params, self.cfg, self._dev(tokens), cache,
             self._dev(positions), self._dev(block_tables),
-            block_size=self.block_size,
+            block_size=self.block_size, kv_dtype=self.kv_dtype,
         )
 
     def _prefill(self, tokens, cache, positions, block_tables, lengths):
@@ -252,6 +262,7 @@ class ServeEngine:
             self.params, self.cfg, self._dev(tokens), cache,
             self._dev(positions), self._dev(block_tables),
             self._dev(lengths), block_size=self.block_size,
+            kv_dtype=self.kv_dtype,
             last_rows=self._dev(np.maximum(lengths - 1, 0)),
         )
 
@@ -282,7 +293,9 @@ class ServeEngine:
         at the null block and the cache is thrown away.  On CUDA this
         builds and loads the kernel libraries and warms the matmul
         libraries at each width, so the first request's TTFT measures
-        scheduling and not set-up.  No-op on engine counters.
+        scheduling and not set-up.  The dummy cache has the engine's
+        ``kv_dtype``, so the quantized steps are the ones warmed.  No-op
+        on engine counters.
         """
         B = self.max_batch
         cache = self._new_cache()
@@ -306,6 +319,14 @@ class ServeEngine:
         for hook in self.step_hooks:
             pending = bool(hook(self, busy)) or pending
         return pending
+
+    def _absorb_pool(self, pool: BlockPool) -> None:
+        """Fold one drain's block-pool counters into the engine's (each
+        ``run_until_drained`` builds a fresh cache and pool)."""
+        self.logical_blocks += pool.logical_blocks
+        self.physical_blocks += pool.physical_blocks
+        self.shared_block_hits += pool.shared_hits
+        self.cow_copies += pool.cow_copies
 
     def _finish(self, req: Request) -> None:
         req.done = True
@@ -356,9 +377,10 @@ class ServeEngine:
         return req.uid
 
     def _vacate(self, b: int) -> None:
-        """Release slot ``b`` of the live drain: its blocks go back to the
-        pool in table order (LIFO, so the next admission reuses them
-        first), and its row is cleared."""
+        """Release slot ``b`` of the live drain: its blocks are decref'd in
+        table order (a block no other slot holds goes back to the pool,
+        LIFO, so the next admission reuses it first; a shared one survives
+        under its other referents), and its row is cleared."""
         live = self._live
         table = live["block_tables"][b]
         for blk in table[table != 0]:
@@ -394,7 +416,8 @@ class ServeEngine:
         cache = self._new_cache()
         positions = np.zeros(B, np.int32)
         block_tables = np.zeros((B, nb_slot), np.int32)  # 0 = null block
-        pool = BlockPool(1 + B * nb_slot, bs)
+        pool = BlockPool(1 + B * nb_slot, bs,
+                         share_prefixes=self.share_prefixes)
         slot_req: List[Optional[Request]] = [None] * B
         tokens = np.zeros((B, C), np.int32)
         lengths = np.zeros(B, np.int32)
@@ -461,12 +484,15 @@ class ServeEngine:
                         tokens[b, len(head):n_b] = (
                             r.generated[g0:g0 + n_b - len(head)])
                     lengths[b] = n_b
+                    # with sharing on, acquire() may return another slot's
+                    # block holding the same exact prompt chain
                     for j in range(t0 // bs, (t0 + n_b - 1) // bs + 1):
                         if block_tables[b, j] == 0:
                             blk = pool.acquire(r.prompt, j)
                             block_tables[b, j] = blk
                             self.block_history.setdefault(
                                 r.uid, []).append(blk)
+                    cache = self._copy_on_write(cache, pool, b, r, t0, n_b)
 
                 self.busy_slot_steps += int((lengths > 0).sum())
                 # a step where every busy slot decodes runs the one-token
@@ -498,9 +524,32 @@ class ServeEngine:
                         self._finish(r)
                         self._vacate(b)
         finally:
-            self.logical_blocks += pool.logical_blocks
-            self.physical_blocks += pool.physical_blocks
+            self._absorb_pool(pool)
             self._live = None
+
+    def _copy_on_write(self, cache, pool: BlockPool, b: int, r: Request,
+                       t0: int, n_b: int):
+        """Before slot ``b`` writes positions ``[t0, t0 + n_b)``: every
+        block that receives a generated-token row while other slots still
+        reference it is copied to a private block first (prompt rows write
+        through: sharers write the same tokens there), and the pool's
+        registry forgets any claim on rows a generated token now holds.
+        Returns the cache, whose pools are copied in place."""
+        bs = self.block_size
+        table = self._live["block_tables"][b]
+        gen_from = max(t0, len(r.prompt))
+        if gen_from >= t0 + n_b:
+            return cache
+        for j in range(gen_from // bs, (t0 + n_b - 1) // bs + 1):
+            old = int(table[j])
+            if pool.refcount_of(old) > 1:
+                new = pool.cow(old)
+                cache = transformer.copy_paged_block(cache, old, new)
+                table[j] = new
+                self.block_history.setdefault(r.uid, []).append(new)
+            pool.note_generated_write(int(table[j]),
+                                      max(gen_from, j * bs) % bs)
+        return cache
 
     # -- public ----------------------------------------------------------------
 
@@ -527,7 +576,8 @@ class ServeEngine:
             if r.ttft_steps is not None
         )
         new_tokens = sum(len(r.generated) for r in self.completed.values())
-        block_bytes = transformer.paged_block_bytes(self.cfg, self.block_size)
+        block_bytes = transformer.paged_block_bytes(self.cfg, self.block_size,
+                                                    self.kv_dtype)
         kv_bytes_served = self.logical_blocks * block_bytes
         kv_bytes_stored = self.physical_blocks * block_bytes
         return {
@@ -551,8 +601,8 @@ class ServeEngine:
             "preemptions": self.preemptions,
             "logical_blocks": self.logical_blocks,
             "physical_blocks": self.physical_blocks,
-            "shared_block_hits": 0,
-            "cow_copies": 0,
+            "shared_block_hits": self.shared_block_hits,
+            "cow_copies": self.cow_copies,
             "kv_bytes_served": kv_bytes_served,
             "kv_bytes_stored": kv_bytes_stored,
             "spec_k": self.spec_k,

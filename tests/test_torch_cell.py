@@ -77,10 +77,24 @@ def test_decode_step_paged_matches_reference(arch):
 
 
 def test_flat_index_routes_idle_slots_to_the_null_block():
+    """A decode step's commit (a chunk of one) writes each slot's row at
+    its position through its table; an idle slot's all-zero table row
+    sends it into NULL_BLOCK."""
+    from repro_torch.kernels.flash_decode import commit_paged
+
     bt = torch.tensor([[5, 9], [0, 0], [3, 7]], dtype=torch.int32)
     pos = torch.tensor([10, 0, 3], dtype=torch.int32)
-    idx = transformer._flat_index(pos, bt, block_size=8)
-    assert idx.tolist() == [9 * 8 + 2, transformer.NULL_BLOCK * 8, 3 * 8 + 3]
+    k_pool = torch.zeros(10, 8, 1, 16)
+    v_pool = torch.zeros_like(k_pool)
+    k_new = torch.arange(1.0, 4.0)[:, None, None, None].expand(3, 1, 1, 16)
+    commit_paged(k_new.contiguous(), -k_new.contiguous(), k_pool, v_pool, bt,
+                 pos, torch.ones_like(pos))
+    rows = k_pool.reshape(80, 16)
+    written = rows.abs().sum(1).nonzero().squeeze(1).tolist()
+    want = [9 * 8 + 2, transformer.NULL_BLOCK * 8, 3 * 8 + 3]
+    assert written == sorted(want)
+    assert [rows[r, 0].item() for r in want] == [1.0, 2.0, 3.0]
+    assert torch.equal(v_pool, -k_pool)
 
 
 def test_paged_cache_layout_and_block_bytes():

@@ -63,8 +63,7 @@ def test_cli_prompts_follow_the_reference_sampling(tmp_path):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--scheduler", "wave"], ["--kv-dtype", "int8"],
-    ["--share-prefixes"], ["--draft", "gpt2-124m", "--spec-k", "2"],
+    ["--scheduler", "wave"], ["--draft", "gpt2-124m", "--spec-k", "2"],
     ["--spec-adaptive"], ["--mesh", "2x2"], ["--temperature", "0.8"],
     ["--record"],
 ])
@@ -86,6 +85,51 @@ def test_cli_serves_chunked_prefill_options(flags, tmp_path):
     report = json.loads(out.read_text())
     assert [r["new_tokens"] for r in report["requests"]] == [3, 3]
     assert report[flags[0][2:].replace("-", "_")] == int(flags[1])
+
+
+@pytest.mark.parametrize("flags", [["--kv-dtype", "int8"],
+                                   ["--share-prefixes"]])
+def test_cli_serves_quantized_and_shared_options(flags, tmp_path, capsys):
+    """Quantized paging and prefix sharing (ROADMAP 1.11) are ported: the
+    flags the refusal cases above used to name are served, land in the
+    report, and print the reference's dedup line."""
+    out = tmp_path / "report.json"
+    assert serve.main(["--device", "cpu", "--requests", "3", "--max-new",
+                       "3", "--shared-prefix-len", "16", "--out", str(out)]
+                      + flags) == 0
+    report = json.loads(out.read_text())
+    assert [r["new_tokens"] for r in report["requests"]] == [3, 3, 3]
+    assert report["kv_dtype"] == ("int8" if "--kv-dtype" in flags
+                                  else "f32")
+    assert report["share_prefixes"] == ("--share-prefixes" in flags)
+    assert "logical /" in capsys.readouterr().out
+
+
+def test_cli_dedup_report_matches_the_reference_keys(tmp_path, capsys):
+    """``--kv-dtype int8 --share-prefixes --shared-prefix-len 16`` on the
+    CPU: every request is served, blocks are shared (dedup ratio > 1),
+    and the report carries the reference CLI's keys and dedup counters."""
+    out = tmp_path / "report.json"
+    assert serve.main(["--device", "cpu", "--kv-dtype", "int8",
+                       "--share-prefixes", "--shared-prefix-len", "16",
+                       "--out", str(out)]) == 0
+    printed = capsys.readouterr().out
+    assert "kv_dtype int8, prefix sharing on:" in printed
+    report = json.loads(out.read_text())
+    stats = report["stats"]
+    assert len(report["requests"]) == 8 and report["rejected"] == 0
+    assert stats["block_dedup_ratio"] > 1.0
+    assert stats["shared_block_hits"] > 0
+    assert stats["physical_blocks"] < stats["logical_blocks"]
+    assert stats["kv_bytes_stored"] < stats["kv_bytes_served"]
+    args = argparse.Namespace(arch="gpt2-124m")
+    cfg = ref_configs.get_smoke_config("gpt2-124m")
+    ref_engine = RefEngine(cfg, ref_steps.init_model(jax.random.PRNGKey(0),
+                                                     cfg),
+                           kv_dtype="int8", share_prefixes=True)
+    want = ref_serve.build_report(args, ref_engine)
+    assert set(report) == set(want)
+    assert set(stats) == set(want["stats"])
 
 
 def test_cli_defaults_to_cuda_and_raises_without_a_card():

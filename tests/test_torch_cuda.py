@@ -231,6 +231,190 @@ def test_prefill_step_on_the_card_matches_the_cpu(cuda):
         torch.testing.assert_close(b, a, rtol=1e-4, atol=1e-4)
 
 
+# -- quantized paging: int8 and bf16-under-f32 pools --------------------------
+# Outputs at the pair's q tolerance (bf16 2e-2, f32 1e-5: the same
+# dequantize-then-fp32-softmax arithmetic summed in another order);
+# committed codes, scales and bf16 rows bit-equal to the plain commit.
+
+PAIRS = [(q, p) for q, p in kernel.POOL_PAIRS if q != p]
+Q_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+
+
+def _pools_as(device, kp, vp, pool_dtype):
+    """(k_pool, v_pool, k_scale, v_scale) from f32 pools: quantized by the
+    plain quantizer for int8 (scales then), else cast."""
+    if pool_dtype != torch.int8:
+        return kp.to(pool_dtype), vp.to(pool_dtype), None, None
+    (kq, ks), (vq, vs) = ref.quantize_rows(kp), ref.quantize_rows(vp)
+    return kq, vq, ks, vs
+
+
+@pytest.mark.parametrize("q_dtype,pool_dtype", PAIRS)
+@pytest.mark.parametrize("KV,G,D", [(12, 1, 64), (8, 2, 128), (2, 4, 16),
+                                    (4, 2, 32)])
+@pytest.mark.parametrize("bs,nb", [(16, 8), (8, 5)])
+def test_quantized_decode_kernel_matches_plain(cuda, q_dtype, pool_dtype, KV,
+                                               G, D, bs, nb):
+    q, kp, vp, bt, valid = _inputs(cuda, 4, KV, G, D, bs, nb, torch.float32)
+    args = [q.to(q_dtype), *_pools_as(cuda, kp, vp, pool_dtype)]
+    before = kernel.flash_decode_paged.launches
+    out = kernel.flash_decode_paged(args[0], args[1], args[2], bt, valid,
+                                    args[3], args[4])
+    torch.cuda.synchronize()
+    assert kernel.flash_decode_paged.launches == before + 1
+    assert out.dtype == q_dtype
+    want = ref.flash_decode_paged_ref(args[0], args[1], args[2], bt, valid,
+                                      args[3], args[4])
+    tol = Q_TOL[q_dtype]
+    torch.testing.assert_close(out.float(), want.float(), rtol=tol, atol=tol)
+
+
+def test_int8_decode_kernel_never_reads_rows_or_scales_past_valid_len(cuda):
+    q, kp, vp, bt, valid = _inputs(cuda, 3, 4, 2, 64, 16, 4, torch.float32,
+                                   seed=1)
+    kq, vq, ks, vs = _pools_as(cuda, kp, vp, torch.int8)
+    out1 = kernel.flash_decode_paged(q, kq, vq, bt, valid, ks, vs)
+    kq2, vq2, ks2, vs2 = kq.clone(), vq.clone(), ks.clone(), vs.clone()
+    for b in range(bt.shape[0]):
+        for t in range(int(valid[b]), bt.shape[1] * 16):
+            blk, row = int(bt[b, t // 16]), t % 16
+            kq2[blk, row], vq2[blk, row] = 127, -127
+            ks2[blk, row], vs2[blk, row] = 1e4, float("nan")
+    out2 = kernel.flash_decode_paged(q, kq2, vq2, bt, valid, ks2, vs2)
+    torch.testing.assert_close(out1, out2, rtol=0, atol=0)
+
+
+def _quantized_prefill_args(device, q_dtype, pool_dtype, KV, G, D, C, bs,
+                            nb, seed=0):
+    args = _prefill_inputs(device, 4, C, KV, G, D, bs, nb, torch.float32,
+                           seed=seed)
+    kp, vp, ks, vs = _pools_as(device, args[3], args[4], pool_dtype)
+    return ([a.to(q_dtype) for a in args[:3]] + [kp, vp] + args[5:],
+            ks, vs)
+
+
+def _run_quantized(fn, args, ks, vs):
+    kp, vp = args[3].clone(), args[4].clone()
+    scales = (ks.clone(), vs.clone()) if ks is not None else (None, None)
+    out = fn(*args[:3], kp, vp, *args[5:], *scales)
+    torch.cuda.synchronize()
+    return out, kp, vp, scales
+
+
+@pytest.mark.parametrize("q_dtype,pool_dtype", PAIRS)
+@pytest.mark.parametrize("KV,G,D", [(12, 1, 64), (8, 2, 128), (2, 4, 16),
+                                    (4, 2, 32)])
+@pytest.mark.parametrize("C,bs,nb", [(11, 16, 8), (32, 8, 9)])
+def test_quantized_prefill_kernel_matches_plain(cuda, q_dtype, pool_dtype,
+                                                KV, G, D, C, bs, nb):
+    args, ks, vs = _quantized_prefill_args(cuda, q_dtype, pool_dtype, KV, G,
+                                           D, C, bs, nb)
+    before = kernel.flash_prefill_paged.launches
+    got = _run_quantized(kernel.flash_prefill_paged, args, ks, vs)
+    assert kernel.flash_prefill_paged.launches == before + 1
+    want = _run_quantized(ref.flash_prefill_paged_ref, args, ks, vs)
+    tol = Q_TOL[q_dtype]
+    torch.testing.assert_close(got[0].float(), want[0].float(), rtol=tol,
+                               atol=tol)
+    for b, n in enumerate(args[7].tolist()):
+        assert not got[0][b, n:].any()
+    # committed rows and scales bit-equal; unnamed blocks as they were
+    for a, w in zip([got[1], got[2], *got[3]], [want[1], want[2], *want[3]]):
+        if a is not None:
+            assert torch.equal(a, w)
+    named = set(args[5].reshape(-1).tolist())
+    for blk in range(args[3].shape[0]):
+        if blk not in named:
+            assert torch.equal(got[1][blk], args[3][blk])
+            if ks is not None:
+                assert torch.equal(got[3][0][blk], ks[blk])
+
+
+@pytest.mark.parametrize("q_dtype,pool_dtype", PAIRS)
+def test_commit_kernel_alone_matches_plain(cuda, q_dtype, pool_dtype):
+    """The decode step's commit: a chunk of one row per slot, through the
+    commit kernel alone."""
+    args, ks, vs = _quantized_prefill_args(cuda, q_dtype, pool_dtype, 8, 2,
+                                           128, 1, 16, 4, seed=2)
+    results = []
+    for fn, counter in ((kernel.commit_paged, True),
+                        (ref.commit_paged_ref, False)):
+        before = kernel.commit_paged.launches
+        kp, vp = args[3].clone(), args[4].clone()
+        scales = (ks.clone(), vs.clone()) if ks is not None else (None,
+                                                                   None)
+        fn(args[1], args[2], kp, vp, *args[5:], *scales)
+        torch.cuda.synchronize()
+        assert kernel.commit_paged.launches == before + counter
+        results.append([kp, vp, *scales])
+    for a, w in zip(*results):
+        if a is not None:
+            assert torch.equal(a, w)
+
+
+def test_quantized_serving_on_the_card_matches_the_cpu(cuda):
+    """A two-layer qwen3-1.7b cut (GQA 2, head_dim 128, f32) with int8
+    pools: teacher-forced decode and one chunk on the card within the
+    reference's qwen3 int8 budget (0.11) of the CPU, and the engine with
+    sharing on gives the streams of sharing off, both kernels launched."""
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    cfg = dataclasses.replace(
+        configs.get_config("qwen3-1.7b"), n_layers=2, d_model=256,
+        n_heads=4, n_kv_heads=2, d_ff=512, vocab=512,
+        param_dtype="float32", compute_dtype="float32")
+    rng = np.random.default_rng(6)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (3, 14))
+                            .astype(np.int32))
+    got = {}
+    for dev in ("cpu", "cuda"):
+        params = transformer.init_lm(cfg, seed=3, device=dev)
+        bt = torch.arange(1, 13, dtype=torch.int32).reshape(3, 4).to(dev)
+        cache = transformer.init_paged_cache(cfg, 3, 64, 16, dev,
+                                             kv_dtype="int8")
+        rows = []
+        for t in range(14):
+            out, cache = transformer.decode_step_paged(
+                params, cfg, toks[:, t:t + 1].to(dev), cache,
+                torch.full((3,), t, dtype=torch.int32).to(dev), bt,
+                block_size=16, kv_dtype="int8")
+            rows.append(out.cpu())
+        cache = transformer.init_paged_cache(cfg, 3, 64, 16, dev,
+                                             kv_dtype="int8")
+        chunk, _ = transformer.prefill_step_paged(
+            params, cfg, toks.to(dev), cache,
+            torch.zeros(3, dtype=torch.int32).to(dev), bt,
+            torch.full((3,), 14, dtype=torch.int32).to(dev), block_size=16,
+            kv_dtype="int8")
+        got[dev] = (torch.cat(rows, 1), chunk.cpu())
+    for a, b in zip(got["cpu"], got["cuda"]):
+        assert (a - b).abs().max().item() <= 0.11
+
+    params = transformer.init_lm(cfg, seed=3, device="cuda")
+    prefix = rng.integers(0, cfg.vocab, 40).astype(np.int32)
+    prompts = [np.concatenate([prefix, rng.integers(0, cfg.vocab, n)
+                               .astype(np.int32)]) for n in (3, 9, 1, 5)]
+    streams = {}
+    for share in (False, True):
+        eng = ServeEngine(cfg, params, max_batch=4, max_len=64,
+                          block_size=16, prefill_chunk=8, kv_dtype="int8",
+                          share_prefixes=share, device="cuda")
+        for uid, p in enumerate(prompts):
+            eng.submit(Request(uid=uid, prompt=p, max_new_tokens=6))
+        counts = (kernel.flash_decode_paged.launches,
+                  kernel.flash_prefill_paged.launches,
+                  kernel.commit_paged.launches)
+        eng.run_until_drained()
+        torch.cuda.synchronize()
+        assert kernel.flash_decode_paged.launches > counts[0]
+        assert kernel.flash_prefill_paged.launches > counts[1]
+        assert kernel.commit_paged.launches > counts[2]
+        streams[share] = [eng.completed[u].generated for u in range(4)]
+        if share:
+            assert eng.stats()["block_dedup_ratio"] > 1.0
+    assert streams[True] == streams[False]
+
+
 # -- the HPC kernels (STREAM, Jacobi2D, GEMM, SpMV) -----------------------------
 # Tolerances are chip_smoke.py's: STREAM and Jacobi2D fp32 bit-equal and
 # 16-bit one ulp; GEMM 1e-5 * max|plain| (+ one ulp in bf16); SpMV 1e-6 of

@@ -154,9 +154,6 @@ def test_request_too_long_rejected_at_submit(gpt2):
 
 @pytest.mark.parametrize("kw,item", [
     (dict(scheduler="wave"), "1.12"),
-    (dict(kv_dtype="bf16"), "1.11"),
-    (dict(kv_dtype="int8"), "1.11"),
-    (dict(share_prefixes=True), "1.11"),
     (dict(spec_k=2), "1.13"),
     (dict(mesh=object()), "1.16"),
 ])
@@ -181,6 +178,30 @@ def test_chunked_prefill_options_are_served(gpt2, kw):
         assert eng.completed[uid].generated == base.completed[uid].generated
     assert eng.stats()["prefill_chunk"] == kw.get("prefill_chunk", 1)
     assert eng.stats()["prefill_budget"] == kw.get("prefill_budget")
+
+
+@pytest.mark.parametrize("kw", [dict(kv_dtype="bf16"), dict(kv_dtype="int8"),
+                                dict(share_prefixes=True)])
+def test_quantized_and_sharing_options_are_served(gpt2, kw):
+    """Quantized paging and prefix sharing (ROADMAP 1.11) are ported: the
+    options the refusal cases above used to name are served, and
+    ``stats()`` reports them; sharing alone keeps the f32 streams."""
+    cfg, params = gpt2
+    prompts = _prompts(6, 3, lo=5, hi=14)
+    base = _serve(ServeEngine, Request, cfg, params, prompts, max_batch=2,
+                  max_len=32, block_size=8, device="cpu")
+    eng = _serve(ServeEngine, Request, cfg, params, prompts, max_batch=2,
+                 max_len=32, block_size=8, device="cpu", **kw)
+    assert all(len(eng.completed[u].generated) == 5 for u in range(3))
+    stats = eng.stats()
+    assert stats["kv_dtype"] == kw.get("kv_dtype", "f32")
+    assert stats["share_prefixes"] == kw.get("share_prefixes", False)
+    if "kv_dtype" not in kw:
+        for uid in range(len(prompts)):
+            assert eng.completed[uid].generated == \
+                base.completed[uid].generated
+    with pytest.raises(ValueError, match="kv_dtype"):
+        ServeEngine(cfg, params, kv_dtype="fp8", device="cpu")
 
 
 def test_non_dense_arch_and_sampling_are_refused(gpt2):

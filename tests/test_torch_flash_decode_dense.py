@@ -269,8 +269,12 @@ def test_prefill_op_checks_match_the_reference():
             fn(*targs, block_c=5)
         with pytest.raises(ValueError, match="block_s"):
             fn(*targs, block_s=3)
-        with pytest.raises(ValueError, match="1.11"):
+        # scales are taken with int8 pools only, and only in pairs, as the
+        # reference asks them
+        with pytest.raises(ValueError, match="only int8"):
             fn(*targs, k_scale=torch.ones(17, 8), v_scale=torch.ones(17, 8))
+        with pytest.raises(ValueError, match="together"):
+            fn(*targs, k_scale=torch.ones(17, 8))
     # block_s dividing the block size (or 0) is accepted, as in the reference
     out, _, _ = ops.flash_prefill(*targs, block_c=16, block_s=4)
     assert out.shape == targs[0].shape
