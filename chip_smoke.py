@@ -32,6 +32,13 @@ non-zero):
             kernel alone at a decode step's shapes into bf16 pools (beside
             the two ``index_put_`` calls that write the same rows) and
             int8 pools.
+   kernel-sharded  kernel 2.4, the head-sharded decode: for every (q,
+            pool) pair at every head shape, the slices (i, n), n in 1, 2,
+            4, concatenated, bit-equal to the unsharded launch and each
+            within ``decode_close`` of its plain version; the int8 commit
+            given each row's amax bit-equal to the unsharded commit's head
+            slice; the validation errors; then the n = 2 slice timed at
+            qwen3-1.7b's serve shapes beside the unsharded launch.
    kernel-hpc  the STREAM, Jacobi2D, GEMM and SpMV kernels against their
             plain versions: odd, misaligned and edge shapes, fp32/bf16
             (and fp16 for STREAM), SpMV rows of 0, 1 and 128 nonzeros.
@@ -89,6 +96,23 @@ non-zero):
             CPU's, and within the reference's qwen3 int8 budget (0.11) of
             the card's f32 cache; the card's int8 run launches the commit,
             decode and prefill kernels on int8 pools.
+7. serve-mesh  tensor-parallel serving: ``CHUNKED_ARGV``'s first 8
+            requests with ``--mesh 1x2`` and ``--mesh 2x2`` (qwen3-1.7b,
+            full width, 28 layers, bf16), as ranks sharing the card over
+            gloo (NCCL refuses two ranks on one device), the ranks cutting
+            their shards from serve-chunked's weights (CUDA IPC): every
+            request completes, and on every
+            rank the head-sharded decode (kernel 2.4) launches once per
+            layer per decode step over KV / M heads; per rank the
+            launches, backend, collectives a step, bytes staged through
+            the host, wall time and tok/s, and how many streams equal the
+            unsharded card engine's on the same requests.
+   parity-mesh  the port's mesh check in float32 (gpt2-124m full width,
+            qwen3-1.7b full width cut to 4 layers, gpt2-124m with int8
+            pools and prefix sharing; 3 requests of 8 tokens on 2 slots)
+            on 1x1, 2x1, 1x2 and 2x2 against the
+            unsharded card engine: equal greedy streams, and int8 pools
+            within the check's rule.
 
 Then the ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last the
 ``{"ok": true, "device": ...}`` line.  Without CUDA, or outside a checkout,
@@ -1688,18 +1712,19 @@ def check_first_step(torch, engine, args) -> None:
         require(bool(torch.isfinite(logits).all()), "non-finite logits")
 
 
-def phase_serve(torch, argv, phase):
-    """Serve the CLI's traffic on the card.  The launch counts are set to
-    0 just before the drain and read just after: every layer of every
-    fused step runs exactly one of the attention kernels, each kernel the
-    path uses runs at least once, and every decode launch follows one
-    commit launch.  Returns (engine, counts, report)."""
+def phase_serve(torch, argv, phase, params=None):
+    """Serve the CLI's traffic on the card, on its seeded init or on the
+    same weights ``params`` an earlier phase drew.  The launch counts are
+    set to 0 just before the drain and read just after: every layer of
+    every fused step runs exactly one of the attention kernels, each
+    kernel the path uses runs at least once, and every decode launch
+    follows one commit launch.  Returns (engine, counts, report)."""
     from repro_torch.kernels.flash_decode import kernel
     from repro_torch.launch import serve as serve_cli
 
     args = serve_cli.parse_args(argv)
     t0 = time.time()
-    engine = serve_cli.make_engine(args)
+    engine = serve_cli.make_engine(args, params=params)
     init_s = time.time() - t0
     cfg = engine.cfg
     check_first_step(torch, engine, args)
@@ -1842,19 +1867,19 @@ def phase_serve_shared(torch, np):
     physical blocks (dedup ratio > 1), and the int8 kernels launch (28
     decode or prefill calls a fused step, one commit a decode call).  Then
     two identical prompts drained with and without sharing: copy-on-write
-    at the first generated token, equal streams.  Both runs init the same
-    seeded weights."""
+    at the first generated token, equal streams.  The second run serves
+    the first run's seeded weights."""
     from repro_torch.models import transformer
     from repro_torch.serve.engine import Request, ServeEngine
 
     t0 = time.time()
     runs = {}
+    params = None  # the second run serves the first run's weights
     for share in (True, False):
         argv = SHARED_ARGV + (["--share-prefixes"] if share else [])
-        params = None  # the last run's weights go before the next init
         engine, counts, report = phase_serve(
             torch, argv, "serve-shared-int8" if share else
-            "serve-unshared-int8")
+            "serve-unshared-int8", params)
         runs[share] = (engine.stats(), counts,
                        [r["tokens"] for r in report["requests"]])
         params, cfg = engine.params, engine.cfg
@@ -2095,6 +2120,332 @@ def phase_parity_chunked(torch, np):
           "divergences": gaps})
 
 
+# -- tensor parallelism -------------------------------------------------------
+
+
+#: the head-sharded decode's timing row: row 1's qwen3-1.7b serve shapes
+SHARDED_N = 2
+#: the mesh phases' shapes, as ranks sharing the one card over gloo, and
+#: their requests: serve-mesh's are the first of CHUNKED_ARGV's traffic,
+#: parity-mesh's as many as the reference's mesh check serves with int8
+#: pools and sharing
+SERVE_MESHES = ("1x2", "2x2")
+SERVE_MESH_REQUESTS = 8
+PARITY_MESHES = ("1x1", "2x1", "1x2", "2x2")
+PARITY_MESH_REQUESTS = 3
+MESH_TIMEOUT = 600
+
+
+def _sharded_inputs(torch, ref, B, KV, G, D, bs, nb, q_dtype, pool_dtype,
+                    valid, seed):
+    """q in ``q_dtype`` and pools in ``pool_dtype`` (int8 quantized per row,
+    with scales), a shuffled table and the lengths, made on the card."""
+    q, kp, vp, bt, vl = paged_inputs(torch, B, KV, G, D, bs, nb,
+                                     torch.float32, valid, seed)
+    kp, vp, ks, vs = as_pools(torch, ref, kp, vp, pool_dtype)
+    return (q.to(q_dtype), kp, vp, bt, vl), (ks, vs)
+
+
+def check_sharded_decode(torch, np, kernel, ref):
+    """Kernel 2.4 on the card: for every (q, pool) pair and head shape,
+    the slices (i, n) for n in 1, 2, 4 (where KV divides), concatenated,
+    bit-equal to the unsharded launch; each slice within ``decode_close``
+    of its plain version; the commit given each row's amax over all heads
+    bit-equal, codes and scales, to the unsharded commit's head slice; and
+    the reference's validation errors."""
+    B, bs = 8, 16
+    rng = np.random.default_rng(21)
+    heads = {**{arch: (h, 16 if arch == "gpt2-124m" else 64)
+                for arch, h in ARCH_HEADS.items()},
+             **{name: (h, 16) for name, h in SMALL_HEADS.items()}}
+    cases, worst = 0, 0.0
+    for name, ((KV, G, D), nb) in heads.items():
+        valid = rng.integers(1, nb * bs + 1, size=B)
+        valid[:2] = (1, nb * bs)
+        for q_dtype, pool_dtype in kernel.POOL_PAIRS:
+            args, (ks, vs) = _sharded_inputs(torch, ref, B, KV, G, D, bs, nb,
+                                             q_dtype, pool_dtype,
+                                             valid.tolist(), seed=cases)
+            full = kernel.flash_decode_paged(*args, ks, vs)
+            for n in (1, 2, 4):
+                if KV % n:
+                    continue
+                parts = [kernel.flash_decode_paged(*args, ks, vs,
+                                                   head_shard=(i, n))
+                         for i in range(n)]
+                torch.cuda.synchronize()
+                pair = f"{dtype_name(q_dtype)}/{dtype_name(pool_dtype)}"
+                require(torch.equal(torch.cat(parts, dim=1), full),
+                        f"head slices of {name} {pair} n={n} != the "
+                        f"unsharded decode")
+                q, kp, vp, bt, vl = args
+                for i, part in enumerate(parts):
+                    h = ref.head_slice((i, n), KV)
+                    want = ref.flash_decode_paged_ref(
+                        q[:, h], kp[:, :, h], vp[:, :, h], bt, vl, ks, vs)
+                    err, ok = decode_close(torch, part, want)
+                    require(ok, f"slice ({i}, {n}) of {name} {pair}: max "
+                                f"abs err {err} over {CLOSE_TOL}")
+                    worst = max(worst, err)
+                cases += 1
+    commits = check_sharded_commit(torch, np, kernel, ref, heads)
+    q, kp, vp, bt, vl = _sharded_inputs(torch, ref, B, 8, 2, 128, bs, 4,
+                                        torch.float32, torch.float32,
+                                        [1] * B, seed=0)[0]
+    errors = {}
+    for shard, word in (((0, 3), "not divisible"), ((2, 2), "outside")):
+        try:
+            kernel.flash_decode_paged(q, kp, vp, bt, vl, head_shard=shard)
+        except ValueError as e:
+            errors[str(shard)] = str(e)
+        require(word in errors.get(str(shard), ""),
+                f"head_shard={shard} did not raise '{word}'")
+    emit({"phase": "kernel-sharded", "kernel": "flash_decode_paged_sharded",
+          "heads": {name: list(h) for name, (h, _) in heads.items()},
+          "pairs": [f"{dtype_name(a)}/{dtype_name(b)}"
+                    for a, b in kernel.POOL_PAIRS],
+          "bit_equal_concatenations": cases, "max_abs_err": worst,
+          "tol": CLOSE_TOL, "commit_slices_bit_equal": commits,
+          "errors": errors})
+    return worst
+
+
+def check_sharded_commit(torch, np, kernel, ref, heads):
+    """The int8 commit of one decode row a slot (and a chunk of 16 rows)
+    given each row's amax over all heads: every head slice's codes and
+    scales bit-equal to the unsharded commit's.  Returns the slices
+    checked."""
+    checked = 0
+    for name, ((KV, _, D), nb) in heads.items():
+        for dtype in (torch.float32, torch.bfloat16):
+            for C in (1, 16):
+                B, bs = 8, 16
+                gen = torch.Generator(device="cuda").manual_seed(checked)
+                kw = dict(device="cuda", generator=gen)
+                new = [torch.randn((B, C, KV, D), **kw).to(dtype)
+                       for _ in range(2)]
+                n_blocks = 1 + B * nb
+                pools = [torch.zeros((n_blocks, bs, KV, D), dtype=torch.int8,
+                                     device="cuda") for _ in range(2)]
+                scales = [torch.zeros((n_blocks, bs), device="cuda")
+                          for _ in range(2)]
+                bt = shuffled_tables(torch, gen, B, nb, n_blocks)
+                q_start = torch.randint(0, nb * bs - C + 1, (B,), **kw).to(
+                    torch.int32)
+                q_len = torch.full((B,), C, dtype=torch.int32, device="cuda")
+                kernel.commit_paged(*new, *pools, bt, q_start, q_len,
+                                    *scales)
+                amax = dict(k_amax=ref.row_amax(new[0]),
+                            v_amax=ref.row_amax(new[1]))
+                for n in (2, 4):
+                    if KV % n:
+                        continue
+                    for i in range(n):
+                        h = ref.head_slice((i, n), KV)
+                        local = [torch.zeros((n_blocks, bs, KV // n, D),
+                                             dtype=torch.int8,
+                                             device="cuda") for _ in pools]
+                        loc_s = [torch.zeros_like(s) for s in scales]
+                        kernel.commit_paged(
+                            *(x[:, :, h].contiguous() for x in new), *local,
+                            bt, q_start, q_len, *loc_s, **amax)
+                        torch.cuda.synchronize()
+                        require(all(torch.equal(a, p[:, :, h])
+                                    for a, p in zip(local, pools))
+                                and all(torch.equal(a, s) for a, s in
+                                        zip(loc_s, scales)),
+                                f"commit slice ({i}, {n}) of {name} "
+                                f"{dtype_name(dtype)} C={C} != the "
+                                f"unsharded commit")
+                        checked += 1
+    return checked
+
+
+def sharded_decode_timing(torch, np, kernel, ref):
+    """The n=2 slice of kernel 2.4 at row 1's qwen3-1.7b serve shapes (8
+    slots, 64 blocks of 16, lengths 1..544, bf16), as a rank of a 1x2 mesh
+    calls it: its 4 KV heads of q and of its own pools.  Beside it: its
+    bound, the plain version, SDPA over the local heads gathered
+    beforehand, the head_shard slice read in place from the full pools,
+    and the unsharded launch over all 8 heads."""
+    import torch.nn.functional as F
+
+    from repro_torch.launch.mesh import MeshShape
+
+    B, bs, nb = 8, 16, 64
+    KV, G, D = ARCH_HEADS["qwen3-1.7b"]
+    valid = np.random.default_rng(8).integers(1, 512 + 32 + 1, size=B)
+    full = paged_inputs(torch, B, KV, G, D, bs, nb, torch.bfloat16,
+                        valid.tolist(), seed=9)
+    q, k_pool, v_pool, bt, vl = full
+    h = ref.head_slice((0, SHARDED_N), KV)
+    local = (q[:, h].contiguous(), k_pool[:, :, h].contiguous(),
+             v_pool[:, :, h].contiguous(), bt, vl)
+    mesh = MeshShape(1, SHARDED_N)
+
+    def sharded():
+        return kernel.flash_decode_paged_sharded(*local, mesh=mesh)
+
+    out = sharded()
+    want = ref.flash_decode_paged_ref(*local)
+    err, ok = decode_close(torch, out, want)
+    require(ok, f"the sharded decode at qwen3 serve shapes: max abs err "
+                f"{err}")
+    require(torch.equal(out, kernel.flash_decode_paged(
+        *full, head_shard=(0, SHARDED_N))), "in-place slice != local pools")
+
+    kvl = KV // SHARDED_N
+    S = nb * bs
+    k = local[1][bt.long()].reshape(B, S, kvl, D).transpose(1, 2)
+    v = local[2][bt.long()].reshape(B, S, kvl, D).transpose(1, 2)
+    k = k.repeat_interleave(G, dim=1).contiguous()
+    v = v.repeat_interleave(G, dim=1).contiguous()
+    qh = local[0].reshape(B, kvl * G, 1, D)
+    mask = (torch.arange(S, device="cuda")[None, :] < vl[:, None])
+    mask = mask[:, None, None, :]
+
+    def library():
+        return F.scaled_dot_product_attention(qh, k, v, attn_mask=mask)
+
+    lib_err = (library().reshape(out.shape).float()
+               - want.float()).abs().max().item()
+    require(lib_err <= 2 * TOLERANCE["bfloat16"],
+            f"SDPA yardstick disagrees: {lib_err}")
+    bound_ms, bound_by = bound(ref.work_terms(local[0], local[1], bt, valid),
+                               "bfloat16")
+    row = {
+        "max_abs_err": err,
+        "ms": device_ms(torch, sharded),
+        "plain_ms": device_ms(torch, lambda: ref.flash_decode_paged_ref(
+            *local)),
+        "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": device_ms(torch, library),
+    }
+    extra = {
+        "head_shard_in_place_ms": device_ms(
+            torch, lambda: kernel.flash_decode_paged(
+                *full, head_shard=(0, SHARDED_N))),
+        "unsharded_ms": device_ms(torch,
+                                  lambda: kernel.flash_decode_paged(*full)),
+    }
+    emit({"phase": "kernel-sharded", "kernel": "flash_decode_paged_sharded",
+          "shapes": "serve qwen3-1.7b, slice (0, 2)", "B": B, "KV": KV,
+          "local_KV": kvl, "G": G, "D": D, "bs": bs, "nb": nb,
+          "dtype": "bfloat16", "valid_len": valid.tolist(), **row, **extra})
+    return row
+
+
+def _first_divergence(got, want):
+    """(uid, index) of the first token where ``got`` leaves ``want``, or
+    None."""
+    for uid, (a, b) in enumerate(zip(got, want)):
+        if a != b:
+            i = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                     min(len(a), len(b)))
+            return uid, i
+    return None
+
+
+def phase_serve_mesh(torch, params):
+    """qwen3-1.7b at full width and all 28 layers, bf16, chunked as
+    ``CHUNKED_ARGV`` with its first ``SERVE_MESH_REQUESTS`` requests, on
+    1x2 and 2x2 meshes of ranks sharing the card over gloo, and unsharded
+    on the card for the streams: every request completes; on every rank
+    the head-sharded decode launches once per layer per decode step, over
+    KV / M heads, and with the prefill kernel once per layer per fused
+    step.  Prints each rank's launches, backend, collectives a step,
+    bytes staged through the host, wall time and tok/s, and how many
+    streams equal the unsharded engine's (bf16 row-parallel sums may flip
+    near ties, so no bar on that).  The ranks cut their shards from
+    serve-chunked's ``params``, shared through CUDA IPC, so that none
+    draws the 2 B-parameter init again.  Returns the launches of the
+    head-sharded decode, over every rank of both meshes."""
+    import repro_torch.configs as configs
+    from repro_torch.launch import serve as serve_cli
+
+    argv = CHUNKED_ARGV + ["--requests", str(SERVE_MESH_REQUESTS)]
+    args = serve_cli.parse_args(argv)
+    base = serve_cli.serve(args, serve_cli.make_engine(args, params=params))
+    want = [r["tokens"] for r in base["requests"]]
+    launches = 0
+    for shape in SERVE_MESHES:
+        args = serve_cli.parse_args(argv + ["--mesh", shape])
+        cfg = (configs.get_smoke_config(args.arch) if args.smoke
+               else configs.get_config(args.arch))
+        L = cfg.n_layers
+        t0 = time.time()
+        report = serve_cli.serve_on_mesh(args, params,
+                                         timeout=MESH_TIMEOUT)
+        seconds = time.time() - t0
+        stats, reqs = report["stats"], report["requests"]
+        require(len(reqs) == args.requests and report["rejected"] == 0
+                and all(r["new_tokens"] == args.max_new for r in reqs),
+                f"mesh {shape}: {len(reqs)} of {args.requests} requests "
+                f"completed")
+        steps = stats["fused_steps"]
+        model = int(shape.split("x")[1])
+        for row in report["mesh_ranks"]:
+            chunk_steps = row["flash_prefill_paged"] // L
+            require(row["flash_prefill_paged"] == L * chunk_steps
+                    and row["flash_decode_paged_sharded"]
+                    == L * (steps - chunk_steps)
+                    and row["flash_decode_paged"]
+                    == row["flash_decode_paged_sharded"] > 0,
+                    f"mesh {shape} rank {row['rank']}: launches {row} for "
+                    f"{steps} fused steps of {L} layers")
+            require(row["local_kv_heads"] == cfg.n_kv_heads // model,
+                    f"rank {row['rank']} holds {row['local_kv_heads']} KV "
+                    f"heads")
+            launches += row["flash_decode_paged_sharded"]
+        got = [r["tokens"] for r in reqs]
+        emit({"phase": "serve-mesh", "arch": cfg.name, "mesh": shape,
+              "backend": report["mesh_backend"], "layers": L,
+              "dtype": cfg.compute_dtype, "requests": len(reqs),
+              "new_tokens": stats["new_tokens"], "fused_steps": steps,
+              "tok_s": stats["tok_s"], "wall_s": stats["wall_s"],
+              "device_lane_utilization": stats["device_lane_utilization"],
+              "ranks": [{**row, "collectives_per_step": row["calls"] / steps}
+                        for row in report["mesh_ranks"]],
+              "unsharded_tok_s": base["stats"]["tok_s"],
+              "streams_equal_unsharded": sum(a == b for a, b in
+                                             zip(got, want)),
+              "first_divergence": _first_divergence(got, want),
+              "seconds": seconds})
+    return launches
+
+
+def phase_parity_mesh(torch):
+    """The port's mesh check on the card, in float32: gpt2-124m at full
+    width, qwen3-1.7b at full width cut to 4 layers (as parity-int8), and
+    gpt2-124m with int8 pools and prefix sharing, each on 1x1, 2x1, 1x2
+    and 2x2 against the unsharded card engine: the greedy streams equal
+    token for token, and the int8 pools on every rank within the check's
+    rule (scales the same bits on every rank, codes within one step and
+    scales within 1e-2 of the unsharded pools' head slice)."""
+    import repro_torch.configs as configs
+    from repro_torch.serve import mesh_check
+
+    f32 = dict(param_dtype="float32", compute_dtype="float32")
+    gpt2 = dataclasses.replace(configs.get_config("gpt2-124m"), **f32)
+    qwen3 = dataclasses.replace(configs.get_config("qwen3-1.7b"),
+                                n_layers=4, **f32)
+    workloads = (
+        ("gpt2", "gpt2-124m", {"config": gpt2}),
+        ("qwen3", "qwen3-1.7b", {"config": qwen3}),
+        ("gpt2-int8-shared", "gpt2-124m",
+         {"config": gpt2, "kv_dtype": "int8", "share_prefixes": True,
+          "shared_prefix_len": 6}),
+    )
+    t0 = time.time()
+    verdict = mesh_check.run_check(
+        PARITY_MESHES, workloads, requests=PARITY_MESH_REQUESTS,
+        max_new=PARITY_NEW, device="cuda", timeout=MESH_TIMEOUT)
+    emit({"phase": "parity-mesh", "dtype": "float32", "ok": verdict["ok"],
+          "diffs": verdict["diffs"], "shapes": verdict["shapes"],
+          "workloads": verdict["workloads"], "seconds": time.time() - t0})
+    require(verdict["ok"], f"mesh parity on the card: {verdict['diffs']}")
+
+
 def main() -> int:
     import torch
 
@@ -2144,6 +2495,8 @@ def main() -> int:
     qprefill_row = quantized_prefill_timing(torch, np, kernel, ref)
     commit_row = commit_timing(torch, np, kernel, ref, torch.bfloat16)
     qcommit_row = commit_timing(torch, np, kernel, ref, torch.int8)
+    check_sharded_decode(torch, np, kernel, ref)
+    sharded_row = sharded_decode_timing(torch, np, kernel, ref)
 
     check_hpc(torch, np)
     check_rx_gate(torch, np)
@@ -2163,6 +2516,7 @@ def main() -> int:
     del engine
     engine, counts, _ = phase_serve(torch, CHUNKED_ARGV, "serve-chunked")
     phase_profile(torch, np, engine, "profile-chunked", 64, 256)
+    chunked_params = engine.params  # the mesh ranks' shards come from it
     del engine
     torch.cuda.empty_cache()
     shared_counts = phase_serve_shared(torch, np)
@@ -2171,6 +2525,10 @@ def main() -> int:
     phase_parity(torch, np)
     phase_parity_chunked(torch, np)
     phase_parity_int8(torch, np)
+    torch.cuda.empty_cache()
+    mesh_launches = phase_serve_mesh(torch, chunked_params)
+    del chunked_params
+    phase_parity_mesh(torch)
 
     emit({"kernels": [
         {"name": "flash_decode_paged", "route": "cuda",
@@ -2189,6 +2547,12 @@ def main() -> int:
          "source": SOURCE_DIR + "flash_prefill_paged.cu",
          "replaces": f"{TPU_KERNELS}:573,620",
          "launches": shared_counts["flash_prefill_paged"], **qprefill_row},
+        {"name": "flash_decode_paged_sharded", "route": "cuda",
+         "source": SOURCE_DIR + "flash_decode_paged.cu",
+         "replaces": f"{TPU_KERNELS}:264",
+         "launches": mesh_launches,
+         "shape": "qwen3-1.7b serve, slice (0, 2) of 8 KV heads, bf16",
+         **sharded_row},
         {"name": "commit_paged", "route": "cuda",
          "source": SOURCE_DIR + "flash_prefill_paged.cu",
          "replaces": f"{TPU_KERNELS}:573",

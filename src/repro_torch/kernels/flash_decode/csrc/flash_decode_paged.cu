@@ -5,8 +5,12 @@
 // Replaces two TPU kernels of src/repro/kernels/flash_decode/kernel.py:
 //   * flash_decode_paged (body _decode_kernel_paged), for pools in q's
 //     dtype, bf16 pools under an f32 q (widened, :140-142) and int8 pools
-//     with per-row fp32 scales (the quantized branch, :120-139), without
-//     head sharding;
+//     with per-row fp32 scales (the quantized branch, :120-139), with its
+//     head_shard=(i, n) slice (:207-218): the grid covers KV / n heads
+//     and reads the full pools from head i * KV / n on, at the pools' own
+//     row stride, so the head slice is never copied.  The same body is the
+//     per-device kernel of flash_decode_paged_sharded (:264), which runs
+//     it on each rank's local pools from head 0;
 //   * flash_decode (body _decode_kernel), the contiguous cache.  The TPU
 //     wrapper makes a head-major copy of K and V first (kernel.py:87-88);
 //     this kernel reads (B, S, KV, D) in place with a row stride of KV * D.
@@ -14,15 +18,18 @@
 // addressing of a tile's first row, and nothing else differs.
 //
 // Paged contract (that of the TPU kernel flash_decode_paged):
-//   q            (B, KV, G, D)            T: f32 or bf16
-//   k_pool/v_pool (n_blocks, bs, KV, D)   P: T, bf16 under an f32 T, or
-//                                         int8 under either
+//   q            (B, KV, G, D)            T: f32 or bf16; KV is the
+//                                         grid's (local) head count
+//   k_pool/v_pool (n_blocks, bs, pool_kv, D)  P: T, bf16 under an f32 T,
+//                                         or int8 under either; head h of
+//                                         q reads pool head head0 + h
 //   k_scale/v_scale (n_blocks, bs) f32    int8 pools only: one scale a
 //                                         pool row, over all its KV heads
 //   block_tables (B, nb) int32            logical block -> pool block
 //   valid_len    (B,) int32, >= 1         live rows of each slot
 //   out          (B, KV, G, D)            dtype of q
 // Row t of slot b lives at pool block block_tables[b, t / bs], row t % bs.
+// Unsharded, pool_kv = KV and head0 = 0.
 // Rows at or past valid_len[b], and their scales, are never read.  An int8
 // element is dequantized to fp32 at load as code * scale, as the TPU
 // kernel widens its tile in VMEM; a bf16 pool element is widened to fp32.
@@ -139,7 +146,7 @@ __global__ void __launch_bounds__(kThreads)
                         const int* __restrict__ block_tables,
                         const int* __restrict__ valid_len,
                         T* __restrict__ out, int KV, int G, int bs, int nb,
-                        int S) {
+                        int S, int pool_kv, int head0) {
   constexpr bool kQuant = std::is_same_v<P, int8_t>;
   // elements of a K row per lane; below D = 32 the lanes >= D idle
   constexpr int kPerLane = (D + 31) / 32;
@@ -178,14 +185,17 @@ __global__ void __launch_bounds__(kThreads)
       table[j] = block_tables[static_cast<size_t>(b) * nb + j];
   __syncthreads();
 
-  const size_t row_stride = static_cast<size_t>(KV) * D;
+  // a row of the pools (or of the contiguous cache) holds pool_kv heads;
+  // this block reads head head0 + h of each
+  const size_t row_stride = static_cast<size_t>(pool_kv) * D;
   for (int j = 0; j < n_tiles; ++j) {
     const int rows = min(bs, valid - j * bs);
     // element offset of the tile's row 0, head h: in its pool block, or
     // row j * bs of slot b
     const size_t first = kPaged ? static_cast<size_t>(table[j]) * bs
                                 : static_cast<size_t>(b) * S + j * bs;
-    const size_t base = (first * KV + h) * static_cast<size_t>(D);
+    const size_t base =
+        (first * pool_kv + head0 + h) * static_cast<size_t>(D);
     if constexpr (kQuant) {  // the live rows' scales, none past valid
       for (int r = tid; r < rows; r += kThreads) {
         ks_s[r] = k_scale[first + r];
@@ -261,26 +271,29 @@ void launch_d(const dim3 grid, size_t smem, cudaStream_t stream,
               const void* q, const void* k, const void* v,
               const float* k_scale, const float* v_scale,
               const void* block_tables, const void* valid_len, void* out,
-              int KV, int G, int bs, int nb, int S) {
+              int KV, int G, int bs, int nb, int S, int pool_kv,
+              int head0) {
   flash_decode_kernel<T, P, D, kPaged><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const P*>(k),
       static_cast<const P*>(v), k_scale, v_scale,
       static_cast<const int*>(block_tables),
       static_cast<const int*>(valid_len), static_cast<T*>(out), KV, G, bs,
-      nb, S);
+      nb, S, pool_kv, head0);
 }
 
 // Paged: nb table entries of bs rows; contiguous: nb = 0, tiles of bs rows
-// over S.
+// over S.  The grid covers KV heads, heads head0 .. head0 + KV - 1 of rows
+// of pool_kv heads.
 template <typename T, typename P, bool kPaged>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const float* k_scale, const float* v_scale,
                    const void* block_tables, const void* valid_len, void* out,
                    int B, int KV, int G, int D, int bs, int nb, int S,
-                   cudaStream_t stream) {
+                   int pool_kv, int head0, cudaStream_t stream) {
   constexpr bool kQuant = std::is_same_v<P, int8_t>;
   if (kQuant && (k_scale == nullptr || v_scale == nullptr))
     return cudaErrorInvalidValue;
+  if (head0 < 0 || head0 + KV > pool_kv) return cudaErrorInvalidValue;
   const dim3 grid(KV, B);
   const size_t smem =
       sizeof(float) * (2 * G * D + G * bs + 3 * G + (kQuant ? 2 * bs : 0)) +
@@ -289,22 +302,22 @@ cudaError_t launch(const void* q, const void* k, const void* v,
     case 16:
       launch_d<T, P, kPaged, 16>(grid, smem, stream, q, k, v, k_scale,
                                  v_scale, block_tables, valid_len, out, KV, G,
-                                 bs, nb, S);
+                                 bs, nb, S, pool_kv, head0);
       break;
     case 32:
       launch_d<T, P, kPaged, 32>(grid, smem, stream, q, k, v, k_scale,
                                  v_scale, block_tables, valid_len, out, KV, G,
-                                 bs, nb, S);
+                                 bs, nb, S, pool_kv, head0);
       break;
     case 64:
       launch_d<T, P, kPaged, 64>(grid, smem, stream, q, k, v, k_scale,
                                  v_scale, block_tables, valid_len, out, KV, G,
-                                 bs, nb, S);
+                                 bs, nb, S, pool_kv, head0);
       break;
     case 128:
       launch_d<T, P, kPaged, 128>(grid, smem, stream, q, k, v, k_scale,
                                   v_scale, block_tables, valid_len, out, KV,
-                                  G, bs, nb, S);
+                                  G, bs, nb, S, pool_kv, head0);
       break;
     default:
       return cudaErrorInvalidValue;
@@ -316,13 +329,16 @@ cudaError_t launch(const void* q, const void* k, const void* v,
 
 // dtype / pool_dtype: 0 = float32, 1 = bfloat16, 2 = int8.  Each returns
 // cudaGetLastError() after the launch (0 when the launch was accepted, an
-// invalid-value code for a pair that has no instantiation); never
-// synchronises.
+// invalid-value code for a pair that has no instantiation or a head range
+// outside the pools); never synchronises.  The paged launch attends the KV
+// heads of q (B, KV, G, D) over pool heads head0 .. head0 + KV - 1 of
+// pools whose rows hold pool_kv heads.
 extern "C" int flash_decode_paged_launch(
     const void* q, const void* k_pool, const void* v_pool,
     const void* k_scale, const void* v_scale, const void* block_tables,
     const void* valid_len, void* out, int B, int KV, int G, int D, int bs,
-    int nb, int dtype, int pool_dtype, int device, void* stream) {
+    int nb, int pool_kv, int head0, int dtype, int pool_dtype, int device,
+    void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -331,7 +347,8 @@ extern "C" int flash_decode_paged_launch(
 #define FD_PAGED(T, P)                                                      \
   return static_cast<int>(launch<T, P, true>(q, k_pool, v_pool, ks, vs,     \
                                              block_tables, valid_len, out,  \
-                                             B, KV, G, D, bs, nb, 0, st))
+                                             B, KV, G, D, bs, nb, 0,        \
+                                             pool_kv, head0, st))
   if (dtype == 0 && pool_dtype == 0) FD_PAGED(float, float);
   if (dtype == 0 && pool_dtype == 1) FD_PAGED(float, __nv_bfloat16);
   if (dtype == 0 && pool_dtype == 2) FD_PAGED(float, int8_t);
@@ -354,11 +371,11 @@ extern "C" int flash_decode_launch(const void* q, const void* k,
   if (dtype == 0)
     return static_cast<int>(launch<float, float, false>(
         q, k, v, nullptr, nullptr, nullptr, valid_len, out, B, KV, G, D,
-        tile, 0, S, st));
+        tile, 0, S, KV, 0, st));
   if (dtype == 1)
     return static_cast<int>(launch<__nv_bfloat16, __nv_bfloat16, false>(
         q, k, v, nullptr, nullptr, nullptr, valid_len, out, B, KV, G, D,
-        tile, 0, S, st));
+        tile, 0, S, KV, 0, st));
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

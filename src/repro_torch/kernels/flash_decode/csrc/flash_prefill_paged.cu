@@ -8,7 +8,8 @@
 // commit (pallas_call at :573, bodies _prefill_commit_kernel and, for int8
 // pools, _prefill_commit_kernel_q with _quantize_rows_kernel) and the
 // attention (pallas_call at :620, body _prefill_attn_kernel, with its
-// dequantizing branch), without head sharding.
+// dequantizing branch).  Under tensor parallelism each rank runs both on
+// its local KV heads.
 //
 // Contract (that of the TPU kernel, with zeros for the rows it leaves
 // undefined):
@@ -21,11 +22,18 @@
 //   block_tables  (B, nb) int32          logical block -> pool block
 //   q_start/q_len (B,) int32             rows c < q_len[b] of slot b sit
 //                                        at positions q_start[b] + c
+//   k_amax/v_amax (B, C) f32 or NULL     int8 pools only: each row's amax
+//                                        over all KV heads, given by the
+//                                        caller (a tensor-parallel rank
+//                                        holds only some heads of a row)
 //   out           (B, C, KV, G, D)       dtype of q
 // Row c < q_len[b] is committed at pool block block_tables[b, pos / bs],
 // row pos % bs, with pos = q_start[b] + c, and attends to its slot's keys
 // at positions <= pos.  An int8 row is quantized as the TPU kernel does:
-// s = max(amax / 127, 1e-8) over the row's KV * D elements, codes
+// s = max(amax / 127, 1e-8) over the row's KV * D elements (or the
+// given k_amax/v_amax of the row, which a rank holding KV / n heads gets
+// from an all-reduce MAX over the model axis, so its codes and scales
+// equal the unsharded commit's head slice bit for bit), codes
 // clip(round_half_even(x / s), -127, 127), s stored at the same pool row.
 // XLA compiles amax / 127 as amax times the fp32 reciprocal of 127, and so
 // does this kernel; x / s is an IEEE division (no --use_fast_math) and
@@ -140,17 +148,24 @@ __device__ __forceinline__ float block_max(float v, float* red) {
 }
 
 // One row of n elements from x (in T) to dst (in P): converted, or for
-// int8 quantized with a fresh scale written to *scale.
+// int8 quantized with a fresh scale written to *scale, from the row's
+// amax: *given when the caller passes it, else reduced over the row.
 template <typename T, typename P>
 __device__ __forceinline__ void commit_row(const T* __restrict__ x,
                                            P* __restrict__ dst,
                                            float* __restrict__ scale, int n,
+                                           const float* __restrict__ given,
                                            float* red) {
   if constexpr (std::is_same_v<P, int8_t>) {
-    float amax = 0.f;
-    for (int i = threadIdx.x; i < n; i += kCommitThreads)
-      amax = fmaxf(amax, fabsf(to_float(x[i])));
-    amax = block_max(amax, red);
+    float amax;
+    if (given != nullptr) {  // uniform across the block
+      amax = *given;
+    } else {
+      amax = 0.f;
+      for (int i = threadIdx.x; i < n; i += kCommitThreads)
+        amax = fmaxf(amax, fabsf(to_float(x[i])));
+      amax = block_max(amax, red);
+    }
     // XLA's amax / 127: the product with 127's fp32 reciprocal
     const float s = fmaxf(amax * (1.f / 127.f), 1e-8f);
     for (int i = threadIdx.x; i < n; i += kCommitThreads) {
@@ -165,13 +180,16 @@ __device__ __forceinline__ void commit_row(const T* __restrict__ x,
 }
 
 // Commits row c of slot b of k_new/v_new (KV * D elements each) to its
-// pool row, and for int8 pools its two scales.  Grid (C, B).
+// pool row, and for int8 pools its two scales (from k_amax/v_amax[b, c]
+// when they are given).  Grid (C, B).
 template <typename T, typename P>
 __global__ void __launch_bounds__(kCommitThreads)
     prefill_commit_kernel(const T* __restrict__ k_new,
                           const T* __restrict__ v_new, P* __restrict__ k_pool,
                           P* __restrict__ v_pool, float* __restrict__ k_scale,
                           float* __restrict__ v_scale,
+                          const float* __restrict__ k_amax,
+                          const float* __restrict__ v_amax,
                           const int* __restrict__ block_tables,
                           const int* __restrict__ q_start,
                           const int* __restrict__ q_len, int C, int row,
@@ -185,12 +203,15 @@ __global__ void __launch_bounds__(kCommitThreads)
   const size_t dst_row =
       static_cast<size_t>(block_tables[static_cast<size_t>(b) * nb + j]) *
           bs + pos % bs;
-  const size_t src = (static_cast<size_t>(b) * C + c) * row;
+  const size_t bc = static_cast<size_t>(b) * C + c;
+  const size_t src = bc * row;
   constexpr bool kQuant = std::is_same_v<P, int8_t>;
   commit_row(k_new + src, k_pool + dst_row * row,
-             kQuant ? k_scale + dst_row : nullptr, row, red);
+             kQuant ? k_scale + dst_row : nullptr, row,
+             k_amax != nullptr ? k_amax + bc : nullptr, red);
   commit_row(v_new + src, v_pool + dst_row * row,
-             kQuant ? v_scale + dst_row : nullptr, row, red);
+             kQuant ? v_scale + dst_row : nullptr, row,
+             v_amax != nullptr ? v_amax + bc : nullptr, red);
 }
 
 // Shared memory, in floats, for R = bc * G query vectors: q (R*D), acc
@@ -360,15 +381,20 @@ __global__ void __launch_bounds__(kThreads)
 template <typename T, typename P>
 cudaError_t commit(const void* k_new, const void* v_new, void* k_pool,
                    void* v_pool, void* k_scale, void* v_scale,
+                   const void* k_amax, const void* v_amax,
                    const void* block_tables, const void* q_start,
                    const void* q_len, int B, int C, int KV, int D, int bs,
                    int nb, cudaStream_t stream) {
   if (std::is_same_v<P, int8_t> && (k_scale == nullptr || v_scale == nullptr))
     return cudaErrorInvalidValue;
+  if ((k_amax == nullptr) != (v_amax == nullptr) ||
+      (k_amax != nullptr && !std::is_same_v<P, int8_t>))
+    return cudaErrorInvalidValue;
   prefill_commit_kernel<T, P><<<dim3(C, B), kCommitThreads, 0, stream>>>(
       static_cast<const T*>(k_new), static_cast<const T*>(v_new),
       static_cast<P*>(k_pool), static_cast<P*>(v_pool),
       static_cast<float*>(k_scale), static_cast<float*>(v_scale),
+      static_cast<const float*>(k_amax), static_cast<const float*>(v_amax),
       static_cast<const int*>(block_tables), static_cast<const int*>(q_start),
       static_cast<const int*>(q_len), C, KV * D, bs, nb);
   return cudaGetLastError();
@@ -377,14 +403,15 @@ cudaError_t commit(const void* k_new, const void* v_new, void* k_pool,
 template <typename T, typename P>
 cudaError_t launch(const void* q, const void* k_new, const void* v_new,
                    void* k_pool, void* v_pool, void* k_scale, void* v_scale,
+                   const void* k_amax, const void* v_amax,
                    const void* block_tables, const void* q_start,
                    const void* q_len, void* out, int B, int C, int KV, int G,
                    int D, int bs, int nb, int bc, int smem,
                    cudaStream_t stream) {
   if (bc < 1 || smem < 1) return cudaErrorInvalidValue;
   cudaError_t err = commit<T, P>(k_new, v_new, k_pool, v_pool, k_scale,
-                                 v_scale, block_tables, q_start, q_len, B, C,
-                                 KV, D, bs, nb, stream);
+                                 v_scale, k_amax, v_amax, block_tables,
+                                 q_start, q_len, B, C, KV, D, bs, nb, stream);
   if (err != cudaSuccess) return err;
 
   const dim3 grid(KV, B, (C + bc - 1) / bc);
@@ -439,14 +466,17 @@ cudaError_t launch(const void* q, const void* k_new, const void* v_new,
   return static_cast<int>(cudaErrorInvalidValue)
 
 // Launches the commit, then the attention, on ``stream``.  k_scale and
-// v_scale are NULL unless the pools are int8.  smem: the attention block's
-// dynamic shared memory in bytes for this bc, G, D, bs, nb and pool dtype,
-// as laid out above prefill_attend_kernel (the caller computes it:
+// v_scale are NULL unless the pools are int8; k_amax and v_amax (B, C) are
+// NULL unless the caller gives each row's amax for int8 pools.  smem: the
+// attention block's dynamic shared memory in bytes for this bc, G, D, bs,
+// nb and pool dtype, as laid out above prefill_attend_kernel (the caller
+// computes it:
 // prefill_smem_bytes in kernel.py).  Returns the first cudaGetLastError()
 // that is not 0 (0 when both launches were accepted); never synchronises.
 extern "C" int flash_prefill_paged_launch(
     const void* q, const void* k_new, const void* v_new, void* k_pool,
-    void* v_pool, void* k_scale, void* v_scale, const void* block_tables,
+    void* v_pool, void* k_scale, void* v_scale, const void* k_amax,
+    const void* v_amax, const void* block_tables,
     const void* q_start, const void* q_len, void* out, int B, int C, int KV,
     int G, int D, int bs, int nb, int bc, int smem, int dtype, int pool_dtype,
     int device, void* stream) {
@@ -454,26 +484,28 @@ extern "C" int flash_prefill_paged_launch(
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define FP_LAUNCH(T, P)                                                    \
-  launch<T, P>(q, k_new, v_new, k_pool, v_pool, k_scale, v_scale,          \
-               block_tables, q_start, q_len, out, B, C, KV, G, D, bs, nb,  \
-               bc, smem, s)
+  launch<T, P>(q, k_new, v_new, k_pool, v_pool, k_scale, v_scale, k_amax,  \
+               v_amax, block_tables, q_start, q_len, out, B, C, KV, G, D,  \
+               bs, nb, bc, smem, s)
   FP_DISPATCH(FP_LAUNCH);
 #undef FP_LAUNCH
 }
 
 // The commit alone (a decode step's row is a chunk of one): k/v_new (B, C,
-// KV, D) into the pools, and scales for int8 pools, on ``stream``.
+// KV, D) into the pools, and scales for int8 pools (from k_amax/v_amax
+// when they are not NULL), on ``stream``.
 extern "C" int flash_commit_paged_launch(
     const void* k_new, const void* v_new, void* k_pool, void* v_pool,
-    void* k_scale, void* v_scale, const void* block_tables,
+    void* k_scale, void* v_scale, const void* k_amax, const void* v_amax,
+    const void* block_tables,
     const void* q_start, const void* q_len, int B, int C, int KV, int D,
     int bs, int nb, int dtype, int pool_dtype, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define FP_COMMIT(T, P)                                                    \
-  commit<T, P>(k_new, v_new, k_pool, v_pool, k_scale, v_scale,             \
-               block_tables, q_start, q_len, B, C, KV, D, bs, nb, s)
+  commit<T, P>(k_new, v_new, k_pool, v_pool, k_scale, v_scale, k_amax,     \
+               v_amax, block_tables, q_start, q_len, B, C, KV, D, bs, nb, s)
   FP_DISPATCH(FP_COMMIT);
 #undef FP_COMMIT
 }

@@ -11,7 +11,13 @@ tensors; there is no fallback from one to the other, and a (q, pool) dtype
 pair outside :data:`POOL_PAIRS` raises.  The paged kernels take pools in
 q's dtype, bf16 pools under an f32 q, and int8 pools with one fp32 scale a
 pool row.  Each wrapper's ``launches`` attribute counts the calls that
-launched its kernels.  :func:`flash_decode` and
+launched its kernels.  :func:`flash_decode_paged` takes the reference's
+``head_shard=(i, n)`` (one shard's 1/n of the KV heads, read in place from
+the full pools), and :func:`flash_decode_paged_sharded` is the reference's
+tensor-parallel decode: each rank of a mesh's model axis runs the decode
+kernel on its local heads.  The commits take each row's amax over all KV
+heads (``k_amax``/``v_amax``) from a caller whose pools hold only some of
+them.  :func:`flash_decode` and
 :func:`flash_prefill` take the reference's argument lists and check its
 tile arguments (``block_s``, ``block_c``) as it does; the CUDA kernels'
 tiles are their own.  ``*_plain`` are the same functions, with the same
@@ -50,13 +56,13 @@ _I = ctypes.c_int
 #: (library, C function) -> argument types
 _ARGTYPES: Dict[tuple, list] = {
     ("flash_decode_paged", "flash_decode_paged_launch"):
-        [_P] * 8 + [_I] * 9 + [_P],
+        [_P] * 8 + [_I] * 11 + [_P],
     ("flash_decode_paged", "flash_decode_launch"):
         [_P] * 5 + [_I] * 8 + [_P],
     ("flash_prefill_paged", "flash_prefill_paged_launch"):
-        [_P] * 11 + [_I] * 12 + [_P],
+        [_P] * 13 + [_I] * 12 + [_P],
     ("flash_prefill_paged", "flash_commit_paged_launch"):
-        [_P] * 9 + [_I] * 9 + [_P],
+        [_P] * 11 + [_I] * 9 + [_P],
 }
 
 
@@ -166,7 +172,7 @@ def _check(q, k_pool, v_pool, block_tables, valid_len, k_scale,
 def flash_decode_paged(q: torch.Tensor, k_pool: torch.Tensor,
                        v_pool: torch.Tensor, block_tables: torch.Tensor,
                        valid_len: torch.Tensor, k_scale=None,
-                       v_scale=None) -> torch.Tensor:
+                       v_scale=None, *, head_shard=None) -> torch.Tensor:
     """One-token GQA attention over a paged KV cache.
 
     q (B, KV, G, D); k/v_pool (n_blocks, bs, KV, D) in q's dtype, bf16
@@ -176,25 +182,36 @@ def flash_decode_paged(q: torch.Tensor, k_pool: torch.Tensor,
     >= 1 and every table entry a block of the pool (not checked: both live
     on the device).  Rows at or past ``valid_len`` and their scales are
     never read.  Returns (B, KV, G, D) in q's dtype.
+
+    ``head_shard=(i, n)`` runs only shard ``i``'s contiguous 1/n of the KV
+    heads and returns (B, KV/n, G, D): q's slice is copied (it is small),
+    the pools are read in place at their full row stride.  It raises as
+    the reference does, for an index outside ``[0, n)`` and for KV not
+    divisible by ``n``.
     """
+    heads = ref.head_slice(head_shard, q.shape[1] if q.dim() == 4 else 0)
     quantized = _check(q, k_pool, v_pool, block_tables, valid_len, k_scale,
                        v_scale)
     if q.device.type == "cpu":
-        return ref.flash_decode_paged_ref(q, k_pool, v_pool, block_tables,
-                                          valid_len, k_scale, v_scale)
+        return ref.flash_decode_paged_ref(
+            q[:, heads], k_pool[:, :, heads], v_pool[:, :, heads],
+            block_tables, valid_len, k_scale, v_scale)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
-    B, KV, G, D = q.shape
+    B, pool_kv, G, D = q.shape
     bs = k_pool.shape[1]
     nb = block_tables.shape[1]
     _check_head_dim(D)
     _decode_smem_bytes(G, D, bs, nb, quantized)
+    if head_shard is not None:
+        q = q[:, heads].contiguous()
     out = torch.empty_like(q)
     err = _launcher("flash_decode_paged", "flash_decode_paged_launch")(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), _ptr(k_scale),
         _ptr(v_scale), block_tables.data_ptr(), valid_len.data_ptr(),
-        out.data_ptr(), B, KV, G, D, bs, nb, _DTYPE_CODE[q.dtype],
-        _DTYPE_CODE[k_pool.dtype], q.device.index or 0, build.stream_of(q),
+        out.data_ptr(), B, q.shape[1], G, D, bs, nb, pool_kv, heads.start,
+        _DTYPE_CODE[q.dtype], _DTYPE_CODE[k_pool.dtype],
+        q.device.index or 0, build.stream_of(q),
     )
     build.raise_on("flash_decode_paged", err)
     flash_decode_paged.launches += 1
@@ -202,6 +219,42 @@ def flash_decode_paged(q: torch.Tensor, k_pool: torch.Tensor,
 
 
 flash_decode_paged.launches = 0
+
+
+def flash_decode_paged_sharded(q: torch.Tensor, k_pool: torch.Tensor,
+                               v_pool: torch.Tensor,
+                               block_tables: torch.Tensor,
+                               valid_len: torch.Tensor, *, mesh,
+                               axis: str = "model", k_scale=None,
+                               v_scale=None,
+                               gather: bool = False) -> torch.Tensor:
+    """Tensor-parallel paged decode: the reference's ``shard_map`` of the
+    decode over a mesh's ``axis``, as one call on each rank.
+
+    Every rank of the axis passes its local q heads (B, KV/n, G, D) and
+    its local pools (n_blocks, bs, KV/n, D), the head-sharded layout of
+    :func:`repro_torch.distributed.sharding.paged_cache_spec`; the block
+    tables, lengths and int8 scales (n_blocks, bs) are whole on every
+    rank.  Each rank launches the decode kernel on its own heads and gets
+    its head slice (B, KV/n, G, D) of the output, the reference's
+    ``out_specs``; no collective is needed, since softmax normalizes
+    within a head.  ``gather=True`` all-gathers the slices over ``axis``
+    into the whole (B, KV, G, D).  ``launches`` counts the calls that
+    launched the kernel.  The global KV is the local KV times the axis
+    size, so it always divides; a q whose local heads are not the pools'
+    (pools left whole because KV does not divide) raises in the decode's
+    shape check.
+    """
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError("k_scale and v_scale must be passed together")
+    out = flash_decode_paged(q, k_pool, v_pool, block_tables, valid_len,
+                             k_scale, v_scale)
+    if q.device.type == "cuda":
+        flash_decode_paged_sharded.launches += 1
+    return mesh.gather(out, axis, dim=1) if gather else out
+
+
+flash_decode_paged_sharded.launches = 0
 
 
 def _check_dense(q, k, v, valid_len, block_s) -> None:
@@ -320,10 +373,28 @@ def _check_prefill(q, k_new, v_new, k_pool, v_pool, block_tables, q_start,
                         block_tables, q_start, q_len, B, C, KV, D)
 
 
+def _check_amax(k_amax, v_amax, quantized: bool, B: int, C: int, like):
+    """Each row's given amax, (B, C) float32 on ``like``'s device and
+    contiguous, both or neither, and only for int8 pools."""
+    if (k_amax is None) != (v_amax is None):
+        raise ValueError("k_amax and v_amax must be passed together")
+    if k_amax is None:
+        return
+    if not quantized:
+        raise ValueError("k_amax/v_amax are given only with int8 pools")
+    for name, t in (("k_amax", k_amax), ("v_amax", v_amax)):
+        if tuple(t.shape) != (B, C) or t.dtype != torch.float32:
+            raise ValueError(f"{name} must be ({B}, {C}) float32, got "
+                             f"{tuple(t.shape)} {t.dtype}")
+        if t.device != like.device or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous on {like.device}")
+
+
 def commit_paged(k_new: torch.Tensor, v_new: torch.Tensor,
                  k_pool: torch.Tensor, v_pool: torch.Tensor,
                  block_tables: torch.Tensor, q_start: torch.Tensor,
-                 q_len: torch.Tensor, k_scale=None, v_scale=None) -> None:
+                 q_len: torch.Tensor, k_scale=None, v_scale=None, *,
+                 k_amax=None, v_amax=None) -> None:
     """Commit a chunk's K/V rows into the paged pools in place, alone: the
     first pass of :func:`flash_prefill_paged`, which a decode step runs as
     a chunk of one.
@@ -332,26 +403,31 @@ def commit_paged(k_new: torch.Tensor, v_new: torch.Tensor,
     :func:`flash_prefill_paged` takes them.  Rows ``c < q_len[b]`` land at
     position ``q_start[b] + c`` through the block table, converted to the
     pools' dtype or, for int8 pools, quantized with a fresh scale a row
-    (:func:`ref.quantize_rows`'s formula); every other row keeps its bytes
-    and its scale.
+    (:func:`ref.quantize_rows`'s formula, from ``k_amax``/``v_amax`` (B, C)
+    float32 when they are given); every other row keeps its bytes and its
+    scale.
     """
     if k_new.dim() != 4:
         raise ValueError(f"k_new must be (B, C, KV, D), got "
                          f"{tuple(k_new.shape)}")
     B, C, KV, D = k_new.shape
-    _check_chunk(k_new, k_new, v_new, k_pool, v_pool, k_scale, v_scale,
-                 block_tables, q_start, q_len, B, C, KV, D)
+    quantized = _check_chunk(k_new, k_new, v_new, k_pool, v_pool, k_scale,
+                             v_scale, block_tables, q_start, q_len, B, C,
+                             KV, D)
+    _check_amax(k_amax, v_amax, quantized, B, C, k_new)
     if k_new.device.type == "cpu":
         ref.commit_paged_ref(k_new, v_new, k_pool, v_pool, block_tables,
-                             q_start, q_len, k_scale, v_scale)
+                             q_start, q_len, k_scale, v_scale,
+                             k_amax=k_amax, v_amax=v_amax)
         return
     build.require_cuda("flash_prefill_paged", (k_new,))
     if k_new.numel() == 0:
         return
     err = _launcher("flash_prefill_paged", "flash_commit_paged_launch")(
         k_new.data_ptr(), v_new.data_ptr(), k_pool.data_ptr(),
-        v_pool.data_ptr(), _ptr(k_scale), _ptr(v_scale),
-        block_tables.data_ptr(), q_start.data_ptr(), q_len.data_ptr(), B, C,
+        v_pool.data_ptr(), _ptr(k_scale), _ptr(v_scale), _ptr(k_amax),
+        _ptr(v_amax), block_tables.data_ptr(), q_start.data_ptr(),
+        q_len.data_ptr(), B, C,
         KV, D, k_pool.shape[1], block_tables.shape[1],
         _DTYPE_CODE[k_new.dtype], _DTYPE_CODE[k_pool.dtype],
         k_new.device.index or 0, build.stream_of(k_new))
@@ -366,7 +442,8 @@ def flash_prefill_paged(q: torch.Tensor, k_new: torch.Tensor,
                         v_new: torch.Tensor, k_pool: torch.Tensor,
                         v_pool: torch.Tensor, block_tables: torch.Tensor,
                         q_start: torch.Tensor, q_len: torch.Tensor,
-                        k_scale=None, v_scale=None) -> torch.Tensor:
+                        k_scale=None, v_scale=None, *, k_amax=None,
+                        v_amax=None) -> torch.Tensor:
     """Chunked prefill over a paged KV cache: commit, then causal
     attention.
 
@@ -380,17 +457,20 @@ def flash_prefill_paged(q: torch.Tensor, k_new: torch.Tensor,
     a fresh scale a row for int8 pools.  Each such row then attends to its
     slot's keys up to its own position, dequantized in fp32.  Rows at or
     past ``q_len[b]`` commit nothing and come out as zeros; every other
-    pool row keeps its bytes and its scale.  Returns (B, C, KV, G, D) in
-    q's dtype.  On the card: the commit kernel, then the attention kernel,
-    on the current stream.
+    pool row keeps its bytes and its scale.  ``k_amax``/``v_amax`` go to
+    the commit, as :func:`commit_paged` takes them.  Returns (B, C, KV, G,
+    D) in q's dtype.  On the card: the commit kernel, then the attention
+    kernel, on the current stream.
     """
     quantized = _check_prefill(q, k_new, v_new, k_pool, v_pool,
                                block_tables, q_start, q_len, k_scale,
                                v_scale)
+    _check_amax(k_amax, v_amax, quantized, *q.shape[:2], q)
     if q.device.type == "cpu":
         return ref.flash_prefill_paged_ref(q, k_new, v_new, k_pool, v_pool,
                                            block_tables, q_start, q_len,
-                                           k_scale, v_scale)
+                                           k_scale, v_scale, k_amax=k_amax,
+                                           v_amax=v_amax)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     B, C, KV, G, D = q.shape
@@ -403,9 +483,9 @@ def flash_prefill_paged(q: torch.Tensor, k_new: torch.Tensor,
         return out
     err = _launcher("flash_prefill_paged", "flash_prefill_paged_launch")(
         q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), k_pool.data_ptr(),
-        v_pool.data_ptr(), _ptr(k_scale), _ptr(v_scale),
-        block_tables.data_ptr(), q_start.data_ptr(), q_len.data_ptr(),
-        out.data_ptr(), B, C, KV, G, D, bs, nb, bc,
+        v_pool.data_ptr(), _ptr(k_scale), _ptr(v_scale), _ptr(k_amax),
+        _ptr(v_amax), block_tables.data_ptr(), q_start.data_ptr(),
+        q_len.data_ptr(), out.data_ptr(), B, C, KV, G, D, bs, nb, bc,
         prefill_smem_bytes(bc, G, D, bs, nb, quantized),
         _DTYPE_CODE[q.dtype], _DTYPE_CODE[k_pool.dtype],
         q.device.index or 0, build.stream_of(q),

@@ -7,16 +7,15 @@ chunked prefill with the reference's argument list) are
 run the CUDA kernel on CUDA tensors (the plain version on CPU tensors),
 ``.kernel(...)`` for the CUDA kernel alone, ``.interpret(...)`` for the
 plain version, ``.ref(...)`` for the oracle.  The paged wrappers the
-serving path calls are exported from the kernel module as they are.  The
-reference's ``flash_decode_paged_sharded`` waits for tensor-parallel
-serving (ROADMAP 1.16).
+serving path calls, the tensor-parallel ``flash_decode_paged_sharded``
+among them, are exported from the kernel module as they are.
 """
 
 from __future__ import annotations
 
-from repro_torch.kernels.flash_decode.kernel import (commit_paged,
-                                                     flash_decode_paged,
-                                                     flash_prefill_paged)
+from repro_torch.kernels.flash_decode.kernel import (
+    commit_paged, flash_decode_paged, flash_decode_paged_sharded,
+    flash_prefill_paged)
 from repro_torch.kernels.registry import FLASH_DECODE as flash_decode
 from repro_torch.kernels.registry import FLASH_PREFILL as flash_prefill
 
@@ -24,6 +23,7 @@ __all__ = [
     "commit_paged",
     "flash_decode",
     "flash_decode_paged",
+    "flash_decode_paged_sharded",
     "flash_prefill",
     "flash_prefill_paged",
 ]

@@ -11,8 +11,11 @@ slot's logical view through its block table, then the oracle.
 :func:`flash_prefill_paged_ref` ports ``prefill_paged_ref``: commit the
 chunk's K/V rows into the pools in place (:func:`commit_paged_ref`), then
 causal attention over each slot's gathered view; :func:`prefill_paged_ref`
-is the reference's functional form of it.  Pools are in q's dtype, bf16
-under an f32 q, or int8 with one fp32 scale per pool row
+is the reference's functional form of it.
+:func:`flash_decode_paged_sharded_ref` is the plain version of the
+reference's ``flash_decode_paged_sharded``: the concatenation of
+:func:`flash_decode_paged_ref` over the head slices.  Pools are in q's
+dtype, bf16 under an f32 q, or int8 with one fp32 scale per pool row
 (:func:`quantize_rows`, dequantized in fp32 as ``code * scale`` by
 :func:`dequantize_pool`).  The CPU path and the tests use them; on the
 card they serve only as the yardsticks the kernels are compared with.
@@ -50,7 +53,13 @@ def decode_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.masked_fill((valid_len <= 0)[:, None, None, None], 0.0)
 
 
-def quantize_rows(x: torch.Tensor):
+def row_amax(x: torch.Tensor) -> torch.Tensor:
+    """Each row's amax over its (KV, D) extent, fp32: x (..., KV, D) ->
+    (...)."""
+    return x.float().abs().amax(dim=(-2, -1))
+
+
+def quantize_rows(x: torch.Tensor, amax=None):
     """Per-row symmetric int8 of a pool-layout array ``x`` (..., KV, D):
     one fp32 scale per row, amax over the row's (KV, D) extent, as the
     reference's Pallas commit and its serving cell compute it (``s =
@@ -58,10 +67,14 @@ def quantize_rows(x: torch.Tensor):
     127)``), bit for bit.  Compiled by XLA, the division by the constant
     127 becomes a product with its fp32 reciprocal, which the port
     follows; the reference's eager ``quantize_rows`` divides, and its
-    scale then differs by one ulp in a few percent of rows.  Returns (int8
-    codes, fp32 scales shaped like ``x`` minus its last two axes)."""
+    scale then differs by one ulp in a few percent of rows.  ``amax``
+    (fp32, shaped like ``x`` minus its last two axes), when given, is each
+    row's amax over more heads than ``x`` holds: a tensor-parallel rank's
+    rows over all ranks' heads.  Returns (int8 codes, fp32 scales shaped
+    like ``x`` minus its last two axes)."""
     xf = x.float()
-    amax = xf.abs().amax(dim=(-2, -1))
+    if amax is None:
+        amax = row_amax(x)
     s = torch.clamp(amax * (1.0 / 127.0), min=1e-8)
     codes = torch.clamp(torch.round(xf / s[..., None, None]), -127, 127)
     return codes.to(torch.int8), s
@@ -93,6 +106,38 @@ def flash_decode_paged_ref(q: torch.Tensor, k_pool: torch.Tensor,
     v = _widen(v_pool[idx], None if v_scale is None else v_scale[idx])
     return decode_ref(q, k.reshape(B, nb * bs, KV, D),
                       v.reshape(B, nb * bs, KV, D), valid_len)
+
+
+def head_slice(head_shard, KV: int) -> slice:
+    """The KV heads ``[i * KV / n, (i + 1) * KV / n)`` of ``head_shard =
+    (i, n)`` (all of them for None), checked as the reference checks
+    it."""
+    if head_shard is None:
+        return slice(0, KV)
+    idx, n = head_shard
+    if not 0 <= idx < n:
+        raise ValueError(f"head_shard index {idx} outside [0, {n})")
+    if KV % n:
+        raise ValueError(f"{KV} KV heads not divisible into {n} shards")
+    per = KV // n
+    return slice(idx * per, (idx + 1) * per)
+
+
+def flash_decode_paged_sharded_ref(q, k_pool, v_pool, block_tables,
+                                   valid_len, n: int, k_scale=None,
+                                   v_scale=None) -> torch.Tensor:
+    """The head-sharded decode over ``n`` shards, every shard's slice of q
+    and the pools through :func:`flash_decode_paged_ref`, concatenated on
+    the head axis: equal to the unsharded call, since softmax normalizes
+    within a head."""
+    KV = q.shape[1]
+    parts = []
+    for i in range(n):
+        h = head_slice((i, n), KV)
+        parts.append(flash_decode_paged_ref(q[:, h], k_pool[:, :, h],
+                                            v_pool[:, :, h], block_tables,
+                                            valid_len, k_scale, v_scale))
+    return torch.cat(parts, dim=1)
 
 
 def _row_bytes(pool: torch.Tensor, quantized: bool) -> int:
@@ -168,26 +213,30 @@ def commit_paged_ref(k_new: torch.Tensor, v_new: torch.Tensor,
                      k_pool: torch.Tensor, v_pool: torch.Tensor,
                      block_tables: torch.Tensor, q_start: torch.Tensor,
                      q_len: torch.Tensor, k_scale=None, v_scale=None, *,
-                     rows=None) -> None:
+                     k_amax=None, v_amax=None, rows=None) -> None:
     """Write rows ``c < q_len[b]`` of k/v_new (B, C, KV, D) into the pools
     in place at position ``q_start[b] + c`` through the block table:
     converted to the pools' dtype, or, with ``k_scale``/``v_scale``
     (n_blocks, bs) fp32 beside int8 pools, quantized by
     :func:`quantize_rows` with each row's scale written at the same pool
-    row.  Every other row keeps its bytes and its scale.  ``rows`` is
-    :func:`commit_rows` of these inputs, computed here when not given."""
+    row; with ``k_amax``/``v_amax`` (B, C) fp32 each row's scale comes from
+    the given amax instead of its own (a tensor-parallel rank's rows hold
+    only its heads).  Every other row keeps its bytes and its scale.
+    ``rows`` is :func:`commit_rows` of these inputs, computed here when not
+    given."""
     B, C, KV, D = k_new.shape
     bs = k_pool.shape[1]
     src, dst = rows if rows is not None else commit_rows(
         block_tables, q_start, q_len, C, bs)
     n = k_pool.shape[0] * bs
-    for new, pool, scale in ((k_new, k_pool, k_scale),
-                             (v_new, v_pool, v_scale)):
+    for new, pool, scale, amax in ((k_new, k_pool, k_scale, k_amax),
+                                   (v_new, v_pool, v_scale, v_amax)):
         x = new.reshape(B * C, KV, D)[src]
         if scale is None:
             pool.view(n, KV, D)[dst] = x.to(pool.dtype)
         else:
-            codes, s = quantize_rows(x)
+            codes, s = quantize_rows(
+                x, None if amax is None else amax.reshape(B * C)[src])
             pool.view(n, KV, D)[dst] = codes
             scale.view(n)[dst] = s
 
@@ -196,8 +245,8 @@ def flash_prefill_paged_ref(q: torch.Tensor, k_new: torch.Tensor,
                             v_new: torch.Tensor, k_pool: torch.Tensor,
                             v_pool: torch.Tensor, block_tables: torch.Tensor,
                             q_start: torch.Tensor, q_len: torch.Tensor,
-                            k_scale=None, v_scale=None, *,
-                            rows=None) -> torch.Tensor:
+                            k_scale=None, v_scale=None, *, k_amax=None,
+                            v_amax=None, rows=None) -> torch.Tensor:
     """Chunked prefill over a paged cache: commit, then causal attention.
 
     q (B,C,KV,G,D); k/v_new (B,C,KV,D) in q's dtype; k/v_pool (n_blocks,
@@ -209,13 +258,15 @@ def flash_prefill_paged_ref(q: torch.Tensor, k_new: torch.Tensor,
     c``, dequantized in fp32.  Rows at or past ``q_len[b]`` commit nothing
     and come out as zeros.  Returns (B,C,KV,G,D) in q's dtype.  ``rows``
     is :func:`commit_rows` of these inputs, computed here when not given;
-    with it given the call never waits for the device.
+    with it given the call never waits for the device.  ``k_amax`` and
+    ``v_amax`` go to the commit.
     """
     B, C, KV, G, D = q.shape
     bs = k_pool.shape[1]
     nb = block_tables.shape[1]
     commit_paged_ref(k_new, v_new, k_pool, v_pool, block_tables, q_start,
-                     q_len, k_scale, v_scale, rows=rows)
+                     q_len, k_scale, v_scale, k_amax=k_amax, v_amax=v_amax,
+                     rows=rows)
     pos, _ = chunk_positions(q_start, C, nb, bs)
     idx = block_tables.long()
     valid = (torch.arange(C, device=q.device)[None, :]

@@ -8,6 +8,8 @@ Usage:
         --prompt-hi 512 --max-new 32 --prefill-chunk 64 --prefill-budget 256
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
         --kv-dtype int8 --share-prefixes --shared-prefix-len 16
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
+        --mesh 1x2
 
 The same defaults, prompt sampling (``np.random.default_rng(seed)``),
 summary lines and ``--out`` report fields as ``repro.launch.serve``, on
@@ -18,25 +20,59 @@ reference's weights.  ``--kv-dtype bf16/int8`` stores the KV pools in bf16
 or int8 with per-row scales; ``--share-prefixes`` maps identical prompt
 prefixes onto shared pool blocks with copy-on-write (``--shared-prefix-len
 N`` samples traffic with a common N-token prefix), and the summary then
-prints the dedup line.  Options the port does not serve yet are refused.
+prints the dedup line.  ``--mesh DxM`` serves tensor-parallel over
+``D*M`` ranks that it spawns (:func:`repro_torch.launch.mesh.spawn`):
+rank 0 prints the summary, with a line for the mesh's backend and every
+rank's collectives, and the report carries ``mesh`` and ``mesh_ranks``.
+Options the port does not serve yet are refused.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import time
 
 import numpy as np
 
 import repro_torch.configs as configs
+from repro_torch.kernels.flash_decode import kernel
+from repro_torch.launch import mesh as mesh_mod
 from repro_torch.models import transformer
 from repro_torch.serve.engine import (SCHEDULERS, Request, RequestTooLong,
                                       ServeEngine)
 
+#: the serve path's kernel wrappers, each with its launch count
+SERVE_KERNELS = ("flash_decode_paged", "flash_decode_paged_sharded",
+                 "flash_prefill_paged", "commit_paged")
+
+
+def _counters(engine: ServeEngine) -> dict:
+    """This rank's kernel launches and collectives' counters so far."""
+    out = {name: getattr(kernel, name).launches for name in SERVE_KERNELS}
+    if engine.mesh is not None:
+        out.update(engine.mesh.comm.counters())
+    return out
+
+
+def _rank_row(engine: ServeEngine, before: dict, wall_s: float) -> dict:
+    """What this rank did while serving: launches and collectives since
+    ``before``, its backend, device and local KV heads, its wall time."""
+    mesh = engine.mesh
+    wk = engine.params["layers"][0]["attn"]["wk"]["w"]
+    new = sum(len(r.generated) for r in engine.completed.values())
+    return {"rank": mesh.rank, "coords": [mesh.data_index,
+                                          mesh.model_index],
+            "backend": mesh.backend, "device": str(mesh.device),
+            "local_kv_heads": wk.shape[1] // engine.cfg.head_dim,
+            **{k: v - before[k] for k, v in _counters(engine).items()},
+            "wall_s": wall_s, "tok_s": new / wall_s if wall_s > 0 else 0.0}
+
 
 def build_report(args: argparse.Namespace, engine: ServeEngine,
-                 rejections: list = ()) -> dict:
-    """Machine-readable serve report (the fields of the reference's)."""
+                 rejections: list = (), ranks=None) -> dict:
+    """Machine-readable serve report (the fields of the reference's, and
+    under a mesh its backend and every rank's row)."""
     return {
         "kind": "serve_report",
         "arch": args.arch,
@@ -69,6 +105,8 @@ def build_report(args: argparse.Namespace, engine: ServeEngine,
             }
             for _, r in sorted(engine.completed.items())
         ],
+        **({} if ranks is None else {"mesh_backend": engine.mesh.backend,
+                                     "mesh_ranks": ranks}),
     }
 
 
@@ -78,7 +116,6 @@ _UNPORTED = {
     "draft": (None, "--draft: ROADMAP item 1.13"),
     "spec_k": (0, "--spec-k: ROADMAP item 1.13"),
     "spec_adaptive": (False, "--spec-adaptive: ROADMAP item 1.13"),
-    "mesh": (None, "--mesh: ROADMAP item 1.16"),
     "temperature": (0.0, "--temperature > 0: ROADMAP item 1.13"),
     "record": (False, "--record (perf ledger): ROADMAP item 1.15"),
 }
@@ -131,27 +168,46 @@ def parse_args(argv=None) -> argparse.Namespace:
     for name, (default, why) in _UNPORTED.items():
         if getattr(args, name) != default:
             ap.error(f"not ported yet: {why}")
+    if args.mesh is not None:
+        try:
+            mesh_mod.parse_mesh(args.mesh)
+        except mesh_mod.MeshShapeError as e:
+            ap.error(str(e))
     return args
 
 
-def make_engine(args: argparse.Namespace) -> ServeEngine:
-    """The engine the arguments ask for, with the port's seeded init."""
+def make_engine(args: argparse.Namespace, mesh=None,
+                params=None) -> ServeEngine:
+    """The engine the arguments ask for, with the port's seeded init, or
+    the full ``params`` given; this rank's shards of them under
+    ``mesh``."""
     cfg = (configs.get_smoke_config(args.arch) if args.smoke
            else configs.get_config(args.arch))
-    params = transformer.init_lm(cfg, seed=args.seed, device=args.device)
+    if params is None:
+        params = transformer.init_lm(cfg, seed=args.seed,
+                                     device=args.device, mesh=mesh)
+    elif mesh is not None:
+        params = transformer.shard_params(params, mesh, mesh.device)
+    device = args.device if mesh is None else mesh.device
     return ServeEngine(cfg, params, max_batch=args.max_batch,
                        max_len=args.max_len, block_size=args.block_size,
                        prefill_chunk=args.prefill_chunk,
                        prefill_budget=args.prefill_budget,
                        kv_dtype=args.kv_dtype,
                        share_prefixes=args.share_prefixes, top_k=args.top_k,
-                       sample_seed=args.sample_seed, device=args.device)
+                       sample_seed=args.sample_seed, mesh=mesh,
+                       device=device)
 
 
 def serve(args: argparse.Namespace, engine: ServeEngine) -> dict:
     """Submit the sampled requests, drain the engine, print the summary,
-    and return (and with ``--out`` write) the serve report."""
+    and return (and with ``--out`` write) the serve report.  Under a mesh
+    every rank calls it: the ranks' rows are gathered to every rank, and
+    only rank 0 prints and writes."""
+    import torch.distributed as dist
+
     cfg = engine.cfg
+    before = _counters(engine)
     rng = np.random.default_rng(args.seed)
     shared_prefix = (
         rng.integers(0, cfg.vocab,
@@ -173,8 +229,16 @@ def serve(args: argparse.Namespace, engine: ServeEngine) -> dict:
             # an oversized submission is a counted rejection, not a crash:
             # the remaining requests still get served and reported
             rejections.append((uid, str(e)))
+    t0 = time.time()
     done = engine.run_until_drained()
     stats = engine.stats()
+    ranks = None
+    if engine.mesh is not None:
+        ranks = [None] * engine.mesh.size
+        dist.all_gather_object(ranks, _rank_row(engine, before,
+                                                time.time() - t0))
+        if engine.mesh.rank != 0:
+            return build_report(args, engine, rejections, ranks)
     print(f"[{args.scheduler}] served {stats['requests']} requests, "
           f"{stats['new_tokens']} tokens, {stats['fused_steps']} fused steps "
           f"in {stats['wall_s']:.2f}s ({stats['tok_s']:.1f} tok/s)")
@@ -196,6 +260,19 @@ def serve(args: argparse.Namespace, engine: ServeEngine) -> dict:
               f"({stats['shared_block_hits']} shared hits, "
               f"{stats['cow_copies']} COW copies, "
               f"dedup {stats['block_dedup_ratio']:.3f})")
+    if ranks is not None:
+        steps = max(stats["fused_steps"], 1)
+        print(f"  mesh {engine.mesh_shape} over {engine.mesh.backend}, "
+              f"device lane utilization "
+              f"{stats['device_lane_utilization']:.3f}:")
+        for row in ranks:
+            print(f"    rank {row['rank']} {tuple(row['coords'])} on "
+                  f"{row['device']}: {row['local_kv_heads']} KV heads, "
+                  f"{row['flash_decode_paged_sharded']} head-sharded decode "
+                  f"launches, {row['calls']} collectives "
+                  f"({row['calls'] / steps:.1f} a step), {row['bytes']} B "
+                  f"sent, {row['host_bytes']} B staged through the host, "
+                  f"{row['wall_s']:.2f}s, {row['tok_s']:.1f} tok/s")
     if rejections:
         print(f"  rejected {len(rejections)} oversized request(s) at submit:")
         for uid, reason in rejections:
@@ -206,7 +283,7 @@ def serve(args: argparse.Namespace, engine: ServeEngine) -> dict:
         print(f"  req {uid}: prompt[{len(r.prompt)}] latency {lat} "
               f"-> {r.generated}")
 
-    report = build_report(args, engine, rejections)
+    report = build_report(args, engine, rejections, ranks)
     if args.out:
         with open(args.out, "w") as f:
             json.dump(report, f, indent=1)
@@ -214,8 +291,28 @@ def serve(args: argparse.Namespace, engine: ServeEngine) -> dict:
     return report
 
 
+def _serve_rank(mesh, args: argparse.Namespace, params=None) -> dict:
+    engine = make_engine(args, mesh, params)
+    if args.warmup:
+        engine.warmup()
+    return serve(args, engine)
+
+
+def serve_on_mesh(args: argparse.Namespace, params=None,
+                  timeout: float = 600.0) -> dict:
+    """Serve on a ``--mesh DxM`` of spawned ranks; returns rank 0's
+    report.  ``params``, full parameters as :func:`make_engine` builds
+    them, reach the ranks shared (through CUDA IPC on the card), and each
+    rank cuts its shards from them instead of drawing the seeded init."""
+    return mesh_mod.spawn(_serve_rank, *mesh_mod.parse_mesh(args.mesh),
+                          args, params, device=args.device, timeout=timeout)
+
+
 def main(argv=None) -> int:
     args = parse_args(argv)
+    if args.mesh is not None:
+        serve_on_mesh(args)
+        return 0
     engine = make_engine(args)
     if args.warmup:
         engine.warmup()

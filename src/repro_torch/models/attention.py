@@ -19,16 +19,34 @@ decode step's row is a chunk of one), converted to the pools' dtype or,
 for int8, quantized, so the new token attends to its own stored K/V, as
 the Pallas kernels do; the reference's cell merges the fresh row
 unconverted instead.
+
+Under a mesh (a :class:`~repro_torch.models.layers.MeshContext`) each rank
+projects q/k/v for its own slots and its own heads (column-parallel), and
+``wo`` is row-parallel.  Where the K/V pools split their heads it attends
+over its local heads: the decode through the head-sharded decode kernel,
+the chunk through the chunked-prefill kernel.  The pools' block axis is
+whole on every rank, and with prefix sharing a slot on one data rank may
+read a block that a slot on another wrote, so every rank commits every
+slot's new rows: the rows are all-gathered over ``data`` first.  For int8
+pools a row's scale is the amax over all its KV heads, so the ranks of a
+data row all-reduce (MAX) each row's amax over ``model`` before the commit
+quantizes; their codes and scales are then the unsharded commit's head
+slice.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
 from repro_torch.kernels.flash_decode import (commit_paged,
                                               flash_decode_paged,
+                                              flash_decode_paged_sharded,
                                               flash_prefill_paged)
+from repro_torch.kernels.flash_decode.ref import row_amax
 from repro_torch.models import layers
+from repro_torch.models.layers import MeshContext
 
 
 def init_attention(gen: torch.Generator, cfg, dtype, device) -> dict:
@@ -49,13 +67,19 @@ def init_attention(gen: torch.Generator, cfg, dtype, device) -> dict:
 
 
 def _project_qkv(params: dict, cfg, x: torch.Tensor,
-                 positions: torch.Tensor):
-    """x (B, S, d), positions (B, S) -> q (B,S,H,D), k and v (B,S,KV,D)."""
+                 positions: torch.Tensor,
+                 mesh: Optional[MeshContext] = None):
+    """x (B, S, d), positions (B, S) -> q (B,S,H,D), k and v (B,S,KV,D):
+    under ``mesh`` the attention's heads, this rank's where the pools
+    split their heads and all of them (gathered over ``model``) where
+    they do not."""
     B, S, _ = x.shape
-    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = layers.dense(params["wq"], x).reshape(B, S, h, hd)
-    k = layers.dense(params["wk"], x).reshape(B, S, kv, hd)
-    v = layers.dense(params["wv"], x).reshape(B, S, kv, hd)
+    hd = cfg.head_dim
+    q, k, v = (layers.dense(params[name], x) for name in ("wq", "wk", "wv"))
+    if mesh is not None and not mesh.heads:
+        q, k, v = (mesh.mesh.gather(t, "model", dim=-1) if split else t
+                   for t, split in zip((q, k, v), mesh.qkv_split))
+    q, k, v = (t.reshape(B, S, -1, hd) for t in (q, k, v))
     if cfg.qk_norm:
         q = layers.rms_norm(params["q_norm"], q, cfg.norm_eps)
         k = layers.rms_norm(params["k_norm"], k, cfg.norm_eps)
@@ -63,11 +87,49 @@ def _project_qkv(params: dict, cfg, x: torch.Tensor,
     return layers.apply_rope(q, cos, sin), layers.apply_rope(k, cos, sin), v
 
 
+def _out_proj(params: dict, out: torch.Tensor,
+              mesh: Optional[MeshContext]) -> torch.Tensor:
+    """``wo`` over the attention output (B, S, heads * D); row-parallel
+    where ``wo`` is split, on this rank's columns of the output."""
+    if mesh is None or not mesh.wo_split:
+        return layers.dense(params["wo"], out)
+    w = params["wo"]["w"]
+    if not mesh.heads:  # every head attended here: keep this rank's rows
+        i = mesh.mesh.axis_index("model")
+        out = out[..., i * w.shape[0]:(i + 1) * w.shape[0]]
+    return layers.row_parallel(out @ w.to(out.dtype), mesh.mesh,
+                               params["wo"].get("b"))
+
+
+def _all_slots(mesh: MeshContext, k_new, v_new):
+    """Every slot's new K and V rows (this rank's slots on dim 0), in one
+    gather over ``data``."""
+    if not mesh.split_slots:
+        return k_new, v_new
+    both = torch.stack((k_new, v_new), dim=1)
+    return mesh.mesh.gather(both, "data").unbind(1)
+
+
+def _commit_amax(mesh: MeshContext, k_new, v_new, k_scale) -> dict:
+    """``k_amax``/``v_amax`` for the commit of int8 rows that hold this
+    rank's heads only: each row's amax over all heads, the MAX over
+    ``model`` of the local ones (K and V in one all-reduce).  Empty where
+    the pools are not int8 or hold every head."""
+    if k_scale is None or not mesh.heads or mesh.mesh.axis_size(
+            "model") == 1:
+        return {}
+    amax = mesh.mesh.max(torch.stack((row_amax(k_new), row_amax(v_new))),
+                         "model")
+    return {"k_amax": amax[0], "v_amax": amax[1]}
+
+
 def attention_decode_paged(params: dict, cfg, x: torch.Tensor,
                            k_pool: torch.Tensor, v_pool: torch.Tensor,
                            positions: torch.Tensor,
                            block_tables: torch.Tensor, k_scale=None,
-                           v_scale=None) -> torch.Tensor:
+                           v_scale=None,
+                           mesh: Optional[MeshContext] = None
+                           ) -> torch.Tensor:
     """One-token decode over one layer's block pool, committing in place.
 
     x (B, 1, d); k/v_pool (n_blocks, bs, KV, D), this layer's pools, with
@@ -78,17 +140,32 @@ def attention_decode_paged(params: dict, cfg, x: torch.Tensor,
     row names the null block), converted to the pools' dtype or
     quantized; then each slot attends over its rows ``[0,
     positions[b]]``, the new token included.  Returns (B, 1, d).
+
+    Under ``mesh``, x holds this rank's slots ``mesh.slots`` and the pools
+    its heads; positions and block_tables hold every slot.  Every slot's
+    row is committed, and this rank's slots attend through
+    :func:`flash_decode_paged_sharded` where the pools split their heads.
     """
     B = x.shape[0]
-    kv, hd = cfg.n_kv_heads, cfg.head_dim
-    g = cfg.n_heads // kv
-    q, k_new, v_new = _project_qkv(params, cfg, x, positions[:, None])
+    hd, g = cfg.head_dim, cfg.n_heads // cfg.n_kv_heads
+    sl = slice(None) if mesh is None else mesh.slots
+    q, k_new, v_new = _project_qkv(params, cfg, x, positions[sl, None], mesh)
+    kv = k_new.shape[2]
+    amax = {}
+    if mesh is not None:
+        k_new, v_new = _all_slots(mesh, k_new, v_new)
+        amax = _commit_amax(mesh, k_new, v_new, k_scale)
     commit_paged(k_new.contiguous(), v_new.contiguous(), k_pool, v_pool,
                  block_tables, positions, torch.ones_like(positions),
-                 k_scale, v_scale)
-    out = flash_decode_paged(q.reshape(B, kv, g, hd), k_pool, v_pool,
-                             block_tables, positions + 1, k_scale, v_scale)
-    return layers.dense(params["wo"], out.reshape(B, 1, kv * g * hd))
+                 k_scale, v_scale, **amax)
+    args = (q.reshape(B, kv, g, hd), k_pool, v_pool, block_tables[sl],
+            positions[sl] + 1)
+    if mesh is not None and mesh.heads:
+        out = flash_decode_paged_sharded(*args, mesh=mesh.mesh,
+                                         k_scale=k_scale, v_scale=v_scale)
+    else:
+        out = flash_decode_paged(*args, k_scale, v_scale)
+    return _out_proj(params, out.reshape(B, 1, kv * g * hd), mesh)
 
 
 def attention_prefill_paged(params: dict, cfg, x: torch.Tensor,
@@ -96,7 +173,9 @@ def attention_prefill_paged(params: dict, cfg, x: torch.Tensor,
                             positions: torch.Tensor,
                             block_tables: torch.Tensor,
                             lengths: torch.Tensor, k_scale=None,
-                            v_scale=None) -> torch.Tensor:
+                            v_scale=None,
+                            mesh: Optional[MeshContext] = None
+                            ) -> torch.Tensor:
     """A chunk of ``w`` tokens per slot over one layer's block pool,
     committing in place.
 
@@ -108,14 +187,34 @@ def attention_prefill_paged(params: dict, cfg, x: torch.Tensor,
     committed there and attends over the slot's rows up to it; rows past
     ``lengths[b]`` commit nothing and their attention output is zero.
     Returns (B, w, d).
+
+    Under ``mesh``, x holds this rank's slots ``mesh.slots`` and the pools
+    its heads; positions, block_tables and lengths hold every slot.  The
+    other data ranks' rows are committed first, then this rank's slots
+    commit and attend through the chunked-prefill kernel, so every row is
+    in the pools before any slot attends, as in one unsharded call.
     """
     B, w, _ = x.shape
-    kv, hd = cfg.n_kv_heads, cfg.head_dim
-    g = cfg.n_heads // kv
-    pos = positions[:, None] + torch.arange(w, dtype=positions.dtype,
-                                            device=positions.device)
-    q, k_new, v_new = _project_qkv(params, cfg, x, pos)
+    hd, g = cfg.head_dim, cfg.n_heads // cfg.n_kv_heads
+    sl = slice(None) if mesh is None else mesh.slots
+    pos = positions[sl, None] + torch.arange(w, dtype=positions.dtype,
+                                             device=positions.device)
+    q, k_new, v_new = _project_qkv(params, cfg, x, pos, mesh)
+    k_new, v_new = k_new.contiguous(), v_new.contiguous()
+    kv = k_new.shape[2]
+    amax = {}
+    if mesh is not None:
+        k_all, v_all = _all_slots(mesh, k_new, v_new)
+        amax = _commit_amax(mesh, k_all, v_all, k_scale)
+        if mesh.split_slots:  # every rank holds every block
+            others = lengths.clone()
+            others[sl] = 0
+            commit_paged(k_all.contiguous(), v_all.contiguous(), k_pool,
+                         v_pool, block_tables, positions, others, k_scale,
+                         v_scale, **amax)
+        amax = {key: a[sl] for key, a in amax.items()}
     out = flash_prefill_paged(
-        q.reshape(B, w, kv, g, hd), k_new.contiguous(), v_new.contiguous(),
-        k_pool, v_pool, block_tables, positions, lengths, k_scale, v_scale)
-    return layers.dense(params["wo"], out.reshape(B, w, kv * g * hd))
+        q.reshape(B, w, kv, g, hd), k_new, v_new, k_pool, v_pool,
+        block_tables[sl], positions[sl], lengths[sl], k_scale, v_scale,
+        **amax)
+    return _out_proj(params, out.reshape(B, w, kv * g * hd), mesh)

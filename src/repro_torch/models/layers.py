@@ -5,14 +5,24 @@ tensors with the reference's names and layouts (a dense weight is
 ``(d_in, d_out)``), so the reference's parameter tree maps onto them leaf
 by leaf.  Norm math runs in fp32 whatever the compute dtype and is cast
 back.
+
+Tensor parallelism: a :class:`MeshContext` carries one serve step's view
+of a mesh of ranks, and the layers it is passed to run on this rank's
+shards of the parameters (:mod:`repro_torch.distributed.sharding`):
+row-parallel products are summed over ``model`` in fp32 and take their
+bias once after the sum, the embedding looks up only this rank's vocab
+rows and sums over ``model`` (exact: one term is nonzero), and every rule
+that does not divide leaves its weights whole.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.distributed import sharding
 
 
 def truncated_normal(gen: torch.Generator, shape, scale: float, dtype,
@@ -39,6 +49,52 @@ def dense(params: dict, x: torch.Tensor) -> torch.Tensor:
     if "b" in params:
         y = y + params["b"].to(x.dtype)
     return y
+
+
+def row_parallel(y: torch.Tensor, mesh, bias=None) -> torch.Tensor:
+    """The sum over ``model`` of this rank's partial product ``y`` of a
+    row-parallel projection: added in fp32 and cast back to
+    ``y``'s dtype, then ``bias`` (whole on every rank) added once."""
+    out = mesh.sum(y.float(), "model").to(y.dtype)
+    return out if bias is None else out + bias.to(y.dtype)
+
+
+class MeshContext:
+    """One serve step over a mesh of ranks: which slots this rank computes
+    and which of the model's weights its shards split.
+
+    ``slots`` is this rank's block of the step's ``batch`` slots
+    (:func:`sharding.local_slots`); ``split_slots`` says whether that is
+    not all of them.  The ``*_split`` flags follow the reference's rules on
+    the full shapes: a flag is set where the rule splits a weight over a
+    ``model`` axis of more than one rank.  ``heads`` says whether the K/V
+    pools split their heads (``paged_cache_spec``), so that attention runs
+    on this rank's heads; it holds on a model axis of one rank too.
+    """
+
+    def __init__(self, mesh, cfg, batch: int):
+        self.mesh = mesh
+        self.slots = sharding.local_slots(mesh, batch)
+        self.split_slots = self.slots.stop - self.slots.start < batch
+        d, hd, vp = cfg.d_model, cfg.head_dim, cfg.vocab_padded
+        h, kv = cfg.n_heads * hd, cfg.n_kv_heads * hd
+        many = mesh.axis_size("model") > 1
+
+        def split(path, shape) -> bool:
+            return many and "model" in sharding.spec_for_path(path, shape,
+                                                              mesh)
+
+        self.heads = "model" in sharding.paged_cache_spec(
+            "k", (1, 1, cfg.n_kv_heads, hd), mesh)
+        self.qkv_split = (split("attn/wq/w", (d, h)),
+                          split("attn/wk/w", (d, kv)),
+                          split("attn/wv/w", (d, kv)))
+        self.wo_split = split("attn/wo/w", (h, d))
+        # the rules split wi_gate, wi_up and wo on d_ff alike
+        self.ffn_split = split("ffn/wo", (cfg.d_ff, d))
+        self.vocab_split = split("embed/embedding", (vp, d))
+        self.head_split = (not cfg.tie_embeddings
+                           and split("lm_head/w", (d, vp)))
 
 
 # --- norms -------------------------------------------------------------------
@@ -129,10 +185,16 @@ def swiglu_init(gen, d_model: int, d_ff: int, dtype, device) -> dict:
     }
 
 
-def swiglu(params: dict, x: torch.Tensor) -> torch.Tensor:
+def swiglu(params: dict, x: torch.Tensor,
+           mesh: Optional[MeshContext] = None) -> torch.Tensor:
+    """SwiGLU FFN; with ``mesh`` and split weights, gate and up are
+    column-parallel and the down projection row-parallel."""
     g = x @ params["wi_gate"].to(x.dtype)
     u = x @ params["wi_up"].to(x.dtype)
-    return (F.silu(g) * u) @ params["wo"].to(x.dtype)
+    y = (F.silu(g) * u) @ params["wo"].to(x.dtype)
+    if mesh is not None and mesh.ffn_split:
+        return row_parallel(y, mesh.mesh)
+    return y
 
 
 def embed_init(gen, vocab: int, d_model: int, dtype, device) -> dict:
@@ -140,8 +202,19 @@ def embed_init(gen, vocab: int, d_model: int, dtype, device) -> dict:
                                           device)}
 
 
-def embed(params: dict, tokens: torch.Tensor) -> torch.Tensor:
-    return params["embedding"][tokens]
+def embed(params: dict, tokens: torch.Tensor,
+          mesh: Optional[MeshContext] = None) -> torch.Tensor:
+    """Embedding lookup; with ``mesh`` and a vocab-split table, each rank
+    looks up the tokens in its rows, a zero row for the others, and the
+    rows are summed over ``model``."""
+    table = params["embedding"]
+    if mesh is None or not mesh.vocab_split:
+        return table[tokens]
+    rows = table.shape[0]
+    local = tokens - mesh.mesh.axis_index("model") * rows
+    inside = (local >= 0) & (local < rows)
+    x = table[local.clamp(0, rows - 1)].masked_fill(~inside[..., None], 0)
+    return mesh.mesh.sum(x, "model")
 
 
 def unembed(params: dict, x: torch.Tensor) -> torch.Tensor:

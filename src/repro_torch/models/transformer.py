@@ -13,6 +13,15 @@ reference's ``prefill_step_paged`` scans its one-token cell over the
 chunk; the port computes the chunk in parallel, every row of every slot
 through each layer at once.  :func:`params_from_numpy` carries the
 reference's parameters across.
+
+Tensor-parallel serving: with ``mesh=`` (a rank's
+:class:`~repro_torch.launch.mesh.ServeMesh`), :func:`init_lm` and
+:func:`params_from_numpy` give this rank's shards of the parameters and
+:func:`init_paged_cache` its pools (heads split over ``model``, blocks and
+scales whole), by the rules of :mod:`repro_torch.distributed.sharding`.
+The steps then take every slot's tokens and tables, run this rank's slots
+(:func:`~repro_torch.distributed.sharding.local_slots`) on its shards, and
+return those slots' logits, gathered over ``model``.
 """
 
 from __future__ import annotations
@@ -24,6 +33,7 @@ import torch
 
 from repro_torch.configs.base import LayerKind, ModelConfig
 from repro_torch.core.device import resolve_device
+from repro_torch.distributed import sharding
 from repro_torch.models import attention, layers
 
 #: Physical block 0 is reserved as the NULL block: block tables of idle
@@ -55,11 +65,16 @@ def torch_dtype(name: str) -> torch.dtype:
     return dtype
 
 
-def init_lm(cfg: ModelConfig, *, seed: int = 0, device="cuda"
-            ) -> Dict[str, Any]:
+def init_lm(cfg: ModelConfig, *, seed: int = 0, device="cuda",
+            mesh=None) -> Dict[str, Any]:
     """The port's own seeded init (it does not reproduce the reference's
-    numbers; use :func:`params_from_numpy` for those)."""
+    numbers; use :func:`params_from_numpy` for those).  With ``mesh``,
+    this rank's shards of the same numbers (drawn whole on the CPU, then
+    cut)."""
     check_dense(cfg)
+    if mesh is not None:
+        return shard_params(init_lm(cfg, seed=seed, device="cpu"), mesh,
+                            device)
     dev = resolve_device(device)
     dtype = torch_dtype(cfg.param_dtype)
     gen = torch.Generator().manual_seed(seed)
@@ -84,13 +99,24 @@ def init_lm(cfg: ModelConfig, *, seed: int = 0, device="cuda"
     return params
 
 
+def shard_params(params: Dict[str, Any], mesh, device="cuda"
+                 ) -> Dict[str, Any]:
+    """This rank's shards of full parameters (by
+    :func:`~repro_torch.distributed.sharding.serve_param_shardings`), as
+    contiguous tensors of their own on ``device``."""
+    dev = resolve_device(device)
+    return sharding.map_paths(
+        sharding.local_params(params, mesh), lambda _, t: t.to(dev).clone(
+            memory_format=torch.contiguous_format))
+
+
 def _map_tree(tree: Mapping, fn) -> Dict[str, Any]:
     return {k: _map_tree(v, fn) if isinstance(v, Mapping) else fn(v)
             for k, v in tree.items()}
 
 
-def params_from_numpy(tree: Mapping, cfg: ModelConfig, device="cuda"
-                      ) -> Dict[str, Any]:
+def params_from_numpy(tree: Mapping, cfg: ModelConfig, device="cuda", *,
+                      mesh=None) -> Dict[str, Any]:
     """The reference's parameter tree (nested dicts of numpy arrays, e.g.
     ``np.asarray`` of every leaf of ``repro.train.steps.init_model``) as
     the port's parameters.
@@ -99,19 +125,24 @@ def params_from_numpy(tree: Mapping, cfg: ModelConfig, device="cuda"
     of a bf16 JAX leaf is an ``ml_dtypes.bfloat16`` array, which
     ``torch.from_numpy`` rejects), and are copied, since such buffers are
     read-only.  The stacked superblock leaves ``blocks/slot0/...`` become
-    one dict per layer.
+    one dict per layer.  With ``mesh`` each leaf is cut to this rank's
+    shard by the reference's rules
+    (:func:`~repro_torch.distributed.sharding.serve_param_shardings`)
+    before it is converted.
     """
     check_dense(cfg)
     dev = resolve_device(device)
     dtype = torch_dtype(cfg.param_dtype)
+    extra = set(tree) - {"embed", "final_norm", "lm_head", "blocks"}
+    if extra or set(tree["blocks"]) != {"slot0"}:
+        raise ValueError(f"not a dense parameter tree: keys {sorted(tree)}")
+    if mesh is not None:
+        tree = sharding.local_params(_map_tree(tree, np.asarray), mesh)
 
     def leaf(a) -> torch.Tensor:
         arr = np.array(a, dtype=np.float32, copy=True)
         return torch.from_numpy(arr).to(device=dev, dtype=dtype)
 
-    extra = set(tree) - {"embed", "final_norm", "lm_head", "blocks"}
-    if extra or set(tree["blocks"]) != {"slot0"}:
-        raise ValueError(f"not a dense parameter tree: keys {sorted(tree)}")
     params = {k: _map_tree(tree[k], leaf)
               for k in ("embed", "final_norm", "lm_head") if k in tree}
     stacked = tree["blocks"]["slot0"]
@@ -135,13 +166,15 @@ def _pool_dtype(cfg: ModelConfig, kv_dtype: str) -> torch.dtype:
 
 def init_paged_cache(cfg: ModelConfig, slots: int, max_len: int,
                      block_size: int, device="cuda", *,
-                     kv_dtype: str = "f32") -> Dict[str, Any]:
+                     kv_dtype: str = "f32", mesh=None) -> Dict[str, Any]:
     """Zeroed paged K/V pools ``(n_layers, n_blocks, block_size, KV, D)``
     with ``n_blocks = 1 + slots * max_len / block_size``: every slot at
     full length plus the :data:`NULL_BLOCK`.  ``kv_dtype`` (one of
     :data:`KV_DTYPES`) selects their storage dtype; ``"int8"`` adds
     zeroed fp32 ``k_scale``/``v_scale`` pools ``(n_layers, n_blocks,
-    block_size)``, one scale a committed row."""
+    block_size)``, one scale a committed row.  With ``mesh``, this rank's
+    pools by :func:`~repro_torch.distributed.sharding.paged_cache_spec`:
+    ``KV / model`` heads where ``model`` divides KV, the scales whole."""
     check_dense(cfg)
     if max_len % block_size:
         raise ValueError(f"max_len {max_len} not a multiple of block_size "
@@ -151,13 +184,16 @@ def init_paged_cache(cfg: ModelConfig, slots: int, max_len: int,
     n_blocks = 1 + slots * (max_len // block_size)
     shape = (cfg.n_layers, n_blocks, block_size, cfg.n_kv_heads,
              cfg.head_dim)
-    cache = {"k": torch.zeros(shape, dtype=dtype, device=dev),
-             "v": torch.zeros(shape, dtype=dtype, device=dev)}
+    shapes = {"k": (shape, dtype), "v": (shape, dtype)}
     if kv_dtype == "int8":
         for key in ("k_scale", "v_scale"):
-            cache[key] = torch.zeros(shape[:3], dtype=torch.float32,
-                                     device=dev)
-    return cache
+            shapes[key] = (shape[:3], torch.float32)
+    if mesh is not None:
+        shapes = {key: (sharding.local_shape(
+            s, sharding.paged_cache_spec(key, s, mesh), mesh), dt)
+            for key, (s, dt) in shapes.items()}
+    return {key: torch.zeros(s, dtype=dt, device=dev)
+            for key, (s, dt) in shapes.items()}
 
 
 def paged_block_bytes(cfg: ModelConfig, block_size: int,
@@ -200,10 +236,14 @@ def _layer(pool, i: int):
     return None if pool is None else pool[i]
 
 
+def _mesh_context(mesh, cfg: ModelConfig, batch: int):
+    return None if mesh is None else layers.MeshContext(mesh, cfg, batch)
+
+
 def decode_step_paged(params: Dict[str, Any], cfg: ModelConfig,
                       tokens: torch.Tensor, cache: Dict[str, Any],
                       positions: torch.Tensor, block_tables: torch.Tensor,
-                      *, block_size: int, kv_dtype: str = "f32"
+                      *, block_size: int, kv_dtype: str = "f32", mesh=None
                       ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """One continuous-batching serve step over the paged cache.
 
@@ -213,31 +253,41 @@ def decode_step_paged(params: Dict[str, Any], cfg: ModelConfig,
     commits its new token at ``positions[b]`` and attends over its own
     rows ``[0, positions[b]]``.  The pools in ``cache`` are updated in
     place and the same dict is returned.  Returns logits (B, 1,
-    vocab_padded) fp32.
+    vocab_padded) fp32.  With ``mesh`` (every rank of it calls the step),
+    ``params`` and ``cache`` are this rank's shards and the logits are its
+    slots' (``local_slots``).
     """
     ks, vs = _kv_scales(cache, cfg, kv_dtype, block_size)
-    x = layers.embed(params["embed"], tokens).to(
+    tp = _mesh_context(mesh, cfg, tokens.shape[0])
+    own = slice(None) if tp is None else tp.slots
+    x = layers.embed(params["embed"], tokens[own], tp).to(
         torch_dtype(cfg.compute_dtype))
     _, norm_fn = layers.make_norm(cfg)
     for i, p in enumerate(params["layers"]):
         h = norm_fn(p["norm1"], x)
         x = x + attention.attention_decode_paged(
             p["attn"], cfg, h, cache["k"][i], cache["v"][i], positions,
-            block_tables, _layer(ks, i), _layer(vs, i),
+            block_tables, _layer(ks, i), _layer(vs, i), tp,
         )
-        x = x + layers.swiglu(p["ffn"], norm_fn(p["norm2"], x))
-    return _lm_head(params, cfg, x), cache
+        x = x + layers.swiglu(p["ffn"], norm_fn(p["norm2"], x), tp)
+    return _lm_head(params, cfg, x, tp), cache
 
 
-def _lm_head(params: Dict[str, Any], cfg: ModelConfig,
-             x: torch.Tensor) -> torch.Tensor:
+def _lm_head(params: Dict[str, Any], cfg: ModelConfig, x: torch.Tensor,
+             tp: Optional[layers.MeshContext] = None) -> torch.Tensor:
     """Final norm and LM head: (B, S, d) -> fp32 logits (B, S,
-    vocab_padded)."""
+    vocab_padded).  Under ``tp`` a split head (column-parallel over the
+    vocab, or the tied vocab-split embedding) gives this rank's vocab
+    columns, gathered over ``model``."""
     _, norm_fn = layers.make_norm(cfg)
     x = norm_fn(params["final_norm"], x)
     if cfg.tie_embeddings:
-        return layers.unembed(params["embed"], x)
-    return layers.dense(params["lm_head"], x).float()
+        logits = layers.unembed(params["embed"], x)
+        split = tp is not None and tp.vocab_split
+    else:
+        logits = layers.dense(params["lm_head"], x).float()
+        split = tp is not None and tp.head_split
+    return tp.mesh.gather(logits, "model", dim=-1) if split else logits
 
 
 def prefill_step_paged(params: Dict[str, Any], cfg: ModelConfig,
@@ -245,7 +295,7 @@ def prefill_step_paged(params: Dict[str, Any], cfg: ModelConfig,
                        positions: torch.Tensor, block_tables: torch.Tensor,
                        lengths: torch.Tensor, *, block_size: int,
                        kv_dtype: str = "f32",
-                       last_rows: Optional[torch.Tensor] = None
+                       last_rows: Optional[torch.Tensor] = None, mesh=None
                        ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """Commit a chunk of up to ``w`` known tokens per slot in one call.
 
@@ -262,20 +312,24 @@ def prefill_step_paged(params: Dict[str, Any], cfg: ModelConfig,
     ``b``'s token ``c`` (rows past ``lengths[b]`` are finite and
     meaningless).  With ``last_rows`` (B,) only row ``last_rows[b]`` of
     each slot goes through the final norm and LM head, and the logits are
-    (B, 1, vocab_padded): a serving step reads no other row.
+    (B, 1, vocab_padded): a serving step reads no other row.  With
+    ``mesh``, as :func:`decode_step_paged`: this rank's shards, and its
+    slots' logits (``last_rows`` holds every slot's).
     """
     ks, vs = _kv_scales(cache, cfg, kv_dtype, block_size)
-    x = layers.embed(params["embed"], tokens).to(
+    tp = _mesh_context(mesh, cfg, tokens.shape[0])
+    own = slice(None) if tp is None else tp.slots
+    x = layers.embed(params["embed"], tokens[own], tp).to(
         torch_dtype(cfg.compute_dtype))
     _, norm_fn = layers.make_norm(cfg)
     for i, p in enumerate(params["layers"]):
         h = norm_fn(p["norm1"], x)
         x = x + attention.attention_prefill_paged(
             p["attn"], cfg, h, cache["k"][i], cache["v"][i], positions,
-            block_tables, lengths, _layer(ks, i), _layer(vs, i),
+            block_tables, lengths, _layer(ks, i), _layer(vs, i), tp,
         )
-        x = x + layers.swiglu(p["ffn"], norm_fn(p["norm2"], x))
+        x = x + layers.swiglu(p["ffn"], norm_fn(p["norm2"], x), tp)
     if last_rows is not None:
         rows = torch.arange(x.shape[0], device=x.device)
-        x = x[rows, last_rows.long()][:, None]
-    return _lm_head(params, cfg, x), cache
+        x = x[rows, last_rows[own].long()][:, None]
+    return _lm_head(params, cfg, x, tp), cache

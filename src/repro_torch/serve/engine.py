@@ -29,11 +29,19 @@ host-side numpy; only the parameters and the K/V pools live on the device.
 Each step hands the scheduler arrays to the device as private copies: the
 drain mutates them in place right after the call.
 
+Tensor-parallel serving: with ``mesh`` (a rank's
+:class:`~repro_torch.launch.mesh.ServeMesh`), every rank of the mesh runs
+its own engine over its shards of the parameters (``init_lm`` or
+``params_from_numpy`` with ``mesh=``) and of the pools.  The host state
+(scheduler, block pool, free list, tables) is the same on every rank:
+each runs the same deterministic loop, computes its own slots
+(``local_slots``), and gathers the chosen tokens over ``data``, so every
+rank appends the same tokens.  Rank 0 reports.
+
 The reference's other paths are refused with a ``ValueError`` that names
 the ROADMAP item that will port them: the wave scheduler (1.12),
-speculative decoding (1.13), the device mesh (1.16) and non-dense
-architectures (1.10).  Sampling with
-``temperature > 0`` raises ``NotImplementedError`` (1.13).
+speculative decoding (1.13) and non-dense architectures (1.10).  Sampling
+with ``temperature > 0`` raises ``NotImplementedError`` (1.13).
 """
 
 from __future__ import annotations
@@ -49,6 +57,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import metrics as core_metrics
 from repro_torch.core.device import resolve_device
+from repro_torch.distributed import sharding
 from repro_torch.models import transformer
 from repro_torch.serve.block_pool import BlockPool
 from repro_torch.serve.sampling import SlotSampler
@@ -139,11 +148,22 @@ def _refuse_unported(cfg, scheduler, prefill_chunk, prefill_budget,
     if kv_dtype not in transformer.KV_DTYPES:
         raise ValueError(f"kv_dtype must be one of {transformer.KV_DTYPES}, "
                          f"got {kv_dtype!r}")
+    if mesh is not None:
+        if scheduler != "continuous":
+            raise ValueError(
+                "mesh serving requires the continuous scheduler; wave "
+                "mode is the single-device golden baseline"
+            )
+        for ax in ("data", "model"):
+            if ax not in mesh.axis_names:
+                raise ValueError(
+                    f"serve mesh must carry ('data', 'model') axes, "
+                    f"got {mesh.axis_names}"
+                )
     refused = [
         (scheduler == "wave", "the wave scheduler is ROADMAP item 1.12"),
         (spec_k != 0 or draft_cfg is not None or draft_params is not None
          or spec_adaptive, "speculative decoding is ROADMAP item 1.13"),
-        (mesh is not None, "mesh serving is ROADMAP item 1.16"),
     ]
     for hit, why in refused:
         if hit:
@@ -168,6 +188,9 @@ class ServeEngine:
             raise ValueError(f"max_len {max_len} must be a multiple of "
                              f"block_size {block_size}")
         self.device = resolve_device(device)
+        if mesh is not None and mesh.device != self.device:
+            raise ValueError(f"the mesh's rank runs on {mesh.device}, the "
+                             f"engine was asked for {self.device}")
         misplaced = [t.device for t in _leaves(params)
                      if t.device != self.device]
         if misplaced:
@@ -190,7 +213,7 @@ class ServeEngine:
         self.sample_seed = self._sampler.seed
         self.spec_k = 0
         self.spec_adaptive = False
-        self.mesh = None
+        self.mesh = mesh
         self.queue: Deque[Request] = deque()
         self.completed: Dict[int, Request] = {}
         # slot accounting: fused steps are vector issues, slots are lanes,
@@ -215,6 +238,14 @@ class ServeEngine:
         # live drain state; only non-None while a continuous drain runs —
         # preempt() needs it
         self._live: Optional[Dict[str, Any]] = None
+        # per-device busy-lane accounting: the data axis splits the slot
+        # lanes over its ranks where it divides them; otherwise (and with
+        # no mesh) there is one shard, and device_lane_utilization is
+        # slot_utilization
+        n_data = 1 if mesh is None else mesh.axis_size("data")
+        self._lane_shards = n_data if max_batch % n_data == 0 else 1
+        self._lanes_per_shard = max_batch // self._lane_shards
+        self.device_busy_lane_steps = np.zeros(self._lane_shards, np.int64)
 
     # -- bookkeeping -----------------------------------------------------------
 
@@ -230,8 +261,28 @@ class ServeEngine:
 
     @property
     def mesh_shape(self) -> Optional[str]:
-        """Always None: the port serves on one device."""
-        return None
+        """The mesh as a ``DxM`` string, or None when serving unsharded."""
+        return None if self.mesh is None else str(self.mesh)
+
+    @property
+    def device_lane_utilization(self) -> float:
+        return core_metrics.device_lane_utilization(
+            self.device_busy_lane_steps.tolist(), self.steps,
+            self._lanes_per_shard,
+        )
+
+    def _note_busy(self, busy_flags) -> None:
+        """Fold one fused step's per-slot busy flags into the busy-lane
+        counter and the per-shard counters (slot ``b`` belongs to data
+        shard ``b // lanes_per_shard``, ``batch_spec``'s contiguous
+        slots-over-data layout)."""
+        flags = [bool(f) for f in busy_flags]
+        self.busy_slot_steps += sum(flags)
+        lps = self._lanes_per_shard
+        for s in range(self._lane_shards):
+            self.device_busy_lane_steps[s] += sum(
+                flags[s * lps:(s + 1) * lps]
+            )
 
     def _dev(self, x: np.ndarray) -> torch.Tensor:
         """A private device copy of a scheduler array.
@@ -243,28 +294,44 @@ class ServeEngine:
         return torch.tensor(x, device=self.device)
 
     def _new_cache(self):
+        """A fresh paged cache: this rank's pools under a mesh."""
         return transformer.init_paged_cache(
             self.cfg, self.max_batch, self.max_len, self.block_size,
-            self.device, kv_dtype=self.kv_dtype,
+            self.device, kv_dtype=self.kv_dtype, mesh=self.mesh,
         )
 
     def _step(self, tokens, cache, positions, block_tables):
+        """A decode step: logits (B, 1, vocab_padded), this rank's slots'
+        under a mesh."""
         return transformer.decode_step_paged(
             self.params, self.cfg, self._dev(tokens), cache,
             self._dev(positions), self._dev(block_tables),
             block_size=self.block_size, kv_dtype=self.kv_dtype,
+            mesh=self.mesh,
         )
 
     def _prefill(self, tokens, cache, positions, block_tables, lengths):
         """A chunk step: logits (B, 1, vocab_padded) of each slot's last
-        fed row (row 0 for a slot fed nothing)."""
+        fed row (row 0 for a slot fed nothing), this rank's slots' under
+        a mesh."""
         return transformer.prefill_step_paged(
             self.params, self.cfg, self._dev(tokens), cache,
             self._dev(positions), self._dev(block_tables),
             self._dev(lengths), block_size=self.block_size,
             kv_dtype=self.kv_dtype,
             last_rows=self._dev(np.maximum(lengths - 1, 0)),
+            mesh=self.mesh,
         )
+
+    def _select(self, logits: torch.Tensor) -> np.ndarray:
+        """Every slot's next token (B,): under a mesh this rank selects
+        its slots' and the tokens are gathered over ``data``, so every
+        rank holds all of them."""
+        toks = self._sampler.select(logits)[:, 0]
+        if self.mesh is not None and sharding.local_slots(
+                self.mesh, self.max_batch) != slice(0, self.max_batch):
+            toks = self.mesh.gather(toks, "data")
+        return toks.cpu().numpy()
 
     def submit(self, req: Request) -> None:
         horizon = len(req.prompt) + req.max_new_tokens
@@ -424,6 +491,7 @@ class ServeEngine:
         self._live = {
             "positions": positions, "block_tables": block_tables,
             "pool": pool, "slot_req": slot_req, "tokens": tokens,
+            "cache": cache,  # updated in place: the step hooks may read it
         }
         idle_spins = 0
 
@@ -494,7 +562,7 @@ class ServeEngine:
                                 r.uid, []).append(blk)
                     cache = self._copy_on_write(cache, pool, b, r, t0, n_b)
 
-                self.busy_slot_steps += int((lengths > 0).sum())
+                self._note_busy(lengths > 0)
                 # a step where every busy slot decodes runs the one-token
                 # step; a step that carries a chunk (or a budget-stalled
                 # slot, which must feed nothing) runs the chunk step at the
@@ -509,7 +577,7 @@ class ServeEngine:
                         tokens[:, :w], cache, positions, block_tables,
                         lengths)
                 self.steps += 1
-                nxt = self._sampler.select(logits)[:, 0]
+                nxt = self._select(logits)
                 for b, r in enumerate(slot_req):
                     if r is None or lengths[b] == 0:
                         continue
@@ -587,10 +655,8 @@ class ServeEngine:
             "kv_dtype": self.kv_dtype,
             "share_prefixes": self.share_prefixes,
             "mesh": self.mesh_shape,
-            "mesh_devices": 1,
-            "device_lane_utilization": core_metrics.device_lane_utilization(
-                [self.busy_slot_steps], self.steps, self.max_batch
-            ),
+            "mesh_devices": 1 if self.mesh is None else self.mesh.size,
+            "device_lane_utilization": self.device_lane_utilization,
             "spec_adaptive": self.spec_adaptive,
             "requests": len(self.completed),
             "new_tokens": new_tokens,

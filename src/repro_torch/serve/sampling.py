@@ -8,7 +8,6 @@ torch port (ROADMAP item 1.13), so ``temperature > 0`` is refused here.
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 
@@ -37,8 +36,8 @@ class SlotSampler:
         self.top_k = int(top_k)
         self.seed = int(seed)
 
-    def select(self, rows: torch.Tensor) -> np.ndarray:
+    def select(self, rows: torch.Tensor) -> torch.Tensor:
         """Argmax over the unpadded vocab of every row of ``rows`` (B, W,
-        >= vocab); returns (B, W) int64 host tokens in one device
-        transfer.  Ties go to the lowest index, as in ``jnp.argmax``."""
-        return rows[..., :self.vocab].argmax(dim=-1).cpu().numpy()
+        >= vocab): (B, W) int64 tokens on ``rows``' device.  Ties go to
+        the lowest index, as in ``jnp.argmax``."""
+        return rows[..., :self.vocab].argmax(dim=-1)

@@ -64,7 +64,8 @@ def test_cli_prompts_follow_the_reference_sampling(tmp_path):
 
 @pytest.mark.parametrize("flags", [
     ["--scheduler", "wave"], ["--draft", "gpt2-124m", "--spec-k", "2"],
-    ["--spec-adaptive"], ["--mesh", "2x2"], ["--temperature", "0.8"],
+    ["--spec-adaptive"], ["--mesh", "2x2", "--draft", "gpt2-124m",
+                           "--spec-k", "2"], ["--temperature", "0.8"],
     ["--record"],
 ])
 def test_cli_refuses_unported_options(flags, capsys):

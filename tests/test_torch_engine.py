@@ -21,6 +21,7 @@ import repro.configs as ref_configs  # noqa: E402
 from repro.serve import engine as ref_engine  # noqa: E402
 from repro.train import steps as ref_steps  # noqa: E402
 import repro_torch.configs as port_configs  # noqa: E402
+from repro_torch.launch.mesh import MeshShape  # noqa: E402
 from repro_torch.models import transformer  # noqa: E402
 from repro_torch.serve.engine import (Request, RequestTooLong,  # noqa: E402
                                       ServeEngine)
@@ -155,7 +156,7 @@ def test_request_too_long_rejected_at_submit(gpt2):
 @pytest.mark.parametrize("kw,item", [
     (dict(scheduler="wave"), "1.12"),
     (dict(spec_k=2), "1.13"),
-    (dict(mesh=object()), "1.16"),
+    (dict(mesh=MeshShape(1, 1), spec_k=2), "1.13"),
 ])
 def test_unported_options_name_their_roadmap_item(gpt2, kw, item):
     cfg, params = gpt2
