@@ -27,11 +27,12 @@ non-zero):
             The quantized cases are held per element to 1e-5 plus one ulp
             of a bf16 output (``decode_close``).  Then timings at the
             serve phases' shapes (median of CUDA-event timings) beside
-            each kernel's bound and a library yardstick: bf16 pools, then
-            int8 pools beside the same-shape bf16 call, and the commit
-            kernel alone at a decode step's shapes into bf16 pools (beside
-            the two ``index_put_`` calls that write the same rows) and
-            int8 pools.
+            each kernel's bound, a library yardstick and, for the decode
+            and the prefill, the host's time of one wrapper call: bf16
+            pools, then int8 pools beside the same-shape bf16 call, and
+            the commit kernel alone at a decode step's shapes into bf16
+            pools (beside the two ``index_put_`` calls that write the same
+            rows) and int8 pools.
    kernel-sharded  kernel 2.4, the head-sharded decode: for every (q,
             pool) pair at every head shape, the slices (i, n), n in 1, 2,
             4, concatenated, bit-equal to the unsharded launch and each
@@ -68,7 +69,9 @@ non-zero):
             of the commit kernel (every serve phase commits a decode
             step's rows through it).
    profile  a second, shorter drain of that engine under torch.profiler:
-            the device's busy time by kernel against the wall time.
+            the device's busy time by kernel (the top ten, and sums for the
+            prefill attention, the decode attention, the commit and the
+            rest) against the wall time.
 5. serve-chunked  the same CLI at the full width of qwen3-1.7b (bf16, all
             28 layers) with chunked prefill: every request completes, and
             the decode and prefill kernels together run 28 times per fused
@@ -368,10 +371,12 @@ def decode_timing(torch, np, kernel, ref, arch, nb, max_valid, seed):
                               lambda: ref.flash_decode_paged_ref(*args)),
         "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": device_ms(torch, library),
+        "host_us": host_us(torch, lambda: kernel.flash_decode_paged(*args)),
     }
     emit({"phase": "kernel", "kernel": "flash_decode_paged",
           "shapes": f"serve {arch}", "B": B, "KV": KV, "G": G, "D": D,
           "bs": bs, "nb": nb, "dtype": "bfloat16",
+          "plan": kernel.decode_plan(nb * bs, bs, B, KV, G, D)._asdict(),
           "valid_len": valid.tolist(), **row})
     return row
 
@@ -514,11 +519,13 @@ def prefill_timing(torch, np, kernel, ref):
             f"the timed plain version waits for the device: {waits}")
     row = {"max_abs_err": err,
            **{key: device_ms(torch, fn) for key, fn in timed.items()},
-           "bound_ms": bound_ms, "bound_by": bound_by}
+           "bound_ms": bound_ms, "bound_by": bound_by,
+           "host_us": host_us(torch, timed["ms"])}
     emit({"phase": "kernel", "kernel": "flash_prefill_paged",
           "shapes": "serve qwen3-1.7b chunked", "B": B, "C": C, "KV": KV,
           "G": G, "D": D, "bs": bs, "nb": nb, "dtype": "bfloat16",
-          "rows_per_block": kernel.prefill_rows_per_block(C, G, D, bs, nb),
+          "plan": kernel.prefill_plan(C, G, D, bs, nb, torch.bfloat16,
+                                      torch.bfloat16)._asdict(),
           "q_start": q_start.tolist(), "host_waits": waits, **row})
     return row
 
@@ -808,8 +815,8 @@ def quantized_prefill_timing(torch, np, kernel, ref):
     emit({"phase": "kernel", "kernel": "flash_prefill_paged",
           "shapes": "serve qwen3-1.7b chunked", "B": B, "C": C, "KV": KV,
           "G": G, "D": D, "bs": bs, "nb": nb, "dtype": "bfloat16",
-          "pool": "int8", "rows_per_block": kernel.prefill_rows_per_block(
-              C, G, D, bs, nb, True),
+          "pool": "int8", "plan": kernel.prefill_plan(
+              C, G, D, bs, nb, torch.bfloat16, torch.int8)._asdict(),
           "q_start": q_start.tolist(), "host_waits": waits, **row})
     return row
 
@@ -1819,10 +1826,19 @@ def phase_serve_smoke(torch):
              for key in ("launches", "fused_steps", "tok_s")}})
 
 
+#: (group, a word of the kernel names in it) of the profile's device time:
+#: the port's attention and commit kernels, then everything else (matmuls,
+#: norms, elementwise ops, copies)
+KERNEL_GROUPS = (("prefill_attention", "prefill_attend"),
+                 ("decode_attention", "flash_decode_kernel"),
+                 ("commit", "prefill_commit"))
+
+
 def phase_profile(torch, np, engine, phase, prompt_lo, prompt_hi):
     """Where a serve step's time goes: a second, shorter drain of the same
     engine under ``torch.profiler`` (device activity only), giving the
-    device's busy time by kernel over the drain's wall time."""
+    device's busy time by kernel (the top ten, and sums by
+    :data:`KERNEL_GROUPS`) over the drain's wall time."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.serve.engine import Request
@@ -1847,11 +1863,17 @@ def phase_profile(torch, np, engine, phase, prompt_lo, prompt_hi):
     busy_ms = sum(r[1] for r in rows)
     require(busy_ms > 0, "the profiler saw no device time")
     steps = engine.steps - first
+    groups = {}
+    for key, ms, _ in rows:
+        group = next((g for g, word in KERNEL_GROUPS if word in key),
+                     "other")
+        groups[group] = groups.get(group, 0.0) + ms
     emit({"phase": phase, "arch": engine.cfg.name, "fused_steps": steps,
           "wall_ms": wall * 1e3, "device_busy_ms": busy_ms,
           "device_idle_share": 1.0 - busy_ms / (wall * 1e3),
           "step_ms": wall * 1e3 / steps,
           "kernels_per_step": sum(r[2] for r in rows) / steps,
+          "device_ms_by_group": groups,
           "top": [{"kernel": k[:80], "device_ms": ms, "calls": n}
                   for k, ms, n in rows[:10]]})
 

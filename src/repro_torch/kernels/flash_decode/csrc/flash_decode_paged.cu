@@ -2,24 +2,26 @@
 // serving slot over that slot's KV cache, read through its block table
 // (paged) or in place from a contiguous (B, S, KV, D) cache.
 //
-// Replaces two TPU kernels of src/repro/kernels/flash_decode/kernel.py:
-//   * flash_decode_paged (body _decode_kernel_paged), for pools in q's
-//     dtype, bf16 pools under an f32 q (widened, :140-142) and int8 pools
-//     with per-row fp32 scales (the quantized branch, :120-139), with its
-//     head_shard=(i, n) slice (:207-218): the grid covers KV / n heads
-//     and reads the full pools from head i * KV / n on, at the pools' own
-//     row stride, so the head slice is never copied.  The same body is the
-//     per-device kernel of flash_decode_paged_sharded (:264), which runs
-//     it on each rank's local pools from head 0;
-//   * flash_decode (body _decode_kernel), the contiguous cache.  The TPU
-//     wrapper makes a head-major copy of K and V first (kernel.py:87-88);
-//     this kernel reads (B, S, KV, D) in place with a row stride of KV * D.
-// One body serves both: the template flag kPaged picks table or stride
-// addressing of a tile's first row, and nothing else differs.
+// Replaces three TPU kernels of src/repro/kernels/flash_decode/kernel.py:
+//   * flash_decode_paged (body _decode_kernel_paged, pallas_call at :256),
+//     for pools in q's dtype, bf16 pools under an f32 q (widened,
+//     :140-142) and int8 pools with per-row fp32 scales (the quantized
+//     branch, :120-139), with its head_shard=(i, n) slice (:207-218): the
+//     grid covers KV / n heads and reads the full pools from head
+//     i * KV / n on, at the pools' own row stride, so the head slice is
+//     never copied;
+//   * flash_decode_paged_sharded (:264), whose per-device kernel is the
+//     same body on each rank's local pools from head 0;
+//   * flash_decode (body _decode_kernel, pallas_call at :89), the
+//     contiguous cache.  The TPU wrapper makes a head-major copy of K and
+//     V first (kernel.py:87-88); this kernel reads (B, S, KV, D) in place
+//     with a row stride of KV * D.
+// One body serves all three: the template flag kPaged picks table or
+// stride addressing of a row, and nothing else differs.
 //
 // Paged contract (that of the TPU kernel flash_decode_paged):
 //   q            (B, KV, G, D)            T: f32 or bf16; KV is the
-//                                         grid's (local) head count
+//                                         launch's (local) head count
 //   k_pool/v_pool (n_blocks, bs, pool_kv, D)  P: T, bf16 under an f32 T,
 //                                         or int8 under either; head h of
 //                                         q reads pool head head0 + h
@@ -31,8 +33,11 @@
 // Row t of slot b lives at pool block block_tables[b, t / bs], row t % bs.
 // Unsharded, pool_kv = KV and head0 = 0.
 // Rows at or past valid_len[b], and their scales, are never read.  An int8
-// element is dequantized to fp32 at load as code * scale, as the TPU
-// kernel widens its tile in VMEM; a bf16 pool element is widened to fp32.
+// row is dequantized in fp32 with its scale, as the TPU kernel widens its
+// tile in VMEM: q . (codes * s) is taken as (q . codes) * s and p * (codes
+// * s) as (p * s) * codes, the same products up to fp32 rounding (the
+// plain version's order, within decode_close); a bf16 pool element is
+// widened to fp32.
 //
 // Contiguous contract (that of the TPU kernel flash_decode):
 //   q            (B, KV, G, D)            f32 or bf16
@@ -41,73 +46,82 @@
 //                                         with valid_len <= 0 gives zeros,
 //                                         as the TPU kernel's clamped l does
 //   out          (B, KV, G, D)            dtype of q
-// Row t of slot b lives at k[b, t]; the kernel walks tiles of bs rows and
-// issues none past valid_len[b] (the TPU kernel's predicated block skip).
-//
-// Head dims 16, 32, 64 and 128: a warp reads a K row with D / 32 elements
-// a lane, or one element a lane below D = 32, the lanes at or past D
-// loading nothing and adding nothing (predicated lanes).
+// Row t of slot b lives at k[b, t]; no row at or past valid_len[b] is read
+// (the TPU kernel's predicated block skip).
 //
 // What bounds it on an H100: the bytes of the live K and V rows,
-// sum_b valid_len[b] * (KV * D * 2 * sizeof(P) + 8 bytes of scales when
-// P is int8), over 3.35 TB/s.  The
-// arithmetic, 4 * G * D flops per live row and head, is far below what the
-// card computes in that time.  At serving sizes (a few hundred live rows per
-// slot) those bytes take about a microsecond, so one launch is bound by the
-// launch latency instead.
+// sum_b valid_len[b] * (KV * D * 2 * sizeof(P) + 8 bytes of scales when P
+// is int8), over 3.35 TB/s.  The arithmetic, 4 * G * D flops per live row
+// and head, is far below what the card computes in that time, so the
+// product stays in fp32 on the CUDA cores, p included: tensor cores would
+// gain nothing at G <= 8 query heads a K row, and fp32 keeps every (q,
+// pool) pair within decode_close of its plain version.  At the serve
+// shapes (8 slots of a few hundred rows) those bytes take a few
+// microseconds, so the time goes to latency: one block walking a slot's
+// rows in series would leave most of the card idle (one block a KV head
+// and slot is 64 blocks at qwen3's serve shapes, on 132 SMs), so the rows
+// are spread over blocks and warps with many loads in flight.
 //
-// Design, simple first:
-//   * one thread block per (KV head, slot): all heads of all slots run in
-//     parallel, and no reduction crosses blocks;
-//   * paged, the block loads its own block-table row into shared memory,
-//     and with int8 pools each tile's K and V scales before the tile;
-//     either way it walks only the tiles j < ceil(valid_len / bs), the TPU
-//     kernel's skip of tiles past the live length;
-//   * each warp reads whole K rows, lanes on consecutive elements
-//     (coalesced), and the G query heads of the KV head share every K and V
-//     row it reads;
-//   * running max, sum and accumulator stay in fp32, and p stays fp32 in
-//     the p @ V product (decode_ref's arithmetic; the TPU kernel rounds p
-//     to V's dtype first, kernel.py:59); the output is written in q's
-//     dtype.
-// B * KV blocks on 132 SMs: 4 at the registry's example, 256 to 384 at
-// 32 slots of gpt2-124m or qwen3-1.7b heads, each walking its slot's
-// tiles in series.
-// Left for later: wgmma/TMA, splitting long contexts across blocks, and
-// removing the launch latency by capturing the whole decode step in a CUDA
-// graph.
+// Design:
+//   * the sequence is split across blocks: grid (KV * G / GC, B, splits),
+//     where GC in {1, 2, 4} query heads of a KV head share a block (G / GC
+//     blocks read the same K/V rows when G > 4).  Split z takes the rows
+//     [z * L, (z + 1) * L) below valid_len[b]; L (split_rows, a multiple of
+//     bs and of the contiguous tile) and the number of splits come from the
+//     shapes alone (nb * bs or S), so the host never reads valid_len.  A
+//     split with no live rows exits at once (split 0 of an empty
+//     contiguous slot writes its zeros);
+//   * inside a split every warp walks its own rows, 4 row steps of loads
+//     in flight at a time: a row is read by D * sizeof(P) / 16 lanes, each
+//     loading 16 bytes of K and of V (int8 under 4 query heads a block: 8
+//     bytes), so a warp reads 32 / that many rows at once (twice as many
+//     int8 rows as bf16 ones), and the lanes of a row reduce their partial
+//     dot products in log2 of that many shuffles.  Each
+//     group of lanes keeps its own running max, sum and accumulator
+//     (fp32) for the GC query heads, rescaled once per step batch; no block
+//     barrier is taken until the split's rows are done;
+//   * then the lane groups of a warp are merged by shuffles and the warps
+//     through shared memory, in a fixed order;
+//   * a slot whose live rows fit one split writes its output there.
+//     Otherwise each split writes its (m, l, acc) partial to scratch, and
+//     the last split of a (slot, head) to finish, found by a per-(slot,
+//     head) counter after __threadfence(), merges the partials in split
+//     order, writes the output and resets the counter to 0.  One launch a
+//     call; the wrapper keeps the scratch per device, stream and size class
+//     and allocates none per call;
+//   * L, the split boundaries and every merge order depend on neither KV,
+//     head0, B nor the grid, so a head slice (i, n) of the heads is bit for
+//     bit the unsharded launch's slice.
+// Left for later: TMA loads, and removing the launch latency by capturing
+// the whole decode step in a CUDA graph.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstddef>
 #include <cstdint>
+#include <cstring>
 #include <type_traits>
 
 namespace {
 
-constexpr int kThreads = 128;
+constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
+// row steps of a warp whose loads are issued together
+constexpr int kUnroll = 4;
+// table entries of one split (split_rows / bs; the wrapper keeps it there)
+constexpr int kMaxTable = 256;
 constexpr float kNegInf = -1e30f;
 
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
+template <typename T>
+__device__ __forceinline__ float to_float(T x);
+template <>
+__device__ __forceinline__ float to_float<float>(float x) {
+  return x;
+}
+template <>
+__device__ __forceinline__ float to_float<__nv_bfloat16>(__nv_bfloat16 x) {
   return __bfloat162float(x);
-}
-__device__ __forceinline__ float to_float(int8_t x) {
-  return static_cast<float>(x);
-}
-
-// A pool element widened to fp32: code * scale for int8 pools (P = int8),
-// the element itself otherwise (scale unused).  It takes the loaded value,
-// not a pointer, so each load is made through the kernel's __restrict__
-// pointers, as read-only loads.
-template <typename P>
-__device__ __forceinline__ float dequant(P x, float scale) {
-  if constexpr (std::is_same_v<P, int8_t>)
-    return to_float(x) * scale;
-  else
-    return to_float(x);
 }
 
 template <typename T>
@@ -121,207 +135,378 @@ __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
+// The vector of N pool elements one lane loads from a row (16 or 8
+// bytes), widened to fp32 by widen().
+template <typename P, int N>
+struct Lane {
+  using raw = std::conditional_t<N * sizeof(P) == 16, uint4, uint2>;
+  static_assert(N * sizeof(P) == 16 || N * sizeof(P) == 8);
+};
+
+// Elements of a row one lane loads: 16 bytes of f32 or bf16; 16 codes of
+// int8 for up to 2 query heads a block, 8 (8 bytes) for 4, which would
+// otherwise hold 64 fp32 accumulators a lane.
+template <typename P, int GC>
+__host__ __device__ constexpr int lane_elems() {
+  return std::is_same_v<P, int8_t> ? (GC <= 2 ? 16 : 8) : 16 / sizeof(P);
 }
 
-__device__ __forceinline__ float warp_max(float v) {
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
+// A lane's raw vector widened to fp32: the elements, or for int8 the
+// codes (the caller applies the row's scale once a row).  A code c is
+// made exactly without a conversion instruction: the bits 0x4B0000xx with
+// xx = c + 128 are the float 2^23 + c + 128.
+template <typename P, int N>
+__device__ __forceinline__ void widen(const typename Lane<P, N>::raw& x,
+                                      float* f) {
+  constexpr int kWords = sizeof(x) / 4;
+  uint32_t w[kWords];
+  memcpy(w, &x, sizeof(x));
+  if constexpr (std::is_same_v<P, float>) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) f[i] = __uint_as_float(w[i]);
+  } else if constexpr (std::is_same_v<P, __nv_bfloat16>) {
+#pragma unroll
+    for (int i = 0; i < kWords; ++i) {  // element 2i in the low half
+      f[2 * i] = __uint_as_float(w[i] << 16);
+      f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < N; ++i)  // code i in byte i
+      f[i] = __uint_as_float(__byte_perm(w[i / 4] ^ 0x80808080u,
+                                         0x4B000000u, 0x7540u | (i % 4))) -
+             8388736.f;
+  }
 }
 
-// Shared memory, in floats: q (G*D), acc (G*D), p (G*bs), m, l, corr (G
-// each), with int8 pools the tile's K and V scales (bs each), then, paged,
-// the block-table row (nb ints).  Paged, k/v are the pools (n_blocks, bs,
-// KV, D) and a slot holds nb * bs rows; contiguous, k/v are (B, S, KV, D),
-// block_tables is unused and a slot holds S rows.
-template <typename T, typename P, int D, bool kPaged>
-__global__ void __launch_bounds__(kThreads)
+// Scratch of one (slot, head chunk, split): acc (GC * D), then m and l (GC
+// each), in fp32.  Counters: one int a (slot, head chunk), 0 between
+// launches.
+template <typename T, typename P, int D, int GC, bool kPaged>
+__global__ void __launch_bounds__(kThreads, 2)
     flash_decode_kernel(const T* __restrict__ q, const P* __restrict__ k_pool,
                         const P* __restrict__ v_pool,
                         const float* __restrict__ k_scale,
                         const float* __restrict__ v_scale,
                         const int* __restrict__ block_tables,
                         const int* __restrict__ valid_len,
-                        T* __restrict__ out, int KV, int G, int bs, int nb,
-                        int S, int pool_kv, int head0) {
+                        T* __restrict__ out, float* __restrict__ partial,
+                        int* __restrict__ counters, int KV, int G, int bs,
+                        int nb, int S, int pool_kv, int head0,
+                        int split_rows) {
   constexpr bool kQuant = std::is_same_v<P, int8_t>;
-  // elements of a K row per lane; below D = 32 the lanes >= D idle
-  constexpr int kPerLane = (D + 31) / 32;
-  const int h = blockIdx.x;
-  const int b = blockIdx.y;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
+  constexpr int kElems = lane_elems<P, GC>();  // elements a lane loads
+  using L = Lane<P, kElems>;
+  constexpr int kLanes = D / kElems;     // lanes a row: 2 .. 32
+  constexpr int kRows = 32 / kLanes;     // rows a warp step
+  constexpr int kStep = kWarps * kRows;  // rows a block step
+  constexpr int kPart = GC * D + 2 * GC;
 
-  extern __shared__ float smem[];
-  float* q_s = smem;
-  float* acc = q_s + G * D;
-  float* p_s = acc + G * D;
-  float* m_s = p_s + G * bs;
-  float* l_s = m_s + G;
-  float* c_s = l_s + G;
-  float* ks_s = c_s + G;                 // int8 pools only
-  float* vs_s = ks_s + (kQuant ? bs : 0);
-  int* table = reinterpret_cast<int*>(vs_s + (kQuant ? bs : 0));
+  const int chunks = G / GC;
+  const int hx = blockIdx.x;
+  const int h = hx / chunks;
+  const int g0 = (hx - h * chunks) * GC;
+  const int b = blockIdx.y;
+  const int z = blockIdx.z;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int group = lane / kLanes;
+  const int sub = lane - group * kLanes;
 
   const int valid = min(valid_len[b], kPaged ? nb * bs : S);
-  const int n_tiles = valid > 0 ? (valid + bs - 1) / bs : 0;
-  const float scale = rsqrtf(static_cast<float>(D));
+  const int n_live = valid > 0 ? (valid + split_rows - 1) / split_rows : 0;
+  const size_t vec = (static_cast<size_t>(b) * KV + h) * G + g0;
+  T* o = out + vec * D;
+  if (z >= n_live) {
+    if (z == 0)  // an empty contiguous slot: zeros
+      for (int i = threadIdx.x; i < GC * D; i += kThreads)
+        o[i] = from_float<T>(0.f);
+    return;  // uniform across the block
+  }
+  const int r0 = z * split_rows;
+  const int r1 = min(r0 + split_rows, valid);
 
-  const T* q_head = q + (static_cast<size_t>(b) * KV + h) * G * D;
-  for (int i = tid; i < G * D; i += kThreads) {
-    q_s[i] = to_float(q_head[i]);
-    acc[i] = 0.f;
+  __shared__ int table[kMaxTable];
+  __shared__ float w_acc[kWarps][GC * D];
+  __shared__ float w_ml[kWarps][2 * GC];
+  __shared__ int last;
+
+  const float scale = rsqrtf(static_cast<float>(D));
+  float qr[GC][kElems];
+  const T* qh = q + vec * D + sub * kElems;
+#pragma unroll
+  for (int g = 0; g < GC; ++g)
+#pragma unroll
+    for (int e = 0; e < kElems; ++e) qr[g][e] = to_float(qh[g * D + e]);
+
+  const int j0 = kPaged ? r0 / bs : 0;
+  if (kPaged) {
+    const int j1 = (r1 + bs - 1) / bs;
+    for (int j = j0 + threadIdx.x; j < j1; j += kThreads)
+      table[j - j0] = block_tables[static_cast<size_t>(b) * nb + j];
+    __syncthreads();
   }
-  for (int g = tid; g < G; g += kThreads) {
-    m_s[g] = kNegInf;
-    l_s[g] = 0.f;
+
+  float m[GC], l[GC], acc[GC][kElems];
+#pragma unroll
+  for (int g = 0; g < GC; ++g) {
+    m[g] = kNegInf;
+    l[g] = 0.f;
+#pragma unroll
+    for (int e = 0; e < kElems; ++e) acc[g][e] = 0.f;
   }
-  if (kPaged)
-    for (int j = tid; j < n_tiles; j += kThreads)
-      table[j] = block_tables[static_cast<size_t>(b) * nb + j];
-  __syncthreads();
 
   // a row of the pools (or of the contiguous cache) holds pool_kv heads;
-  // this block reads head head0 + h of each
+  // this block reads head head0 + h of each, this lane its kElems elements
   const size_t row_stride = static_cast<size_t>(pool_kv) * D;
-  for (int j = 0; j < n_tiles; ++j) {
-    const int rows = min(bs, valid - j * bs);
-    // element offset of the tile's row 0, head h: in its pool block, or
-    // row j * bs of slot b
-    const size_t first = kPaged ? static_cast<size_t>(table[j]) * bs
-                                : static_cast<size_t>(b) * S + j * bs;
-    const size_t base =
-        (first * pool_kv + head0 + h) * static_cast<size_t>(D);
-    if constexpr (kQuant) {  // the live rows' scales, none past valid
-      for (int r = tid; r < rows; r += kThreads) {
-        ks_s[r] = k_scale[first + r];
-        vs_s[r] = v_scale[first + r];
+  const size_t head_off = static_cast<size_t>(head0 + h) * D + sub * kElems;
+
+  // the warp's row steps: warp-uniform bounds, so every lane takes the
+  // shuffles; a lane group's row past r1 loads nothing and adds nothing
+  for (int s0 = r0 + warp * kRows; s0 < r1; s0 += kUnroll * kStep) {
+    typename L::raw kr[kUnroll], vr[kUnroll];
+    float ks[kUnroll], vs[kUnroll];
+    bool live[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int t = s0 + u * kStep + group;
+      live[u] = t < r1;
+      kr[u] = {};
+      vr[u] = {};
+      ks[u] = vs[u] = 0.f;
+      if (live[u]) {
+        const size_t prow =
+            kPaged ? static_cast<size_t>(table[t / bs - j0]) * bs + t % bs
+                   : static_cast<size_t>(b) * S + t;
+        const size_t off = prow * row_stride + head_off;
+        kr[u] = *reinterpret_cast<const typename L::raw*>(k_pool + off);
+        vr[u] = *reinterpret_cast<const typename L::raw*>(v_pool + off);
+        if constexpr (kQuant) {
+          ks[u] = k_scale[prow];
+          vs[u] = v_scale[prow];
+        }
       }
-      __syncthreads();
     }
 
-    // scores: one warp per K row, all G query heads at once
-    for (int r = warp; r < rows; r += kWarps) {
-      const P* k_row = k_pool + base + r * row_stride;
-      const float ks = kQuant ? ks_s[r] : 1.f;
-      float kr[kPerLane];
+    float sc[kUnroll][GC];
 #pragma unroll
-      for (int e = 0; e < kPerLane; ++e)
-        kr[e] = (D >= 32 || lane < D) ? dequant(k_row[lane + 32 * e], ks)
-                                      : 0.f;
-      for (int g = 0; g < G; ++g) {
+    for (int u = 0; u < kUnroll; ++u) {
+      float kf[kElems];
+      widen<P, kElems>(kr[u], kf);
+      // int8: q . (codes * scale) as (q . codes) * scale
+      const float rs = kQuant ? ks[u] * scale : scale;
+#pragma unroll
+      for (int g = 0; g < GC; ++g) {
         float s = 0.f;
 #pragma unroll
-        for (int e = 0; e < kPerLane; ++e)
-          if (D >= 32 || lane < D) s += q_s[g * D + lane + 32 * e] * kr[e];
-        s = warp_sum(s);
-        if (lane == 0) p_s[g * bs + r] = s * scale;
+        for (int e = 0; e < kElems; ++e) s += qr[g][e] * kf[e];
+#pragma unroll
+        for (int o2 = kLanes / 2; o2 > 0; o2 >>= 1)
+          s += __shfl_xor_sync(0xffffffffu, s, o2);
+        sc[u][g] = live[u] ? s * rs : kNegInf;
       }
     }
-    __syncthreads();
 
-    // online softmax: one warp per query head
-    for (int g = warp; g < G; g += kWarps) {
-      float mx = kNegInf;
-      for (int r = lane; r < rows; r += 32) mx = fmaxf(mx, p_s[g * bs + r]);
-      mx = warp_max(mx);
-      const float m_old = m_s[g];
-      const float m_new = fmaxf(m_old, mx);
-      float sum = 0.f;
-      for (int r = lane; r < rows; r += 32) {
-        const float p = expf(p_s[g * bs + r] - m_new);
-        p_s[g * bs + r] = p;
-        sum += p;
-      }
-      sum = warp_sum(sum);
-      if (lane == 0) {
-        const float corr = expf(m_old - m_new);
-        c_s[g] = corr;
-        l_s[g] = l_s[g] * corr + sum;
-        m_s[g] = m_new;
+    // online softmax over the batch: one rescale, then its rows
+#pragma unroll
+    for (int g = 0; g < GC; ++g) {
+      float mx = m[g];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) mx = fmaxf(mx, sc[u][g]);
+      const float corr = expf(m[g] - mx);
+      m[g] = mx;
+      l[g] *= corr;
+#pragma unroll
+      for (int e = 0; e < kElems; ++e) acc[g][e] *= corr;
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      if (!live[u]) continue;
+      float vf[kElems];
+      widen<P, kElems>(vr[u], vf);
+#pragma unroll
+      for (int g = 0; g < GC; ++g) {
+        const float p = expf(sc[u][g] - m[g]);
+        l[g] += p;
+        // int8: p * (codes * scale) as (p * scale) * codes
+        const float pv = kQuant ? p * vs[u] : p;
+#pragma unroll
+        for (int e = 0; e < kElems; ++e) acc[g][e] += pv * vf[e];
       }
     }
-    __syncthreads();
-
-    // acc = acc * corr + p @ V: one thread per (query head, element)
-    for (int i = tid; i < G * D; i += kThreads) {
-      const int g = i / D;
-      const int d = i - g * D;
-      const P* v_col = v_pool + base + d;
-      float a = acc[i] * c_s[g];
-      for (int r = 0; r < rows; ++r)
-        a += p_s[g * bs + r] *
-             dequant(v_col[r * row_stride], kQuant ? vs_s[r] : 1.f);
-      acc[i] = a;
-    }
-    __syncthreads();
   }
 
-  T* o_head = out + (static_cast<size_t>(b) * KV + h) * G * D;
-  for (int i = tid; i < G * D; i += kThreads)
-    o_head[i] = from_float<T>(acc[i] / fmaxf(l_s[i / D], 1e-30f));
+  // merge the warp's lane groups, then the warps, in a fixed order
+#pragma unroll
+  for (int o2 = kLanes; o2 < 32; o2 <<= 1) {
+#pragma unroll
+    for (int g = 0; g < GC; ++g) {
+      const float mo = __shfl_xor_sync(0xffffffffu, m[g], o2);
+      const float lo = __shfl_xor_sync(0xffffffffu, l[g], o2);
+      const float mn = fmaxf(m[g], mo);
+      const float a = expf(m[g] - mn);
+      const float c = expf(mo - mn);
+      l[g] = l[g] * a + lo * c;
+#pragma unroll
+      for (int e = 0; e < kElems; ++e)
+        acc[g][e] =
+            acc[g][e] * a + __shfl_xor_sync(0xffffffffu, acc[g][e], o2) * c;
+      m[g] = mn;
+    }
+  }
+  if (group == 0) {
+#pragma unroll
+    for (int g = 0; g < GC; ++g) {
+#pragma unroll
+      for (int e = 0; e < kElems; ++e)
+        w_acc[warp][g * D + sub * kElems + e] = acc[g][e];
+      if (sub == 0) {
+        w_ml[warp][g] = m[g];
+        w_ml[warp][GC + g] = l[g];
+      }
+    }
+  }
+  __syncthreads();
+
+  // this block's partial in scratch (used only when n_live > 1)
+  const size_t slot_head = static_cast<size_t>(b) * gridDim.x + hx;
+  float* part = n_live > 1 ? partial + (slot_head * gridDim.z + z) * kPart
+                           : nullptr;
+  for (int i = threadIdx.x; i < GC * D; i += kThreads) {
+    const int g = i / D;
+    float mt = kNegInf;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) mt = fmaxf(mt, w_ml[w][g]);
+    float lt = 0.f, at = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      const float f = expf(w_ml[w][g] - mt);
+      lt += w_ml[w][GC + g] * f;
+      at += w_acc[w][i] * f;
+    }
+    if (n_live == 1) {
+      o[i] = from_float<T>(at / fmaxf(lt, 1e-30f));
+    } else {
+      part[i] = at;
+      if (i - g * D == 0) {
+        part[GC * D + g] = mt;
+        part[GC * D + GC + g] = lt;
+      }
+    }
+  }
+  if (n_live == 1) return;  // uniform across the block
+
+  // the last split of this (slot, head chunk) to finish merges them all
+  __threadfence();
+  __syncthreads();
+  int* count = counters + slot_head;
+  if (threadIdx.x == 0) last = atomicAdd(count, 1) == n_live - 1;
+  __syncthreads();
+  if (!last) return;  // uniform across the block
+  __threadfence();
+  const float* first = partial + slot_head * gridDim.z * kPart;
+  for (int i = threadIdx.x; i < GC * D; i += kThreads) {
+    const int g = i / D;
+    float mt = kNegInf;
+    for (int s = 0; s < n_live; ++s)
+      mt = fmaxf(mt, __ldcg(first + s * kPart + GC * D + g));
+    float lt = 0.f, at = 0.f;
+    for (int s = 0; s < n_live; ++s) {
+      const float* ps = first + s * kPart;
+      const float f = expf(__ldcg(ps + GC * D + g) - mt);
+      lt += __ldcg(ps + GC * D + GC + g) * f;
+      at += __ldcg(ps + i) * f;
+    }
+    o[i] = from_float<T>(at / fmaxf(lt, 1e-30f));
+  }
+  if (threadIdx.x == 0) *count = 0;
 }
 
-template <typename T, typename P, bool kPaged, int D>
-void launch_d(const dim3 grid, size_t smem, cudaStream_t stream,
-              const void* q, const void* k, const void* v,
-              const float* k_scale, const float* v_scale,
-              const void* block_tables, const void* valid_len, void* out,
-              int KV, int G, int bs, int nb, int S, int pool_kv,
-              int head0) {
-  flash_decode_kernel<T, P, D, kPaged><<<grid, kThreads, smem, stream>>>(
+template <typename T, typename P, bool kPaged, int D, int GC>
+void launch_g(const dim3 grid, cudaStream_t stream, const void* q,
+              const void* k, const void* v, const float* k_scale,
+              const float* v_scale, const void* block_tables,
+              const void* valid_len, void* out, float* partial,
+              int* counters, int KV, int G, int bs, int nb, int S,
+              int pool_kv, int head0, int split_rows) {
+  flash_decode_kernel<T, P, D, GC, kPaged><<<grid, kThreads, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const P*>(k),
       static_cast<const P*>(v), k_scale, v_scale,
       static_cast<const int*>(block_tables),
-      static_cast<const int*>(valid_len), static_cast<T*>(out), KV, G, bs,
-      nb, S, pool_kv, head0);
+      static_cast<const int*>(valid_len), static_cast<T*>(out), partial,
+      counters, KV, G, bs, nb, S, pool_kv, head0, split_rows);
 }
 
-// Paged: nb table entries of bs rows; contiguous: nb = 0, tiles of bs rows
-// over S.  The grid covers KV heads, heads head0 .. head0 + KV - 1 of rows
-// of pool_kv heads.
+template <typename T, typename P, bool kPaged, int D>
+void launch_d(int B, int KV, int G, cudaStream_t stream, const void* q,
+              const void* k, const void* v, const float* k_scale,
+              const float* v_scale, const void* block_tables,
+              const void* valid_len, void* out, float* partial,
+              int* counters, int bs, int nb, int S, int pool_kv, int head0,
+              int split_rows, int splits) {
+  // query heads a block: the largest of 4, 2, 1 that divides G
+  const int gc = G % 4 == 0 ? 4 : (G % 2 == 0 ? 2 : 1);
+  const dim3 grid(KV * (G / gc), B, splits);
+#define FD_G(GC)                                                            \
+  launch_g<T, P, kPaged, D, GC>(grid, stream, q, k, v, k_scale, v_scale,    \
+                                block_tables, valid_len, out, partial,      \
+                                counters, KV, G, bs, nb, S, pool_kv, head0, \
+                                split_rows)
+  if (gc == 4)
+    FD_G(4);
+  else if (gc == 2)
+    FD_G(2);
+  else
+    FD_G(1);
+#undef FD_G
+}
+
+// Paged: nb table entries of bs rows; contiguous: nb = 0, S rows a slot.
+// The grid covers KV heads, heads head0 .. head0 + KV - 1 of rows of
+// pool_kv heads, in splits of split_rows rows.  partial and counters may
+// be NULL when one split covers a slot.
 template <typename T, typename P, bool kPaged>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const float* k_scale, const float* v_scale,
                    const void* block_tables, const void* valid_len, void* out,
-                   int B, int KV, int G, int D, int bs, int nb, int S,
-                   int pool_kv, int head0, cudaStream_t stream) {
+                   void* partial, void* counters, int B, int KV, int G,
+                   int D, int bs, int nb, int S, int pool_kv, int head0,
+                   int split_rows, cudaStream_t stream) {
   constexpr bool kQuant = std::is_same_v<P, int8_t>;
   if (kQuant && (k_scale == nullptr || v_scale == nullptr))
     return cudaErrorInvalidValue;
-  if (head0 < 0 || head0 + KV > pool_kv) return cudaErrorInvalidValue;
-  const dim3 grid(KV, B);
-  const size_t smem =
-      sizeof(float) * (2 * G * D + G * bs + 3 * G + (kQuant ? 2 * bs : 0)) +
-      sizeof(int) * nb;
+  if (head0 < 0 || head0 + KV > pool_kv || G < 1) return cudaErrorInvalidValue;
+  const int rows = kPaged ? nb * bs : S;
+  if (split_rows < 1 || (kPaged && (split_rows % bs ||
+                                    split_rows / bs > kMaxTable)))
+    return cudaErrorInvalidValue;
+  const int splits = rows > split_rows ? (rows + split_rows - 1) / split_rows
+                                       : 1;
+  if (splits > 1 && (partial == nullptr || counters == nullptr))
+    return cudaErrorInvalidValue;
+  float* pt = static_cast<float*>(partial);
+  int* ct = static_cast<int*>(counters);
+#define FD_D(DD)                                                             \
+  launch_d<T, P, kPaged, DD>(B, KV, G, stream, q, k, v, k_scale, v_scale,    \
+                             block_tables, valid_len, out, pt, ct, bs, nb, S, \
+                             pool_kv, head0, split_rows, splits)
   switch (D) {
     case 16:
-      launch_d<T, P, kPaged, 16>(grid, smem, stream, q, k, v, k_scale,
-                                 v_scale, block_tables, valid_len, out, KV, G,
-                                 bs, nb, S, pool_kv, head0);
+      FD_D(16);
       break;
     case 32:
-      launch_d<T, P, kPaged, 32>(grid, smem, stream, q, k, v, k_scale,
-                                 v_scale, block_tables, valid_len, out, KV, G,
-                                 bs, nb, S, pool_kv, head0);
+      FD_D(32);
       break;
     case 64:
-      launch_d<T, P, kPaged, 64>(grid, smem, stream, q, k, v, k_scale,
-                                 v_scale, block_tables, valid_len, out, KV, G,
-                                 bs, nb, S, pool_kv, head0);
+      FD_D(64);
       break;
     case 128:
-      launch_d<T, P, kPaged, 128>(grid, smem, stream, q, k, v, k_scale,
-                                  v_scale, block_tables, valid_len, out, KV,
-                                  G, bs, nb, S, pool_kv, head0);
+      FD_D(128);
       break;
     default:
       return cudaErrorInvalidValue;
   }
+#undef FD_D
   return cudaGetLastError();
 }
 
@@ -329,26 +514,28 @@ cudaError_t launch(const void* q, const void* k, const void* v,
 
 // dtype / pool_dtype: 0 = float32, 1 = bfloat16, 2 = int8.  Each returns
 // cudaGetLastError() after the launch (0 when the launch was accepted, an
-// invalid-value code for a pair that has no instantiation or a head range
-// outside the pools); never synchronises.  The paged launch attends the KV
-// heads of q (B, KV, G, D) over pool heads head0 .. head0 + KV - 1 of
-// pools whose rows hold pool_kv heads.
+// invalid-value code for a pair that has no instantiation, a head range
+// outside the pools, a split that is not whole table blocks, or missing
+// scratch); never synchronises.  The paged launch attends the KV heads of
+// q (B, KV, G, D) over pool heads head0 .. head0 + KV - 1 of pools whose
+// rows hold pool_kv heads.  partial: B * KV * splits * G * (D + 2) floats
+// and counters: B * KV * G ints, zero, where splits = ceil(nb * bs /
+// split_rows) > 1; the kernel leaves the counters zero.
 extern "C" int flash_decode_paged_launch(
     const void* q, const void* k_pool, const void* v_pool,
     const void* k_scale, const void* v_scale, const void* block_tables,
-    const void* valid_len, void* out, int B, int KV, int G, int D, int bs,
-    int nb, int pool_kv, int head0, int dtype, int pool_dtype, int device,
-    void* stream) {
+    const void* valid_len, void* out, void* partial, void* counters, int B,
+    int KV, int G, int D, int bs, int nb, int pool_kv, int head0,
+    int split_rows, int dtype, int pool_dtype, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* ks = static_cast<const float*>(k_scale);
   const float* vs = static_cast<const float*>(v_scale);
-#define FD_PAGED(T, P)                                                      \
-  return static_cast<int>(launch<T, P, true>(q, k_pool, v_pool, ks, vs,     \
-                                             block_tables, valid_len, out,  \
-                                             B, KV, G, D, bs, nb, 0,        \
-                                             pool_kv, head0, st))
+#define FD_PAGED(T, P)                                                       \
+  return static_cast<int>(launch<T, P, true>(                                \
+      q, k_pool, v_pool, ks, vs, block_tables, valid_len, out, partial,      \
+      counters, B, KV, G, D, bs, nb, 0, pool_kv, head0, split_rows, st))
   if (dtype == 0 && pool_dtype == 0) FD_PAGED(float, float);
   if (dtype == 0 && pool_dtype == 1) FD_PAGED(float, __nv_bfloat16);
   if (dtype == 0 && pool_dtype == 2) FD_PAGED(float, int8_t);
@@ -358,24 +545,26 @@ extern "C" int flash_decode_paged_launch(
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// The contiguous cache k/v (B, S, KV, D) in q's dtype (0 or 1), walked in
-// tiles of ``tile`` rows.
+// The contiguous cache k/v (B, S, KV, D) in q's dtype (0 or 1), in splits
+// of split_rows rows; partial and counters as for the paged launch with S
+// in place of nb * bs.
 extern "C" int flash_decode_launch(const void* q, const void* k,
                                    const void* v, const void* valid_len,
-                                   void* out, int B, int KV, int G, int D,
-                                   int S, int tile, int dtype, int device,
+                                   void* out, void* partial, void* counters,
+                                   int B, int KV, int G, int D, int S,
+                                   int split_rows, int dtype, int device,
                                    void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return static_cast<int>(launch<float, float, false>(
-        q, k, v, nullptr, nullptr, nullptr, valid_len, out, B, KV, G, D,
-        tile, 0, S, KV, 0, st));
+        q, k, v, nullptr, nullptr, nullptr, valid_len, out, partial,
+        counters, B, KV, G, D, 1, 0, S, KV, 0, split_rows, st));
   if (dtype == 1)
     return static_cast<int>(launch<__nv_bfloat16, __nv_bfloat16, false>(
-        q, k, v, nullptr, nullptr, nullptr, valid_len, out, B, KV, G, D,
-        tile, 0, S, KV, 0, st));
+        q, k, v, nullptr, nullptr, nullptr, valid_len, out, partial,
+        counters, B, KV, G, D, 1, 0, S, KV, 0, split_rows, st));
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -47,11 +47,14 @@
 // slot, read once, and the chunk's rows read once (in T) and written once
 // (in P, with 8 bytes of scales a row for int8), over 3.35 TB/s, or the
 // 4 * G * D * KV flops per (query row, causal key) pair at the tensor
-// cores' rate, whichever is larger.  This kernel does its arithmetic in
-// fp32 on the CUDA cores (67 TFLOP/s), with a warp reduction per score,
-// so at serving sizes it is bound by that arithmetic and its barriers.
+// cores' rate, whichever is larger: at the serve shapes (8 slots, chunks
+// of 64, qwen3-1.7b heads) 1.07 GFLOP, 1.1 us at the bf16 rate, 16 us at
+// the fp32 CUDA-core rate, against about 5 us of bytes.  A score taken
+// as one warp's dot product finished by a shuffle chain, a few keys
+// between block barriers, is latency, not arithmetic (about 250 times this
+// bound on the card), so the scores are products of register tiles.
 //
-// Design, simple first:
+// Design:
 //   * commit: one thread block per (chunk row, slot).  It converts the
 //     row's K and V elements to P, or, for int8, reduces |x| over the row
 //     to its amax first (one block reduction each for K and V) and then
@@ -61,21 +64,40 @@
 //     step commits its row through the same kernel, as a chunk of one
 //     (flash_commit_paged_launch), so decode and chunk rows are converted
 //     or quantized by one code path;
-//   * attend: one thread block per (KV head, slot, tile of bc chunk rows):
-//     the decode kernel (flash_decode_paged.cu) with bc * G query vectors
-//     and a per-row causal frontier.  The block loads the tile's queries
-//     (as fp32) and its table row into shared memory and walks only the
-//     logical blocks j < ceil((q_start + last row + 1) / bs), the TPU
-//     kernel's skip of tiles past the causal frontier (kernel.py:449);
-//   * one warp per K row computes that key's scores for every query
-//     vector of the tile; each V tile is staged once in shared memory as
-//     fp32 and read by all query vectors; int8 K and V are dequantized at
-//     load with the tile's scales, staged in shared memory beside it;
+//   * attend: one thread block per (KV head, slot, tile of `rows` chunk
+//     rows): rows * G <= 64 query vectors (64 rows at G = 1, 32 at G = 2,
+//     8 at G = 8).  It loads its table row into shared memory once and
+//     walks key tiles of kt rows (whole pool blocks: 64 rows, 4 blocks, at
+//     bs = 16) up to its causal frontier, the TPU kernel's skip of tiles
+//     past it (kernel.py:449).  K and V tiles are staged by cp.async in
+//     16-byte vectors, two stages, so tile j + 1 loads while tile j
+//     computes.  Rows past the block's frontier (and their scales) are
+//     never read: their cp.async zero-fills, and a key past a row's
+//     position is masked to -inf before the softmax, never after a
+//     multiply, so poisoned bytes there cannot reach the output;
+//   * bf16 q over bf16 pools (the serve path) runs both products on the
+//     tensor cores, as FlashAttention-2 does: each of 4 warps owns 16
+//     query vectors; S = Q K^T by mma.sync m16n8k16 (bf16 -> fp32, exact
+//     products) from ldmatrix'd fragments, the online softmax on the
+//     accumulators with one 2-step quad reduction a row and tile, and
+//     P (rounded to bf16) V by mma.sync with V's fragments from
+//     ldmatrix.trans.  mma.sync came first because it is what a simple,
+//     right kernel needs: synchronous, per warp, with a register layout
+//     that feeds S straight into P V.  wgmma (64-row warpgroup products)
+//     and TMA loads with mbarriers are this kernel's next step;
+//   * every other pair (f32 q, or int8 pools) holds decode_close, 1e-5,
+//     so it stays in fp32 on the CUDA cores as a register-tiled product:
+//     16 x 16 threads, each owning a 4 x 4 micro-tile of (query vector,
+//     key) scores and then 4 query vectors x D / 16 elements of the
+//     output, read from shared memory as float4.  There is no shuffle
+//     chain per score: one 4-step reduction a row and tile gives the
+//     running max.  bf16 and int8 tiles are widened to fp32 in shared
+//     memory once they land (int8 as code * the row's fp32 scale);
 //   * running max, sum and accumulator stay in fp32; the output is written
-//     in q's dtype;
-//   * head dims 16, 32, 64 and 128: below D = 32 a K row takes one element
-//     a lane and the lanes at or past D load nothing (predicated lanes).
-// Left for later: wgmma/TMA tiles, splitting long prefixes across blocks.
+//     in q's dtype; head dims 16, 32, 64 and 128.
+// The wrapper computes the dynamic shared memory from one Python function
+// (kernel.prefill_plan) and passes it; above 48 KB each instantiation
+// raises its limit once per device.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -86,17 +108,11 @@
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kWarps = kThreads / 32;
 constexpr int kCommitThreads = 128;
-constexpr float kNegInf = -1e30f;
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
   return __bfloat162float(x);
-}
-__device__ __forceinline__ float to_float(int8_t x) {
-  return static_cast<float>(x);
 }
 
 template <typename T>
@@ -108,23 +124,6 @@ __device__ __forceinline__ float from_float<float>(float x) {
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
-}
-
-// A pool element widened to fp32: code * scale for int8 pools (P = int8),
-// the element itself otherwise (scale unused).  It takes the loaded value,
-// not a pointer, so each load is made through the kernel's __restrict__
-// pointers, as read-only loads.
-template <typename P>
-__device__ __forceinline__ float dequant(P x, float scale) {
-  if constexpr (std::is_same_v<P, int8_t>)
-    return to_float(x) * scale;
-  else
-    return to_float(x);
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
 }
 
 __device__ __forceinline__ float warp_max(float v) {
@@ -214,170 +213,6 @@ __global__ void __launch_bounds__(kCommitThreads)
              v_amax != nullptr ? v_amax + bc : nullptr, red);
 }
 
-// Shared memory, in floats, for R = bc * G query vectors: q (R*D), acc
-// (R*D), the V tile (bs*D), p (R*bs), m, l, corr (R each), with int8 pools
-// the tile's K and V scales (bs each), then the block-table row (nb ints).
-// Grid (KV, B, ceil(C / bc)).
-template <typename T, typename P, int D>
-__global__ void __launch_bounds__(kThreads)
-    prefill_attend_kernel(const T* __restrict__ q,
-                          const P* __restrict__ k_pool,
-                          const P* __restrict__ v_pool,
-                          const float* __restrict__ k_scale,
-                          const float* __restrict__ v_scale,
-                          const int* __restrict__ block_tables,
-                          const int* __restrict__ q_start,
-                          const int* __restrict__ q_len,
-                          T* __restrict__ out, int C, int KV, int G, int bs,
-                          int nb, int bc) {
-  constexpr bool kQuant = std::is_same_v<P, int8_t>;
-  // elements of a K row per lane; below D = 32 the lanes >= D idle
-  constexpr int kPerLane = (D + 31) / 32;
-  const int h = blockIdx.x;
-  const int b = blockIdx.y;
-  const int row0 = blockIdx.z * bc;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-
-  const int rows_here = min(bc, C - row0);
-  const int n_rows = max(0, min(rows_here, min(q_len[b], C) - row0));
-  const int GD = G * D;
-  const size_t q_row_stride = static_cast<size_t>(KV) * GD;
-  const size_t tile_off = ((static_cast<size_t>(b) * C + row0) * KV + h) * GD;
-
-  // rows of this tile at or past q_len come out as zeros
-  T* o_tile = out + tile_off;
-  for (int i = tid; i < (rows_here - n_rows) * GD; i += kThreads) {
-    const int r = n_rows + i / GD;
-    o_tile[r * q_row_stride + i % GD] = from_float<T>(0.f);
-  }
-  if (n_rows == 0) return;  // uniform across the block
-
-  const int R = n_rows * G;
-  const int r_max = bc * G;
-  extern __shared__ float smem[];
-  float* q_s = smem;
-  float* acc = q_s + r_max * D;
-  float* v_s = acc + r_max * D;
-  float* p_s = v_s + bs * D;
-  float* m_s = p_s + r_max * bs;
-  float* l_s = m_s + r_max;
-  float* c_s = l_s + r_max;
-  float* ks_s = c_s + r_max;             // int8 pools only
-  float* vs_s = ks_s + (kQuant ? bs : 0);
-  int* table = reinterpret_cast<int*>(vs_s + (kQuant ? bs : 0));
-
-  // last key position each query vector v may see: start + row0 + v / G
-  const int first = q_start[b] + row0;
-  const int frontier = min(first + n_rows, nb * bs);
-  const int n_tiles = (frontier + bs - 1) / bs;
-  const float scale = rsqrtf(static_cast<float>(D));
-
-  const T* q_tile = q + tile_off;
-  for (int i = tid; i < R * D; i += kThreads) {
-    const int v = i / D;
-    const int r = v / G;
-    q_s[i] = to_float(q_tile[r * q_row_stride + (v - r * G) * D + i % D]);
-    acc[i] = 0.f;
-  }
-  for (int v = tid; v < R; v += kThreads) {
-    m_s[v] = kNegInf;
-    l_s[v] = 0.f;
-  }
-  for (int j = tid; j < n_tiles; j += kThreads)
-    table[j] = block_tables[static_cast<size_t>(b) * nb + j];
-  __syncthreads();
-
-  const size_t kv_row_stride = static_cast<size_t>(KV) * D;
-  for (int j = 0; j < n_tiles; ++j) {
-    const int rows = min(bs, frontier - j * bs);
-    const size_t blk_row = static_cast<size_t>(table[j]) * bs;
-    // element offset of row 0, head h, of this pool block
-    const size_t base = (blk_row * KV + h) * static_cast<size_t>(D);
-    if constexpr (kQuant) {  // the tile's scales, none past the frontier
-      for (int r = tid; r < rows; r += kThreads) {
-        ks_s[r] = k_scale[blk_row + r];
-        vs_s[r] = v_scale[blk_row + r];
-      }
-      __syncthreads();
-    }
-
-    for (int i = tid; i < rows * D; i += kThreads) {
-      const int r = i / D;
-      v_s[i] = dequant(v_pool[base + r * kv_row_stride + (i - r * D)],
-                       kQuant ? vs_s[r] : 1.f);
-    }
-
-    // scores: one warp per K row, every query vector of the tile
-    for (int r = warp; r < rows; r += kWarps) {
-      const P* k_row = k_pool + base + r * kv_row_stride;
-      const float ks = kQuant ? ks_s[r] : 1.f;
-      float kr[kPerLane];
-#pragma unroll
-      for (int e = 0; e < kPerLane; ++e)
-        kr[e] = (D >= 32 || lane < D) ? dequant(k_row[lane + 32 * e], ks)
-                                      : 0.f;
-      const int key = j * bs + r;
-      for (int v = 0; v < R; ++v) {
-        if (key > first + v / G) {  // past this row's causal frontier
-          if (lane == 0) p_s[v * bs + r] = kNegInf;
-          continue;
-        }
-        float s = 0.f;
-#pragma unroll
-        for (int e = 0; e < kPerLane; ++e)
-          if (D >= 32 || lane < D) s += q_s[v * D + lane + 32 * e] * kr[e];
-        s = warp_sum(s);
-        if (lane == 0) p_s[v * bs + r] = s * scale;
-      }
-    }
-    __syncthreads();
-
-    // online softmax: one warp per query vector.  Key 0 is visible to
-    // every row, so m is finite from the first tile on and a row whose
-    // keys in a later tile are all masked gets p = 0, corr = 1.
-    for (int v = warp; v < R; v += kWarps) {
-      float mx = kNegInf;
-      for (int r = lane; r < rows; r += 32) mx = fmaxf(mx, p_s[v * bs + r]);
-      mx = warp_max(mx);
-      const float m_old = m_s[v];
-      const float m_new = fmaxf(m_old, mx);
-      float sum = 0.f;
-      for (int r = lane; r < rows; r += 32) {
-        const float p = expf(p_s[v * bs + r] - m_new);
-        p_s[v * bs + r] = p;
-        sum += p;
-      }
-      sum = warp_sum(sum);
-      if (lane == 0) {
-        const float corr = expf(m_old - m_new);
-        c_s[v] = corr;
-        l_s[v] = l_s[v] * corr + sum;
-        m_s[v] = m_new;
-      }
-    }
-    __syncthreads();
-
-    // acc = acc * corr + p @ V: one thread per (query vector, element)
-    for (int i = tid; i < R * D; i += kThreads) {
-      const int v = i / D;
-      const int d = i - v * D;
-      float a = acc[i] * c_s[v];
-      for (int r = 0; r < rows; ++r) a += p_s[v * bs + r] * v_s[r * D + d];
-      acc[i] = a;
-    }
-    __syncthreads();
-  }
-
-  for (int i = tid; i < R * D; i += kThreads) {
-    const int v = i / D;
-    const int r = v / G;
-    o_tile[r * q_row_stride + (v - r * G) * D + i % D] =
-        from_float<T>(acc[i] / fmaxf(l_s[v], 1e-30f));
-  }
-}
-
 template <typename T, typename P>
 cudaError_t commit(const void* k_new, const void* v_new, void* k_pool,
                    void* v_pool, void* k_scale, void* v_scale,
@@ -400,51 +235,675 @@ cudaError_t commit(const void* k_new, const void* v_new, void* k_pool,
   return cudaGetLastError();
 }
 
+
+// -- the attention: tiles of query vectors against tiles of keys ------------
+
+// A block takes up to kVecs query vectors (rows * G of them) and walks key
+// tiles of up to kKeys rows, staged in shared memory in two stages.
+constexpr int kVecs = 64;
+constexpr int kKeys = 64;
+constexpr int kMmaThreads = 128;   // 4 warps, 16 query vectors each
+constexpr int kSimtThreads = 256;  // 16 x 16, a 4 x 4 micro-tile each
+constexpr int kMaxDevices = 64;
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// cp.async of 16 (or 4) bytes; when !live the source is not read and the
+// destination is zero-filled
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool live) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(live ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool live) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(live ? 4 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Rows n_rows .. rows_here - 1 of a tile (at or past q_len) are zeros.
+template <int kN, typename T>
+__device__ __forceinline__ void zero_rows(T* o_tile, int n_rows,
+                                          int rows_here, int GD,
+                                          size_t q_stride) {
+  for (int i = threadIdx.x; i < (rows_here - n_rows) * GD; i += kN) {
+    const int r = n_rows + i / GD;
+    o_tile[r * q_stride + i % GD] = from_float<T>(0.f);
+  }
+}
+
+// K and V rows j * kt .. j * kt + kt - 1 of the slot, those below
+// frontier, into rows 0 .. kt - 1 of a stage (rows of D * sizeof(P) + 16
+// bytes), and for int8 their scales; every other row of the stage is
+// zero-filled, its source never read.
+template <typename P, int D, int kN>
+__device__ __forceinline__ void stage_tile(
+    unsigned char* kd, unsigned char* vd, float* skd, float* svd,
+    const P* __restrict__ k_pool, const P* __restrict__ v_pool,
+    const float* __restrict__ k_scale, const float* __restrict__ v_scale,
+    const int* table, int j, int kt, int frontier, int bs, size_t kv_row,
+    size_t head) {
+  constexpr int kRow = D * sizeof(P) + 16;
+  constexpr int kChunks = D * sizeof(P) / 16;
+  for (int i = threadIdx.x; i < kKeys * kChunks; i += kN) {
+    const int r = i / kChunks;
+    const int c = i - r * kChunks;
+    const int t = j * kt + r;
+    const bool live = r < kt && t < frontier;
+    size_t off = 0;
+    if (live)
+      off = (static_cast<size_t>(table[t / bs]) * bs + t % bs) * kv_row +
+            head;
+    cp_async16(kd + r * kRow + c * 16,
+               reinterpret_cast<const unsigned char*>(k_pool + off) + c * 16,
+               live);
+    cp_async16(vd + r * kRow + c * 16,
+               reinterpret_cast<const unsigned char*>(v_pool + off) + c * 16,
+               live);
+  }
+  if constexpr (std::is_same_v<P, int8_t>) {
+    for (int r = threadIdx.x; r < kKeys; r += kN) {
+      const int t = j * kt + r;
+      const bool live = r < kt && t < frontier;
+      const size_t row =
+          live ? static_cast<size_t>(table[t / bs]) * bs + t % bs : 0;
+      cp_async4(skd + r, k_scale + row, live);
+      cp_async4(svd + r, v_scale + row, live);
+    }
+  }
+}
+
+// -- the tensor-core route: bf16 q over bf16 pools --------------------------
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r,
+                                                  uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+// c += a (16 x 16, row-major) * b (16 x 8, column-major), bf16 -> fp32
+__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+// two floats rounded to bf16, lo in the low half
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// Shared memory (bytes; a staged row is 2 * D + 16 bytes, the 16 putting
+// ldmatrix's 8 rows on distinct banks): q (kVecs rows), then K and V of
+// stage 0, K and V of stage 1 (kKeys rows each), then the table row (nb
+// ints).  Grid (KV, B, ceil(C / rows)); thread (warp w, lane) holds the
+// scores and outputs of query vectors 16 w + lane / 4 and that + 8.
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads)
+    prefill_attend_mma(const __nv_bfloat16* __restrict__ q,
+                       const __nv_bfloat16* __restrict__ k_pool,
+                       const __nv_bfloat16* __restrict__ v_pool,
+                       const int* __restrict__ block_tables,
+                       const int* __restrict__ q_start,
+                       const int* __restrict__ q_len,
+                       __nv_bfloat16* __restrict__ out, int C, int KV, int G,
+                       int bs, int nb, int rows, int kt) {
+  using bf16 = __nv_bfloat16;
+  constexpr int kRow = 2 * D + 16;
+  constexpr int kSteps = D / 16;  // k-steps of Q K^T
+  constexpr int kOut = D / 8;     // n-tiles of the output
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int row0 = blockIdx.z * rows;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int GD = G * D;
+  const int rows_here = min(rows, C - row0);
+  const int n_rows = max(0, min(rows_here, min(q_len[b], C) - row0));
+  const size_t q_stride = static_cast<size_t>(KV) * GD;
+  const size_t tile = ((static_cast<size_t>(b) * C + row0) * KV + h) * GD;
+  bf16* o_tile = out + tile;
+  zero_rows<kMmaThreads>(o_tile, n_rows, rows_here, GD, q_stride);
+  if (n_rows == 0) return;  // uniform across the block
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  unsigned char* qs = smem;
+  unsigned char* stages = qs + kVecs * kRow;
+  int* table = reinterpret_cast<int*>(stages + 4 * kKeys * kRow);
+
+  // the tile's first row sits at `first`; keys below `frontier` are read
+  const int first = q_start[b] + row0;
+  const int frontier = min(first + n_rows, nb * bs);
+  const int n_tiles = (frontier + kt - 1) / kt;
+  for (int j = threadIdx.x; j < (frontier + bs - 1) / bs; j += kMmaThreads)
+    table[j] = block_tables[static_cast<size_t>(b) * nb + j];
+  __syncthreads();
+
+  const int nv = n_rows * G;  // live query vectors
+  for (int i = threadIdx.x; i < kVecs * (D / 8); i += kMmaThreads) {
+    const int v = i / (D / 8);
+    const int c = i - v * (D / 8);
+    const int r = v / G;
+    const bool live = v < nv;
+    const bf16* src = live ? q + tile + r * q_stride + (v - r * G) * D + c * 8
+                           : q;
+    cp_async16(qs + v * kRow + c * 16, src, live);
+  }
+  const size_t kv_row = static_cast<size_t>(KV) * D;
+  const size_t head = static_cast<size_t>(h) * D;
+  stage_tile<bf16, D, kMmaThreads>(stages, stages + kKeys * kRow, nullptr,
+                                   nullptr, k_pool, v_pool, nullptr, nullptr,
+                                   table, 0, kt, frontier, bs, kv_row, head);
+  cp_async_commit();
+
+  const int v_lo = warp * 16 + (lane >> 2);
+  const int v_hi = v_lo + 8;
+  const int pos_lo = first + v_lo / G;
+  const int pos_hi = first + v_hi / G;
+  const int mtx = lane >> 3;  // the 8 x 8 matrix this lane addresses
+  const float scale = rsqrtf(static_cast<float>(D)) * 1.4426950408889634f;
+  float o[kOut][4];
+#pragma unroll
+  for (int t = 0; t < kOut; ++t) o[t][0] = o[t][1] = o[t][2] = o[t][3] = 0.f;
+  float m_lo = -INFINITY, m_hi = -INFINITY, l_lo = 0.f, l_hi = 0.f;
+  uint32_t qf[kSteps][4];
+
+  for (int j = 0; j < n_tiles; ++j) {
+    if (j + 1 < n_tiles) {
+      unsigned char* next = stages + ((j + 1) & 1) * 2 * kKeys * kRow;
+      stage_tile<bf16, D, kMmaThreads>(
+          next, next + kKeys * kRow, nullptr, nullptr, k_pool, v_pool,
+          nullptr, nullptr, table, j + 1, kt, frontier, bs, kv_row, head);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (j == 0) {
+#pragma unroll
+      for (int s = 0; s < kSteps; ++s)
+        ldmatrix_x4(qf[s], smem_addr(qs + (warp * 16 + (lane & 15)) * kRow +
+                                     (s * 16 + (lane >> 4) * 8) * 2));
+    }
+    const unsigned char* kd = stages + (j & 1) * 2 * kKeys * kRow;
+    const unsigned char* vd = kd + kKeys * kRow;
+
+    // S = Q K^T, 16 query vectors x 64 keys a warp, in the log2 domain
+    float s[8][4];
+#pragma unroll
+    for (int t = 0; t < 8; ++t) s[t][0] = s[t][1] = s[t][2] = s[t][3] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < kSteps; ++ks) {
+#pragma unroll
+      for (int np = 0; np < 4; ++np) {
+        uint32_t bk[4];
+        ldmatrix_x4(bk, smem_addr(kd + (np * 16 + (mtx >> 1) * 8 +
+                                        (lane & 7)) * kRow +
+                                  (ks * 16 + (mtx & 1) * 8) * 2));
+        mma_bf16(s[2 * np], qf[ks], bk[0], bk[1]);
+        mma_bf16(s[2 * np + 1], qf[ks], bk[2], bk[3]);
+      }
+    }
+    // keys past a row's position, and the tile's padding past kt, are
+    // masked; only a tile that reaches past the first row's position or is
+    // padded has any
+    const bool masked = (j + 1) * kt - 1 > first || kt < kKeys;
+    float mx_lo = -INFINITY, mx_hi = -INFINITY;
+#pragma unroll
+    for (int t = 0; t < 8; ++t) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        float x = s[t][c] * scale;
+        if (masked) {
+          const int kl = t * 8 + 2 * (lane & 3) + (c & 1);
+          if (kl >= kt || j * kt + kl > (c < 2 ? pos_lo : pos_hi))
+            x = -INFINITY;
+        }
+        s[t][c] = x;
+        if (c < 2)
+          mx_lo = fmaxf(mx_lo, x);
+        else
+          mx_hi = fmaxf(mx_hi, x);
+      }
+    }
+#pragma unroll
+    for (int d = 1; d <= 2; d <<= 1) {
+      mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, d));
+      mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, d));
+    }
+    const float mn_lo = fmaxf(m_lo, mx_lo);
+    const float mn_hi = fmaxf(m_hi, mx_hi);
+    const float base_lo = mn_lo == -INFINITY ? 0.f : mn_lo;
+    const float base_hi = mn_hi == -INFINITY ? 0.f : mn_hi;
+    const float c_lo = exp2f(m_lo - base_lo);
+    const float c_hi = exp2f(m_hi - base_hi);
+    m_lo = mn_lo;
+    m_hi = mn_hi;
+    l_lo *= c_lo;
+    l_hi *= c_hi;
+#pragma unroll
+    for (int t = 0; t < kOut; ++t) {
+      o[t][0] *= c_lo;
+      o[t][1] *= c_lo;
+      o[t][2] *= c_hi;
+      o[t][3] *= c_hi;
+    }
+#pragma unroll
+    for (int t = 0; t < 8; ++t) {
+      s[t][0] = exp2f(s[t][0] - base_lo);
+      s[t][1] = exp2f(s[t][1] - base_lo);
+      s[t][2] = exp2f(s[t][2] - base_hi);
+      s[t][3] = exp2f(s[t][3] - base_hi);
+      l_lo += s[t][0] + s[t][1];
+      l_hi += s[t][2] + s[t][3];
+    }
+
+    // O += P V: S's accumulators are P's A fragments, V's from
+    // ldmatrix.trans
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint32_t a[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+                             pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+                             pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                             pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+#pragma unroll
+      for (int dp = 0; dp < D / 16; ++dp) {
+        uint32_t bv[4];
+        ldmatrix_x4_trans(bv, smem_addr(vd + (kk * 16 + (mtx & 1) * 8 +
+                                              (lane & 7)) * kRow +
+                                        (dp * 16 + (mtx >> 1) * 8) * 2));
+        mma_bf16(o[2 * dp], a, bv[0], bv[1]);
+        mma_bf16(o[2 * dp + 1], a, bv[2], bv[3]);
+      }
+    }
+    __syncthreads();  // the stage is refilled two tiles on
+  }
+
+#pragma unroll
+  for (int d = 1; d <= 2; d <<= 1) {
+    l_lo += __shfl_xor_sync(0xffffffffu, l_lo, d);
+    l_hi += __shfl_xor_sync(0xffffffffu, l_hi, d);
+  }
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int v = half ? v_hi : v_lo;
+    if (v >= nv) continue;
+    const float inv = 1.f / fmaxf(half ? l_hi : l_lo, 1e-30f);
+    const int r = v / G;
+    bf16* dst = o_tile + r * q_stride + (v - r * G) * D + 2 * (lane & 3);
+#pragma unroll
+    for (int t = 0; t < kOut; ++t)
+      *reinterpret_cast<__nv_bfloat162*>(dst + t * 8) = __floats2bfloat162_rn(
+          o[t][2 * half] * inv, o[t][2 * half + 1] * inv);
+  }
+}
+
+// -- the fp32 route: f32 q, or int8 pools -----------------------------------
+
+// Four staged pool elements at raw widened to fp32: code * scale for int8,
+// the element itself for bf16.
+template <typename P>
+__device__ __forceinline__ float4 widen4(const unsigned char* raw,
+                                         float scale) {
+  if constexpr (std::is_same_v<P, int8_t>) {
+    const char4 c = *reinterpret_cast<const char4*>(raw);
+    return make_float4(static_cast<float>(c.x) * scale,
+                       static_cast<float>(c.y) * scale,
+                       static_cast<float>(c.z) * scale,
+                       static_cast<float>(c.w) * scale);
+  } else {
+    const uint2 w = *reinterpret_cast<const uint2*>(raw);
+    return make_float4(__uint_as_float(w.x << 16),
+                       __uint_as_float(w.x & 0xffff0000u),
+                       __uint_as_float(w.y << 16),
+                       __uint_as_float(w.y & 0xffff0000u));
+  }
+}
+
+// Shared memory (bytes): q in fp32 (kVecs rows of D + 4 floats), p
+// (kVecs rows of kKeys + 4 floats), for bf16 and int8 pools the widened K
+// and V tiles (kKeys rows of D + 4 floats each), the raw stages K0, V0,
+// K1, V1 (kKeys rows of D * sizeof(P) + 16 bytes each; f32 pools are
+// read there directly), for int8 the stages' scales (4 x kKeys floats),
+// then the table row (nb ints).  Grid (KV, B, ceil(C / rows)); thread
+// (ty, tx) of 16 x 16 owns query vectors 4 ty .. 4 ty + 3, keys tx + 16 j
+// (j < 4) of a tile, and output elements (tx + 16 c) * kVec + e.
+template <typename T, typename P, int D>
+__global__ void __launch_bounds__(kSimtThreads, 1)
+    prefill_attend_simt(const T* __restrict__ q, const P* __restrict__ k_pool,
+                        const P* __restrict__ v_pool,
+                        const float* __restrict__ k_scale,
+                        const float* __restrict__ v_scale,
+                        const int* __restrict__ block_tables,
+                        const int* __restrict__ q_start,
+                        const int* __restrict__ q_len, T* __restrict__ out,
+                        int C, int KV, int G, int bs, int nb, int rows,
+                        int kt) {
+  constexpr bool kQuant = std::is_same_v<P, int8_t>;
+  constexpr bool kWiden = !std::is_same_v<P, float>;
+  constexpr int kF = D + 4;        // floats a staged fp32 row
+  constexpr int kP = kKeys + 4;    // floats a row of p
+  constexpr int kRow = D * sizeof(P) + 16;
+  constexpr int kOut = D / 16;     // output elements a thread, each vector
+  constexpr int kVec = kOut < 4 ? kOut : 4;
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int row0 = blockIdx.z * rows;
+  const int tx = threadIdx.x & 15;
+  const int ty = threadIdx.x >> 4;
+  const int GD = G * D;
+  const int rows_here = min(rows, C - row0);
+  const int n_rows = max(0, min(rows_here, min(q_len[b], C) - row0));
+  const size_t q_stride = static_cast<size_t>(KV) * GD;
+  const size_t tile = ((static_cast<size_t>(b) * C + row0) * KV + h) * GD;
+  T* o_tile = out + tile;
+  zero_rows<kSimtThreads>(o_tile, n_rows, rows_here, GD, q_stride);
+  if (n_rows == 0) return;  // uniform across the block
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* qf = reinterpret_cast<float*>(smem);
+  float* ps = qf + kVecs * kF;
+  float* kf = ps + kVecs * kP;
+  float* vf = kf + (kWiden ? kKeys * kF : 0);
+  unsigned char* stages =
+      reinterpret_cast<unsigned char*>(vf + (kWiden ? kKeys * kF : 0));
+  float* sc = reinterpret_cast<float*>(stages + 4 * kKeys * kRow);
+  int* table = reinterpret_cast<int*>(sc + (kQuant ? 4 * kKeys : 0));
+
+  const int first = q_start[b] + row0;
+  const int frontier = min(first + n_rows, nb * bs);
+  const int n_tiles = (frontier + kt - 1) / kt;
+  for (int j = threadIdx.x; j < (frontier + bs - 1) / bs; j += kSimtThreads)
+    table[j] = block_tables[static_cast<size_t>(b) * nb + j];
+  const int nv = n_rows * G;
+  for (int i = threadIdx.x; i < kVecs * D; i += kSimtThreads) {
+    const int v = i / D;
+    const int d = i - v * D;
+    const int r = v / G;
+    qf[v * kF + d] =
+        v < nv ? to_float(q[tile + r * q_stride + (v - r * G) * D + d]) : 0.f;
+  }
+  __syncthreads();
+
+  const size_t kv_row = static_cast<size_t>(KV) * D;
+  const size_t head = static_cast<size_t>(h) * D;
+  stage_tile<P, D, kSimtThreads>(stages, stages + kKeys * kRow, sc,
+                                 sc + kKeys, k_pool, v_pool, k_scale,
+                                 v_scale, table, 0, kt, frontier, bs, kv_row,
+                                 head);
+  cp_async_commit();
+
+  int pos[4];
+  float m[4], l[4], acc[4][kOut];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    pos[i] = first + (ty * 4 + i) / G;
+    m[i] = -INFINITY;
+    l[i] = 0.f;
+#pragma unroll
+    for (int e = 0; e < kOut; ++e) acc[i][e] = 0.f;
+  }
+  const float scale = rsqrtf(static_cast<float>(D));
+
+  for (int j = 0; j < n_tiles; ++j) {
+    if (j + 1 < n_tiles) {
+      const int st = (j + 1) & 1;
+      unsigned char* next = stages + st * 2 * kKeys * kRow;
+      stage_tile<P, D, kSimtThreads>(
+          next, next + kKeys * kRow, sc + st * 2 * kKeys,
+          sc + st * 2 * kKeys + kKeys, k_pool, v_pool, k_scale, v_scale,
+          table, j + 1, kt, frontier, bs, kv_row, head);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const unsigned char* kr = stages + (j & 1) * 2 * kKeys * kRow;
+    const unsigned char* vr = kr + kKeys * kRow;
+    const float* kt_f = reinterpret_cast<const float*>(kr);
+    const float* vt_f = reinterpret_cast<const float*>(vr);
+    if constexpr (kWiden) {  // the tile widened to fp32 once it has landed
+      const float* sk = sc + (j & 1) * 2 * kKeys;
+      const float* sv = sk + kKeys;
+      for (int i = threadIdx.x; i < kKeys * (D / 4); i += kSimtThreads) {
+        const int r = i / (D / 4);
+        const int c = i - r * (D / 4);
+        const int at = r * kRow + c * 4 * static_cast<int>(sizeof(P));
+        *reinterpret_cast<float4*>(kf + r * kF + c * 4) =
+            widen4<P>(kr + at, kQuant ? sk[r] : 1.f);
+        *reinterpret_cast<float4*>(vf + r * kF + c * 4) =
+            widen4<P>(vr + at, kQuant ? sv[r] : 1.f);
+      }
+      __syncthreads();
+      kt_f = kf;
+      vt_f = vf;
+    }
+
+    // S: this thread's 4 x 4 scores
+    float s[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) s[i][0] = s[i][1] = s[i][2] = s[i][3] = 0.f;
+#pragma unroll 4
+    for (int d = 0; d < D; d += 4) {
+      float4 a[4], k4[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        a[i] = *reinterpret_cast<const float4*>(qf + (ty * 4 + i) * kF + d);
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj)
+        k4[jj] =
+            *reinterpret_cast<const float4*>(kt_f + (tx + 16 * jj) * kF + d);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          float x = s[i][jj];
+          x = fmaf(a[i].x, k4[jj].x, x);
+          x = fmaf(a[i].y, k4[jj].y, x);
+          x = fmaf(a[i].z, k4[jj].z, x);
+          x = fmaf(a[i].w, k4[jj].w, x);
+          s[i][jj] = x;
+        }
+    }
+
+    // online softmax: one 4-step reduction a row for its running max; the
+    // sum stays per thread until the end
+    const bool masked = (j + 1) * kt - 1 > first || kt < kKeys;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        float x = s[i][jj] * scale;
+        const int kl = tx + 16 * jj;
+        if (masked && (kl >= kt || j * kt + kl > pos[i])) x = -INFINITY;
+        s[i][jj] = x;
+        mx = fmaxf(mx, x);
+      }
+#pragma unroll
+      for (int d = 1; d < 16; d <<= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, d));
+      const float mn = fmaxf(m[i], mx);
+      const float base = mn == -INFINITY ? 0.f : mn;
+      const float corr = expf(m[i] - base);
+      m[i] = mn;
+      l[i] *= corr;
+#pragma unroll
+      for (int e = 0; e < kOut; ++e) acc[i][e] *= corr;
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        const float p = expf(s[i][jj] - base);
+        l[i] += p;
+        ps[(ty * 4 + i) * kP + tx + 16 * jj] = p;
+      }
+    }
+    __syncthreads();
+
+    // O += P V
+#pragma unroll 2
+    for (int n = 0; n < kKeys; n += 4) {
+      float4 p4[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        p4[i] = *reinterpret_cast<const float4*>(ps + (ty * 4 + i) * kP + n);
+#pragma unroll
+      for (int nn = 0; nn < 4; ++nn) {
+        const float* vrow = vt_f + (n + nn) * kF;
+        float vv[kOut];
+#pragma unroll
+        for (int c = 0; c < kOut / kVec; ++c) {
+          const float* src = vrow + (tx + 16 * c) * kVec;
+          if constexpr (kVec == 4) {
+            const float4 x = *reinterpret_cast<const float4*>(src);
+            vv[4 * c] = x.x;
+            vv[4 * c + 1] = x.y;
+            vv[4 * c + 2] = x.z;
+            vv[4 * c + 3] = x.w;
+          } else {
+#pragma unroll
+            for (int e = 0; e < kVec; ++e) vv[c * kVec + e] = src[e];
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float p = nn == 0   ? p4[i].x
+                          : nn == 1 ? p4[i].y
+                          : nn == 2 ? p4[i].z
+                                    : p4[i].w;
+#pragma unroll
+          for (int e = 0; e < kOut; ++e) acc[i][e] = fmaf(p, vv[e], acc[i][e]);
+        }
+      }
+    }
+    __syncthreads();  // p, the widened tiles and the stage are reused
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    float sum = l[i];
+#pragma unroll
+    for (int d = 1; d < 16; d <<= 1)
+      sum += __shfl_xor_sync(0xffffffffu, sum, d);
+    const int v = ty * 4 + i;
+    if (v >= nv) continue;
+    const float inv = 1.f / fmaxf(sum, 1e-30f);
+    const int r = v / G;
+    T* dst = o_tile + r * q_stride + (v - r * G) * D;
+#pragma unroll
+    for (int c = 0; c < kOut / kVec; ++c)
+#pragma unroll
+      for (int e = 0; e < kVec; ++e)
+        dst[(tx + 16 * c) * kVec + e] =
+            from_float<T>(acc[i][c * kVec + e] * inv);
+  }
+}
+
+// The attention's launch for one (T, P, D): the tensor-core route for
+// bf16 q over bf16 pools, the fp32 route for every other pair.  Above
+// 48 KB of dynamic shared memory a kernel needs its limit raised, once
+// for each instantiation and device.
+template <typename T, typename P, int D>
+cudaError_t attend(const dim3 grid, size_t smem, cudaStream_t stream,
+                   int device, const void* q, const void* k_pool,
+                   const void* v_pool, const float* k_scale,
+                   const float* v_scale, const int* block_tables,
+                   const int* q_start, const int* q_len, void* out, int C,
+                   int KV, int G, int bs, int nb, int rows, int kt) {
+  constexpr bool kMma = std::is_same_v<T, __nv_bfloat16> &&
+                        std::is_same_v<P, __nv_bfloat16>;
+  const void* fn;
+  if constexpr (kMma)
+    fn = reinterpret_cast<const void*>(prefill_attend_mma<D>);
+  else
+    fn = reinterpret_cast<const void*>(prefill_attend_simt<T, P, D>);
+  static bool raised[kMaxDevices] = {};
+  if (device < 0 || device >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (!raised[device]) {
+    int optin = 0;
+    cudaError_t err = cudaDeviceGetAttribute(
+        &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(
+          fn, cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
+    if (err != cudaSuccess) return err;
+    raised[device] = true;
+  }
+  if constexpr (kMma)
+    prefill_attend_mma<D><<<grid, kMmaThreads, smem, stream>>>(
+        static_cast<const __nv_bfloat16*>(q),
+        static_cast<const __nv_bfloat16*>(k_pool),
+        static_cast<const __nv_bfloat16*>(v_pool), block_tables, q_start,
+        q_len, static_cast<__nv_bfloat16*>(out), C, KV, G, bs, nb, rows, kt);
+  else
+    prefill_attend_simt<T, P, D><<<grid, kSimtThreads, smem, stream>>>(
+        static_cast<const T*>(q), static_cast<const P*>(k_pool),
+        static_cast<const P*>(v_pool), k_scale, v_scale, block_tables,
+        q_start, q_len, static_cast<T*>(out), C, KV, G, bs, nb, rows, kt);
+  return cudaGetLastError();
+}
+
 template <typename T, typename P>
 cudaError_t launch(const void* q, const void* k_new, const void* v_new,
                    void* k_pool, void* v_pool, void* k_scale, void* v_scale,
                    const void* k_amax, const void* v_amax,
                    const void* block_tables, const void* q_start,
                    const void* q_len, void* out, int B, int C, int KV, int G,
-                   int D, int bs, int nb, int bc, int smem,
-                   cudaStream_t stream) {
-  if (bc < 1 || smem < 1) return cudaErrorInvalidValue;
+                   int D, int bs, int nb, int rows, int kt, int smem,
+                   int device, cudaStream_t stream) {
+  if (rows < 1 || rows * G > kVecs || kt < 1 || kt > kKeys || smem < 1)
+    return cudaErrorInvalidValue;
   cudaError_t err = commit<T, P>(k_new, v_new, k_pool, v_pool, k_scale,
                                  v_scale, k_amax, v_amax, block_tables,
                                  q_start, q_len, B, C, KV, D, bs, nb, stream);
   if (err != cudaSuccess) return err;
 
-  const dim3 grid(KV, B, (C + bc - 1) / bc);
-  const T* qt = static_cast<const T*>(q);
-  const P* kt = static_cast<const P*>(k_pool);
-  const P* vt = static_cast<const P*>(v_pool);
-  const float* ks = static_cast<const float*>(k_scale);
-  const float* vs = static_cast<const float*>(v_scale);
-  const int* bt = static_cast<const int*>(block_tables);
-  const int* qs = static_cast<const int*>(q_start);
-  const int* ql = static_cast<const int*>(q_len);
-  T* ot = static_cast<T*>(out);
+  const dim3 grid(KV, B, (C + rows - 1) / rows);
+#define FP_ATTEND(DD)                                                       \
+  return attend<T, P, DD>(                                                  \
+      grid, smem, stream, device, q, k_pool, v_pool,                        \
+      static_cast<const float*>(k_scale), static_cast<const float*>(v_scale), \
+      static_cast<const int*>(block_tables),                                \
+      static_cast<const int*>(q_start), static_cast<const int*>(q_len), out, \
+      C, KV, G, bs, nb, rows, kt)
   switch (D) {
     case 16:
-      prefill_attend_kernel<T, P, 16><<<grid, kThreads, smem, stream>>>(
-          qt, kt, vt, ks, vs, bt, qs, ql, ot, C, KV, G, bs, nb, bc);
-      break;
+      FP_ATTEND(16);
     case 32:
-      prefill_attend_kernel<T, P, 32><<<grid, kThreads, smem, stream>>>(
-          qt, kt, vt, ks, vs, bt, qs, ql, ot, C, KV, G, bs, nb, bc);
-      break;
+      FP_ATTEND(32);
     case 64:
-      prefill_attend_kernel<T, P, 64><<<grid, kThreads, smem, stream>>>(
-          qt, kt, vt, ks, vs, bt, qs, ql, ot, C, KV, G, bs, nb, bc);
-      break;
+      FP_ATTEND(64);
     case 128:
-      prefill_attend_kernel<T, P, 128><<<grid, kThreads, smem, stream>>>(
-          qt, kt, vt, ks, vs, bt, qs, ql, ot, C, KV, G, bs, nb, bc);
-      break;
+      FP_ATTEND(128);
     default:
       return cudaErrorInvalidValue;
   }
-  return cudaGetLastError();
+#undef FP_ATTEND
 }
 
 }  // namespace
@@ -467,18 +926,18 @@ cudaError_t launch(const void* q, const void* k_new, const void* v_new,
 
 // Launches the commit, then the attention, on ``stream``.  k_scale and
 // v_scale are NULL unless the pools are int8; k_amax and v_amax (B, C) are
-// NULL unless the caller gives each row's amax for int8 pools.  smem: the
-// attention block's dynamic shared memory in bytes for this bc, G, D, bs,
-// nb and pool dtype, as laid out above prefill_attend_kernel (the caller
-// computes it:
-// prefill_smem_bytes in kernel.py).  Returns the first cudaGetLastError()
-// that is not 0 (0 when both launches were accepted); never synchronises.
+// NULL unless the caller gives each row's amax for int8 pools.  rows (chunk
+// rows a block, rows * G <= 64), kt (key rows a tile, <= 64) and smem (the
+// attention block's dynamic shared memory in bytes, as laid out above its
+// kernel) come from the caller's plan (kernel.prefill_plan).  Returns the
+// first cudaGetLastError() that is not 0 (0 when both launches were
+// accepted); never synchronises.
 extern "C" int flash_prefill_paged_launch(
     const void* q, const void* k_new, const void* v_new, void* k_pool,
     void* v_pool, void* k_scale, void* v_scale, const void* k_amax,
-    const void* v_amax, const void* block_tables,
-    const void* q_start, const void* q_len, void* out, int B, int C, int KV,
-    int G, int D, int bs, int nb, int bc, int smem, int dtype, int pool_dtype,
+    const void* v_amax, const void* block_tables, const void* q_start,
+    const void* q_len, void* out, int B, int C, int KV, int G, int D, int bs,
+    int nb, int rows, int kt, int smem, int dtype, int pool_dtype,
     int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -486,7 +945,7 @@ extern "C" int flash_prefill_paged_launch(
 #define FP_LAUNCH(T, P)                                                    \
   launch<T, P>(q, k_new, v_new, k_pool, v_pool, k_scale, v_scale, k_amax,  \
                v_amax, block_tables, q_start, q_len, out, B, C, KV, G, D,  \
-               bs, nb, bc, smem, s)
+               bs, nb, rows, kt, smem, device, s)
   FP_DISPATCH(FP_LAUNCH);
 #undef FP_LAUNCH
 }

@@ -20,14 +20,19 @@ heads (``k_amax``/``v_amax``) from a caller whose pools hold only some of
 them.  :func:`flash_decode` and
 :func:`flash_prefill` take the reference's argument lists and check its
 tile arguments (``block_s``, ``block_c``) as it does; the CUDA kernels'
-tiles are their own.  ``*_plain`` are the same functions, with the same
-checks, in plain PyTorch on any device.
+tiles are their own, planned on the host from the shapes alone:
+:func:`decode_plan` splits each slot's rows across blocks (the split
+partials live in scratch kept per device and stream), and
+:func:`prefill_plan` sizes the attention's tiles and shared memory.
+``*_plain`` are the same functions, with the same checks, in plain
+PyTorch on any device.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Dict
+import functools
+from typing import Dict, NamedTuple
 
 import torch
 
@@ -44,23 +49,27 @@ POOL_PAIRS = ((torch.float32, torch.float32), (torch.float32, torch.bfloat16),
               (torch.bfloat16, torch.int8))
 #: head dims the kernels are instantiated for
 HEAD_DIMS = (16, 32, 64, 128)
-#: dynamic shared memory a block may use without an opt-in attribute
-_SMEM_LIMIT = 48 * 1024
-#: chunk rows per thread block of the prefill attention, at most
-PREFILL_ROWS = 16
-#: cache rows per tile of the contiguous decode kernel
+#: shared memory a block of an H100 may use, with the opt-in attribute
+SMEM_LIMIT = 232448
+#: rows of the contiguous cache a decode split is made of whole multiples of
 DECODE_TILE = 64
+#: rows a decode split walks, rounded down to whole pool blocks (or tiles)
+DECODE_SPLIT = 256
+#: query vectors (chunk rows x G) a prefill attention block takes, at most
+PREFILL_VECTORS = 64
+#: key rows a prefill attention tile stages, at most
+PREFILL_KEYS = 64
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 #: (library, C function) -> argument types
 _ARGTYPES: Dict[tuple, list] = {
     ("flash_decode_paged", "flash_decode_paged_launch"):
-        [_P] * 8 + [_I] * 11 + [_P],
+        [_P] * 10 + [_I] * 12 + [_P],
     ("flash_decode_paged", "flash_decode_launch"):
-        [_P] * 5 + [_I] * 8 + [_P],
+        [_P] * 7 + [_I] * 8 + [_P],
     ("flash_prefill_paged", "flash_prefill_paged_launch"):
-        [_P] * 13 + [_I] * 12 + [_P],
+        [_P] * 13 + [_I] * 13 + [_P],
     ("flash_prefill_paged", "flash_commit_paged_launch"):
         [_P] * 11 + [_I] * 9 + [_P],
 }
@@ -80,38 +89,121 @@ def _check_head_dim(D: int) -> None:
         raise ValueError(f"head dim {D} not in the kernel's {HEAD_DIMS}")
 
 
-def _decode_smem_bytes(G: int, D: int, rows: int, table: int,
-                       quantized: bool = False) -> int:
-    """Dynamic shared memory of one decode block: q and acc (G*D each),
-    the scores of a tile (G*rows) and m, l, corr (G each) in fp32, the
-    tile's K and V scales (rows each) when ``quantized``, and ``table``
-    block-table entries, as ``flash_decode_kernel`` lays them out; raises
-    above the limit without an opt-in."""
-    smem = (4 * (2 * G * D + G * rows + 3 * G + (2 * rows if quantized
-                                                  else 0)) + 4 * table)
-    if smem > _SMEM_LIMIT:
-        raise ValueError(f"G={G}, D={D}, tile rows={rows}, table={table} "
-                         f"need {smem} bytes of shared memory, over "
-                         f"{_SMEM_LIMIT}")
-    return smem
+class DecodePlan(NamedTuple):
+    """How a decode launch splits each slot's rows: ``splits`` splits of
+    ``split_rows`` rows (the last one short), and the scratch the merge
+    needs when there is more than one: ``scratch_floats`` partials and
+    ``counters`` ints."""
+
+    split_rows: int
+    splits: int
+    scratch_floats: int
+    counters: int
+
+
+def decode_split_rows(unit: int) -> int:
+    """Rows a decode split walks: the largest multiple of ``unit`` (the
+    pool's block size, or :data:`DECODE_TILE` for the contiguous cache)
+    not above :data:`DECODE_SPLIT`, and at least one ``unit``."""
+    return unit * max(1, DECODE_SPLIT // unit)
+
+
+@functools.lru_cache(maxsize=256)
+def decode_plan(rows: int, unit: int, B: int, KV: int, G: int,
+                D: int) -> DecodePlan:
+    """The decode kernel's split of ``rows`` rows a slot (``nb * bs``
+    paged, ``S`` contiguous) into splits of :func:`decode_split_rows` of
+    ``unit``, from the shapes alone: the split boundaries depend on
+    ``rows`` and ``unit`` only, never on KV, a head offset or B, so a head
+    slice's launch splits its rows as the unsharded launch does.  With
+    more than one split each (slot, query head, split) keeps a partial of
+    D + 2 floats and each (slot, query head) a counter."""
+    split = decode_split_rows(unit)
+    splits = max(1, -(-rows // split))
+    if splits == 1:
+        return DecodePlan(split, 1, 0, 0)
+    return DecodePlan(split, splits, B * KV * G * splits * (D + 2),
+                      B * KV * G)
+
+
+#: (device index, stream handle) -> (partials, counters), grown by powers
+#: of two; the counters are zero between launches
+_SCRATCH: Dict[tuple, tuple] = {}
+#: (device index, stream handle, rows, unit, B, KV, G, D) -> (split rows,
+#: partials address, counters address) of a decode launch: one lookup a
+#: call, emptied whenever a scratch is replaced
+_DECODE_ARGS: Dict[tuple, tuple] = {}
+
+
+def _size_class(n: int) -> int:
+    return 1 << max(12, (n - 1).bit_length())
+
+
+def _decode_scratch(device: torch.device, stream: int, plan: DecodePlan):
+    """(partials, counters) addresses for ``plan`` on ``device`` and
+    ``stream``, or (0, 0) when it needs none.  The scratch is kept per
+    device and stream, and replaced only by one of a larger size class:
+    a call allocates nothing in the steady state.  Launches on one stream
+    run in order, so they share it safely."""
+    if plan.splits == 1:
+        return 0, 0
+    key = (device.index or 0, stream)
+    have = _SCRATCH.get(key)
+    if (have is None or have[2] < plan.scratch_floats
+            or have[3] < plan.counters):
+        floats = _size_class(max(plan.scratch_floats,
+                                 have[2] if have else 0))
+        counts = _size_class(max(plan.counters, have[3] if have else 0))
+        partial = torch.empty(floats, dtype=torch.float32, device=device)
+        counters = torch.zeros(counts, dtype=torch.int32, device=device)
+        have = (partial.data_ptr(), counters.data_ptr(), floats, counts,
+                partial, counters)
+        _SCRATCH[key] = have
+        _DECODE_ARGS.clear()  # their addresses may be the old scratch's
+    return have[0], have[1]
+
+
+def _decode_args(device: torch.device, key: tuple) -> tuple:
+    """(split rows, partials, counters) of a decode launch keyed as
+    :data:`_DECODE_ARGS` is; the wrappers look there first."""
+    args = _DECODE_ARGS.get(key)
+    if args is None:
+        plan = decode_plan(*key[2:])
+        args = (plan.split_rows, *_decode_scratch(device, key[1], plan))
+        if len(_DECODE_ARGS) >= 256:
+            _DECODE_ARGS.clear()
+        _DECODE_ARGS[key] = args
+    return args
+
+
+#: the kernels load 16-byte vectors: each tensor they read so must start
+#: on a 16-byte boundary (a fresh tensor does; a view at an odd offset may
+#: not), checked on the OR of its address with the others'
+_UNALIGNED = "the kernel's tensors must be 16-byte aligned"
 
 
 def _check_tensors(q, kv: dict, ints: dict, tensors) -> None:
     """q float32 or bfloat16, the ``kv`` tensors in q's dtype, the ``ints``
-    int32, and every tensor on one device and contiguous."""
+    int32, and every tensor on one device and contiguous.  Plain loops:
+    the serve steps are host-bound, and this runs on every launch."""
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"q must be float32 or bfloat16, got {q.dtype}")
-    if any(t.dtype != q.dtype for t in kv.values()):
-        raise TypeError(f"{'/'.join(kv)} must have q's dtype {q.dtype}, got "
-                        f"{[str(t.dtype) for t in kv.values()]}")
-    if any(t.dtype != torch.int32 for t in ints.values()):
-        raise TypeError(f"{'/'.join(ints)} must be int32")
+    for t in kv.values():
+        if t.dtype != q.dtype:
+            raise TypeError(f"{'/'.join(kv)} must have q's dtype {q.dtype}, "
+                            f"got {[str(t.dtype) for t in kv.values()]}")
+    for t in ints.values():
+        if t.dtype != torch.int32:
+            raise TypeError(f"{'/'.join(ints)} must be int32")
     tensors = [t for t in tensors if t is not None]
-    if len({t.device for t in tensors}) != 1:
-        raise ValueError("all inputs must lie on one device, got "
-                         f"{[str(t.device) for t in tensors]}")
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("all inputs must be contiguous")
+    device = tensors[0].device
+    for t in tensors:
+        if t.device != device:
+            raise ValueError("all inputs must lie on one device, got "
+                             f"{[str(t.device) for t in tensors]}")
+    for t in tensors:
+        if not t.is_contiguous():
+            raise ValueError("all inputs must be contiguous")
 
 
 def _check_pools(q, k_pool, v_pool, k_scale, v_scale, KV, D) -> bool:
@@ -190,8 +282,7 @@ def flash_decode_paged(q: torch.Tensor, k_pool: torch.Tensor,
     divisible by ``n``.
     """
     heads = ref.head_slice(head_shard, q.shape[1] if q.dim() == 4 else 0)
-    quantized = _check(q, k_pool, v_pool, block_tables, valid_len, k_scale,
-                       v_scale)
+    _check(q, k_pool, v_pool, block_tables, valid_len, k_scale, v_scale)
     if q.device.type == "cpu":
         return ref.flash_decode_paged_ref(
             q[:, heads], k_pool[:, :, heads], v_pool[:, :, heads],
@@ -202,16 +293,23 @@ def flash_decode_paged(q: torch.Tensor, k_pool: torch.Tensor,
     bs = k_pool.shape[1]
     nb = block_tables.shape[1]
     _check_head_dim(D)
-    _decode_smem_bytes(G, D, bs, nb, quantized)
+    kp, vp = k_pool.data_ptr(), v_pool.data_ptr()
+    if (kp | vp) % 16:
+        raise ValueError(_UNALIGNED)
     if head_shard is not None:
         q = q[:, heads].contiguous()
+    KV = q.shape[1]
     out = torch.empty_like(q)
+    dev = q.device
+    stream = build.stream_of(q)
+    split, partial, counters = _decode_args(
+        dev, (dev.index, stream, nb * bs, bs, B, KV, G, D))
     err = _launcher("flash_decode_paged", "flash_decode_paged_launch")(
-        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), _ptr(k_scale),
-        _ptr(v_scale), block_tables.data_ptr(), valid_len.data_ptr(),
-        out.data_ptr(), B, q.shape[1], G, D, bs, nb, pool_kv, heads.start,
-        _DTYPE_CODE[q.dtype], _DTYPE_CODE[k_pool.dtype],
-        q.device.index or 0, build.stream_of(q),
+        q.data_ptr(), kp, vp, _ptr(k_scale), _ptr(v_scale),
+        block_tables.data_ptr(), valid_len.data_ptr(), out.data_ptr(),
+        partial, counters, B, KV, G, D, bs, nb, pool_kv, heads.start, split,
+        _DTYPE_CODE[q.dtype], _DTYPE_CODE[k_pool.dtype], dev.index or 0,
+        stream,
     )
     build.raise_on("flash_decode_paged", err)
     flash_decode_paged.launches += 1
@@ -286,8 +384,8 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     rows at or past ``valid_len[b]`` are never read, and a slot with
     ``valid_len`` 0 gives zeros.  ``block_s`` is the TPU kernel's tile,
     checked as the reference checks it (``S % min(block_s, S) == 0``); the
-    CUDA kernel reads K and V in place in tiles of :data:`DECODE_TILE`
-    rows.  Returns (B, KV, G, D) in q's dtype.
+    CUDA kernel reads K and V in place, in splits of
+    :func:`decode_plan` rows.  Returns (B, KV, G, D) in q's dtype.
     """
     _check_dense(q, k, v, valid_len, block_s)
     if q.device.type == "cpu":
@@ -296,14 +394,20 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     B, KV, G, D = q.shape
     S = k.shape[1]
     _check_head_dim(D)
-    _decode_smem_bytes(G, D, DECODE_TILE, 0)
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
+    kp, vp = k.data_ptr(), v.data_ptr()
+    if (kp | vp) % 16:
+        raise ValueError(_UNALIGNED)
+    dev = q.device
+    stream = build.stream_of(q)
+    split, partial, counters = _decode_args(
+        dev, (dev.index, stream, S, DECODE_TILE, B, KV, G, D))
     err = _launcher("flash_decode_paged", "flash_decode_launch")(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), valid_len.data_ptr(),
-        out.data_ptr(), B, KV, G, D, S, DECODE_TILE, _DTYPE_CODE[q.dtype],
-        q.device.index or 0, build.stream_of(q))
+        q.data_ptr(), kp, vp, valid_len.data_ptr(), out.data_ptr(), partial,
+        counters, B, KV, G, D, S, split, _DTYPE_CODE[q.dtype],
+        dev.index or 0, stream)
     build.raise_on("flash_decode_paged", err)
     flash_decode.launches += 1
     return out
@@ -319,34 +423,59 @@ def flash_decode_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return ref.decode_plain(q, k, v, valid_len)
 
 
-def prefill_smem_bytes(bc: int, G: int, D: int, bs: int, nb: int,
-                       quantized: bool = False) -> int:
-    """Dynamic shared memory of one prefill attention block of ``bc``
-    chunk rows: q and acc (bc*G*D each), the V tile (bs*D), the scores
-    (bc*G*bs), m, l, corr (bc*G each) and, when ``quantized``, the tile's
-    K and V scales (bs each) in fp32, and the table row, as
-    ``prefill_attend_kernel`` lays them out.  The launch is given this
-    size; nothing else computes it."""
-    r = bc * G
-    scales = 2 * bs if quantized else 0
-    return 4 * (2 * r * D + bs * D + r * bs + 3 * r + scales) + 4 * nb
+class PrefillPlan(NamedTuple):
+    """How the prefill attention tiles a chunk: blocks of ``rows`` chunk
+    rows (``rows * G`` query vectors) walking key tiles of ``key_tile``
+    rows, on the ``route`` ("mma": tensor cores, bf16 q over bf16 pools;
+    "simt": fp32 on the CUDA cores) with ``smem`` bytes of dynamic shared
+    memory."""
+
+    rows: int
+    key_tile: int
+    route: str
+    smem: int
 
 
-def prefill_rows_per_block(C: int, G: int, D: int, bs: int, nb: int,
-                           quantized: bool = False) -> int:
-    """Chunk rows per attention block: at most :data:`PREFILL_ROWS` and
-    ``C``, halved until the block's shared memory fits without an opt-in;
-    raises when one row does not fit."""
-    bc = min(PREFILL_ROWS, C)
-    while bc > 1 and prefill_smem_bytes(bc, G, D, bs, nb,
-                                        quantized) > _SMEM_LIMIT:
-        bc //= 2
-    smem = prefill_smem_bytes(bc, G, D, bs, nb, quantized)
-    if smem > _SMEM_LIMIT:
+@functools.lru_cache(maxsize=256)
+def prefill_plan(C: int, G: int, D: int, bs: int, nb: int,
+                 q_dtype: torch.dtype, pool_dtype: torch.dtype) -> PrefillPlan:
+    """The prefill attention's tiles and shared memory for these shapes,
+    as ``prefill_attend_mma`` and ``prefill_attend_simt`` lay them out;
+    the launch is given this size, and nothing else computes it.
+
+    A block takes ``min(C, PREFILL_VECTORS // G)`` chunk rows.  A key tile
+    is whole pool blocks, ``bs * (PREFILL_KEYS // bs)`` rows, or for
+    blocks above :data:`PREFILL_KEYS` rows :data:`PREFILL_KEYS` rows of
+    one block.  Tiles are staged in two stages of rows padded by 16 bytes:
+    q, then K and V twice, in bf16 on the mma route; on the simt route q
+    and p in fp32, the raw stages in the pools' dtype, fp32 copies of the
+    K and V tiles for bf16 and int8 pools, and the stages' scales for
+    int8.  The table row (``nb`` ints) comes last.  Raises when G exceeds
+    :data:`PREFILL_VECTORS` or the block needs more than
+    :data:`SMEM_LIMIT` bytes.
+    """
+    if G > PREFILL_VECTORS:
+        raise ValueError(f"G={G} query heads a KV head exceed the "
+                         f"{PREFILL_VECTORS} query vectors of a block")
+    rows = max(1, min(C, PREFILL_VECTORS // G))
+    key_tile = bs * (PREFILL_KEYS // bs) if bs <= PREFILL_KEYS else \
+        PREFILL_KEYS
+    item = pool_dtype.itemsize
+    nv, nk = PREFILL_VECTORS, PREFILL_KEYS
+    if (q_dtype, pool_dtype) == (torch.bfloat16, torch.bfloat16):
+        route = "mma"
+        smem = (nv + 4 * nk) * (2 * D + 16)
+    else:
+        route = "simt"
+        widened = 2 * nk * (D + 4) * 4 if pool_dtype != torch.float32 else 0
+        scales = 4 * nk * 4 if pool_dtype == torch.int8 else 0
+        smem = (nv * (D + 4) * 4 + nv * (nk + 4) * 4 + widened
+                + 4 * nk * (D * item + 16) + scales)
+    smem += 4 * nb
+    if smem > SMEM_LIMIT:
         raise ValueError(f"G={G}, D={D}, bs={bs}, nb={nb} need {smem} bytes "
-                         f"of shared memory for one chunk row, over "
-                         f"{_SMEM_LIMIT}")
-    return bc
+                         f"of shared memory, over {SMEM_LIMIT}")
+    return PrefillPlan(rows, key_tile, route, smem)
 
 
 def _check_chunk(q, k_new, v_new, k_pool, v_pool, k_scale, v_scale,
@@ -477,18 +606,20 @@ def flash_prefill_paged(q: torch.Tensor, k_new: torch.Tensor,
     bs = k_pool.shape[1]
     nb = block_tables.shape[1]
     _check_head_dim(D)
-    bc = prefill_rows_per_block(C, G, D, bs, nb, quantized)
+    plan = prefill_plan(C, G, D, bs, nb, q.dtype, k_pool.dtype)
     out = torch.empty_like(q)
     if q.numel() == 0:
         return out
+    qp, kp, vp = q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr()
+    if (qp | kp | vp) % 16:
+        raise ValueError(_UNALIGNED)
     err = _launcher("flash_prefill_paged", "flash_prefill_paged_launch")(
-        q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), k_pool.data_ptr(),
-        v_pool.data_ptr(), _ptr(k_scale), _ptr(v_scale), _ptr(k_amax),
-        _ptr(v_amax), block_tables.data_ptr(), q_start.data_ptr(),
-        q_len.data_ptr(), out.data_ptr(), B, C, KV, G, D, bs, nb, bc,
-        prefill_smem_bytes(bc, G, D, bs, nb, quantized),
-        _DTYPE_CODE[q.dtype], _DTYPE_CODE[k_pool.dtype],
-        q.device.index or 0, build.stream_of(q),
+        qp, k_new.data_ptr(), v_new.data_ptr(), kp, vp, _ptr(k_scale),
+        _ptr(v_scale), _ptr(k_amax), _ptr(v_amax), block_tables.data_ptr(),
+        q_start.data_ptr(), q_len.data_ptr(), out.data_ptr(), B, C, KV, G,
+        D, bs, nb, plan.rows,
+        plan.key_tile, plan.smem, _DTYPE_CODE[q.dtype],
+        _DTYPE_CODE[k_pool.dtype], q.device.index or 0, build.stream_of(q),
     )
     build.raise_on("flash_prefill_paged", err)
     flash_prefill_paged.launches += 1

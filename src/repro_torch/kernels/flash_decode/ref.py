@@ -12,6 +12,8 @@ slot's logical view through its block table, then the oracle.
 chunk's K/V rows into the pools in place (:func:`commit_paged_ref`), then
 causal attention over each slot's gathered view; :func:`prefill_paged_ref`
 is the reference's functional form of it.
+:func:`decode_split_merge` models the decode kernel's split of a slot's
+rows across blocks and its ordered merge, for the tests.
 :func:`flash_decode_paged_sharded_ref` is the plain version of the
 reference's ``flash_decode_paged_sharded``: the concatenation of
 :func:`flash_decode_paged_ref` over the head slices.  Pools are in q's
@@ -51,6 +53,46 @@ def decode_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     zeros for every slot whose ``valid_len`` is 0 or less."""
     out = decode_ref(q, k, v, valid_len)
     return out.masked_fill((valid_len <= 0)[:, None, None, None], 0.0)
+
+
+def decode_split_merge(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       valid_len: torch.Tensor,
+                       split_rows: int) -> torch.Tensor:
+    """The decode kernel's split-and-merge, in plain torch (for the tests):
+    q (B,KV,G,D); k/v (B,S,KV,D); valid_len (B,).  Split z of a slot takes
+    its rows ``[z * split_rows, (z + 1) * split_rows)`` below
+    ``valid_len``, and keeps its running max m, sum l and accumulator acc
+    (fp32); the splits with live rows are then merged in split order,
+    each rescaled by ``exp(m_z - max_z m_z)``.  A slot whose ``valid_len``
+    is 0 or less gives zeros, as :func:`decode_plain` does.  Returns
+    (B,KV,G,D) in q's dtype."""
+    B, KV, G, D = q.shape
+    S = k.shape[1]
+    qf = q.float()
+    rows = torch.arange(S, device=q.device)
+    live = rows[None, :] < valid_len.long()[:, None]            # (B, S)
+    m = l = acc = None
+    for z0 in range(0, S, split_rows):
+        z1 = min(z0 + split_rows, S)
+        s = torch.einsum("bkgd,bskd->bkgs", qf,
+                         k[:, z0:z1].float()) / math.sqrt(D)
+        s = s.masked_fill(~live[:, None, None, z0:z1], -math.inf)
+        mz = s.amax(dim=-1)                                     # (B,KV,G)
+        has = live[:, z0:z1].any(dim=1)[:, None, None]          # (B,1,1)
+        base = torch.where(has, mz, torch.zeros_like(mz))
+        p = torch.exp(s - base[..., None])
+        lz = p.sum(dim=-1)
+        az = torch.einsum("bkgs,bskd->bkgd", p, v[:, z0:z1].float())
+        if m is None:
+            m, l, acc = mz, lz, az
+            continue
+        mn = torch.maximum(m, mz)
+        keep = torch.where(torch.isinf(mn), torch.zeros_like(mn), mn)
+        a, c = torch.exp(m - keep), torch.exp(mz - keep)
+        m, l, acc = mn, l * a + lz * c, acc * a[..., None] + az * c[..., None]
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    out = out.masked_fill((valid_len <= 0)[:, None, None, None], 0.0)
+    return out.to(q.dtype)
 
 
 def row_amax(x: torch.Tensor) -> torch.Tensor:

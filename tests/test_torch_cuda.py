@@ -182,7 +182,8 @@ def test_prefill_kernel_refuses_what_it_was_not_built_for(cuda):
     args = _prefill_inputs(cuda, 3, 4, 2, 1, 48, 16, 2, torch.float32)
     with pytest.raises(ValueError, match="head dim"):
         kernel.flash_prefill_paged(*args)
-    args = _prefill_inputs(cuda, 3, 4, 1, 1, 128, 128, 2, torch.float32)
+    # a table row of 20000 blocks does not fit beside the fp32 tiles
+    args = _prefill_inputs(cuda, 3, 4, 1, 1, 128, 1, 20000, torch.float32)
     with pytest.raises(ValueError, match="shared memory"):
         kernel.flash_prefill_paged(*args)
     args = _prefill_inputs(cuda, 3, 4, 2, 1, 64, 16, 2, torch.float32)
@@ -328,6 +329,128 @@ def test_quantized_prefill_kernel_matches_plain(cuda, q_dtype, pool_dtype,
             assert torch.equal(got[1][blk], args[3][blk])
             if ks is not None:
                 assert torch.equal(got[3][0][blk], ks[blk])
+
+
+# -- the split decode and the tiled prefill at their edges -------------------
+#
+# The decode splits a slot's rows into splits of L rows (kernel.decode_plan)
+# merged in a fixed order; the prefill walks key tiles of 64 rows up to each
+# block's causal frontier.  Tolerances as above: bf16 q over bf16 pools
+# 2e-2, every other pair 1e-5 plus one ulp of a bf16 output (fp32
+# arithmetic summed in another order).
+
+EDGE_HEADS = [(8, 2, 128), (12, 1, 64), (1, 8, 128), (2, 4, 16)]
+
+
+def _close(got, want, q_dtype, pool_dtype):
+    if (q_dtype, pool_dtype) == (torch.bfloat16, torch.bfloat16):
+        torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                                   atol=2e-2)
+        return
+    tol = 1e-5 + 1e-5 * want.float().abs()
+    if got.dtype == torch.bfloat16:
+        tol = tol + (want.float().abs() * 2.0 ** -7).clamp(min=2.0 ** -133)
+    assert bool(((got.float() - want.float()).abs() <= tol).all())
+
+
+@pytest.mark.parametrize("pair", kernel.POOL_PAIRS)
+@pytest.mark.parametrize("KV,G,D", EDGE_HEADS)
+@pytest.mark.parametrize("bs", [16, 8])
+def test_decode_kernel_at_the_split_edges(cuda, pair, KV, G, D, bs):
+    """valid_len L - 1, L, L + 1, nb * bs and 1 (one split, two, three)
+    against the plain version and the plain split-and-merge model."""
+    q_dtype, pool_dtype = pair
+    L = kernel.decode_split_rows(bs)
+    nb = (2 * L + L // 2) // bs
+    q, kp, vp, bt, _ = _inputs(cuda, 5, KV, G, D, bs, nb, torch.float32,
+                               seed=4)
+    valid = torch.tensor([L - 1, L, L + 1, nb * bs, 1], dtype=torch.int32,
+                         device=cuda)
+    pools = _pools_as(cuda, kp, vp, pool_dtype)
+    args = (q.to(q_dtype), pools[0], pools[1], bt, valid, *pools[2:])
+    out = kernel.flash_decode_paged(*args)
+    torch.cuda.synchronize()
+    _close(out, ref.flash_decode_paged_ref(*args), *pair)
+    if pool_dtype != torch.int8:
+        idx = bt.long()
+        k = pools[0][idx].reshape(5, nb * bs, KV, D)
+        v = pools[1][idx].reshape(5, nb * bs, KV, D)
+        _close(out, ref.decode_split_merge(args[0], k, v, valid, L), *pair)
+    # a second launch on the same scratch gives the same bits
+    assert torch.equal(out, kernel.flash_decode_paged(*args))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("KV,G,D", EDGE_HEADS)
+def test_dense_decode_kernel_at_the_split_edges(cuda, dtype, KV, G, D):
+    L = kernel.decode_split_rows(kernel.DECODE_TILE)
+    S = 2 * L + 40
+    q, k, v, _ = _dense_inputs(cuda, 6, KV, G, D, S, dtype, seed=5)
+    valid = torch.tensor([L - 1, L, L + 1, S, 0, 1], dtype=torch.int32,
+                         device=cuda)
+    out = kernel.flash_decode(q, k, v, valid, block_s=S)
+    torch.cuda.synchronize()
+    assert not out[4].any()
+    _close(out, kernel.flash_decode_plain(q, k, v, valid, block_s=S), dtype,
+           dtype)
+    _close(out, ref.decode_split_merge(q, k, v, valid, L), dtype, dtype)
+
+
+@pytest.mark.parametrize("pair", kernel.POOL_PAIRS)
+@pytest.mark.parametrize("KV,G,D", EDGE_HEADS)
+def test_prefill_kernel_frontier_inside_a_tile_and_past_the_table(
+        cuda, pair, KV, G, D):
+    """Chunks whose causal frontier falls inside a 64-key tile (70 + 11),
+    on a tile edge (48 + 16), at the table's end (80 + 16 of 96 rows), and
+    a chunk whose padded rows run past the table's end (90 + 6, C = 16);
+    the rows and scales past each frontier are then poisoned, which leaves
+    the output bit-identical."""
+    q_dtype, pool_dtype = pair
+    C, bs, nb = 16, 16, 6
+    args, ks, vs = _quantized_prefill_args(cuda, q_dtype, pool_dtype, KV, G,
+                                           D, C, bs, nb, seed=6)
+    args = args[:6] + [torch.tensor(x, dtype=torch.int32, device=cuda)
+                       for x in ([70, 48, 80, 90], [11, 16, 16, 6])]
+    got = _run_quantized(kernel.flash_prefill_paged, args, ks, vs)
+    want = _run_quantized(ref.flash_prefill_paged_ref, args, ks, vs)
+    valid = (torch.arange(C, device=cuda)[None, :] < args[7][:, None])
+    _close(got[0][valid], want[0][valid], *pair)
+    assert not got[0][~valid].any()
+    bt, first = args[5], args[6] + args[7]
+    pools = [got[1], got[2], *got[3]]
+    pos = torch.arange(nb * bs, device=cuda)
+    mask = pos[None, :] >= first.long()[:, None]
+    blk, row = bt.long()[:, pos // bs][mask], (pos % bs)[None, :].expand_as(
+        mask)[mask]
+    bad = [None if t is None else t.clone() for t in pools]
+    for t, value in zip(bad, (1e4, float("nan"), 1e4, float("nan"))):
+        if t is not None:
+            t[blk, row] = ((127 if value == 1e4 else -127)
+                           if t.dtype == torch.int8 else value)
+    again = _run_quantized(kernel.flash_prefill_paged,
+                           args[:3] + bad[:2] + args[5:], *bad[2:])
+    assert torch.equal(again[0], got[0])
+
+
+@pytest.mark.parametrize("pair", kernel.POOL_PAIRS)
+@pytest.mark.parametrize("n", [2, 4])
+def test_head_slices_equal_the_unsharded_split_launch(cuda, pair, n):
+    """Slots of several splits (lengths 1 .. nb * bs): the slices (i, n),
+    concatenated, bit-equal to the unsharded launch."""
+    q_dtype, pool_dtype = pair
+    bs, nb = 16, 40
+    q, kp, vp, bt, _ = _inputs(cuda, 6, 8, 2, 128, bs, nb, torch.float32,
+                               seed=8)
+    L = kernel.decode_split_rows(bs)
+    valid = torch.tensor([1, L - 1, L + 1, 2 * L, 2 * L + 7, nb * bs],
+                         dtype=torch.int32, device=cuda)
+    pools = _pools_as(cuda, kp, vp, pool_dtype)
+    args = (q.to(q_dtype), pools[0], pools[1], bt, valid, *pools[2:])
+    full = kernel.flash_decode_paged(*args)
+    parts = [kernel.flash_decode_paged(*args, head_shard=(i, n))
+             for i in range(n)]
+    torch.cuda.synchronize()
+    assert torch.equal(torch.cat(parts, dim=1), full)
 
 
 @pytest.mark.parametrize("q_dtype,pool_dtype", PAIRS)

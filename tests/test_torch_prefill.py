@@ -231,13 +231,19 @@ def test_prefill_work_terms_count_each_byte_once():
 
 
 def test_prefill_rows_per_block_fit_the_shared_memory():
-    assert kernel.prefill_rows_per_block(64, 2, 128, 16, 64) == 16
-    assert kernel.prefill_rows_per_block(4, 1, 64, 16, 64) == 4
-    bc = kernel.prefill_rows_per_block(64, 8, 128, 16, 64)
-    assert bc < 16
-    assert kernel.prefill_smem_bytes(bc, 8, 128, 16, 64) <= 48 * 1024
+    """The attention plan's rows a block (64 query vectors over G, at most
+    C) and its shared memory, within an H100 block's 227 KB, and a raise
+    for a shape that does not fit."""
+    bf16, f32, i8 = torch.bfloat16, torch.float32, torch.int8
+    plan = kernel.prefill_plan(64, 2, 128, 16, 64, bf16, bf16)
+    assert (plan.rows, plan.key_tile, plan.route) == (32, 64, "mma")
+    assert plan.smem == (64 + 4 * 64) * (2 * 128 + 16) + 4 * 64
+    assert kernel.prefill_plan(4, 1, 64, 16, 64, f32, f32).rows == 4
+    assert kernel.prefill_plan(64, 8, 128, 16, 64, bf16, i8).rows == 8
+    assert kernel.prefill_plan(64, 8, 128, 16, 64, f32, bf16).smem <= \
+        kernel.SMEM_LIMIT
     with pytest.raises(ValueError, match="shared memory"):
-        kernel.prefill_rows_per_block(8, 1, 128, 128, 4)
+        kernel.prefill_plan(8, 1, 128, 16, 20000, f32, bf16)
 
 
 # ---------------------------------------------------------------------------
