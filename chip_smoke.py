@@ -10,8 +10,8 @@ Phases, each printing one JSON line (any failure raises and exits
 non-zero):
 
 1. env      torch/CUDA versions and the card's name and power limit.
-2. build    nvcc builds of the seven kernel libraries for sm_90a, in
-            parallel.
+2. build    nvcc builds of the eight kernel libraries for sm_90a, in
+            parallel (the GEMM's two routes are a library each).
 3. kernel   each kernel against its plain version at gpt2-124m's and
             qwen3-1.7b's attention shapes, in bf16 and f32: the paged
             flash-decode on shuffled block tables with ragged lengths; the
@@ -42,11 +42,16 @@ non-zero):
             qwen3-1.7b's serve shapes beside the unsharded launch.
    kernel-hpc  the STREAM, Jacobi2D, GEMM and SpMV kernels against their
             plain versions: odd, misaligned and edge shapes, fp32/bf16
-            (and fp16 for STREAM), SpMV rows of 0, 1 and 128 nonzeros.
+            (and fp16 for STREAM), SpMV rows of 0, 1 and 128 nonzeros; each
+            GEMM case on the route the rule names (``GEMM_CASES``: bf16
+            that TMA can address on wgmma, with M and N past whole tiles,
+            K = 8, K % 64 != 0 and a shape inside one tile; the rest on
+            simt), by the route counters.
    timing   the four at full size (STREAM 2^21 x 128 fp32, GEMM 8192^3
-            fp32, Jacobi2D 16384^2 fp32, SpMV 2^20 rows of block-ELL width
-            128, Zipf nnz up to 64): kernel, plain and library ms beside
-            the least time at the H100's peaks.
+            fp32 on the simt route and bf16 on the wgmma route, Jacobi2D
+            16384^2 fp32, SpMV 2^20 rows of block-ELL width 128, Zipf nnz
+            up to 64): kernel, plain and library ms beside the least time
+            at the H100's peaks for the dtype.
    kernel-dense  the RX gate (n 6, 12, 22; qubits 0, 1, 4, 5, n-1; theta
             0.25, 1.1, 2 pi) bit-equal to its plain version, and the
             contiguous flash-decode (D 16/32/64/128, G 1/2/4/8, ragged
@@ -58,8 +63,9 @@ non-zero):
             (bf16, 32 slots of 4096 rows, gpt2-124m and qwen3-1.7b heads,
             lengths ragged in [1, S] and all S) with the same columns.
    analysis the paper's method through ``AnalysisService`` over those
-            workloads, the RX layer at 28 qubits, the flash-decode at full
-            size and the registry's qc-gate, flash-decode and flash-prefill
+            workloads (the GEMM in fp32 and in bf16, so on both routes),
+            the RX layer at 28 qubits, the flash-decode at full size and
+            the registry's qc-gate, flash-decode and flash-prefill
             workloads, on the h100 and grace-core models, ROIs timed on the
             card: every kernel of the suite launches, and no roofline share
             is above 1.05.
@@ -895,6 +901,37 @@ TPU_HPC = "src/repro/kernels/"
 STREAM_OPS = ("copy", "scale", "add", "triad")
 
 
+#: GEMM cases of the kernel-hpc phase: (dtype, offset of A in elements,
+#: (M, N, K) shapes).  bf16 at offset 0 with K and N multiples of 8 takes
+#: the wgmma route, at its edges (M and N past whole tiles, K = 8, K % 64
+#: != 0, a shape inside one tile, one exact tile); everything else the
+#: simt route: fp32, bf16 with K or N not a multiple of 8, and a misaligned
+#: A (offset 1).
+GEMM_CASES = (
+    ("float32", 0, ((1, 1, 1), (100, 130, 70), (257, 129, 33),
+                    (128, 128, 256), (256, 256, 512), (300, 260, 100))),
+    ("float32", 1, ((129, 132, 64),)),
+    ("bfloat16", 0, ((1, 1, 1), (100, 130, 70), (257, 129, 33),
+                     (128, 128, 256), (256, 256, 512), (1, 8, 8),
+                     (100, 136, 8), (130, 264, 200), (128, 256, 64),
+                     (300, 520, 1000), (1024, 1024, 4096))),
+    ("bfloat16", 1, ((129, 264, 72),)),
+)
+
+
+def gemm_route(gemm, before) -> str:
+    """The one route whose count rose since ``before``, or "none"."""
+    rose = [r for r, n in gemm.gemm.route_launches.items() if n != before[r]]
+    return rose[0] if len(rose) == 1 else "none"
+
+
+def gemm_expected_route(dtype: str, N, K, offset) -> str:
+    """The route the rule names (written out here, not read from the
+    plan): wgmma for bf16 that TMA can address, simt otherwise."""
+    tma = K % 8 == 0 and N % 8 == 0 and offset == 0
+    return "wgmma" if dtype == "bfloat16" and tma else "simt"
+
+
 def hpc_modules():
     from repro_torch.kernels.gemm import kernel as gemm
     from repro_torch.kernels.jacobi2d import kernel as jacobi
@@ -1021,16 +1058,20 @@ def check_hpc(torch, np):
     report_cases("kernel-hpc", "jacobi_step", cases)
 
     cases = []
-    for dtype in (f32, bf16):
-        for M, N, K in ((1, 1, 1), (100, 130, 70), (257, 129, 33),
-                        (128, 128, 256)):
-            x, y = randn((M, K), dtype), randn((K, N), dtype)
+    for dtype, offset, shapes in GEMM_CASES:
+        for M, N, K in shapes:
+            x = randn((M * K + offset,), getattr(torch, dtype))[offset:]
+            x, y = x.view(M, K), randn((K, N), getattr(torch, dtype))
+            before = dict(gemm.gemm.route_launches)
             got = gemm.gemm(x, y, bm=M, bn=N, bk=K)
             want = gemm.gemm_plain(x, y, bm=M, bn=N, bk=K)
             torch.cuda.synchronize()
             err, ok = gemm_close(torch, got, want)
-            cases.append({"dtype": dtype_name(dtype), "shape": [M, N, K],
-                          "max_abs_err": err, "ok": ok})
+            route = gemm_route(gemm, before)
+            expect = gemm_expected_route(dtype, N, K, offset)
+            cases.append({"dtype": dtype, "shape": [M, N, K],
+                          "offset": offset, "route": route,
+                          "max_abs_err": err, "ok": ok and route == expect})
     report_cases("kernel-hpc", "gemm", cases)
 
     cases = []
@@ -1082,11 +1123,12 @@ def hpc_problems(torch):
     vals, cols, nnz = spmv_ref.make_problem(
         SPMV_ROWS, SPMV_ROWS, row_block=8, max_nnz=SPMV_MAX_NNZ,
         width_pad=SPMV_WIDTH, generator=gen, device="cuda")
+    x, y = (torch.randn((GEMM_N, GEMM_N), **kw) for _ in range(2))
     return {
         "stream": (torch.randn(STREAM_SHAPE, **kw),
                    torch.randn(STREAM_SHAPE, **kw)),
-        "gemm": (torch.randn((GEMM_N, GEMM_N), **kw),
-                 torch.randn((GEMM_N, GEMM_N), **kw)),
+        "gemm": (x, y),
+        "gemm_bf16": (x.bfloat16(), y.bfloat16()),
         "jacobi": (torch.randn((JACOBI_N, JACOBI_N), **kw),),
         "spmv": (vals, cols, nnz, torch.randn((SPMV_ROWS,), **kw)),
     }
@@ -1136,25 +1178,10 @@ def hpc_timing(torch, problems):
               **rows[f"stream_{op}"]})
     del c
 
-    x, y = problems["gemm"]
-    want = gemm.gemm_plain(x, y)
-    err, ok = gemm_close(torch, gemm.gemm(x, y), want)
-    require(ok, f"gemm kernel != plain at full size: {err}")
-    lib_err, lib_ok = gemm_close(torch, torch.matmul(x, y), want)
-    require(lib_ok, f"gemm library yardstick disagrees: {lib_err}")
-    del want
-    bound_ms, bound_by = bound(gemm_ref.work_terms(x, y), "float32")
-    rows["gemm"] = {
-        "max_abs_err": err,
-        "ms": device_ms(torch, lambda: gemm.gemm(x, y), reps=5, warmup=2),
-        "plain_ms": device_ms(torch, lambda: gemm.gemm_plain(x, y), reps=5,
-                              warmup=2),
-        "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": device_ms(torch, lambda: torch.matmul(x, y), reps=5,
-                                warmup=2)}
-    emit({"phase": "timing", "kernel": "gemm", "shape": [GEMM_N] * 3,
-          "dtype": "float32", "tf32": torch.backends.cuda.matmul.allow_tf32,
-          **rows["gemm"]})
+    for row, route in (("gemm", "simt"), ("gemm_bf16", "wgmma")):
+        rows[row] = gemm_timing(torch, gemm, gemm_ref, *problems[row], route)
+        emit({"phase": "timing", "kernel": row, "shape": [GEMM_N] * 3,
+              "tf32": torch.backends.cuda.matmul.allow_tf32, **rows[row]})
 
     (u,) = problems["jacobi"]
     err, ok, bit = exact_close(torch, jacobi.jacobi_step(u),
@@ -1212,10 +1239,37 @@ def hpc_timing(torch, problems):
     return rows
 
 
+def gemm_timing(torch, gemm, gemm_ref, x, y, route):
+    """The GEMM at full size in x's dtype: held against its plain version
+    and run by ``route`` (the route counter says so), then kernel, plain
+    and ``torch.matmul`` ms beside the least time at the dtype's peak."""
+    dtype = dtype_name(x.dtype)
+    want = gemm.gemm_plain(x, y)
+    before = dict(gemm.gemm.route_launches)
+    err, ok = gemm_close(torch, gemm.gemm(x, y), want)
+    ran = gemm_route(gemm, before)
+    require(ok, f"gemm {dtype} kernel != plain at full size: {err}")
+    require(ran == route, f"gemm {dtype} ran route {ran}, not {route}")
+    lib_err, lib_ok = gemm_close(torch, torch.matmul(x, y), want)
+    require(lib_ok, f"gemm {dtype} library yardstick disagrees: {lib_err}")
+    del want
+    bound_ms, bound_by = bound(gemm_ref.work_terms(x, y), dtype)
+    reps = 5 if dtype == "float32" else 20
+    return {
+        "dtype": dtype, "gemm_route": ran, "max_abs_err": err,
+        "ms": device_ms(torch, lambda: gemm.gemm(x, y), reps=reps, warmup=2),
+        "plain_ms": device_ms(torch, lambda: gemm.gemm_plain(x, y), reps=5,
+                              warmup=2),
+        "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": device_ms(torch, lambda: torch.matmul(x, y), reps=reps,
+                                warmup=2)}
+
+
 def hpc_workloads(torch, problems):
-    """The four kernels at full size as ad-hoc Workloads, with the
-    reference's analytic models (STREAM's four ops, and SpMV's predicated
-    and fixed-width entry points), and the least work of each call."""
+    """(workload, least work, dtype name) of the four kernels at full size
+    as ad-hoc Workloads, with the reference's analytic models (STREAM's
+    four ops, GEMM in fp32 and bf16, that is on each of its routes, and
+    SpMV's predicated and fixed-width entry points)."""
     from repro_torch.analysis import Workload
     from repro_torch.kernels import registry
     from repro_torch.kernels.gemm import ref as gemm_ref
@@ -1232,19 +1286,21 @@ def hpc_workloads(torch, problems):
         out.append((Workload(
             name=f"full/stream-{op}", fn=registry.get_kernel(f"stream-{op}"),
             args=args, flops=fb["flops"], hbm_bytes=fb["bytes"],
-            problem="2^21x128"), stream_ref.work_terms(op, a)))
-    x, y = problems["gemm"]
-    fb = gemm_ref.flops_bytes(GEMM_N, GEMM_N, GEMM_N, 4)
-    out.append((Workload(name="full/gemm", fn=registry.GEMM, args=(x, y),
-                         flops=fb["flops"], hbm_bytes=fb["bytes"],
-                         problem=f"{GEMM_N}^3"),
-                gemm_ref.work_terms(x, y)))
+            problem="2^21x128"), stream_ref.work_terms(op, a), "float32"))
+    for name, key, dtype in (("full/gemm", "gemm", "fp32"),
+                             ("full/gemm-bf16", "gemm_bf16", "bf16")):
+        x, y = problems[key]
+        fb = gemm_ref.flops_bytes(GEMM_N, GEMM_N, GEMM_N, x.element_size())
+        out.append((Workload(name=name, fn=registry.GEMM, args=(x, y),
+                             dtype=dtype, flops=fb["flops"],
+                             hbm_bytes=fb["bytes"], problem=f"{GEMM_N}^3"),
+                    gemm_ref.work_terms(x, y), dtype_name(x.dtype)))
     (u,) = problems["jacobi"]
     fb = jacobi_ref.flops_bytes(JACOBI_N, JACOBI_N, 4)
     out.append((Workload(name="full/jacobi2d", fn=registry.JACOBI_STEP,
                          args=(u,), flops=fb["flops"], hbm_bytes=fb["bytes"],
                          problem=f"{JACOBI_N}^2"),
-                jacobi_ref.work_terms(u)))
+                jacobi_ref.work_terms(u), "float32"))
     vals, cols, nnz, xs = problems["spmv"]
     for name, fn, entries, predicated in (
             ("full/spmv", registry.SPMV,
@@ -1255,7 +1311,8 @@ def hpc_workloads(torch, problems):
             name=name, fn=fn, args=(vals, cols, nnz, xs),
             flops=2.0 * entries, hbm_bytes=entries * 12.0,
             gather_bytes=entries * 4.0, problem="2^20^2 zipf"),
-            spmv_ref.work_terms(vals, nnz, xs, predicated=predicated)))
+            spmv_ref.work_terms(vals, nnz, xs, predicated=predicated),
+            "float32"))
     return out
 
 
@@ -1621,21 +1678,22 @@ def phase_analysis(torch, np, problems):
     from repro_torch.kernels.qc_gate import kernel as qc
     from repro_torch.serve.analysis_service import AnalysisService
 
-    workloads = [(wl, terms, "float32")
-                 for wl, terms in hpc_workloads(torch, problems)]
-    workloads += dense_workloads(torch, np)
+    workloads = hpc_workloads(torch, problems) + dense_workloads(torch, np)
     svc = AnalysisService(max_batch=8, jobs=1, device="cuda")
     for wl, _, _ in workloads:
         svc.submit(wl, chips=("h100", "grace-core"), time_roi=True)
     entries = {**hpc_entries(), "rx_gate": qc.rx_gate,
                "flash_decode": fd.flash_decode,
                "flash_prefill_paged": fd.flash_prefill_paged}
+    routes = entries["gemm"].route_launches
     for fn in entries.values():
         fn.launches = 0
+    routes.update(dict.fromkeys(routes, 0))
     torch.cuda.synchronize()
     svc.run_until_drained()
     torch.cuda.synchronize()
     counts = {name: fn.launches for name, fn in entries.items()}
+    counts.update({f"gemm_{route}": n for route, n in routes.items()})
     report = svc.report()
     require(report["service"]["errors"] == 0,
             f"analysis errors: {[r['error'] for r in report['requests']]}")
@@ -2589,9 +2647,13 @@ def main() -> int:
          "launches": sum(hpc_counts[f"stream_{op}"] for op in STREAM_OPS),
          **hpc_rows["stream_triad"]},
         {"name": "gemm", "route": "cuda",
-         "source": HPC_SOURCES + "gemm/csrc/gemm.cu",
+         "source": HPC_SOURCES + "gemm/csrc/gemm_simt.cu",
          "replaces": f"{TPU_HPC}gemm/kernel.py:56",
-         "launches": hpc_counts["gemm"], **hpc_rows["gemm"]},
+         "launches": hpc_counts["gemm_simt"], **hpc_rows["gemm"]},
+        {"name": "gemm_bf16", "route": "cuda",
+         "source": HPC_SOURCES + "gemm/csrc/gemm_wgmma.cu",
+         "replaces": f"{TPU_HPC}gemm/kernel.py:56",
+         "launches": hpc_counts["gemm_wgmma"], **hpc_rows["gemm_bf16"]},
         {"name": "spmv_blockell", "route": "cuda",
          "source": HPC_SOURCES + "spmv/csrc/spmv.cu",
          "replaces": f"{TPU_HPC}spmv/kernel.py:52,82",

@@ -37,7 +37,10 @@ LIBRARIES: Dict[str, Tuple[Path, str]] = {
     "jacobi2d": (KERNELS / "jacobi2d/csrc/jacobi2d.cu",
                  "jacobi2d_error_string"),
     "spmv": (KERNELS / "spmv/csrc/spmv.cu", "spmv_error_string"),
-    "gemm": (KERNELS / "gemm/csrc/gemm.cu", "gemm_error_string"),
+    "gemm_wgmma": (KERNELS / "gemm/csrc/gemm_wgmma.cu",
+                   "gemm_wgmma_error_string"),
+    "gemm_simt": (KERNELS / "gemm/csrc/gemm_simt.cu",
+                  "gemm_simt_error_string"),
     "rx_gate": (KERNELS / "qc_gate/csrc/rx_gate.cu", "rx_gate_error_string"),
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

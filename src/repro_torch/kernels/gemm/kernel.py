@@ -1,18 +1,31 @@
-"""GEMM: the wrapper of the CUDA kernel in ``csrc/gemm.cu``, across from
+"""GEMM: the wrapper of the two CUDA routes in ``csrc/``, across from
 :mod:`repro.kernels.gemm.kernel`.
 
 :func:`gemm` checks the tile keywords as the reference does (each is
 clamped to its dimension and must divide it), then takes CPU tensors to the
-plain version in ``ref.py`` and launches the kernel for CUDA tensors; there
-is no fallback from one to the other.  ``bm/bn/bk`` are the TPU kernel's
-tiles; the CUDA kernel's tile (128 x 128, K slices of 8) is its own.
+plain version in ``ref.py`` and launches one CUDA route for CUDA tensors;
+there is no fallback from one to the other, nor from one route to the
+other.  ``bm/bn/bk`` are the TPU kernel's tiles; the CUDA routes' tiles are
+their own, and :func:`gemm_plan` picks the route and sizes its launch from
+the dtype, the shape and the operands' alignment alone:
+
+* ``"wgmma"`` (``csrc/gemm_wgmma.cu``): bf16 on the tensor cores, TMA
+  loads into a ring of shared-memory stages; it takes bf16 whenever TMA can
+  address both operands (K and N multiples of 8, so that rows are whole
+  16-byte units, and 16-byte-aligned base pointers);
+* ``"simt"`` (``csrc/gemm_simt.cu``): fp32 on the CUDA cores (TF32 stays
+  off, so fp32 has no tensor-core path), and bf16 that TMA cannot address.
+
 :func:`gemm_plain` runs the plain version on any device, with the same
-checks.  ``gemm.launches`` counts the calls that launched the kernel.
+checks.  ``gemm.launches`` counts the calls that launched a kernel and
+``gemm.route_launches`` the same calls by route.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -21,7 +34,102 @@ from repro_torch.kernels.gemm import ref
 
 #: dtype codes of the C interface
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+ROUTES = ("wgmma", "simt")
+#: block tile (bm, bn, bk) and stages of each route, as the sources define
+WGMMA_TILE, WGMMA_STAGES = (128, 256, 64), 4
+SIMT_TILE, SIMT_STAGES = (128, 128, 16), 2
+#: tiles of this many block rows are walked column by column, so that the
+#: blocks in flight share their A rows and B columns in the L2
+GROUP_M = 16
+#: dynamic shared memory a block may opt into on an H100 (227 KB)
+SMEM_LIMIT = 232448
+_MAX_GRID = 2 ** 31 - 1
+_ARGTYPES = {
+    "wgmma": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
+    "simt": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 9 + [ctypes.c_void_p],
+}
+
+
+class GemmPlan(NamedTuple):
+    """How one product is launched: the ``route`` ("wgmma" or "simt"), its
+    block ``tile`` (bm, bn, bk), the ``stages`` of its K slices in shared
+    memory, the ``smem`` bytes a block, the ``grid`` (blocks, one a tile),
+    and for the simt route whether A, B and C are read or written as
+    16-byte vectors (``vec_a``, ``vec_b``, ``vec_c``) and whether every
+    tile lies inside M, N and K with both operands read as vectors
+    (``whole_tiles``: the kernel then checks no edge)."""
+
+    route: str
+    tile: Tuple[int, int, int]
+    stages: int
+    smem: int
+    grid: int
+    vec_a: bool
+    vec_b: bool
+    vec_c: bool
+    whole_tiles: bool
+
+
+@functools.lru_cache(maxsize=256)
+def gemm_plan(M: int, N: int, K: int, dtype: torch.dtype,
+              aligned: bool = True) -> GemmPlan:
+    """The route and launch of an (M, K) @ (K, N) product in ``dtype``;
+    ``aligned``: both operands start on a 16-byte boundary.
+
+    bf16 takes the wgmma route when K % 8 == 0, N % 8 == 0 and ``aligned``:
+    a 128 x 256 tile a block, a ring of 4 stages of 64-deep K slices (A
+    128 x 64 and B 64 x 256 in bf16, 48 KB a stage), 1 KB to align the ring
+    to the 128-byte swizzle's 1024-byte period, and a full and an empty
+    barrier (8 bytes each) a stage.  Everything else takes the simt route:
+    a 128 x 128 tile, 2 stages of 16-deep slices held in fp32.  There, a
+    row of A (B, C) is moved in 16-byte vectors only when ``aligned`` and K
+    (N, N) is a multiple of the elements in 16 bytes; C is allocated by the
+    wrapper, so it is always aligned; ``whole_tiles`` when both operands
+    are vectors and the tile divides M, N and K.  Raises on a shape no
+    route takes.
+    """
+    if dtype not in _DTYPE_CODE:
+        raise TypeError(f"gemm takes float32 or bfloat16, got {dtype}")
+    if min(M, N, K) < 1 or max(M, N, K) > 2 ** 31 - 1:
+        raise ValueError(f"gemm cannot take ({M}, {N}, {K})")
+    if dtype == torch.bfloat16 and K % 8 == 0 and N % 8 == 0 and aligned:
+        route, tile, stages = "wgmma", WGMMA_TILE, WGMMA_STAGES
+        bm, bn, bk = tile
+        smem = stages * (bm * bk + bk * bn) * 2 + 1024 + 2 * stages * 8
+        vec_a = vec_b = vec_c = whole = False
+    else:
+        route, tile, stages = "simt", SIMT_TILE, SIMT_STAGES
+        bm, bn, bk = tile
+        smem = stages * (bm * bk + bk * bn) * 4
+        per = 16 // dtype.itemsize
+        vec_a, vec_b, vec_c = aligned and K % per == 0, \
+            aligned and N % per == 0, N % 4 == 0
+        whole = (vec_a and vec_b and M % bm == 0 and N % bn == 0
+                 and K % bk == 0)
+    grid = -(-M // bm) * -(-N // bn)
+    if grid > _MAX_GRID:
+        raise ValueError(f"gemm ({M}, {N}, {K}) needs {grid} blocks, over "
+                         f"{_MAX_GRID}")
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"gemm {route} needs {smem} bytes of shared memory, "
+                         f"over {SMEM_LIMIT}")
+    return GemmPlan(route, tile, stages, smem, grid, vec_a, vec_b, vec_c,
+                    whole)
+
+
+def tile_origin(block: int, M: int, N: int, plan: GemmPlan
+                ) -> Tuple[int, int]:
+    """(first row, first column) of C that block ``block`` computes, in
+    the order both sources walk the tiles: :data:`GROUP_M` block rows at a
+    time, down each column of tiles, then the next column."""
+    bm, bn, _ = plan.tile
+    tiles_m, tiles_n = -(-M // bm), -(-N // bn)
+    span = GROUP_M * tiles_n
+    first = (block // span) * GROUP_M
+    rows = min(tiles_m - first, GROUP_M)
+    tm = first + (block % span) % rows
+    tn = (block % span) // rows
+    return tm * bm, tn * bn
 
 
 def _check(x, y, bm: int, bn: int, bk: int) -> int:
@@ -54,16 +162,26 @@ def gemm(x: torch.Tensor, y: torch.Tensor, *, bm: int = 128, bn: int = 128,
     build.require_cuda("gemm", (x, y))
     M, K = x.shape
     N = y.shape[1]
+    plan = gemm_plan(M, N, K, x.dtype,
+                     x.data_ptr() % 16 == 0 and y.data_ptr() % 16 == 0)
     out = torch.empty((M, N), dtype=x.dtype, device=x.device)
-    err = build.function("gemm", "gemm_launch", _ARGTYPES)(
-        x.data_ptr(), y.data_ptr(), out.data_ptr(), M, N, K,
-        _DTYPE_CODE[x.dtype], build.stream_of(x))
-    build.raise_on("gemm", err)
+    library = f"gemm_{plan.route}"
+    fn = build.function(library, f"{library}_launch", _ARGTYPES[plan.route])
+    if plan.route == "wgmma":
+        err = fn(x.data_ptr(), y.data_ptr(), out.data_ptr(), M, N, K,
+                 plan.grid, plan.smem, x.device.index, build.stream_of(x))
+    else:
+        err = fn(x.data_ptr(), y.data_ptr(), out.data_ptr(), M, N, K,
+                 _DTYPE_CODE[x.dtype], plan.vec_a, plan.vec_b, plan.vec_c,
+                 plan.whole_tiles, plan.grid, build.stream_of(x))
+    build.raise_on(library, err)
     gemm.launches += 1
+    gemm.route_launches[plan.route] += 1
     return out
 
 
 gemm.launches = 0
+gemm.route_launches = dict.fromkeys(ROUTES, 0)
 
 
 def gemm_plain(x: torch.Tensor, y: torch.Tensor, *, bm: int = 128,

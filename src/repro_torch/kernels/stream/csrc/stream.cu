@@ -7,10 +7,18 @@
 // an argument and the op is a template parameter.
 //
 // Bound: bytes.  Each element is read once per input and written once, with
-// no reuse, so the kernel only has to keep enough loads in flight to fill
-// HBM: a grid-stride loop over 16-byte vectors (4 fp32 or 8 16-bit values)
-// where a, b and c are 16-byte aligned, and one element a thread otherwise
-// and for the tail.
+// no reuse, so the kernel only has to keep enough bytes in flight to fill
+// HBM.  Where a, b and c are 16-byte aligned, each thread issues kUnroll
+// independent 16-byte loads per input (4 fp32 or 8 16-bit values each)
+// before its first store, and the grid covers the vectors once, a block
+// kThreads * kUnroll of them, with no grid-stride loop.  On the H100 this
+// came closest to PyTorch's copy and add among the variants tried (128,
+// 256 or 512 threads; 1, 2, 4 or 8 vectors a thread; one pass or a
+// grid-stride loop of 4 or 8 waves; evict-first loads and stores (__ldcs,
+// __stcs) or ld.global.nc.L1::no_allocate, all slower than plain loads and
+// stores).
+// The misaligned arrays and the tail take one element a thread in a
+// grid-stride loop, sized from the SM count, read once per device.
 //
 // Numerics: each op rounds to the arrays' dtype as the oracle
 // (stream/ref.py) does: 16-bit values are widened to fp32, and a result is
@@ -34,7 +42,9 @@
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kUnroll = 4;  // 16-byte vectors a thread, per input
 constexpr int kBlocksPerSM = 8;
+constexpr int kMaxDevices = 64;
 
 enum Op { kCopy = 0, kScale = 1, kAdd = 2, kTriad = 3 };
 
@@ -54,24 +64,37 @@ __device__ __forceinline__ T apply(T a, T b, float q) {
   return Cvt<T>::out(r);
 }
 
-// nvec 16-byte vectors of a, b, c.
+// nvec 16-byte vectors of a, b, c; block x takes vectors
+// [x * kThreads * kUnroll, (x + 1) * kThreads * kUnroll), thread t those
+// at t, t + kThreads, ... of its block's, so each load is coalesced.
 template <typename T, int OP>
 __global__ void __launch_bounds__(kThreads)
 stream_vec_kernel(const uint4 *__restrict__ a, const uint4 *__restrict__ b,
                   uint4 *__restrict__ c, float q, int64_t nvec) {
   constexpr int kVec = 16 / sizeof(T);
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < nvec;
-       i += stride) {
-    const uint4 va = a[i];
+  constexpr bool kTwo = OP == kAdd || OP == kTriad;
+  const int64_t first =
+      (int64_t)blockIdx.x * kThreads * kUnroll + threadIdx.x;
+  uint4 va[kUnroll], vb[kUnroll];
+#pragma unroll
+  for (int u = 0; u < kUnroll; ++u) {
+    const int64_t i = first + u * kThreads;
+    if (i < nvec) {
+      va[u] = a[i];
+      if (kTwo) vb[u] = b[i];
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < kUnroll; ++u) {
+    const int64_t i = first + u * kThreads;
+    if (i >= nvec) break;
     if (OP == kCopy) {
-      c[i] = va;
+      c[i] = va[u];
       continue;
     }
-    const uint4 vb = (OP == kAdd || OP == kTriad) ? b[i] : make_uint4(0, 0, 0, 0);
     uint4 vc;
-    const T *ea = reinterpret_cast<const T *>(&va);
-    const T *eb = reinterpret_cast<const T *>(&vb);
+    const T *ea = reinterpret_cast<const T *>(&va[u]);
+    const T *eb = reinterpret_cast<const T *>(kTwo ? &vb[u] : &va[u]);
     T *ec = reinterpret_cast<T *>(&vc);
 #pragma unroll
     for (int k = 0; k < kVec; ++k) ec[k] = apply<T, OP>(ea[k], eb[k], q);
@@ -92,12 +115,18 @@ stream_scalar_kernel(const T *__restrict__ a, const T *__restrict__ b,
   }
 }
 
+// Blocks of the one-element kernel: at most kBlocksPerSM a multiprocessor.
 int grid_for(int64_t work) {
-  int device = 0, sms = 132;
+  static int sms[kMaxDevices] = {};
+  int device = 0;
   cudaGetDevice(&device);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  int &count = sms[device < kMaxDevices ? device : 0];
+  if (count == 0 &&
+      cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount,
+                             device) != cudaSuccess)
+    count = 132;
   const int64_t need = (work + kThreads - 1) / kThreads;
-  const int64_t cap = (int64_t)sms * kBlocksPerSM;
+  const int64_t cap = (int64_t)count * kBlocksPerSM;
   return (int)(need < cap ? need : cap);
 }
 
@@ -111,7 +140,9 @@ int launch(const void *a, const void *b, void *c, int64_t n, float q,
   if (aligned16(a) && aligned16(b) && aligned16(c)) {
     const int64_t nvec = n / kVec;
     if (nvec > 0) {
-      stream_vec_kernel<T, OP><<<grid_for(nvec), kThreads, 0, stream>>>(
+      const int64_t per_block = kThreads * kUnroll;
+      stream_vec_kernel<T, OP><<<(nvec + per_block - 1) / per_block, kThreads,
+                                 0, stream>>>(
           static_cast<const uint4 *>(a), static_cast<const uint4 *>(b),
           static_cast<uint4 *>(c), q, nvec);
       done = nvec * kVec;

@@ -545,6 +545,7 @@ def test_quantized_serving_on_the_card_matches_the_cpu(cuda):
 
 import chip_smoke  # noqa: E402
 from repro_torch.kernels import registry  # noqa: E402
+from repro_torch.kernels.gemm import kernel as gemm_kernel  # noqa: E402
 from repro_torch.kernels.spmv import ref as spmv_ref  # noqa: E402
 
 
@@ -556,7 +557,8 @@ def _randn(device, shape, dtype, seed):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
                                    torch.float16])
 @pytest.mark.parametrize("rows,width,offset", [(64, 128, 0), (37, 100, 0),
-                                               (37, 100, 1)])
+                                               (37, 100, 1), (4099, 128, 0),
+                                               (2049, 256, 3)])
 @pytest.mark.parametrize("name,n_in,q", [("stream-copy", 1, None),
                                          ("stream-scale", 1, 0.3),
                                          ("stream-add", 2, None),
@@ -589,15 +591,63 @@ def test_jacobi_kernel_matches_plain(cuda, dtype, H, W):
     torch.testing.assert_close(got[[0, -1]], u[[0, -1]], rtol=0, atol=0)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("M,N,K", [(1, 1, 1), (100, 130, 70), (257, 129, 33),
-                                   (256, 256, 512)])
-def test_gemm_kernel_matches_plain(cuda, dtype, M, N, K):
-    x, y = _randn(cuda, (M, K), dtype, 2), _randn(cuda, (K, N), dtype, 3)
+#: chip_smoke.py's GEMM cases: the wgmma route at its edges (M and N past
+#: whole tiles, K = 8, K % 64 != 0, 1024 x 1024 x 4096, a shape inside one
+#: tile) and the simt route (fp32, K not a multiple of its 16-deep slices,
+#: bf16 that TMA cannot address, a misaligned A)
+GEMM_SHAPES = [(dtype, offset, M, N, K)
+               for dtype, offset, shapes in chip_smoke.GEMM_CASES
+               for M, N, K in shapes]
+
+
+@pytest.mark.parametrize("dtype,offset,M,N,K", GEMM_SHAPES)
+def test_gemm_kernel_matches_plain(cuda, dtype, offset, M, N, K):
+    x = _randn(cuda, (M * K + offset,), getattr(torch, dtype), 2)[offset:]
+    x, y = x.view(M, K), _randn(cuda, (K, N), getattr(torch, dtype), 3)
+    before = dict(gemm_kernel.gemm.route_launches)
     got = registry.GEMM.kernel(x, y, bm=M, bn=N, bk=K)
     err, ok = chip_smoke.gemm_close(
         torch, got, registry.GEMM.interpret(x, y, bm=M, bn=N, bk=K))
     assert ok, err
+    assert chip_smoke.gemm_route(gemm_kernel, before) == \
+        chip_smoke.gemm_expected_route(dtype, N, K, offset)
+
+
+def test_gemm_wgmma_tile_reads_a_k_major_and_b_mn_major(cuda):
+    """One 128 x 256 tile, K = 64, against stacked identities: with A = I,
+    C is B's rows (each C[m][n] names the k and n it came from); with
+    B = I, C is A's columns.  bf16 holds these small integers exactly, so
+    a wrong descriptor offset or swizzle shows as wrong elements."""
+    M, K, N, bf16 = 128, 64, 256, torch.bfloat16
+    m = torch.arange(M, device=cuda)[:, None]
+    k = torch.arange(K, device=cuda)
+    n = torch.arange(N, device=cuda)[None, :]
+    eye_a = (k[None, :] == m % K).to(bf16)
+    eye_b = (n % K == k[:, None]).to(bf16)
+    cases = [(eye_a, k[:, None].expand(K, N), (m % K).expand(M, N)),
+             (eye_a, n.expand(K, N), n.expand(M, N)),
+             (m.expand(M, K), eye_b, m.expand(M, N)),
+             (k[None, :].expand(M, K), eye_b, (n % K).expand(M, N))]
+    assert gemm_kernel.gemm_plan(M, N, K, bf16).route == "wgmma"
+    for x, y, want in cases:
+        got = gemm_kernel.gemm(x.to(bf16).contiguous(),
+                               y.to(bf16).contiguous())
+        torch.testing.assert_close(got, want.to(bf16), rtol=0, atol=0)
+
+
+def test_gemm_counts_launches_by_route(cuda):
+    fn = gemm_kernel.gemm
+    bf = _randn(cuda, (64 * 72 + 1,), torch.bfloat16, 4)
+    calls = [(bf[:64 * 72].view(64, 72), "wgmma"),
+             (bf[1:].view(64, 72), "simt"),  # 2 bytes off a 16-byte line
+             (bf[:64 * 72].view(64, 72).float(), "simt")]
+    for x, route in calls:
+        y = _randn(cuda, (72, 40), x.dtype, 5)
+        before, total = dict(fn.route_launches), fn.launches
+        fn(x, y)
+        assert fn.launches == total + 1
+        assert {r: n - before[r] for r, n in fn.route_launches.items()} == \
+            {r: int(r == route) for r in gemm_kernel.ROUTES}
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
