@@ -32,7 +32,15 @@ non-zero):
             pools, then int8 pools beside the same-shape bf16 call, and
             the commit kernel alone at a decode step's shapes into bf16
             pools (beside the two ``index_put_`` calls that write the same
-            rows) and int8 pools.
+            rows) and int8 pools.  Then the decode launch that commits
+            each slot's new row itself (``k_new``/``v_new``): bit-equal to
+            the commit kernel then the decode (output, pools, scales) for
+            every (q, pool) pair at every head shape and at the serve
+            shapes, and its head slices given the rows' amax; timed at
+            qwen3-1.7b's serve shapes (bf16 and int8 pools) and gpt2-124m's
+            beside its bound, the plain versions, the two-launch pair
+            (device ms and a decode layer's host us) and, for bf16, two
+            ``index_put_`` and SDPA.
    kernel-sharded  kernel 2.4, the head-sharded decode: for every (q,
             pool) pair at every head shape, the slices (i, n), n in 1, 2,
             4, concatenated, bit-equal to the unsharded launch and each
@@ -46,12 +54,16 @@ non-zero):
             GEMM case on the route the rule names (``GEMM_CASES``: bf16
             that TMA can address on wgmma, with M and N past whole tiles,
             K = 8, K % 64 != 0 and a shape inside one tile; the rest on
-            simt), by the route counters.
+            simt), by the route counters; SpMV also at widths 1 to 256,
+            row_nnz of 0, negative and past the width, and on misaligned
+            inputs, each on the instantiation ``spmv_plan`` names.
    timing   the four at full size (STREAM 2^21 x 128 fp32, GEMM 8192^3
             fp32 on the simt route and bf16 on the wgmma route, Jacobi2D
             16384^2 fp32, SpMV 2^20 rows of block-ELL width 128, Zipf nnz
             up to 64): kernel, plain and library ms beside the least time
-            at the H100's peaks for the dtype.
+            at the H100's peaks for the dtype; SpMV beside its plan, its
+            gathers a call and the gather floor (the kernel's gathers
+            alone, ``spmv_gather_probe``).
    kernel-dense  the RX gate (n 6, 12, 22; qubits 0, 1, 4, 5, n-1; theta
             0.25, 1.1, 2 pi) bit-equal to its plain version, and the
             contiguous flash-decode (D 16/32/64/128, G 1/2/4/8, ragged
@@ -71,9 +83,9 @@ non-zero):
             is above 1.05.
 4. serve    ``repro_torch.launch.serve`` at the full width of gpt2-124m
             (bf16): every request completes, and the decode kernel runs 12
-            times (once per layer) per fused step, each launch after one
-            of the commit kernel (every serve phase commits a decode
-            step's rows through it).
+            times (once per layer) per fused step, each launch committing
+            the step's rows (the commit kernel never runs alone
+            unsharded).
    profile  a second, shorter drain of that engine under torch.profiler:
             the device's busy time by kernel (the top ten, and sums for the
             prefill attention, the decode attention, the commit and the
@@ -81,15 +93,15 @@ non-zero):
 5. serve-chunked  the same CLI at the full width of qwen3-1.7b (bf16, all
             28 layers) with chunked prefill: every request completes, and
             the decode and prefill kernels together run 28 times per fused
-            step, each at least once.
+            step, each at least once, every decode launch committing.
    profile  the same profile over a second drain of that engine.
    serve-shared-int8  the same CLI at qwen3-1.7b's full width with int8 KV
             pools and a shared 256-token prompt prefix (prompts 64..256
             after it), with ``--share-prefixes`` and then without, on the
             same weights: every request completes, the streams are equal,
             sharing stores fewer physical blocks (dedup ratio > 1), the
-            int8 kernels launch 28 times a fused step (one commit a decode
-            launch); then two identical prompts copy on write at their
+            int8 kernels launch 28 times a fused step (every decode launch
+            committing); then two identical prompts copy on write at their
             first generated token with the unshared streams.  Prints the
             int8 pool bytes beside a bf16 pool's for the same blocks, and
             the phase's seconds.
@@ -103,8 +115,8 @@ non-zero):
    parity-int8  qwen3-1.7b at full width cut to 4 layers, float32, int8
             pools: teacher-forced logits on the card within 0.03 of the
             CPU's, and within the reference's qwen3 int8 budget (0.11) of
-            the card's f32 cache; the card's int8 run launches the commit,
-            decode and prefill kernels on int8 pools.
+            the card's f32 cache; the card's int8 run launches the decode
+            (committing) and prefill kernels on int8 pools.
 7. serve-mesh  tensor-parallel serving: ``CHUNKED_ARGV``'s first 8
             requests with ``--mesh 1x2`` and ``--mesh 2x2`` (qwen3-1.7b,
             full width, 28 layers, bf16), as ranks sharing the card over
@@ -112,7 +124,9 @@ non-zero):
             their shards from serve-chunked's weights (CUDA IPC): every
             request completes, and on every
             rank the head-sharded decode (kernel 2.4) launches once per
-            layer per decode step over KV / M heads; per rank the
+            layer per decode step over KV / M heads, committing its slots'
+            rows, and with two data ranks the commit kernel writes the
+            other rank's rows once per layer and fused step; per rank the
             launches, backend, collectives a step, bytes staged through
             the host, wall time and tok/s, and how many streams equal the
             unsharded card engine's on the same requests.
@@ -888,6 +902,206 @@ def commit_timing(torch, np, kernel, ref, pool_dtype):
     return row
 
 
+# -- the decode launch that commits its rows ----------------------------------
+
+
+def new_rows(torch, B, KV, D, dtype, seed):
+    """Each slot's new K and V row (B, KV, D), made on the card."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return [torch.randn((B, KV, D), device="cuda", generator=gen).to(dtype)
+            for _ in range(2)]
+
+
+def _clones(pools):
+    return [None if t is None else t.clone() for t in pools]
+
+
+def _pools_equal(torch, a, b) -> bool:
+    return all(torch.equal(x, y) for x, y in zip(a, b) if x is not None)
+
+
+def fused_pair(torch, kernel, q, pools, bt, vl, k_new, v_new):
+    """The parent's two launches a decode layer: the commit kernel with
+    ``q_start = valid_len - 1`` and ``q_len`` of ones, then the decode."""
+    kernel.commit_paged(k_new[:, None], v_new[:, None], pools[0], pools[1],
+                        bt, vl - 1, torch.ones_like(vl), *pools[2:])
+    return kernel.flash_decode_paged(q, pools[0], pools[1], bt, vl,
+                                     *pools[2:])
+
+
+def check_fused_commit(torch, np, kernel, ref):
+    """The decode launch given each slot's new row (``k_new``/``v_new``)
+    against the commit kernel then the decode, bit for bit (output, pools
+    and scales): every (q, pool) pair at every head shape (D 16 to 128,
+    4 blocks a slot) and at the serve shapes (16 and 64 blocks), lengths
+    of one row, at block and split edges and of the whole table; then the
+    head slices (i, n), n in 2 and 4, each given its heads of the rows
+    (and for int8 each row's amax over all heads), concatenated, against
+    the same pair.  Returns the cases checked."""
+    B, bs = 8, 16
+    split = kernel.decode_split_rows(bs)
+    shapes = {**{name: (h, 4) for name, h in
+                 {**ARCH_HEADS, **SMALL_HEADS}.items()},
+              "gpt2-124m serve": (ARCH_HEADS["gpt2-124m"], 16),
+              "qwen3-1.7b serve": (ARCH_HEADS["qwen3-1.7b"], 64)}
+    rng = np.random.default_rng(31)
+    cases = slices = 0
+    for name, ((KV, G, D), nb) in shapes.items():
+        rows = nb * bs
+        valid = rng.integers(1, rows + 1, size=B)
+        edges = sorted({min(e, rows) for e in (1, bs, bs + 1, split,
+                                                split + 1, rows)})
+        valid[:len(edges)] = edges
+        for q_dtype, pool_dtype in kernel.POOL_PAIRS:
+            (q, kp, vp, bt, vl), scales = _sharded_inputs(
+                torch, ref, B, KV, G, D, bs, nb, q_dtype, pool_dtype,
+                valid.tolist(), seed=100 + cases)
+            k_new, v_new = new_rows(torch, B, KV, D, q_dtype, seed=cases)
+            pools = [kp, vp, *scales]
+            pair, fused = _clones(pools), _clones(pools)
+            want = fused_pair(torch, kernel, q, pair, bt, vl, k_new, v_new)
+            got = kernel.flash_decode_paged(q, fused[0], fused[1], bt, vl,
+                                            *fused[2:], k_new=k_new,
+                                            v_new=v_new)
+            torch.cuda.synchronize()
+            what = (f"{name} {dtype_name(q_dtype)}/"
+                    f"{dtype_name(pool_dtype)}")
+            require(torch.equal(got, want) and _pools_equal(torch, fused,
+                                                            pair),
+                    f"fused commit != commit then decode at {what}")
+            amax = {}
+            if pool_dtype == torch.int8:
+                amax = dict(k_amax=ref.row_amax(k_new),
+                            v_amax=ref.row_amax(v_new))
+            for n in (2, 4):
+                if KV % n:
+                    continue
+                part_pools = _clones(pools)
+                parts = []
+                for i in range(n):
+                    h = ref.head_slice((i, n), KV)
+                    parts.append(kernel.flash_decode_paged(
+                        q, part_pools[0], part_pools[1], bt, vl,
+                        *part_pools[2:], head_shard=(i, n),
+                        k_new=k_new[:, h].contiguous(),
+                        v_new=v_new[:, h].contiguous(), **amax))
+                torch.cuda.synchronize()
+                require(torch.equal(torch.cat(parts, dim=1), want)
+                        and _pools_equal(torch, part_pools, pair),
+                        f"fused commit slices (i, {n}) != commit then "
+                        f"decode at {what}")
+                slices += n
+            cases += 1
+    emit({"phase": "kernel", "kernel": "flash_decode_paged_commit",
+          "shapes": {name: [*h, nb] for name, (h, nb) in shapes.items()},
+          "pairs": [f"{dtype_name(a)}/{dtype_name(b)}"
+                    for a, b in kernel.POOL_PAIRS],
+          "bit_equal_cases": cases, "bit_equal_slices": slices})
+    return cases
+
+
+def fused_commit_timing(torch, np, kernel, ref, arch, nb, max_valid, seed,
+                        pool_dtype):
+    """The decode launch that commits its rows at a serve phase's shapes
+    (8 slots, ``nb`` blocks of 16, the arch's heads, bf16 q over
+    ``pool_dtype`` pools, lengths as ``decode_timing`` draws them), held
+    bit-equal to the commit kernel then the decode and within
+    ``decode_close`` of the plain versions; then timed beside: its bound
+    (the decode's bytes plus the commit's), the plain commit then the
+    plain decode, the two-launch pair, and for bf16 pools a library
+    composite (two ``index_put_`` of the rows, then SDPA over K/V gathered
+    beforehand).  The host's time is taken for the fused call and for the
+    pair as a decode layer made it (with the commit's ``q_len`` of ones
+    made there)."""
+    import torch.nn.functional as F
+
+    B, bs = 8, 16
+    KV, G, D = ARCH_HEADS[arch]
+    valid = np.random.default_rng(seed).integers(1, max_valid + 1, size=B)
+    q, kp, vp, bt, vl = paged_inputs(torch, B, KV, G, D, bs, nb,
+                                     torch.float32, valid.tolist(),
+                                     seed=seed + 1)
+    q = q.to(torch.bfloat16)
+    pools = list(as_pools(torch, ref, kp, vp, pool_dtype))
+    k_new, v_new = new_rows(torch, B, KV, D, torch.bfloat16, seed)
+    kn, vn = k_new[:, None], v_new[:, None]
+    quantized = pool_dtype == torch.int8
+    pair, fused, plain = _clones(pools), _clones(pools), _clones(pools)
+    want = fused_pair(torch, kernel, q, pair, bt, vl, k_new, v_new)
+    got = kernel.flash_decode_paged(q, fused[0], fused[1], bt, vl,
+                                    *fused[2:], k_new=k_new, v_new=v_new)
+    pos, ones = vl - 1, torch.ones_like(vl)
+    rows = ref.commit_rows(bt, pos, ones, 1, bs)
+
+    def plain_call():
+        ref.commit_paged_ref(kn, vn, plain[0], plain[1], bt, pos, ones,
+                             *plain[2:], rows=rows)
+        return ref.flash_decode_paged_ref(q, plain[0], plain[1], bt, vl,
+                                          *plain[2:])
+
+    expect = plain_call()
+    torch.cuda.synchronize()
+    require(torch.equal(got, want) and _pools_equal(torch, fused, pair),
+            f"fused commit != commit then decode at {arch} serve shapes, "
+            f"{dtype_name(pool_dtype)} pools")
+    err, ok = decode_close(torch, got, expect)
+    require(ok, f"fused commit != plain at {arch} serve shapes: {err}")
+
+    def fused_call():
+        return kernel.flash_decode_paged(q, fused[0], fused[1], bt, vl,
+                                         *fused[2:], k_new=k_new,
+                                         v_new=v_new)
+
+    def layer_pair():  # as the parent's decode layer called them
+        kernel.commit_paged(kn, vn, pair[0], pair[1], bt, pos,
+                            torch.ones_like(pos), *pair[2:])
+        return kernel.flash_decode_paged(q, pair[0], pair[1], bt, vl,
+                                         *pair[2:])
+
+    library_ms = None
+    if not quantized:
+        S = nb * bs
+        k = pair[0][bt.long()].reshape(B, S, KV, D).transpose(1, 2)
+        v = pair[1][bt.long()].reshape(B, S, KV, D).transpose(1, 2)
+        k = k.repeat_interleave(G, dim=1).contiguous()
+        v = v.repeat_interleave(G, dim=1).contiguous()
+        qh = q.reshape(B, KV * G, 1, D)
+        mask = (torch.arange(S, device="cuda")[None, :] < vl[:, None])
+        mask = mask[:, None, None, :]
+        src, dst = rows
+        k_rows, v_rows = k_new[src], v_new[src]
+
+        def library():
+            pair[0].view(-1, KV, D).index_put_((dst,), k_rows)
+            pair[1].view(-1, KV, D).index_put_((dst,), v_rows)
+            return F.scaled_dot_product_attention(qh, k, v, attn_mask=mask)
+
+        lib_err = (library().reshape(got.shape).float()
+                   - expect.float()).abs().max().item()
+        require(lib_err <= 2 * TOLERANCE["bfloat16"],
+                f"index_put_ + SDPA yardstick disagrees: {lib_err}")
+        library_ms = device_ms(torch, library)
+    decode = ref.work_terms(q, pools[0], bt, valid, quantized)
+    commit = ref.commit_work_terms(kn, pools[0], [1] * B, quantized)
+    bound_ms, bound_by = bound({"bytes": decode["bytes"] + commit["bytes"],
+                                "flops": decode["flops"]}, "bfloat16")
+    row = {"max_abs_err": err,
+           "ms": device_ms(torch, fused_call),
+           "plain_ms": device_ms(torch, plain_call),
+           "bound_ms": bound_ms, "bound_by": bound_by,
+           "library_ms": library_ms,
+           "host_us": host_us(torch, fused_call),
+           "pair_ms": device_ms(torch, lambda: fused_pair(
+               torch, kernel, q, pair, bt, vl, k_new, v_new)),
+           "pair_host_us": host_us(torch, layer_pair)}
+    emit({"phase": "kernel", "kernel": "flash_decode_paged_commit",
+          "shapes": f"serve {arch}", "B": B, "KV": KV, "G": G, "D": D,
+          "bs": bs, "nb": nb, "dtype": "bfloat16",
+          "pool": dtype_name(pool_dtype), "valid_len": valid.tolist(),
+          **row})
+    return row
+
+
 # -- HPC kernels: the analysis suite --------------------------------------------
 
 #: full sizes: every array well past the 50 MB L2 (SpMV's x excepted)
@@ -1013,7 +1227,9 @@ def check_hpc(torch, np):
     the one-element paths); Jacobi2D in fp32/bf16 on odd sizes and grids
     with H or W below 3; GEMM in fp32/bf16 on sizes no tile divides; SpMV
     in fp32/bf16, predicated (repeat 1, 4, 20) and fixed width, with rows
-    of 0, 1 and 128 nonzeros, and predicated lanes poisoned with NaN."""
+    of 0, 1 and 128 nonzeros, and predicated lanes poisoned with NaN, then
+    at the plan's edge widths and on misaligned inputs
+    (:func:`spmv_edge_cases`)."""
     from repro_torch.kernels.spmv import ref as spmv_ref
 
     gemm, jacobi, spmv, stream = hpc_modules()
@@ -1110,7 +1326,54 @@ def check_hpc(torch, np):
                                         predicated=False))
         cases.append({"variant": "fixed_width", "dtype": dtype_name(dtype),
                       "max_abs_err": err, "ok": ok})
+        cases += spmv_edge_cases(torch, spmv, spmv_ref, dtype, gen)
     report_cases("kernel-hpc", "spmv", cases)
+
+
+#: SpMV edge widths: the scalar route (1, 3, 130; bf16 also 4 and 100),
+#: the vector routes at one and several passes, and the fixed-width lanes'
+#: steps (8, 16 and 32 lanes)
+SPMV_EDGE_WIDTHS = (1, 3, 4, 100, 128, 130, 256)
+
+
+def spmv_edge_cases(torch, spmv, spmv_ref, dtype, gen):
+    """Both SpMV kernels at :data:`SPMV_EDGE_WIDTHS`, with row_nnz of 0,
+    1, negative, the width and past it, on aligned inputs and on values
+    and col_idx one element off a 16-byte line (the scalar route): within
+    ``spmv_close`` of the plain version, on the instantiation
+    ``spmv_plan`` names (``last_plan``).  Returns the cases."""
+    cases = []
+    for width in SPMV_EDGE_WIDTHS:
+        for offset in (0, 1):
+            nb, rb, n_cols = 13, 8, 777
+            n = nb * rb * width
+            vals = torch.randn((n + offset,), device="cuda",
+                               generator=gen).to(dtype)[offset:]
+            cols = torch.randint(0, n_cols, (n + offset,), device="cuda",
+                                 generator=gen, dtype=torch.int32)[offset:]
+            vals, cols = vals.view(nb, rb, width), cols.view(nb, rb, width)
+            nnz = torch.randint(-2, width + 3, (nb, rb), device="cuda",
+                                generator=gen, dtype=torch.int32)
+            nnz[0, :5] = torch.tensor([0, 1, -1, width, width + 7])
+            x = torch.randn((n_cols,), device="cuda", generator=gen).to(dtype)
+            args = (vals, cols, nnz, x)
+            aligned = (vals.data_ptr() | cols.data_ptr()) % 16 == 0
+            for predicated, fn, plain in (
+                    (True, spmv.spmv_blockell, spmv.spmv_blockell_plain),
+                    (False, spmv.spmv_fixed_width,
+                     spmv.spmv_fixed_width_plain)):
+                got = fn(*args)
+                want = plain(*args)
+                torch.cuda.synchronize()
+                err, ok = spmv_close(torch, got, want, spmv_scale(
+                    spmv_ref, *args, predicated=predicated))
+                plan = spmv.spmv_plan(width, dtype, predicated, aligned)
+                cases.append({"variant": "predicated" if predicated
+                              else "fixed_width", "dtype": dtype_name(dtype),
+                              "width": width, "offset": offset,
+                              "plan": plan._asdict(), "max_abs_err": err,
+                              "ok": ok and fn.last_plan == plan})
+    return cases
 
 
 def hpc_problems(torch):
@@ -1223,8 +1486,20 @@ def hpc_timing(torch, problems):
         bound_ms, bound_by = bound(
             spmv_ref.work_terms(vals, nnz, xs, predicated=predicated),
             "float32")
+        probe = spmv.spmv_gather_probe(nnz, xs, width, predicated=predicated)
+        probe_err, probe_ok = spmv_close(
+            torch, probe,
+            spmv_ref.gather_probe_plain(nnz, xs, width,
+                                        predicated=predicated),
+            spmv_ref.gather_probe_plain(nnz, xs.abs(), width,
+                                        predicated=predicated))
+        require(probe_ok, f"{variant} gather probe != plain: {probe_err}")
         rows[variant] = {
-            "max_abs_err": err,
+            "max_abs_err": err, "plan": kern.last_plan._asdict(),
+            "gathers": int(counts.sum()) if predicated else vals.numel(),
+            "gather_floor_ms": device_ms(
+                torch, lambda: spmv.spmv_gather_probe(
+                    nnz, xs, width, predicated=predicated), reps=50),
             "ms": device_ms(torch, lambda: kern(vals, cols, nnz, xs),
                             reps=50),
             "plain_ms": device_ms(torch, lambda: plain(vals, cols, nnz, xs),
@@ -1235,7 +1510,8 @@ def hpc_timing(torch, problems):
                                     reps=50)}
         emit({"phase": "timing", "kernel": variant,
               "rows": SPMV_ROWS, "width": width, "max_nnz": SPMV_MAX_NNZ,
-              "nnz": int(counts.sum()), "dtype": "float32", **rows[variant]})
+              "nnz": int(counts.sum()), "dtype": "float32",
+              "gather_probe_err": probe_err, **rows[variant]})
     return rows
 
 
@@ -1737,10 +2013,16 @@ SERVE_KERNELS = ("flash_decode_paged", "flash_prefill_paged", "commit_paged")
 def reset_counts(kernel) -> None:
     for name in SERVE_KERNELS:
         getattr(kernel, name).launches = 0
+    kernel.flash_decode_paged.commit_launches = 0
 
 
 def read_counts(kernel) -> dict:
-    return {name: getattr(kernel, name).launches for name in SERVE_KERNELS}
+    """The launches of :data:`SERVE_KERNELS`, and as ``decode_commits``
+    the decode launches that committed their rows."""
+    counts = {name: getattr(kernel, name).launches
+              for name in SERVE_KERNELS}
+    counts["decode_commits"] = kernel.flash_decode_paged.commit_launches
+    return counts
 
 
 def check_first_step(torch, engine, args) -> None:
@@ -1783,7 +2065,8 @@ def phase_serve(torch, argv, phase, params=None):
     set to 0 just before the drain and read just after: every layer of
     every fused step runs exactly one of the attention kernels, each
     kernel the path uses runs at least once, and every decode launch
-    follows one commit launch.  Returns (engine, counts, report)."""
+    commits its rows in the same launch (the commit kernel alone runs only
+    under a mesh).  Returns (engine, counts, report)."""
     from repro_torch.kernels.flash_decode import kernel
     from repro_torch.launch import serve as serve_cli
 
@@ -1812,9 +2095,11 @@ def phase_serve(torch, argv, phase, params=None):
     require(attend == cfg.n_layers * steps,
             f"{counts} kernel launches for {steps} fused steps of "
             f"{cfg.n_layers} layers")
-    require(counts["commit_paged"] == counts["flash_decode_paged"],
-            f"{counts}: one commit launch per decode launch")
-    used = ["flash_decode_paged", "commit_paged"]
+    require(counts["decode_commits"] == counts["flash_decode_paged"]
+            and counts["commit_paged"] == 0,
+            f"{counts}: every decode launch commits its rows, and the "
+            f"commit kernel never runs alone")
+    used = ["flash_decode_paged", "decode_commits"]
     used += ["flash_prefill_paged"] if args.prefill_chunk > 1 else []
     require(all(counts[k] > 0 for k in used),
             f"a kernel of the path never launched: {counts}")
@@ -2020,8 +2305,8 @@ def phase_parity_int8(torch, np):
     int8 logits must lie within ``PARITY_INT8_CARD_CPU`` of the CPU's and
     within the reference's qwen3 int8 budget (0.11) of its f32 cache's;
     the launch counts, set to 0 before the card's int8 run, must show one
-    commit and one decode launch a layer and step and one prefill launch
-    a layer, on int8 pools."""
+    decode launch a layer and step, each committing its rows, and one
+    prefill launch a layer, on int8 pools."""
     import repro_torch.configs as configs
     from repro_torch.kernels.flash_decode import kernel
     from repro_torch.models import transformer
@@ -2070,7 +2355,7 @@ def phase_parity_int8(torch, np):
                       - got["cuda", "int8"][1]).abs().max().item()
     L = cfg.n_layers
     want = {"flash_decode_paged": T * L, "flash_prefill_paged": L,
-            "commit_paged": T * L}
+            "commit_paged": 0, "decode_commits": T * L}
     emit({"phase": "parity-int8", "arch": cfg.name, "layers": L,
           "dtype": "float32", "kv_dtype": "int8", "slots": 2, "tokens": T,
           "max_abs_diff": diff, "card_token_vs_chunk": token_vs_chunk,
@@ -2438,8 +2723,11 @@ def phase_serve_mesh(torch, params):
     streams equal the unsharded engine's (bf16 row-parallel sums may flip
     near ties, so no bar on that).  The ranks cut their shards from
     serve-chunked's ``params``, shared through CUDA IPC, so that none
-    draws the 2 B-parameter init again.  Returns the launches of the
-    head-sharded decode, over every rank of both meshes."""
+    draws the 2 B-parameter init again.  Every decode launch commits its
+    slots' rows; with two data ranks the commit kernel also writes the
+    other rank's rows, once a layer and fused step.  Returns the launches
+    of the head-sharded decode and of the commit kernel, over every rank
+    of both meshes."""
     import repro_torch.configs as configs
     from repro_torch.launch import serve as serve_cli
 
@@ -2447,7 +2735,7 @@ def phase_serve_mesh(torch, params):
     args = serve_cli.parse_args(argv)
     base = serve_cli.serve(args, serve_cli.make_engine(args, params=params))
     want = [r["tokens"] for r in base["requests"]]
-    launches = 0
+    launches = commits = 0
     for shape in SERVE_MESHES:
         args = serve_cli.parse_args(argv + ["--mesh", shape])
         cfg = (configs.get_smoke_config(args.arch) if args.smoke
@@ -2463,7 +2751,7 @@ def phase_serve_mesh(torch, params):
                 f"mesh {shape}: {len(reqs)} of {args.requests} requests "
                 f"completed")
         steps = stats["fused_steps"]
-        model = int(shape.split("x")[1])
+        data, model = (int(n) for n in shape.split("x"))
         for row in report["mesh_ranks"]:
             chunk_steps = row["flash_prefill_paged"] // L
             require(row["flash_prefill_paged"] == L * chunk_steps
@@ -2476,7 +2764,13 @@ def phase_serve_mesh(torch, params):
             require(row["local_kv_heads"] == cfg.n_kv_heads // model,
                     f"rank {row['rank']} holds {row['local_kv_heads']} KV "
                     f"heads")
+            require(row["decode_commits"] == row["flash_decode_paged"]
+                    and row["commit_paged"] == (L * steps if data > 1
+                                                else 0),
+                    f"mesh {shape} rank {row['rank']}: commits {row} for "
+                    f"{steps} fused steps of {L} layers")
             launches += row["flash_decode_paged_sharded"]
+            commits += row["commit_paged"]
         got = [r["tokens"] for r in reqs]
         emit({"phase": "serve-mesh", "arch": cfg.name, "mesh": shape,
               "backend": report["mesh_backend"], "layers": L,
@@ -2491,7 +2785,7 @@ def phase_serve_mesh(torch, params):
                                              zip(got, want)),
               "first_divergence": _first_divergence(got, want),
               "seconds": seconds})
-    return launches
+    return launches, commits
 
 
 def phase_parity_mesh(torch):
@@ -2501,7 +2795,9 @@ def phase_parity_mesh(torch):
     and 2x2 against the unsharded card engine: the greedy streams equal
     token for token, and the int8 pools on every rank within the check's
     rule (scales the same bits on every rank, codes within one step and
-    scales within 1e-2 of the unsharded pools' head slice)."""
+    scales within 1e-2 of the unsharded pools' head slice).  Returns the
+    commit kernel's launches on the ranks of the int8 workload (the other
+    data rank's rows, where there are two)."""
     import repro_torch.configs as configs
     from repro_torch.serve import mesh_check
 
@@ -2524,6 +2820,12 @@ def phase_parity_mesh(torch):
           "diffs": verdict["diffs"], "shapes": verdict["shapes"],
           "workloads": verdict["workloads"], "seconds": time.time() - t0})
     require(verdict["ok"], f"mesh parity on the card: {verdict['diffs']}")
+    int8 = verdict["workloads"]["gpt2-int8-shared"]
+    commits = sum(r["commit_launches"] for shape in PARITY_MESHES
+                  for r in int8[shape]["ranks"])
+    require(commits > 0, "the int8 mesh runs never launched the commit "
+                         "kernel")
+    return commits
 
 
 def main() -> int:
@@ -2575,6 +2877,14 @@ def main() -> int:
     qprefill_row = quantized_prefill_timing(torch, np, kernel, ref)
     commit_row = commit_timing(torch, np, kernel, ref, torch.bfloat16)
     qcommit_row = commit_timing(torch, np, kernel, ref, torch.int8)
+    check_fused_commit(torch, np, kernel, ref)
+    fused_rows = {
+        (arch, pool): fused_commit_timing(torch, np, kernel, ref, arch, nb,
+                                          max_valid, seed, pool)
+        for arch, nb, max_valid, seed, pool in (
+            ("qwen3-1.7b", 64, 512 + 32, 8, torch.bfloat16),
+            ("qwen3-1.7b", 64, 512 + 32, 8, torch.int8),
+            ("gpt2-124m", 16, 64 + 32, 2, torch.bfloat16))}
     check_sharded_decode(torch, np, kernel, ref)
     sharded_row = sharded_decode_timing(torch, np, kernel, ref)
 
@@ -2606,9 +2916,9 @@ def main() -> int:
     phase_parity_chunked(torch, np)
     phase_parity_int8(torch, np)
     torch.cuda.empty_cache()
-    mesh_launches = phase_serve_mesh(torch, chunked_params)
+    mesh_launches, mesh_commits = phase_serve_mesh(torch, chunked_params)
     del chunked_params
-    phase_parity_mesh(torch)
+    int8_mesh_commits = phase_parity_mesh(torch)
 
     emit({"kernels": [
         {"name": "flash_decode_paged", "route": "cuda",
@@ -2633,14 +2943,32 @@ def main() -> int:
          "launches": mesh_launches,
          "shape": "qwen3-1.7b serve, slice (0, 2) of 8 KV heads, bf16",
          **sharded_row},
+        {"name": "flash_decode_paged_commit", "route": "cuda",
+         "source": SOURCE_DIR + "flash_decode_paged.cu",
+         "replaces": f"{TPU_KERNELS}:256,573",
+         "launches": counts["decode_commits"],
+         "shape": "qwen3-1.7b serve, bf16",
+         "gpt2": fused_rows["gpt2-124m", torch.bfloat16],
+         **fused_rows["qwen3-1.7b", torch.bfloat16]},
+        {"name": "flash_decode_paged_commit_int8", "route": "cuda",
+         "source": SOURCE_DIR + "flash_decode_paged.cu",
+         "replaces": f"{TPU_KERNELS}:256,573",
+         "launches": shared_counts["decode_commits"],
+         "shape": "qwen3-1.7b serve, int8 pools",
+         **fused_rows["qwen3-1.7b", torch.int8]},
         {"name": "commit_paged", "route": "cuda",
          "source": SOURCE_DIR + "flash_prefill_paged.cu",
          "replaces": f"{TPU_KERNELS}:573",
-         "launches": counts["commit_paged"], **commit_row},
+         "launches": mesh_commits, "path": "serve-mesh 2x2 (other rank's "
+         "rows)", "unsharded_serve_launches": counts["commit_paged"],
+         **commit_row},
         {"name": "commit_paged_int8", "route": "cuda",
          "source": SOURCE_DIR + "flash_prefill_paged.cu",
          "replaces": f"{TPU_KERNELS}:573",
-         "launches": shared_counts["commit_paged"], **qcommit_row},
+         "launches": int8_mesh_commits, "path": "parity-mesh int8 2x1, "
+         "2x2 (other rank's rows)",
+         "unsharded_serve_launches": shared_counts["commit_paged"],
+         **qcommit_row},
         {"name": "stream", "op": "triad", "route": "cuda",
          "source": HPC_SOURCES + "stream/csrc/stream.cu",
          "replaces": f"{TPU_HPC}stream/kernel.py:38",
@@ -2656,11 +2984,14 @@ def main() -> int:
          "launches": hpc_counts["gemm_wgmma"], **hpc_rows["gemm_bf16"]},
         {"name": "spmv_blockell", "route": "cuda",
          "source": HPC_SOURCES + "spmv/csrc/spmv.cu",
-         "replaces": f"{TPU_HPC}spmv/kernel.py:52,82",
-         "launches": (hpc_counts["spmv_blockell"]
-                      + hpc_counts["spmv_fixed_width"]),
-         "fixed_width_ms": hpc_rows["spmv_fixed_width"]["ms"],
+         "replaces": f"{TPU_HPC}spmv/kernel.py:52",
+         "launches": hpc_counts["spmv_blockell"],
          **hpc_rows["spmv_blockell"]},
+        {"name": "spmv_fixed_width", "route": "cuda",
+         "source": HPC_SOURCES + "spmv/csrc/spmv.cu",
+         "replaces": f"{TPU_HPC}spmv/kernel.py:82",
+         "launches": hpc_counts["spmv_fixed_width"],
+         **hpc_rows["spmv_fixed_width"]},
         {"name": "jacobi_step", "route": "cuda",
          "source": HPC_SOURCES + "jacobi2d/csrc/jacobi2d.cu",
          "replaces": f"{TPU_HPC}jacobi2d/kernel.py:52",

@@ -17,7 +17,11 @@
 //     V first (kernel.py:87-88); this kernel reads (B, S, KV, D) in place
 //     with a row stride of KV * D.
 // One body serves all three: the template flag kPaged picks table or
-// stride addressing of a row, and nothing else differs.
+// stride addressing of a row, and nothing else differs.  A paged launch
+// may also commit each slot's new K/V row before it attends (kCommit): the
+// commit pass of the TPU kernel flash_prefill_paged (pallas_call at :573,
+// _prefill_commit_kernel and _prefill_commit_kernel_q) for a decode step's
+// one row a slot, which would otherwise be a launch of its own.
 //
 // Paged contract (that of the TPU kernel flash_decode_paged):
 //   q            (B, KV, G, D)            T: f32 or bf16; KV is the
@@ -92,6 +96,19 @@
 //   * L, the split boundaries and every merge order depend on neither KV,
 //     head0, B nor the grid, so a head slice (i, n) of the heads is bit for
 //     bit the unsharded launch's slice.
+//   * kCommit: each slot's new row goes at position valid_len[b] - 1, in
+//     the last live split, which alone reads that row (splits cover rows
+//     below the frontier only), so no block waits on another.  Each block
+//     of that split loads its KV head's D elements of the row (and, for
+//     int8 without a given amax, the row's amax over all heads) while it
+//     loads its table, writes the head's slice (converted, or quantized
+//     with the row's fresh scale, which it also writes) through the table
+//     as the commit kernel places it, and passes a __syncthreads before its
+//     walk reads the row back at L2 (ld.global.cg: the pools' __restrict__
+//     would otherwise allow the read-only path).  Blocks of one KV head
+//     (G > 4) write the same bytes.  The quantization is the commit
+//     kernel's, so pools, scales and output are bit for bit those of the
+//     commit kernel followed by the decode.
 // Left for later: TMA loads, and removing the launch latency by capturing
 // the whole decode step in a CUDA graph.
 
@@ -179,10 +196,67 @@ __device__ __forceinline__ void widen(const typename Lane<P, N>::raw& x,
   }
 }
 
+// The fused commit's arguments (kCommit): each slot's new K and V row,
+// (B, KV, D) in T over the launch's KV heads, its amax over all the pool's
+// heads (B,) or NULL (int8 only), and the pools and scales it is written
+// to: the addresses the kernel reads them from, passed again as writable.
+template <typename T, typename P>
+struct Commit {
+  const T* k_new = nullptr;
+  const T* v_new = nullptr;
+  const float* k_amax = nullptr;
+  const float* v_amax = nullptr;
+  P* k_pool = nullptr;
+  P* v_pool = nullptr;
+  float* k_scale = nullptr;
+  float* v_scale = nullptr;
+};
+
+// A load at L2 (ld.global.cg), ordered after the block's own stores to
+// the pools by the __syncthreads between them: the fused commit's reads,
+// which must not take the read-only path (ld.global.nc) that the pools'
+// __restrict__ would otherwise allow.
+template <typename R>
+__device__ __forceinline__ R load_cg(const void* p);
+template <>
+__device__ __forceinline__ uint4 load_cg<uint4>(const void* p) {
+  uint4 r;
+  asm volatile("ld.global.cg.v4.u32 {%0, %1, %2, %3}, [%4];"
+               : "=r"(r.x), "=r"(r.y), "=r"(r.z), "=r"(r.w)
+               : "l"(p)
+               : "memory");
+  return r;
+}
+template <>
+__device__ __forceinline__ uint2 load_cg<uint2>(const void* p) {
+  uint2 r;
+  asm volatile("ld.global.cg.v2.u32 {%0, %1}, [%2];"
+               : "=r"(r.x), "=r"(r.y)
+               : "l"(p)
+               : "memory");
+  return r;
+}
+template <>
+__device__ __forceinline__ float load_cg<float>(const void* p) {
+  float r;
+  asm volatile("ld.global.cg.f32 %0, [%1];" : "=f"(r) : "l"(p) : "memory");
+  return r;
+}
+
+// One element of a new row in the pools' dtype: converted, or for int8
+// the code of x under the row's scale s (round half to even, clipped).
+template <typename P>
+__device__ __forceinline__ P store_elem(float x, float s) {
+  if constexpr (std::is_same_v<P, int8_t>)
+    return static_cast<int8_t>(fminf(fmaxf(rintf(x / s), -127.f), 127.f));
+  else
+    return from_float<P>(x);
+}
+
 // Scratch of one (slot, head chunk, split): acc (GC * D), then m and l (GC
 // each), in fp32.  Counters: one int a (slot, head chunk), 0 between
 // launches.
-template <typename T, typename P, int D, int GC, bool kPaged>
+template <typename T, typename P, int D, int GC, bool kPaged, bool kCommit>
 __global__ void __launch_bounds__(kThreads, 2)
     flash_decode_kernel(const T* __restrict__ q, const P* __restrict__ k_pool,
                         const P* __restrict__ v_pool,
@@ -193,7 +267,7 @@ __global__ void __launch_bounds__(kThreads, 2)
                         T* __restrict__ out, float* __restrict__ partial,
                         int* __restrict__ counters, int KV, int G, int bs,
                         int nb, int S, int pool_kv, int head0,
-                        int split_rows) {
+                        int split_rows, const Commit<T, P> cm) {
   constexpr bool kQuant = std::is_same_v<P, int8_t>;
   constexpr int kElems = lane_elems<P, GC>();  // elements a lane loads
   using L = Lane<P, kElems>;
@@ -213,7 +287,8 @@ __global__ void __launch_bounds__(kThreads, 2)
   const int group = lane / kLanes;
   const int sub = lane - group * kLanes;
 
-  const int valid = min(valid_len[b], kPaged ? nb * bs : S);
+  const int len = valid_len[b];
+  const int valid = min(len, kPaged ? nb * bs : S);
   const int n_live = valid > 0 ? (valid + split_rows - 1) / split_rows : 0;
   const size_t vec = (static_cast<size_t>(b) * KV + h) * G + g0;
   T* o = out + vec * D;
@@ -239,12 +314,84 @@ __global__ void __launch_bounds__(kThreads, 2)
 #pragma unroll
     for (int e = 0; e < kElems; ++e) qr[g][e] = to_float(qh[g * D + e]);
 
+  // kCommit: the split that holds row len - 1 (the last live one) writes
+  // the slot's new row there first, this block's head of it: its elements
+  // and amax are loaded here, beside the table
+  const bool writer = kCommit && z == n_live - 1;  // uniform
+  float kx = 0.f, vx = 0.f, kmax = 0.f, vmax = 0.f;
+  if (writer) {
+    const size_t nrow = static_cast<size_t>(b) * KV * D;
+    if (threadIdx.x < D) {
+      kx = to_float(cm.k_new[nrow + h * D + threadIdx.x]);
+      vx = to_float(cm.v_new[nrow + h * D + threadIdx.x]);
+    }
+    if constexpr (kQuant) {
+      if (cm.k_amax != nullptr) {  // uniform
+        kmax = cm.k_amax[b];
+        vmax = cm.v_amax[b];
+      } else {  // the row over all heads: the launch holds them all
+        for (int i = threadIdx.x; i < KV * D; i += kThreads) {
+          kmax = fmaxf(kmax, fabsf(to_float(cm.k_new[nrow + i])));
+          vmax = fmaxf(vmax, fabsf(to_float(cm.v_new[nrow + i])));
+        }
+      }
+    }
+  }
+
   const int j0 = kPaged ? r0 / bs : 0;
   if (kPaged) {
     const int j1 = (r1 + bs - 1) / bs;
     for (int j = j0 + threadIdx.x; j < j1; j += kThreads)
       table[j - j0] = block_tables[static_cast<size_t>(b) * nb + j];
     __syncthreads();
+  }
+
+  // a row of the pools (or of the contiguous cache) holds pool_kv heads;
+  // this block reads head head0 + h of each, this lane its kElems elements
+  const size_t row_stride = static_cast<size_t>(pool_kv) * D;
+  const size_t head_off = static_cast<size_t>(head0 + h) * D + sub * kElems;
+
+  if (writer) {
+    // row len - 1 at its table block, as the commit kernel places it (the
+    // last table entry for a row past the table); the table entry is in
+    // this split's part of the table
+    const int pos = len - 1;
+    const size_t dst =
+        static_cast<size_t>(table[min(pos / bs, nb - 1) - j0]) * bs + pos % bs;
+    float ks = 1.f, vs = 1.f;
+    if constexpr (kQuant) {
+      if (cm.k_amax == nullptr) {  // uniform: the block's max
+#pragma unroll
+        for (int o2 = 16; o2 > 0; o2 >>= 1) {
+          kmax = fmaxf(kmax, __shfl_xor_sync(0xffffffffu, kmax, o2));
+          vmax = fmaxf(vmax, __shfl_xor_sync(0xffffffffu, vmax, o2));
+        }
+        if (lane == 0) {
+          w_ml[warp][0] = kmax;
+          w_ml[warp][1] = vmax;
+        }
+        __syncthreads();  // w_ml is next written after the row walk
+#pragma unroll
+        for (int w = 0; w < kWarps; ++w) {
+          kmax = fmaxf(kmax, w_ml[w][0]);
+          vmax = fmaxf(vmax, w_ml[w][1]);
+        }
+      }
+      // XLA's amax / 127: the product with 127's fp32 reciprocal
+      ks = fmaxf(kmax * (1.f / 127.f), 1e-8f);
+      vs = fmaxf(vmax * (1.f / 127.f), 1e-8f);
+      if (threadIdx.x == 0) {
+        cm.k_scale[dst] = ks;
+        cm.v_scale[dst] = vs;
+      }
+    }
+    if (threadIdx.x < D) {
+      const size_t e = dst * row_stride + static_cast<size_t>(head0 + h) * D +
+                       threadIdx.x;
+      cm.k_pool[e] = store_elem<P>(kx, ks);
+      cm.v_pool[e] = store_elem<P>(vx, vs);
+    }
+    __syncthreads();  // the row and its scales, before the walk reads them
   }
 
   float m[GC], l[GC], acc[GC][kElems];
@@ -255,11 +402,6 @@ __global__ void __launch_bounds__(kThreads, 2)
 #pragma unroll
     for (int e = 0; e < kElems; ++e) acc[g][e] = 0.f;
   }
-
-  // a row of the pools (or of the contiguous cache) holds pool_kv heads;
-  // this block reads head head0 + h of each, this lane its kElems elements
-  const size_t row_stride = static_cast<size_t>(pool_kv) * D;
-  const size_t head_off = static_cast<size_t>(head0 + h) * D + sub * kElems;
 
   // the warp's row steps: warp-uniform bounds, so every lane takes the
   // shuffles; a lane group's row past r1 loads nothing and adds nothing
@@ -279,11 +421,20 @@ __global__ void __launch_bounds__(kThreads, 2)
             kPaged ? static_cast<size_t>(table[t / bs - j0]) * bs + t % bs
                    : static_cast<size_t>(b) * S + t;
         const size_t off = prow * row_stride + head_off;
-        kr[u] = *reinterpret_cast<const typename L::raw*>(k_pool + off);
-        vr[u] = *reinterpret_cast<const typename L::raw*>(v_pool + off);
-        if constexpr (kQuant) {
-          ks[u] = k_scale[prow];
-          vs[u] = v_scale[prow];
+        if constexpr (kCommit) {  // may read the row this launch wrote
+          kr[u] = load_cg<typename L::raw>(k_pool + off);
+          vr[u] = load_cg<typename L::raw>(v_pool + off);
+          if constexpr (kQuant) {
+            ks[u] = load_cg<float>(k_scale + prow);
+            vs[u] = load_cg<float>(v_scale + prow);
+          }
+        } else {
+          kr[u] = *reinterpret_cast<const typename L::raw*>(k_pool + off);
+          vr[u] = *reinterpret_cast<const typename L::raw*>(v_pool + off);
+          if constexpr (kQuant) {
+            ks[u] = k_scale[prow];
+            vs[u] = v_scale[prow];
+          }
         }
       }
     }
@@ -422,36 +573,37 @@ __global__ void __launch_bounds__(kThreads, 2)
   if (threadIdx.x == 0) *count = 0;
 }
 
-template <typename T, typename P, bool kPaged, int D, int GC>
+template <typename T, typename P, bool kPaged, bool kCommit, int D, int GC>
 void launch_g(const dim3 grid, cudaStream_t stream, const void* q,
               const void* k, const void* v, const float* k_scale,
               const float* v_scale, const void* block_tables,
               const void* valid_len, void* out, float* partial,
               int* counters, int KV, int G, int bs, int nb, int S,
-              int pool_kv, int head0, int split_rows) {
-  flash_decode_kernel<T, P, D, GC, kPaged><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const P*>(k),
-      static_cast<const P*>(v), k_scale, v_scale,
-      static_cast<const int*>(block_tables),
-      static_cast<const int*>(valid_len), static_cast<T*>(out), partial,
-      counters, KV, G, bs, nb, S, pool_kv, head0, split_rows);
+              int pool_kv, int head0, int split_rows,
+              const Commit<T, P>& cm) {
+  flash_decode_kernel<T, P, D, GC, kPaged, kCommit>
+      <<<grid, kThreads, 0, stream>>>(
+          static_cast<const T*>(q), static_cast<const P*>(k),
+          static_cast<const P*>(v), k_scale, v_scale,
+          static_cast<const int*>(block_tables),
+          static_cast<const int*>(valid_len), static_cast<T*>(out), partial,
+          counters, KV, G, bs, nb, S, pool_kv, head0, split_rows, cm);
 }
 
-template <typename T, typename P, bool kPaged, int D>
+template <typename T, typename P, bool kPaged, bool kCommit, int D>
 void launch_d(int B, int KV, int G, cudaStream_t stream, const void* q,
               const void* k, const void* v, const float* k_scale,
               const float* v_scale, const void* block_tables,
               const void* valid_len, void* out, float* partial,
               int* counters, int bs, int nb, int S, int pool_kv, int head0,
-              int split_rows, int splits) {
+              int split_rows, int splits, const Commit<T, P>& cm) {
   // query heads a block: the largest of 4, 2, 1 that divides G
   const int gc = G % 4 == 0 ? 4 : (G % 2 == 0 ? 2 : 1);
   const dim3 grid(KV * (G / gc), B, splits);
 #define FD_G(GC)                                                            \
-  launch_g<T, P, kPaged, D, GC>(grid, stream, q, k, v, k_scale, v_scale,    \
-                                block_tables, valid_len, out, partial,      \
-                                counters, KV, G, bs, nb, S, pool_kv, head0, \
-                                split_rows)
+  launch_g<T, P, kPaged, kCommit, D, GC>(                                   \
+      grid, stream, q, k, v, k_scale, v_scale, block_tables, valid_len, out, \
+      partial, counters, KV, G, bs, nb, S, pool_kv, head0, split_rows, cm)
   if (gc == 4)
     FD_G(4);
   else if (gc == 2)
@@ -464,18 +616,24 @@ void launch_d(int B, int KV, int G, cudaStream_t stream, const void* q,
 // Paged: nb table entries of bs rows; contiguous: nb = 0, S rows a slot.
 // The grid covers KV heads, heads head0 .. head0 + KV - 1 of rows of
 // pool_kv heads, in splits of split_rows rows.  partial and counters may
-// be NULL when one split covers a slot.
-template <typename T, typename P, bool kPaged>
+// be NULL when one split covers a slot.  kCommit (paged only): cm's new
+// rows are committed first.
+template <typename T, typename P, bool kPaged, bool kCommit = false>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const float* k_scale, const float* v_scale,
                    const void* block_tables, const void* valid_len, void* out,
                    void* partial, void* counters, int B, int KV, int G,
                    int D, int bs, int nb, int S, int pool_kv, int head0,
-                   int split_rows, cudaStream_t stream) {
+                   int split_rows, cudaStream_t stream,
+                   const Commit<T, P>& cm = {}) {
   constexpr bool kQuant = std::is_same_v<P, int8_t>;
   if (kQuant && (k_scale == nullptr || v_scale == nullptr))
     return cudaErrorInvalidValue;
   if (head0 < 0 || head0 + KV > pool_kv || G < 1) return cudaErrorInvalidValue;
+  if (kCommit && (cm.v_new == nullptr ||
+                  (cm.k_amax == nullptr) != (cm.v_amax == nullptr) ||
+                  (cm.k_amax != nullptr && !kQuant)))
+    return cudaErrorInvalidValue;
   const int rows = kPaged ? nb * bs : S;
   if (split_rows < 1 || (kPaged && (split_rows % bs ||
                                     split_rows / bs > kMaxTable)))
@@ -486,10 +644,11 @@ cudaError_t launch(const void* q, const void* k, const void* v,
     return cudaErrorInvalidValue;
   float* pt = static_cast<float*>(partial);
   int* ct = static_cast<int*>(counters);
-#define FD_D(DD)                                                             \
-  launch_d<T, P, kPaged, DD>(B, KV, G, stream, q, k, v, k_scale, v_scale,    \
-                             block_tables, valid_len, out, pt, ct, bs, nb, S, \
-                             pool_kv, head0, split_rows, splits)
+#define FD_D(DD)                                                              \
+  launch_d<T, P, kPaged, kCommit, DD>(B, KV, G, stream, q, k, v, k_scale,     \
+                                      v_scale, block_tables, valid_len, out,  \
+                                      pt, ct, bs, nb, S, pool_kv, head0,      \
+                                      split_rows, splits, cm)
   switch (D) {
     case 16:
       FD_D(16);
@@ -515,27 +674,49 @@ cudaError_t launch(const void* q, const void* k, const void* v,
 // dtype / pool_dtype: 0 = float32, 1 = bfloat16, 2 = int8.  Each returns
 // cudaGetLastError() after the launch (0 when the launch was accepted, an
 // invalid-value code for a pair that has no instantiation, a head range
-// outside the pools, a split that is not whole table blocks, or missing
-// scratch); never synchronises.  The paged launch attends the KV heads of
-// q (B, KV, G, D) over pool heads head0 .. head0 + KV - 1 of pools whose
-// rows hold pool_kv heads.  partial: B * KV * splits * G * (D + 2) floats
-// and counters: B * KV * G ints, zero, where splits = ceil(nb * bs /
-// split_rows) > 1; the kernel leaves the counters zero.
+// outside the pools, a split that is not whole table blocks, missing
+// scratch, or commit arguments out of pairs); never synchronises.  The
+// paged launch attends the KV heads of q (B, KV, G, D) over pool heads
+// head0 .. head0 + KV - 1 of pools whose rows hold pool_kv heads.
+// partial: B * KV * splits * G * (D + 2) floats and counters: B * KV * G
+// ints, zero, where splits = ceil(nb * bs / split_rows) > 1; the kernel
+// leaves the counters zero.  With k_new and v_new ((B, KV, D) in q's
+// dtype) it first commits slot b's new row at position valid_len[b] - 1
+// through its table, as flash_commit_paged_launch with q_len 1 and q_start
+// valid_len - 1 would (k_amax/v_amax (B,) fp32 or NULL, int8 pools only),
+// writing the pools and scales in place.
 extern "C" int flash_decode_paged_launch(
     const void* q, const void* k_pool, const void* v_pool,
     const void* k_scale, const void* v_scale, const void* block_tables,
-    const void* valid_len, void* out, void* partial, void* counters, int B,
-    int KV, int G, int D, int bs, int nb, int pool_kv, int head0,
-    int split_rows, int dtype, int pool_dtype, int device, void* stream) {
+    const void* valid_len, void* out, void* partial, void* counters,
+    const void* k_new, const void* v_new, const void* k_amax,
+    const void* v_amax, int B, int KV, int G, int D, int bs, int nb,
+    int pool_kv, int head0, int split_rows, int dtype, int pool_dtype,
+    int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* ks = static_cast<const float*>(k_scale);
   const float* vs = static_cast<const float*>(v_scale);
 #define FD_PAGED(T, P)                                                       \
-  return static_cast<int>(launch<T, P, true>(                                \
-      q, k_pool, v_pool, ks, vs, block_tables, valid_len, out, partial,      \
-      counters, B, KV, G, D, bs, nb, 0, pool_kv, head0, split_rows, st))
+  {                                                                          \
+    if (k_new == nullptr)                                                    \
+      return static_cast<int>(launch<T, P, true>(                            \
+          q, k_pool, v_pool, ks, vs, block_tables, valid_len, out, partial,  \
+          counters, B, KV, G, D, bs, nb, 0, pool_kv, head0, split_rows,      \
+          st));                                                              \
+    return static_cast<int>(launch<T, P, true, true>(                        \
+        q, k_pool, v_pool, ks, vs, block_tables, valid_len, out, partial,    \
+        counters, B, KV, G, D, bs, nb, 0, pool_kv, head0, split_rows, st,    \
+        Commit<T, P>{static_cast<const T*>(k_new),                           \
+                     static_cast<const T*>(v_new),                           \
+                     static_cast<const float*>(k_amax),                      \
+                     static_cast<const float*>(v_amax),                      \
+                     static_cast<P*>(const_cast<void*>(k_pool)),             \
+                     static_cast<P*>(const_cast<void*>(v_pool)),             \
+                     static_cast<float*>(const_cast<void*>(k_scale)),        \
+                     static_cast<float*>(const_cast<void*>(v_scale))}));     \
+  }
   if (dtype == 0 && pool_dtype == 0) FD_PAGED(float, float);
   if (dtype == 0 && pool_dtype == 1) FD_PAGED(float, __nv_bfloat16);
   if (dtype == 0 && pool_dtype == 2) FD_PAGED(float, int8_t);

@@ -60,10 +60,11 @@
 //     to its amax first (one block reduction each for K and V) and then
 //     writes the codes and the scale.  Unlike the TPU commit (grid (B, nb),
 //     kernel.py:332) it never reads or rewrites the rest of a block, so
-//     blocks no table names keep their bytes without aliasing.  A decode
-//     step commits its row through the same kernel, as a chunk of one
-//     (flash_commit_paged_launch), so decode and chunk rows are converted
-//     or quantized by one code path;
+//     blocks no table names keep their bytes without aliasing.  It also
+//     runs alone (flash_commit_paged_launch): a mesh rank commits the
+//     other data ranks' decode rows with it.  A decode step's own rows are
+//     committed by the decode kernel (flash_decode_paged.cu, kCommit) with
+//     the same arithmetic, bit for bit;
 //   * attend: one thread block per (KV head, slot, tile of `rows` chunk
 //     rows): rows * G <= 64 query vectors (64 rows at G = 1, 32 at G = 2,
 //     8 at G = 8).  It loads its table row into shared memory once and

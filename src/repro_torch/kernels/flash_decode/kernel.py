@@ -13,19 +13,20 @@ q's dtype, bf16 pools under an f32 q, and int8 pools with one fp32 scale a
 pool row.  Each wrapper's ``launches`` attribute counts the calls that
 launched its kernels.  :func:`flash_decode_paged` takes the reference's
 ``head_shard=(i, n)`` (one shard's 1/n of the KV heads, read in place from
-the full pools), and :func:`flash_decode_paged_sharded` is the reference's
+the full pools) and, with ``k_new``/``v_new``, commits each slot's new row
+in the same launch before it attends (a decode step's commit and attention
+in one kernel); :func:`flash_decode_paged_sharded` is the reference's
 tensor-parallel decode: each rank of a mesh's model axis runs the decode
 kernel on its local heads.  The commits take each row's amax over all KV
 heads (``k_amax``/``v_amax``) from a caller whose pools hold only some of
-them.  :func:`flash_decode` and
-:func:`flash_prefill` take the reference's argument lists and check its
-tile arguments (``block_s``, ``block_c``) as it does; the CUDA kernels'
-tiles are their own, planned on the host from the shapes alone:
-:func:`decode_plan` splits each slot's rows across blocks (the split
-partials live in scratch kept per device and stream), and
+them.  :func:`flash_decode` and :func:`flash_prefill` take the reference's
+argument lists and check its tile arguments (``block_s``, ``block_c``) as
+it does; the CUDA kernels' tiles are their own, planned on the host from
+the shapes alone: :func:`decode_plan` splits each slot's rows across blocks
+(the split partials live in scratch kept per device and stream), and
 :func:`prefill_plan` sizes the attention's tiles and shared memory.
-``*_plain`` are the same functions, with the same checks, in plain
-PyTorch on any device.
+``*_plain`` are the same functions, with the same checks, in plain PyTorch
+on any device.
 """
 
 from __future__ import annotations
@@ -65,7 +66,7 @@ _I = ctypes.c_int
 #: (library, C function) -> argument types
 _ARGTYPES: Dict[tuple, list] = {
     ("flash_decode_paged", "flash_decode_paged_launch"):
-        [_P] * 10 + [_I] * 12 + [_P],
+        [_P] * 14 + [_I] * 12 + [_P],
     ("flash_decode_paged", "flash_decode_launch"):
         [_P] * 7 + [_I] * 8 + [_P],
     ("flash_prefill_paged", "flash_prefill_paged_launch"):
@@ -261,10 +262,43 @@ def _check(q, k_pool, v_pool, block_tables, valid_len, k_scale,
                           valid_len))
 
 
+def _check_new(q, k_new, v_new, k_amax, v_amax, quantized: bool, KV: int,
+               sharded: bool) -> None:
+    """The fused commit's rows: ``k_new``/``v_new`` (B, KV, D) in q's
+    dtype, contiguous on q's device, both or neither, with KV the heads the
+    call attends; ``k_amax``/``v_amax`` (B,) float32 with them, for int8
+    pools only, and needed for int8 pools under ``head_shard``, whose call
+    sees only its heads of a row."""
+    if k_new is None and v_new is None:
+        if k_amax is not None or v_amax is not None:
+            raise ValueError("k_amax/v_amax come with k_new/v_new")
+        return
+    if k_new is None or v_new is None:
+        raise ValueError("k_new and v_new must be passed together")
+    B, _, _, D = q.shape
+    shape = (B, KV, D)
+    for name, t in (("k_new", k_new), ("v_new", v_new)):
+        if t.shape != shape:
+            raise ValueError(f"{name} must be {shape}, got "
+                             f"{tuple(t.shape)}")
+        if t.dtype != q.dtype:
+            raise TypeError(f"{name} must have q's dtype {q.dtype}, got "
+                            f"{t.dtype}")
+        if t.device != q.device or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous on {q.device}")
+    if k_amax is not None or v_amax is not None:
+        _check_amax(k_amax, v_amax, quantized, (B,), q)
+    if quantized and sharded and k_amax is None:
+        raise ValueError("int8 pools under head_shard need k_amax/v_amax: "
+                         "the call sees only its heads of a row")
+
+
 def flash_decode_paged(q: torch.Tensor, k_pool: torch.Tensor,
                        v_pool: torch.Tensor, block_tables: torch.Tensor,
                        valid_len: torch.Tensor, k_scale=None,
-                       v_scale=None, *, head_shard=None) -> torch.Tensor:
+                       v_scale=None, *, head_shard=None, k_new=None,
+                       v_new=None, k_amax=None,
+                       v_amax=None) -> torch.Tensor:
     """One-token GQA attention over a paged KV cache.
 
     q (B, KV, G, D); k/v_pool (n_blocks, bs, KV, D) in q's dtype, bf16
@@ -280,10 +314,32 @@ def flash_decode_paged(q: torch.Tensor, k_pool: torch.Tensor,
     the pools are read in place at their full row stride.  It raises as
     the reference does, for an index outside ``[0, n)`` and for KV not
     divisible by ``n``.
+
+    ``k_new``/``v_new`` (B, KV', D) in q's dtype, the new K and V row of
+    each slot over the heads this call attends (KV' = KV, or KV/n under
+    ``head_shard``), are first committed in place at position
+    ``valid_len[b] - 1`` through the table, as :func:`commit_paged` with
+    ``q_start = valid_len - 1`` and ``q_len`` of ones does: converted to
+    the pools' dtype, or for int8 pools quantized with a fresh scale from
+    the row's amax over all heads, ``k_amax``/``v_amax`` (B,) float32 when
+    given (needed under ``head_shard``); then every slot attends, its new
+    row included.  On the card this is one launch of the decode kernel,
+    whose split that holds the row writes it before reading it;
+    ``flash_decode_paged.commit_launches`` counts those launches.
     """
     heads = ref.head_slice(head_shard, q.shape[1] if q.dim() == 4 else 0)
-    _check(q, k_pool, v_pool, block_tables, valid_len, k_scale, v_scale)
+    quantized = _check(q, k_pool, v_pool, block_tables, valid_len, k_scale,
+                       v_scale)
+    _check_new(q, k_new, v_new, k_amax, v_amax, quantized,
+               heads.stop - heads.start, head_shard is not None)
     if q.device.type == "cpu":
+        if k_new is not None:
+            ref.commit_paged_ref(
+                k_new[:, None], v_new[:, None], k_pool[:, :, heads],
+                v_pool[:, :, heads], block_tables, valid_len - 1,
+                torch.ones_like(valid_len), k_scale, v_scale,
+                k_amax=None if k_amax is None else k_amax[:, None],
+                v_amax=None if v_amax is None else v_amax[:, None])
         return ref.flash_decode_paged_ref(
             q[:, heads], k_pool[:, :, heads], v_pool[:, :, heads],
             block_tables, valid_len, k_scale, v_scale)
@@ -307,16 +363,20 @@ def flash_decode_paged(q: torch.Tensor, k_pool: torch.Tensor,
     err = _launcher("flash_decode_paged", "flash_decode_paged_launch")(
         q.data_ptr(), kp, vp, _ptr(k_scale), _ptr(v_scale),
         block_tables.data_ptr(), valid_len.data_ptr(), out.data_ptr(),
-        partial, counters, B, KV, G, D, bs, nb, pool_kv, heads.start, split,
+        partial, counters, _ptr(k_new), _ptr(v_new), _ptr(k_amax),
+        _ptr(v_amax), B, KV, G, D, bs, nb, pool_kv, heads.start, split,
         _DTYPE_CODE[q.dtype], _DTYPE_CODE[k_pool.dtype], dev.index or 0,
         stream,
     )
     build.raise_on("flash_decode_paged", err)
     flash_decode_paged.launches += 1
+    if k_new is not None:
+        flash_decode_paged.commit_launches += 1
     return out
 
 
 flash_decode_paged.launches = 0
+flash_decode_paged.commit_launches = 0
 
 
 def flash_decode_paged_sharded(q: torch.Tensor, k_pool: torch.Tensor,
@@ -324,8 +384,9 @@ def flash_decode_paged_sharded(q: torch.Tensor, k_pool: torch.Tensor,
                                block_tables: torch.Tensor,
                                valid_len: torch.Tensor, *, mesh,
                                axis: str = "model", k_scale=None,
-                               v_scale=None,
-                               gather: bool = False) -> torch.Tensor:
+                               v_scale=None, gather: bool = False,
+                               k_new=None, v_new=None, k_amax=None,
+                               v_amax=None) -> torch.Tensor:
     """Tensor-parallel paged decode: the reference's ``shard_map`` of the
     decode over a mesh's ``axis``, as one call on each rank.
 
@@ -337,16 +398,20 @@ def flash_decode_paged_sharded(q: torch.Tensor, k_pool: torch.Tensor,
     its head slice (B, KV/n, G, D) of the output, the reference's
     ``out_specs``; no collective is needed, since softmax normalizes
     within a head.  ``gather=True`` all-gathers the slices over ``axis``
-    into the whole (B, KV, G, D).  ``launches`` counts the calls that
-    launched the kernel.  The global KV is the local KV times the axis
-    size, so it always divides; a q whose local heads are not the pools'
-    (pools left whole because KV does not divide) raises in the decode's
-    shape check.
+    into the whole (B, KV, G, D).  ``k_new``/``v_new`` (B, KV/n, D), the
+    rank's heads of each slot's new row, and for int8 pools each row's
+    amax over all heads ``k_amax``/``v_amax`` (B,), are committed first,
+    as :func:`flash_decode_paged` takes them.  ``launches`` counts the
+    calls that launched the kernel.  The global KV is the local KV times
+    the axis size, so it always divides; a q whose local heads are not the
+    pools' (pools left whole because KV does not divide) raises in the
+    decode's shape check.
     """
     if (k_scale is None) != (v_scale is None):
         raise ValueError("k_scale and v_scale must be passed together")
     out = flash_decode_paged(q, k_pool, v_pool, block_tables, valid_len,
-                             k_scale, v_scale)
+                             k_scale, v_scale, k_new=k_new, v_new=v_new,
+                             k_amax=k_amax, v_amax=v_amax)
     if q.device.type == "cuda":
         flash_decode_paged_sharded.launches += 1
     return mesh.gather(out, axis, dim=1) if gather else out
@@ -502,8 +567,8 @@ def _check_prefill(q, k_new, v_new, k_pool, v_pool, block_tables, q_start,
                         block_tables, q_start, q_len, B, C, KV, D)
 
 
-def _check_amax(k_amax, v_amax, quantized: bool, B: int, C: int, like):
-    """Each row's given amax, (B, C) float32 on ``like``'s device and
+def _check_amax(k_amax, v_amax, quantized: bool, shape: tuple, like):
+    """Each row's given amax, ``shape`` float32 on ``like``'s device and
     contiguous, both or neither, and only for int8 pools."""
     if (k_amax is None) != (v_amax is None):
         raise ValueError("k_amax and v_amax must be passed together")
@@ -512,8 +577,8 @@ def _check_amax(k_amax, v_amax, quantized: bool, B: int, C: int, like):
     if not quantized:
         raise ValueError("k_amax/v_amax are given only with int8 pools")
     for name, t in (("k_amax", k_amax), ("v_amax", v_amax)):
-        if tuple(t.shape) != (B, C) or t.dtype != torch.float32:
-            raise ValueError(f"{name} must be ({B}, {C}) float32, got "
+        if tuple(t.shape) != shape or t.dtype != torch.float32:
+            raise ValueError(f"{name} must be {shape} float32, got "
                              f"{tuple(t.shape)} {t.dtype}")
         if t.device != like.device or not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous on {like.device}")
@@ -525,8 +590,9 @@ def commit_paged(k_new: torch.Tensor, v_new: torch.Tensor,
                  q_len: torch.Tensor, k_scale=None, v_scale=None, *,
                  k_amax=None, v_amax=None) -> None:
     """Commit a chunk's K/V rows into the paged pools in place, alone: the
-    first pass of :func:`flash_prefill_paged`, which a decode step runs as
-    a chunk of one.
+    first pass of :func:`flash_prefill_paged`, which a mesh rank runs for
+    the other data ranks' rows (a decode step's own rows are committed by
+    :func:`flash_decode_paged` given ``k_new``/``v_new``).
 
     k/v_new (B, C, KV, D) float32 or bfloat16; pools and scales as
     :func:`flash_prefill_paged` takes them.  Rows ``c < q_len[b]`` land at
@@ -543,7 +609,7 @@ def commit_paged(k_new: torch.Tensor, v_new: torch.Tensor,
     quantized = _check_chunk(k_new, k_new, v_new, k_pool, v_pool, k_scale,
                              v_scale, block_tables, q_start, q_len, B, C,
                              KV, D)
-    _check_amax(k_amax, v_amax, quantized, B, C, k_new)
+    _check_amax(k_amax, v_amax, quantized, (B, C), k_new)
     if k_new.device.type == "cpu":
         ref.commit_paged_ref(k_new, v_new, k_pool, v_pool, block_tables,
                              q_start, q_len, k_scale, v_scale,
@@ -594,7 +660,7 @@ def flash_prefill_paged(q: torch.Tensor, k_new: torch.Tensor,
     quantized = _check_prefill(q, k_new, v_new, k_pool, v_pool,
                                block_tables, q_start, q_len, k_scale,
                                v_scale)
-    _check_amax(k_amax, v_amax, quantized, *q.shape[:2], q)
+    _check_amax(k_amax, v_amax, quantized, tuple(q.shape[:2]), q)
     if q.device.type == "cpu":
         return ref.flash_prefill_paged_ref(q, k_new, v_new, k_pool, v_pool,
                                            block_tables, q_start, q_len,

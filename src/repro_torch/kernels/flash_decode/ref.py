@@ -263,7 +263,8 @@ def commit_paged_ref(k_new: torch.Tensor, v_new: torch.Tensor,
     :func:`quantize_rows` with each row's scale written at the same pool
     row; with ``k_amax``/``v_amax`` (B, C) fp32 each row's scale comes from
     the given amax instead of its own (a tensor-parallel rank's rows hold
-    only its heads).  Every other row keeps its bytes and its scale.
+    only its heads).  Every other row keeps its bytes and its scale.  The
+    pools may be a head slice of larger ones (a view, written through).
     ``rows`` is :func:`commit_rows` of these inputs, computed here when not
     given."""
     B, C, KV, D = k_new.shape
@@ -275,12 +276,23 @@ def commit_paged_ref(k_new: torch.Tensor, v_new: torch.Tensor,
                                    (v_new, v_pool, v_scale, v_amax)):
         x = new.reshape(B * C, KV, D)[src]
         if scale is None:
-            pool.view(n, KV, D)[dst] = x.to(pool.dtype)
+            _put_rows(pool, dst, x.to(pool.dtype))
         else:
             codes, s = quantize_rows(
                 x, None if amax is None else amax.reshape(B * C)[src])
-            pool.view(n, KV, D)[dst] = codes
+            _put_rows(pool, dst, codes)
             scale.view(n)[dst] = s
+
+
+def _put_rows(pool: torch.Tensor, dst: torch.Tensor,
+              rows: torch.Tensor) -> None:
+    """Pool rows ``dst`` (block * bs + row) = ``rows``, in place, also into
+    a head slice of the pools (``pool[:, :, heads]``, not contiguous)."""
+    if pool.is_contiguous():
+        pool.view(-1, *pool.shape[2:])[dst] = rows
+    else:
+        bs = pool.shape[1]
+        pool[dst // bs, dst % bs] = rows
 
 
 def flash_prefill_paged_ref(q: torch.Tensor, k_new: torch.Tensor,

@@ -63,6 +63,43 @@ def spmv_plain(values: torch.Tensor, col_idx: torch.Tensor,
     return acc.to(values.dtype).reshape(nb * rb)
 
 
+_U32 = 0xFFFFFFFF
+
+
+def _mul32(a: torch.Tensor, c: int) -> torch.Tensor:
+    """(a * c) mod 2^32 for int64 ``a`` in [0, 2^32) and a 32-bit ``c``,
+    in halves of 16 bits so that no product leaves int64."""
+    lo = (a & 0xFFFF) * c
+    hi = (((a >> 16) * c) & 0xFFFF) << 16
+    return (lo + hi) & _U32
+
+
+def probe_columns(rows: int, width: int, n_cols: int,
+                  device="cpu") -> torch.Tensor:
+    """(rows, width) int64: the gather probe's column of every element, a
+    32-bit mix of its flat index ``r * width + j`` scaled onto [0, n_cols),
+    as ``probe_col`` in ``csrc/spmv.cu`` computes it."""
+    i = torch.arange(rows * width, dtype=torch.int64, device=device) & _U32
+    h = _mul32(i, 0x9E3779B1)
+    h = h ^ (h >> 16)
+    h = _mul32(h, 0x85EBCA6B)
+    h = h ^ (h >> 13)
+    return ((h * n_cols) >> 32).reshape(rows, width)
+
+
+def gather_probe_plain(row_nnz: torch.Tensor, x: torch.Tensor, width: int,
+                       *, predicated: bool = True) -> torch.Tensor:
+    """The gather probe's function: each row's sum, in fp32, of x at
+    :func:`probe_columns` over its first ``row_nnz`` lanes (clamped to [0,
+    width]) or, not ``predicated``, over all ``width`` lanes."""
+    rows = row_nnz.numel()
+    g = x.float()[probe_columns(rows, width, x.numel(), x.device)]
+    if predicated:
+        lane = torch.arange(width, device=x.device)
+        g = torch.where(lane < row_nnz.reshape(rows, 1), g, 0.0)
+    return g.sum(dim=-1)
+
+
 def make_problem(n_rows: int, n_cols: int, *, row_block: int = 8,
                  max_nnz: int = 64, width_pad: int = 128,
                  dtype: torch.dtype = torch.float32, zipf_a: float = 1.3,

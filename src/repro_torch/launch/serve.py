@@ -50,6 +50,7 @@ SERVE_KERNELS = ("flash_decode_paged", "flash_decode_paged_sharded",
 def _counters(engine: ServeEngine) -> dict:
     """This rank's kernel launches and collectives' counters so far."""
     out = {name: getattr(kernel, name).launches for name in SERVE_KERNELS}
+    out["decode_commits"] = kernel.flash_decode_paged.commit_launches
     if engine.mesh is not None:
         out.update(engine.mesh.comm.counters())
     return out

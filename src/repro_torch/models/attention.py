@@ -6,19 +6,19 @@ Port of ``init_attention`` and ``_project_qkv`` of
 cell runs over its gathered view of the block pool.  The reference reads
 the cache read-only and merges the new token in a second softmax step; the
 port first writes the new token's K/V row into the pool and then attends
-over the pool with the paged flash-decode kernel.  A chunk of tokens per
-slot goes the same way in one call: all its rows are projected together,
-committed, and attended causally by the chunked-prefill kernel, where the
-reference scans its one-token cell over the chunk.  Both agree with the
-reference within floating-point tolerance, not bit for bit.
+over the pool, both in one launch of the paged flash-decode kernel.  A
+chunk of tokens per slot goes the same way in one call: all its rows are
+projected together, committed, and attended causally by the chunked-prefill
+kernel, where the reference scans its one-token cell over the chunk.  Both
+agree with the reference within floating-point tolerance, not bit for bit.
 
 Pools may be stored in another dtype than the model computes in (the
 reference's ``kv_dtype``): bf16, or int8 with one fp32 scale a pool row.
-Every row is committed by the commit kernel of the chunked prefill (a
-decode step's row is a chunk of one), converted to the pools' dtype or,
-for int8, quantized, so the new token attends to its own stored K/V, as
-the Pallas kernels do; the reference's cell merges the fresh row
-unconverted instead.
+Every row is committed converted to the pools' dtype or, for int8,
+quantized (a chunk's rows by the commit of the chunked prefill, a decode
+step's by the decode kernel, with the same arithmetic), so the new token
+attends to its own stored K/V, as the Pallas kernels do; the reference's
+cell merges the fresh row unconverted instead.
 
 Under a mesh (a :class:`~repro_torch.models.layers.MeshContext`) each rank
 projects q/k/v for its own slots and its own heads (column-parallel), and
@@ -135,15 +135,16 @@ def attention_decode_paged(params: dict, cfg, x: torch.Tensor,
     x (B, 1, d); k/v_pool (n_blocks, bs, KV, D), this layer's pools, with
     their ``k_scale``/``v_scale`` (n_blocks, bs) when they are int8;
     positions (B,) int32 per-slot cache lengths before this token;
-    block_tables (B, nb) int32.  The commit kernel writes each slot's new
-    K/V row at ``positions[b]`` through its table (an idle slot's all-zero
-    row names the null block), converted to the pools' dtype or
-    quantized; then each slot attends over its rows ``[0,
+    block_tables (B, nb) int32.  One launch of the decode kernel writes
+    each slot's new K/V row at ``positions[b]`` through its table (an idle
+    slot's all-zero row names the null block), converted to the pools'
+    dtype or quantized, and then each slot attends over its rows ``[0,
     positions[b]]``, the new token included.  Returns (B, 1, d).
 
     Under ``mesh``, x holds this rank's slots ``mesh.slots`` and the pools
     its heads; positions and block_tables hold every slot.  Every slot's
-    row is committed, and this rank's slots attend through
+    row is committed: the other data ranks' by the commit kernel first,
+    this rank's in its decode launch, through
     :func:`flash_decode_paged_sharded` where the pools split their heads.
     """
     B = x.shape[0]
@@ -153,18 +154,25 @@ def attention_decode_paged(params: dict, cfg, x: torch.Tensor,
     kv = k_new.shape[2]
     amax = {}
     if mesh is not None:
-        k_new, v_new = _all_slots(mesh, k_new, v_new)
-        amax = _commit_amax(mesh, k_new, v_new, k_scale)
-    commit_paged(k_new.contiguous(), v_new.contiguous(), k_pool, v_pool,
-                 block_tables, positions, torch.ones_like(positions),
-                 k_scale, v_scale, **amax)
+        k_all, v_all = _all_slots(mesh, k_new, v_new)
+        amax = _commit_amax(mesh, k_all, v_all, k_scale)
+        if mesh.split_slots:  # every rank holds every block
+            others = torch.ones_like(positions)
+            others[sl] = 0
+            commit_paged(k_all.contiguous(), v_all.contiguous(), k_pool,
+                         v_pool, block_tables, positions, others, k_scale,
+                         v_scale, **amax)
+        amax = {key: a[sl, 0] for key, a in amax.items()}
     args = (q.reshape(B, kv, g, hd), k_pool, v_pool, block_tables[sl],
             positions[sl] + 1)
+    new = dict(k_new=k_new.reshape(B, kv, hd), v_new=v_new.reshape(B, kv, hd),
+               **amax)
     if mesh is not None and mesh.heads:
         out = flash_decode_paged_sharded(*args, mesh=mesh.mesh,
-                                         k_scale=k_scale, v_scale=v_scale)
+                                         k_scale=k_scale, v_scale=v_scale,
+                                         **new)
     else:
-        out = flash_decode_paged(*args, k_scale, v_scale)
+        out = flash_decode_paged(*args, k_scale, v_scale, **new)
     return _out_proj(params, out.reshape(B, 1, kv * g * hd), mesh)
 
 

@@ -19,12 +19,12 @@ ulps flip feeds one quantization step into every later row.
     PYTHONPATH=src python -m repro_torch.serve.mesh_check --device cpu \\
         --meshes none,1x1,2x1,1x2,2x2
 
-The JSON verdict on stdout carries per-(workload, mesh) stream digests,
-the diff list (empty = contract holds), per-device utilization, each
-rank's backend, collectives' counters and head-sharded decode launches,
-and the baseline's streams.  A workload that needs an
-architecture or a feature the port lacks is listed under ``refused`` with
-the ROADMAP item that ports it, and fails the check; the default
+The JSON verdict on stdout carries per-(workload, mesh) stream digests, the
+diff list (empty = contract holds), per-device utilization, each rank's
+backend, collectives' counters, head-sharded decode launches and
+commit-kernel launches, and the baseline's streams.  A workload that needs
+an architecture or a feature the port lacks is listed under ``refused``
+with the ROADMAP item that ports it, and fails the check; the default
 ``--workloads`` are the three the port serves.
 """
 
@@ -193,7 +193,8 @@ def _rank_counts(mesh) -> Dict[str, Any]:
     return {"rank": mesh.rank, "backend": mesh.backend,
             "comm": mesh.comm.counters(),
             "decode_sharded_launches":
-                kernel.flash_decode_paged_sharded.launches}
+                kernel.flash_decode_paged_sharded.launches,
+            "commit_launches": kernel.commit_paged.launches}
 
 
 def _serve_on_mesh(mesh, workloads, kw, base_pools, params
@@ -230,9 +231,9 @@ def _per_rank(ranks) -> List[Dict[str, Any]]:
         rows.append({"rank": now["rank"], "backend": now["backend"],
                      **{k: now["comm"][k] - then["comm"][k]
                         for k in now["comm"]},
-                     "decode_sharded_launches":
-                         now["decode_sharded_launches"]
-                         - then["decode_sharded_launches"]})
+                     **{key: now[key] - then[key]
+                        for key in ("decode_sharded_launches",
+                                    "commit_launches")}})
     return rows
 
 

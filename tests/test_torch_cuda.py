@@ -475,6 +475,152 @@ def test_commit_kernel_alone_matches_plain(cuda, q_dtype, pool_dtype):
             assert torch.equal(a, w)
 
 
+def _fused_and_pair(q, pools, bt, vl, k_new, v_new, **slice_kw):
+    """The decode that commits its rows, and the commit kernel then the
+    decode, each on its own copy of the pools: (outputs, pools)."""
+    fused = [None if t is None else t.clone() for t in pools]
+    pair = [None if t is None else t.clone() for t in pools]
+    got = kernel.flash_decode_paged(q, fused[0], fused[1], bt, vl,
+                                    *fused[2:], k_new=k_new, v_new=v_new)
+    kernel.commit_paged(k_new[:, None], v_new[:, None], pair[0], pair[1],
+                        bt, vl - 1, torch.ones_like(vl), *pair[2:])
+    want = kernel.flash_decode_paged(q, pair[0], pair[1], bt, vl, *pair[2:])
+    torch.cuda.synchronize()
+    return (got, want), (fused, pair)
+
+
+@pytest.mark.parametrize("pair", kernel.POOL_PAIRS)
+@pytest.mark.parametrize("KV,G,D", [(12, 1, 64), (8, 2, 128), (2, 4, 16),
+                                    (4, 2, 32), (2, 8, 64)])
+@pytest.mark.parametrize("bs,nb", [(16, 4), (16, 40), (8, 5)])
+def test_fused_commit_decode_is_the_two_launch_pair(cuda, pair, KV, G, D, bs,
+                                                    nb):
+    """One decode launch given the slots' new rows equals the commit kernel
+    then the decode bit for bit (output, pools, scales), with lengths of
+    one row, at block and split edges and of the whole table; then the
+    head slices (i, 2) given their heads of the rows (and the rows' amax
+    for int8), concatenated, against the same pair."""
+    q_dtype, pool_dtype = pair
+    q, kp, vp, bt, _ = _inputs(cuda, 6, KV, G, D, bs, nb, torch.float32,
+                               seed=KV + D)
+    split = kernel.decode_split_rows(bs)
+    vl = torch.tensor([min(n, nb * bs) for n in (1, bs, bs + 1, split,
+                                                  split + 1, nb * bs)],
+                      dtype=torch.int32, device=cuda)
+    pools = _pools_as(cuda, kp, vp, pool_dtype)
+    g = torch.Generator(device=cuda).manual_seed(D)
+    k_new, v_new = (torch.randn((6, KV, D), device=cuda, generator=g)
+                    .to(q_dtype) for _ in range(2))
+    q = q.to(q_dtype)
+    before = (kernel.flash_decode_paged.commit_launches,
+              kernel.commit_paged.launches)
+    (got, want), (fused, paired) = _fused_and_pair(q, pools, bt, vl, k_new,
+                                                   v_new)
+    assert (kernel.flash_decode_paged.commit_launches,
+            kernel.commit_paged.launches) == (before[0] + 1, before[1] + 1)
+    assert torch.equal(got, want)
+    for a, w in zip(fused, paired):
+        if a is not None:
+            assert torch.equal(a, w)
+    if KV % 2:
+        return
+    amax = {}
+    if pool_dtype == torch.int8:
+        amax = dict(k_amax=ref.row_amax(k_new), v_amax=ref.row_amax(v_new))
+    sliced = [None if t is None else t.clone() for t in pools]
+    parts = []
+    for i in range(2):
+        h = ref.head_slice((i, 2), KV)
+        parts.append(kernel.flash_decode_paged(
+            q, sliced[0], sliced[1], bt, vl, *sliced[2:], head_shard=(i, 2),
+            k_new=k_new[:, h].contiguous(), v_new=v_new[:, h].contiguous(),
+            **amax))
+    torch.cuda.synchronize()
+    assert torch.equal(torch.cat(parts, dim=1), want)
+    for a, w in zip(sliced, paired):
+        if a is not None:
+            assert torch.equal(a, w)
+
+
+def test_fused_commit_refuses_what_it_was_not_built_for(cuda):
+    q, kp, vp, bt, vl = _inputs(cuda, 2, 4, 2, 64, 16, 4, torch.float32)
+    kq, vq, ks, vs = _pools_as(cuda, kp, vp, torch.int8)
+    k_new = torch.zeros((2, 4, 64), device=cuda)
+    h = ref.head_slice((0, 2), 4)
+    with pytest.raises(ValueError, match="head_shard need k_amax"):
+        kernel.flash_decode_paged(q, kq, vq, bt, vl, ks, vs,
+                                  head_shard=(0, 2),
+                                  k_new=k_new[:, h].contiguous(),
+                                  v_new=k_new[:, h].contiguous())
+    with pytest.raises(ValueError, match="contiguous on cuda"):
+        kernel.flash_decode_paged(q, kq, vq, bt, vl, ks, vs,
+                                  k_new=k_new.cpu(), v_new=k_new)
+
+
+def _fused_commit_on_ranks(mesh, seed):
+    """One rank of a 1 x M mesh on the card: the int8 decode that commits
+    its heads of every slot's new row, each row's amax the MAX over
+    ``model`` of the local ones, as the mesh engine calls it.  Returns
+    every rank's output, pools and scales as numpy."""
+    import torch.distributed as dist
+
+    B, KV, G, D, bs, nb = 4, 4, 2, 64, 16, 6
+    rng = np.random.default_rng(seed)
+    n_blocks = 1 + B * nb
+    q, kp, vp, k_new, v_new = (
+        torch.from_numpy(rng.standard_normal(s).astype(np.float32)).cuda()
+        for s in ((B, KV, G, D), (n_blocks, bs, KV, D), (n_blocks, bs, KV, D),
+                  (B, KV, D), (B, KV, D)))
+    (kq, ks), (vq, vs) = ref.quantize_rows(kp), ref.quantize_rows(vp)
+    bt = torch.from_numpy(rng.permutation(np.arange(1, n_blocks))[:B * nb]
+                          .reshape(B, nb).astype(np.int32)).cuda()
+    vl = torch.tensor([1, bs, bs + 1, nb * bs], dtype=torch.int32).cuda()
+    h = ref.head_slice((mesh.model_index, mesh.model), KV)
+    loc = [t[:, h].contiguous() for t in (q, k_new, v_new)]
+    kl, vl_pool = (t[:, :, h].contiguous() for t in (kq, vq))
+    out = kernel.flash_decode_paged_sharded(
+        loc[0], kl, vl_pool, bt, vl, mesh=mesh, k_scale=ks, v_scale=vs,
+        k_new=loc[1], v_new=loc[2],
+        k_amax=mesh.max(ref.row_amax(loc[1]), "model"),
+        v_amax=mesh.max(ref.row_amax(loc[2]), "model"))
+    torch.cuda.synchronize()
+    ranks = [None] * mesh.size
+    dist.all_gather_object(ranks, [t.cpu().numpy()
+                                   for t in (out, kl, vl_pool, ks, vs)])
+    return ranks
+
+
+def test_fused_commit_over_gloo_ranks_is_the_unsharded_pair(cuda):
+    """Two ranks on the card over gloo, each committing and attending its
+    heads with the rows' amax all-reduced: every rank's output, pools and
+    scales are the unsharded pair's head slice."""
+    from repro_torch.launch import mesh as mesh_mod
+
+    got = mesh_mod.spawn(_fused_commit_on_ranks, 1, 2, 5, device="cuda",
+                         timeout=300)
+    B, KV, G, D, bs, nb = 4, 4, 2, 64, 16, 6
+    rng = np.random.default_rng(5)
+    n_blocks = 1 + B * nb
+    q, kp, vp, k_new, v_new = (
+        torch.from_numpy(rng.standard_normal(s).astype(np.float32)).cuda()
+        for s in ((B, KV, G, D), (n_blocks, bs, KV, D), (n_blocks, bs, KV, D),
+                  (B, KV, D), (B, KV, D)))
+    (kq, ks), (vq, vs) = ref.quantize_rows(kp), ref.quantize_rows(vp)
+    pools = [kq, vq, ks, vs]
+    bt = torch.from_numpy(rng.permutation(np.arange(1, n_blocks))[:B * nb]
+                          .reshape(B, nb).astype(np.int32)).cuda()
+    vl = torch.tensor([1, bs, bs + 1, nb * bs], dtype=torch.int32).cuda()
+    (_, want), (_, paired) = _fused_and_pair(q, pools, bt, vl, k_new, v_new)
+    for m, (out, kl, vl_pool, ks, vs) in enumerate(got):
+        h = ref.head_slice((m, 2), KV)
+        np.testing.assert_array_equal(out, want[:, h].cpu().numpy())
+        np.testing.assert_array_equal(kl, paired[0][:, :, h].cpu().numpy())
+        np.testing.assert_array_equal(vl_pool,
+                                      paired[1][:, :, h].cpu().numpy())
+        np.testing.assert_array_equal(ks, paired[2].cpu().numpy())
+        np.testing.assert_array_equal(vs, paired[3].cpu().numpy())
+
+
 def test_quantized_serving_on_the_card_matches_the_cpu(cuda):
     """A two-layer qwen3-1.7b cut (GQA 2, head_dim 128, f32) with int8
     pools: teacher-forced decode and one chunk on the card within the
@@ -526,12 +672,14 @@ def test_quantized_serving_on_the_card_matches_the_cpu(cuda):
             eng.submit(Request(uid=uid, prompt=p, max_new_tokens=6))
         counts = (kernel.flash_decode_paged.launches,
                   kernel.flash_prefill_paged.launches,
-                  kernel.commit_paged.launches)
+                  kernel.flash_decode_paged.commit_launches)
         eng.run_until_drained()
         torch.cuda.synchronize()
         assert kernel.flash_decode_paged.launches > counts[0]
         assert kernel.flash_prefill_paged.launches > counts[1]
-        assert kernel.commit_paged.launches > counts[2]
+        # every decode launch commits its step's rows (int8 pools)
+        assert (kernel.flash_decode_paged.commit_launches - counts[2]
+                == kernel.flash_decode_paged.launches - counts[0])
         streams[share] = [eng.completed[u].generated for u in range(4)]
         if share:
             assert eng.stats()["block_dedup_ratio"] > 1.0
@@ -672,6 +820,16 @@ def test_spmv_kernels_match_plain(cuda, dtype, repeat):
         torch, fixed, registry.SPMV_FIXED.interpret(*args),
         chip_smoke.spmv_scale(spmv_ref, *args, predicated=False))
     assert ok, err
+    if repeat == 1:  # the plan's edge widths, row_nnz edges, misaligned
+        from repro_torch.kernels.spmv import kernel as spmv_kernel
+
+        cases = chip_smoke.spmv_edge_cases(torch, spmv_kernel, spmv_ref,
+                                           dtype, g)
+        assert {c["width"] for c in cases} == set(
+            chip_smoke.SPMV_EDGE_WIDTHS)
+        assert {c["plan"]["vec"] for c in cases} == {1, 16 // dtype.itemsize}
+        assert all(c["ok"] for c in cases), [c for c in cases
+                                             if not c["ok"]]
 
 
 def test_hpc_kernels_refuse_what_they_were_not_built_for(cuda):

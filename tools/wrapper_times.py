@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Host and device time of one call of the paged flash-decode and
-chunked-prefill wrappers, at the serve phases' shapes, for one checkout.
+chunked-prefill wrappers, and of one decode layer's attention kernels, at
+the serve phases' shapes, for one checkout.
 
     python3 tools/wrapper_times.py [--src DIR] [--label NAME]
 
@@ -11,7 +12,12 @@ inputs and the timers are ``chip_smoke.py``'s (``paged_inputs``,
 ``prefill_inputs``, ``device_ms``, ``host_us``): qwen3-1.7b heads, 8
 slots, 64 blocks of 16 rows, bf16 q, over bf16 and int8 pools; the
 decode with lengths over 1..544, the prefill with chunks of 64 rows
-after q_start over 0..448.  The host's time of a call is taken over
+after q_start over 0..448.  A decode layer's attention is what
+``models/attention.py`` launches for one decode step of one layer: where
+the checkout's ``flash_decode_paged`` takes ``k_new``, the one decode call
+that commits each slot's new row; else the commit kernel (with its
+``q_len`` of ones made there) and then the decode.  The host's time of
+a call is taken over
 ``--rounds`` rounds of 100 calls each (the card idle at the start of
 each), and given as the rounds' minimum and median: the host is shared,
 so single rounds vary by tens of percent.  Prints one JSON line a
@@ -21,7 +27,7 @@ wrapper call, then the card's name and power limit.  Needs one CUDA card.
 from __future__ import annotations
 
 import argparse
-import json
+import inspect
 import sys
 from pathlib import Path
 
@@ -58,9 +64,23 @@ def main() -> int:
     q_start = np.random.default_rng(6).integers(0, 449, size=B)
     pre = cs.prefill_inputs(torch, B, C, KV, G, D, bs, nb, torch.bfloat16,
                             q_start.tolist(), [C] * B, seed=7)
+    pos = vl - 1
+    k_new, v_new = cs.new_rows(torch, B, KV, D, torch.bfloat16, seed=8)
+    fused = "k_new" in inspect.signature(kernel.flash_decode_paged).parameters
+
+    def layer(kq, vq, ks, vs):
+        if fused:
+            return kernel.flash_decode_paged(q, kq, vq, bt, vl, ks, vs,
+                                             k_new=k_new, v_new=v_new)
+        kernel.commit_paged(k_new[:, None], v_new[:, None], kq, vq, bt, pos,
+                            torch.ones_like(pos), ks, vs)
+        return kernel.flash_decode_paged(q, kq, vq, bt, vl, ks, vs)
+
     calls = {}
     for pool in (torch.bfloat16, torch.int8):
         kq, vq, ks, vs = cs.as_pools(torch, ref, kp, vp, pool)
+        calls[f"decode layer {cs.dtype_name(pool)}"] = (
+            lambda kq=kq, vq=vq, ks=ks, vs=vs: layer(kq, vq, ks, vs))
         calls[f"flash_decode_paged {cs.dtype_name(pool)}"] = (
             lambda kq=kq, vq=vq, ks=ks, vs=vs: kernel.flash_decode_paged(
                 q, kq, vq, bt, vl, ks, vs))
@@ -75,6 +95,8 @@ def main() -> int:
         rounds = sorted(cs.host_us(torch, fn, reps=100, rounds=1)
                         for _ in range(args.rounds))
         cs.emit({"label": args.label, "src": args.src, "call": name,
+                 "decode_layer": ("fused" if fused else "commit + decode")
+                 if name.startswith("decode layer") else None,
                  "host_us_min": rounds[0],
                  "host_us": rounds[len(rounds) // 2],
                  "ms": cs.device_ms(torch, fn)})
