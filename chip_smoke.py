@@ -12,8 +12,10 @@ non-zero):
 1. env      torch/CUDA versions and the card's name and power limit.
 2. build    nvcc builds of the eight kernel libraries for sm_90a, in
             parallel (the GEMM's two routes are a library each).
-3. kernel   each kernel against its plain version at gpt2-124m's and
-            qwen3-1.7b's attention shapes, in bf16 and f32: the paged
+3. kernel   each kernel against its plain version at gpt2-124m's,
+            qwen3-1.7b's and deepseek-moe-16b's attention shapes (12 heads
+            of 64; 8 KV heads of 128, 2 query heads each; 16 heads of
+            128), in bf16 and f32: the paged
             flash-decode on shuffled block tables with ragged lengths; the
             chunked prefill (commit + causal attention) with ragged
             q_start and q_len (0, 1 and the whole chunk), pools compared
@@ -37,8 +39,9 @@ non-zero):
             the commit kernel then the decode (output, pools, scales) for
             every (q, pool) pair at every head shape and at the serve
             shapes, and its head slices given the rows' amax; timed at
-            qwen3-1.7b's serve shapes (bf16 and int8 pools) and gpt2-124m's
-            beside its bound, the plain versions, the two-launch pair
+            qwen3-1.7b's serve shapes (bf16 and int8 pools), gpt2-124m's
+            and deepseek-moe-16b's (with the prefill) beside its bound,
+            the plain versions, the two-launch pair
             (device ms and a decode layer's host us) and, for bf16, two
             ``index_put_`` and SDPA.
    kernel-sharded  kernel 2.4, the head-sharded decode: for every (q,
@@ -117,6 +120,23 @@ non-zero):
             CPU's, and within the reference's qwen3 int8 budget (0.11) of
             the card's f32 cache; the card's int8 run launches the decode
             (committing) and prefill kernels on int8 pools.
+   serve-moe  the serve CLI at the full width of deepseek-moe-16b (bf16,
+            all 28 layers: a dense first layer, then 27 MoE layers of 64
+            experts, top 6, and 2 shared experts; 16.4 B parameters) with
+            chunked prefill: every request completes, the decode and
+            prefill kernels together run 28 times per fused step, each at
+            least once, every decode launch committing; prints the
+            parameter draw's seconds and the peak of allocated memory.
+   profile-moe  the profile of a second drain of that engine, then a
+            third under host and device tracing with the MoE functions
+            wrapped in ranges: device time by group (expert products;
+            routing, dispatch and combine; the shared expert; attention;
+            the rest), and a decode step's device time beside its bytes
+            bound.
+   parity-moe  deepseek-moe-16b at full width cut to 3 layers (the dense
+            first layer and two MoE layers), float32: chunked on the card,
+            chunked on the CPU and token by token on the card give the
+            same greedy streams, up to near ties.
 7. serve-mesh  tensor-parallel serving: ``CHUNKED_ARGV``'s first 8
             requests with ``--mesh 1x2`` and ``--mesh 2x2`` (qwen3-1.7b,
             full width, 28 layers, bf16), as ranks sharing the card over
@@ -131,8 +151,10 @@ non-zero):
             the host, wall time and tok/s, and how many streams equal the
             unsharded card engine's on the same requests.
    parity-mesh  the port's mesh check in float32 (gpt2-124m full width,
-            qwen3-1.7b full width cut to 4 layers, gpt2-124m with int8
-            pools and prefix sharing; 3 requests of 8 tokens on 2 slots)
+            qwen3-1.7b full width cut to 4 layers, deepseek-moe-16b full
+            width cut to 3 layers, 32 of its 64 experts a rank on a model
+            axis of 2, gpt2-124m with int8 pools and prefix sharing; 3
+            requests of 8 tokens on 2 slots)
             on 1x1, 2x1, 1x2 and 2x2 against the
             unsharded card engine: equal greedy streams, and int8 pools
             within the check's rule.
@@ -159,7 +181,8 @@ SRC = ROOT / "src"
 #: the H100 ChipSpec's peak key of each torch dtype name
 PEAK_KEY = {"float32": "fp32", "bfloat16": "bf16", "float16": "fp16"}
 
-ARCH_HEADS = {"gpt2-124m": (12, 1, 64), "qwen3-1.7b": (8, 2, 128)}
+ARCH_HEADS = {"gpt2-124m": (12, 1, 64), "qwen3-1.7b": (8, 2, 128),
+              "deepseek-moe-16b": (16, 1, 128)}
 #: the smoke configs' heads (head dim 16), the registry's flash workloads'
 #: heads (16 with 4 query heads a KV head) and a head dim of 32, checked on
 #: the paged kernels beside the full widths
@@ -184,6 +207,14 @@ SHARED_ARGV = ["--arch", "qwen3-1.7b", "--no-smoke", "--max-batch", "8",
                "--prefill-chunk", "64", "--prefill-budget", "256",
                "--kv-dtype", "int8", "--shared-prefix-len", "256",
                "--device", "cuda"]
+MOE_ARGV = ["--arch", "deepseek-moe-16b", "--no-smoke", "--max-batch", "8",
+            "--max-len", "1024", "--block-size", "16", "--requests", "16",
+            "--prompt-lo", "64", "--prompt-hi", "512", "--max-new", "32",
+            "--prefill-chunk", "64", "--prefill-budget", "256",
+            "--device", "cuda"]
+#: deepseek-moe-16b cut to its dense first layer and two MoE layers, the
+#: depth of the parity phases' MoE runs
+MOE_PARITY_LAYERS = 3
 PARITY_REQUESTS, PARITY_NEW, PARITY_TOP2_GAP = 4, 8, 1e-3
 #: the reference's teacher-forced budget for qwen3-1.7b int8 pools against
 #: its f32 cache
@@ -479,16 +510,16 @@ def check_prefill(torch, np, kernel, ref):
                     f"{ok_zeros}, pools {ok_pools}, unnamed {ok_foreign}")
 
 
-def prefill_timing(torch, np, kernel, ref):
+def prefill_timing(torch, np, kernel, ref, arch="qwen3-1.7b"):
     """Kernel pair, plain version and a library yardstick at the chunked
-    serve phase's shapes: 8 slots, chunks of 64 rows, qwen3-1.7b heads,
+    serve phases' shapes: 8 slots, chunks of 64 rows, the arch's heads,
     64 blocks of 16, bf16, q_start drawn over 0..448.  The yardstick is
     one ``index_put_`` commit per pool and one SDPA call with a causal
     mask over K/V gathered beforehand."""
     import torch.nn.functional as F
 
     B, C, bs, nb = PREFILL_B, PREFILL_C, KERNEL_BS, PREFILL_NB
-    KV, G, D = ARCH_HEADS["qwen3-1.7b"]
+    KV, G, D = ARCH_HEADS[arch]
     q_start = np.random.default_rng(6).integers(0, 449, size=B)
     q_len = np.full(B, C)
     args = prefill_inputs(torch, B, C, KV, G, D, bs, nb, torch.bfloat16,
@@ -542,7 +573,7 @@ def prefill_timing(torch, np, kernel, ref):
            "bound_ms": bound_ms, "bound_by": bound_by,
            "host_us": host_us(torch, timed["ms"])}
     emit({"phase": "kernel", "kernel": "flash_prefill_paged",
-          "shapes": "serve qwen3-1.7b chunked", "B": B, "C": C, "KV": KV,
+          "shapes": f"serve {arch} chunked", "B": B, "C": C, "KV": KV,
           "G": G, "D": D, "bs": bs, "nb": nb, "dtype": "bfloat16",
           "plan": kernel.prefill_plan(C, G, D, bs, nb, torch.bfloat16,
                                       torch.bfloat16)._asdict(),
@@ -2485,6 +2516,239 @@ def phase_parity_chunked(torch, np):
           "divergences": gaps})
 
 
+# -- mixture of experts -------------------------------------------------------
+
+
+#: (group, the ``repro_torch.models.moe`` functions whose launches it
+#: counts) of profile-moe's split of the device time
+MOE_GROUPS = (("expert_products", ("_expert_gemms",)),
+              ("route_dispatch_combine", ("_route", "_dispatch",
+                                          "_combine")),
+              ("shared_expert", ("_shared_experts",)))
+MOE_DECODE_STEPS = 5
+
+
+def tree_to(tree, device):
+    """A copy of a parameter tree (dicts and lists of tensors) on
+    ``device``."""
+    if isinstance(tree, dict):
+        return {k: tree_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_to(v, device) for v in tree]
+    return tree.to(device)
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def tree_bytes(tree) -> int:
+    return sum(t.numel() * t.element_size() for t in _leaves(tree))
+
+
+def phase_serve_moe(torch, np):
+    """The CLI at deepseek-moe-16b's full width (bf16, all 28 layers: a
+    dense first layer, then 27 MoE layers of 64 experts, top 6, and 2
+    shared experts) with chunked prefill, as ``phase_serve``: every
+    request completes, the decode and prefill kernels together run 28
+    times per fused step, each at least once, every decode launch
+    committing.  Prints the parameter draw's seconds, the peak of
+    allocated memory, the steps, tok/s and the phase's seconds.  Then
+    profile-moe over second drains of the same engine.  Returns the
+    launch counts."""
+    t0 = time.time()
+    engine, counts, _ = phase_serve(torch, MOE_ARGV, "serve-moe")
+    emit({"phase": "serve-moe-summary", "arch": engine.cfg.name,
+          "parameters": sum(t.numel() for t in _leaves(engine.params)),
+          "parameter_bytes": tree_bytes(engine.params),
+          "seconds": time.time() - t0})
+    phase_profile(torch, np, engine, "profile-moe", 64, 256)
+    profile_moe_groups(torch, np, engine)
+    return counts
+
+
+def _kernels_under(event) -> int:
+    """Kernels launched by a profiled host event and its children."""
+    return len(event.kernels) + sum(_kernels_under(c)
+                                    for c in event.cpu_children)
+
+
+def profile_moe_groups(torch, np, engine):
+    """Where an MoE serve step's device time goes: a third drain under
+    ``torch.profiler`` with host and device activity, each function of
+    :data:`MOE_GROUPS` wrapped in a ``record_function`` range for the
+    drain only, so that the kernels each launches are summed by group; the
+    attention kernels by name (:data:`KERNEL_GROUPS`), and the rest.  The
+    host's tracing slows this drain, so its idle share is not read (the
+    profile-moe line gives it).  Then the device time of a decode step
+    alone (8 slots at lengths of the serve traffic, ``MOE_DECODE_STEPS``
+    steps under a device-only profile) beside its bytes bound: every
+    parameter read once but the embedding table (8 rows of it), each
+    slot's cached K/V rows read once, the new rows and the logits written
+    once, over the card's memory rate; and the kernels each group launches
+    a MoE layer in that drain."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch.core.hw import H100
+    from repro_torch.models import moe, transformer
+    from repro_torch.serve.engine import Request
+
+    def wrapped(fn, label):
+        def call(*args, **kwargs):
+            with record_function(label):
+                return fn(*args, **kwargs)
+        return call
+
+    rng = np.random.default_rng(5)
+    for uid in range(PROFILE_REQUESTS):
+        prompt = rng.integers(0, engine.cfg.vocab,
+                              size=int(rng.integers(64, 257)))
+        engine.submit(Request(uid=2000 + uid, prompt=prompt.astype(np.int32),
+                              max_new_tokens=PROFILE_NEW))
+    originals = {name: getattr(moe, name)
+                 for _, names in MOE_GROUPS for name in names}
+    first = engine.steps
+    try:
+        for group, names in MOE_GROUPS:
+            for name in names:
+                setattr(moe, name, wrapped(originals[name], f"moe.{group}"))
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            engine.run_until_drained()
+            torch.cuda.synchronize()
+    finally:
+        for name, fn in originals.items():
+            setattr(moe, name, fn)
+    rows = prof.key_averages()
+    kernels = [e for e in rows if str(e.device_type).endswith("CUDA")
+               and not e.is_user_annotation]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    groups = {group: 0.0 for group, _ in MOE_GROUPS}
+    for e in rows:
+        if (e.is_user_annotation and str(e.device_type).endswith("CPU")
+                and e.key.startswith("moe.")):
+            groups[e.key[4:]] += e.device_time_total / 1e3
+    groups["attention"] = sum(
+        e.self_device_time_total for e in kernels
+        if any(word in e.key for _, word in KERNEL_GROUPS)) / 1e3
+    groups["rest"] = busy_ms - sum(groups.values())
+    # the kernels each group launched, from the launching host calls inside
+    # its ranges, a MoE layer (one expert-products range a layer)
+    launched = {group: 0 for group, _ in MOE_GROUPS}
+    layers_run = 0
+    for e in prof.events():
+        if (e.is_user_annotation and str(e.device_type).endswith("CPU")
+                and e.name.startswith("moe.")):
+            launched[e.name[4:]] += _kernels_under(e)
+            layers_run += e.name == "moe.expert_products"
+    steps = engine.steps - first
+    require(busy_ms > 0 and groups["expert_products"] > 0
+            and groups["route_dispatch_combine"] > 0,
+            f"the grouped profile saw {busy_ms} ms, groups {groups}")
+
+    # a decode step alone, at 8 slots and the serve traffic's lengths
+    cfg, params = engine.cfg, engine.params
+    B, bs, max_len = 8, 16, 1024
+    lengths = np.random.default_rng(8).integers(1, 512 + 32 + 1, size=B)
+    cache = transformer.init_paged_cache(cfg, B, max_len, bs, "cuda")
+    nb = max_len // bs
+    bt = torch.arange(1, 1 + B * nb, dtype=torch.int32,
+                      device="cuda").reshape(B, nb)
+    pos = torch.tensor(lengths - 1, dtype=torch.int32, device="cuda")
+    tokens = torch.ones((B, 1), dtype=torch.int32, device="cuda")
+
+    def step():
+        return transformer.decode_step_paged(params, cfg, tokens, cache,
+                                             pos, bt, block_size=bs)[0]
+
+    for _ in range(2):
+        step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as dprof:
+        for _ in range(MOE_DECODE_STEPS):
+            step()
+        torch.cuda.synchronize()
+    decode_ms = sum(e.self_device_time_total for e in dprof.key_averages()
+                    if not e.is_user_annotation) / 1e3 / MOE_DECODE_STEPS
+    table = params["embed"]["embedding"]
+    elt = cache["k"].element_size()
+    row = 2 * cfg.n_kv_heads * cfg.head_dim * elt * cfg.n_layers
+    decode_bytes = (tree_bytes(params) - tree_bytes(table)
+                    + B * cfg.d_model * table.element_size()
+                    + int(lengths.sum()) * row + B * row
+                    + B * cfg.vocab_padded * 4)
+    del cache
+    torch.cuda.empty_cache()
+    bound_ms = decode_bytes / H100.hbm_bw * 1e3
+
+    emit({"phase": "profile-moe-groups", "arch": cfg.name,
+          "fused_steps": steps, "device_busy_ms": busy_ms,
+          "device_ms_by_group": groups,
+          "share_by_group": {g: ms / busy_ms for g, ms in groups.items()},
+          "decode_step": {"slots": B, "lengths": lengths.tolist(),
+                          "device_ms": decode_ms, "bytes": decode_bytes,
+                          "bound_ms": bound_ms, "bound_by": "bytes",
+                          "of_bound": bound_ms / decode_ms},
+          "moe_layers_run": layers_run,
+          "launches_per_moe_layer": {g: n / max(layers_run, 1)
+                                     for g, n in launched.items()}})
+
+
+def phase_parity_moe(torch, np):
+    """deepseek-moe-16b at full width cut to ``MOE_PARITY_LAYERS`` layers
+    (the dense first layer and two MoE layers), float32: chunked on the
+    card (both kernels), chunked on the CPU (both plain versions) and
+    token by token on the card must give the same greedy streams, up to
+    near ties.  The card's weights are a copy of the CPU's seeded
+    init."""
+    import repro_torch.configs as configs
+    from repro_torch.kernels.flash_decode import kernel
+    from repro_torch.models import transformer
+
+    t0 = time.time()
+    cfg = dataclasses.replace(configs.get_config("deepseek-moe-16b"),
+                              n_layers=MOE_PARITY_LAYERS,
+                              param_dtype="float32",
+                              compute_dtype="float32")
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(0, cfg.vocab, size=int(rng.integers(20, 81)))
+               .astype(np.int32) for _ in range(PARITY_REQUESTS)]
+    cpu = transformer.init_lm(cfg, seed=0, device="cpu")
+    params = {"cpu": cpu, "cuda": tree_to(cpu, "cuda")}
+    kw = dict(max_batch=4, max_len=96, block_size=16)
+    chunked = dict(kw, prefill_chunk=16, prefill_budget=32)
+    reset_counts(kernel)
+    streams = {"cuda_chunked": _drain(cfg, params["cuda"], prompts, "cuda",
+                                      **chunked)}
+    counts = read_counts(kernel)
+    require(counts["flash_decode_paged"] > 0
+            and counts["flash_prefill_paged"] > 0,
+            f"the MoE parity run skipped a kernel: {counts}")
+    streams["cpu_chunked"] = _drain(cfg, cpu, prompts, "cpu", **chunked)
+    streams["cuda_token"] = _drain(cfg, params["cuda"], prompts, "cuda",
+                                   **kw)
+    gaps = {name: _divergences(torch, cfg, cpu, prompts,
+                               streams["cpu_chunked"], streams[name], 16)
+            for name in ("cuda_chunked", "cuda_token")}
+    del params
+    emit({"phase": "parity-moe", "arch": cfg.name,
+          "layers": MOE_PARITY_LAYERS, "dtype": "float32",
+          "parameters": sum(t.numel() for t in _leaves(cpu)),
+          "requests": len(prompts),
+          "prompt_lens": [len(p) for p in prompts],
+          "new_tokens": PARITY_NEW, "launches": counts,
+          "streams_equal": {name: s == streams["cpu_chunked"]
+                            for name, s in streams.items()},
+          "divergences": gaps, "seconds": time.time() - t0})
+
+
 # -- tensor parallelism -------------------------------------------------------
 
 
@@ -2790,9 +3054,11 @@ def phase_serve_mesh(torch, params):
 
 def phase_parity_mesh(torch):
     """The port's mesh check on the card, in float32: gpt2-124m at full
-    width, qwen3-1.7b at full width cut to 4 layers (as parity-int8), and
-    gpt2-124m with int8 pools and prefix sharing, each on 1x1, 2x1, 1x2
-    and 2x2 against the unsharded card engine: the greedy streams equal
+    width, qwen3-1.7b at full width cut to 4 layers (as parity-int8),
+    deepseek-moe-16b at full width cut to 3 layers (as parity-moe; on a
+    model axis of 2 each rank holds 32 of the 64 experts), and gpt2-124m
+    with int8 pools and prefix sharing, each on 1x1, 2x1, 1x2 and 2x2
+    against the unsharded card engine: the greedy streams equal
     token for token, and the int8 pools on every rank within the check's
     rule (scales the same bits on every rank, codes within one step and
     scales within 1e-2 of the unsharded pools' head slice).  Returns the
@@ -2805,9 +3071,12 @@ def phase_parity_mesh(torch):
     gpt2 = dataclasses.replace(configs.get_config("gpt2-124m"), **f32)
     qwen3 = dataclasses.replace(configs.get_config("qwen3-1.7b"),
                                 n_layers=4, **f32)
+    moe = dataclasses.replace(configs.get_config("deepseek-moe-16b"),
+                              n_layers=MOE_PARITY_LAYERS, **f32)
     workloads = (
         ("gpt2", "gpt2-124m", {"config": gpt2}),
         ("qwen3", "qwen3-1.7b", {"config": qwen3}),
+        ("moe", "deepseek-moe-16b", {"config": moe}),
         ("gpt2-int8-shared", "gpt2-124m",
          {"config": gpt2, "kv_dtype": "int8", "share_prefixes": True,
           "shared_prefix_len": 6}),
@@ -2878,13 +3147,16 @@ def main() -> int:
     commit_row = commit_timing(torch, np, kernel, ref, torch.bfloat16)
     qcommit_row = commit_timing(torch, np, kernel, ref, torch.int8)
     check_fused_commit(torch, np, kernel, ref)
+    moe_prefill_row = prefill_timing(torch, np, kernel, ref,
+                                     "deepseek-moe-16b")
     fused_rows = {
         (arch, pool): fused_commit_timing(torch, np, kernel, ref, arch, nb,
                                           max_valid, seed, pool)
         for arch, nb, max_valid, seed, pool in (
             ("qwen3-1.7b", 64, 512 + 32, 8, torch.bfloat16),
             ("qwen3-1.7b", 64, 512 + 32, 8, torch.int8),
-            ("gpt2-124m", 16, 64 + 32, 2, torch.bfloat16))}
+            ("gpt2-124m", 16, 64 + 32, 2, torch.bfloat16),
+            ("deepseek-moe-16b", 64, 512 + 32, 8, torch.bfloat16))}
     check_sharded_decode(torch, np, kernel, ref)
     sharded_row = sharded_decode_timing(torch, np, kernel, ref)
 
@@ -2916,6 +3188,10 @@ def main() -> int:
     phase_parity_chunked(torch, np)
     phase_parity_int8(torch, np)
     torch.cuda.empty_cache()
+    moe_counts = phase_serve_moe(torch, np)
+    torch.cuda.empty_cache()
+    phase_parity_moe(torch, np)
+    torch.cuda.empty_cache()
     mesh_launches, mesh_commits = phase_serve_mesh(torch, chunked_params)
     del chunked_params
     int8_mesh_commits = phase_parity_mesh(torch)
@@ -2924,11 +3200,15 @@ def main() -> int:
         {"name": "flash_decode_paged", "route": "cuda",
          "source": SOURCE_DIR + "flash_decode_paged.cu",
          "replaces": f"{TPU_KERNELS}:256",
-         "launches": counts["flash_decode_paged"], **decode_row},
+         "launches": counts["flash_decode_paged"],
+         "serve_moe_launches": moe_counts["flash_decode_paged"],
+         **decode_row},
         {"name": "flash_prefill_paged", "route": "cuda",
          "source": SOURCE_DIR + "flash_prefill_paged.cu",
          "replaces": f"{TPU_KERNELS}:573,620",
-         "launches": counts["flash_prefill_paged"], **prefill_row},
+         "launches": counts["flash_prefill_paged"],
+         "serve_moe_launches": moe_counts["flash_prefill_paged"],
+         "deepseek-moe-16b": moe_prefill_row, **prefill_row},
         {"name": "flash_decode_paged_int8", "route": "cuda",
          "source": SOURCE_DIR + "flash_decode_paged.cu",
          "replaces": f"{TPU_KERNELS}:256",
@@ -2947,8 +3227,10 @@ def main() -> int:
          "source": SOURCE_DIR + "flash_decode_paged.cu",
          "replaces": f"{TPU_KERNELS}:256,573",
          "launches": counts["decode_commits"],
+         "serve_moe_launches": moe_counts["decode_commits"],
          "shape": "qwen3-1.7b serve, bf16",
          "gpt2": fused_rows["gpt2-124m", torch.bfloat16],
+         "deepseek-moe-16b": fused_rows["deepseek-moe-16b", torch.bfloat16],
          **fused_rows["qwen3-1.7b", torch.bfloat16]},
         {"name": "flash_decode_paged_commit_int8", "route": "cuda",
          "source": SOURCE_DIR + "flash_decode_paged.cu",

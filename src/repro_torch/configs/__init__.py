@@ -16,6 +16,7 @@ from repro_torch.configs.base import ModelConfig
 _ARCH_MODULES = {
     "qwen3-1.7b": "qwen3_1_7b",
     "gpt2-124m": "gpt2_124m",
+    "deepseek-moe-16b": "deepseek_moe_16b",
 }
 
 ALL_ARCHS: List[str] = list(_ARCH_MODULES)

@@ -1,6 +1,5 @@
 """Vectorization-effectiveness metrics (paper Eq. 1 and Sec. 3.3) and the
-serving metrics: a copy of :mod:`repro.core.metrics` less
-``expert_imbalance`` (ROADMAP item 1.10).
+serving metrics: a copy of :mod:`repro.core.metrics`.
 
 * ``vectorization_bound`` — VB = VLEN / ELEN (paper Eq. 1, left).
 * ``instruction_reduction`` — R_ins_reduction = Ins_nonvec / Ins_vec
@@ -128,6 +127,18 @@ def device_lane_utilization(
     return min(
         min(1.0, b / (steps * lanes_per_device)) for b in counts
     )
+
+
+def expert_imbalance(expert_loads: Sequence[float]) -> float:
+    """Max-over-mean load across expert-parallel shards, the EP variant of
+    :func:`device_lane_utilization`: a fused MoE step finishes when its
+    most-loaded shard drains.  1.0 is a balanced router, ``n_shards`` a
+    one-hot one; no load observed reports 1.0."""
+    loads = [max(0.0, float(x)) for x in expert_loads]
+    total = sum(loads)
+    if not loads or total <= 0:
+        return 1.0
+    return max(loads) * len(loads) / total
 
 
 def arithmetic_intensity(flops: float, hbm_bytes: float) -> float:

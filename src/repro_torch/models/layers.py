@@ -17,6 +17,8 @@ that does not divide leaves its weights whole.
 
 from __future__ import annotations
 
+import os
+from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, Optional, Tuple
 
 import torch
@@ -34,6 +36,28 @@ def truncated_normal(gen: torch.Generator, shape, scale: float, dtype,
     std = scale / max(1.0, fan_in ** 0.5)
     x = torch.randn(shape, generator=gen, dtype=torch.float32)
     return (x.clamp_(-2.0, 2.0) * std).to(device=device, dtype=dtype)
+
+
+def truncated_normal_stack(gen: torch.Generator, shape, scale: float, dtype,
+                           device) -> torch.Tensor:
+    """:func:`truncated_normal`'s law for a stack of matrices ``(n, d_in,
+    d_out)``: matrix i drawn from a generator of its own, seeded by the
+    i-th of n seeds drawn from ``gen``, on the CPU in parallel threads
+    (one draw stream is single-threaded, and an expert stack holds
+    hundreds of millions of numbers).  The numbers depend on neither the
+    device nor the thread count."""
+    std = scale / max(1.0, shape[-2] ** 0.5)
+    seeds = torch.randint(0, 2 ** 62, (shape[0],), generator=gen).tolist()
+    out = torch.empty(shape, dtype=dtype)
+
+    def draw(i: int) -> None:
+        x = torch.randn(shape[1:], generator=torch.Generator().manual_seed(
+            seeds[i]), dtype=torch.float32)
+        out[i].copy_(x.clamp_(-2.0, 2.0).mul_(std))
+
+    with ThreadPoolExecutor(min(shape[0], os.cpu_count() or 1)) as pool:
+        list(pool.map(draw, range(shape[0])))
+    return out.to(device)
 
 
 def dense_init(gen, d_in: int, d_out: int, dtype, device, *,
@@ -70,10 +94,15 @@ class MeshContext:
     ``model`` axis of more than one rank.  ``heads`` says whether the K/V
     pools split their heads (``paged_cache_spec``), so that attention runs
     on this rank's heads; it holds on a model axis of one rank too.
+    ``experts_split`` and ``shared_split`` say whether an MoE layer's
+    expert stacks split their experts (expert parallelism) and its shared
+    experts their columns; ``batch`` is the step's full slot count, from
+    which MoE capacity is counted.
     """
 
     def __init__(self, mesh, cfg, batch: int):
         self.mesh = mesh
+        self.batch = batch
         self.slots = sharding.local_slots(mesh, batch)
         self.split_slots = self.slots.stop - self.slots.start < batch
         d, hd, vp = cfg.d_model, cfg.head_dim, cfg.vocab_padded
@@ -95,6 +124,11 @@ class MeshContext:
         self.vocab_split = split("embed/embedding", (vp, d))
         self.head_split = (not cfg.tie_embeddings
                            and split("lm_head/w", (d, vp)))
+        m = cfg.moe
+        self.experts_split = m is not None and split(
+            "moe/wi_gate", (m.n_routed, d, m.d_ff_expert))
+        self.shared_split = m is not None and m.n_shared > 0 and split(
+            "moe/shared/wo", (m.n_shared * m.d_ff_expert, d))
 
 
 # --- norms -------------------------------------------------------------------

@@ -1,25 +1,29 @@
-"""Decoder-only LM core of the port: dense attention models, paged decode
-and chunked prefill.
+"""Decoder-only LM core of the port: paged decode and chunked prefill for
+attention models with dense or MoE FFNs.
 
 Port of the paged serving path of ``repro/models/transformer.py`` for
-dense architectures (one attention layer per superblock, dense SwiGLU
-FFN): ``init_lm``, ``init_paged_cache``, ``paged_block_bytes``,
-``copy_paged_block``, ``decode_step_paged`` and ``prefill_step_paged``,
-with the reference's pool storage dtypes (:data:`KV_DTYPES`).  The
-reference's ``lax.scan`` over stacked superblocks becomes a loop over a list of
-per-layer parameter dicts, and the paged pools are updated in place
-instead of being rebuilt, which saves a copy of the pool per step.  The
-reference's ``prefill_step_paged`` scans its one-token cell over the
-chunk; the port computes the chunk in parallel, every row of every slot
-through each layer at once.  :func:`params_from_numpy` carries the
-reference's parameters across.
+architectures of one attention layer per superblock, with a dense SwiGLU
+FFN or an MoE FFN (:mod:`repro_torch.models.moe`) after the first
+``first_dense`` layer: ``init_lm``, ``init_paged_cache``,
+``paged_block_bytes``, ``copy_paged_block``, ``decode_step_paged`` and
+``prefill_step_paged``, with the reference's pool storage dtypes
+(:data:`KV_DTYPES`).  The reference's ``first_block`` and its ``lax.scan``
+over stacked superblocks become one list of per-layer parameter dicts,
+and the paged pools are updated in place instead of being rebuilt, which
+saves a copy of the pool per step.  The reference's ``prefill_step_paged``
+scans its one-token cell over the chunk; the port computes the chunk in
+parallel, every row of every slot through each layer at once, and routes
+an MoE layer's rows one chunk row at a time (``moe_ffn_rows``), as the
+scanned cell does.  :func:`params_from_numpy` carries the reference's
+parameters across.
 
 Tensor-parallel serving: with ``mesh=`` (a rank's
 :class:`~repro_torch.launch.mesh.ServeMesh`), :func:`init_lm` and
 :func:`params_from_numpy` give this rank's shards of the parameters and
 :func:`init_paged_cache` its pools (heads split over ``model``, blocks and
-scales whole), by the rules of :mod:`repro_torch.distributed.sharding`.
-The steps then take every slot's tokens and tables, run this rank's slots
+scales whole), by the rules of :mod:`repro_torch.distributed.sharding`
+(expert stacks split their experts over ``model``).  The steps then take
+every slot's tokens and tables, run this rank's slots
 (:func:`~repro_torch.distributed.sharding.local_slots`) on its shards, and
 return those slots' logits, gathered over ``model``.
 """
@@ -34,7 +38,7 @@ import torch
 from repro_torch.configs.base import LayerKind, ModelConfig
 from repro_torch.core.device import resolve_device
 from repro_torch.distributed import sharding
-from repro_torch.models import attention, layers
+from repro_torch.models import attention, layers, moe
 
 #: Physical block 0 is reserved as the NULL block: block tables of idle
 #: serving slots point at it, so their writes land in rows no live request
@@ -47,15 +51,31 @@ NULL_BLOCK = 0
 KV_DTYPES = ("f32", "bf16", "int8")
 
 
-def check_dense(cfg: ModelConfig) -> None:
-    """Raise unless ``cfg`` is an architecture the port serves so far."""
-    if (cfg.family != "dense" or cfg.layer_pattern != (LayerKind.ATTN,)
-            or cfg.moe is not None or cfg.mla is not None
-            or cfg.ssm is not None or cfg.is_encoder_decoder):
+def check_served(cfg: ModelConfig) -> None:
+    """Raise unless ``cfg`` is an architecture the port serves so far:
+    attention layers with dense SwiGLU FFNs, or with MoE FFNs."""
+    ffn_ok = ((cfg.family == "dense" and cfg.moe is None)
+              or (cfg.family == "moe" and cfg.moe is not None))
+    if (not ffn_ok or cfg.layer_pattern != (LayerKind.ATTN,)
+            or cfg.mla is not None or cfg.ssm is not None
+            or cfg.is_encoder_decoder):
         raise ValueError(
-            f"{cfg.name}: the port serves dense attention models only; "
-            f"MoE, MLA, SSM and hybrid archs are ROADMAP item 1.10"
+            f"{cfg.name}: the port serves dense and MoE attention models "
+            f"only; MLA, SSM, hybrid and encoder-decoder archs are ROADMAP "
+            f"item 1.10"
         )
+
+
+def is_moe_layer(cfg: ModelConfig, i: int) -> bool:
+    """Whether layer ``i`` has an MoE FFN, by the reference's rule: a
+    ``first_dense`` first layer is dense, and each stacked layer follows
+    its superblock slot (``_slot_is_moe``)."""
+    if cfg.moe is None:
+        return False
+    offset = 1 if cfg.moe.first_dense else 0
+    if i < offset:
+        return False
+    return cfg._is_moe_layer(offset + (i - offset) % len(cfg.superblock))
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -71,7 +91,7 @@ def init_lm(cfg: ModelConfig, *, seed: int = 0, device="cuda",
     numbers; use :func:`params_from_numpy` for those).  With ``mesh``,
     this rank's shards of the same numbers (drawn whole on the CPU, then
     cut)."""
-    check_dense(cfg)
+    check_served(cfg)
     if mesh is not None:
         return shard_params(init_lm(cfg, seed=seed, device="cpu"), mesh,
                             device)
@@ -87,15 +107,17 @@ def init_lm(cfg: ModelConfig, *, seed: int = 0, device="cuda",
     if not cfg.tie_embeddings:
         params["lm_head"] = layers.dense_init(gen, cfg.d_model,
                                               cfg.vocab_padded, dtype, dev)
-    params["layers"] = [
-        {
-            "norm1": norm_init(dtype, dev),
-            "norm2": norm_init(dtype, dev),
-            "attn": attention.init_attention(gen, cfg, dtype, dev),
-            "ffn": layers.swiglu_init(gen, cfg.d_model, cfg.d_ff, dtype, dev),
-        }
-        for _ in range(cfg.n_layers)
-    ]
+    params["layers"] = []
+    for i in range(cfg.n_layers):
+        layer = {"norm1": norm_init(dtype, dev),
+                 "norm2": norm_init(dtype, dev),
+                 "attn": attention.init_attention(gen, cfg, dtype, dev)}
+        if is_moe_layer(cfg, i):
+            layer["moe"] = moe.init_moe(gen, cfg, dtype, dev)
+        else:
+            layer["ffn"] = layers.swiglu_init(gen, cfg.d_model, cfg.d_ff,
+                                              dtype, dev)
+        params["layers"].append(layer)
     return params
 
 
@@ -124,30 +146,44 @@ def params_from_numpy(tree: Mapping, cfg: ModelConfig, device="cuda", *,
     Leaves widen through float32, which is exact for bf16 (``np.asarray``
     of a bf16 JAX leaf is an ``ml_dtypes.bfloat16`` array, which
     ``torch.from_numpy`` rejects), and are copied, since such buffers are
-    read-only.  The stacked superblock leaves ``blocks/slot0/...`` become
-    one dict per layer.  With ``mesh`` each leaf is cut to this rank's
-    shard by the reference's rules
+    read-only.  The router stays fp32, as the reference keeps it.  The
+    first layer's ``first_block`` (with ``first_dense``) becomes layer 0,
+    and the stacked superblock leaves ``blocks/slot0/...`` one dict per
+    layer after it.  With ``mesh`` each leaf is cut to this rank's shard
+    by the reference's rules
     (:func:`~repro_torch.distributed.sharding.serve_param_shardings`)
     before it is converted.
     """
-    check_dense(cfg)
+    check_served(cfg)
     dev = resolve_device(device)
     dtype = torch_dtype(cfg.param_dtype)
-    extra = set(tree) - {"embed", "final_norm", "lm_head", "blocks"}
-    if extra or set(tree["blocks"]) != {"slot0"}:
-        raise ValueError(f"not a dense parameter tree: keys {sorted(tree)}")
+    first = cfg.moe is not None and cfg.moe.first_dense
+    keys = {"embed", "final_norm", "lm_head", "blocks"}
+    if first:
+        keys.add("first_block")
+    if (set(tree) - keys or set(tree["blocks"]) != {"slot0"}
+            or first != ("first_block" in tree)):
+        raise ValueError(f"not a parameter tree of {cfg.name}: keys "
+                         f"{sorted(tree)}")
     if mesh is not None:
         tree = sharding.local_params(_map_tree(tree, np.asarray), mesh)
 
-    def leaf(a) -> torch.Tensor:
+    def leaf(a, to=dtype) -> torch.Tensor:
         arr = np.array(a, dtype=np.float32, copy=True)
-        return torch.from_numpy(arr).to(device=dev, dtype=dtype)
+        return torch.from_numpy(arr).to(device=dev, dtype=to)
+
+    def layer(sub: Mapping, pick=lambda a: a) -> Dict[str, Any]:
+        out = _map_tree(sub, lambda a: leaf(pick(a)))
+        if "moe" in sub:
+            out["moe"]["router"] = leaf(pick(sub["moe"]["router"]),
+                                        torch.float32)
+        return out
 
     params = {k: _map_tree(tree[k], leaf)
               for k in ("embed", "final_norm", "lm_head") if k in tree}
-    stacked = tree["blocks"]["slot0"]
-    params["layers"] = [
-        _map_tree(stacked, lambda a, i=i: leaf(np.asarray(a)[i]))
+    params["layers"] = [layer(tree["first_block"])] if first else []
+    params["layers"] += [
+        layer(tree["blocks"]["slot0"], lambda a, i=i: np.asarray(a)[i])
         for i in range(cfg.n_superblocks)
     ]
     return params
@@ -175,7 +211,7 @@ def init_paged_cache(cfg: ModelConfig, slots: int, max_len: int,
     block_size)``, one scale a committed row.  With ``mesh``, this rank's
     pools by :func:`~repro_torch.distributed.sharding.paged_cache_spec`:
     ``KV / model`` heads where ``model`` divides KV, the scales whole."""
-    check_dense(cfg)
+    check_served(cfg)
     if max_len % block_size:
         raise ValueError(f"max_len {max_len} not a multiple of block_size "
                          f"{block_size}")
@@ -236,6 +272,15 @@ def _layer(pool, i: int):
     return None if pool is None else pool[i]
 
 
+def _ffn(p: Dict[str, Any], cfg: ModelConfig, h: torch.Tensor,
+         tp: Optional[layers.MeshContext]) -> torch.Tensor:
+    """A layer's FFN on its normed input (B, S, d): the MoE FFN, each row
+    of the chunk its own routing group, or the dense SwiGLU."""
+    if "moe" in p:
+        return moe.moe_ffn_rows(p["moe"], cfg, h, tp)
+    return layers.swiglu(p["ffn"], h, tp)
+
+
 def _mesh_context(mesh, cfg: ModelConfig, batch: int):
     return None if mesh is None else layers.MeshContext(mesh, cfg, batch)
 
@@ -269,7 +314,7 @@ def decode_step_paged(params: Dict[str, Any], cfg: ModelConfig,
             p["attn"], cfg, h, cache["k"][i], cache["v"][i], positions,
             block_tables, _layer(ks, i), _layer(vs, i), tp,
         )
-        x = x + layers.swiglu(p["ffn"], norm_fn(p["norm2"], x), tp)
+        x = x + _ffn(p, cfg, norm_fn(p["norm2"], x), tp)
     return _lm_head(params, cfg, x, tp), cache
 
 
@@ -328,7 +373,7 @@ def prefill_step_paged(params: Dict[str, Any], cfg: ModelConfig,
             p["attn"], cfg, h, cache["k"][i], cache["v"][i], positions,
             block_tables, lengths, _layer(ks, i), _layer(vs, i), tp,
         )
-        x = x + layers.swiglu(p["ffn"], norm_fn(p["norm2"], x), tp)
+        x = x + _ffn(p, cfg, norm_fn(p["norm2"], x), tp)
     if last_rows is not None:
         rows = torch.arange(x.shape[0], device=x.device)
         x = x[rows, last_rows[own].long()][:, None]

@@ -40,8 +40,9 @@ rank appends the same tokens.  Rank 0 reports.
 
 The reference's other paths are refused with a ``ValueError`` that names
 the ROADMAP item that will port them: the wave scheduler (1.12),
-speculative decoding (1.13) and non-dense architectures (1.10).  Sampling
-with ``temperature > 0`` raises ``NotImplementedError`` (1.13).
+speculative decoding (1.13) and the MLA, SSM and hybrid architectures
+(1.10).  Sampling with ``temperature > 0`` raises ``NotImplementedError``
+(1.13).
 """
 
 from __future__ import annotations
@@ -135,7 +136,7 @@ def _refuse_unported(cfg, scheduler, prefill_chunk, prefill_budget,
                      spec_adaptive, mesh) -> None:
     """Raise ValueError for a bad option and for every reference option the
     port lacks."""
-    transformer.check_dense(cfg)
+    transformer.check_served(cfg)
     if scheduler not in SCHEDULERS:
         raise ValueError(f"scheduler must be one of {SCHEDULERS}, "
                          f"got {scheduler!r}")

@@ -115,7 +115,7 @@ def test_non_dense_archs_are_refused_with_their_roadmap_item():
     import dataclasses
 
     cfg = dataclasses.replace(port_configs.get_smoke_config("gpt2-124m"),
-                              family="moe")
+                              family="ssm")
     with pytest.raises(ValueError, match="1.10"):
         transformer.init_lm(cfg, device="cpu")
 

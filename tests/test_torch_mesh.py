@@ -4,8 +4,9 @@ the reference's ``repro.launch.mesh`` and ``repro.distributed.sharding``.
 The reference's rules are read in a subprocess with four forced host
 devices (the conftest forbids forcing devices in-process, and an
 ``AbstractMesh`` has no ``devices``, which ``serve_param_shardings``
-reads), for the smoke and full parameter trees of both dense archs on
-1x1, 2x1, 1x2 and 2x2; the port's rules must give the same specs exactly.
+reads), for the smoke and full parameter trees of the served archs (the
+two dense ones and deepseek-moe, whose expert stacks split their experts)
+on 1x1, 2x1, 1x2 and 2x2; the port's rules must give the same specs exactly.
 Parameters cut by ``params_from_numpy(mesh=)`` must concatenate to the
 full tree bit for bit.  The collectives run over gloo in spawned ranks;
 their sums are exact here (small integers).
@@ -38,7 +39,7 @@ from repro_torch.models import transformer  # noqa: E402
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 SHAPES = ((1, 1), (2, 1), (1, 2), (2, 2))
-ARCHS = ("gpt2-124m", "qwen3-1.7b")
+ARCHS = ("gpt2-124m", "qwen3-1.7b", "deepseek-moe-16b")
 BATCHES = (1, 2, 3, 4, 8)
 TIMEOUT = 120
 
@@ -61,7 +62,7 @@ def walk(tree, prefix=""):
             yield f"{prefix}{k}", v
 
 out = {}
-for arch in ("gpt2-124m", "qwen3-1.7b"):
+for arch in ("gpt2-124m", "qwen3-1.7b", "deepseek-moe-16b"):
     for kind in ("smoke", "full"):
         cfg = (c.get_smoke_config(arch) if kind == "smoke"
                else c.get_config(arch))

@@ -43,10 +43,10 @@ from repro_torch.serve import mesh_check  # noqa: E402
 from repro_torch.serve.engine import Request, ServeEngine  # noqa: E402
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-ARCHS = ("gpt2-124m", "qwen3-1.7b")
-#: the mesh check's workloads here: the three it serves by default and
+ARCHS = ("gpt2-124m", "qwen3-1.7b", "deepseek-moe-16b")
+#: the mesh check's workloads here: the four it serves by default and
 #: the chunked int8 one with prefix sharing
-WORKLOADS = ("gpt2", "qwen3", "gpt2-int8-shared",
+WORKLOADS = ("gpt2", "qwen3", "moe", "gpt2-int8-shared",
              "qwen3-int8-shared-chunked")
 _MODELS = {}
 
@@ -177,9 +177,9 @@ def test_mesh_refusals_name_their_items(mesh_1x1):
     params = transformer.params_from_numpy(tree, cfg, "cpu")
     with pytest.raises(ValueError, match=r"1\.13"):
         ServeEngine(cfg, params, spec_k=2, mesh=mesh_1x1, device="cpu")
-    moe = dataclasses.replace(cfg, family="moe")
+    ssm = dataclasses.replace(cfg, family="ssm")
     with pytest.raises(ValueError, match=r"1\.10"):
-        ServeEngine(moe, params, mesh=mesh_1x1, device="cpu")
+        ServeEngine(ssm, params, mesh=mesh_1x1, device="cpu")
     with pytest.raises(ValueError, match="'data', 'model'"):
         ServeEngine(cfg, params, mesh=type("M", (), {"axis_names": ("x",)})(),
                     device="cpu")
@@ -281,12 +281,13 @@ def test_cross_mesh_int8_pools(verdict):
 def test_mesh_check_refuses_what_the_port_lacks(tmp_path, capsys):
     out = tmp_path / "verdict.json"
     code = mesh_check.main(["--device", "cpu", "--meshes", "none",
-                            "--workloads", "mamba2,moe,gpt2-spec",
+                            "--workloads", "mamba2,mla,gpt2-spec",
                             "--out", str(out)])
     verdict = json.loads(out.read_text())
     assert code == 1 and not verdict["ok"]
-    assert set(verdict["refused"]) == {"mamba2", "moe", "gpt2-spec"}
+    assert set(verdict["refused"]) == {"mamba2", "mla", "gpt2-spec"}
     assert "1.10" in verdict["refused"]["mamba2"]
+    assert "1.10" in verdict["refused"]["mla"]
     assert "1.13" in verdict["refused"]["gpt2-spec"]
 
 
