@@ -13,9 +13,10 @@ non-zero):
 2. build    nvcc builds of the eight kernel libraries for sm_90a, in
             parallel (the GEMM's two routes are a library each).
 3. kernel   each kernel against its plain version at gpt2-124m's,
-            qwen3-1.7b's and deepseek-moe-16b's attention shapes (12 heads
-            of 64; 8 KV heads of 128, 2 query heads each; 16 heads of
-            128), in bf16 and f32: the paged
+            qwen3-1.7b's, deepseek-moe-16b's and jamba-1.5-large-398b's
+            attention shapes (12 heads of 64; 8 KV heads of 128, 2 query
+            heads each; 16 heads of 128; 8 KV heads of 128, 8 query heads
+            each), in bf16 and f32: the paged
             flash-decode on shuffled block tables with ragged lengths; the
             chunked prefill (commit + causal attention) with ragged
             q_start and q_len (0, 1 and the whole chunk), pools compared
@@ -39,8 +40,9 @@ non-zero):
             the commit kernel then the decode (output, pools, scales) for
             every (q, pool) pair at every head shape and at the serve
             shapes, and its head slices given the rows' amax; timed at
-            qwen3-1.7b's serve shapes (bf16 and int8 pools), gpt2-124m's
-            and deepseek-moe-16b's (with the prefill) beside its bound,
+            qwen3-1.7b's serve shapes (bf16 and int8 pools), gpt2-124m's,
+            deepseek-moe-16b's and jamba-1.5-large-398b's (with the
+            prefill) beside its bound,
             the plain versions, the two-launch pair
             (device ms and a decode layer's host us) and, for bf16, two
             ``index_put_`` and SDPA.
@@ -50,7 +52,8 @@ non-zero):
             within ``decode_close`` of its plain version; the int8 commit
             given each row's amax bit-equal to the unsharded commit's head
             slice; the validation errors; then the n = 2 slice timed at
-            qwen3-1.7b's serve shapes beside the unsharded launch.
+            qwen3-1.7b's and jamba-1.5-large-398b's serve shapes beside
+            the unsharded launch.
    kernel-hpc  the STREAM, Jacobi2D, GEMM and SpMV kernels against their
             plain versions: odd, misaligned and edge shapes, fp32/bf16
             (and fp16 for STREAM), SpMV rows of 0, 1 and 128 nonzeros; each
@@ -86,7 +89,8 @@ non-zero):
             is above 1.05.
 4. serve    ``repro_torch.launch.serve`` at the full width of gpt2-124m
             (bf16): every request completes, and the decode kernel runs 12
-            times (once per layer) per fused step, each launch committing
+            times (once per attention layer) per fused step, each launch
+            committing
             the step's rows (the commit kernel never runs alone
             unsharded).
    profile  a second, shorter drain of that engine under torch.profiler:
@@ -137,6 +141,19 @@ non-zero):
             first layer and two MoE layers), float32: chunked on the card,
             chunked on the CPU and token by token on the card give the
             same greedy streams, up to near ties.
+   serve-mamba2  the serve CLI at mamba2-370m's full width and depth
+            (bf16, 48 Mamba-2 layers, 0.42 B parameters) with
+            ``CHUNKED_ARGV``'s traffic: every request completes and no
+            attention or commit kernel launches; prints the steps, tok/s,
+            peak allocated memory and the phase's seconds.
+   profile-mamba2  the device-only profile of a second drain (kernels a
+            step, the idle share), then a third under host and device
+            tracing: device time of the mamba mixers and of the rest, and
+            a decode step's device time beside its bytes bound (the
+            parameters, and the 8 slots' fp32 states read and written).
+   parity-mamba2  mamba2-370m at full width and depth, float32: chunked
+            on the card, chunked on the CPU and token by token on the card
+            give the same greedy streams, up to near ties.
 7. serve-mesh  tensor-parallel serving: ``CHUNKED_ARGV``'s first 8
             requests with ``--mesh 1x2`` and ``--mesh 2x2`` (qwen3-1.7b,
             full width, 28 layers, bf16), as ranks sharing the card over
@@ -151,13 +168,33 @@ non-zero):
             the host, wall time and tok/s, and how many streams equal the
             unsharded card engine's on the same requests.
    parity-mesh  the port's mesh check in float32 (gpt2-124m full width,
-            qwen3-1.7b full width cut to 4 layers, deepseek-moe-16b full
-            width cut to 3 layers, 32 of its 64 experts a rank on a model
-            axis of 2, gpt2-124m with int8 pools and prefix sharing; 3
-            requests of 8 tokens on 2 slots)
+            qwen3-1.7b full width cut to 4 layers, mamba2-370m full width
+            cut to 4 layers, deepseek-moe-16b full width cut to 3 layers,
+            32 of its 64 experts a rank on a model axis of 2,
+            jamba-1.5-large-398b at its smoke shapes, gpt2-124m with int8
+            pools and prefix sharing; 3 requests of 8 tokens on 2 slots)
             on 1x1, 2x1, 1x2 and 2x2 against the
             unsharded card engine: equal greedy streams, and int8 pools
             within the check's rule.
+8. serve-jamba  last, with every earlier engine and weight freed: one
+            jamba-1.5-large-398b superblock at full width (7 Mamba-2
+            layers of 256 SSM heads, an attention layer of 64 heads over 8
+            KV heads of 128, MoE on the odd layers) with its routed
+            experts cut from 16 to 8 (25.8 B parameters, 51.6 GB in bf16),
+            serving ``CHUNKED_ARGV``'s traffic: every request completes,
+            the decode and prefill kernels together launch once per fused
+            step, each at least once, every decode launch committing;
+            prints the draw's seconds, peak allocated memory, steps, tok/s
+            and the phase's seconds.
+   profile-jamba  as profile-moe: the device-only profile, then device
+            time by group (expert products; routing, dispatch and combine;
+            the mamba mixers; attention; the rest) and a decode step
+            beside its bytes bound.
+   parity-jamba  one superblock at jamba's full mixer widths, float32,
+            all 16 experts, top 2, ``d_ff`` and ``d_ff_expert`` cut to
+            1024 (5.79 B parameters): chunked on the card, chunked on the
+            CPU and token by token on the card give the same greedy
+            streams, up to near ties.
 
 Then the ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last the
 ``{"ok": true, "device": ...}`` line.  Without CUDA, or outside a checkout,
@@ -182,7 +219,8 @@ SRC = ROOT / "src"
 PEAK_KEY = {"float32": "fp32", "bfloat16": "bf16", "float16": "fp16"}
 
 ARCH_HEADS = {"gpt2-124m": (12, 1, 64), "qwen3-1.7b": (8, 2, 128),
-              "deepseek-moe-16b": (16, 1, 128)}
+              "deepseek-moe-16b": (16, 1, 128),
+              "jamba-1.5-large-398b": (8, 8, 128)}
 #: the smoke configs' heads (head dim 16), the registry's flash workloads'
 #: heads (16 with 4 query heads a KV head) and a head dim of 32, checked on
 #: the paged kernels beside the full widths
@@ -212,9 +250,19 @@ MOE_ARGV = ["--arch", "deepseek-moe-16b", "--no-smoke", "--max-batch", "8",
             "--prompt-lo", "64", "--prompt-hi", "512", "--max-new", "32",
             "--prefill-chunk", "64", "--prefill-budget", "256",
             "--device", "cuda"]
+#: the chunked serve phases' traffic on mamba2-370m and jamba-1.5-large-398b
+MAMBA_ARGV = ["mamba2-370m" if a == "qwen3-1.7b" else a for a in CHUNKED_ARGV]
+JAMBA_ARGV = ["jamba-1.5-large-398b" if a == "qwen3-1.7b" else a
+              for a in CHUNKED_ARGV]
 #: deepseek-moe-16b cut to its dense first layer and two MoE layers, the
 #: depth of the parity phases' MoE runs
 MOE_PARITY_LAYERS = 3
+#: jamba's routed experts on the card (one superblock of 16 is 45.1 B
+#: parameters, 90.3 GB in bf16), and its FFN widths in parity-jamba
+JAMBA_EXPERTS = 8
+JAMBA_PARITY_FF = 1024
+#: mamba2-370m's depth in parity-mesh
+MAMBA_MESH_LAYERS = 4
 PARITY_REQUESTS, PARITY_NEW, PARITY_TOP2_GAP = 4, 8, 1e-3
 #: the reference's teacher-forced budget for qwen3-1.7b int8 pools against
 #: its f32 cache
@@ -974,7 +1022,9 @@ def check_fused_commit(torch, np, kernel, ref):
     shapes = {**{name: (h, 4) for name, h in
                  {**ARCH_HEADS, **SMALL_HEADS}.items()},
               "gpt2-124m serve": (ARCH_HEADS["gpt2-124m"], 16),
-              "qwen3-1.7b serve": (ARCH_HEADS["qwen3-1.7b"], 64)}
+              "qwen3-1.7b serve": (ARCH_HEADS["qwen3-1.7b"], 64),
+              "jamba-1.5-large-398b serve":
+                  (ARCH_HEADS["jamba-1.5-large-398b"], 64)}
     rng = np.random.default_rng(31)
     cases = slices = 0
     for name, ((KV, G, D), nb) in shapes.items():
@@ -1814,7 +1864,7 @@ def decode_problem(torch, np, heads, lengths, seed):
 
 def flash_decode_timing(torch, np):
     """The contiguous flash-decode in bf16 at 32 slots of 4096 rows, for
-    gpt2-124m's and qwen3-1.7b's heads, with lengths uniform in [1, S] and
+    the heads of each of :data:`ARCH_HEADS`, with lengths uniform in [1, S] and
     all at S: kernel, plain and library ms beside the least time for the
     live rows.  The library yardstick is one SDPA call with a boolean
     length mask on K/V transposed (and repeated per query head) before
@@ -2090,20 +2140,31 @@ def check_first_step(torch, engine, args) -> None:
         require(bool(torch.isfinite(logits).all()), "non-finite logits")
 
 
-def phase_serve(torch, argv, phase, params=None):
+def phase_serve(torch, argv, phase, params=None, cfg=None):
     """Serve the CLI's traffic on the card, on its seeded init or on the
-    same weights ``params`` an earlier phase drew.  The launch counts are
-    set to 0 just before the drain and read just after: every layer of
-    every fused step runs exactly one of the attention kernels, each
-    kernel the path uses runs at least once, and every decode launch
-    commits its rows in the same launch (the commit kernel alone runs only
-    under a mesh).  Returns (engine, counts, report)."""
+    same weights ``params`` an earlier phase drew; with ``cfg`` (and its
+    ``params``), on that config in place of the CLI's.  The launch counts
+    are set to 0 just before the drain and read just after: every
+    attention layer of every fused step runs exactly one of the attention
+    kernels (a model without attention layers runs none), each kernel the
+    path uses runs at least once, and every decode launch commits its rows
+    in the same launch (the commit kernel alone runs only under a mesh).
+    Returns (engine, counts, report)."""
     from repro_torch.kernels.flash_decode import kernel
     from repro_torch.launch import serve as serve_cli
+    from repro_torch.models import transformer
+    from repro_torch.serve.engine import ServeEngine
 
     args = serve_cli.parse_args(argv)
     t0 = time.time()
-    engine = serve_cli.make_engine(args, params=params)
+    if cfg is None:
+        engine = serve_cli.make_engine(args, params=params)
+    else:
+        engine = ServeEngine(
+            cfg, params, max_batch=args.max_batch, max_len=args.max_len,
+            block_size=args.block_size, prefill_chunk=args.prefill_chunk,
+            prefill_budget=args.prefill_budget, kv_dtype=args.kv_dtype,
+            share_prefixes=args.share_prefixes, device=args.device)
     init_s = time.time() - t0
     cfg = engine.cfg
     check_first_step(torch, engine, args)
@@ -2122,20 +2183,23 @@ def phase_serve(torch, argv, phase, params=None):
                 and all(0 <= t < cfg.vocab for t in r["tokens"])
                 for r in reqs), "a request's tokens are short or invalid")
     steps = stats["fused_steps"]
+    n_attn = transformer.count_layers(cfg, "attn")
     attend = counts["flash_decode_paged"] + counts["flash_prefill_paged"]
-    require(attend == cfg.n_layers * steps,
+    require(attend == n_attn * steps,
             f"{counts} kernel launches for {steps} fused steps of "
-            f"{cfg.n_layers} layers")
+            f"{n_attn} attention layers")
     require(counts["decode_commits"] == counts["flash_decode_paged"]
             and counts["commit_paged"] == 0,
             f"{counts}: every decode launch commits its rows, and the "
             f"commit kernel never runs alone")
-    used = ["flash_decode_paged", "decode_commits"]
-    used += ["flash_prefill_paged"] if args.prefill_chunk > 1 else []
+    used = ["flash_decode_paged", "decode_commits"] if n_attn else []
+    used += ["flash_prefill_paged"] if args.prefill_chunk > 1 and n_attn \
+        else []
     require(all(counts[k] > 0 for k in used),
             f"a kernel of the path never launched: {counts}")
     emit({"phase": phase, "arch": cfg.name, "dtype": cfg.compute_dtype,
-          "layers": cfg.n_layers, "prefill_chunk": args.prefill_chunk,
+          "layers": cfg.n_layers, "attention_layers": n_attn,
+          "prefill_chunk": args.prefill_chunk,
           "prefill_budget": args.prefill_budget, "kv_dtype": args.kv_dtype,
           "share_prefixes": args.share_prefixes,
           "logical_blocks": stats["logical_blocks"],
@@ -2516,16 +2580,23 @@ def phase_parity_chunked(torch, np):
           "divergences": gaps})
 
 
-# -- mixture of experts -------------------------------------------------------
+# -- mixture of experts, SSM and hybrid ------------------------------------
 
 
-#: (group, the ``repro_torch.models.moe`` functions whose launches it
-#: counts) of profile-moe's split of the device time
-MOE_GROUPS = (("expert_products", ("_expert_gemms",)),
-              ("route_dispatch_combine", ("_route", "_dispatch",
-                                          "_combine")),
-              ("shared_expert", ("_shared_experts",)))
-MOE_DECODE_STEPS = 5
+#: (group, module, its layer functions, its other functions) of the
+#: grouped profiles' split of the device time: the group counts the
+#: launches of all of them, and one of its layer functions runs once a
+#: layer of the group's kind in every step (the mixers' decode steps call
+#: ``mamba_decode``, their chunk steps ``mamba_chunk``)
+MOE_GROUPS = (("expert_products", "moe", ("_expert_gemms",), ()),
+              ("route_dispatch_combine", "moe", ("_route",),
+               ("_dispatch", "_combine")),
+              ("shared_expert", "moe", ("_shared_experts",), ()))
+MAMBA_GROUPS = (("mamba_mixers", "ssm", ("mamba_decode", "mamba_chunk"),
+                 ()),)
+#: jamba has no shared expert
+JAMBA_GROUPS = MOE_GROUPS[:2] + MAMBA_GROUPS
+DECODE_STEPS = 5
 
 
 def tree_to(tree, device):
@@ -2570,7 +2641,7 @@ def phase_serve_moe(torch, np):
           "parameter_bytes": tree_bytes(engine.params),
           "seconds": time.time() - t0})
     phase_profile(torch, np, engine, "profile-moe", 64, 256)
-    profile_moe_groups(torch, np, engine)
+    profile_groups(torch, np, engine, "profile-moe-groups", MOE_GROUPS)
     return counts
 
 
@@ -2580,29 +2651,36 @@ def _kernels_under(event) -> int:
                                     for c in event.cpu_children)
 
 
-def profile_moe_groups(torch, np, engine):
-    """Where an MoE serve step's device time goes: a third drain under
-    ``torch.profiler`` with host and device activity, each function of
-    :data:`MOE_GROUPS` wrapped in a ``record_function`` range for the
+def profile_groups(torch, np, engine, phase, groups):
+    """Where a serve step's device time goes by model function: a third
+    drain under ``torch.profiler`` with host and device activity, each
+    function of ``groups`` (:data:`MOE_GROUPS`, :data:`MAMBA_GROUPS`,
+    :data:`JAMBA_GROUPS`) wrapped in a ``record_function`` range for the
     drain only, so that the kernels each launches are summed by group; the
     attention kernels by name (:data:`KERNEL_GROUPS`), and the rest.  The
     host's tracing slows this drain, so its idle share is not read (the
-    profile-moe line gives it).  Then the device time of a decode step
-    alone (8 slots at lengths of the serve traffic, ``MOE_DECODE_STEPS``
-    steps under a device-only profile) beside its bytes bound: every
-    parameter read once but the embedding table (8 rows of it), each
-    slot's cached K/V rows read once, the new rows and the logits written
-    once, over the card's memory rate; and the kernels each group launches
-    a MoE layer in that drain."""
+    device-only profile line before it gives it).  Then the device time of
+    a decode step alone (8 slots at lengths of the serve traffic,
+    ``DECODE_STEPS`` steps under a device-only profile) beside its bytes
+    bound: every parameter read once but the embedding table (8 rows of
+    it), each slot's cached K/V rows read once, the new rows and the
+    logits written once, and the 8 slots' recurrent states read and
+    written once, over the card's memory rate; and the kernels each group
+    launches a layer in that drain (a layer: one call of one of the
+    group's layer functions)."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
     from repro_torch.core.hw import H100
-    from repro_torch.models import moe, transformer
+    from repro_torch.models import moe, ssm, transformer
     from repro_torch.serve.engine import Request
 
-    def wrapped(fn, label):
+    modules = {"moe": moe, "ssm": ssm}
+    calls = {group: 0 for group, *_ in groups}
+
+    def wrapped(fn, group, per_layer):
         def call(*args, **kwargs):
-            with record_function(label):
+            calls[group] += per_layer
+            with record_function(f"grp.{group}"):
                 return fn(*args, **kwargs)
         return call
 
@@ -2612,46 +2690,47 @@ def profile_moe_groups(torch, np, engine):
                               size=int(rng.integers(64, 257)))
         engine.submit(Request(uid=2000 + uid, prompt=prompt.astype(np.int32),
                               max_new_tokens=PROFILE_NEW))
-    originals = {name: getattr(moe, name)
-                 for _, names in MOE_GROUPS for name in names}
+    originals = {(mod, name): getattr(modules[mod], name)
+                 for _, mod, per_layer, other in groups
+                 for name in per_layer + other}
     first = engine.steps
     try:
-        for group, names in MOE_GROUPS:
-            for name in names:
-                setattr(moe, name, wrapped(originals[name], f"moe.{group}"))
+        for group, mod, per_layer, other in groups:
+            for name in per_layer + other:
+                setattr(modules[mod], name, wrapped(
+                    originals[mod, name], group, int(name in per_layer)))
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             engine.run_until_drained()
             torch.cuda.synchronize()
     finally:
-        for name, fn in originals.items():
-            setattr(moe, name, fn)
+        for (mod, name), fn in originals.items():
+            setattr(modules[mod], name, fn)
     rows = prof.key_averages()
     kernels = [e for e in rows if str(e.device_type).endswith("CUDA")
                and not e.is_user_annotation]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    groups = {group: 0.0 for group, _ in MOE_GROUPS}
+    by_group = {group: 0.0 for group, *_ in groups}
     for e in rows:
         if (e.is_user_annotation and str(e.device_type).endswith("CPU")
-                and e.key.startswith("moe.")):
-            groups[e.key[4:]] += e.device_time_total / 1e3
-    groups["attention"] = sum(
+                and e.key.startswith("grp.")):
+            by_group[e.key[4:]] += e.device_time_total / 1e3
+    by_group["attention"] = sum(
         e.self_device_time_total for e in kernels
         if any(word in e.key for _, word in KERNEL_GROUPS)) / 1e3
-    groups["rest"] = busy_ms - sum(groups.values())
+    by_group["rest"] = busy_ms - sum(by_group.values())
     # the kernels each group launched, from the launching host calls inside
-    # its ranges, a MoE layer (one expert-products range a layer)
-    launched = {group: 0 for group, _ in MOE_GROUPS}
-    layers_run = 0
+    # its ranges
+    launched = {group: 0 for group, *_ in groups}
     for e in prof.events():
         if (e.is_user_annotation and str(e.device_type).endswith("CPU")
-                and e.name.startswith("moe.")):
+                and e.name.startswith("grp.")):
             launched[e.name[4:]] += _kernels_under(e)
-            layers_run += e.name == "moe.expert_products"
     steps = engine.steps - first
-    require(busy_ms > 0 and groups["expert_products"] > 0
-            and groups["route_dispatch_combine"] > 0,
-            f"the grouped profile saw {busy_ms} ms, groups {groups}")
+    require(busy_ms > 0 and all(by_group[g] > 0 and calls[g] > 0
+                                for g, *_ in groups),
+            f"the grouped profile saw {busy_ms} ms, groups {by_group}, "
+            f"calls {calls}")
 
     # a decode step alone, at 8 slots and the serve traffic's lengths
     cfg, params = engine.cfg, engine.params
@@ -2672,51 +2751,51 @@ def profile_moe_groups(torch, np, engine):
         step()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as dprof:
-        for _ in range(MOE_DECODE_STEPS):
+        for _ in range(DECODE_STEPS):
             step()
         torch.cuda.synchronize()
     decode_ms = sum(e.self_device_time_total for e in dprof.key_averages()
-                    if not e.is_user_annotation) / 1e3 / MOE_DECODE_STEPS
+                    if not e.is_user_annotation) / 1e3 / DECODE_STEPS
     table = params["embed"]["embedding"]
-    elt = cache["k"].element_size()
-    row = 2 * cfg.n_kv_heads * cfg.head_dim * elt * cfg.n_layers
+    n_attn = transformer.count_layers(cfg, "attn")
+    elt = cache["k"].element_size() if n_attn else 0
+    row = 2 * cfg.n_kv_heads * cfg.head_dim * elt * n_attn
+    state_bytes = sum(tree_bytes(cache[key]) for key in
+                      ("ssm_state", "conv_state") if key in cache)
     decode_bytes = (tree_bytes(params) - tree_bytes(table)
                     + B * cfg.d_model * table.element_size()
                     + int(lengths.sum()) * row + B * row
-                    + B * cfg.vocab_padded * 4)
+                    + B * cfg.vocab_padded * 4 + 2 * state_bytes)
     del cache
     torch.cuda.empty_cache()
     bound_ms = decode_bytes / H100.hbm_bw * 1e3
 
-    emit({"phase": "profile-moe-groups", "arch": cfg.name,
+    emit({"phase": phase, "arch": cfg.name, "layers": cfg.n_layers,
           "fused_steps": steps, "device_busy_ms": busy_ms,
-          "device_ms_by_group": groups,
-          "share_by_group": {g: ms / busy_ms for g, ms in groups.items()},
+          "device_ms_by_group": by_group,
+          "share_by_group": {g: ms / busy_ms for g, ms in by_group.items()},
           "decode_step": {"slots": B, "lengths": lengths.tolist(),
                           "device_ms": decode_ms, "bytes": decode_bytes,
+                          "state_bytes_read_and_written": 2 * state_bytes,
                           "bound_ms": bound_ms, "bound_by": "bytes",
                           "of_bound": bound_ms / decode_ms},
-          "moe_layers_run": layers_run,
-          "launches_per_moe_layer": {g: n / max(layers_run, 1)
-                                     for g, n in launched.items()}})
+          "layer_calls": calls,
+          "launches_per_layer": {g: launched[g] / max(calls[g], 1)
+                                 for g in calls}})
 
 
-def phase_parity_moe(torch, np):
-    """deepseek-moe-16b at full width cut to ``MOE_PARITY_LAYERS`` layers
-    (the dense first layer and two MoE layers), float32: chunked on the
-    card (both kernels), chunked on the CPU (both plain versions) and
-    token by token on the card must give the same greedy streams, up to
-    near ties.  The card's weights are a copy of the CPU's seeded
-    init."""
-    import repro_torch.configs as configs
+def _parity_three_ways(torch, np, cfg, phase, cuts=(), t0=None):
+    """``cfg`` in float32: chunked on the card, chunked on the CPU (the
+    plain versions) and token by token on the card must give the same
+    greedy streams, up to near ties.  The card's weights are a copy of the
+    CPU's seeded init.  Where the model has attention layers, the card's
+    chunked run must launch the decode and the prefill kernels; where it
+    has none, no kernel.  Prints the phase's line, with ``cuts`` (how the
+    config was cut to size)."""
     from repro_torch.kernels.flash_decode import kernel
     from repro_torch.models import transformer
 
-    t0 = time.time()
-    cfg = dataclasses.replace(configs.get_config("deepseek-moe-16b"),
-                              n_layers=MOE_PARITY_LAYERS,
-                              param_dtype="float32",
-                              compute_dtype="float32")
+    t0 = time.time() if t0 is None else t0
     rng = np.random.default_rng(2)
     prompts = [rng.integers(0, cfg.vocab, size=int(rng.integers(20, 81)))
                .astype(np.int32) for _ in range(PARITY_REQUESTS)]
@@ -2728,9 +2807,14 @@ def phase_parity_moe(torch, np):
     streams = {"cuda_chunked": _drain(cfg, params["cuda"], prompts, "cuda",
                                       **chunked)}
     counts = read_counts(kernel)
-    require(counts["flash_decode_paged"] > 0
-            and counts["flash_prefill_paged"] > 0,
-            f"the MoE parity run skipped a kernel: {counts}")
+    if transformer.count_layers(cfg, "attn"):
+        require(counts["flash_decode_paged"] > 0
+                and counts["flash_prefill_paged"] > 0,
+                f"the {phase} run skipped a kernel: {counts}")
+    else:
+        require(not any(counts.values()),
+                f"the attention-free {phase} run launched kernels: "
+                f"{counts}")
     streams["cpu_chunked"] = _drain(cfg, cpu, prompts, "cpu", **chunked)
     streams["cuda_token"] = _drain(cfg, params["cuda"], prompts, "cuda",
                                    **kw)
@@ -2738,8 +2822,8 @@ def phase_parity_moe(torch, np):
                                streams["cpu_chunked"], streams[name], 16)
             for name in ("cuda_chunked", "cuda_token")}
     del params
-    emit({"phase": "parity-moe", "arch": cfg.name,
-          "layers": MOE_PARITY_LAYERS, "dtype": "float32",
+    emit({"phase": phase, "arch": cfg.name, "layers": cfg.n_layers,
+          "dtype": "float32", "cuts": list(cuts),
           "parameters": sum(t.numel() for t in _leaves(cpu)),
           "requests": len(prompts),
           "prompt_lens": [len(p) for p in prompts],
@@ -2747,6 +2831,122 @@ def phase_parity_moe(torch, np):
           "streams_equal": {name: s == streams["cpu_chunked"]
                             for name, s in streams.items()},
           "divergences": gaps, "seconds": time.time() - t0})
+
+
+def phase_parity_moe(torch, np):
+    """deepseek-moe-16b at full width cut to ``MOE_PARITY_LAYERS`` layers
+    (the dense first layer and two MoE layers), float32: chunked on the
+    card (both kernels), chunked on the CPU (both plain versions) and
+    token by token on the card must give the same greedy streams, up to
+    near ties."""
+    import repro_torch.configs as configs
+
+    cfg = dataclasses.replace(configs.get_config("deepseek-moe-16b"),
+                              n_layers=MOE_PARITY_LAYERS,
+                              param_dtype="float32",
+                              compute_dtype="float32")
+    _parity_three_ways(torch, np, cfg, "parity-moe",
+                       [f"n_layers 28 -> {MOE_PARITY_LAYERS}"])
+
+
+def phase_serve_mamba2(torch, np):
+    """The CLI at mamba2-370m's full width and depth (bf16, 48 Mamba-2
+    layers, no attention) with ``CHUNKED_ARGV``'s traffic: every request
+    completes and no attention or commit kernel launches (phase_serve's
+    rule for a model without attention layers).  Prints the steps, tok/s,
+    the peak of allocated memory and the phase's seconds; then
+    profile-mamba2: the device-only profile of a second drain (kernels a
+    step, the idle share), and the grouped one of a third (the mamba
+    mixers against the rest, a decode step beside its bytes bound)."""
+    t0 = time.time()
+    engine, _, _ = phase_serve(torch, MAMBA_ARGV, "serve-mamba2")
+    emit({"phase": "serve-mamba2-summary", "arch": engine.cfg.name,
+          "parameters": sum(t.numel() for t in _leaves(engine.params)),
+          "parameter_bytes": tree_bytes(engine.params),
+          "seconds": time.time() - t0})
+    phase_profile(torch, np, engine, "profile-mamba2", 64, 256)
+    profile_groups(torch, np, engine, "profile-mamba2-groups", MAMBA_GROUPS)
+
+
+def phase_parity_mamba2(torch, np):
+    """mamba2-370m at full width and all 48 layers, float32: chunked on
+    the card, chunked on the CPU and token by token on the card give the
+    same greedy streams, up to near ties; no kernel launches."""
+    import repro_torch.configs as configs
+
+    cfg = dataclasses.replace(configs.get_config("mamba2-370m"),
+                              param_dtype="float32",
+                              compute_dtype="float32")
+    _parity_three_ways(torch, np, cfg, "parity-mamba2")
+
+
+def jamba_card_config():
+    """jamba-1.5-large-398b as the card serves it: one superblock (7
+    Mamba-2 layers and an attention layer, MoE on the odd layers) at full
+    width, the routed experts cut from 16 to ``JAMBA_EXPERTS``."""
+    import repro_torch.configs as configs
+
+    cfg = configs.get_config("jamba-1.5-large-398b")
+    return dataclasses.replace(
+        cfg, n_layers=len(cfg.superblock),
+        moe=dataclasses.replace(cfg.moe, n_routed=JAMBA_EXPERTS))
+
+
+def phase_serve_jamba(torch, np):
+    """One jamba superblock at full width (d 8192, 64 heads over 8 KV heads
+    of 128, 7 Mamba-2 layers of 256 SSM heads, MoE on the odd layers)
+    with its routed experts cut to 8 (:func:`jamba_card_config`; 25.8 B
+    parameters, 51.6 GB in bf16), drawn on the host (expert stacks and
+    mamba matrices in threads) and served with ``CHUNKED_ARGV``'s traffic
+    as ``phase_serve``: every request completes, the decode and prefill
+    kernels together launch once per fused step (one attention layer),
+    each at least once, every decode launch committing.  Prints the
+    parameter draw's seconds, the peak of allocated memory, the steps,
+    tok/s and the phase's seconds; then profile-jamba: the device-only
+    profile of a second drain and the grouped one of a third (expert
+    products; routing, dispatch and combine; the mamba mixers; attention;
+    the rest; a decode step beside its bytes bound).  Returns the launch
+    counts."""
+    from repro_torch.models import transformer
+
+    t0 = time.time()
+    resident = torch.cuda.memory_allocated()
+    cfg = jamba_card_config()
+    params = transformer.init_lm(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    draw_s = time.time() - t0
+    engine, counts, _ = phase_serve(torch, JAMBA_ARGV, "serve-jamba",
+                                    params=params, cfg=cfg)
+    del params
+    emit({"phase": "serve-jamba-summary", "arch": cfg.name,
+          "layers": cfg.n_layers, "routed_experts": cfg.moe.n_routed,
+          "parameters": sum(t.numel() for t in _leaves(engine.params)),
+          "parameter_bytes": tree_bytes(engine.params), "draw_s": draw_s,
+          "allocated_before_draw_bytes": resident,
+          "seconds": time.time() - t0})
+    phase_profile(torch, np, engine, "profile-jamba", 64, 256)
+    profile_groups(torch, np, engine, "profile-jamba-groups", JAMBA_GROUPS)
+    return counts
+
+
+def phase_parity_jamba(torch, np):
+    """One jamba superblock at its full mixer widths (d 8192, 64 heads
+    over 8 KV heads, 256 SSM heads), float32, all 16 experts, top 2, with
+    ``d_ff`` and ``d_ff_expert`` cut to ``JAMBA_PARITY_FF`` (5.79 B
+    parameters, 23.1 GB on each side): chunked on the card, chunked on the
+    CPU and token by token on the card give the same greedy streams, up to
+    near ties."""
+    import repro_torch.configs as configs
+
+    full = configs.get_config("jamba-1.5-large-398b")
+    cfg = dataclasses.replace(
+        full, n_layers=len(full.superblock), d_ff=JAMBA_PARITY_FF,
+        moe=dataclasses.replace(full.moe, d_ff_expert=JAMBA_PARITY_FF),
+        param_dtype="float32", compute_dtype="float32")
+    _parity_three_ways(torch, np, cfg, "parity-jamba", [
+        f"n_layers {full.n_layers} -> {cfg.n_layers} (one superblock)",
+        f"d_ff {full.d_ff} -> {cfg.d_ff}",
+        f"d_ff_expert {full.moe.d_ff_expert} -> {cfg.moe.d_ff_expert}"])
 
 
 # -- tensor parallelism -------------------------------------------------------
@@ -2890,8 +3090,8 @@ def check_sharded_commit(torch, np, kernel, ref, heads):
     return checked
 
 
-def sharded_decode_timing(torch, np, kernel, ref):
-    """The n=2 slice of kernel 2.4 at row 1's qwen3-1.7b serve shapes (8
+def sharded_decode_timing(torch, np, kernel, ref, arch="qwen3-1.7b"):
+    """The n=2 slice of kernel 2.4 at row 1's serve shapes of ``arch`` (8
     slots, 64 blocks of 16, lengths 1..544, bf16), as a rank of a 1x2 mesh
     calls it: its 4 KV heads of q and of its own pools.  Beside it: its
     bound, the plain version, SDPA over the local heads gathered
@@ -2902,7 +3102,7 @@ def sharded_decode_timing(torch, np, kernel, ref):
     from repro_torch.launch.mesh import MeshShape
 
     B, bs, nb = 8, 16, 64
-    KV, G, D = ARCH_HEADS["qwen3-1.7b"]
+    KV, G, D = ARCH_HEADS[arch]
     valid = np.random.default_rng(8).integers(1, 512 + 32 + 1, size=B)
     full = paged_inputs(torch, B, KV, G, D, bs, nb, torch.bfloat16,
                         valid.tolist(), seed=9)
@@ -2918,7 +3118,7 @@ def sharded_decode_timing(torch, np, kernel, ref):
     out = sharded()
     want = ref.flash_decode_paged_ref(*local)
     err, ok = decode_close(torch, out, want)
-    require(ok, f"the sharded decode at qwen3 serve shapes: max abs err "
+    require(ok, f"the sharded decode at {arch} serve shapes: max abs err "
                 f"{err}")
     require(torch.equal(out, kernel.flash_decode_paged(
         *full, head_shard=(0, SHARDED_N))), "in-place slice != local pools")
@@ -2958,7 +3158,7 @@ def sharded_decode_timing(torch, np, kernel, ref):
                                   lambda: kernel.flash_decode_paged(*full)),
     }
     emit({"phase": "kernel-sharded", "kernel": "flash_decode_paged_sharded",
-          "shapes": "serve qwen3-1.7b, slice (0, 2)", "B": B, "KV": KV,
+          "shapes": f"serve {arch}, slice (0, 2)", "B": B, "KV": KV,
           "local_KV": kvl, "G": G, "D": D, "bs": bs, "nb": nb,
           "dtype": "bfloat16", "valid_len": valid.tolist(), **row, **extra})
     return row
@@ -3056,14 +3256,18 @@ def phase_parity_mesh(torch):
     """The port's mesh check on the card, in float32: gpt2-124m at full
     width, qwen3-1.7b at full width cut to 4 layers (as parity-int8),
     deepseek-moe-16b at full width cut to 3 layers (as parity-moe; on a
-    model axis of 2 each rank holds 32 of the 64 experts), and gpt2-124m
-    with int8 pools and prefix sharing, each on 1x1, 2x1, 1x2 and 2x2
-    against the unsharded card engine: the greedy streams equal
-    token for token, and the int8 pools on every rank within the check's
-    rule (scales the same bits on every rank, codes within one step and
-    scales within 1e-2 of the unsharded pools' head slice).  Returns the
-    commit kernel's launches on the ranks of the int8 workload (the other
-    data rank's rows, where there are two)."""
+    model axis of 2 each rank holds 32 of the 64 experts), mamba2-370m at
+    full width cut to ``MAMBA_MESH_LAYERS`` layers (on a model axis of 2
+    each rank holds 16 of the 32 SSM heads), jamba-1.5-large-398b at its
+    smoke shapes (four ranks sharing one card cannot each hold a
+    full-width superblock: on a 2-D mesh every rank holds the mamba
+    mixers whole), and gpt2-124m with int8 pools and prefix sharing, each
+    on 1x1, 2x1, 1x2 and 2x2 against the unsharded card engine: the greedy
+    streams equal token for token, and the int8 pools on every rank within
+    the check's rule (scales the same bits on every rank, codes within one
+    step and scales within 1e-2 of the unsharded pools' head slice).
+    Returns the commit kernel's launches on the ranks of the int8 workload
+    (the other data rank's rows, where there are two)."""
     import repro_torch.configs as configs
     from repro_torch.serve import mesh_check
 
@@ -3073,10 +3277,14 @@ def phase_parity_mesh(torch):
                                 n_layers=4, **f32)
     moe = dataclasses.replace(configs.get_config("deepseek-moe-16b"),
                               n_layers=MOE_PARITY_LAYERS, **f32)
+    mamba2 = dataclasses.replace(configs.get_config("mamba2-370m"),
+                                 n_layers=MAMBA_MESH_LAYERS, **f32)
     workloads = (
         ("gpt2", "gpt2-124m", {"config": gpt2}),
         ("qwen3", "qwen3-1.7b", {"config": qwen3}),
+        ("mamba2", "mamba2-370m", {"config": mamba2}),
         ("moe", "deepseek-moe-16b", {"config": moe}),
+        ("jamba", "jamba-1.5-large-398b", {}),
         ("gpt2-int8-shared", "gpt2-124m",
          {"config": gpt2, "kv_dtype": "int8", "share_prefixes": True,
           "shared_prefix_len": 6}),
@@ -3094,7 +3302,10 @@ def phase_parity_mesh(torch):
                   for r in int8[shape]["ranks"])
     require(commits > 0, "the int8 mesh runs never launched the commit "
                          "kernel")
-    return commits
+    jamba = sum(r["decode_sharded_launches"] for shape in PARITY_MESHES
+                for r in verdict["workloads"]["jamba"][shape]["ranks"])
+    require(jamba > 0, "the jamba mesh runs never launched kernel 2.4")
+    return commits, jamba
 
 
 def main() -> int:
@@ -3149,6 +3360,8 @@ def main() -> int:
     check_fused_commit(torch, np, kernel, ref)
     moe_prefill_row = prefill_timing(torch, np, kernel, ref,
                                      "deepseek-moe-16b")
+    jamba_prefill_row = prefill_timing(torch, np, kernel, ref,
+                                       "jamba-1.5-large-398b")
     fused_rows = {
         (arch, pool): fused_commit_timing(torch, np, kernel, ref, arch, nb,
                                           max_valid, seed, pool)
@@ -3156,9 +3369,12 @@ def main() -> int:
             ("qwen3-1.7b", 64, 512 + 32, 8, torch.bfloat16),
             ("qwen3-1.7b", 64, 512 + 32, 8, torch.int8),
             ("gpt2-124m", 16, 64 + 32, 2, torch.bfloat16),
-            ("deepseek-moe-16b", 64, 512 + 32, 8, torch.bfloat16))}
+            ("deepseek-moe-16b", 64, 512 + 32, 8, torch.bfloat16),
+            ("jamba-1.5-large-398b", 64, 512 + 32, 8, torch.bfloat16))}
     check_sharded_decode(torch, np, kernel, ref)
     sharded_row = sharded_decode_timing(torch, np, kernel, ref)
+    jamba_sharded_row = sharded_decode_timing(torch, np, kernel, ref,
+                                              "jamba-1.5-large-398b")
 
     check_hpc(torch, np)
     check_rx_gate(torch, np)
@@ -3192,9 +3408,18 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_parity_moe(torch, np)
     torch.cuda.empty_cache()
+    phase_serve_mamba2(torch, np)
+    torch.cuda.empty_cache()
+    phase_parity_mamba2(torch, np)
+    torch.cuda.empty_cache()
     mesh_launches, mesh_commits = phase_serve_mesh(torch, chunked_params)
     del chunked_params
-    int8_mesh_commits = phase_parity_mesh(torch)
+    int8_mesh_commits, jamba_mesh_launches = phase_parity_mesh(torch)
+    # jamba last, with every earlier engine and weight freed
+    torch.cuda.empty_cache()
+    jamba_counts = phase_serve_jamba(torch, np)
+    torch.cuda.empty_cache()
+    phase_parity_jamba(torch, np)
 
     emit({"kernels": [
         {"name": "flash_decode_paged", "route": "cuda",
@@ -3202,13 +3427,16 @@ def main() -> int:
          "replaces": f"{TPU_KERNELS}:256",
          "launches": counts["flash_decode_paged"],
          "serve_moe_launches": moe_counts["flash_decode_paged"],
+         "serve_jamba_launches": jamba_counts["flash_decode_paged"],
          **decode_row},
         {"name": "flash_prefill_paged", "route": "cuda",
          "source": SOURCE_DIR + "flash_prefill_paged.cu",
          "replaces": f"{TPU_KERNELS}:573,620",
          "launches": counts["flash_prefill_paged"],
          "serve_moe_launches": moe_counts["flash_prefill_paged"],
-         "deepseek-moe-16b": moe_prefill_row, **prefill_row},
+         "serve_jamba_launches": jamba_counts["flash_prefill_paged"],
+         "deepseek-moe-16b": moe_prefill_row,
+         "jamba-1.5-large-398b": jamba_prefill_row, **prefill_row},
         {"name": "flash_decode_paged_int8", "route": "cuda",
          "source": SOURCE_DIR + "flash_decode_paged.cu",
          "replaces": f"{TPU_KERNELS}:256",
@@ -3221,16 +3449,20 @@ def main() -> int:
          "source": SOURCE_DIR + "flash_decode_paged.cu",
          "replaces": f"{TPU_KERNELS}:264",
          "launches": mesh_launches,
+         "parity_mesh_jamba_launches": jamba_mesh_launches,
          "shape": "qwen3-1.7b serve, slice (0, 2) of 8 KV heads, bf16",
-         **sharded_row},
+         "jamba-1.5-large-398b": jamba_sharded_row, **sharded_row},
         {"name": "flash_decode_paged_commit", "route": "cuda",
          "source": SOURCE_DIR + "flash_decode_paged.cu",
          "replaces": f"{TPU_KERNELS}:256,573",
          "launches": counts["decode_commits"],
          "serve_moe_launches": moe_counts["decode_commits"],
+         "serve_jamba_launches": jamba_counts["decode_commits"],
          "shape": "qwen3-1.7b serve, bf16",
          "gpt2": fused_rows["gpt2-124m", torch.bfloat16],
          "deepseek-moe-16b": fused_rows["deepseek-moe-16b", torch.bfloat16],
+         "jamba-1.5-large-398b": fused_rows["jamba-1.5-large-398b",
+                                            torch.bfloat16],
          **fused_rows["qwen3-1.7b", torch.bfloat16]},
         {"name": "flash_decode_paged_commit_int8", "route": "cuda",
          "source": SOURCE_DIR + "flash_decode_paged.cu",

@@ -17,6 +17,8 @@ _ARCH_MODULES = {
     "qwen3-1.7b": "qwen3_1_7b",
     "gpt2-124m": "gpt2_124m",
     "deepseek-moe-16b": "deepseek_moe_16b",
+    "mamba2-370m": "mamba2_370m",
+    "jamba-1.5-large-398b": "jamba_1_5_large_398b",
 }
 
 ALL_ARCHS: List[str] = list(_ARCH_MODULES)

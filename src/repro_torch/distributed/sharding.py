@@ -47,7 +47,10 @@ _RULES = [
     (r"(ffn|shared)/(wi_gate|wi_up)$", [(None, "model"), (None, None)]),
     (r"(ffn|shared)/wo$", [("model", None), (None, None)]),
     # mamba conv + small projections
-    (r"conv_x_[wb]$", [(None, "model"), (None,)]),
+    (r"conv_x_w$", [(None, "model"), (None,)]),
+    # the bias's channels over model, as the taps': the reference's one
+    # rule for both splits it only in its stacked (layers, d_inner) form
+    (r"conv_x_b$", [("model",), (None,)]),
     (r"conv_BC_[wb]$", [(None, None), (None,)]),
     (r"wBC/w$", [(None, None)]),
     (r"wBC/b$", [(None,)]),
@@ -122,19 +125,20 @@ def map_paths(tree, fn, prefix: str = ""):
     return fn(prefix[:-1], tree)
 
 
-def _serve_spec(path: str, shape, mesh) -> Spec:
+def serve_spec(path: str, shape, mesh) -> Spec:
     """:func:`spec_for_path` with the serve path's mamba exception: on a
     2-D mesh (data and model both > 1) leaves under a ``mamba`` path
-    segment are replicated, as the reference's serving does."""
+    segment are replicated (the empty spec), as the reference's serving
+    does."""
     m = axis_size(mesh, "model")
     if m > 1 and _mesh_size(mesh) != m and "mamba" in path.split("/"):
-        return (None,) * len(shape)
+        return ()
     return spec_for_path(path, shape, mesh)
 
 
 def serve_param_shardings(params, mesh):
     """The spec tree the serving path places a parameter tree by."""
-    return map_paths(params, lambda path, leaf: _serve_spec(
+    return map_paths(params, lambda path, leaf: serve_spec(
         path, tuple(leaf.shape), mesh))
 
 
@@ -144,7 +148,7 @@ def local_params(params, mesh):
     the full leaves."""
     coords = {name: mesh.axis_index(name) for name in mesh.axis_names}
     return map_paths(params, lambda path, leaf: local_shard(
-        leaf, _serve_spec(path, tuple(leaf.shape), mesh), mesh, coords))
+        leaf, serve_spec(path, tuple(leaf.shape), mesh), mesh, coords))
 
 
 def batch_spec(mesh, batch: int, rank: int, *,

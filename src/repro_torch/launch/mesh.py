@@ -18,6 +18,7 @@ through host tensors.
 from __future__ import annotations
 
 import datetime
+import gc
 import queue as queue_mod
 import socket
 import time
@@ -194,9 +195,13 @@ def init_rank(rank: int, world: int, port: int, backend: str = "gloo",
         rank=rank, timeout=datetime.timedelta(seconds=timeout))
 
 
-def _rank_main(rank, data, model, port, backend, device, fn, args, timeout,
-               results) -> None:
+def _rank_main(rank, data, model, port, backend, device, fn, inputs,
+               timeout, results) -> None:
+    args = ()
     try:
+        # the arguments come through a queue, not the process's own
+        # arguments, so that this frame holds their only reference here
+        args = inputs.get(timeout=timeout)
         init_rank(rank, data * model, port, backend, timeout)
         if backend == "nccl":  # a card of its own
             torch.cuda.set_device(rank)
@@ -210,6 +215,11 @@ def _rank_main(rank, data, model, port, backend, device, fn, args, timeout,
     except Exception:  # reported to the parent, which stops every rank
         results.put((rank, False, traceback.format_exc()))
     finally:
+        # release the parent's tensors shared through CUDA IPC before the
+        # process ends (it skips the collection of reference cycles), so
+        # that the parent can free their memory
+        del args
+        gc.collect()
         if dist.is_initialized():
             dist.destroy_process_group()
 
@@ -223,7 +233,11 @@ def spawn(fn: Callable[..., Any], data: int, model: int, *args,
     kernel libraries are built here first, so the ranks only load them.
     The ranks' collectives time out after ``timeout`` seconds, and so does
     the whole call: then, or when a rank raises or dies, every rank is
-    stopped and a RuntimeError carries what went wrong.
+    stopped and a RuntimeError carries what went wrong.  Each rank drops
+    its arguments before it ends, and on CUDA the memory the ranks shared
+    is then collected here (``torch.cuda.ipc_collect``), so tensors passed
+    to the ranks hold no card memory once their last owner here drops
+    them.
     """
     import multiprocessing as mp
 
@@ -235,13 +249,14 @@ def spawn(fn: Callable[..., Any], data: int, model: int, *args,
     backend = choose_backend(device, world)
     port = free_port()
     ctx = mp.get_context("spawn")
-    results = ctx.Queue()
+    results, inputs = ctx.Queue(), ctx.Queue()
     procs = [ctx.Process(target=_rank_main,
                          args=(rank, data, model, port, backend, device, fn,
-                               args, timeout, results))
+                               inputs, timeout, results))
              for rank in range(world)]
     for p in procs:
         p.start()
+        inputs.put(args)
     deadline = time.monotonic() + timeout
     reported: dict = {}
     failure: Optional[str] = None
@@ -271,6 +286,8 @@ def spawn(fn: Callable[..., Any], data: int, model: int, *args,
             if p.is_alive():
                 p.kill()
                 p.join()
+        if torch.device(device).type == "cuda":
+            torch.cuda.ipc_collect()  # the memory the ranks shared
     if failure is not None:
         raise RuntimeError(failure)
     return reported[0]

@@ -60,12 +60,14 @@ def _rank_row(engine: ServeEngine, before: dict, wall_s: float) -> dict:
     """What this rank did while serving: launches and collectives since
     ``before``, its backend, device and local KV heads, its wall time."""
     mesh = engine.mesh
-    wk = engine.params["layers"][0]["attn"]["wk"]["w"]
+    wk = next((p["attn"]["wk"]["w"] for p in engine.params["layers"]
+               if "attn" in p), None)
     new = sum(len(r.generated) for r in engine.completed.values())
     return {"rank": mesh.rank, "coords": [mesh.data_index,
                                           mesh.model_index],
             "backend": mesh.backend, "device": str(mesh.device),
-            "local_kv_heads": wk.shape[1] // engine.cfg.head_dim,
+            "local_kv_heads": (0 if wk is None
+                               else wk.shape[1] // engine.cfg.head_dim),
             **{k: v - before[k] for k, v in _counters(engine).items()},
             "wall_s": wall_s, "tok_s": new / wall_s if wall_s > 0 else 0.0}
 

@@ -38,26 +38,37 @@ def truncated_normal(gen: torch.Generator, shape, scale: float, dtype,
     return (x.clamp_(-2.0, 2.0) * std).to(device=device, dtype=dtype)
 
 
+def _seeded_draws(gen: torch.Generator, n: int, draw: Callable) -> list:
+    """``draw(i, g)`` for i < n, each with a generator ``g`` of its own,
+    seeded by the i-th of n seeds drawn from ``gen``, on the CPU in
+    parallel threads (one draw stream is single-threaded, and an expert
+    stack holds hundreds of millions of numbers).  The numbers depend on
+    neither the device nor the thread count."""
+    seeds = torch.randint(0, 2 ** 62, (n,), generator=gen).tolist()
+    with ThreadPoolExecutor(min(n, os.cpu_count() or 1)) as pool:
+        return list(pool.map(
+            lambda i: draw(i, torch.Generator().manual_seed(seeds[i])),
+            range(n)))
+
+
 def truncated_normal_stack(gen: torch.Generator, shape, scale: float, dtype,
                            device) -> torch.Tensor:
     """:func:`truncated_normal`'s law for a stack of matrices ``(n, d_in,
-    d_out)``: matrix i drawn from a generator of its own, seeded by the
-    i-th of n seeds drawn from ``gen``, on the CPU in parallel threads
-    (one draw stream is single-threaded, and an expert stack holds
-    hundreds of millions of numbers).  The numbers depend on neither the
-    device nor the thread count."""
-    std = scale / max(1.0, shape[-2] ** 0.5)
-    seeds = torch.randint(0, 2 ** 62, (shape[0],), generator=gen).tolist()
+    d_out)``, matrix i drawn by :func:`_seeded_draws` straight into its
+    place in the stack."""
     out = torch.empty(shape, dtype=dtype)
-
-    def draw(i: int) -> None:
-        x = torch.randn(shape[1:], generator=torch.Generator().manual_seed(
-            seeds[i]), dtype=torch.float32)
-        out[i].copy_(x.clamp_(-2.0, 2.0).mul_(std))
-
-    with ThreadPoolExecutor(min(shape[0], os.cpu_count() or 1)) as pool:
-        list(pool.map(draw, range(shape[0])))
+    _seeded_draws(gen, shape[0], lambda i, g: out[i].copy_(truncated_normal(
+        g, shape[1:], scale, torch.float32, "cpu")))
     return out.to(device)
+
+
+def truncated_normal_many(gen: torch.Generator, shapes, scale: float, dtype,
+                          device) -> list:
+    """:func:`truncated_normal`'s law for several matrices, matrix i drawn
+    by :func:`_seeded_draws`."""
+    out = _seeded_draws(gen, len(shapes), lambda i, g: truncated_normal(
+        g, shapes[i], scale, dtype, "cpu"))
+    return [t.to(device) for t in out]
 
 
 def dense_init(gen, d_in: int, d_out: int, dtype, device, *,
@@ -98,6 +109,15 @@ class MeshContext:
     expert stacks split their experts (expert parallelism) and its shared
     experts their columns; ``batch`` is the step's full slot count, from
     which MoE capacity is counted.
+
+    ``mamba_split`` says whether the mamba mixers split over ``model``:
+    ``wz``/``wx``/``wdt`` and ``conv_x_*`` over heads and channels,
+    ``out_proj`` row-parallel, and the recurrent states over heads and
+    channels (``paged_cache_spec``).  The rules split all of these or none
+    on the configs the port serves; a model axis that would split only
+    some is refused.  ``state_rows`` indexes this rank's slots in the
+    slot axis of its states: all of its rows where the states split their
+    slots over ``data``, else the rows of ``slots``.
     """
 
     def __init__(self, mesh, cfg, batch: int):
@@ -129,6 +149,34 @@ class MeshContext:
             "moe/wi_gate", (m.n_routed, d, m.d_ff_expert))
         self.shared_split = m is not None and m.n_shared > 0 and split(
             "moe/shared/wo", (m.n_shared * m.d_ff_expert, d))
+        self.mamba_split, self.state_rows = False, self.slots
+        s = cfg.ssm
+        if s is None:
+            return
+        di, nh = s.d_inner(d), s.n_heads(d)
+        state = (1, batch, nh, s.d_state, s.head_dim)
+        conv = (1, batch, s.d_conv - 1, di + 2 * s.n_groups * s.d_state)
+
+        def mixer(path, shape) -> bool:
+            return many and "model" in sharding.serve_spec(
+                "mamba/" + path, shape, mesh)
+
+        flags = (mixer("wz/w", (d, di)), mixer("wx/w", (d, di)),
+                 mixer("wdt/w", (d, nh)), mixer("conv_x_w", (s.d_conv, di)),
+                 mixer("out_proj/w", (di, d)),
+                 "model" in sharding.paged_cache_spec("ssm_state", state,
+                                                      mesh),
+                 "model" in sharding.paged_cache_spec("conv_state", conv,
+                                                      mesh))
+        if any(flags) and not all(flags):
+            raise ValueError(
+                f"{cfg.name}: a model axis of {mesh.axis_size('model')} "
+                f"splits some of the mamba mixer's weights and states and "
+                f"not others; serve it on a model axis that divides "
+                f"d_inner, the SSM heads and the conv channels")
+        self.mamba_split = all(flags)
+        if sharding.paged_cache_spec("ssm_state", state, mesh)[1] is not None:
+            self.state_rows = slice(None)
 
 
 # --- norms -------------------------------------------------------------------

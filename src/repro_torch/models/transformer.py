@@ -1,28 +1,37 @@
 """Decoder-only LM core of the port: paged decode and chunked prefill for
-attention models with dense or MoE FFNs.
+attention, SSM and hybrid models with dense or MoE FFNs.
 
 Port of the paged serving path of ``repro/models/transformer.py`` for
-architectures of one attention layer per superblock, with a dense SwiGLU
-FFN or an MoE FFN (:mod:`repro_torch.models.moe`) after the first
-``first_dense`` layer: ``init_lm``, ``init_paged_cache``,
-``paged_block_bytes``, ``copy_paged_block``, ``decode_step_paged`` and
+architectures whose layers are attention layers or Mamba-2 mixers
+(:mod:`repro_torch.models.ssm`), each followed by a dense SwiGLU FFN, an
+MoE FFN (:mod:`repro_torch.models.moe`) or, where ``d_ff`` is 0, none:
+``init_lm``, ``init_paged_cache``, ``paged_block_bytes``,
+``copy_paged_block``, ``reset_paged_slots``, ``decode_step_paged`` and
 ``prefill_step_paged``, with the reference's pool storage dtypes
-(:data:`KV_DTYPES`).  The reference's ``first_block`` and its ``lax.scan``
-over stacked superblocks become one list of per-layer parameter dicts,
-and the paged pools are updated in place instead of being rebuilt, which
-saves a copy of the pool per step.  The reference's ``prefill_step_paged``
-scans its one-token cell over the chunk; the port computes the chunk in
-parallel, every row of every slot through each layer at once, and routes
-an MoE layer's rows one chunk row at a time (``moe_ffn_rows``), as the
-scanned cell does.  :func:`params_from_numpy` carries the reference's
-parameters across.
+(:data:`KV_DTYPES`).  Layer ``i`` takes its kind from the superblock
+(:func:`layer_kind`).  The reference's ``first_block`` and its
+``lax.scan`` over stacked superblocks become one list of per-layer
+parameter dicts; the cache holds one stack of K/V pools over the attention
+layers and one of recurrent states over the mamba layers
+(:func:`layer_pools` maps a layer to its index in its stack), and both are
+updated in place instead of being rebuilt, which saves a copy of the pool
+per step.  The reference's ``prefill_step_paged`` scans its one-token cell
+over the chunk; the port computes the chunk in parallel, every row of
+every slot through each layer at once: attention through the
+chunked-prefill kernel, a mamba mixer in the SSD dual form from each
+slot's state (``mamba_chunk``), and an MoE layer's rows routed one chunk
+row at a time (``moe_ffn_rows``), as the scanned cell does.
+:func:`params_from_numpy` carries the reference's parameters across.
 
 Tensor-parallel serving: with ``mesh=`` (a rank's
 :class:`~repro_torch.launch.mesh.ServeMesh`), :func:`init_lm` and
 :func:`params_from_numpy` give this rank's shards of the parameters and
 :func:`init_paged_cache` its pools (heads split over ``model``, blocks and
-scales whole), by the rules of :mod:`repro_torch.distributed.sharding`
-(expert stacks split their experts over ``model``).  The steps then take
+scales whole) and states, by the rules of
+:mod:`repro_torch.distributed.sharding` (expert stacks split their experts
+over ``model``; mamba mixers and their states split over ``model`` on a
+model-only mesh, states over ``data`` on a data-only one, and both are
+whole on a 2-D mesh).  The steps then take
 every slot's tokens and tables, run this rank's slots
 (:func:`~repro_torch.distributed.sharding.local_slots`) on its shards, and
 return those slots' logits, gathered over ``model``.
@@ -38,7 +47,7 @@ import torch
 from repro_torch.configs.base import LayerKind, ModelConfig
 from repro_torch.core.device import resolve_device
 from repro_torch.distributed import sharding
-from repro_torch.models import attention, layers, moe
+from repro_torch.models import attention, layers, moe, ssm
 
 #: Physical block 0 is reserved as the NULL block: block tables of idle
 #: serving slots point at it, so their writes land in rows no live request
@@ -50,20 +59,65 @@ NULL_BLOCK = 0
 #: a pool row (``k_scale``/``v_scale`` pools beside ``k``/``v``).
 KV_DTYPES = ("f32", "bf16", "int8")
 
+#: the cache leaves indexed by physical block (the K/V pools and their
+#: int8 scales); the recurrent states are indexed by slot
+_BLOCK_KEYS = ("k", "v", "k_scale", "v_scale")
+_STATE_KEYS = ("ssm_state", "conv_state")
+
 
 def check_served(cfg: ModelConfig) -> None:
     """Raise unless ``cfg`` is an architecture the port serves so far:
-    attention layers with dense SwiGLU FFNs, or with MoE FFNs."""
-    ffn_ok = ((cfg.family == "dense" and cfg.moe is None)
-              or (cfg.family == "moe" and cfg.moe is not None))
-    if (not ffn_ok or cfg.layer_pattern != (LayerKind.ATTN,)
-            or cfg.mla is not None or cfg.ssm is not None
-            or cfg.is_encoder_decoder):
+    dense or MoE attention models, and SSM or hybrid models of attention
+    layers and Mamba-2 mixers, with dense, MoE or no FFNs."""
+    kinds = set(cfg.layer_pattern)
+    mixers = {LayerKind.ATTN, LayerKind.MAMBA}
+    family_ok = {
+        "dense": cfg.moe is None and kinds == {LayerKind.ATTN},
+        "moe": cfg.moe is not None and kinds == {LayerKind.ATTN},
+        "ssm": LayerKind.MAMBA in kinds,
+        "hybrid": kinds == mixers,
+    }.get(cfg.family, False)
+    if (not family_ok or not kinds <= mixers
+            or (LayerKind.MAMBA in kinds) != (cfg.ssm is not None)
+            or cfg.mla is not None or cfg.is_encoder_decoder):
         raise ValueError(
-            f"{cfg.name}: the port serves dense and MoE attention models "
-            f"only; MLA, SSM, hybrid and encoder-decoder archs are ROADMAP "
-            f"item 1.10"
+            f"{cfg.name}: the port serves dense, MoE, SSM and hybrid "
+            f"(attention and Mamba-2) models; MLA and encoder-decoder "
+            f"archs are ROADMAP item 1.10"
         )
+
+
+def layer_kind(cfg: ModelConfig, i: int) -> LayerKind:
+    """The mixer of layer ``i``: a ``first_dense`` first layer is an
+    attention layer, and each stacked layer takes its superblock slot's
+    kind (the offset rule of :func:`is_moe_layer`)."""
+    offset = 1 if cfg.moe is not None and cfg.moe.first_dense else 0
+    if i < offset:
+        return LayerKind.ATTN
+    return cfg.superblock[(i - offset) % len(cfg.superblock)]
+
+
+def layer_pools(cfg: ModelConfig) -> list:
+    """``(kind, j)`` of every layer: its mixer, and its index in the
+    cache's stack of that kind (the K/V pools of the attention layers,
+    the states of the mamba layers), in layer order."""
+    seen = {LayerKind.ATTN: 0, LayerKind.MAMBA: 0}
+    out = []
+    for i in range(cfg.n_layers):
+        kind = layer_kind(cfg, i)
+        out.append((kind, seen[kind]))
+        seen[kind] += 1
+    return out
+
+
+def count_layers(cfg: ModelConfig, kind: LayerKind) -> int:
+    """How many layers have mixer ``kind``: the depth of its stack."""
+    return sum(k == kind for k, _ in layer_pools(cfg))
+
+
+def has_state(cfg: ModelConfig) -> bool:
+    """Whether the model keeps per-slot recurrent state (mamba layers)."""
+    return count_layers(cfg, LayerKind.MAMBA) > 0
 
 
 def is_moe_layer(cfg: ModelConfig, i: int) -> bool:
@@ -109,12 +163,16 @@ def init_lm(cfg: ModelConfig, *, seed: int = 0, device="cuda",
                                               cfg.vocab_padded, dtype, dev)
     params["layers"] = []
     for i in range(cfg.n_layers):
-        layer = {"norm1": norm_init(dtype, dev),
-                 "norm2": norm_init(dtype, dev),
-                 "attn": attention.init_attention(gen, cfg, dtype, dev)}
+        layer = {"norm1": norm_init(dtype, dev)}
+        if is_moe_layer(cfg, i) or cfg.d_ff > 0:
+            layer["norm2"] = norm_init(dtype, dev)
+        if layer_kind(cfg, i) == LayerKind.ATTN:
+            layer["attn"] = attention.init_attention(gen, cfg, dtype, dev)
+        else:
+            layer["mamba"] = ssm.init_mamba(gen, cfg, dtype, dev)
         if is_moe_layer(cfg, i):
             layer["moe"] = moe.init_moe(gen, cfg, dtype, dev)
-        else:
+        elif cfg.d_ff > 0:  # d_ff 0: a pure mamba block, mixer only
             layer["ffn"] = layers.swiglu_init(gen, cfg.d_model, cfg.d_ff,
                                               dtype, dev)
         params["layers"].append(layer)
@@ -146,12 +204,13 @@ def params_from_numpy(tree: Mapping, cfg: ModelConfig, device="cuda", *,
     Leaves widen through float32, which is exact for bf16 (``np.asarray``
     of a bf16 JAX leaf is an ``ml_dtypes.bfloat16`` array, which
     ``torch.from_numpy`` rejects), and are copied, since such buffers are
-    read-only.  The router stays fp32, as the reference keeps it.  The
-    first layer's ``first_block`` (with ``first_dense``) becomes layer 0,
-    and the stacked superblock leaves ``blocks/slot0/...`` one dict per
-    layer after it.  With ``mesh`` each leaf is cut to this rank's shard
-    by the reference's rules
-    (:func:`~repro_torch.distributed.sharding.serve_param_shardings`)
+    read-only.  The router and a mixer's ``A_log``, ``D`` and ``dt_bias``
+    stay fp32, as the reference keeps them.  The first layer's
+    ``first_block`` (with ``first_dense``) becomes layer 0, and slot ``i``
+    of superblock ``s`` (``blocks/slot{i}/...``, row ``s`` of each
+    stacked leaf) layer ``s * len(superblock) + i`` after it.  With
+    ``mesh`` each leaf is cut to this rank's shard by the reference's
+    rules (:func:`~repro_torch.distributed.sharding.serve_param_shardings`)
     before it is converted.
     """
     check_served(cfg)
@@ -161,7 +220,8 @@ def params_from_numpy(tree: Mapping, cfg: ModelConfig, device="cuda", *,
     keys = {"embed", "final_norm", "lm_head", "blocks"}
     if first:
         keys.add("first_block")
-    if (set(tree) - keys or set(tree["blocks"]) != {"slot0"}
+    slots = [f"slot{i}" for i in range(len(cfg.superblock))]
+    if (set(tree) - keys or set(tree["blocks"]) != set(slots)
             or first != ("first_block" in tree)):
         raise ValueError(f"not a parameter tree of {cfg.name}: keys "
                          f"{sorted(tree)}")
@@ -174,17 +234,19 @@ def params_from_numpy(tree: Mapping, cfg: ModelConfig, device="cuda", *,
 
     def layer(sub: Mapping, pick=lambda a: a) -> Dict[str, Any]:
         out = _map_tree(sub, lambda a: leaf(pick(a)))
-        if "moe" in sub:
-            out["moe"]["router"] = leaf(pick(sub["moe"]["router"]),
-                                        torch.float32)
+        fp32 = [("moe", "router")] + [("mamba", k)
+                                      for k in ("A_log", "D", "dt_bias")]
+        for group, key in fp32:
+            if group in sub:
+                out[group][key] = leaf(pick(sub[group][key]), torch.float32)
         return out
 
     params = {k: _map_tree(tree[k], leaf)
               for k in ("embed", "final_norm", "lm_head") if k in tree}
     params["layers"] = [layer(tree["first_block"])] if first else []
     params["layers"] += [
-        layer(tree["blocks"]["slot0"], lambda a, i=i: np.asarray(a)[i])
-        for i in range(cfg.n_superblocks)
+        layer(tree["blocks"][slot], lambda a, s=s: np.asarray(a)[s])
+        for s in range(cfg.n_superblocks) for slot in slots
     ]
     return params
 
@@ -203,14 +265,21 @@ def _pool_dtype(cfg: ModelConfig, kv_dtype: str) -> torch.dtype:
 def init_paged_cache(cfg: ModelConfig, slots: int, max_len: int,
                      block_size: int, device="cuda", *,
                      kv_dtype: str = "f32", mesh=None) -> Dict[str, Any]:
-    """Zeroed paged K/V pools ``(n_layers, n_blocks, block_size, KV, D)``
-    with ``n_blocks = 1 + slots * max_len / block_size``: every slot at
-    full length plus the :data:`NULL_BLOCK`.  ``kv_dtype`` (one of
-    :data:`KV_DTYPES`) selects their storage dtype; ``"int8"`` adds
-    zeroed fp32 ``k_scale``/``v_scale`` pools ``(n_layers, n_blocks,
-    block_size)``, one scale a committed row.  With ``mesh``, this rank's
-    pools by :func:`~repro_torch.distributed.sharding.paged_cache_spec`:
-    ``KV / model`` heads where ``model`` divides KV, the scales whole."""
+    """Zeroed paged K/V pools ``(n_attn, n_blocks, block_size, KV, D)``
+    over the attention layers, with ``n_blocks = 1 + slots * max_len /
+    block_size``: every slot at full length plus the :data:`NULL_BLOCK`.
+    ``kv_dtype`` (one of :data:`KV_DTYPES`) selects their storage dtype;
+    ``"int8"`` adds zeroed fp32 ``k_scale``/``v_scale`` pools ``(n_attn,
+    n_blocks, block_size)``, one scale a committed row.  A model with
+    mamba layers also gets their zeroed recurrent states, indexed by
+    slot and never quantized: ``ssm_state`` ``(n_mamba, slots, nh,
+    d_state, head_dim)`` fp32 and ``conv_state`` ``(n_mamba, slots, d_conv
+    - 1, conv_ch)`` in the compute dtype.  A stack with no layer is left
+    out.  With ``mesh``, this rank's leaves by
+    :func:`~repro_torch.distributed.sharding.paged_cache_spec`: ``KV /
+    model`` heads where ``model`` divides KV, the scales whole, the states
+    split by heads and channels over ``model`` or by slots over
+    ``data``."""
     check_served(cfg)
     if max_len % block_size:
         raise ValueError(f"max_len {max_len} not a multiple of block_size "
@@ -218,12 +287,18 @@ def init_paged_cache(cfg: ModelConfig, slots: int, max_len: int,
     dtype = _pool_dtype(cfg, kv_dtype)
     dev = resolve_device(device)
     n_blocks = 1 + slots * (max_len // block_size)
-    shape = (cfg.n_layers, n_blocks, block_size, cfg.n_kv_heads,
-             cfg.head_dim)
-    shapes = {"k": (shape, dtype), "v": (shape, dtype)}
-    if kv_dtype == "int8":
-        for key in ("k_scale", "v_scale"):
-            shapes[key] = (shape[:3], torch.float32)
+    n_attn = count_layers(cfg, LayerKind.ATTN)
+    n_mamba = count_layers(cfg, LayerKind.MAMBA)
+    shapes = {}
+    if n_attn:
+        shape = (n_attn, n_blocks, block_size, cfg.n_kv_heads, cfg.head_dim)
+        shapes = {"k": (shape, dtype), "v": (shape, dtype)}
+        if kv_dtype == "int8":
+            for key in ("k_scale", "v_scale"):
+                shapes[key] = (shape[:3], torch.float32)
+    if n_mamba:
+        shapes.update(ssm.cache_shapes(cfg, slots, n_mamba,
+                                       torch_dtype(cfg.compute_dtype)))
     if mesh is not None:
         shapes = {key: (sharding.local_shape(
             s, sharding.paged_cache_spec(key, s, mesh), mesh), dt)
@@ -235,29 +310,56 @@ def init_paged_cache(cfg: ModelConfig, slots: int, max_len: int,
 def paged_block_bytes(cfg: ModelConfig, block_size: int,
                       kv_dtype: str = "f32") -> int:
     """Bytes one physical block stores across every attention layer, its
-    fp32 scales included for int8."""
+    fp32 scales included for int8 (0 for a model without attention: its
+    states are per slot, not per block)."""
     itemsize = _pool_dtype(cfg, kv_dtype).itemsize
     per_layer = block_size * 2 * cfg.n_kv_heads * cfg.head_dim * itemsize
     if kv_dtype == "int8":
         per_layer += 2 * block_size * 4  # one fp32 scale a row, K and V
-    return cfg.n_layers * per_layer
+    return count_layers(cfg, LayerKind.ATTN) * per_layer
 
 
 def copy_paged_block(cache: Dict[str, Any], src: int, dst: int
                      ) -> Dict[str, Any]:
-    """Copy physical block ``src`` into ``dst`` on every pool of every
-    layer, scales included, in place; returns the same dict.  The device
-    half of copy-on-write."""
-    for pool in cache.values():
-        pool[:, dst] = pool[:, src]
+    """Copy physical block ``src`` into ``dst`` on every K/V pool of every
+    attention layer, scales included, in place; returns the same dict.
+    The device half of copy-on-write.  The recurrent states are per slot,
+    not per block, and pass through."""
+    for key in _BLOCK_KEYS:
+        if key in cache:
+            cache[key][:, dst] = cache[key][:, src]
+    return cache
+
+
+def reset_paged_slots(cache: Dict[str, Any], mask, *, mesh=None
+                      ) -> Dict[str, Any]:
+    """Zero both recurrent states of every slot where ``mask`` (B,) bool
+    is set, in place; returns the same dict.  A refilled slot's request
+    starts from zero state (K/V rows need no scrub: a slot never reads
+    past its position).  ``mask`` names every slot; under ``mesh``, where
+    this rank's states hold only its data slots, their entries of it are
+    used."""
+    for key in _STATE_KEYS:
+        if key not in cache:
+            continue
+        leaf = cache[key]
+        m = (mask if torch.is_tensor(mask)
+             else torch.from_numpy(np.asarray(mask, dtype=bool)))
+        m = m.to(device=leaf.device, dtype=torch.bool)
+        if leaf.shape[1] != m.shape[0]:
+            m = m[sharding.local_slots(mesh, m.shape[0])]
+        leaf.masked_fill_(m.view((1, -1) + (1,) * (leaf.dim() - 2)), 0)
     return cache
 
 
 def _kv_scales(cache: Dict[str, Any], cfg: ModelConfig, kv_dtype: str,
                block_size: int) -> Tuple[Any, Any]:
-    """The scale pools of ``cache`` (None, None without them), after
-    checking that its pools have ``block_size`` rows a block and are
-    stored as ``kv_dtype`` asks."""
+    """The scale pools of ``cache`` (None, None without them, and for a
+    model without attention layers), after checking that its pools have
+    ``block_size`` rows a block and are stored as ``kv_dtype`` asks."""
+    if "k" not in cache:
+        _pool_dtype(cfg, kv_dtype)
+        return None, None
     if cache["k"].shape[2] != block_size:
         raise ValueError(f"block_size {block_size} != the pools' "
                          f"{cache['k'].shape[2]}")
@@ -281,6 +383,26 @@ def _ffn(p: Dict[str, Any], cfg: ModelConfig, h: torch.Tensor,
     return layers.swiglu(p["ffn"], h, tp)
 
 
+def _mamba(p: Dict[str, Any], cfg: ModelConfig, h: torch.Tensor,
+           cache: Dict[str, Any], j: int,
+           tp: Optional[layers.MeshContext],
+           lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mamba layer ``j``'s mixer on its normed input (B, S, d): the
+    one-token recurrence, or with ``lengths`` the chunk form, from this
+    rank's slots' states, which it writes back in place."""
+    rows = slice(None) if tp is None else tp.state_rows
+    s_pool, c_pool = cache["ssm_state"][j], cache["conv_state"][j]
+    if lengths is None:
+        y, s_new, c_new = ssm.mamba_decode(p, cfg, h, s_pool[rows],
+                                           c_pool[rows], tp)
+    else:
+        y, s_new, c_new = ssm.mamba_chunk(p, cfg, h, s_pool[rows],
+                                          c_pool[rows], lengths, tp)
+    s_pool[rows] = s_new
+    c_pool[rows] = c_new
+    return y
+
+
 def _mesh_context(mesh, cfg: ModelConfig, batch: int):
     return None if mesh is None else layers.MeshContext(mesh, cfg, batch)
 
@@ -298,9 +420,11 @@ def decode_step_paged(params: Dict[str, Any], cfg: ModelConfig,
     commits its new token at ``positions[b]`` and attends over its own
     rows ``[0, positions[b]]``.  The pools in ``cache`` are updated in
     place and the same dict is returned.  Returns logits (B, 1,
-    vocab_padded) fp32.  With ``mesh`` (every rank of it calls the step),
-    ``params`` and ``cache`` are this rank's shards and the logits are its
-    slots' (``local_slots``).
+    vocab_padded) fp32.  A mamba layer advances every slot's state by
+    its token, idle slots included, as the reference's step does.  With
+    ``mesh`` (every rank of it calls the step), ``params`` and ``cache``
+    are this rank's shards and the logits are its slots'
+    (``local_slots``).
     """
     ks, vs = _kv_scales(cache, cfg, kv_dtype, block_size)
     tp = _mesh_context(mesh, cfg, tokens.shape[0])
@@ -308,13 +432,17 @@ def decode_step_paged(params: Dict[str, Any], cfg: ModelConfig,
     x = layers.embed(params["embed"], tokens[own], tp).to(
         torch_dtype(cfg.compute_dtype))
     _, norm_fn = layers.make_norm(cfg)
-    for i, p in enumerate(params["layers"]):
+    for p, (kind, j) in zip(params["layers"], layer_pools(cfg)):
         h = norm_fn(p["norm1"], x)
-        x = x + attention.attention_decode_paged(
-            p["attn"], cfg, h, cache["k"][i], cache["v"][i], positions,
-            block_tables, _layer(ks, i), _layer(vs, i), tp,
-        )
-        x = x + _ffn(p, cfg, norm_fn(p["norm2"], x), tp)
+        if kind == LayerKind.ATTN:
+            x = x + attention.attention_decode_paged(
+                p["attn"], cfg, h, cache["k"][j], cache["v"][j], positions,
+                block_tables, _layer(ks, j), _layer(vs, j), tp,
+            )
+        else:
+            x = x + _mamba(p["mamba"], cfg, h, cache, j, tp)
+        if "norm2" in p:
+            x = x + _ffn(p, cfg, norm_fn(p["norm2"], x), tp)
     return _lm_head(params, cfg, x, tp), cache
 
 
@@ -349,9 +477,11 @@ def prefill_step_paged(params: Dict[str, Any], cfg: ModelConfig,
     block_tables (B, nb) int32, mapping every position a real row lands
     in; lengths (B,) int32 in [0, w]; ``kv_dtype`` the pools' storage
     dtype, as ``cache`` was made with.  Every layer projects all B*w rows
-    at once and attends with the chunked-prefill kernel; rows past
-    ``lengths[b]`` commit nothing.  The pools in ``cache`` are updated in
-    place and the same dict is returned.
+    at once: an attention layer attends with the chunked-prefill kernel,
+    a mamba layer runs the chunk in the SSD dual form from each slot's
+    state; rows past ``lengths[b]`` commit nothing and move no state, so a
+    slot with ``lengths[b] == 0`` keeps its state.  The pools and states
+    in ``cache`` are updated in place and the same dict is returned.
 
     Returns fp32 logits (B, w, vocab_padded), row ``c`` that of slot
     ``b``'s token ``c`` (rows past ``lengths[b]`` are finite and
@@ -367,13 +497,17 @@ def prefill_step_paged(params: Dict[str, Any], cfg: ModelConfig,
     x = layers.embed(params["embed"], tokens[own], tp).to(
         torch_dtype(cfg.compute_dtype))
     _, norm_fn = layers.make_norm(cfg)
-    for i, p in enumerate(params["layers"]):
+    for p, (kind, j) in zip(params["layers"], layer_pools(cfg)):
         h = norm_fn(p["norm1"], x)
-        x = x + attention.attention_prefill_paged(
-            p["attn"], cfg, h, cache["k"][i], cache["v"][i], positions,
-            block_tables, lengths, _layer(ks, i), _layer(vs, i), tp,
-        )
-        x = x + _ffn(p, cfg, norm_fn(p["norm2"], x), tp)
+        if kind == LayerKind.ATTN:
+            x = x + attention.attention_prefill_paged(
+                p["attn"], cfg, h, cache["k"][j], cache["v"][j], positions,
+                block_tables, lengths, _layer(ks, j), _layer(vs, j), tp,
+            )
+        else:
+            x = x + _mamba(p["mamba"], cfg, h, cache, j, tp, lengths[own])
+        if "norm2" in p:
+            x = x + _ffn(p, cfg, norm_fn(p["norm2"], x), tp)
     if last_rows is not None:
         rows = torch.arange(x.shape[0], device=x.device)
         x = x[rows, last_rows[own].long()][:, None]

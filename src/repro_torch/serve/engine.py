@@ -24,8 +24,15 @@ to receive a generated-token row while other slots still reference it is
 first copied to a private block (copy-on-write), so sharing changes where
 rows are stored and never what a slot reads.
 
+A model with mamba layers keeps per-slot recurrent state beside its
+pools: the drain zeroes the state of every slot it admits a request to
+(re-admission after a preemption included) before the first step that
+feeds it.  Prefix sharing maps K/V blocks only: every prompt token still
+runs through the mamba layers.
+
 Scheduling state (positions, block tables, the pool's free list) is
-host-side numpy; only the parameters and the K/V pools live on the device.
+host-side numpy; only the parameters, the K/V pools and the recurrent
+states live on the device.
 Each step hands the scheduler arrays to the device as private copies: the
 drain mutates them in place right after the call.
 
@@ -40,9 +47,9 @@ rank appends the same tokens.  Rank 0 reports.
 
 The reference's other paths are refused with a ``ValueError`` that names
 the ROADMAP item that will port them: the wave scheduler (1.12),
-speculative decoding (1.13) and the MLA, SSM and hybrid architectures
-(1.10).  Sampling with ``temperature > 0`` raises ``NotImplementedError``
-(1.13).
+speculative decoding (1.13) and the MLA and encoder-decoder
+architectures (1.10).  Sampling with ``temperature > 0`` raises
+``NotImplementedError`` (1.13).
 """
 
 from __future__ import annotations
@@ -215,6 +222,7 @@ class ServeEngine:
         self.spec_k = 0
         self.spec_adaptive = False
         self.mesh = mesh
+        self._has_state = transformer.has_state(cfg)
         self.queue: Deque[Request] = deque()
         self.completed: Dict[int, Request] = {}
         # slot accounting: fused steps are vector issues, slots are lanes,
@@ -489,6 +497,7 @@ class ServeEngine:
         slot_req: List[Optional[Request]] = [None] * B
         tokens = np.zeros((B, C), np.int32)
         lengths = np.zeros(B, np.int32)
+        reset_mask = np.zeros(B, bool)
         self._live = {
             "positions": positions, "block_tables": block_tables,
             "pool": pool, "slot_req": slot_req, "tokens": tokens,
@@ -509,6 +518,7 @@ class ServeEngine:
                             r.started_s = time.time()
                         positions[b] = 0
                         block_tables[b] = 0
+                        reset_mask[b] = True
                 if all(r is None for r in slot_req):
                     if not pending:
                         break
@@ -562,6 +572,11 @@ class ServeEngine:
                             self.block_history.setdefault(
                                 r.uid, []).append(blk)
                     cache = self._copy_on_write(cache, pool, b, r, t0, n_b)
+                if self._has_state and reset_mask.any():
+                    # admitted slots start from zero recurrent state
+                    cache = transformer.reset_paged_slots(cache, reset_mask,
+                                                          mesh=self.mesh)
+                reset_mask[:] = False
 
                 self._note_busy(lengths > 0)
                 # a step where every busy slot decodes runs the one-token

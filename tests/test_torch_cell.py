@@ -114,8 +114,10 @@ def test_paged_cache_layout_and_block_bytes():
 def test_non_dense_archs_are_refused_with_their_roadmap_item():
     import dataclasses
 
+    from repro_torch.configs.base import MLAConfig
+
     cfg = dataclasses.replace(port_configs.get_smoke_config("gpt2-124m"),
-                              family="ssm")
+                              mla=MLAConfig())
     with pytest.raises(ValueError, match="1.10"):
         transformer.init_lm(cfg, device="cpu")
 

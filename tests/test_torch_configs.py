@@ -28,4 +28,4 @@ def test_port_archs_are_reference_archs():
 
 def test_unknown_arch_names_the_roadmap_item():
     with pytest.raises(KeyError, match="1.10"):
-        port_configs.get_config("mamba2-370m")
+        port_configs.get_config("deepseek-v2-lite-16b")

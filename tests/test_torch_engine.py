@@ -21,6 +21,7 @@ import repro.configs as ref_configs  # noqa: E402
 from repro.serve import engine as ref_engine  # noqa: E402
 from repro.train import steps as ref_steps  # noqa: E402
 import repro_torch.configs as port_configs  # noqa: E402
+from repro_torch.configs.base import MLAConfig  # noqa: E402
 from repro_torch.launch.mesh import MeshShape  # noqa: E402
 from repro_torch.models import transformer  # noqa: E402
 from repro_torch.serve.engine import (Request, RequestTooLong,  # noqa: E402
@@ -208,7 +209,7 @@ def test_quantized_and_sharing_options_are_served(gpt2, kw):
 def test_non_dense_arch_and_sampling_are_refused(gpt2):
     cfg, params = gpt2
     with pytest.raises(ValueError, match=r"1\.10"):
-        ServeEngine(dataclasses.replace(cfg, family="hybrid"), params,
+        ServeEngine(dataclasses.replace(cfg, mla=MLAConfig()), params,
                     device="cpu")
     with pytest.raises(NotImplementedError, match=r"1\.13"):
         ServeEngine(cfg, params, temperature=0.7, device="cpu")

@@ -39,7 +39,8 @@ from repro_torch.models import transformer  # noqa: E402
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 SHAPES = ((1, 1), (2, 1), (1, 2), (2, 2))
-ARCHS = ("gpt2-124m", "qwen3-1.7b", "deepseek-moe-16b")
+ARCHS = ("gpt2-124m", "qwen3-1.7b", "deepseek-moe-16b", "mamba2-370m",
+         "jamba-1.5-large-398b")
 BATCHES = (1, 2, 3, 4, 8)
 TIMEOUT = 120
 
@@ -62,7 +63,8 @@ def walk(tree, prefix=""):
             yield f"{prefix}{k}", v
 
 out = {}
-for arch in ("gpt2-124m", "qwen3-1.7b", "deepseek-moe-16b"):
+for arch in ("gpt2-124m", "qwen3-1.7b", "deepseek-moe-16b", "mamba2-370m",
+             "jamba-1.5-large-398b"):
     for kind in ("smoke", "full"):
         cfg = (c.get_smoke_config(arch) if kind == "smoke"
                else c.get_config(arch))
@@ -79,7 +81,8 @@ for arch in ("gpt2-124m", "qwen3-1.7b", "deepseek-moe-16b"):
                 "params": {p: entries(s) for p, s in specs.items()},
                 "cache": {k: [list(v.shape), entries(sh.paged_cache_spec(
                     k, v.shape, mesh))]
-                    for k, v in cache["blocks"]["slot0"].items()},
+                    for slot in cache["blocks"].values()
+                    for k, v in slot.items()},
                 "batch": {b: entries(sh.batch_spec(mesh, b, 2))
                           for b in (1, 2, 3, 4, 8)},
             }
@@ -175,7 +178,10 @@ def test_rules_equal_the_reference(ref_specs, arch, kind, shape):
         _shape_tree(ref["shapes"]), mesh)))
     assert ours == {p: _spec(s) for p, s in ref["params"].items()}
     for path, s in ref["shapes"].items():
-        assert sharding.spec_for_path(path, tuple(s), mesh) == ours[path]
+        if "mamba" in path.split("/") and min(shape) > 1:
+            assert ours[path] == ()  # the serve path's 2-D mamba exception
+        else:
+            assert sharding.spec_for_path(path, tuple(s), mesh) == ours[path]
     for key, (s, spec) in ref["cache"].items():
         assert sharding.paged_cache_spec(key, tuple(s), mesh) == _spec(spec)
     cache = {k: types.SimpleNamespace(shape=tuple(s))

@@ -258,24 +258,39 @@ def test_stacked_init_is_seeded_truncated_and_fan_in_scaled():
     assert not torch.equal(other, x)
 
 
-@pytest.mark.parametrize("get", ["get_config", "get_smoke_config"])
-def test_capacity_first_binds_past_eight_slots(get):
+JAMBA = "jamba-1.5-large-398b"
+
+
+@pytest.mark.parametrize("arch,get,n_routed", [
+    pytest.param(ARCH, "get_config", None, id="get_config"),
+    pytest.param(ARCH, "get_smoke_config", None, id="get_smoke_config"),
+    pytest.param(JAMBA, "get_config", None, id="jamba-get_config"),
+    pytest.param(JAMBA, "get_smoke_config", None,
+                 id="jamba-get_smoke_config"),
+    pytest.param(JAMBA, "get_config", 8, id="jamba-get_config-8-experts"),
+])
+def test_capacity_first_binds_past_eight_slots(arch, get, n_routed):
     """The engines' routing groups are the step's B slots, idle and padded
     rows included.  Each token assigns at most one row to an expert, so
     while ``_capacity(m, B) >= B`` nothing drops, whatever the rows hold;
     from the first B where it is smaller, a padded row (whose hidden state
     the port and the reference need not share) can push a live token's
-    assignment out.  For deepseek-moe-16b, full and smoke, that B is 9."""
-    cfg = getattr(port_configs, get)(ARCH)
+    assignment out.  For deepseek-moe-16b, full and smoke, that B is 9;
+    for jamba's 16 experts, top 2 (capacity 8 up to B = 51), its smoke
+    config's 4 and the card's cut to 8, too."""
+    cfg = getattr(port_configs, get)(arch)
     m = cfg.moe
+    if n_routed is not None:
+        m = dataclasses.replace(m, n_routed=n_routed)
     first = next(B for B in range(1, 64) if moe._capacity(m, B) < B)
     assert first == 9
     assert first == next(B for B in range(1, 64)
                          if ref_moe._capacity(m, B) < B)
+    assert moe._capacity(m, 8) == 8
     small = dataclasses.replace(cfg, d_model=32, moe=dataclasses.replace(
         m, d_ff_expert=16))
     rsmall = dataclasses.replace(
-        ref_configs.get_smoke_config(ARCH), d_model=32,
+        ref_configs.get_smoke_config(arch), d_model=32,
         moe=RefMoEConfig(**dataclasses.asdict(small.moe)))
     _, params = _weights(rsmall)
     for B, dropped in ((8, False), (9, True)):
