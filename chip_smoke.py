@@ -124,13 +124,14 @@ non-zero):
             CPU's, and within the reference's qwen3 int8 budget (0.11) of
             the card's f32 cache; the card's int8 run launches the decode
             (committing) and prefill kernels on int8 pools.
-   serve-moe  the serve CLI at the full width of deepseek-moe-16b (bf16,
-            all 28 layers: a dense first layer, then 27 MoE layers of 64
-            experts, top 6, and 2 shared experts; 16.4 B parameters) with
-            chunked prefill: every request completes, the decode and
-            prefill kernels together run 28 times per fused step, each at
-            least once, every decode launch committing; prints the
-            parameter draw's seconds and the peak of allocated memory.
+   serve-moe  the serve CLI's traffic at the full width of
+            deepseek-moe-16b (bf16) cut to ``MOE_SERVE_LAYERS`` layers (its
+            dense first layer, then 3 MoE layers of 64 experts, top 6, and 2
+            shared experts) with chunked prefill: every request completes,
+            the decode and prefill kernels together run 4 times per fused
+            step, each at least once, every decode launch committing;
+            prints the cut, the parameter draw's seconds and the peak of
+            allocated memory.
    profile-moe  the profile of a second drain of that engine, then a
             third under host and device tracing with the MoE functions
             wrapped in ranges: device time by group (expert products;
@@ -141,11 +142,30 @@ non-zero):
             first layer and two MoE layers), float32: chunked on the card,
             chunked on the CPU and token by token on the card give the
             same greedy streams, up to near ties.
-   serve-mamba2  the serve CLI at mamba2-370m's full width and depth
-            (bf16, 48 Mamba-2 layers, 0.42 B parameters) with
+   serve-mla  the serve CLI at deepseek-v2-lite-16b's full width and
+            depth (bf16, 27 layers, every one MLA over latent pools of 512
+            + 64 elements a row: a dense first layer, then 26 MoE layers
+            of 64 experts, top 6, and 2 shared; 15.7 B parameters) with
             ``CHUNKED_ARGV``'s traffic: every request completes and no
-            attention or commit kernel launches; prints the steps, tok/s,
-            peak allocated memory and the phase's seconds.
+            flash kernel launches (MLA attends in torch ops); prints the
+            draw's seconds, parameter bytes, the latent pools' bytes
+            beside GQA pools' for the same blocks, peak allocated memory,
+            steps and tok/s.
+   profile-mla  the device-only profile of a second drain, then device
+            time by group (MLA attention: projections, latent gather,
+            absorbed scores and context, commit; the MoE groups; the rest)
+            and a decode step beside its bytes bound (the weights and the
+            latent pools read).
+   parity-mla  deepseek-v2-lite-16b at full width cut to 3 layers (the
+            dense first layer and two MoE layers), float32: chunked on the
+            card, chunked on the CPU and token by token on the card give
+            the same greedy streams, up to near ties, on f32 and on int8
+            latent pools.
+   serve-mamba2  the serve CLI's traffic at mamba2-370m's full width
+            (bf16) cut to 24 of its 48 Mamba-2 layers with
+            ``CHUNKED_ARGV``'s traffic: every request completes and no
+            attention or commit kernel launches; prints the cut, the
+            steps, tok/s, peak allocated memory and the phase's seconds.
    profile-mamba2  the device-only profile of a second drain (kernels a
             step, the idle share), then a third under host and device
             tracing: device time of the mamba mixers and of the rest, and
@@ -171,7 +191,8 @@ non-zero):
             qwen3-1.7b full width cut to 4 layers, mamba2-370m full width
             cut to 4 layers, deepseek-moe-16b full width cut to 3 layers,
             32 of its 64 experts a rank on a model axis of 2,
-            jamba-1.5-large-398b at its smoke shapes, gpt2-124m with int8
+            deepseek-v2-lite-16b and jamba-1.5-large-398b at their smoke
+            shapes, gpt2-124m with int8
             pools and prefix sharing; 3 requests of 8 tokens on 2 slots)
             on 1x1, 2x1, 1x2 and 2x2 against the
             unsharded card engine: equal greedy streams, and int8 pools
@@ -180,7 +201,7 @@ non-zero):
             jamba-1.5-large-398b superblock at full width (7 Mamba-2
             layers of 256 SSM heads, an attention layer of 64 heads over 8
             KV heads of 128, MoE on the odd layers) with its routed
-            experts cut from 16 to 8 (25.8 B parameters, 51.6 GB in bf16),
+            experts cut from 16 to 4 (16.2 B parameters, 32.3 GB in bf16),
             serving ``CHUNKED_ARGV``'s traffic: every request completes,
             the decode and prefill kernels together launch once per fused
             step, each at least once, every decode launch committing;
@@ -250,16 +271,32 @@ MOE_ARGV = ["--arch", "deepseek-moe-16b", "--no-smoke", "--max-batch", "8",
             "--prompt-lo", "64", "--prompt-hi", "512", "--max-new", "32",
             "--prefill-chunk", "64", "--prefill-budget", "256",
             "--device", "cuda"]
-#: the chunked serve phases' traffic on mamba2-370m and jamba-1.5-large-398b
+#: the chunked serve phases' traffic on mamba2-370m, jamba-1.5-large-398b
+#: and deepseek-v2-lite-16b
 MAMBA_ARGV = ["mamba2-370m" if a == "qwen3-1.7b" else a for a in CHUNKED_ARGV]
 JAMBA_ARGV = ["jamba-1.5-large-398b" if a == "qwen3-1.7b" else a
               for a in CHUNKED_ARGV]
+MLA_ARGV = ["deepseek-v2-lite-16b" if a == "qwen3-1.7b" else a
+            for a in CHUNKED_ARGV]
+#: deepseek-moe-16b's depth in serve-moe: its dense first layer and three
+#: MoE layers keep kernels 2.1/2.2 at its shapes on a serve path, and the
+#: same 64-expert MoE FFN runs at full depth in serve-mla
+MOE_SERVE_LAYERS = 4
+#: deepseek-v2-lite-16b cut to its dense first layer and two MoE layers,
+#: the depth of parity-mla
+MLA_PARITY_LAYERS = 3
+#: mamba2-370m's depth in serve-mamba2 and profile-mamba2 (of 48; its
+#: steps are host-bound, about 56 launches a mixer); parity-mamba2 runs
+#: all 48
+MAMBA_SERVE_LAYERS = 24
 #: deepseek-moe-16b cut to its dense first layer and two MoE layers, the
 #: depth of the parity phases' MoE runs
 MOE_PARITY_LAYERS = 3
 #: jamba's routed experts on the card (one superblock of 16 is 45.1 B
-#: parameters, 90.3 GB in bf16), and its FFN widths in parity-jamba
-JAMBA_EXPERTS = 8
+#: parameters, 90.3 GB in bf16; of 4, 16.2 B and 32.3 GB, drawn on the
+#: host in about half the time 8 took, to make room for serve-mla), and its
+#: FFN widths in parity-jamba
+JAMBA_EXPERTS = 4
 JAMBA_PARITY_FF = 1024
 #: mamba2-370m's depth in parity-mesh
 MAMBA_MESH_LAYERS = 4
@@ -277,7 +314,14 @@ SOURCE_DIR = "src/repro_torch/kernels/flash_decode/csrc/"
 TPU_KERNELS = "src/repro/kernels/flash_decode/kernel.py"
 
 
+#: the script's start on the host's clock: every phase line carries its
+#: ``elapsed_s`` since then, so that each phase's seconds can be read off
+START = time.time()
+
+
 def emit(obj) -> None:
+    if "phase" in obj:
+        obj = {**obj, "elapsed_s": time.time() - START}
     print(json.dumps(obj), flush=True)
 
 
@@ -2140,6 +2184,15 @@ def check_first_step(torch, engine, args) -> None:
         require(bool(torch.isfinite(logits).all()), "non-finite logits")
 
 
+def flash_layers(cfg) -> int:
+    """The layers that run the flash kernels (2.1, 2.2) in a serve step:
+    the grouped-query attention layers; an MLA model has none."""
+    from repro_torch.models import transformer
+
+    return 0 if cfg.mla is not None else transformer.count_layers(cfg,
+                                                                  "attn")
+
+
 def phase_serve(torch, argv, phase, params=None, cfg=None):
     """Serve the CLI's traffic on the card, on its seeded init or on the
     same weights ``params`` an earlier phase drew; with ``cfg`` (and its
@@ -2149,6 +2202,8 @@ def phase_serve(torch, argv, phase, params=None, cfg=None):
     kernels (a model without attention layers runs none), each kernel the
     path uses runs at least once, and every decode launch commits its rows
     in the same launch (the commit kernel alone runs only under a mesh).
+    Only grouped-query attention layers run the kernels: an MLA model
+    (latent pools, attended in torch ops) must launch none.
     Returns (engine, counts, report)."""
     from repro_torch.kernels.flash_decode import kernel
     from repro_torch.launch import serve as serve_cli
@@ -2183,11 +2238,11 @@ def phase_serve(torch, argv, phase, params=None, cfg=None):
                 and all(0 <= t < cfg.vocab for t in r["tokens"])
                 for r in reqs), "a request's tokens are short or invalid")
     steps = stats["fused_steps"]
-    n_attn = transformer.count_layers(cfg, "attn")
+    n_attn = flash_layers(cfg)
     attend = counts["flash_decode_paged"] + counts["flash_prefill_paged"]
     require(attend == n_attn * steps,
             f"{counts} kernel launches for {steps} fused steps of "
-            f"{n_attn} attention layers")
+            f"{n_attn} grouped-query attention layers")
     require(counts["decode_commits"] == counts["flash_decode_paged"]
             and counts["commit_paged"] == 0,
             f"{counts}: every decode launch commits its rows, and the "
@@ -2198,7 +2253,9 @@ def phase_serve(torch, argv, phase, params=None, cfg=None):
     require(all(counts[k] > 0 for k in used),
             f"a kernel of the path never launched: {counts}")
     emit({"phase": phase, "arch": cfg.name, "dtype": cfg.compute_dtype,
-          "layers": cfg.n_layers, "attention_layers": n_attn,
+          "layers": cfg.n_layers,
+          "attention_layers": transformer.count_layers(cfg, "attn"),
+          "flash_layers": n_attn,
           "prefill_chunk": args.prefill_chunk,
           "prefill_budget": args.prefill_budget, "kv_dtype": args.kv_dtype,
           "share_prefixes": args.share_prefixes,
@@ -2471,18 +2528,21 @@ def phase_parity_int8(torch, np):
 # -- parity -------------------------------------------------------------------
 
 
-def _top2_gap(torch, cfg, params, tokens, block_size):
-    """Top-2 logit gap of the next token after ``tokens``, on the CPU."""
+def _top2_gap(torch, cfg, params, tokens, block_size, kv_dtype="f32"):
+    """Top-2 logit gap of the next token after ``tokens``, on the CPU, on
+    pools of ``kv_dtype``."""
     from repro_torch.models import transformer
 
     max_len = -(-len(tokens) // block_size) * block_size
-    cache = transformer.init_paged_cache(cfg, 1, max_len, block_size, "cpu")
+    cache = transformer.init_paged_cache(cfg, 1, max_len, block_size, "cpu",
+                                         kv_dtype=kv_dtype)
     bt = torch.arange(1, 1 + max_len // block_size,
                       dtype=torch.int32)[None, :]
     for t, tok in enumerate(tokens):
         logits, cache = transformer.decode_step_paged(
             params, cfg, torch.tensor([[tok]], dtype=torch.int32), cache,
-            torch.tensor([t], dtype=torch.int32), bt, block_size=block_size)
+            torch.tensor([t], dtype=torch.int32), bt, block_size=block_size,
+            kv_dtype=kv_dtype)
     top = logits[0, 0, :cfg.vocab].topk(2).values
     return float(top[0] - top[1])
 
@@ -2498,9 +2558,11 @@ def _drain(cfg, params, prompts, device, **kw):
     return [done[u].generated for u in range(len(prompts))]
 
 
-def _divergences(torch, cfg, cpu_params, prompts, ref, other, block_size):
-    """Where ``other`` leaves ``ref``, the top-2 gap there, which must be
-    under PARITY_TOP2_GAP (a near tie that fp32 rounding may flip)."""
+def _divergences(torch, cfg, cpu_params, prompts, ref, other, block_size,
+                 kv_dtype="f32"):
+    """Where ``other`` leaves ``ref``, the top-2 gap there (on pools of
+    ``kv_dtype``), which must be under PARITY_TOP2_GAP (a near tie that
+    fp32 rounding may flip)."""
     gaps = []
     for uid, (a, b) in enumerate(zip(ref, other)):
         if a == b:
@@ -2508,7 +2570,8 @@ def _divergences(torch, cfg, cpu_params, prompts, ref, other, block_size):
         i = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
                  min(len(a), len(b)))
         tokens = list(prompts[uid]) + a[:i]
-        gap = _top2_gap(torch, cfg, cpu_params, tokens, block_size)
+        gap = _top2_gap(torch, cfg, cpu_params, tokens, block_size,
+                        kv_dtype)
         gaps.append({"uid": uid, "index": i, "top2_gap": gap})
         require(gap < PARITY_TOP2_GAP,
                 f"request {uid} diverges at token {i} with top-2 gap {gap}")
@@ -2594,6 +2657,10 @@ MOE_GROUPS = (("expert_products", "moe", ("_expert_gemms",), ()),
               ("shared_expert", "moe", ("_shared_experts",), ()))
 MAMBA_GROUPS = (("mamba_mixers", "ssm", ("mamba_decode", "mamba_chunk"),
                  ()),)
+#: an MLA layer's attention (projections, latent gather and commit,
+#: absorbed scores and context, ``wo``) is one call of its step
+MLA_GROUPS = (("mla_attention", "mla", ("mla_decode", "mla_chunk"), ()),
+              ) + MOE_GROUPS
 #: jamba has no shared expert
 JAMBA_GROUPS = MOE_GROUPS[:2] + MAMBA_GROUPS
 DECODE_STEPS = 5
@@ -2625,20 +2692,32 @@ def tree_bytes(tree) -> int:
 
 
 def phase_serve_moe(torch, np):
-    """The CLI at deepseek-moe-16b's full width (bf16, all 28 layers: a
-    dense first layer, then 27 MoE layers of 64 experts, top 6, and 2
-    shared experts) with chunked prefill, as ``phase_serve``: every
-    request completes, the decode and prefill kernels together run 28
-    times per fused step, each at least once, every decode launch
-    committing.  Prints the parameter draw's seconds, the peak of
-    allocated memory, the steps, tok/s and the phase's seconds.  Then
-    profile-moe over second drains of the same engine.  Returns the
-    launch counts."""
+    """The CLI's traffic at deepseek-moe-16b's full width (bf16) cut to
+    ``MOE_SERVE_LAYERS`` layers (a dense first layer, then MoE layers of
+    64 experts, top 6, and 2 shared experts) with chunked prefill, as
+    ``phase_serve``: every request completes, the decode and prefill
+    kernels together run once a layer per fused step, each at least once,
+    every decode launch committing.  Prints the cut, the parameter draw's
+    seconds, the peak of allocated memory, the steps, tok/s and the
+    phase's seconds.  Then profile-moe over second drains of the same
+    engine.  Returns the launch counts."""
+    import repro_torch.configs as configs
+    from repro_torch.models import transformer
+
     t0 = time.time()
-    engine, counts, _ = phase_serve(torch, MOE_ARGV, "serve-moe")
-    emit({"phase": "serve-moe-summary", "arch": engine.cfg.name,
+    full = configs.get_config("deepseek-moe-16b")
+    cfg = dataclasses.replace(full, n_layers=MOE_SERVE_LAYERS)
+    params = transformer.init_lm(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    draw_s = time.time() - t0
+    engine, counts, _ = phase_serve(torch, MOE_ARGV, "serve-moe",
+                                    params=params, cfg=cfg)
+    del params
+    emit({"phase": "serve-moe-summary", "arch": cfg.name,
+          "layers": cfg.n_layers,
+          "cuts": [f"n_layers {full.n_layers} -> {cfg.n_layers}"],
           "parameters": sum(t.numel() for t in _leaves(engine.params)),
-          "parameter_bytes": tree_bytes(engine.params),
+          "parameter_bytes": tree_bytes(engine.params), "draw_s": draw_s,
           "seconds": time.time() - t0})
     phase_profile(torch, np, engine, "profile-moe", 64, 256)
     profile_groups(torch, np, engine, "profile-moe-groups", MOE_GROUPS)
@@ -2655,7 +2734,8 @@ def profile_groups(torch, np, engine, phase, groups):
     """Where a serve step's device time goes by model function: a third
     drain under ``torch.profiler`` with host and device activity, each
     function of ``groups`` (:data:`MOE_GROUPS`, :data:`MAMBA_GROUPS`,
-    :data:`JAMBA_GROUPS`) wrapped in a ``record_function`` range for the
+    :data:`JAMBA_GROUPS`, :data:`MLA_GROUPS`) wrapped in a
+    ``record_function`` range for the
     drain only, so that the kernels each launches are summed by group; the
     attention kernels by name (:data:`KERNEL_GROUPS`), and the rest.  The
     host's tracing slows this drain, so its idle share is not read (the
@@ -2663,18 +2743,19 @@ def profile_groups(torch, np, engine, phase, groups):
     a decode step alone (8 slots at lengths of the serve traffic,
     ``DECODE_STEPS`` steps under a device-only profile) beside its bytes
     bound: every parameter read once but the embedding table (8 rows of
-    it), each slot's cached K/V rows read once, the new rows and the
-    logits written once, and the 8 slots' recurrent states read and
+    it), each slot's cached K/V (or latent) rows read once, the new rows
+    and the logits written once, and the 8 slots' recurrent states read
+    and
     written once, over the card's memory rate; and the kernels each group
     launches a layer in that drain (a layer: one call of one of the
     group's layer functions)."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
     from repro_torch.core.hw import H100
-    from repro_torch.models import moe, ssm, transformer
+    from repro_torch.models import mla, moe, ssm, transformer
     from repro_torch.serve.engine import Request
 
-    modules = {"moe": moe, "ssm": ssm}
+    modules = {"moe": moe, "ssm": ssm, "mla": mla}
     calls = {group: 0 for group, *_ in groups}
 
     def wrapped(fn, group, per_layer):
@@ -2757,9 +2838,10 @@ def profile_groups(torch, np, engine, phase, groups):
     decode_ms = sum(e.self_device_time_total for e in dprof.key_averages()
                     if not e.is_user_annotation) / 1e3 / DECODE_STEPS
     table = params["embed"]["embedding"]
-    n_attn = transformer.count_layers(cfg, "attn")
-    elt = cache["k"].element_size() if n_attn else 0
-    row = 2 * cfg.n_kv_heads * cfg.head_dim * elt * n_attn
+    # a token's row in every attention layer's pools: K and V, or the
+    # latent c and k_rope
+    row = sum(cache[key][:, 0, 0].numel() * cache[key].element_size()
+              for key in ("k", "v", "c", "k_rope") if key in cache)
     state_bytes = sum(tree_bytes(cache[key]) for key in
                       ("ssm_state", "conv_state") if key in cache)
     decode_bytes = (tree_bytes(params) - tree_bytes(table)
@@ -2784,14 +2866,16 @@ def profile_groups(torch, np, engine, phase, groups):
                                  for g in calls}})
 
 
-def _parity_three_ways(torch, np, cfg, phase, cuts=(), t0=None):
+def _parity_three_ways(torch, np, cfg, phase, cuts=(), t0=None,
+                       kv_dtypes=("f32",)):
     """``cfg`` in float32: chunked on the card, chunked on the CPU (the
     plain versions) and token by token on the card must give the same
-    greedy streams, up to near ties.  The card's weights are a copy of the
-    CPU's seeded init.  Where the model has attention layers, the card's
-    chunked run must launch the decode and the prefill kernels; where it
-    has none, no kernel.  Prints the phase's line, with ``cuts`` (how the
-    config was cut to size)."""
+    greedy streams, up to near ties, on pools of each of ``kv_dtypes``.
+    The card's weights are a copy of the CPU's seeded init.  Where the
+    model has grouped-query attention layers, the card's chunked run must
+    launch the decode and the prefill kernels; where it has none, no
+    kernel.  Prints the phase's line for each pool dtype (``phase``, then
+    ``phase-int8``), with ``cuts`` (how the config was cut to size)."""
     from repro_torch.kernels.flash_decode import kernel
     from repro_torch.models import transformer
 
@@ -2801,36 +2885,40 @@ def _parity_three_ways(torch, np, cfg, phase, cuts=(), t0=None):
                .astype(np.int32) for _ in range(PARITY_REQUESTS)]
     cpu = transformer.init_lm(cfg, seed=0, device="cpu")
     params = {"cpu": cpu, "cuda": tree_to(cpu, "cuda")}
-    kw = dict(max_batch=4, max_len=96, block_size=16)
-    chunked = dict(kw, prefill_chunk=16, prefill_budget=32)
-    reset_counts(kernel)
-    streams = {"cuda_chunked": _drain(cfg, params["cuda"], prompts, "cuda",
-                                      **chunked)}
-    counts = read_counts(kernel)
-    if transformer.count_layers(cfg, "attn"):
-        require(counts["flash_decode_paged"] > 0
-                and counts["flash_prefill_paged"] > 0,
-                f"the {phase} run skipped a kernel: {counts}")
-    else:
-        require(not any(counts.values()),
-                f"the attention-free {phase} run launched kernels: "
-                f"{counts}")
-    streams["cpu_chunked"] = _drain(cfg, cpu, prompts, "cpu", **chunked)
-    streams["cuda_token"] = _drain(cfg, params["cuda"], prompts, "cuda",
-                                   **kw)
-    gaps = {name: _divergences(torch, cfg, cpu, prompts,
-                               streams["cpu_chunked"], streams[name], 16)
-            for name in ("cuda_chunked", "cuda_token")}
+    for kv_dtype in kv_dtypes:
+        kw = dict(max_batch=4, max_len=96, block_size=16, kv_dtype=kv_dtype)
+        chunked = dict(kw, prefill_chunk=16, prefill_budget=32)
+        reset_counts(kernel)
+        streams = {"cuda_chunked": _drain(cfg, params["cuda"], prompts,
+                                          "cuda", **chunked)}
+        counts = read_counts(kernel)
+        if flash_layers(cfg):
+            require(counts["flash_decode_paged"] > 0
+                    and counts["flash_prefill_paged"] > 0,
+                    f"the {phase} run skipped a kernel: {counts}")
+        else:
+            require(not any(counts.values()),
+                    f"the {phase} run of a model without grouped-query "
+                    f"attention launched kernels: {counts}")
+        streams["cpu_chunked"] = _drain(cfg, cpu, prompts, "cpu", **chunked)
+        streams["cuda_token"] = _drain(cfg, params["cuda"], prompts, "cuda",
+                                       **kw)
+        gaps = {name: _divergences(torch, cfg, cpu, prompts,
+                                   streams["cpu_chunked"], streams[name], 16,
+                                   kv_dtype)
+                for name in ("cuda_chunked", "cuda_token")}
+        emit({"phase": phase if kv_dtype == "f32"
+              else f"{phase}-{kv_dtype}",
+              "arch": cfg.name, "layers": cfg.n_layers,
+              "dtype": "float32", "kv_dtype": kv_dtype, "cuts": list(cuts),
+              "parameters": sum(t.numel() for t in _leaves(cpu)),
+              "requests": len(prompts),
+              "prompt_lens": [len(p) for p in prompts],
+              "new_tokens": PARITY_NEW, "launches": counts,
+              "streams_equal": {name: s == streams["cpu_chunked"]
+                                for name, s in streams.items()},
+              "divergences": gaps, "seconds": time.time() - t0})
     del params
-    emit({"phase": phase, "arch": cfg.name, "layers": cfg.n_layers,
-          "dtype": "float32", "cuts": list(cuts),
-          "parameters": sum(t.numel() for t in _leaves(cpu)),
-          "requests": len(prompts),
-          "prompt_lens": [len(p) for p in prompts],
-          "new_tokens": PARITY_NEW, "launches": counts,
-          "streams_equal": {name: s == streams["cpu_chunked"]
-                            for name, s in streams.items()},
-          "divergences": gaps, "seconds": time.time() - t0})
 
 
 def phase_parity_moe(torch, np):
@@ -2849,18 +2937,88 @@ def phase_parity_moe(torch, np):
                        [f"n_layers 28 -> {MOE_PARITY_LAYERS}"])
 
 
-def phase_serve_mamba2(torch, np):
-    """The CLI at mamba2-370m's full width and depth (bf16, 48 Mamba-2
-    layers, no attention) with ``CHUNKED_ARGV``'s traffic: every request
-    completes and no attention or commit kernel launches (phase_serve's
-    rule for a model without attention layers).  Prints the steps, tok/s,
-    the peak of allocated memory and the phase's seconds; then
-    profile-mamba2: the device-only profile of a second drain (kernels a
-    step, the idle share), and the grouped one of a third (the mamba
-    mixers against the rest, a decode step beside its bytes bound)."""
+def phase_serve_mla(torch, np):
+    """The CLI at deepseek-v2-lite-16b's full width and depth (bf16, 27
+    layers, each MLA over latent pools; a dense first layer, then 26 MoE
+    layers of 64 experts, top 6, and 2 shared experts; 15.7 B
+    parameters) with ``CHUNKED_ARGV``'s traffic, as ``phase_serve``: every
+    request completes, and no flash kernel launches (MLA attends over its
+    latent pools in torch ops).  Prints the draw's seconds (``init_s`` of
+    the serve line: the CLI's engine build, weights drawn on the host),
+    the parameter bytes, the latent pools' bytes beside the bytes of GQA
+    pools (16 KV heads of 128) for the same blocks, the peak of allocated
+    memory, the steps and tok/s; then profile-mla: the device-only
+    profile of a second drain and the grouped one of a third (MLA
+    attention, the MoE groups, the rest; a decode step beside its bytes
+    bound)."""
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.models import transformer
+
     t0 = time.time()
-    engine, _, _ = phase_serve(torch, MAMBA_ARGV, "serve-mamba2")
-    emit({"phase": "serve-mamba2-summary", "arch": engine.cfg.name,
+    engine, counts, _ = phase_serve(torch, MLA_ARGV, "serve-mla")
+    cfg, args = engine.cfg, serve_cli.parse_args(MLA_ARGV)
+    n_blocks = 1 + args.max_batch * args.max_len // args.block_size
+    latent = (transformer.paged_block_bytes(cfg, args.block_size,
+                                            args.kv_dtype) * n_blocks)
+    gqa = (transformer.paged_block_bytes(
+        dataclasses.replace(cfg, mla=None), args.block_size, args.kv_dtype)
+        * n_blocks)
+    pools = tree_bytes(transformer.init_paged_cache(
+        cfg, args.max_batch, args.max_len, args.block_size, "cuda",
+        kv_dtype=args.kv_dtype))
+    require(pools == latent, f"the latent pools hold {pools} bytes, "
+                             f"paged_block_bytes says {latent}")
+    emit({"phase": "serve-mla-summary", "arch": cfg.name,
+          "layers": cfg.n_layers, "mla": dataclasses.asdict(cfg.mla),
+          "parameters": sum(t.numel() for t in _leaves(engine.params)),
+          "parameter_bytes": tree_bytes(engine.params),
+          "pool_blocks": n_blocks, "latent_pool_bytes": latent,
+          "gqa_pool_bytes_same_blocks": gqa, "gqa_over_latent": gqa / latent,
+          "launches": counts, "seconds": time.time() - t0})
+    phase_profile(torch, np, engine, "profile-mla", 64, 256)
+    profile_groups(torch, np, engine, "profile-mla-groups", MLA_GROUPS)
+
+
+def phase_parity_mla(torch, np):
+    """deepseek-v2-lite-16b at full width cut to ``MLA_PARITY_LAYERS``
+    layers (the dense first layer and two MoE layers), float32: chunked
+    on the card, chunked on the CPU and token by token on the card give
+    the same greedy streams, up to near ties, on f32 latent pools and
+    then on int8 ones; no kernel launches."""
+    import repro_torch.configs as configs
+
+    full = configs.get_config("deepseek-v2-lite-16b")
+    cfg = dataclasses.replace(full, n_layers=MLA_PARITY_LAYERS,
+                              param_dtype="float32",
+                              compute_dtype="float32")
+    _parity_three_ways(torch, np, cfg, "parity-mla",
+                       [f"n_layers {full.n_layers} -> {cfg.n_layers}"],
+                       kv_dtypes=("f32", "int8"))
+
+
+def phase_serve_mamba2(torch, np):
+    """The CLI's traffic at mamba2-370m's full width (bf16, no attention)
+    cut to ``MAMBA_SERVE_LAYERS`` Mamba-2 layers, with ``CHUNKED_ARGV``'s
+    traffic: every request completes and no attention or commit kernel
+    launches (phase_serve's rule for a model without attention layers).
+    Prints the cut, the steps, tok/s, the peak of allocated memory and the
+    phase's seconds; then profile-mamba2: the device-only profile of a
+    second drain (kernels a step, the idle share), and the grouped one of
+    a third (the mamba mixers against the rest, a decode step beside its
+    bytes bound)."""
+    import repro_torch.configs as configs
+    from repro_torch.models import transformer
+
+    t0 = time.time()
+    full = configs.get_config("mamba2-370m")
+    cfg = dataclasses.replace(full, n_layers=MAMBA_SERVE_LAYERS)
+    params = transformer.init_lm(cfg, seed=0, device="cuda")
+    engine, _, _ = phase_serve(torch, MAMBA_ARGV, "serve-mamba2",
+                               params=params, cfg=cfg)
+    del params
+    emit({"phase": "serve-mamba2-summary", "arch": cfg.name,
+          "layers": cfg.n_layers,
+          "cuts": [f"n_layers {full.n_layers} -> {cfg.n_layers}"],
           "parameters": sum(t.numel() for t in _leaves(engine.params)),
           "parameter_bytes": tree_bytes(engine.params),
           "seconds": time.time() - t0})
@@ -2895,8 +3053,8 @@ def jamba_card_config():
 def phase_serve_jamba(torch, np):
     """One jamba superblock at full width (d 8192, 64 heads over 8 KV heads
     of 128, 7 Mamba-2 layers of 256 SSM heads, MoE on the odd layers)
-    with its routed experts cut to 8 (:func:`jamba_card_config`; 25.8 B
-    parameters, 51.6 GB in bf16), drawn on the host (expert stacks and
+    with its routed experts cut to 4 (:func:`jamba_card_config`; 16.2 B
+    parameters, 32.3 GB in bf16), drawn on the host (expert stacks and
     mamba matrices in threads) and served with ``CHUNKED_ARGV``'s traffic
     as ``phase_serve``: every request completes, the decode and prefill
     kernels together launch once per fused step (one attention layer),
@@ -3261,7 +3419,9 @@ def phase_parity_mesh(torch):
     each rank holds 16 of the 32 SSM heads), jamba-1.5-large-398b at its
     smoke shapes (four ranks sharing one card cannot each hold a
     full-width superblock: on a 2-D mesh every rank holds the mamba
-    mixers whole), and gpt2-124m with int8 pools and prefix sharing, each
+    mixers whole), deepseek-v2-lite-16b at its smoke shapes (MLA heads
+    over ``model``, the latent pools whole on every rank), and gpt2-124m
+    with int8 pools and prefix sharing, each
     on 1x1, 2x1, 1x2 and 2x2 against the unsharded card engine: the greedy
     streams equal token for token, and the int8 pools on every rank within
     the check's rule (scales the same bits on every rank, codes within one
@@ -3284,6 +3444,7 @@ def phase_parity_mesh(torch):
         ("qwen3", "qwen3-1.7b", {"config": qwen3}),
         ("mamba2", "mamba2-370m", {"config": mamba2}),
         ("moe", "deepseek-moe-16b", {"config": moe}),
+        ("mla", "deepseek-v2-lite-16b", {}),
         ("jamba", "jamba-1.5-large-398b", {}),
         ("gpt2-int8-shared", "gpt2-124m",
          {"config": gpt2, "kv_dtype": "int8", "share_prefixes": True,
@@ -3407,6 +3568,10 @@ def main() -> int:
     moe_counts = phase_serve_moe(torch, np)
     torch.cuda.empty_cache()
     phase_parity_moe(torch, np)
+    torch.cuda.empty_cache()
+    phase_serve_mla(torch, np)
+    torch.cuda.empty_cache()
+    phase_parity_mla(torch, np)
     torch.cuda.empty_cache()
     phase_serve_mamba2(torch, np)
     torch.cuda.empty_cache()

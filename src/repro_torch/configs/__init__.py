@@ -2,8 +2,8 @@
 
 ``get_config(arch)`` / ``get_smoke_config(arch)`` return the same
 ``ModelConfig`` values as :mod:`repro.configs`, for the architectures the
-port serves so far.  The reference registry also builds JAX input specs,
-so the port keeps its own, free of JAX.
+port serves: the reference's six serve archs.  The reference registry
+also builds JAX input specs, so the port keeps its own, free of JAX.
 """
 
 from __future__ import annotations
@@ -19,6 +19,7 @@ _ARCH_MODULES = {
     "deepseek-moe-16b": "deepseek_moe_16b",
     "mamba2-370m": "mamba2_370m",
     "jamba-1.5-large-398b": "jamba_1_5_large_398b",
+    "deepseek-v2-lite-16b": "deepseek_v2_lite_16b",
 }
 
 ALL_ARCHS: List[str] = list(_ARCH_MODULES)
@@ -28,7 +29,8 @@ def _module(arch: str):
     if arch not in _ARCH_MODULES:
         raise KeyError(
             f"unknown arch {arch!r}; the port has {sorted(_ARCH_MODULES)} "
-            f"(the other reference archs are ROADMAP item 1.10)"
+            f"(the reference's other archs come with the train stack, ROADMAP "
+            f"item 1.18)"
         )
     return importlib.import_module(
         f"repro_torch.configs.{_ARCH_MODULES[arch]}")

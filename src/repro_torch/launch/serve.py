@@ -10,6 +10,8 @@ Usage:
         --kv-dtype int8 --share-prefixes --shared-prefix-len 16
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
         --mesh 1x2
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
+        --arch deepseek-v2-lite-16b --prefill-chunk 8 --prefill-budget 16
 
 The same defaults, prompt sampling (``np.random.default_rng(seed)``),
 summary lines and ``--out`` report fields as ``repro.launch.serve``, on

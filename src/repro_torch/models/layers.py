@@ -110,6 +110,11 @@ class MeshContext:
     experts their columns; ``batch`` is the step's full slot count, from
     which MoE capacity is counted.
 
+    ``mla_split`` says whether an MLA layer's ``wq``, ``w_uk`` and ``w_uv``
+    split their heads over ``model`` and its ``wo`` is row-parallel;
+    ``w_dkv``, ``kv_norm`` and the latent pools stay whole (``heads`` is
+    False for an MLA model, which has no K/V pools).
+
     ``mamba_split`` says whether the mamba mixers split over ``model``:
     ``wz``/``wx``/``wdt`` and ``conv_x_*`` over heads and channels,
     ``out_proj`` row-parallel, and the recurrent states over heads and
@@ -133,8 +138,9 @@ class MeshContext:
             return many and "model" in sharding.spec_for_path(path, shape,
                                                               mesh)
 
-        self.heads = "model" in sharding.paged_cache_spec(
-            "k", (1, 1, cfg.n_kv_heads, hd), mesh)
+        # an MLA model has no K/V pools: its latent pools are whole
+        self.heads = cfg.mla is None and "model" in (
+            sharding.paged_cache_spec("k", (1, 1, cfg.n_kv_heads, hd), mesh))
         self.qkv_split = (split("attn/wq/w", (d, h)),
                           split("attn/wk/w", (d, kv)),
                           split("attn/wv/w", (d, kv)))
@@ -149,6 +155,9 @@ class MeshContext:
             "moe/wi_gate", (m.n_routed, d, m.d_ff_expert))
         self.shared_split = m is not None and m.n_shared > 0 and split(
             "moe/shared/wo", (m.n_shared * m.d_ff_expert, d))
+        self.mla_split = False
+        if cfg.mla is not None:
+            self.mla_split = self._mla_split(cfg, split, mesh)
         self.mamba_split, self.state_rows = False, self.slots
         s = cfg.ssm
         if s is None:
@@ -177,6 +186,27 @@ class MeshContext:
         self.mamba_split = all(flags)
         if sharding.paged_cache_spec("ssm_state", state, mesh)[1] is not None:
             self.state_rows = slice(None)
+
+
+    @staticmethod
+    def _mla_split(cfg, split, mesh) -> bool:
+        """Whether the rules split ``wq``, ``w_uk``, ``w_uv`` (columns) and
+        ``wo`` (rows) over ``model``, each on whole heads; a model axis that
+        would split only some of them, or cut a head, is refused."""
+        ml, d, h = cfg.mla, cfg.d_model, cfg.n_heads
+        qd = ml.qk_nope_dim + ml.qk_rope_dim
+        flags = (split("mla/wq/w", (d, h * qd)),
+                 split("mla/w_uk/w", (ml.kv_lora_rank, h * ml.qk_nope_dim)),
+                 split("mla/w_uv/w", (ml.kv_lora_rank, h * ml.v_head_dim)),
+                 split("mla/wo/w", (h * ml.v_head_dim, d)))
+        if any(flags) and not (all(flags)
+                               and h % mesh.axis_size("model") == 0):
+            raise ValueError(
+                f"{cfg.name}: a model axis of {mesh.axis_size('model')} "
+                f"splits some of the MLA projections and not others, or "
+                f"cuts a head; serve it on a model axis that divides the "
+                f"{h} heads")
+        return all(flags)
 
 
 # --- norms -------------------------------------------------------------------
@@ -260,11 +290,12 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor
 
 
 def swiglu_init(gen, d_model: int, d_ff: int, dtype, device) -> dict:
-    return {
-        "wi_gate": truncated_normal(gen, (d_model, d_ff), 1.0, dtype, device),
-        "wi_up": truncated_normal(gen, (d_model, d_ff), 1.0, dtype, device),
-        "wo": truncated_normal(gen, (d_ff, d_model), 1.0, dtype, device),
-    }
+    """Gate, up and down matrices, each drawn from a generator of its own
+    (:func:`truncated_normal_many`)."""
+    gate, up, down = truncated_normal_many(
+        gen, ((d_model, d_ff), (d_model, d_ff), (d_ff, d_model)), 1.0,
+        dtype, device)
+    return {"wi_gate": gate, "wi_up": up, "wo": down}
 
 
 def swiglu(params: dict, x: torch.Tensor,

@@ -1,8 +1,10 @@
 """Decoder-only LM core of the port: paged decode and chunked prefill for
-attention, SSM and hybrid models with dense or MoE FFNs.
+attention (GQA or MLA), SSM and hybrid models with dense or MoE FFNs.
 
 Port of the paged serving path of ``repro/models/transformer.py`` for
-architectures whose layers are attention layers or Mamba-2 mixers
+architectures whose layers are attention layers (grouped-query, or
+multi-head latent attention, :mod:`repro_torch.models.mla`, where
+``cfg.mla`` is set) or Mamba-2 mixers
 (:mod:`repro_torch.models.ssm`), each followed by a dense SwiGLU FFN, an
 MoE FFN (:mod:`repro_torch.models.moe`) or, where ``d_ff`` is 0, none:
 ``init_lm``, ``init_paged_cache``, ``paged_block_bytes``,
@@ -11,14 +13,16 @@ MoE FFN (:mod:`repro_torch.models.moe`) or, where ``d_ff`` is 0, none:
 (:data:`KV_DTYPES`).  Layer ``i`` takes its kind from the superblock
 (:func:`layer_kind`).  The reference's ``first_block`` and its
 ``lax.scan`` over stacked superblocks become one list of per-layer
-parameter dicts; the cache holds one stack of K/V pools over the attention
-layers and one of recurrent states over the mamba layers
+parameter dicts; the cache holds one stack of K/V pools (for MLA, of
+``c``/``k_rope`` latent pools) over the attention layers and one of
+recurrent states over the mamba layers
 (:func:`layer_pools` maps a layer to its index in its stack), and both are
 updated in place instead of being rebuilt, which saves a copy of the pool
 per step.  The reference's ``prefill_step_paged`` scans its one-token cell
 over the chunk; the port computes the chunk in parallel, every row of
 every slot through each layer at once: attention through the
-chunked-prefill kernel, a mamba mixer in the SSD dual form from each
+chunked-prefill kernel (an MLA layer in the absorbed form,
+``mla_chunk``), a mamba mixer in the SSD dual form from each
 slot's state (``mamba_chunk``), and an MoE layer's rows routed one chunk
 row at a time (``moe_ffn_rows``), as the scanned cell does.
 :func:`params_from_numpy` carries the reference's parameters across.
@@ -29,7 +33,8 @@ Tensor-parallel serving: with ``mesh=`` (a rank's
 :func:`init_paged_cache` its pools (heads split over ``model``, blocks and
 scales whole) and states, by the rules of
 :mod:`repro_torch.distributed.sharding` (expert stacks split their experts
-over ``model``; mamba mixers and their states split over ``model`` on a
+over ``model``; MLA projections split their heads and the latent pools
+are whole; mamba mixers and their states split over ``model`` on a
 model-only mesh, states over ``data`` on a data-only one, and both are
 whole on a 2-D mesh).  The steps then take
 every slot's tokens and tables, run this rank's slots
@@ -47,7 +52,7 @@ import torch
 from repro_torch.configs.base import LayerKind, ModelConfig
 from repro_torch.core.device import resolve_device
 from repro_torch.distributed import sharding
-from repro_torch.models import attention, layers, moe, ssm
+from repro_torch.models import attention, layers, mla, moe, ssm
 
 #: Physical block 0 is reserved as the NULL block: block tables of idle
 #: serving slots point at it, so their writes land in rows no live request
@@ -56,19 +61,21 @@ NULL_BLOCK = 0
 
 #: KV pool storage dtypes: "f32" keeps the pool in the model's compute
 #: dtype, "bf16" stores bf16, "int8" stores int8 codes with one fp32 scale
-#: a pool row (``k_scale``/``v_scale`` pools beside ``k``/``v``).
+#: a pool row (``k_scale``/``v_scale`` pools beside ``k``/``v``, and
+#: ``c_scale``/``k_rope_scale`` beside an MLA model's ``c``/``k_rope``).
 KV_DTYPES = ("f32", "bf16", "int8")
 
-#: the cache leaves indexed by physical block (the K/V pools and their
-#: int8 scales); the recurrent states are indexed by slot
-_BLOCK_KEYS = ("k", "v", "k_scale", "v_scale")
+#: the cache leaves indexed by physical block (the K/V or latent pools and
+#: their int8 scales); the recurrent states are indexed by slot
+_BLOCK_KEYS = ("k", "v", "k_scale", "v_scale",
+               "c", "k_rope", "c_scale", "k_rope_scale")
 _STATE_KEYS = ("ssm_state", "conv_state")
 
 
 def check_served(cfg: ModelConfig) -> None:
-    """Raise unless ``cfg`` is an architecture the port serves so far:
-    dense or MoE attention models, and SSM or hybrid models of attention
-    layers and Mamba-2 mixers, with dense, MoE or no FFNs."""
+    """Raise unless ``cfg`` is an architecture the port serves: dense or
+    MoE attention models (grouped-query or MLA), and SSM or hybrid models
+    of attention layers and Mamba-2 mixers, with dense, MoE or no FFNs."""
     kinds = set(cfg.layer_pattern)
     mixers = {LayerKind.ATTN, LayerKind.MAMBA}
     family_ok = {
@@ -79,11 +86,11 @@ def check_served(cfg: ModelConfig) -> None:
     }.get(cfg.family, False)
     if (not family_ok or not kinds <= mixers
             or (LayerKind.MAMBA in kinds) != (cfg.ssm is not None)
-            or cfg.mla is not None or cfg.is_encoder_decoder):
+            or cfg.is_encoder_decoder):
         raise ValueError(
-            f"{cfg.name}: the port serves dense, MoE, SSM and hybrid "
-            f"(attention and Mamba-2) models; MLA and encoder-decoder "
-            f"archs are ROADMAP item 1.10"
+            f"{cfg.name}: the port serves dense, MoE (with GQA or MLA), SSM "
+            f"and hybrid (attention and Mamba-2) models; encoder-decoder "
+            f"archs come with models/whisper.py, ROADMAP item 1.18"
         )
 
 
@@ -166,7 +173,9 @@ def init_lm(cfg: ModelConfig, *, seed: int = 0, device="cuda",
         layer = {"norm1": norm_init(dtype, dev)}
         if is_moe_layer(cfg, i) or cfg.d_ff > 0:
             layer["norm2"] = norm_init(dtype, dev)
-        if layer_kind(cfg, i) == LayerKind.ATTN:
+        if layer_kind(cfg, i) == LayerKind.ATTN and cfg.mla is not None:
+            layer["mla"] = mla.init_mla(gen, cfg, dtype, dev)
+        elif layer_kind(cfg, i) == LayerKind.ATTN:
             layer["attn"] = attention.init_attention(gen, cfg, dtype, dev)
         else:
             layer["mamba"] = ssm.init_mamba(gen, cfg, dtype, dev)
@@ -267,17 +276,21 @@ def init_paged_cache(cfg: ModelConfig, slots: int, max_len: int,
                      kv_dtype: str = "f32", mesh=None) -> Dict[str, Any]:
     """Zeroed paged K/V pools ``(n_attn, n_blocks, block_size, KV, D)``
     over the attention layers, with ``n_blocks = 1 + slots * max_len /
-    block_size``: every slot at full length plus the :data:`NULL_BLOCK`.
-    ``kv_dtype`` (one of :data:`KV_DTYPES`) selects their storage dtype;
-    ``"int8"`` adds zeroed fp32 ``k_scale``/``v_scale`` pools ``(n_attn,
-    n_blocks, block_size)``, one scale a committed row.  A model with
+    block_size``: every slot at full length plus the :data:`NULL_BLOCK`;
+    for an MLA model, latent pools ``c`` ``(n_attn, n_blocks, block_size,
+    kv_lora_rank)`` and ``k_rope`` ``(n_attn, n_blocks, block_size,
+    qk_rope_dim)`` in their place.  ``kv_dtype`` (one of
+    :data:`KV_DTYPES`) selects their storage dtype; ``"int8"`` adds zeroed
+    fp32 ``<pool>_scale`` pools ``(n_attn, n_blocks, block_size)``, one
+    scale a committed row.  A model with
     mamba layers also gets their zeroed recurrent states, indexed by
     slot and never quantized: ``ssm_state`` ``(n_mamba, slots, nh,
     d_state, head_dim)`` fp32 and ``conv_state`` ``(n_mamba, slots, d_conv
     - 1, conv_ch)`` in the compute dtype.  A stack with no layer is left
     out.  With ``mesh``, this rank's leaves by
     :func:`~repro_torch.distributed.sharding.paged_cache_spec`: ``KV /
-    model`` heads where ``model`` divides KV, the scales whole, the states
+    model`` heads where ``model`` divides KV, the latent pools and the
+    scales whole, the states
     split by heads and channels over ``model`` or by slots over
     ``data``."""
     check_served(cfg)
@@ -291,11 +304,16 @@ def init_paged_cache(cfg: ModelConfig, slots: int, max_len: int,
     n_mamba = count_layers(cfg, LayerKind.MAMBA)
     shapes = {}
     if n_attn:
-        shape = (n_attn, n_blocks, block_size, cfg.n_kv_heads, cfg.head_dim)
-        shapes = {"k": (shape, dtype), "v": (shape, dtype)}
+        rows = (n_attn, n_blocks, block_size)
+        ml = cfg.mla
+        shapes = ({"c": (rows + (ml.kv_lora_rank,), dtype),
+                   "k_rope": (rows + (ml.qk_rope_dim,), dtype)}
+                  if ml is not None else
+                  {key: (rows + (cfg.n_kv_heads, cfg.head_dim), dtype)
+                   for key in ("k", "v")})
         if kv_dtype == "int8":
-            for key in ("k_scale", "v_scale"):
-                shapes[key] = (shape[:3], torch.float32)
+            for key in list(shapes):
+                shapes[key + "_scale"] = (rows, torch.float32)
     if n_mamba:
         shapes.update(ssm.cache_shapes(cfg, slots, n_mamba,
                                        torch_dtype(cfg.compute_dtype)))
@@ -311,18 +329,24 @@ def paged_block_bytes(cfg: ModelConfig, block_size: int,
                       kv_dtype: str = "f32") -> int:
     """Bytes one physical block stores across every attention layer, its
     fp32 scales included for int8 (0 for a model without attention: its
-    states are per slot, not per block)."""
+    states are per slot, not per block).  A row holds K and V, or for MLA
+    the latent ``c`` and ``k_rope`` (``kv_lora_rank + qk_rope_dim``
+    elements)."""
     itemsize = _pool_dtype(cfg, kv_dtype).itemsize
-    per_layer = block_size * 2 * cfg.n_kv_heads * cfg.head_dim * itemsize
+    row_elems = (cfg.mla.kv_lora_rank + cfg.mla.qk_rope_dim
+                 if cfg.mla is not None
+                 else 2 * cfg.n_kv_heads * cfg.head_dim)
+    per_layer = block_size * row_elems * itemsize
     if kv_dtype == "int8":
-        per_layer += 2 * block_size * 4  # one fp32 scale a row, K and V
+        per_layer += 2 * block_size * 4  # one fp32 scale a row a pool
     return count_layers(cfg, LayerKind.ATTN) * per_layer
 
 
 def copy_paged_block(cache: Dict[str, Any], src: int, dst: int
                      ) -> Dict[str, Any]:
-    """Copy physical block ``src`` into ``dst`` on every K/V pool of every
-    attention layer, scales included, in place; returns the same dict.
+    """Copy physical block ``src`` into ``dst`` on every K/V or latent pool
+    of every attention layer, scales included, in place; returns the same
+    dict.
     The device half of copy-on-write.  The recurrent states are per slot,
     not per block, and pass through."""
     for key in _BLOCK_KEYS:
@@ -352,22 +376,31 @@ def reset_paged_slots(cache: Dict[str, Any], mask, *, mesh=None
     return cache
 
 
+def _pool_keys(cfg: ModelConfig) -> Tuple[str, str]:
+    """The cache's two pools of an attention layer: ``c``/``k_rope`` for
+    MLA, else ``k``/``v``."""
+    return ("c", "k_rope") if cfg.mla is not None else ("k", "v")
+
+
 def _kv_scales(cache: Dict[str, Any], cfg: ModelConfig, kv_dtype: str,
                block_size: int) -> Tuple[Any, Any]:
-    """The scale pools of ``cache`` (None, None without them, and for a
-    model without attention layers), after checking that its pools have
-    ``block_size`` rows a block and are stored as ``kv_dtype`` asks."""
-    if "k" not in cache:
+    """The scale pools of ``cache``'s two attention pools (None, None
+    without them, and for a model without attention layers), after
+    checking that its pools have ``block_size`` rows a block and are
+    stored as ``kv_dtype`` asks."""
+    first, second = _pool_keys(cfg)
+    if first not in cache:
         _pool_dtype(cfg, kv_dtype)
         return None, None
-    if cache["k"].shape[2] != block_size:
+    pool = cache[first]
+    if pool.shape[2] != block_size:
         raise ValueError(f"block_size {block_size} != the pools' "
-                         f"{cache['k'].shape[2]}")
+                         f"{pool.shape[2]}")
     want = _pool_dtype(cfg, kv_dtype)
-    if cache["k"].dtype != want:
+    if pool.dtype != want:
         raise ValueError(f"kv_dtype {kv_dtype!r} wants {want} pools, the "
-                         f"cache holds {cache['k'].dtype}")
-    return cache.get("k_scale"), cache.get("v_scale")
+                         f"cache holds {pool.dtype}")
+    return cache.get(first + "_scale"), cache.get(second + "_scale")
 
 
 def _layer(pool, i: int):
@@ -431,10 +464,19 @@ def decode_step_paged(params: Dict[str, Any], cfg: ModelConfig,
     own = slice(None) if tp is None else tp.slots
     x = layers.embed(params["embed"], tokens[own], tp).to(
         torch_dtype(cfg.compute_dtype))
+    rows = (None if cfg.mla is None else mla.step_rows(
+        positions, block_tables, torch.ones_like(positions), 1, block_size,
+        own))
     _, norm_fn = layers.make_norm(cfg)
     for p, (kind, j) in zip(params["layers"], layer_pools(cfg)):
         h = norm_fn(p["norm1"], x)
-        if kind == LayerKind.ATTN:
+        if "mla" in p:
+            x = x + mla.mla_decode(
+                p["mla"], cfg, h, cache["c"][j], cache["k_rope"][j],
+                positions, block_tables, _layer(ks, j), _layer(vs, j), tp,
+                rows,
+            )
+        elif kind == LayerKind.ATTN:
             x = x + attention.attention_decode_paged(
                 p["attn"], cfg, h, cache["k"][j], cache["v"][j], positions,
                 block_tables, _layer(ks, j), _layer(vs, j), tp,
@@ -477,7 +519,8 @@ def prefill_step_paged(params: Dict[str, Any], cfg: ModelConfig,
     block_tables (B, nb) int32, mapping every position a real row lands
     in; lengths (B,) int32 in [0, w]; ``kv_dtype`` the pools' storage
     dtype, as ``cache`` was made with.  Every layer projects all B*w rows
-    at once: an attention layer attends with the chunked-prefill kernel,
+    at once: an attention layer attends with the chunked-prefill kernel
+    (an MLA layer commits its latent rows and attends in torch ops),
     a mamba layer runs the chunk in the SSD dual form from each slot's
     state; rows past ``lengths[b]`` commit nothing and move no state, so a
     slot with ``lengths[b] == 0`` keeps its state.  The pools and states
@@ -496,10 +539,18 @@ def prefill_step_paged(params: Dict[str, Any], cfg: ModelConfig,
     own = slice(None) if tp is None else tp.slots
     x = layers.embed(params["embed"], tokens[own], tp).to(
         torch_dtype(cfg.compute_dtype))
+    rows = (None if cfg.mla is None else mla.step_rows(
+        positions, block_tables, lengths, tokens.shape[1], block_size, own))
     _, norm_fn = layers.make_norm(cfg)
     for p, (kind, j) in zip(params["layers"], layer_pools(cfg)):
         h = norm_fn(p["norm1"], x)
-        if kind == LayerKind.ATTN:
+        if "mla" in p:
+            x = x + mla.mla_chunk(
+                p["mla"], cfg, h, cache["c"][j], cache["k_rope"][j],
+                positions, block_tables, lengths, _layer(ks, j),
+                _layer(vs, j), tp, rows,
+            )
+        elif kind == LayerKind.ATTN:
             x = x + attention.attention_prefill_paged(
                 p["attn"], cfg, h, cache["k"][j], cache["v"][j], positions,
                 block_tables, lengths, _layer(ks, j), _layer(vs, j), tp,

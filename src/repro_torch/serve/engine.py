@@ -47,8 +47,8 @@ rank appends the same tokens.  Rank 0 reports.
 
 The reference's other paths are refused with a ``ValueError`` that names
 the ROADMAP item that will port them: the wave scheduler (1.12),
-speculative decoding (1.13) and the MLA and encoder-decoder
-architectures (1.10).  Sampling with ``temperature > 0`` raises
+speculative decoding (1.13) and the encoder-decoder architectures
+(1.18).  Sampling with ``temperature > 0`` raises
 ``NotImplementedError`` (1.13).
 """
 

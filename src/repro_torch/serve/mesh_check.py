@@ -25,7 +25,7 @@ backend, collectives' counters, head-sharded decode launches and
 commit-kernel launches, and the baseline's streams.  A workload that needs
 an architecture or a feature the port lacks is listed under ``refused``
 with the ROADMAP item that ports it, and fails the check; the default
-``--workloads`` are the six the port serves.
+``--workloads`` are the seven the port serves.
 """
 
 from __future__ import annotations
@@ -57,7 +57,8 @@ DEFAULT_WORKLOADS = (
       "prefill_chunk": 4}),
 )
 #: the workloads ``--workloads`` runs by default
-SERVED = ("gpt2", "qwen3", "mamba2", "moe", "jamba", "gpt2-int8-shared")
+SERVED = ("gpt2", "qwen3", "mamba2", "mla", "moe", "jamba",
+          "gpt2-int8-shared")
 #: int8 pools against the baseline's: codes within one step, scales
 #: within this relative difference.  A flipped code moves later rows by
 #: up to a quantization step (1/127 of a row's amax); on an H100 the

@@ -20,8 +20,9 @@ from repro.models import transformer as ref_tf  # noqa: E402
 from repro.train import steps as ref_steps  # noqa: E402
 import repro_torch.configs as port_configs  # noqa: E402
 from repro_torch.models import transformer  # noqa: E402
+import torch_threads  # noqa: E402
 
-torch.set_num_threads(2)
+torch_threads.use_threads(2)
 RTOL, ATOL = 1e-4, 1e-5
 B, MAX_LEN, BS, STEPS = 4, 32, 8, 12
 LATE_SLOT, LATE_START, IDLE_SLOT = 2, 4, 3
@@ -114,11 +115,9 @@ def test_paged_cache_layout_and_block_bytes():
 def test_non_dense_archs_are_refused_with_their_roadmap_item():
     import dataclasses
 
-    from repro_torch.configs.base import MLAConfig
-
     cfg = dataclasses.replace(port_configs.get_smoke_config("gpt2-124m"),
-                              mla=MLAConfig())
-    with pytest.raises(ValueError, match="1.10"):
+                              is_encoder_decoder=True)
+    with pytest.raises(ValueError, match="1.18"):
         transformer.init_lm(cfg, device="cpu")
 
 

@@ -16,8 +16,9 @@ from repro.launch import serve as ref_serve  # noqa: E402
 from repro.serve.engine import ServeEngine as RefEngine  # noqa: E402
 from repro.train import steps as ref_steps  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
+import torch_threads  # noqa: E402
 
-torch.set_num_threads(2)
+torch_threads.use_threads(2)
 
 
 def test_cli_serves_on_cpu_and_writes_the_reference_report(tmp_path,

@@ -30,8 +30,9 @@ from repro.train import steps as ref_steps  # noqa: E402
 import repro_torch.configs as port_configs  # noqa: E402
 from repro_torch.kernels.flash_decode import kernel, ref  # noqa: E402
 from repro_torch.models import attention, transformer  # noqa: E402
+import torch_threads  # noqa: E402
 
-torch.set_num_threads(2)
+torch_threads.use_threads(2)
 PAIRS = [(torch.float32, torch.float32), (torch.float32, torch.bfloat16),
          (torch.float32, torch.int8), (torch.bfloat16, torch.bfloat16),
          (torch.bfloat16, torch.int8)]

@@ -21,13 +21,13 @@ import repro.configs as ref_configs  # noqa: E402
 from repro.serve import engine as ref_engine  # noqa: E402
 from repro.train import steps as ref_steps  # noqa: E402
 import repro_torch.configs as port_configs  # noqa: E402
-from repro_torch.configs.base import MLAConfig  # noqa: E402
 from repro_torch.launch.mesh import MeshShape  # noqa: E402
 from repro_torch.models import transformer  # noqa: E402
 from repro_torch.serve.engine import (Request, RequestTooLong,  # noqa: E402
                                       ServeEngine)
+import torch_threads  # noqa: E402
 
-torch.set_num_threads(2)
+torch_threads.use_threads(2)
 
 
 @pytest.fixture(scope="module", params=["gpt2-124m", "qwen3-1.7b"])
@@ -208,9 +208,9 @@ def test_quantized_and_sharing_options_are_served(gpt2, kw):
 
 def test_non_dense_arch_and_sampling_are_refused(gpt2):
     cfg, params = gpt2
-    with pytest.raises(ValueError, match=r"1\.10"):
-        ServeEngine(dataclasses.replace(cfg, mla=MLAConfig()), params,
-                    device="cpu")
+    with pytest.raises(ValueError, match=r"1\.18"):
+        ServeEngine(dataclasses.replace(cfg, is_encoder_decoder=True),
+                    params, device="cpu")
     with pytest.raises(NotImplementedError, match=r"1\.13"):
         ServeEngine(cfg, params, temperature=0.7, device="cpu")
 

@@ -31,8 +31,9 @@ from repro.kernels.flash_decode import kernel as jfd_k  # noqa: E402
 from repro.kernels.flash_decode import ref as jfd_r  # noqa: E402
 from repro_torch.kernels import registry  # noqa: E402
 from repro_torch.kernels.flash_decode import kernel, ops, ref  # noqa: E402
+import torch_threads  # noqa: E402
 
-torch.set_num_threads(2)
+torch_threads.use_threads(2)
 
 _JNP = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
 

@@ -37,8 +37,9 @@ from repro_torch.kernels.gemm import kernel as gemm_k, ref as gemm_r  # noqa: E4
 from repro_torch.kernels.jacobi2d import ops as jac_ops, ref as jac_r  # noqa: E402
 from repro_torch.kernels.spmv import ops as spmv_ops, ref as spmv_r  # noqa: E402
 from repro_torch.kernels.stream import ops as stream_ops, ref as stream_r  # noqa: E402
+import torch_threads  # noqa: E402
 
-torch.set_num_threads(2)
+torch_threads.use_threads(2)
 
 _JNP = {"float32": jnp.float32, "bfloat16": jnp.bfloat16,
         "float16": jnp.float16}

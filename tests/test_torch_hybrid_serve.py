@@ -32,8 +32,9 @@ import torch_stateful_checks as checks  # noqa: E402
 from repro_torch.configs.base import LayerKind  # noqa: E402
 from repro_torch.models import transformer  # noqa: E402
 from repro_torch.serve import mesh_check  # noqa: E402
+import torch_threads  # noqa: E402
 
-torch.set_num_threads(2)
+torch_threads.use_threads(2)
 ARCH = "jamba-1.5-large-398b"
 EXPERTS = [None, 16]
 EXPERT_IDS = ["smoke-experts", "16-experts"]

@@ -27,8 +27,9 @@ torch = pytest.importorskip("torch")
 
 from repro.kernels.flash_decode import ref as jref  # noqa: E402
 from repro_torch.kernels.flash_decode import kernel, ref  # noqa: E402
+import torch_threads  # noqa: E402
 
-torch.set_num_threads(2)
+torch_threads.use_threads(2)
 
 #: (KV, G, D) of the served archs at full width, their smoke configs, the
 #: registry's flash workloads, a head dim of 32 and G = 8 at D = 128

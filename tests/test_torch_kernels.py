@@ -18,8 +18,9 @@ torch = pytest.importorskip("torch")
 from repro.kernels.flash_decode import kernel as ref_kernel  # noqa: E402
 from repro.kernels.flash_decode import ref as ref_oracle  # noqa: E402
 from repro_torch.kernels.flash_decode import kernel, ref  # noqa: E402
+import torch_threads  # noqa: E402
 
-torch.set_num_threads(2)
+torch_threads.use_threads(2)
 
 
 def _paged_inputs(B, KV, G, D, bs, nb, seed=0):

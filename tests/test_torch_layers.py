@@ -21,8 +21,9 @@ from repro.models import layers as ref_layers  # noqa: E402
 from repro.train import steps as ref_steps  # noqa: E402
 import repro_torch.configs as port_configs  # noqa: E402
 from repro_torch.models import attention, layers, transformer  # noqa: E402
+import torch_threads  # noqa: E402
 
-torch.set_num_threads(2)
+torch_threads.use_threads(2)
 RTOL, ATOL = 1e-5, 1e-6
 
 

@@ -38,8 +38,9 @@ import repro_torch.configs as port_configs  # noqa: E402
 from repro_torch.configs.base import MoEConfig  # noqa: E402
 from repro_torch.core import metrics  # noqa: E402
 from repro_torch.models import layers, moe  # noqa: E402
+import torch_threads  # noqa: E402
 
-torch.set_num_threads(2)
+torch_threads.use_threads(2)
 RTOL, ATOL, AUX_TOL = 1e-5, 1e-5, 1e-6
 ARCH = "deepseek-moe-16b"
 TOKENS = (1, 2, 5, 8, 9, 16, 33, 64)

@@ -40,8 +40,9 @@ from repro_torch.launch import serve as serve_cli  # noqa: E402
 from repro_torch.models import transformer  # noqa: E402
 from repro_torch.serve import mesh_check  # noqa: E402
 from repro_torch.serve.engine import Request, ServeEngine  # noqa: E402
+import torch_threads  # noqa: E402
 
-torch.set_num_threads(2)
+torch_threads.use_threads(2)
 ARCH = "deepseek-moe-16b"
 RTOL, ATOL = 1e-4, 1e-5
 _MODEL = {}

@@ -43,8 +43,9 @@ from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import transformer  # noqa: E402
 from repro_torch.serve import engine as port_engine  # noqa: E402
 from repro_torch.serve.engine import Request, ServeEngine  # noqa: E402
+import torch_threads  # noqa: E402
 
-torch.set_num_threads(2)
+torch_threads.use_threads(2)
 RTOL, ATOL = 1e-4, 1e-5
 
 

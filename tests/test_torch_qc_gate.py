@@ -29,8 +29,9 @@ from repro.kernels.qc_gate import ops as jqc_ops  # noqa: E402
 from repro.kernels.qc_gate import ref as jqc_r  # noqa: E402
 from repro_torch.kernels import registry  # noqa: E402
 from repro_torch.kernels.qc_gate import kernel, ops, ref  # noqa: E402
+import torch_threads  # noqa: E402
 
-torch.set_num_threads(2)
+torch_threads.use_threads(2)
 
 _JNP = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
 _MANTISSA = {"float32": 23, "bfloat16": 7}

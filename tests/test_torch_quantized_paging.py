@@ -40,8 +40,9 @@ from repro.train import steps as ref_steps  # noqa: E402
 import repro_torch.configs as port_configs  # noqa: E402
 from repro_torch.kernels.flash_decode import kernel, ref  # noqa: E402
 from repro_torch.models import transformer  # noqa: E402
+import torch_threads  # noqa: E402
 
-torch.set_num_threads(2)
+torch_threads.use_threads(2)
 TOL = 3e-5
 ARCHS = ("gpt2-124m", "qwen3-1.7b")
 #: the reference's teacher-forced budgets against the f32 cache

@@ -25,8 +25,9 @@ from repro.train import steps as ref_steps  # noqa: E402
 import repro_torch.configs as port_configs  # noqa: E402
 from repro_torch.models import transformer  # noqa: E402
 from repro_torch.serve.engine import Request, ServeEngine  # noqa: E402
+import torch_threads  # noqa: E402
 
-torch.set_num_threads(2)
+torch_threads.use_threads(2)
 ARCHS = ("gpt2-124m", "qwen3-1.7b")
 _MODELS = {}
 

@@ -36,7 +36,6 @@ import repro.configs as ref_configs  # noqa: E402
 from repro.serve import engine as ref_engine  # noqa: E402
 from repro.train import steps as ref_steps  # noqa: E402
 import repro_torch.configs as port_configs  # noqa: E402
-from repro_torch.configs.base import MLAConfig  # noqa: E402
 from repro_torch.launch import mesh as mesh_mod  # noqa: E402
 from repro_torch.launch import serve as serve_cli  # noqa: E402
 from repro_torch.models import transformer  # noqa: E402
@@ -178,9 +177,9 @@ def test_mesh_refusals_name_their_items(mesh_1x1):
     params = transformer.params_from_numpy(tree, cfg, "cpu")
     with pytest.raises(ValueError, match=r"1\.13"):
         ServeEngine(cfg, params, spec_k=2, mesh=mesh_1x1, device="cpu")
-    mla = dataclasses.replace(cfg, mla=MLAConfig())
-    with pytest.raises(ValueError, match=r"1\.10"):
-        ServeEngine(mla, params, mesh=mesh_1x1, device="cpu")
+    enc = dataclasses.replace(cfg, is_encoder_decoder=True)
+    with pytest.raises(ValueError, match=r"1\.18"):
+        ServeEngine(enc, params, mesh=mesh_1x1, device="cpu")
     with pytest.raises(ValueError, match="'data', 'model'"):
         ServeEngine(cfg, params, mesh=type("M", (), {"axis_names": ("x",)})(),
                     device="cpu")
@@ -282,13 +281,11 @@ def test_cross_mesh_int8_pools(verdict):
 def test_mesh_check_refuses_what_the_port_lacks(tmp_path, capsys):
     out = tmp_path / "verdict.json"
     code = mesh_check.main(["--device", "cpu", "--meshes", "none",
-                            "--workloads", "mla,gpt2-spec,gpt2-spec-adapt",
+                            "--workloads", "gpt2-spec,gpt2-spec-adapt",
                             "--out", str(out)])
     verdict = json.loads(out.read_text())
     assert code == 1 and not verdict["ok"]
-    assert set(verdict["refused"]) == {"mla", "gpt2-spec",
-                                       "gpt2-spec-adapt"}
-    assert "1.10" in verdict["refused"]["mla"]
+    assert set(verdict["refused"]) == {"gpt2-spec", "gpt2-spec-adapt"}
     assert "1.13" in verdict["refused"]["gpt2-spec"]
     assert "1.13" in verdict["refused"]["gpt2-spec-adapt"]
 

@@ -33,8 +33,9 @@ torch = pytest.importorskip("torch")
 
 from repro.kernels.spmv import kernel as jspmv  # noqa: E402
 from repro_torch.kernels.spmv import kernel, ref  # noqa: E402
+import torch_threads  # noqa: E402
 
-torch.set_num_threads(2)
+torch_threads.use_threads(2)
 
 CSRC = Path(kernel.__file__).resolve().parent / "csrc"
 F32, BF16 = torch.float32, torch.bfloat16

@@ -30,8 +30,9 @@ import repro.configs as ref_configs  # noqa: E402
 from repro.models import ssm as ref_ssm  # noqa: E402
 import repro_torch.configs as port_configs  # noqa: E402
 from repro_torch.models import layers, ssm, transformer  # noqa: E402
+import torch_threads  # noqa: E402
 
-torch.set_num_threads(2)
+torch_threads.use_threads(2)
 TIGHT = dict(rtol=1e-5, atol=1e-5)
 DUAL = dict(rtol=2e-4, atol=2e-4)
 

@@ -33,8 +33,9 @@ from repro_torch.distributed import sharding  # noqa: E402
 from repro_torch.launch.mesh import MeshShape  # noqa: E402
 from repro_torch.models import transformer  # noqa: E402
 from repro_torch.serve import mesh_check  # noqa: E402
+import torch_threads  # noqa: E402
 
-torch.set_num_threads(2)
+torch_threads.use_threads(2)
 ARCH = "mamba2-370m"
 
 

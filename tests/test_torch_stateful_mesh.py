@@ -14,8 +14,9 @@ torch = pytest.importorskip("torch")
 pytest.register_assert_rewrite("torch_stateful_checks")
 
 import torch_stateful_checks as checks  # noqa: E402
+import torch_threads  # noqa: E402
 
-torch.set_num_threads(2)
+torch_threads.use_threads(2)
 ARCHS = {"mamba2": "mamba2-370m", "jamba": "jamba-1.5-large-398b"}
 
 

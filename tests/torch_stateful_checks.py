@@ -1,6 +1,7 @@
-"""Checks shared by the port's SSM and hybrid serving tests
-(``tests/test_torch_ssm_serve.py``, ``tests/test_torch_hybrid_serve.py``):
-a model with mamba layers served by the port against the JAX package.
+"""Checks shared by the port's SSM, hybrid and MLA serving tests
+(``tests/test_torch_ssm_serve.py``, ``tests/test_torch_hybrid_serve.py``,
+``tests/test_torch_mla_serve.py``): a model with mamba layers or latent
+pools served by the port against the JAX package.
 
 Each check takes a :class:`Model`, the reference's config and weights and
 the port's, carried across by ``params_from_numpy``.  Tolerances: logits
@@ -37,6 +38,10 @@ from repro_torch.serve.engine import Request, ServeEngine
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 RTOL, ATOL = 1e-4, 1e-5
 STATE = dict(rtol=2e-4, atol=2e-4)
+#: the cache's block pools (K/V, or an MLA model's latent pools) and its
+#: per-slot recurrent states
+POOLS = ("k", "v", "c", "k_rope")
+STATES = ("ssm_state", "conv_state")
 
 
 @dataclasses.dataclass
@@ -74,9 +79,12 @@ def model(arch, n_routed=None) -> Model:
 
 def ref_as_port(rcfg, rcache) -> dict:
     """The reference's paged cache as the port's: each key's leaves of
-    every layer that has it, stacked in layer order (slot ``i`` of
-    superblock ``s`` is layer ``s * len(superblock) + i``)."""
+    every layer that has it, stacked in layer order (a ``first_block``
+    first, then slot ``i`` of superblock ``s`` as layer ``s *
+    len(superblock) + i`` after it)."""
     out = {}
+    for key, leaf in rcache.get("first_block", {}).items():
+        out[key] = [np.asarray(leaf)]
     for s in range(rcfg.n_superblocks):
         for i in range(len(rcfg.superblock)):
             for key, leaf in rcache["blocks"][f"slot{i}"].items():
@@ -142,15 +150,16 @@ def _schedule(seed, B=4, max_len=32, bs=8, steps=8):
 def _check_cache(m: Model, cache, rcache, slots) -> None:
     want = ref_as_port(m.rcfg, rcache)
     assert set(want) == set(cache)
-    for key in ("k", "v"):
+    for key in POOLS:
         if key in cache:
             np.testing.assert_allclose(cache[key].numpy()[:, 1:],
                                        want[key][:, 1:], rtol=RTOL,
-                                       atol=ATOL)
-    for key in ("ssm_state", "conv_state"):
-        np.testing.assert_allclose(cache[key].numpy()[:, slots],
-                                   want[key][:, slots], err_msg=key,
-                                   **STATE)
+                                       atol=ATOL, err_msg=key)
+    for key in STATES:
+        if key in cache:
+            np.testing.assert_allclose(cache[key].numpy()[:, slots],
+                                       want[key][:, slots], err_msg=key,
+                                       **STATE)
 
 
 def check_decode_step(m: Model, kv_dtype="f32") -> None:
@@ -182,7 +191,7 @@ def check_decode_step(m: Model, kv_dtype="f32") -> None:
         np.testing.assert_allclose(got.numpy()[live],
                                    np.asarray(want)[live], rtol=RTOL,
                                    atol=ATOL)
-        if kv_dtype == "f32" or "k" not in cache:
+        if kv_dtype == "f32" or not set(POOLS) & set(cache):
             _check_cache(m, cache, rcache, live)
 
 
@@ -222,8 +231,9 @@ def check_prefill_step(m: Model) -> None:
                 rtol=RTOL, atol=ATOL, err_msg=f"slot {b}")
         _check_cache(m, cache, rcache, list(range(B)))
         for b in np.flatnonzero(lens == 0):
-            for key in ("ssm_state", "conv_state"):
-                assert torch.equal(cache[key][:, b], before[key][:, b])
+            for key in STATES:
+                if key in cache:
+                    assert torch.equal(cache[key][:, b], before[key][:, b])
 
 
 def check_pools_and_block_bytes(arch, size, kv_dtype) -> None:
