@@ -67,7 +67,9 @@ non-zero):
             fp32 on the simt route and bf16 on the wgmma route, Jacobi2D
             16384^2 fp32, SpMV 2^20 rows of block-ELL width 128, Zipf nnz
             up to 64): kernel, plain and library ms beside the least time
-            at the H100's peaks for the dtype; SpMV beside its plan, its
+            at the H100's peaks for the dtype (SpMV's library call,
+            ``torch.sparse.mm``, on a CSR of each workload's own matrix:
+            the live lanes, or every lane of the fixed width); SpMV beside its plan, its
             gathers a call and the gather floor (the kernel's gathers
             alone, ``spmv_gather_probe``).
    kernel-dense  the RX gate (n 6, 12, 22; qubits 0, 1, 4, 5, n-1; theta
@@ -115,10 +117,34 @@ non-zero):
    serve-smoke  ``python -m repro_torch.launch.serve`` with its defaults
             (gpt2-124m smoke, head dim 16, f32) on the card: its greedy
             streams equal the same command's with ``--device cpu``.
+   serve-spec  speculative decoding through the serve CLI's path, token
+            by token with a gpt2-124m draft proposing 4 tokens a slot, on
+            the gpt2 serve traffic: a qwen3-1.7b target (28 layers, the
+            weights of serve-chunked; another model, so most proposals
+            miss) and gpt2-124m self-speculation (the weights of serve).
+            Every request completes; every target step runs kernel 2.2 at
+            width 5 (a verification) or 2.1 (a decode step, committing) on
+            each attention layer, every draft step 2.2 at width 1 on each
+            of the draft's, and no other width runs (the wrapper counts
+            launches by width); prints tok/s, steps, acceptance and the
+            launches a step.  Kernel 2.2 is timed at those widths (gpt2
+            heads at 1 and 5, qwen3's at 5; 8 slots of 256 tokens) beside
+            its bound in the kernel phase.
+   serve-sampled  gpt2-124m sampled (T 0.8, top-k 50, seed 7) through the
+            CLI twice on serve's weights: equal streams, not the greedy
+            ones; then the sampler on (8, 5, 151936) random logits on the
+            card against the CPU: threefry keys and uniforms bit-equal,
+            token mismatches only at near ties (gap under 1e-5).
 6. parity   GPU and CPU engines must give the same greedy streams: gpt2-124m
             at full width token by token, and qwen3-1.7b at full width cut
             to 4 layers, chunked on the card, chunked on the CPU and token
             by token on the card, all in float32.
+   parity-spec  speculative decoding in float32, qwen3-1.7b and
+            mamba2-370m at full width cut to 4 layers with a 4-layer
+            gpt2-124m draft: the card's speculative streams against the
+            CPU's and the card's non-speculative ones, greedy and (mamba2,
+            whose rejections restore and replay its states) sampled, up to
+            near ties; drafted and accepted counts equal card and CPU.
    parity-int8  qwen3-1.7b at full width cut to 4 layers, float32, int8
             pools: teacher-forced logits on the card within 0.03 of the
             CPU's, and within the reference's qwen3 int8 budget (0.11) of
@@ -193,7 +219,8 @@ non-zero):
             32 of its 64 experts a rank on a model axis of 2,
             deepseek-v2-lite-16b and jamba-1.5-large-398b at their smoke
             shapes, gpt2-124m with int8
-            pools and prefix sharing; 3 requests of 8 tokens on 2 slots)
+            pools and prefix sharing, gpt2-124m self-speculating with k 2;
+            3 requests of 8 tokens on 2 slots)
             on 1x1, 2x1, 1x2 and 2x2 against the
             unsharded card engine: equal greedy streams, and int8 pools
             within the check's rule.
@@ -602,17 +629,20 @@ def check_prefill(torch, np, kernel, ref):
                     f"{ok_zeros}, pools {ok_pools}, unnamed {ok_foreign}")
 
 
-def prefill_timing(torch, np, kernel, ref, arch="qwen3-1.7b"):
+def prefill_timing(torch, np, kernel, ref, arch="qwen3-1.7b", C=PREFILL_C,
+                   nb=PREFILL_NB, q_hi=448, shapes="chunked"):
     """Kernel pair, plain version and a library yardstick at the chunked
-    serve phases' shapes: 8 slots, chunks of 64 rows, the arch's heads,
-    64 blocks of 16, bf16, q_start drawn over 0..448.  The yardstick is
-    one ``index_put_`` commit per pool and one SDPA call with a causal
-    mask over K/V gathered beforehand."""
+    serve phases' shapes: 8 slots, chunks of ``C`` (64) rows, the arch's
+    heads, ``nb`` (64) blocks of 16, bf16, q_start drawn over 0..``q_hi``
+    (448); speculative decoding's steps run it at C 1 (a draft round) and
+    ``SPEC_K + 1`` (a verification) over 16 blocks.  The yardstick is one
+    ``index_put_`` commit per pool and one SDPA call with a causal mask
+    over K/V gathered beforehand."""
     import torch.nn.functional as F
 
-    B, C, bs, nb = PREFILL_B, PREFILL_C, KERNEL_BS, PREFILL_NB
+    B, bs = PREFILL_B, KERNEL_BS
     KV, G, D = ARCH_HEADS[arch]
-    q_start = np.random.default_rng(6).integers(0, 449, size=B)
+    q_start = np.random.default_rng(6).integers(0, q_hi + 1, size=B)
     q_len = np.full(B, C)
     args = prefill_inputs(torch, B, C, KV, G, D, bs, nb, torch.bfloat16,
                           q_start.tolist(), q_len.tolist(), seed=7)
@@ -665,7 +695,7 @@ def prefill_timing(torch, np, kernel, ref, arch="qwen3-1.7b"):
            "bound_ms": bound_ms, "bound_by": bound_by,
            "host_us": host_us(torch, timed["ms"])}
     emit({"phase": "kernel", "kernel": "flash_prefill_paged",
-          "shapes": f"serve {arch} chunked", "B": B, "C": C, "KV": KV,
+          "shapes": f"serve {arch} {shapes}", "B": B, "C": C, "KV": KV,
           "G": G, "D": D, "bs": bs, "nb": nb, "dtype": "bfloat16",
           "plan": kernel.prefill_plan(C, G, D, bs, nb, torch.bfloat16,
                                       torch.bfloat16)._asdict(),
@@ -1592,8 +1622,16 @@ def hpc_timing(torch, problems):
     counts = nnz.reshape(-1).long().clamp(0, width)
     crow = torch.zeros(counts.numel() + 1, dtype=torch.int64, device="cuda")
     crow[1:] = counts.cumsum(0)
-    csr = torch.sparse_csr_tensor(crow, cols[live].long(), vals[live],
-                                  size=(SPMV_ROWS, SPMV_ROWS))
+    # the library's matrix of each workload: the predicated one holds each
+    # row's live lanes, the fixed-width one every lane of the width
+    csrs = {True: torch.sparse_csr_tensor(crow, cols[live].long(),
+                                          vals[live],
+                                          size=(SPMV_ROWS, SPMV_ROWS)),
+            False: torch.sparse_csr_tensor(
+                torch.arange(0, SPMV_ROWS * width + 1, width,
+                             dtype=torch.int64, device="cuda"),
+                cols.reshape(-1).long(), vals.reshape(-1),
+                size=(SPMV_ROWS, SPMV_ROWS))}
     xcol = xs[:, None]
     for variant, kern, plain, predicated in (
             ("spmv_blockell", spmv.spmv_blockell, spmv.spmv_blockell_plain,
@@ -1605,9 +1643,10 @@ def hpc_timing(torch, problems):
                            predicated=predicated)
         err, ok = spmv_close(torch, kern(vals, cols, nnz, xs), want, scale)
         require(ok, f"{variant} kernel != plain at full size: {err}")
+        csr = csrs[predicated]
         lib_err, lib_ok = spmv_close(
             torch, torch.sparse.mm(csr, xcol)[:, 0], want, scale)
-        require(lib_ok, f"spmv library yardstick disagrees: {lib_err}")
+        require(lib_ok, f"{variant} library yardstick disagrees: {lib_err}")
         bound_ms, bound_by = bound(
             spmv_ref.work_terms(vals, nnz, xs, predicated=predicated),
             "float32")
@@ -1632,7 +1671,8 @@ def hpc_timing(torch, problems):
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": device_ms(torch,
                                     lambda: torch.sparse.mm(csr, xcol),
-                                    reps=50)}
+                                    reps=50),
+            "library_nnz": int(csr.values().numel())}
         emit({"phase": "timing", "kernel": variant,
               "rows": SPMV_ROWS, "width": width, "max_nnz": SPMV_MAX_NNZ,
               "nnz": int(counts.sum()), "dtype": "float32",
@@ -2139,6 +2179,7 @@ def reset_counts(kernel) -> None:
     for name in SERVE_KERNELS:
         getattr(kernel, name).launches = 0
     kernel.flash_decode_paged.commit_launches = 0
+    kernel.flash_prefill_paged.launches_by_width.clear()
 
 
 def read_counts(kernel) -> dict:
@@ -2641,6 +2682,313 @@ def phase_parity_chunked(torch, np):
           "streams_equal": {name: s == streams["cpu_chunked"]
                             for name, s in streams.items()},
           "divergences": gaps})
+
+
+# -- speculative decoding and sampled streams ----------------------------------
+
+
+#: speculative decoding's serve traffic: the gpt2 serve traffic (16
+#: requests, prompts 4..64, 32 new tokens, 8 slots, blocks of 16) token
+#: by token with a gpt2-124m draft proposing ``SPEC_K`` tokens a slot
+SPEC_K = 4
+SPEC_ARGV = SERVE_ARGV + ["--draft", "gpt2-124m", "--spec-k", str(SPEC_K)]
+#: the qwen3-1.7b target of serve-spec's first run (all 28 layers)
+SPEC_QWEN_ARGV = ["qwen3-1.7b" if a == "gpt2-124m" and i == 1 else a
+                  for i, a in enumerate(SPEC_ARGV)]
+SAMPLED_ARGV = SERVE_ARGV + ["--temperature", "0.8", "--top-k", "50",
+                             "--sample-seed", "7"]
+#: the sampler check's logits: 8 slots, windows of 5, qwen3's vocab
+SAMPLER_SHAPE = (8, 5, 151_936)
+#: a token mismatch between the card's and the CPU's sampler is allowed
+#: only where the top two of gumbel + scaled logits are this close
+SAMPLER_GAP = 1e-5
+#: parity-spec: the targets' depth and the gpt2 draft's
+SPEC_PARITY_LAYERS = 4
+
+
+def phase_serve_spec(torch, argv, phase, params, spec_rows):
+    """Speculative serving through the CLI's path (``make_engine`` and
+    ``serve``) on the card, the target's weights ``params`` drawn by an
+    earlier phase and the draft's by its seeded init.  Counts are set to
+    0 just before the drain and read just after: every target step is a
+    verification (kernel 2.2 at ``SPEC_K + 1`` rows on each attention
+    layer) or a decode step (kernel 2.1, committing), every draft step
+    runs kernel 2.2 at one row on each of the draft's layers, and no other
+    width runs.  Every request completes with valid tokens.  The line
+    carries the device ms of kernel 2.2 at both widths, at the draft's and
+    the target's heads, beside its bound (``spec_rows``, keyed by arch
+    and width).  Returns the line."""
+    from repro_torch.kernels.flash_decode import kernel
+    from repro_torch.launch import serve as serve_cli
+
+    args = serve_cli.parse_args(argv)
+    t0 = time.time()
+    engine = serve_cli.make_engine(args, params=params)
+    init_s = time.time() - t0
+    engine.warmup()
+    torch.cuda.synchronize()
+    reset_counts(kernel)
+    report = serve_cli.serve(args, engine)
+    torch.cuda.synchronize()
+    counts = read_counts(kernel)
+    widths = dict(kernel.flash_prefill_paged.launches_by_width)
+    stats, reqs = report["stats"], report["requests"]
+    cfg, dcfg = engine.cfg, engine._spec.cfg
+    require(len(reqs) == args.requests and report["rejected"] == 0,
+            f"{len(reqs)} of {args.requests} requests completed")
+    require(all(r["new_tokens"] == args.max_new
+                and all(0 <= t < cfg.vocab for t in r["tokens"])
+                for r in reqs), "a request's tokens are short or invalid")
+    n_attn, n_draft = flash_layers(cfg), flash_layers(dcfg)
+    W = SPEC_K + 1
+    verify = widths.get(W, 0) // n_attn
+    decode = counts["flash_decode_paged"] // n_attn
+    require(widths.get(W, 0) == n_attn * verify
+            and counts["flash_decode_paged"] == n_attn * decode
+            and verify + decode == stats["target_steps"]
+            == stats["fused_steps"],
+            f"{counts} {widths}: target steps {stats['target_steps']} of "
+            f"{n_attn} attention layers")
+    require(widths.get(1, 0) == n_draft * stats["draft_steps"] > 0,
+            f"{widths}: {stats['draft_steps']} draft steps of {n_draft} "
+            f"layers")
+    require(set(widths) == {1, W} and verify > 0 and decode > 0,
+            f"a width of the path never ran, or another did: {widths}")
+    require(counts["decode_commits"] == counts["flash_decode_paged"]
+            and counts["commit_paged"] == 0,
+            f"{counts}: every decode launch commits its rows")
+    line = {"phase": phase, "arch": cfg.name, "draft": dcfg.name,
+            "layers": cfg.n_layers, "draft_layers": dcfg.n_layers,
+            "dtype": cfg.compute_dtype, "spec_k": SPEC_K,
+            "shared_vocab": engine._spec.shared_vocab, "vocab": cfg.vocab,
+            "requests": stats["requests"], "new_tokens": stats["new_tokens"],
+            "tok_s": stats["tok_s"], "wall_s": stats["wall_s"],
+            "target_steps": stats["target_steps"],
+            "verify_steps": verify, "decode_steps": decode,
+            "draft_steps": stats["draft_steps"],
+            "drafted_tokens": stats["drafted_tokens"],
+            "accepted_tokens": stats["accepted_tokens"],
+            "acceptance_rate": stats["acceptance_rate"],
+            "launches": counts, "prefill_launches_by_width": widths,
+            "launches_a_step": {
+                "prefill_w1_per_draft_step":
+                    widths.get(1, 0) / stats["draft_steps"],
+                f"prefill_w{W}_per_target_step":
+                    widths.get(W, 0) / stats["target_steps"],
+                "decode_per_target_step":
+                    counts["flash_decode_paged"] / stats["target_steps"]},
+            "kernel_2_2": {
+                f"width {C} ({name})": {
+                    key: spec_rows[name, C][key]
+                    for key in ("ms", "bound_ms", "bound_by", "plain_ms")}
+                for C, name in ((1, dcfg.name), (W, cfg.name))},
+            "p50_latency_s": stats["p50_latency_s"],
+            "ttft_p50_s": stats["ttft_p50_s"], "init_s": init_s}
+    emit(line)
+    return line
+
+
+def phase_serve_sampled(torch, np, params, greedy):
+    """gpt2-124m at full width sampled (T 0.8, top-k 50, seed 7) through
+    the CLI's path, twice on the same weights: both runs give the same
+    streams, and they differ from the greedy ``greedy`` streams of the
+    same traffic.  Then the sampler on the card against the same sampler
+    on the CPU over ``SAMPLER_SHAPE`` random logits: the threefry keys and
+    the uniforms bit-equal, and the tokens equal except where the top two
+    of gumbel + scaled logits lie within ``SAMPLER_GAP``."""
+    from repro_torch.serve import threefry
+    from repro_torch.serve.sampling import SlotSampler
+
+    runs = [phase_serve(torch, SAMPLED_ARGV, f"serve-sampled-run{i}",
+                        params=params)[2] for i in (1, 2)]
+    streams = [[r["tokens"] for r in rep["requests"]] for rep in runs]
+    require(streams[0] == streams[1], "two sampled runs differ")
+    require(streams[0] != greedy, "the sampled streams are the greedy ones")
+    same_as_greedy = sum(a == b for a, b in zip(streams[0], greedy))
+
+    B, W, V = SAMPLER_SHAPE
+    gen = torch.Generator().manual_seed(5)
+    logits = torch.randn((B, W, V), generator=gen) * 2.0
+    reqs = [dataclasses.make_dataclass("R", ["uid", "generated"])(
+        uid, [0] * g) for uid, g in zip(
+            (0, 1, 7, 2**31 - 1, 2**32 - 1, 12, 99, 1000),
+            (0, 3, 17, 1, 31, 5, 0, 2))]
+    sampler = SlotSampler(V, temperature=0.8, top_k=50, seed=7)
+    toks = {dev: sampler.select(logits.to(dev), reqs, offset=1).cpu()
+            for dev in ("cuda", "cpu")}
+    flat_u = torch.tensor([r.uid for r in reqs for _ in range(W)])
+    flat_i = torch.tensor([len(r.generated) + 1 + i for r in reqs
+                           for i in range(W)])
+    keys, unis, gums = {}, {}, {}
+    for dev in ("cuda", "cpu"):
+        key = threefry.fold_in(threefry.fold_in(
+            threefry.prng_key(7, dev), flat_u.to(dev)), flat_i.to(dev))
+        keys[dev] = torch.stack(key).cpu()
+        unis[dev] = threefry.uniform(key, V, threefry._TINY, 1.0).cpu()
+        gums[dev] = threefry.gumbel(key, V).cpu()
+    require(torch.equal(keys["cuda"], keys["cpu"]), "keys differ")
+    require(torch.equal(unis["cuda"].view(torch.int32),
+                        unis["cpu"].view(torch.int32)),
+            "uniforms differ in their bits")
+    scaled = logits.reshape(B * W, V) * sampler._inv_t
+    kth = scaled.topk(50, dim=-1).values[..., -1:]
+    scaled = scaled.masked_fill(scaled < kth, float("-inf"))
+    top2 = (gums["cpu"] + scaled).topk(2, dim=-1).values
+    gap = (top2[:, 0] - top2[:, 1]).reshape(B, W)
+    mismatch = toks["cuda"] != toks["cpu"]
+    require(not bool((mismatch & (gap >= SAMPLER_GAP)).any()),
+            f"card and CPU samplers differ outside near ties: "
+            f"{mismatch.sum().item()} tokens")
+    emit({"phase": "serve-sampled", "argv": SAMPLED_ARGV[-6:],
+          "streams_equal_across_runs": True,
+          "requests_equal_to_greedy": same_as_greedy,
+          "tok_s": [rep["stats"]["tok_s"] for rep in runs],
+          "sampler_shape": list(SAMPLER_SHAPE), "keys_equal": True,
+          "uniforms_bit_equal": True,
+          "gumbel_max_abs_diff": (gums["cuda"] - gums["cpu"]).abs().max()
+          .item(),
+          "token_mismatches": int(mismatch.sum()),
+          "smallest_gap": gap.min().item()})
+
+
+def _sampled_gap(torch, cfg, params, tokens, block_size, sampler, uid,
+                 index):
+    """The top-2 gap of gumbel + scaled logits of ``sampler``'s draw for
+    (``uid``, generation ``index``) after ``tokens``, on the CPU."""
+    from repro_torch.models import transformer
+    from repro_torch.serve import threefry
+
+    max_len = -(-len(tokens) // block_size) * block_size
+    cache = transformer.init_paged_cache(cfg, 1, max_len, block_size, "cpu")
+    bt = torch.arange(1, 1 + max_len // block_size,
+                      dtype=torch.int32)[None, :]
+    for t, tok in enumerate(tokens):
+        logits, cache = transformer.decode_step_paged(
+            params, cfg, torch.tensor([[tok]], dtype=torch.int32), cache,
+            torch.tensor([t], dtype=torch.int32), bt, block_size=block_size)
+    scaled = logits[0, 0, :sampler.vocab] * sampler._inv_t
+    if sampler.top_k:
+        kth = scaled.topk(sampler.top_k).values[-1]
+        scaled = scaled.masked_fill(scaled < kth, float("-inf"))
+    key = threefry.fold_in(threefry.fold_in(threefry.prng_key(sampler.seed),
+                                            torch.tensor(uid)),
+                           torch.tensor(index))
+    top = (threefry.gumbel(key, sampler.vocab) + scaled).topk(2).values
+    return float(top[0] - top[1])
+
+
+def _spec_drain(cfg, params, dcfg, dparams, prompts, device, **kw):
+    """Streams and counts of the port's engine on ``prompts``: speculative
+    with the draft (``dcfg``, ``dparams``) when it is given."""
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    if dcfg is not None:
+        kw.update(spec_k=SPEC_K, draft_cfg=dcfg, draft_params=dparams)
+    engine = ServeEngine(cfg, params, device=device, **kw)
+    for uid, p in enumerate(prompts):
+        engine.submit(Request(uid=uid, prompt=p.copy(),
+                              max_new_tokens=PARITY_NEW))
+    done = engine.run_until_drained()
+    stats = engine.stats()
+    return ([done[u].generated for u in range(len(prompts))],
+            {k: stats[k] for k in ("fused_steps", "draft_steps",
+                                   "drafted_tokens", "accepted_tokens")})
+
+
+def phase_parity_spec(torch, np):
+    """Speculative decoding on the card against the CPU, float32: targets
+    qwen3-1.7b and mamba2-370m at full width cut to ``SPEC_PARITY_LAYERS``
+    layers, with a gpt2-124m draft at full width cut to as many layers
+    (another model, so most proposals are rejected, and mamba2 restores
+    and replays).  For each target, greedy and sampled (T 0.8, top-k 50):
+    the card's speculative streams against the CPU port's speculative
+    streams and the card's own non-speculative streams, divergences only
+    at near ties (greedy: the top-2 logit gap under ``PARITY_TOP2_GAP``;
+    sampled: the top-2 gap of gumbel + scaled logits, likewise); drafted
+    and accepted counts equal on card and CPU where the streams are.
+    The sampled run is mamba2's (one is enough, and its CPU run is the
+    cheaper)."""
+    import repro_torch.configs as configs
+    from repro_torch.kernels.flash_decode import kernel
+    from repro_torch.models import transformer
+    from repro_torch.serve.sampling import SlotSampler
+
+    f32 = dict(param_dtype="float32", compute_dtype="float32",
+               n_layers=SPEC_PARITY_LAYERS)
+    dcfg = dataclasses.replace(configs.get_config("gpt2-124m"), **f32)
+    dparams = {d: transformer.init_lm(dcfg, seed=1, device=d)
+               for d in ("cuda", "cpu")}
+    out = {}
+    for arch in ("qwen3-1.7b", "mamba2-370m"):
+        cfg = dataclasses.replace(configs.get_config(arch), **f32)
+        params = {d: transformer.init_lm(cfg, seed=0, device=d)
+                  for d in ("cuda", "cpu")}
+        rng = np.random.default_rng(4)
+        prompts = [rng.integers(0, dcfg.vocab, size=int(rng.integers(4, 33)))
+                   .astype(np.int32) for _ in range(PARITY_REQUESTS)]
+        modes = [("greedy", {})]
+        if arch == "mamba2-370m":  # the restore-and-replay path, sampled
+            modes.append(("sampled", dict(temperature=0.8, top_k=50,
+                                          sample_seed=7)))
+        for mode, samp in modes:
+            t0 = time.time()
+            kw = dict(max_batch=4, max_len=64, block_size=16, **samp)
+            reset_counts(kernel)
+            card, card_counts = _spec_drain(cfg, params["cuda"], dcfg,
+                                            dparams["cuda"], prompts, "cuda",
+                                            **kw)
+            launches = read_counts(kernel)
+            widths = dict(kernel.flash_prefill_paged.launches_by_width)
+            require(widths.get(1, 0) > 0 and (
+                not transformer.count_layers(cfg, "attn")
+                or widths.get(SPEC_K + 1, 0) > 0),
+                f"parity-spec {arch} skipped a width: {widths}")
+            cpu, cpu_counts = _spec_drain(cfg, params["cpu"], dcfg,
+                                          dparams["cpu"], prompts, "cpu",
+                                          **kw)
+            plain, _ = _spec_drain(cfg, params["cuda"], None, None, prompts,
+                                   "cuda", **kw)
+            if samp:
+                sampler = SlotSampler(cfg.vocab, **{
+                    "seed" if k == "sample_seed" else k: v
+                    for k, v in samp.items()})
+                gaps = {}
+                for name, got in (("cuda_spec", card),
+                                  ("cuda_plain", plain)):
+                    gaps[name] = []
+                    for uid, (a, b) in enumerate(zip(cpu, got)):
+                        if a == b:
+                            continue
+                        i = next((i for i, (x, y) in enumerate(zip(a, b))
+                                  if x != y), min(len(a), len(b)))
+                        gap = _sampled_gap(torch, cfg, params["cpu"],
+                                           list(prompts[uid]) + a[:i], 16,
+                                           sampler, uid, i)
+                        gaps[name].append({"uid": uid, "index": i,
+                                           "top2_gap": gap})
+                        require(gap < PARITY_TOP2_GAP,
+                                f"{arch} sampled: request {uid} diverges at "
+                                f"token {i} with gap {gap}")
+            else:
+                gaps = {name: _divergences(torch, cfg, params["cpu"],
+                                           prompts, cpu, got, 16)
+                        for name, got in (("cuda_spec", card),
+                                          ("cuda_plain", plain))}
+            if card == cpu:
+                require(card_counts == cpu_counts,
+                        f"{arch} {mode}: card counts {card_counts} != "
+                        f"CPU {cpu_counts}")
+            out[f"{arch} {mode}"] = {
+                "streams_equal": {"cuda_spec": card == cpu,
+                                  "cuda_plain": plain == cpu},
+                "card": card_counts, "cpu": cpu_counts,
+                "launches": launches, "prefill_launches_by_width": widths,
+                "divergences": gaps, "seconds": time.time() - t0}
+        del params
+    emit({"phase": "parity-spec", "dtype": "float32",
+          "layers": SPEC_PARITY_LAYERS, "draft": dcfg.name,
+          "spec_k": SPEC_K, "requests": PARITY_REQUESTS,
+          "new_tokens": PARITY_NEW, "runs": out})
 
 
 # -- mixture of experts, SSM and hybrid ------------------------------------
@@ -3420,8 +3768,9 @@ def phase_parity_mesh(torch):
     smoke shapes (four ranks sharing one card cannot each hold a
     full-width superblock: on a 2-D mesh every rank holds the mamba
     mixers whole), deepseek-v2-lite-16b at its smoke shapes (MLA heads
-    over ``model``, the latent pools whole on every rank), and gpt2-124m
-    with int8 pools and prefix sharing, each
+    over ``model``, the latent pools whole on every rank), gpt2-124m
+    with int8 pools and prefix sharing, and gpt2-124m self-speculating
+    (k 2; every shape drafts as many tokens as the unsharded engine), each
     on 1x1, 2x1, 1x2 and 2x2 against the unsharded card engine: the greedy
     streams equal token for token, and the int8 pools on every rank within
     the check's rule (scales the same bits on every rank, codes within one
@@ -3449,6 +3798,8 @@ def phase_parity_mesh(torch):
         ("gpt2-int8-shared", "gpt2-124m",
          {"config": gpt2, "kv_dtype": "int8", "share_prefixes": True,
           "shared_prefix_len": 6}),
+        ("gpt2-spec", "gpt2-124m",
+         {"config": gpt2, "spec_k": 2, "draft": "gpt2-124m"}),
     )
     t0 = time.time()
     verdict = mesh_check.run_check(
@@ -3466,6 +3817,10 @@ def phase_parity_mesh(torch):
     jamba = sum(r["decode_sharded_launches"] for shape in PARITY_MESHES
                 for r in verdict["workloads"]["jamba"][shape]["ranks"])
     require(jamba > 0, "the jamba mesh runs never launched kernel 2.4")
+    spec = verdict["workloads"]["gpt2-spec"]
+    require(all(spec[s]["drafted_tokens"] == spec["none"]["drafted_tokens"]
+                > 0 for s in PARITY_MESHES),
+            f"gpt2-spec drafted differently across meshes: {spec}")
     return commits, jamba
 
 
@@ -3523,6 +3878,10 @@ def main() -> int:
                                      "deepseek-moe-16b")
     jamba_prefill_row = prefill_timing(torch, np, kernel, ref,
                                        "jamba-1.5-large-398b")
+    spec_rows = {(arch, C): prefill_timing(torch, np, kernel, ref, arch, C,
+                                           16, 96 - C, f"speculative C {C}")
+                 for arch, C in (("gpt2-124m", 1), ("gpt2-124m", SPEC_K + 1),
+                                 ("qwen3-1.7b", SPEC_K + 1))}
     fused_rows = {
         (arch, pool): fused_commit_timing(torch, np, kernel, ref, arch, nb,
                                           max_valid, seed, pool)
@@ -3550,8 +3909,11 @@ def main() -> int:
     del problems
     torch.cuda.empty_cache()
 
-    engine, _, _ = phase_serve(torch, SERVE_ARGV, "serve")
+    engine, _, report = phase_serve(torch, SERVE_ARGV, "serve")
     phase_profile(torch, np, engine, "profile", 4, 64)
+    # serve-spec's self-speculation and serve-sampled run on these weights
+    gpt2_params = engine.params
+    greedy = [r["tokens"] for r in report["requests"]]
     del engine
     engine, counts, _ = phase_serve(torch, CHUNKED_ARGV, "serve-chunked")
     phase_profile(torch, np, engine, "profile-chunked", 64, 256)
@@ -3560,9 +3922,18 @@ def main() -> int:
     torch.cuda.empty_cache()
     shared_counts = phase_serve_shared(torch, np)
     torch.cuda.empty_cache()
+    spec_lines = {
+        "qwen3": phase_serve_spec(torch, SPEC_QWEN_ARGV, "serve-spec",
+                                  chunked_params, spec_rows),
+        "gpt2": phase_serve_spec(torch, SPEC_ARGV, "serve-spec",
+                                 gpt2_params, spec_rows)}
+    phase_serve_sampled(torch, np, gpt2_params, greedy)
+    del gpt2_params
+    torch.cuda.empty_cache()
     phase_serve_smoke(torch)
     phase_parity(torch, np)
     phase_parity_chunked(torch, np)
+    phase_parity_spec(torch, np)
     phase_parity_int8(torch, np)
     torch.cuda.empty_cache()
     moe_counts = phase_serve_moe(torch, np)
@@ -3593,6 +3964,9 @@ def main() -> int:
          "launches": counts["flash_decode_paged"],
          "serve_moe_launches": moe_counts["flash_decode_paged"],
          "serve_jamba_launches": jamba_counts["flash_decode_paged"],
+         "serve_spec_launches": {
+             arch: line["launches"]["flash_decode_paged"]
+             for arch, line in spec_lines.items()},
          **decode_row},
         {"name": "flash_prefill_paged", "route": "cuda",
          "source": SOURCE_DIR + "flash_prefill_paged.cu",
@@ -3601,7 +3975,13 @@ def main() -> int:
          "serve_moe_launches": moe_counts["flash_prefill_paged"],
          "serve_jamba_launches": jamba_counts["flash_prefill_paged"],
          "deepseek-moe-16b": moe_prefill_row,
-         "jamba-1.5-large-398b": jamba_prefill_row, **prefill_row},
+         "jamba-1.5-large-398b": jamba_prefill_row,
+         "serve_spec_launches_by_width": {
+             arch: line["prefill_launches_by_width"]
+             for arch, line in spec_lines.items()},
+         "speculative": {f"{arch} C {C}": row
+                         for (arch, C), row in spec_rows.items()},
+         **prefill_row},
         {"name": "flash_decode_paged_int8", "route": "cuda",
          "source": SOURCE_DIR + "flash_decode_paged.cu",
          "replaces": f"{TPU_KERNELS}:256",

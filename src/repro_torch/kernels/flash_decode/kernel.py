@@ -689,10 +689,15 @@ def flash_prefill_paged(q: torch.Tensor, k_new: torch.Tensor,
     )
     build.raise_on("flash_prefill_paged", err)
     flash_prefill_paged.launches += 1
+    by_width = flash_prefill_paged.launches_by_width
+    by_width[C] = by_width.get(C, 0) + 1
     return out
 
 
 flash_prefill_paged.launches = 0
+#: chunk width C -> launches at that width (speculative decoding runs the
+#: draft's rounds at width 1 and verification at ``spec_k + 1``)
+flash_prefill_paged.launches_by_width = {}
 
 
 def _prefill_op(fn, q, k_new, v_new, k_pool, v_pool, block_tables, q_start,

@@ -12,6 +12,10 @@ Usage:
         --mesh 1x2
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
         --arch deepseek-v2-lite-16b --prefill-chunk 8 --prefill-budget 16
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
+        --draft gpt2-124m --spec-k 4
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
+        --temperature 0.8 --top-k 20 --sample-seed 7
 
 The same defaults, prompt sampling (``np.random.default_rng(seed)``),
 summary lines and ``--out`` report fields as ``repro.launch.serve``, on
@@ -26,7 +30,11 @@ prints the dedup line.  ``--mesh DxM`` serves tensor-parallel over
 ``D*M`` ranks that it spawns (:func:`repro_torch.launch.mesh.spawn`):
 rank 0 prints the summary, with a line for the mesh's backend and every
 rank's collectives, and the report carries ``mesh`` and ``mesh_ranks``.
-Options the port does not serve yet are refused.
+``--draft ARCH --spec-k N`` serves with speculative decoding (the draft's
+weights are drawn with the target's ``--seed``, so ``--draft`` of the
+served arch is self-speculation), and ``--temperature T --top-k K
+--sample-seed S`` samples each request's canonical stream.  Options the
+port does not serve yet are refused.
 """
 
 from __future__ import annotations
@@ -118,10 +126,6 @@ def build_report(args: argparse.Namespace, engine: ServeEngine,
 #: reference options the port refuses, with the ROADMAP item porting them
 _UNPORTED = {
     "scheduler": ("continuous", "--scheduler wave: ROADMAP item 1.12"),
-    "draft": (None, "--draft: ROADMAP item 1.13"),
-    "spec_k": (0, "--spec-k: ROADMAP item 1.13"),
-    "spec_adaptive": (False, "--spec-adaptive: ROADMAP item 1.13"),
-    "temperature": (0.0, "--temperature > 0: ROADMAP item 1.13"),
     "record": (False, "--record (perf ledger): ROADMAP item 1.15"),
 }
 
@@ -173,6 +177,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     for name, (default, why) in _UNPORTED.items():
         if getattr(args, name) != default:
             ap.error(f"not ported yet: {why}")
+    if args.spec_k > 0 and not args.draft:
+        ap.error("--spec-k requires --draft <arch>")
     if args.mesh is not None:
         try:
             mesh_mod.parse_mesh(args.mesh)
@@ -186,21 +192,34 @@ def make_engine(args: argparse.Namespace, mesh=None,
     """The engine the arguments ask for, with the port's seeded init, or
     the full ``params`` given; this rank's shards of them under
     ``mesh``."""
-    cfg = (configs.get_smoke_config(args.arch) if args.smoke
-           else configs.get_config(args.arch))
+    def config(arch):
+        return (configs.get_smoke_config(arch) if args.smoke
+                else configs.get_config(arch))
+
+    cfg = config(args.arch)
     if params is None:
         params = transformer.init_lm(cfg, seed=args.seed,
                                      device=args.device, mesh=mesh)
     elif mesh is not None:
         params = transformer.shard_params(params, mesh, mesh.device)
+    draft_cfg = draft_params = None
+    if args.spec_k > 0:
+        # the target's seed: --draft of the served arch is
+        # self-speculation (acceptance 1.0 at temperature 0)
+        draft_cfg = config(args.draft)
+        draft_params = transformer.init_lm(draft_cfg, seed=args.seed,
+                                           device=args.device, mesh=mesh)
     device = args.device if mesh is None else mesh.device
     return ServeEngine(cfg, params, max_batch=args.max_batch,
                        max_len=args.max_len, block_size=args.block_size,
                        prefill_chunk=args.prefill_chunk,
                        prefill_budget=args.prefill_budget,
                        kv_dtype=args.kv_dtype,
-                       share_prefixes=args.share_prefixes, top_k=args.top_k,
-                       sample_seed=args.sample_seed, mesh=mesh,
+                       share_prefixes=args.share_prefixes,
+                       temperature=args.temperature, top_k=args.top_k,
+                       sample_seed=args.sample_seed, spec_k=args.spec_k,
+                       draft_cfg=draft_cfg, draft_params=draft_params,
+                       spec_adaptive=args.spec_adaptive, mesh=mesh,
                        device=device)
 
 
@@ -278,6 +297,13 @@ def serve(args: argparse.Namespace, engine: ServeEngine) -> dict:
                   f"({row['calls'] / steps:.1f} a step), {row['bytes']} B "
                   f"sent, {row['host_bytes']} B staged through the host, "
                   f"{row['wall_s']:.2f}s, {row['tok_s']:.1f} tok/s")
+    if engine.spec_k > 0:
+        print(f"  speculative: draft {args.draft} k={engine.spec_k}"
+              + (" (adaptive width)" if engine.spec_adaptive else "") + ", "
+              f"acceptance {stats['acceptance_rate']:.3f} "
+              f"({stats['accepted_tokens']}/{stats['drafted_tokens']} "
+              f"drafts accepted, {stats['draft_steps']} draft steps, "
+              f"{stats['target_steps']} target steps)")
     if rejections:
         print(f"  rejected {len(rejections)} oversized request(s) at submit:")
         for uid, reason in rejections:

@@ -8,11 +8,12 @@ multi-head latent attention, :mod:`repro_torch.models.mla`, where
 (:mod:`repro_torch.models.ssm`), each followed by a dense SwiGLU FFN, an
 MoE FFN (:mod:`repro_torch.models.moe`) or, where ``d_ff`` is 0, none:
 ``init_lm``, ``init_paged_cache``, ``paged_block_bytes``,
-``copy_paged_block``, ``reset_paged_slots``, ``decode_step_paged`` and
-``prefill_step_paged``, with the reference's pool storage dtypes
-(:data:`KV_DTYPES`).  Layer ``i`` takes its kind from the superblock
-(:func:`layer_kind`).  The reference's ``first_block`` and its
-``lax.scan`` over stacked superblocks become one list of per-layer
+``copy_paged_block``, ``reset_paged_slots``, ``slot_state``,
+``restore_slot_state``, ``decode_step_paged`` and ``prefill_step_paged``,
+with the reference's pool storage dtypes (:data:`KV_DTYPES`).  Layer
+``i`` takes its kind from the superblock (:func:`layer_kind`).  The
+reference's ``first_block`` and its ``lax.scan`` over stacked
+superblocks become one list of per-layer
 parameter dicts; the cache holds one stack of K/V pools (for MLA, of
 ``c``/``k_rope`` latent pools) over the attention layers and one of
 recurrent states over the mamba layers
@@ -364,15 +365,48 @@ def reset_paged_slots(cache: Dict[str, Any], mask, *, mesh=None
     this rank's states hold only its data slots, their entries of it are
     used."""
     for key in _STATE_KEYS:
-        if key not in cache:
-            continue
+        if key in cache:
+            cache[key].masked_fill_(_slot_mask(mask, cache[key], mesh), 0)
+    return cache
+
+
+def _slot_mask(mask, leaf: torch.Tensor, mesh) -> torch.Tensor:
+    """``mask`` (B,) bool over every slot as a mask that broadcasts over a
+    state ``leaf`` (n_mamba, slots, ...), cut to this rank's data slots
+    where the leaf holds only those."""
+    m = (mask if torch.is_tensor(mask)
+         else torch.from_numpy(np.asarray(mask, dtype=bool)))
+    m = m.to(device=leaf.device, dtype=torch.bool)
+    if leaf.shape[1] != m.shape[0]:
+        m = m[sharding.local_slots(mesh, m.shape[0])]
+    return m.view((1, -1) + (1,) * (leaf.dim() - 2))
+
+
+def slot_state(cache: Dict[str, Any]) -> Dict[str, Any]:
+    """A snapshot of every per-slot recurrent-state leaf (empty for a
+    model without mamba layers).
+
+    The reference holds the leaves themselves, which JAX never mutates;
+    the port's steps update the states in place, so the snapshot is a
+    copy of each.  Speculative verification takes one before it commits
+    a window: attention rows past a rejection are hidden by the position
+    mask, but a recurrent state has absorbed every row, so a rejected
+    suffix is undone by :func:`restore_slot_state` and a replay of the
+    accepted prefix.
+    """
+    return {key: cache[key].clone() for key in _STATE_KEYS if key in cache}
+
+
+def restore_slot_state(cache: Dict[str, Any], state: Dict[str, Any], mask,
+                       *, mesh=None) -> Dict[str, Any]:
+    """Copy a :func:`slot_state` snapshot back into ``cache``'s state
+    leaves, in place, for every slot where ``mask`` (B,) bool is set;
+    other slots keep their state bit for bit.  Returns the same dict.
+    Under ``mesh`` the leaves and the snapshot are this rank's, as in
+    :func:`reset_paged_slots`."""
+    for key, snap in state.items():
         leaf = cache[key]
-        m = (mask if torch.is_tensor(mask)
-             else torch.from_numpy(np.asarray(mask, dtype=bool)))
-        m = m.to(device=leaf.device, dtype=torch.bool)
-        if leaf.shape[1] != m.shape[0]:
-            m = m[sharding.local_slots(mesh, m.shape[0])]
-        leaf.masked_fill_(m.view((1, -1) + (1,) * (leaf.dim() - 2)), 0)
+        leaf.copy_(torch.where(_slot_mask(mask, leaf, mesh), snap, leaf))
     return cache
 
 

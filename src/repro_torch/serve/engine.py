@@ -41,15 +41,18 @@ Tensor-parallel serving: with ``mesh`` (a rank's
 its own engine over its shards of the parameters (``init_lm`` or
 ``params_from_numpy`` with ``mesh=``) and of the pools.  The host state
 (scheduler, block pool, free list, tables) is the same on every rank:
-each runs the same deterministic loop, computes its own slots
+each runs the same deterministic loop, computes and samples its own slots
 (``local_slots``), and gathers the chosen tokens over ``data``, so every
 rank appends the same tokens.  Rank 0 reports.
 
-The reference's other paths are refused with a ``ValueError`` that names
-the ROADMAP item that will port them: the wave scheduler (1.12),
-speculative decoding (1.13) and the encoder-decoder architectures
-(1.18).  Sampling with ``temperature > 0`` raises
-``NotImplementedError`` (1.13).
+Sampling with ``temperature > 0`` (and ``top_k``) draws each token from
+the reference's threefry key of ``(sample_seed, uid, index)``
+(:mod:`repro_torch.serve.sampling`).  With ``spec_k > 0`` and a draft
+model, :class:`~repro_torch.serve.speculative.SpeculativeDecoder` drains
+the queue: the draft proposes up to ``spec_k`` tokens a slot and one chunk
+step of the target verifies them.  The reference's wave scheduler (1.12)
+and encoder-decoder architectures (1.18) are refused with a
+``ValueError`` that names their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -69,6 +72,7 @@ from repro_torch.distributed import sharding
 from repro_torch.models import transformer
 from repro_torch.serve.block_pool import BlockPool
 from repro_torch.serve.sampling import SlotSampler
+from repro_torch.serve.speculative import SpeculativeDecoder
 
 SCHEDULERS = ("continuous", "wave")
 
@@ -138,11 +142,10 @@ class Request:
         return self.first_token_step - self.submitted_step
 
 
-def _refuse_unported(cfg, scheduler, prefill_chunk, prefill_budget,
-                     kv_dtype, spec_k, draft_cfg, draft_params,
-                     spec_adaptive, mesh) -> None:
-    """Raise ValueError for a bad option and for every reference option the
-    port lacks."""
+def _validate(cfg, scheduler, prefill_chunk, prefill_budget, kv_dtype,
+              spec_k, draft_cfg, draft_params, spec_adaptive, mesh) -> None:
+    """Raise ValueError for a bad option, with the reference's messages,
+    and for the reference's wave scheduler, which the port lacks."""
     transformer.check_served(cfg)
     if scheduler not in SCHEDULERS:
         raise ValueError(f"scheduler must be one of {SCHEDULERS}, "
@@ -156,6 +159,33 @@ def _refuse_unported(cfg, scheduler, prefill_chunk, prefill_budget,
     if kv_dtype not in transformer.KV_DTYPES:
         raise ValueError(f"kv_dtype must be one of {transformer.KV_DTYPES}, "
                          f"got {kv_dtype!r}")
+    if spec_k < 0:
+        raise ValueError(f"spec_k must be >= 0 (0 = off), got {spec_k}")
+    if spec_k > 0:
+        if draft_cfg is None or draft_params is None:
+            raise ValueError(
+                "speculative decoding (spec_k > 0) requires a draft "
+                "model: pass draft_cfg and draft_params"
+            )
+        if scheduler != "continuous":
+            raise ValueError(
+                "speculative decoding requires the continuous "
+                "scheduler's paged cache"
+            )
+        if prefill_chunk > 1:
+            raise ValueError(
+                "speculative decoding runs its own multi-token "
+                "verification window; combine it with prefill_chunk=1"
+            )
+    elif draft_cfg is not None or draft_params is not None:
+        raise ValueError(
+            "a draft model was provided but spec_k is 0; pass "
+            "spec_k >= 1 to enable speculative decoding"
+        )
+    if spec_adaptive and spec_k == 0:
+        raise ValueError(
+            "spec_adaptive requires speculative decoding (spec_k >= 1)"
+        )
     if mesh is not None:
         if scheduler != "continuous":
             raise ValueError(
@@ -168,14 +198,9 @@ def _refuse_unported(cfg, scheduler, prefill_chunk, prefill_budget,
                     f"serve mesh must carry ('data', 'model') axes, "
                     f"got {mesh.axis_names}"
                 )
-    refused = [
-        (scheduler == "wave", "the wave scheduler is ROADMAP item 1.12"),
-        (spec_k != 0 or draft_cfg is not None or draft_params is not None
-         or spec_adaptive, "speculative decoding is ROADMAP item 1.13"),
-    ]
-    for hit, why in refused:
-        if hit:
-            raise ValueError(f"not ported yet: {why}")
+    if scheduler == "wave":
+        raise ValueError(
+            "not ported yet: the wave scheduler is ROADMAP item 1.12")
 
 
 class ServeEngine:
@@ -189,9 +214,8 @@ class ServeEngine:
                  draft_cfg: Optional[ModelConfig] = None,
                  draft_params=None, spec_adaptive: bool = False,
                  mesh=None, device="cuda"):
-        _refuse_unported(cfg, scheduler, prefill_chunk, prefill_budget,
-                         kv_dtype, spec_k, draft_cfg, draft_params,
-                         spec_adaptive, mesh)
+        _validate(cfg, scheduler, prefill_chunk, prefill_budget, kv_dtype,
+                  spec_k, draft_cfg, draft_params, spec_adaptive, mesh)
         if max_len % block_size:
             raise ValueError(f"max_len {max_len} must be a multiple of "
                              f"block_size {block_size}")
@@ -199,8 +223,8 @@ class ServeEngine:
         if mesh is not None and mesh.device != self.device:
             raise ValueError(f"the mesh's rank runs on {mesh.device}, the "
                              f"engine was asked for {self.device}")
-        misplaced = [t.device for t in _leaves(params)
-                     if t.device != self.device]
+        misplaced = [t.device for t in _leaves([params, draft_params])
+                     if t is not None and t.device != self.device]
         if misplaced:
             raise ValueError(f"params lie on {misplaced[0]}, the engine on "
                              f"{self.device}")
@@ -219,9 +243,22 @@ class ServeEngine:
         self.temperature = self._sampler.temperature
         self.top_k = self._sampler.top_k
         self.sample_seed = self._sampler.seed
-        self.spec_k = 0
-        self.spec_adaptive = False
+        self.spec_k = int(spec_k)
+        self.spec_adaptive = bool(spec_adaptive)
         self.mesh = mesh
+        # speculative decoding's counters (all zero when spec_k == 0): the
+        # draft's proposals, and the draft's steps beside the target's
+        self.drafted_tokens = 0
+        self.accepted_tokens = 0
+        self.rejected_tokens = 0
+        self.draft_steps = 0
+        self._spec: Optional[SpeculativeDecoder] = (
+            SpeculativeDecoder(
+                draft_cfg, draft_params, self.spec_k, target_cfg=cfg,
+                block_size=block_size, temperature=self.temperature,
+                top_k=self.top_k, seed=self.sample_seed,
+                adaptive=self.spec_adaptive)
+            if self.spec_k > 0 else None)
         self._has_state = transformer.has_state(cfg)
         self.queue: Deque[Request] = deque()
         self.completed: Dict[int, Request] = {}
@@ -332,13 +369,29 @@ class ServeEngine:
             mesh=self.mesh,
         )
 
-    def _select(self, logits: torch.Tensor) -> np.ndarray:
-        """Every slot's next token (B,): under a mesh this rank selects
-        its slots' and the tokens are gathered over ``data``, so every
-        rank holds all of them."""
-        toks = self._sampler.select(logits)[:, 0]
-        if self.mesh is not None and sharding.local_slots(
-                self.mesh, self.max_batch) != slice(0, self.max_batch):
+    def _verify(self, tokens, cache, positions, block_tables, lengths):
+        """A chunk step that returns every row's logits (B, w,
+        vocab_padded), this rank's slots' under a mesh: speculative
+        verification reads all of them."""
+        return transformer.prefill_step_paged(
+            self.params, self.cfg, self._dev(tokens), cache,
+            self._dev(positions), self._dev(block_tables),
+            self._dev(lengths), block_size=self.block_size,
+            kv_dtype=self.kv_dtype, mesh=self.mesh,
+        )
+
+    def _select(self, logits: torch.Tensor, reqs, *, offset: int = 0,
+                sampler: Optional[SlotSampler] = None) -> np.ndarray:
+        """Every slot's tokens (B, w) from ``logits`` (B, w, ...), slot
+        ``b``'s row ``i`` with generation index ``len(reqs[b].generated) +
+        offset + i`` (the engine's sampler unless ``sampler`` is given).
+        Under a mesh this rank selects its slots' and the tokens are
+        gathered over ``data``, so every rank holds all of them."""
+        sampler = sampler or self._sampler
+        own = (slice(0, self.max_batch) if self.mesh is None
+               else sharding.local_slots(self.mesh, self.max_batch))
+        toks = sampler.select(logits, reqs[own], offset=offset)
+        if own != slice(0, self.max_batch):
             toks = self.mesh.gather(toks, "data")
         return toks.cpu().numpy()
 
@@ -365,8 +418,10 @@ class ServeEngine:
 
         One decode step and, with chunked prefill, one chunk step at every
         bucket width the drain can use (2, 4, ... up to
-        ``prefill_chunk``), each feeding no rows.  All block tables point
-        at the null block and the cache is thrown away.  On CUDA this
+        ``prefill_chunk``), each feeding no rows; with speculation, the
+        ``spec_k + 1`` wide verification step and the draft's step.  All
+        block tables point at the null block and the cache is thrown
+        away.  On CUDA this
         builds and loads the kernel libraries and warms the matmul
         libraries at each width, so the first request's TTFT measures
         scheduling and not set-up.  The dummy cache has the engine's
@@ -386,6 +441,13 @@ class ServeEngine:
             if w == self.prefill_chunk:
                 break
             w *= 2
+        if self._spec is not None:
+            # the spec_k+1 wide verification (a replay runs the chunk step
+            # at the same width) and the draft's one-row step
+            logits, _ = self._verify(np.zeros((B, self.spec_k + 1), np.int32),
+                                     cache, pos, bt, np.zeros(B, np.int32))
+            logits.cpu()
+            self._spec.warmup(self)
         logits, _ = self._step(np.zeros((B, 1), np.int32), cache, pos, bt)
         logits.cpu()
 
@@ -593,7 +655,7 @@ class ServeEngine:
                         tokens[:, :w], cache, positions, block_tables,
                         lengths)
                 self.steps += 1
-                nxt = self._select(logits)
+                nxt = self._select(logits, slot_req)[:, 0]
                 for b, r in enumerate(slot_req):
                     if r is None or lengths[b] == 0:
                         continue
@@ -640,7 +702,10 @@ class ServeEngine:
     def run_until_drained(self, *, max_steps: Optional[int] = None
                           ) -> Dict[int, Request]:
         t0 = time.time()
-        self._drain_continuous(max_steps)
+        if self._spec is not None:
+            self._spec.drain(self, max_steps)
+        else:
+            self._drain_continuous(max_steps)
         self.wall_s += time.time() - t0
         return self.completed
 
@@ -688,15 +753,20 @@ class ServeEngine:
             "kv_bytes_served": kv_bytes_served,
             "kv_bytes_stored": kv_bytes_stored,
             "spec_k": self.spec_k,
-            "drafted_tokens": 0,
-            "accepted_tokens": 0,
-            "rejected_tokens": 0,
-            "draft_steps": 0,
+            "drafted_tokens": self.drafted_tokens,
+            "accepted_tokens": self.accepted_tokens,
+            "rejected_tokens": self.rejected_tokens,
+            "draft_steps": self.draft_steps,
             "target_steps": self.steps,
-            "acceptance_rate": core_metrics.acceptance_rate(0, 0),
+            "acceptance_rate": core_metrics.acceptance_rate(
+                self.accepted_tokens, self.drafted_tokens),
+            # a model without attention pages no K/V bytes: its ratio
+            # falls back to block counts (the ratio is served / stored in
+            # any unit)
             "block_dedup_ratio": core_metrics.block_dedup_ratio(
                 kv_bytes_served, kv_bytes_stored
-            ),
+            ) if block_bytes > 0 else core_metrics.block_dedup_ratio(
+                self.logical_blocks, self.physical_blocks),
             "wall_s": self.wall_s,
             "tok_s": new_tokens / self.wall_s if self.wall_s > 0 else 0.0,
             "p50_latency_s": float(np.percentile(lat, 50)) if lat else 0.0,

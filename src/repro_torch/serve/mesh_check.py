@@ -25,7 +25,9 @@ backend, collectives' counters, head-sharded decode launches and
 commit-kernel launches, and the baseline's streams.  A workload that needs
 an architecture or a feature the port lacks is listed under ``refused``
 with the ROADMAP item that ports it, and fails the check; the default
-``--workloads`` are the seven the port serves.
+``--workloads`` are the reference's nine.  The speculative workloads draw
+the draft's weights as the target's (``--weights`` or the seeded init):
+with ``draft`` the served arch, self-speculation.
 """
 
 from __future__ import annotations
@@ -58,7 +60,7 @@ DEFAULT_WORKLOADS = (
 )
 #: the workloads ``--workloads`` runs by default
 SERVED = ("gpt2", "qwen3", "mamba2", "mla", "moe", "jamba",
-          "gpt2-int8-shared")
+          "gpt2-int8-shared", "gpt2-spec", "gpt2-spec-adapt")
 #: int8 pools against the baseline's: codes within one step, scales
 #: within this relative difference.  A flipped code moves later rows by
 #: up to a quantization step (1/127 of a row's amax); on an H100 the
@@ -111,7 +113,11 @@ def serve_workload(arch: str, mesh, *, requests: int = 4, max_new: int = 8,
     the same call with another ``mesh`` is a golden twin.  ``config``
     replaces the smoke config of ``arch``; ``params`` are the full
     parameters (:func:`full_params`), built here when not given; under a
-    mesh this rank serves its shards of them.
+    mesh this rank serves its shards of them.  With ``spec_k`` a
+    ``draft`` of another arch has its smoke config and the parameters of
+    :func:`full_params` with the same seed, cut by the same rules; a draft
+    of ``arch`` (the default) is the target itself, ``config`` and
+    parameters (self-speculation).
     """
     import repro_torch.configs as configs
     from repro_torch.models import transformer
@@ -120,15 +126,24 @@ def serve_workload(arch: str, mesh, *, requests: int = 4, max_new: int = 8,
     cfg = config or configs.get_smoke_config(arch)
     if params is None:
         params = full_params(arch, cfg, seed, device, weights)
+    draft_cfg = draft_params = None
+    own_draft = spec_k and (draft or arch) != arch
+    if own_draft:
+        draft_cfg = configs.get_smoke_config(draft)
+        draft_params = full_params(draft, draft_cfg, seed, device, weights)
     if mesh is not None:
         params = transformer.shard_params(params, mesh, mesh.device)
-    draft_cfg = configs.get_smoke_config(draft or arch) if spec_k else None
+        if own_draft:
+            draft_params = transformer.shard_params(draft_params, mesh,
+                                                    mesh.device)
+    if spec_k and not own_draft:  # self-speculation: the target's weights
+        draft_cfg, draft_params = cfg, params
     engine = ServeEngine(
         cfg, params, max_batch=max_batch, max_len=max_len,
         scheduler="continuous", block_size=block_size, kv_dtype=kv_dtype,
         share_prefixes=share_prefixes, spec_k=spec_k, draft_cfg=draft_cfg,
-        spec_adaptive=spec_adaptive, prefill_chunk=prefill_chunk, mesh=mesh,
-        device=device,
+        draft_params=draft_params, spec_adaptive=spec_adaptive,
+        prefill_chunk=prefill_chunk, mesh=mesh, device=device,
     )
     last: Dict[str, Any] = {}
     engine.add_step_hook(
@@ -152,7 +167,9 @@ def serve_workload(arch: str, mesh, *, requests: int = 4, max_new: int = 8,
         "device_lane_utilization": stats["device_lane_utilization"],
         "mesh_devices": stats["mesh_devices"],
         "fused_steps": stats["fused_steps"],
-        "drafted_tokens": stats.get("drafted_tokens", 0),
+        "drafted_tokens": stats["drafted_tokens"],
+        "accepted_tokens": stats["accepted_tokens"],
+        "draft_steps": stats["draft_steps"],
         "physical_blocks": stats.get("physical_blocks", 0),
         "logical_blocks": stats.get("logical_blocks", 0),
         "pools": ({k: v.cpu().numpy() for k, v in last["cache"].items()}
@@ -304,6 +321,8 @@ def run_check(meshes: Sequence[Optional[str]],
                 "mesh_devices": out["mesh_devices"],
                 "fused_steps": out["fused_steps"],
                 "drafted_tokens": out["drafted_tokens"],
+                "accepted_tokens": out["accepted_tokens"],
+                "draft_steps": out["draft_steps"],
             }
             if shape is not None:
                 row["ranks"] = _per_rank(out["ranks"])

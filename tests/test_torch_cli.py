@@ -69,11 +69,37 @@ def test_cli_prompts_follow_the_reference_sampling(tmp_path):
                            "--spec-k", "2"], ["--temperature", "0.8"],
     ["--record"],
 ])
-def test_cli_refuses_unported_options(flags, capsys):
-    with pytest.raises(SystemExit) as exc:
-        serve.main(["--device", "cpu"] + flags)
-    assert exc.value.code == 2
-    assert "ROADMAP item" in capsys.readouterr().err
+def test_cli_refuses_unported_options(flags, tmp_path, capsys):
+    """``--scheduler wave`` (1.12) and ``--record`` (1.15) are refused with
+    their ROADMAP item.  The speculative and sampling flags (1.13) are
+    served, over a mesh too, and land in the report; ``--spec-adaptive``
+    without ``--spec-k`` raises the reference engine's error."""
+    argv = ["--device", "cpu", "--requests", "2", "--max-new", "3"]
+    if flags[0] in ("--scheduler", "--record"):
+        with pytest.raises(SystemExit) as exc:
+            serve.main(argv + flags)
+        assert exc.value.code == 2
+        assert "ROADMAP item" in capsys.readouterr().err
+        return
+    if flags == ["--spec-adaptive"]:
+        with pytest.raises(ValueError, match=r"^spec_adaptive requires "
+                           r"speculative decoding \(spec_k >= 1\)$"):
+            serve.main(argv + flags)
+        return
+    out = tmp_path / "report.json"
+    assert serve.main(argv + flags + ["--out", str(out)]) == 0
+    report = json.loads(out.read_text())
+    assert [r["new_tokens"] for r in report["requests"]] == [3, 3]
+    if "--spec-k" in flags:
+        assert report["draft"] == "gpt2-124m" and report["spec_k"] == 2
+        assert report["stats"]["acceptance_rate"] == 1.0
+        if "--mesh" in flags:  # rank 0 printed in its own process
+            assert report["mesh"] == "2x2"
+        else:
+            assert "speculative: draft gpt2-124m k=2, acceptance 1.000" \
+                in capsys.readouterr().out
+    else:
+        assert report["temperature"] == 0.8
 
 
 @pytest.mark.parametrize("flags", [["--prefill-chunk", "4"],

@@ -154,14 +154,23 @@ def test_request_too_long_rejected_at_submit(gpt2):
     assert stats["fused_steps"] == eng.steps == 4 + 3 - 1
 
 
-@pytest.mark.parametrize("kw,item", [
-    (dict(scheduler="wave"), "1.12"),
-    (dict(spec_k=2), "1.13"),
-    (dict(mesh=MeshShape(1, 1), spec_k=2), "1.13"),
+_NO_DRAFT = (r"^speculative decoding \(spec_k > 0\) requires a draft model: "
+             r"pass draft_cfg and draft_params$")
+
+
+@pytest.mark.parametrize("kw,match", [
+    pytest.param(dict(scheduler="wave"), r"ROADMAP item 1\.12",
+                 id="kw0-1.12"),
+    pytest.param(dict(spec_k=2), _NO_DRAFT, id="kw1-1.13"),
+    pytest.param(dict(mesh=MeshShape(1, 1), spec_k=2), _NO_DRAFT,
+                 id="kw2-1.13"),
 ])
-def test_unported_options_name_their_roadmap_item(gpt2, kw, item):
+def test_unported_options_name_their_roadmap_item(gpt2, kw, match):
+    """The wave scheduler (1.12) is refused with its ROADMAP item.
+    Speculative decoding (1.13) is ported: ``spec_k`` without a draft
+    model gets the reference's message, with a mesh or without."""
     cfg, params = gpt2
-    with pytest.raises(ValueError, match=item.replace(".", r"\.")):
+    with pytest.raises(ValueError, match=match):
         ServeEngine(cfg, params, device="cpu", **kw)
 
 
@@ -207,12 +216,25 @@ def test_quantized_and_sharing_options_are_served(gpt2, kw):
 
 
 def test_non_dense_arch_and_sampling_are_refused(gpt2):
+    """Encoder-decoder archs (1.18) are refused.  Sampling (1.13) is
+    ported: ``temperature > 0`` serves sampled streams, and a negative
+    temperature gets the reference's message."""
     cfg, params = gpt2
     with pytest.raises(ValueError, match=r"1\.18"):
         ServeEngine(dataclasses.replace(cfg, is_encoder_decoder=True),
                     params, device="cpu")
-    with pytest.raises(NotImplementedError, match=r"1\.13"):
-        ServeEngine(cfg, params, temperature=0.7, device="cpu")
+    prompts = _prompts(7, 3)
+    greedy = _serve(ServeEngine, Request, cfg, params, prompts, max_batch=2,
+                    max_len=32, block_size=8, device="cpu")
+    sampled = _serve(ServeEngine, Request, cfg, params, prompts, max_batch=2,
+                     max_len=32, block_size=8, device="cpu",
+                     temperature=0.7, sample_seed=3)
+    assert all(len(r.generated) == 5 for r in sampled.completed.values())
+    assert [r.generated for r in sampled.completed.values()] != \
+        [r.generated for r in greedy.completed.values()]
+    with pytest.raises(ValueError, match=r"^temperature must be >= 0 "
+                       r"\(0 = greedy\), got -0\.7$"):
+        ServeEngine(cfg, params, temperature=-0.7, device="cpu")
 
 
 def test_engine_refuses_params_on_another_device_or_no_card(gpt2):

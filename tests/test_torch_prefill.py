@@ -540,10 +540,16 @@ def test_bucket_width_is_the_reference_rule():
 @pytest.mark.parametrize("kw,match", [
     (dict(prefill_chunk=0), "prefill_chunk must be >= 1"),
     (dict(prefill_budget=0), "prefill_budget must be >= 1"),
-    (dict(prefill_chunk=4, spec_k=2), r"1\.13"),
+    pytest.param(dict(prefill_chunk=4, spec_k=2, draft=True),
+                 "combine it with prefill_chunk=1", id=r"kw2-1\.13"),
 ])
 def test_chunked_options_are_validated_as_in_the_reference(kw, match):
+    """The reference's messages; speculation (1.13) with a chunk wider
+    than one token is refused as the reference refuses it."""
     _, _, cfg, params = _models("gpt2-124m")
+    kw = dict(kw)
+    if kw.pop("draft", False):
+        kw.update(draft_cfg=cfg, draft_params=params)
     with pytest.raises(ValueError, match=match):
         ServeEngine(cfg, params, device="cpu", **kw)
 

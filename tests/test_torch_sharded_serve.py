@@ -44,10 +44,10 @@ from repro_torch.serve.engine import Request, ServeEngine  # noqa: E402
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 ARCHS = ("gpt2-124m", "qwen3-1.7b", "deepseek-moe-16b")
-#: the mesh check's workloads here: the four it serves by default and
-#: the chunked int8 one with prefix sharing
+#: the mesh check's workloads here: six it serves by default and the
+#: chunked int8 one with prefix sharing
 WORKLOADS = ("gpt2", "qwen3", "moe", "gpt2-int8-shared",
-             "qwen3-int8-shared-chunked")
+             "qwen3-int8-shared-chunked", "gpt2-spec", "gpt2-spec-adapt")
 _MODELS = {}
 
 
@@ -175,7 +175,9 @@ def test_mesh_requires_continuous(mesh_1x1):
 def test_mesh_refusals_name_their_items(mesh_1x1):
     _, _, cfg, tree = _model("gpt2-124m")
     params = transformer.params_from_numpy(tree, cfg, "cpu")
-    with pytest.raises(ValueError, match=r"1\.13"):
+    # speculation (1.13) is ported: the reference's message for a
+    # missing draft model
+    with pytest.raises(ValueError, match="requires a draft model"):
         ServeEngine(cfg, params, spec_k=2, mesh=mesh_1x1, device="cpu")
     enc = dataclasses.replace(cfg, is_encoder_decoder=True)
     with pytest.raises(ValueError, match=r"1\.18"):
@@ -205,6 +207,9 @@ def _jax_streams(name, requests, max_new):
     rcfg, rp, _, _ = _model(arch)
     over = dict(over)
     prefix_len = over.pop("shared_prefix_len", 0)
+    if "draft" in over:  # the draft's weights are the target's seed's
+        dcfg, dp, _, _ = _model(over.pop("draft"))
+        over.update(draft_cfg=dcfg, draft_params=dp)
     eng = ref_engine.ServeEngine(rcfg, rp, max_batch=2, max_len=64,
                                  scheduler="continuous", block_size=8,
                                  **over)
@@ -279,15 +284,18 @@ def test_cross_mesh_int8_pools(verdict):
 
 
 def test_mesh_check_refuses_what_the_port_lacks(tmp_path, capsys):
+    """The port now lacks none of the mesh check's workloads: the
+    speculative ones (1.13) are served by default, on the unsharded
+    baseline here, with drafts."""
+    assert {"gpt2-spec", "gpt2-spec-adapt"} <= set(mesh_check.SERVED)
     out = tmp_path / "verdict.json"
     code = mesh_check.main(["--device", "cpu", "--meshes", "none",
                             "--workloads", "gpt2-spec,gpt2-spec-adapt",
                             "--out", str(out)])
     verdict = json.loads(out.read_text())
-    assert code == 1 and not verdict["ok"]
-    assert set(verdict["refused"]) == {"gpt2-spec", "gpt2-spec-adapt"}
-    assert "1.13" in verdict["refused"]["gpt2-spec"]
-    assert "1.13" in verdict["refused"]["gpt2-spec-adapt"]
+    assert code == 0 and verdict["ok"] and not verdict["refused"]
+    for name in ("gpt2-spec", "gpt2-spec-adapt"):
+        assert verdict["workloads"][name]["none"]["drafted_tokens"] > 0
 
 
 def test_cli_mesh_serves_the_unsharded_streams(tmp_path):

@@ -22,6 +22,8 @@ with the reference's weights carried across by ``params_from_numpy``
   every mesh shape are held in ``tests/test_torch_stateful_mesh.py``).
 """
 
+import json
+
 import numpy as np
 import pytest
 
@@ -30,6 +32,7 @@ pytest.register_assert_rewrite("torch_stateful_checks")
 
 import torch_stateful_checks as checks  # noqa: E402
 from repro_torch.distributed import sharding  # noqa: E402
+from repro_torch.launch import serve as serve_cli  # noqa: E402
 from repro_torch.launch.mesh import MeshShape  # noqa: E402
 from repro_torch.models import transformer  # noqa: E402
 from repro_torch.serve import mesh_check  # noqa: E402
@@ -83,6 +86,26 @@ def test_copy_leaves_the_states_and_reset_zeroes_named_slots():
 @pytest.mark.parametrize("share", [False, True], ids=["own", "shared"])
 def test_greedy_streams_equal_the_reference_engine(chunk, kv_dtype, share):
     checks.check_streams_equal_the_reference(_m(), chunk, kv_dtype, share)
+
+
+def test_dedup_ratio_without_kv_bytes_falls_back_to_blocks(tmp_path):
+    """mamba2 pages no K/V bytes, so the dedup ratio is the reference's
+    block-count fallback, logical over physical blocks: the JAX engine's
+    on prompts that share a prefix (held in
+    ``check_streams_equal_the_reference``), and above 1 on the CLI's
+    ``--share-prefixes`` traffic, where it used to read 1.0."""
+    port = checks.check_streams_equal_the_reference(_m(), 1, "f32", True)
+    st = port.stats()
+    assert st["kv_bytes_served"] == 0
+    assert st["block_dedup_ratio"] == \
+        st["logical_blocks"] / st["physical_blocks"] > 1
+    out = tmp_path / "report.json"
+    assert serve_cli.main(["--device", "cpu", "--arch", ARCH, "--requests",
+                           "4", "--share-prefixes", "--shared-prefix-len",
+                           "16", "--out", str(out)]) == 0
+    stats = json.loads(out.read_text())["stats"]
+    assert (stats["logical_blocks"], stats["physical_blocks"]) == (11, 8)
+    assert stats["block_dedup_ratio"] == 11 / 8
 
 
 @pytest.mark.parametrize("chunk", [1, 4], ids=["token", "chunked"])

@@ -341,7 +341,8 @@ def check_streams_equal_the_reference(m: Model, chunk, kv_dtype, share):
     assert port.block_history == ref.block_history
     st, rst = port.stats(), ref.stats()
     for key in ("logical_blocks", "physical_blocks", "shared_block_hits",
-                "cow_copies", "kv_bytes_served", "kv_bytes_stored"):
+                "cow_copies", "kv_bytes_served", "kv_bytes_stored",
+                "block_dedup_ratio"):
         assert st[key] == rst[key], key
     if share:
         assert st["shared_block_hits"] > 0
