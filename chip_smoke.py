@@ -168,13 +168,13 @@ non-zero):
             first layer and two MoE layers), float32: chunked on the card,
             chunked on the CPU and token by token on the card give the
             same greedy streams, up to near ties.
-   serve-mla  the serve CLI at deepseek-v2-lite-16b's full width and
-            depth (bf16, 27 layers, every one MLA over latent pools of 512
-            + 64 elements a row: a dense first layer, then 26 MoE layers
-            of 64 experts, top 6, and 2 shared; 15.7 B parameters) with
-            ``CHUNKED_ARGV``'s traffic: every request completes and no
+   serve-mla  the serve CLI's traffic at deepseek-v2-lite-16b's full
+            width (bf16) cut to ``MLA_SERVE_LAYERS`` layers (every one MLA
+            over latent pools of 512 + 64 elements a row: a dense first
+            layer, then 8 MoE layers of 64 experts, top 6, and 2 shared)
+            with ``CHUNKED_ARGV``'s traffic: every request completes and no
             flash kernel launches (MLA attends in torch ops); prints the
-            draw's seconds, parameter bytes, the latent pools' bytes
+            cut, the draw's seconds, parameter bytes, the latent pools' bytes
             beside GQA pools' for the same blocks, peak allocated memory,
             steps and tok/s.
    profile-mla  the device-only profile of a second drain, then device
@@ -188,7 +188,7 @@ non-zero):
             the same greedy streams, up to near ties, on f32 and on int8
             latent pools.
    serve-mamba2  the serve CLI's traffic at mamba2-370m's full width
-            (bf16) cut to 24 of its 48 Mamba-2 layers with
+            (bf16) cut to 12 of its 48 Mamba-2 layers with
             ``CHUNKED_ARGV``'s traffic: every request completes and no
             attention or commit kernel launches; prints the cut, the
             steps, tok/s, peak allocated memory and the phase's seconds.
@@ -240,9 +240,15 @@ non-zero):
             beside its bytes bound.
    parity-jamba  one superblock at jamba's full mixer widths, float32,
             all 16 experts, top 2, ``d_ff`` and ``d_ff_expert`` cut to
-            1024 (5.79 B parameters): chunked on the card, chunked on the
-            CPU and token by token on the card give the same greedy
-            streams, up to near ties.
+            1024 (5.79 B parameters, drawn on the card and copied to the
+            CPU): chunked on the card, chunked on the CPU and token by
+            token on the card give the same greedy streams, up to near
+            ties.
+
+Each phase line also goes to stderr as one short line.  ``WATCHDOG_S``
+seconds after its start the script stops itself: every thread's stack and
+the last phase go to stderr, the processes it started are killed, and it
+exits with 3.
 
 Then the ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last the
 ``{"ok": true, "device": ...}`` line.  Without CUDA, or outside a checkout,
@@ -307,22 +313,25 @@ MLA_ARGV = ["deepseek-v2-lite-16b" if a == "qwen3-1.7b" else a
             for a in CHUNKED_ARGV]
 #: deepseek-moe-16b's depth in serve-moe: its dense first layer and three
 #: MoE layers keep kernels 2.1/2.2 at its shapes on a serve path, and the
-#: same 64-expert MoE FFN runs at full depth in serve-mla
+#: same 64-expert MoE FFN runs in serve-mla's eight MoE layers
 MOE_SERVE_LAYERS = 4
+#: deepseek-v2-lite-16b's depth in serve-mla and profile-mla (of 27: its
+#: dense first layer and eight MoE layers; the grouped profile's tracing
+#: grows with the depth)
+MLA_SERVE_LAYERS = 9
 #: deepseek-v2-lite-16b cut to its dense first layer and two MoE layers,
 #: the depth of parity-mla
 MLA_PARITY_LAYERS = 3
 #: mamba2-370m's depth in serve-mamba2 and profile-mamba2 (of 48; its
-#: steps are host-bound, about 56 launches a mixer); parity-mamba2 runs
-#: all 48
-MAMBA_SERVE_LAYERS = 24
+#: steps are host-bound, about 56 launches a mixer, and the grouped
+#: profile's tracing grows with them); parity-mamba2 runs all 48
+MAMBA_SERVE_LAYERS = 12
 #: deepseek-moe-16b cut to its dense first layer and two MoE layers, the
 #: depth of the parity phases' MoE runs
 MOE_PARITY_LAYERS = 3
 #: jamba's routed experts on the card (one superblock of 16 is 45.1 B
-#: parameters, 90.3 GB in bf16; of 4, 16.2 B and 32.3 GB, drawn on the
-#: host in about half the time 8 took, to make room for serve-mla), and its
-#: FFN widths in parity-jamba
+#: parameters, 90.3 GB in bf16; of 4, 16.2 B and 32.3 GB), and its FFN
+#: widths in parity-jamba
 JAMBA_EXPERTS = 4
 JAMBA_PARITY_FF = 1024
 #: mamba2-370m's depth in parity-mesh
@@ -346,10 +355,50 @@ TPU_KERNELS = "src/repro/kernels/flash_decode/kernel.py"
 START = time.time()
 
 
+#: the script's own time limit, just under the 1200 s it is given, so
+#: that a run that would be stopped from outside says where it stood:
+#: past it, every thread's stack and the last phase line go to stderr, the
+#: processes it started are stopped, and it exits with 3
+WATCHDOG_S = 1170
+#: the phase of the last phase line printed
+LAST_PHASE = ["start"]
+
+
 def emit(obj) -> None:
     if "phase" in obj:
         obj = {**obj, "elapsed_s": time.time() - START}
+        LAST_PHASE[0] = obj["phase"]
+        # one short line a phase on stderr, so that its tail says how far
+        # a run got
+        print(f"chip_smoke: {obj['phase']} at {obj['elapsed_s']:.1f} s",
+              file=sys.stderr, flush=True)
     print(json.dumps(obj), flush=True)
+
+
+def start_watchdog(limit: float = WATCHDOG_S) -> None:
+    """Stop the script ``limit`` seconds after its start: the stacks of its
+    threads are dumped (``faulthandler``, which needs no lock, so a hung
+    call shows too), then the processes it started are killed and it exits
+    with 3."""
+    import faulthandler
+    import multiprocessing
+    import os
+    import threading
+
+    left = max(1.0, limit - (time.time() - START))
+    faulthandler.dump_traceback_later(left, exit=False)
+
+    def stop() -> None:
+        print(f"chip_smoke: still running {limit} s after its start, after "
+              f"the phase line {LAST_PHASE[0]!r}; stopped", file=sys.stderr,
+              flush=True)
+        for child in multiprocessing.active_children():
+            child.kill()
+        os._exit(3)
+
+    timer = threading.Timer(left + 2.0, stop)
+    timer.daemon = True
+    timer.start()
 
 
 def require(ok: bool, what: str) -> None:
@@ -2171,8 +2220,11 @@ def phase_analysis(torch, np, problems):
 # -- serving ------------------------------------------------------------------
 
 
-#: the serve path's kernel wrappers, each with its launch count
-SERVE_KERNELS = ("flash_decode_paged", "flash_prefill_paged", "commit_paged")
+#: the serve path's kernel wrappers, each with its launch count: the
+#: paged kernels of the continuous scheduler and the contiguous decode
+#: (2.3) of the wave scheduler's dense path
+SERVE_KERNELS = ("flash_decode_paged", "flash_prefill_paged", "commit_paged",
+                 "flash_decode")
 
 
 def reset_counts(kernel) -> None:
@@ -2193,11 +2245,21 @@ def read_counts(kernel) -> dict:
 
 def check_first_step(torch, engine, args) -> None:
     """Finite logits of the right shape from one step on a fresh cache: a
-    decode step, and with chunked prefill a chunk step of full width."""
+    decode step, and with chunked prefill a chunk step of full width; for
+    a wave engine, a step of the dense decode."""
     from repro_torch.models import transformer
 
     cfg = engine.cfg
     B, nb = args.max_batch, args.max_len // args.block_size
+    if args.scheduler == "wave":
+        cache = transformer.init_cache(cfg, B, args.max_len, "cuda")
+        logits, _ = transformer.decode_step(
+            engine.params, cfg, torch.ones((B, 1), dtype=torch.int32,
+                                           device="cuda"), cache)
+        require(tuple(logits.shape) == (B, 1, cfg.vocab_padded)
+                and bool(torch.isfinite(logits).all()),
+                f"dense step logits {tuple(logits.shape)}, or non-finite")
+        return
     cache = transformer.init_paged_cache(cfg, B, args.max_len,
                                          args.block_size, "cuda",
                                          kv_dtype=args.kv_dtype)
@@ -2244,7 +2306,9 @@ def phase_serve(torch, argv, phase, params=None, cfg=None):
     path uses runs at least once, and every decode launch commits its rows
     in the same launch (the commit kernel alone runs only under a mesh).
     Only grouped-query attention layers run the kernels: an MLA model
-    (latent pools, attended in torch ops) must launch none.
+    (latent pools, attended in torch ops) must launch none.  A wave engine
+    (``--scheduler wave``) runs the contiguous decode (2.3) once a
+    grouped-query layer a step, and none of the paged kernels.
     Returns (engine, counts, report)."""
     from repro_torch.kernels.flash_decode import kernel
     from repro_torch.launch import serve as serve_cli
@@ -2258,6 +2322,7 @@ def phase_serve(torch, argv, phase, params=None, cfg=None):
     else:
         engine = ServeEngine(
             cfg, params, max_batch=args.max_batch, max_len=args.max_len,
+            scheduler=args.scheduler,
             block_size=args.block_size, prefill_chunk=args.prefill_chunk,
             prefill_budget=args.prefill_budget, kv_dtype=args.kv_dtype,
             share_prefixes=args.share_prefixes, device=args.device)
@@ -2281,20 +2346,28 @@ def phase_serve(torch, argv, phase, params=None, cfg=None):
     steps = stats["fused_steps"]
     n_attn = flash_layers(cfg)
     attend = counts["flash_decode_paged"] + counts["flash_prefill_paged"]
-    require(attend == n_attn * steps,
-            f"{counts} kernel launches for {steps} fused steps of "
-            f"{n_attn} grouped-query attention layers")
-    require(counts["decode_commits"] == counts["flash_decode_paged"]
-            and counts["commit_paged"] == 0,
-            f"{counts}: every decode launch commits its rows, and the "
-            f"commit kernel never runs alone")
-    used = ["flash_decode_paged", "decode_commits"] if n_attn else []
-    used += ["flash_prefill_paged"] if args.prefill_chunk > 1 and n_attn \
-        else []
+    if args.scheduler == "wave":
+        require(counts["flash_decode"] == n_attn * steps and attend == 0
+                and counts["commit_paged"] == 0,
+                f"{counts} kernel launches for {steps} wave steps of "
+                f"{n_attn} grouped-query attention layers: one contiguous "
+                f"decode a layer a step, no paged kernel")
+        used = ["flash_decode"] if n_attn else []
+    else:
+        require(attend == n_attn * steps and counts["flash_decode"] == 0,
+                f"{counts} kernel launches for {steps} fused steps of "
+                f"{n_attn} grouped-query attention layers")
+        require(counts["decode_commits"] == counts["flash_decode_paged"]
+                and counts["commit_paged"] == 0,
+                f"{counts}: every decode launch commits its rows, and the "
+                f"commit kernel never runs alone")
+        used = ["flash_decode_paged", "decode_commits"] if n_attn else []
+        used += ["flash_prefill_paged"] if args.prefill_chunk > 1 \
+            and n_attn else []
     require(all(counts[k] > 0 for k in used),
             f"a kernel of the path never launched: {counts}")
     emit({"phase": phase, "arch": cfg.name, "dtype": cfg.compute_dtype,
-          "layers": cfg.n_layers,
+          "scheduler": args.scheduler, "layers": cfg.n_layers,
           "attention_layers": transformer.count_layers(cfg, "attn"),
           "flash_layers": n_attn,
           "prefill_chunk": args.prefill_chunk,
@@ -2417,7 +2490,7 @@ def phase_profile(torch, np, engine, phase, prompt_lo, prompt_hi):
 # -- quantized and shared serving --------------------------------------------
 
 
-def phase_serve_shared(torch, np):
+def phase_serve_shared(torch, np, params):
     """The CLI at qwen3-1.7b's full width (bf16, 28 layers) with int8 KV
     pools, chunked prefill and a shared 256-token prefix, with prefix
     sharing and then, on the same weights, without: every request
@@ -2425,14 +2498,14 @@ def phase_serve_shared(torch, np):
     physical blocks (dedup ratio > 1), and the int8 kernels launch (28
     decode or prefill calls a fused step, one commit a decode call).  Then
     two identical prompts drained with and without sharing: copy-on-write
-    at the first generated token, equal streams.  The second run serves
-    the first run's seeded weights."""
+    at the first generated token, equal streams.  Both runs serve
+    ``params``, serve-chunked's draw of the same arch and seed (the CLI's
+    own would draw the same weights again)."""
     from repro_torch.models import transformer
     from repro_torch.serve.engine import Request, ServeEngine
 
     t0 = time.time()
     runs = {}
-    params = None  # the second run serves the first run's weights
     for share in (True, False):
         argv = SHARED_ARGV + (["--share-prefixes"] if share else [])
         engine, counts, report = phase_serve(
@@ -2440,7 +2513,7 @@ def phase_serve_shared(torch, np):
             "serve-unshared-int8", params)
         runs[share] = (engine.stats(), counts,
                        [r["tokens"] for r in report["requests"]])
-        params, cfg = engine.params, engine.cfg
+        cfg = engine.cfg
         del engine
     (on, counts, streams), (off, _, streams_off) = runs[True], runs[False]
     require(streams == streams_off,
@@ -2548,7 +2621,7 @@ def phase_parity_int8(torch, np):
                       - got["cuda", "int8"][1]).abs().max().item()
     L = cfg.n_layers
     want = {"flash_decode_paged": T * L, "flash_prefill_paged": L,
-            "commit_paged": 0, "decode_commits": T * L}
+            "commit_paged": 0, "flash_decode": 0, "decode_commits": T * L}
     emit({"phase": "parity-int8", "arch": cfg.name, "layers": L,
           "dtype": "float32", "kv_dtype": "int8", "slots": 2, "tokens": T,
           "max_abs_diff": diff, "card_token_vs_chunk": token_vs_chunk,
@@ -2682,6 +2755,269 @@ def phase_parity_chunked(torch, np):
           "streams_equal": {name: s == streams["cpu_chunked"]
                             for name, s in streams.items()},
           "divergences": gaps})
+
+
+# -- the wave scheduler and the dense-cache path -------------------------------
+
+
+#: the wave scheduler on the gpt2 serve traffic (16 requests, prompts
+#: 4..64, 32 new tokens, 8 slots, max_len 256): two waves whose longest
+#: prompts are 62 and 58 tokens, so (62 + 31) + (58 + 31) fused steps, the
+#: same for qwen3-1.7b's vocab
+WAVE_ARGV = SERVE_ARGV + ["--scheduler", "wave"]
+WAVE_STEPS = 182
+#: the wave's and the continuous run's bf16 streams may part at a near tie
+#: of the two paths' roundings: the top-2 gap there, in bf16 ulps of the
+#: top logit (the LM head's output is bf16), must be at most this
+WAVE_TIE_ULPS = 4
+#: kernel 2.3 at the wave's shapes: 8 slots, every one at 96 of 256 rows
+WAVE_B, WAVE_S, WAVE_LEN = 8, 256, 96
+
+
+def _argv_for(argv, arch):
+    return [arch if a == "gpt2-124m" else a for a in argv]
+
+
+def _bf16_gap(torch, cfg, params, tokens):
+    """Top-2 logit gap of the next token after ``tokens`` on the card
+    (the teacher-forced forward, bf16), and the bf16 ulp of the top."""
+    from repro_torch.models import transformer
+
+    logits, _ = transformer.forward(
+        params, cfg, torch.tensor([tokens], dtype=torch.int32,
+                                  device="cuda"))
+    top = logits[0, -1, :cfg.vocab].float().topk(2).values
+    return float(top[0] - top[1]), float(ulp(torch, top[:1],
+                                             torch.bfloat16)[0])
+
+
+def phase_serve_wave(torch, np, params, continuous):
+    """``WAVE_ARGV`` at full width in bf16 on the weights an earlier phase
+    drew (``params``: arch -> weights), beside the continuous run of the
+    same traffic on the same weights (``continuous``: arch -> its report,
+    served here where missing).  Each wave run must serve 16 of 16 in
+    ``WAVE_STEPS`` fused steps with exactly one launch of 2.3 a
+    grouped-query layer a step and none of 2.1 or 2.2 (phase_serve's
+    checks).  Streams are compared with the continuous run's: each
+    request's first divergence must be a bf16 near tie.  Returns arch ->
+    2.3's launches."""
+    launches = {}
+    for arch, weights in params.items():
+        if arch not in continuous:
+            _, _, continuous[arch] = phase_serve(
+                torch, _argv_for(SERVE_ARGV, arch), "serve-wave-continuous",
+                weights)
+        engine, counts, report = phase_serve(
+            torch, _argv_for(WAVE_ARGV, arch), "serve-wave", weights)
+        cfg = engine.cfg
+        steps = report["stats"]["fused_steps"]
+        require(steps == WAVE_STEPS,
+                f"{arch}: {steps} wave steps, not {WAVE_STEPS}")
+        require(counts["flash_decode"] == flash_layers(cfg) * WAVE_STEPS,
+                f"{arch}: {counts}")
+        cont = continuous[arch]
+        want = [r["tokens"] for r in cont["requests"]]
+        got = [r["tokens"] for r in report["requests"]]
+        gaps = []
+        for uid, (a, b) in enumerate(zip(want, got)):
+            if a == b:
+                continue
+            i = next(i for i, (x, y) in enumerate(zip(a, b)) if x != y)
+            tokens = engine.completed[uid].prompt.tolist() + a[:i]
+            gap, top_ulp = _bf16_gap(torch, cfg, engine.params, tokens)
+            gaps.append({"uid": uid, "index": i, "top2_gap": gap,
+                         "top_ulp": top_ulp})
+            require(gap <= WAVE_TIE_ULPS * top_ulp,
+                    f"{arch} request {uid}: the wave leaves the continuous "
+                    f"stream at token {i} with top-2 gap {gap}")
+        emit({"phase": "serve-wave-vs-continuous", "arch": cfg.name,
+              "dtype": cfg.compute_dtype, "wave_steps": steps,
+              "continuous_steps": cont["stats"]["fused_steps"],
+              "wave_tok_s": report["stats"]["tok_s"],
+              "continuous_tok_s": cont["stats"]["tok_s"],
+              "wave_over_continuous_tok_s": (report["stats"]["tok_s"]
+                                             / cont["stats"]["tok_s"]),
+              "mismatched_requests": len(gaps), "divergences": gaps,
+              "flash_decode_launches": counts["flash_decode"]})
+        launches[arch] = counts["flash_decode"]
+        del engine
+        torch.cuda.empty_cache()
+    return launches
+
+
+def _wave_drain(cfg, params, prompts, device, **kw):
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    engine = ServeEngine(cfg, params, device=device, **kw)
+    for uid, p in enumerate(prompts):
+        engine.submit(Request(uid=uid, prompt=p.copy(),
+                              max_new_tokens=PARITY_NEW))
+    done = engine.run_until_drained()
+    return [done[u].generated for u in range(len(prompts))], engine.steps
+
+
+def _dropless(cfg):
+    if cfg.moe is None:
+        return cfg
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=64.0))
+
+
+def phase_parity_wave(torch, np):
+    """The six serve archs' smoke configs in float32, the card against
+    the CPU: the wave streams on the card must equal the CPU's wave
+    streams and the card's continuous streams, up to near ties; 2.3 must
+    launch once a grouped-query layer a wave step (never for mamba2-370m
+    and deepseek-v2-lite-16b, whose layers have none); ``forward``,
+    ``prefill`` and a ``decode_step`` loop on the card must equal the
+    CPU's at the cell bound (rtol 1e-4, atol 1e-5), and the card's decode
+    loop its own ``forward`` at the reference's 2e-3 (MoE capacity made
+    dropless for that, as the reference's consistency test does)."""
+    import repro_torch.configs as configs
+    from repro_torch.kernels.flash_decode import kernel
+    from repro_torch.models import transformer
+
+    t0 = time.time()
+    cell = dict(rtol=1e-4, atol=1e-5)
+    for arch in configs.ALL_ARCHS:
+        cfg = dataclasses.replace(configs.get_smoke_config(arch),
+                                  param_dtype="float32",
+                                  compute_dtype="float32")
+        rng = np.random.default_rng(3)
+        prompts = [rng.integers(0, cfg.vocab, size=int(rng.integers(4, 17)))
+                   .astype(np.int32) for _ in range(6)]
+        cpu = transformer.init_lm(cfg, seed=0, device="cpu")
+        card = tree_to(cpu, "cuda")
+        kw = dict(max_batch=2, max_len=64, block_size=8)
+        reset_counts(kernel)
+        card_wave, steps = _wave_drain(cfg, card, prompts, "cuda",
+                                       scheduler="wave", **kw)
+        counts = read_counts(kernel)
+        gqa = flash_layers(cfg)
+        require(counts["flash_decode"] == gqa * steps
+                and not any(counts[k] for k in SERVE_KERNELS
+                            if k != "flash_decode"),
+                f"{arch}: {counts} for {steps} wave steps of {gqa} "
+                f"grouped-query layers")
+        cpu_wave, cpu_steps = _wave_drain(cfg, cpu, prompts, "cpu",
+                                          scheduler="wave", **kw)
+        card_cont, cont_steps = _wave_drain(cfg, card, prompts, "cuda", **kw)
+        require(steps == cpu_steps and cont_steps <= steps,
+                f"{arch}: wave steps {steps} card, {cpu_steps} cpu, "
+                f"continuous {cont_steps}")
+        gaps = {name: _divergences(torch, cfg, cpu, prompts, cpu_wave, s, 8)
+                for name, s in (("cuda_wave", card_wave),
+                                ("cuda_continuous", card_cont))}
+        # the dense entry points on the card against the CPU
+        dcfg = _dropless(cfg)
+        tok = rng.integers(0, cfg.vocab, (2, 12)).astype(np.int32)
+        errs = {}
+        full = {}
+        for dev, p in (("cuda", card), ("cpu", cpu)):
+            t = torch.from_numpy(tok).to(dev)
+            full[dev] = transformer.forward(p, dcfg, t)[0].cpu()
+            last, cache = transformer.prefill(p, dcfg, t)
+            full[dev + "_prefill"] = last.cpu()
+            full[dev + "_cache"] = {k: v.cpu() for k, v in cache.items()
+                                    if k != "pos"}
+        reset_counts(kernel)
+        cache = transformer.init_cache(dcfg, 2, 12, "cuda")
+        dec = []
+        for i in range(12):
+            logits, cache = transformer.decode_step(
+                card, dcfg, torch.from_numpy(tok[:, i:i + 1]).cuda(), cache)
+            dec.append(logits[:, 0].cpu())
+        dec = torch.stack(dec, 1)
+        loop_launches = read_counts(kernel)["flash_decode"]
+        require(loop_launches == gqa * 12,
+                f"{arch}: {loop_launches} launches in a 12-step loop")
+        for name, got, want, tol in (
+                ("forward", full["cuda"], full["cpu"], cell),
+                ("prefill", full["cuda_prefill"], full["cpu_prefill"], cell),
+                ("decode_vs_forward", dec, full["cuda"],
+                 dict(rtol=2e-3, atol=2e-3))):
+            errs[name] = float((got - want).abs().max())
+            require(torch.allclose(got, want, **tol),
+                    f"{arch}: {name} max abs err {errs[name]}")
+        for key, leaf in full["cuda_cache"].items():
+            tol = (dict(rtol=2e-4, atol=2e-4) if key.endswith("_state")
+                   else cell)
+            errs["prefill_" + key] = float(
+                (leaf.float() - full["cpu_cache"][key].float()).abs().max())
+            require(torch.allclose(leaf, full["cpu_cache"][key], **tol),
+                    f"{arch}: prefill cache {key}")
+        emit({"phase": "parity-wave", "arch": cfg.name, "dtype": "float32",
+              "layers": cfg.n_layers, "gqa_layers": gqa,
+              "requests": len(prompts), "new_tokens": PARITY_NEW,
+              "wave_steps": steps, "continuous_steps": cont_steps,
+              "launches": counts, "decode_loop_launches": loop_launches,
+              "streams_equal": {"cuda_wave": card_wave == cpu_wave,
+                                "cuda_continuous": card_cont == cpu_wave},
+              "divergences": gaps, "max_abs_err": errs,
+              "seconds": time.time() - t0})
+        del card
+
+
+def wave_decode_timing(torch, np):
+    """Kernel 2.3 at the wave's shapes (bf16, ``WAVE_B`` slots every one
+    at ``WAVE_LEN`` of ``WAVE_S`` rows) for gpt2-124m's and qwen3-1.7b's
+    heads: kernel, plain and library ms beside the least time for the
+    live rows, and the host's us of one wrapper call.  The library
+    yardstick is one SDPA call with a boolean length mask, as in
+    :func:`flash_decode_timing`.  Returns arch -> row."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_decode import kernel as fd
+    from repro_torch.kernels.flash_decode import ref as fd_ref
+
+    rows = {}
+    for arch in ("gpt2-124m", "qwen3-1.7b"):
+        KV, G, D = ARCH_HEADS[arch]
+        gen = torch.Generator(device="cuda").manual_seed(71)
+        kw = dict(device="cuda", generator=gen)
+        q = torch.randn((WAVE_B, KV, G, D), **kw).to(torch.bfloat16)
+        k, v = (torch.randn((WAVE_B, WAVE_S, KV, D), **kw)
+                .to(torch.bfloat16) for _ in range(2))
+        valid = np.full(WAVE_B, WAVE_LEN)
+        vl = torch.tensor(valid, dtype=torch.int32, device="cuda")
+        args = (q, k, v, vl)
+
+        def kernel():
+            return fd.flash_decode(*args, block_s=WAVE_S)
+
+        out = kernel()
+        err, ok = decode_close(torch, out, fd.flash_decode_plain(
+            *args, block_s=WAVE_S))
+        require(ok, f"flash_decode != plain at the wave shape of {arch}: "
+                    f"{err}")
+        qh = q.reshape(WAVE_B, KV * G, 1, D)
+        kh, vh = (x.transpose(1, 2).repeat_interleave(G, dim=1).contiguous()
+                  for x in (k, v))
+        mask = (torch.arange(WAVE_S, device="cuda")[None, :]
+                < vl[:, None])[:, None, None, :]
+
+        def library():
+            return F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask)
+
+        lib_err = (library().reshape(out.shape).float()
+                   - out.float()).abs().max().item()
+        require(lib_err <= 2 * TOLERANCE["bfloat16"],
+                f"SDPA yardstick disagrees at the wave shape: {lib_err}")
+        bound_ms, bound_by = bound(fd_ref.decode_work_terms(q, k, valid),
+                                   "bfloat16")
+        row = {"max_abs_err": err,
+               "ms": device_ms(torch, kernel, reps=50),
+               "plain_ms": device_ms(torch, lambda: fd.flash_decode_plain(
+                   *args, block_s=WAVE_S), reps=20),
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "library_ms": device_ms(torch, library, reps=50),
+               "host_us": host_us(torch, kernel)}
+        rows[arch] = row
+        emit({"phase": "timing-wave", "kernel": "flash_decode",
+              "arch_heads": arch, "B": WAVE_B, "S": WAVE_S, "KV": KV,
+              "G": G, "D": D, "valid_len": WAVE_LEN, "dtype": "bfloat16",
+              "tolerance": CLOSE_TOL, **row})
+    return rows
 
 
 # -- speculative decoding and sampled streams ----------------------------------
@@ -3046,7 +3382,7 @@ def phase_serve_moe(torch, np):
     ``phase_serve``: every request completes, the decode and prefill
     kernels together run once a layer per fused step, each at least once,
     every decode launch committing.  Prints the cut, the parameter draw's
-    seconds, the peak of allocated memory, the steps, tok/s and the
+    seconds (drawn on the card), the peak of allocated memory, the steps, tok/s and the
     phase's seconds.  Then profile-moe over second drains of the same
     engine.  Returns the launch counts."""
     import repro_torch.configs as configs
@@ -3055,7 +3391,8 @@ def phase_serve_moe(torch, np):
     t0 = time.time()
     full = configs.get_config("deepseek-moe-16b")
     cfg = dataclasses.replace(full, n_layers=MOE_SERVE_LAYERS)
-    params = transformer.init_lm(cfg, seed=0, device="cuda")
+    params = transformer.init_lm(cfg, seed=0, device="cuda",
+                                 draw_device="cuda")
     torch.cuda.synchronize()
     draw_s = time.time() - t0
     engine, counts, _ = phase_serve(torch, MOE_ARGV, "serve-moe",
@@ -3215,11 +3552,12 @@ def profile_groups(torch, np, engine, phase, groups):
 
 
 def _parity_three_ways(torch, np, cfg, phase, cuts=(), t0=None,
-                       kv_dtypes=("f32",)):
+                       kv_dtypes=("f32",), draw_device="cpu"):
     """``cfg`` in float32: chunked on the card, chunked on the CPU (the
     plain versions) and token by token on the card must give the same
     greedy streams, up to near ties, on pools of each of ``kv_dtypes``.
-    The card's weights are a copy of the CPU's seeded init.  Where the
+    Both sides hold the same weights: the seeded init drawn on
+    ``draw_device`` and copied to the other.  Where the
     model has grouped-query attention layers, the card's chunked run must
     launch the decode and the prefill kernels; where it has none, no
     kernel.  Prints the phase's line for each pool dtype (``phase``, then
@@ -3231,8 +3569,13 @@ def _parity_three_ways(torch, np, cfg, phase, cuts=(), t0=None,
     rng = np.random.default_rng(2)
     prompts = [rng.integers(0, cfg.vocab, size=int(rng.integers(20, 81)))
                .astype(np.int32) for _ in range(PARITY_REQUESTS)]
-    cpu = transformer.init_lm(cfg, seed=0, device="cpu")
-    params = {"cpu": cpu, "cuda": tree_to(cpu, "cuda")}
+    drawn = transformer.init_lm(cfg, seed=0, device=draw_device,
+                                draw_device=draw_device)
+    other = tree_to(drawn, "cuda" if draw_device == "cpu" else "cpu")
+    params = ({"cpu": drawn, "cuda": other} if draw_device == "cpu"
+              else {"cpu": other, "cuda": drawn})
+    del drawn, other
+    cpu = params["cpu"]
     for kv_dtype in kv_dtypes:
         kw = dict(max_batch=4, max_len=96, block_size=16, kv_dtype=kv_dtype)
         chunked = dict(kw, prefill_chunk=16, prefill_budget=32)
@@ -3286,25 +3629,34 @@ def phase_parity_moe(torch, np):
 
 
 def phase_serve_mla(torch, np):
-    """The CLI at deepseek-v2-lite-16b's full width and depth (bf16, 27
-    layers, each MLA over latent pools; a dense first layer, then 26 MoE
-    layers of 64 experts, top 6, and 2 shared experts; 15.7 B
-    parameters) with ``CHUNKED_ARGV``'s traffic, as ``phase_serve``: every
+    """The CLI's traffic at deepseek-v2-lite-16b's full width (bf16) cut
+    to ``MLA_SERVE_LAYERS`` layers (each MLA over latent pools; a dense
+    first layer, then MoE layers of 64 experts, top 6, and 2 shared
+    experts) with ``CHUNKED_ARGV``'s traffic, as ``phase_serve``: every
     request completes, and no flash kernel launches (MLA attends over its
-    latent pools in torch ops).  Prints the draw's seconds (``init_s`` of
-    the serve line: the CLI's engine build, weights drawn on the host),
-    the parameter bytes, the latent pools' bytes beside the bytes of GQA
-    pools (16 KV heads of 128) for the same blocks, the peak of allocated
+    latent pools in torch ops).  Prints the cut, the draw's seconds
+    (weights drawn on the card), the parameter bytes, the latent pools'
+    bytes beside the bytes of GQA pools (16 KV heads of 128) for the same
+    blocks, the peak of allocated
     memory, the steps and tok/s; then profile-mla: the device-only
     profile of a second drain and the grouped one of a third (MLA
     attention, the MoE groups, the rest; a decode step beside its bytes
     bound)."""
+    import repro_torch.configs as configs
     from repro_torch.launch import serve as serve_cli
     from repro_torch.models import transformer
 
     t0 = time.time()
-    engine, counts, _ = phase_serve(torch, MLA_ARGV, "serve-mla")
-    cfg, args = engine.cfg, serve_cli.parse_args(MLA_ARGV)
+    full = configs.get_config("deepseek-v2-lite-16b")
+    cfg = dataclasses.replace(full, n_layers=MLA_SERVE_LAYERS)
+    params = transformer.init_lm(cfg, seed=0, device="cuda",
+                                 draw_device="cuda")
+    torch.cuda.synchronize()
+    draw_s = time.time() - t0
+    engine, counts, _ = phase_serve(torch, MLA_ARGV, "serve-mla",
+                                    params=params, cfg=cfg)
+    del params
+    args = serve_cli.parse_args(MLA_ARGV)
     n_blocks = 1 + args.max_batch * args.max_len // args.block_size
     latent = (transformer.paged_block_bytes(cfg, args.block_size,
                                             args.kv_dtype) * n_blocks)
@@ -3317,7 +3669,9 @@ def phase_serve_mla(torch, np):
     require(pools == latent, f"the latent pools hold {pools} bytes, "
                              f"paged_block_bytes says {latent}")
     emit({"phase": "serve-mla-summary", "arch": cfg.name,
-          "layers": cfg.n_layers, "mla": dataclasses.asdict(cfg.mla),
+          "layers": cfg.n_layers,
+          "cuts": [f"n_layers {full.n_layers} -> {cfg.n_layers}"],
+          "draw_s": draw_s, "mla": dataclasses.asdict(cfg.mla),
           "parameters": sum(t.numel() for t in _leaves(engine.params)),
           "parameter_bytes": tree_bytes(engine.params),
           "pool_blocks": n_blocks, "latent_pool_bytes": latent,
@@ -3360,7 +3714,8 @@ def phase_serve_mamba2(torch, np):
     t0 = time.time()
     full = configs.get_config("mamba2-370m")
     cfg = dataclasses.replace(full, n_layers=MAMBA_SERVE_LAYERS)
-    params = transformer.init_lm(cfg, seed=0, device="cuda")
+    params = transformer.init_lm(cfg, seed=0, device="cuda",
+                                 draw_device="cuda")
     engine, _, _ = phase_serve(torch, MAMBA_ARGV, "serve-mamba2",
                                params=params, cfg=cfg)
     del params
@@ -3402,8 +3757,8 @@ def phase_serve_jamba(torch, np):
     """One jamba superblock at full width (d 8192, 64 heads over 8 KV heads
     of 128, 7 Mamba-2 layers of 256 SSM heads, MoE on the odd layers)
     with its routed experts cut to 4 (:func:`jamba_card_config`; 16.2 B
-    parameters, 32.3 GB in bf16), drawn on the host (expert stacks and
-    mamba matrices in threads) and served with ``CHUNKED_ARGV``'s traffic
+    parameters, 32.3 GB in bf16), drawn on the card, and served with
+    ``CHUNKED_ARGV``'s traffic
     as ``phase_serve``: every request completes, the decode and prefill
     kernels together launch once per fused step (one attention layer),
     each at least once, every decode launch committing.  Prints the
@@ -3418,7 +3773,8 @@ def phase_serve_jamba(torch, np):
     t0 = time.time()
     resident = torch.cuda.memory_allocated()
     cfg = jamba_card_config()
-    params = transformer.init_lm(cfg, seed=0, device="cuda")
+    params = transformer.init_lm(cfg, seed=0, device="cuda",
+                                 draw_device="cuda")
     torch.cuda.synchronize()
     draw_s = time.time() - t0
     engine, counts, _ = phase_serve(torch, JAMBA_ARGV, "serve-jamba",
@@ -3439,9 +3795,9 @@ def phase_parity_jamba(torch, np):
     """One jamba superblock at its full mixer widths (d 8192, 64 heads
     over 8 KV heads, 256 SSM heads), float32, all 16 experts, top 2, with
     ``d_ff`` and ``d_ff_expert`` cut to ``JAMBA_PARITY_FF`` (5.79 B
-    parameters, 23.1 GB on each side): chunked on the card, chunked on the
-    CPU and token by token on the card give the same greedy streams, up to
-    near ties."""
+    parameters, 23.1 GB on each side; drawn on the card and copied to the
+    CPU): chunked on the card, chunked on the CPU and token by token on
+    the card give the same greedy streams, up to near ties."""
     import repro_torch.configs as configs
 
     full = configs.get_config("jamba-1.5-large-398b")
@@ -3452,7 +3808,8 @@ def phase_parity_jamba(torch, np):
     _parity_three_ways(torch, np, cfg, "parity-jamba", [
         f"n_layers {full.n_layers} -> {cfg.n_layers} (one superblock)",
         f"d_ff {full.d_ff} -> {cfg.d_ff}",
-        f"d_ff_expert {full.moe.d_ff_expert} -> {cfg.moe.d_ff_expert}"])
+        f"d_ff_expert {full.moe.d_ff_expert} -> {cfg.moe.d_ff_expert}"],
+        draw_device="cuda")
 
 
 # -- tensor parallelism -------------------------------------------------------
@@ -3468,7 +3825,9 @@ SERVE_MESHES = ("1x2", "2x2")
 SERVE_MESH_REQUESTS = 8
 PARITY_MESHES = ("1x1", "2x1", "1x2", "2x2")
 PARITY_MESH_REQUESTS = 3
-MESH_TIMEOUT = 600
+#: the seconds one mesh's ranks may take (each takes 20-40 s on an H100),
+#: so that a hung mesh fails the script well inside its limit
+MESH_TIMEOUT = 240
 
 
 def _sharded_inputs(torch, ref, B, KV, G, D, bs, nb, q_dtype, pool_dtype,
@@ -3835,6 +4194,7 @@ def main() -> int:
         print(f"chip_smoke: {SRC / 'repro_torch'} is missing; run this "
               f"script from a checkout of the repository", file=sys.stderr)
         return 1
+    start_watchdog()
     sys.path.insert(0, str(SRC))
     import numpy as np
 
@@ -3904,6 +4264,7 @@ def main() -> int:
     hpc_rows = hpc_timing(torch, problems)
     rx_gates, rx_layers = rx_timing(torch)
     fd_rows = flash_decode_timing(torch, np)
+    wave_rows = wave_decode_timing(torch, np)
     torch.cuda.empty_cache()
     hpc_counts = phase_analysis(torch, np, problems)
     del problems
@@ -3920,7 +4281,11 @@ def main() -> int:
     chunked_params = engine.params  # the mesh ranks' shards come from it
     del engine
     torch.cuda.empty_cache()
-    shared_counts = phase_serve_shared(torch, np)
+    wave_launches = phase_serve_wave(
+        torch, np, {"gpt2-124m": gpt2_params, "qwen3-1.7b": chunked_params},
+        {"gpt2-124m": report})
+    torch.cuda.empty_cache()
+    shared_counts = phase_serve_shared(torch, np, chunked_params)
     torch.cuda.empty_cache()
     spec_lines = {
         "qwen3": phase_serve_spec(torch, SPEC_QWEN_ARGV, "serve-spec",
@@ -3935,6 +4300,7 @@ def main() -> int:
     phase_parity_chunked(torch, np)
     phase_parity_spec(torch, np)
     phase_parity_int8(torch, np)
+    phase_parity_wave(torch, np)
     torch.cuda.empty_cache()
     moe_counts = phase_serve_moe(torch, np)
     torch.cuda.empty_cache()
@@ -4059,6 +4425,9 @@ def main() -> int:
          "source": SOURCE_DIR + "flash_decode_paged.cu",
          "replaces": f"{TPU_KERNELS}:89",
          "launches": hpc_counts["flash_decode"],
+         "serve_wave_launches": wave_launches,
+         "wave_shapes": {f"{arch} B{WAVE_B} S{WAVE_S} len {WAVE_LEN}": row
+                         for arch, row in wave_rows.items()},
          "shape": "qwen3-1.7b heads, B32 S4096 ragged, bf16",
          "ms_by_shape": {f"{arch} {lengths}": row["ms"]
                          for (arch, lengths), row in fd_rows.items()},

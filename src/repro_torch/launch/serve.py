@@ -16,6 +16,8 @@ Usage:
         --draft gpt2-124m --spec-k 4
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
         --temperature 0.8 --top-k 20 --sample-seed 7
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
+        --scheduler wave
 
 The same defaults, prompt sampling (``np.random.default_rng(seed)``),
 summary lines and ``--out`` report fields as ``repro.launch.serve``, on
@@ -33,8 +35,10 @@ rank's collectives, and the report carries ``mesh`` and ``mesh_ranks``.
 ``--draft ARCH --spec-k N`` serves with speculative decoding (the draft's
 weights are drawn with the target's ``--seed``, so ``--draft`` of the
 served arch is self-speculation), and ``--temperature T --top-k K
---sample-seed S`` samples each request's canonical stream.  Options the
-port does not serve yet are refused.
+--sample-seed S`` samples each request's canonical stream.
+``--scheduler wave`` serves in lockstep waves over the dense cache (the
+reference's golden baseline; the summary's prefix is ``[wave]``).
+Options the port does not serve yet are refused.
 """
 
 from __future__ import annotations
@@ -54,7 +58,7 @@ from repro_torch.serve.engine import (SCHEDULERS, Request, RequestTooLong,
 
 #: the serve path's kernel wrappers, each with its launch count
 SERVE_KERNELS = ("flash_decode_paged", "flash_decode_paged_sharded",
-                 "flash_prefill_paged", "commit_paged")
+                 "flash_prefill_paged", "commit_paged", "flash_decode")
 
 
 def _counters(engine: ServeEngine) -> dict:
@@ -125,7 +129,6 @@ def build_report(args: argparse.Namespace, engine: ServeEngine,
 
 #: reference options the port refuses, with the ROADMAP item porting them
 _UNPORTED = {
-    "scheduler": ("continuous", "--scheduler wave: ROADMAP item 1.12"),
     "record": (False, "--record (perf ledger): ROADMAP item 1.15"),
 }
 
@@ -211,7 +214,8 @@ def make_engine(args: argparse.Namespace, mesh=None,
                                            device=args.device, mesh=mesh)
     device = args.device if mesh is None else mesh.device
     return ServeEngine(cfg, params, max_batch=args.max_batch,
-                       max_len=args.max_len, block_size=args.block_size,
+                       max_len=args.max_len, scheduler=args.scheduler,
+                       block_size=args.block_size,
                        prefill_chunk=args.prefill_chunk,
                        prefill_budget=args.prefill_budget,
                        kv_dtype=args.kv_dtype,

@@ -1,12 +1,21 @@
-"""Grouped-query attention with RoPE, qk-norm and bias: paged decode and
-chunked prefill.
+"""Grouped-query attention with RoPE, qk-norm and bias: full attention,
+dense and paged decode, and chunked prefill.
 
-Port of ``init_attention`` and ``_project_qkv`` of
+Port of ``init_attention``, ``_project_qkv``, ``attention_full``,
+``attention_full_with_cache``, ``init_cache`` and ``attention_decode`` of
 ``repro/models/attention.py``, and of the attention the reference's paged
-cell runs over its gathered view of the block pool.  The reference reads
-the cache read-only and merges the new token in a second softmax step; the
-port first writes the new token's K/V row into the pool and then attends
-over the pool, both in one launch of the paged flash-decode kernel.  A
+cell runs over its gathered view of the block pool.  Full attention (the
+teacher-forced forward and the prefill) runs the chunked online softmax of
+:mod:`repro_torch.models.flash`.
+
+The reference's decode reads the cache read-only and merges the new token
+in a second softmax step.  The port writes the new token's K/V row first
+and then attends once, new row included: the dense decode,
+:func:`attention_decode`, with two slice copies into the layer's
+contiguous cache and one launch of the contiguous flash-decode kernel
+(:func:`~repro_torch.kernels.flash_decode.flash_decode`); the paged
+decode with one launch of the paged flash-decode kernel, which commits
+and attends.  A
 chunk of tokens per slot goes the same way in one call: all its rows are
 projected together, committed, and attended causally by the chunked-prefill
 kernel, where the reference scans its one-token cell over the chunk.  Both
@@ -40,12 +49,14 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels.flash_decode import (commit_paged,
+from repro_torch.core.device import resolve_device
+from repro_torch.kernels.flash_decode import (commit_paged, flash_decode,
                                               flash_decode_paged,
                                               flash_decode_paged_sharded,
                                               flash_prefill_paged)
 from repro_torch.kernels.flash_decode.ref import row_amax
 from repro_torch.models import layers
+from repro_torch.models.flash import flash_attention
 from repro_torch.models.layers import MeshContext
 
 
@@ -85,6 +96,94 @@ def _project_qkv(params: dict, cfg, x: torch.Tensor,
         k = layers.rms_norm(params["k_norm"], k, cfg.norm_eps)
     cos, sin = layers.rope_cos_sin(positions, hd, cfg.rope_theta)
     return layers.apply_rope(q, cos, sin), layers.apply_rope(k, cos, sin), v
+
+
+def attention_full(params: dict, cfg, x: torch.Tensor,
+                   positions: torch.Tensor, *, causal: bool = True,
+                   kv_override=None) -> torch.Tensor:
+    """Teacher-forced attention over a whole sequence: x (B, S, d),
+    positions (B, S) -> (B, S, d).  ``kv_override=(k, v)`` (B, Sk, KV, D)
+    attends to those keys instead, without the causal mask
+    (cross-attention)."""
+    B, S, _ = x.shape
+    hd, kv = cfg.head_dim, cfg.n_kv_heads
+    q, k, v = _project_qkv(params, cfg, x, positions)
+    if kv_override is not None:
+        k, v = kv_override
+        causal = False
+    out = flash_attention(q.reshape(B, S, kv, -1, hd), k, v, causal=causal)
+    return layers.dense(params["wo"], out.reshape(B, S, -1))
+
+
+def attention_full_with_cache(params: dict, cfg, x: torch.Tensor,
+                              positions: torch.Tensor):
+    """Prefill: causal attention over x (B, S, d) that also returns the
+    layer's K/V rows ``{"k", "v"}`` (B, S, KV, D)."""
+    B, S, _ = x.shape
+    hd, kv = cfg.head_dim, cfg.n_kv_heads
+    q, k, v = _project_qkv(params, cfg, x, positions)
+    out = flash_attention(q.reshape(B, S, kv, -1, hd), k, v, causal=True)
+    return (layers.dense(params["wo"], out.reshape(B, S, -1)),
+            {"k": k, "v": v})
+
+
+def init_cache(cfg, batch: int, max_len: int, dtype, layers_stacked: int = 1,
+               device="cuda") -> dict:
+    """Zeroed contiguous K/V caches ``(layers_stacked, batch, max_len, KV,
+    D)`` in ``dtype``, on the card unless ``device`` says otherwise."""
+    shape = (layers_stacked, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    dev = resolve_device(device)
+    return {key: torch.zeros(shape, dtype=dtype, device=dev)
+            for key in ("k", "v")}
+
+
+def commit_rows(cache: torch.Tensor, new: torch.Tensor, pos) -> None:
+    """Write ``new`` (B, 1, ...) into the contiguous layer cache ``cache``
+    (B, S, ...) at row ``pos``, in place: one slice copy for a host int,
+    each slot's own row for a (B,) tensor of per-slot positions."""
+    if torch.is_tensor(pos):
+        slots = torch.arange(cache.shape[0], device=cache.device)
+        cache[slots, pos.to(cache.device).long()] = new[:, 0].to(cache.dtype)
+    else:
+        cache[:, pos] = new[:, 0].to(cache.dtype)
+
+
+def valid_lengths(pos, batch: int, device) -> torch.Tensor:
+    """(B,) int32 ``pos + 1`` on ``device``: the rows a slot at ``pos``
+    (a host int, or a (B,) tensor) attends to once its new row is in."""
+    if torch.is_tensor(pos):
+        return (pos.to(device=device, dtype=torch.int32) + 1).expand(batch) \
+            .contiguous()
+    return torch.full((batch,), pos + 1, dtype=torch.int32, device=device)
+
+
+def attention_decode(params: dict, cfg, x: torch.Tensor,
+                     cache_k: torch.Tensor, cache_v: torch.Tensor, pos,
+                     valid_len: Optional[torch.Tensor] = None
+                     ) -> torch.Tensor:
+    """One-token decode over one layer's contiguous cache, committing in
+    place.
+
+    x (B, 1, d); cache_k/cache_v (B, S, KV, D) in x's dtype; pos the
+    current length, a host int or a (B,) int tensor of per-slot lengths.
+    Each slot's new K/V row is written at ``pos`` first, then each slot
+    attends over its rows ``[0, pos]`` in one launch of the contiguous
+    flash-decode kernel (its plain version for CPU tensors).
+    ``valid_len`` is :func:`valid_lengths` of ``pos``, made here when not
+    given (a decode step makes it once for all its layers).  Returns (B,
+    1, d)."""
+    B = x.shape[0]
+    hd, kv = cfg.head_dim, cfg.n_kv_heads
+    S = cache_k.shape[1]
+    if valid_len is None:
+        valid_len = valid_lengths(pos, B, x.device)
+    positions = (valid_len.long() - 1)[:, None]
+    q, k_new, v_new = _project_qkv(params, cfg, x, positions)
+    commit_rows(cache_k, k_new, pos)
+    commit_rows(cache_v, v_new, pos)
+    out = flash_decode(q.reshape(B, kv, -1, hd), cache_k, cache_v, valid_len,
+                       block_s=S)
+    return layers.dense(params["wo"], out.reshape(B, 1, -1))
 
 
 def _out_proj(params: dict, out: torch.Tensor,

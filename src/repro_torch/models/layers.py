@@ -30,25 +30,28 @@ from repro_torch.distributed import sharding
 def truncated_normal(gen: torch.Generator, shape, scale: float, dtype,
                      device) -> torch.Tensor:
     """Fan-in scaled normal, clipped at two standard deviations; drawn in
-    fp32 on the CPU from ``gen`` (so the draw does not depend on the
-    device) and then cast and moved."""
+    fp32 from ``gen`` on its device (a CPU generator gives numbers that do
+    not depend on the device they are used on) and then cast and
+    moved."""
     fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
     std = scale / max(1.0, fan_in ** 0.5)
-    x = torch.randn(shape, generator=gen, dtype=torch.float32)
-    return (x.clamp_(-2.0, 2.0) * std).to(device=device, dtype=dtype)
+    x = torch.randn(shape, generator=gen, dtype=torch.float32,
+                    device=gen.device)
+    return x.clamp_(-2.0, 2.0).mul_(std).to(device=device, dtype=dtype)
 
 
 def _seeded_draws(gen: torch.Generator, n: int, draw: Callable) -> list:
-    """``draw(i, g)`` for i < n, each with a generator ``g`` of its own,
-    seeded by the i-th of n seeds drawn from ``gen``, on the CPU in
-    parallel threads (one draw stream is single-threaded, and an expert
-    stack holds hundreds of millions of numbers).  The numbers depend on
-    neither the device nor the thread count."""
-    seeds = torch.randint(0, 2 ** 62, (n,), generator=gen).tolist()
+    """``draw(i, g)`` for i < n, each with a generator ``g`` of its own on
+    ``gen``'s device, seeded by the i-th of n seeds drawn from ``gen``, in
+    parallel threads (one CPU draw stream is single-threaded, and an
+    expert stack holds hundreds of millions of numbers).  The numbers do
+    not depend on the thread count."""
+    seeds = torch.randint(0, 2 ** 62, (n,), generator=gen,
+                          device=gen.device).tolist()
     with ThreadPoolExecutor(min(n, os.cpu_count() or 1)) as pool:
         return list(pool.map(
-            lambda i: draw(i, torch.Generator().manual_seed(seeds[i])),
-            range(n)))
+            lambda i: draw(i, torch.Generator(gen.device).manual_seed(
+                seeds[i])), range(n)))
 
 
 def truncated_normal_stack(gen: torch.Generator, shape, scale: float, dtype,
@@ -56,9 +59,9 @@ def truncated_normal_stack(gen: torch.Generator, shape, scale: float, dtype,
     """:func:`truncated_normal`'s law for a stack of matrices ``(n, d_in,
     d_out)``, matrix i drawn by :func:`_seeded_draws` straight into its
     place in the stack."""
-    out = torch.empty(shape, dtype=dtype)
+    out = torch.empty(shape, dtype=dtype, device=gen.device)
     _seeded_draws(gen, shape[0], lambda i, g: out[i].copy_(truncated_normal(
-        g, shape[1:], scale, torch.float32, "cpu")))
+        g, shape[1:], scale, torch.float32, gen.device)))
     return out.to(device)
 
 
@@ -67,7 +70,7 @@ def truncated_normal_many(gen: torch.Generator, shapes, scale: float, dtype,
     """:func:`truncated_normal`'s law for several matrices, matrix i drawn
     by :func:`_seeded_draws`."""
     out = _seeded_draws(gen, len(shapes), lambda i, g: truncated_normal(
-        g, shapes[i], scale, dtype, "cpu"))
+        g, shapes[i], scale, dtype, gen.device))
     return [t.to(device) for t in out]
 
 

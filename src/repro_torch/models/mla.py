@@ -1,16 +1,23 @@
-"""Multi-head Latent Attention (DeepSeek-V2) over paged latent pools: the
-absorbed one-token step and a chunk step.
+"""Multi-head Latent Attention (DeepSeek-V2): full attention, and the
+absorbed one-token step over contiguous latent caches or paged latent
+pools, and a chunk step over the pools.
 
-Port of ``init_mla``, ``_q_and_latent`` and ``mla_decode`` of
+Port of ``init_mla``, ``_q_and_latent``, ``mla_full``,
+``mla_full_with_cache``, ``init_mla_cache`` and ``mla_decode`` of
 ``repro/models/mla.py``, with the reference's parameter names and layouts
-(so its sharding rules and parameter trees apply unchanged).  The cache
+(so its sharding rules and parameter trees apply unchanged).  Full
+attention decompresses K/V per position and runs the chunked flash path
+of :mod:`repro_torch.models.flash` (KV = h, G = 1);
+:func:`mla_decode_dense` is the reference's ``mla_decode`` over
+contiguous caches, and :func:`mla_decode` its paged counterpart.  The cache
 holds, a token, only the RMS-normed latent ``c`` (``kv_lora_rank``) and
 the rotated ``k_rope`` (``qk_rope_dim``), in block pools like the K/V
-pools.  Attention reads them directly in the *absorbed* form: ``w_uk`` is
-folded into the query (``q_lat``), a row's score is ``q_lat . c + q_rope .
-k_rope`` scaled by ``1/sqrt(qk_nope + qk_rope)``, and the context stays in
-latent space until ``w_uv`` and ``wo`` take it out.  Scores, softmax and
-the context's sums are fp32 whatever the compute dtype (the reference's
+pools or in contiguous caches.  Attention reads them directly in the
+*absorbed* form: ``w_uk`` is folded into the query (``q_lat``), a row's
+score is ``q_lat . c + q_rope . k_rope`` scaled by ``1/sqrt(qk_nope +
+qk_rope)``, and the context stays in latent space until ``w_uv`` and
+``wo`` take it out.  Scores, softmax and the context's sums are fp32
+whatever the compute dtype (the reference's
 ``preferred_element_type=float32``; the compute-dtype operands are widened
 before the products, which is exact), the probabilities are cast to the
 view's dtype before the context product, and the output is in ``x``'s
@@ -49,8 +56,11 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from repro_torch.core.device import resolve_device
 from repro_torch.kernels.flash_decode.ref import quantize_rows
 from repro_torch.models import layers
+from repro_torch.models.attention import commit_rows, valid_lengths
+from repro_torch.models.flash import flash_attention
 from repro_torch.models.layers import MeshContext
 
 NEG_INF = -1e30
@@ -93,6 +103,81 @@ def _q_and_latent(params: dict, cfg, x: torch.Tensor,
     rot = layers.apply_rope(torch.cat((q_rope, k_rope[:, :, None, :]), dim=2),
                             cos, sin)
     return q_nope, rot[:, :, :-1], c, rot[:, :, -1]
+
+
+def _full(params: dict, cfg, x: torch.Tensor, positions: torch.Tensor,
+          causal: bool):
+    """Decompressed attention over x (B, S, d): K/V of every head from
+    the latent rows, the shared ``k_rope`` broadcast to every head, and
+    the chunked flash path with KV = h, G = 1.  Returns (y (B, S, d), c
+    (B, S, lora), k_rope (B, S, rope))."""
+    B, S, _ = x.shape
+    ml = cfg.mla
+    q_nope, q_rope, c, k_rope = _q_and_latent(params, cfg, x, positions)
+    h = q_nope.shape[2]
+    k_nope = layers.dense(params["w_uk"], c).reshape(B, S, h, ml.qk_nope_dim)
+    v = layers.dense(params["w_uv"], c).reshape(B, S, h, ml.v_head_dim)
+    q_cat = torch.cat([q_nope, q_rope], dim=-1)
+    k_cat = torch.cat([k_nope, k_rope[:, :, None, :].expand(
+        B, S, h, ml.qk_rope_dim)], dim=-1)
+    out = flash_attention(q_cat[:, :, :, None, :], k_cat, v, causal=causal)
+    return (layers.dense(params["wo"], out.reshape(B, S, -1)), c, k_rope)
+
+
+def mla_full(params: dict, cfg, x: torch.Tensor, positions: torch.Tensor,
+             *, causal: bool = True) -> torch.Tensor:
+    """Teacher-forced MLA over x (B, S, d), positions (B, S): decompress
+    and run the chunked flash path.  Returns (B, S, d)."""
+    return _full(params, cfg, x, positions, causal)[0]
+
+
+def mla_full_with_cache(params: dict, cfg, x: torch.Tensor,
+                        positions: torch.Tensor):
+    """Prefill: causal :func:`mla_full` that also returns the compressed
+    cache rows ``{"c": (B, S, lora), "k_rope": (B, S, rope)}``."""
+    y, c, k_rope = _full(params, cfg, x, positions, True)
+    return y, {"c": c, "k_rope": k_rope}
+
+
+def init_mla_cache(cfg, batch: int, max_len: int, dtype,
+                   layers_stacked: int = 1, device="cuda") -> dict:
+    """Zeroed contiguous latent caches: ``c`` (layers_stacked, batch,
+    max_len, kv_lora_rank) and ``k_rope`` (layers_stacked, batch, max_len,
+    qk_rope_dim), in ``dtype``, on the card unless ``device`` says
+    otherwise."""
+    ml = cfg.mla
+    dev = resolve_device(device)
+    lead = (layers_stacked, batch, max_len)
+    return {"c": torch.zeros(lead + (ml.kv_lora_rank,), dtype=dtype,
+                             device=dev),
+            "k_rope": torch.zeros(lead + (ml.qk_rope_dim,), dtype=dtype,
+                                  device=dev)}
+
+
+def mla_decode_dense(params: dict, cfg, x: torch.Tensor,
+                     cache_c: torch.Tensor, cache_kr: torch.Tensor, pos,
+                     valid_len: Optional[torch.Tensor] = None
+                     ) -> torch.Tensor:
+    """Absorbed one-token decode over one layer's contiguous latent
+    caches, committing in place: the dense counterpart of the reference's
+    ``mla_decode``.
+
+    x (B, 1, d); cache_c (B, S, lora) and cache_kr (B, S, rope) in x's
+    dtype; pos a host int or a (B,) tensor of per-slot lengths, and
+    ``valid_len`` its :func:`~repro_torch.models.attention.valid_lengths`
+    (made here when not given).  Each slot's new latent row is written at
+    ``pos``, then each slot attends over its rows ``[0, pos]`` in torch
+    ops.  Returns (B, 1, d)."""
+    if valid_len is None:
+        valid_len = valid_lengths(pos, x.shape[0], x.device)
+    positions = (valid_len.long() - 1)[:, None]
+    q_nope, q_rope, c_new, kr_new = _q_and_latent(params, cfg, x, positions)
+    commit_rows(cache_c, c_new, pos)
+    commit_rows(cache_kr, kr_new, pos)
+    rows = torch.arange(cache_c.shape[1], device=x.device)
+    hidden = rows[None, None, None, :] > positions[:, :, None, None]
+    return _absorbed(params, cfg, q_nope, q_rope, cache_c, cache_kr, hidden,
+                     None)
 
 
 class StepRows(NamedTuple):
@@ -179,8 +264,7 @@ def _attend(params: dict, cfg, x: torch.Tensor, c_pool, kr_pool,
     """The absorbed step for ``w`` rows a slot (every row live where
     ``lengths`` is None): commit every slot's rows, then attend (see
     :func:`mla_chunk`)."""
-    B, w, _ = x.shape
-    ml = cfg.mla
+    w = x.shape[1]
     sl = slice(None) if mesh is None else mesh.slots
     if rows is None:
         live = torch.full_like(positions, w) if lengths is None else lengths
@@ -192,20 +276,34 @@ def _attend(params: dict, cfg, x: torch.Tensor, c_pool, kr_pool,
                   kr_scale)
     c = _view(c_pool, c_scale, block_tables[sl], x.dtype)
     kr = _view(kr_pool, kr_scale, block_tables[sl], x.dtype)
-    w_uk = params["w_uk"]["w"].to(x.dtype).reshape(ml.kv_lora_rank, -1,
-                                                    ml.qk_nope_dim)
+    return _absorbed(params, cfg, q_nope, q_rope, c, kr, rows.hidden, mesh)
+
+
+def _absorbed(params: dict, cfg, q_nope: torch.Tensor, q_rope: torch.Tensor,
+              c: torch.Tensor, kr: torch.Tensor, hidden: torch.Tensor,
+              mesh: Optional[MeshContext]) -> torch.Tensor:
+    """The absorbed attention of ``w`` query rows a slot (q_nope, q_rope
+    (B, w, h, .)) over a view of latent rows c (B, S, lora) and kr (B, S,
+    rope) in the compute dtype, with the view's rows each query row may
+    not see masked by ``hidden`` (B, w, 1, S); then ``w_uv`` and ``wo``.
+    Returns (B, w, d)."""
+    B, w = q_nope.shape[:2]
+    ml = cfg.mla
+    dtype = c.dtype
+    w_uk = params["w_uk"]["w"].to(dtype).reshape(ml.kv_lora_rank, -1,
+                                                  ml.qk_nope_dim)
     q_lat = torch.einsum("bqhd,lhd->bqhl", q_nope, w_uk)
     scale = 1.0 / math.sqrt(ml.qk_nope_dim + ml.qk_rope_dim)
     c32 = c.float()
     s = (torch.einsum("bqhl,bsl->bqhs", q_lat.float(), c32)
          + torch.einsum("bqhr,bsr->bqhs", q_rope.float(), kr.float())
          ) * scale
-    s = s.masked_fill(rows.hidden, NEG_INF)
+    s = s.masked_fill(hidden, NEG_INF)
     p = torch.exp(s - s.amax(dim=-1, keepdim=True))
-    ctx = torch.einsum("bqhs,bsl->bqhl", p.to(c.dtype).float(), c32)
-    ctx = (ctx / p.sum(dim=-1)[..., None]).to(x.dtype)
-    w_uv = params["w_uv"]["w"].to(x.dtype).reshape(ml.kv_lora_rank, -1,
-                                                    ml.v_head_dim)
+    ctx = torch.einsum("bqhs,bsl->bqhl", p.to(dtype).float(), c32)
+    ctx = (ctx / p.sum(dim=-1)[..., None]).to(dtype)
+    w_uv = params["w_uv"]["w"].to(dtype).reshape(ml.kv_lora_rank, -1,
+                                                  ml.v_head_dim)
     out = torch.einsum("bqhl,lhv->bqhv", ctx, w_uv).reshape(B, w, -1)
     if not _split(mesh):
         return layers.dense(params["wo"], out)

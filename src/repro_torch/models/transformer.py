@@ -1,7 +1,8 @@
-"""Decoder-only LM core of the port: paged decode and chunked prefill for
+"""Decoder-only LM core of the port: the teacher-forced forward, prefill
+and a dense decode, and paged decode and chunked prefill, for
 attention (GQA or MLA), SSM and hybrid models with dense or MoE FFNs.
 
-Port of the paged serving path of ``repro/models/transformer.py`` for
+Port of the serving paths of ``repro/models/transformer.py`` for
 architectures whose layers are attention layers (grouped-query, or
 multi-head latent attention, :mod:`repro_torch.models.mla`, where
 ``cfg.mla`` is set) or Mamba-2 mixers
@@ -10,7 +11,11 @@ MoE FFN (:mod:`repro_torch.models.moe`) or, where ``d_ff`` is 0, none:
 ``init_lm``, ``init_paged_cache``, ``paged_block_bytes``,
 ``copy_paged_block``, ``reset_paged_slots``, ``slot_state``,
 ``restore_slot_state``, ``decode_step_paged`` and ``prefill_step_paged``,
-with the reference's pool storage dtypes (:data:`KV_DTYPES`).  Layer
+with the reference's pool storage dtypes (:data:`KV_DTYPES`); and the
+dense path of the wave scheduler: ``forward``, ``prefill``, ``init_cache``
+and ``decode_step`` over contiguous caches, every slot at one position
+(the dense decode's grouped-query attention runs the contiguous
+flash-decode kernel).  Layer
 ``i`` takes its kind from the superblock (:func:`layer_kind`).  The
 reference's ``first_block`` and its ``lax.scan`` over stacked
 superblocks become one list of per-layer
@@ -148,18 +153,24 @@ def torch_dtype(name: str) -> torch.dtype:
 
 
 def init_lm(cfg: ModelConfig, *, seed: int = 0, device="cuda",
-            mesh=None) -> Dict[str, Any]:
+            mesh=None, draw_device="cpu") -> Dict[str, Any]:
     """The port's own seeded init (it does not reproduce the reference's
     numbers; use :func:`params_from_numpy` for those).  With ``mesh``,
     this rank's shards of the same numbers (drawn whole on the CPU, then
-    cut)."""
+    cut).
+
+    The numbers are drawn on ``draw_device``: on the CPU by default, so
+    that they do not depend on the device the model runs on; on the card
+    (``draw_device="cuda"``) they are other numbers of the same law, drawn
+    in seconds where the CPU takes a minute for a full-width model of
+    billions of parameters."""
     check_served(cfg)
     if mesh is not None:
-        return shard_params(init_lm(cfg, seed=seed, device="cpu"), mesh,
-                            device)
+        return shard_params(init_lm(cfg, seed=seed, device="cpu",
+                                    draw_device=draw_device), mesh, device)
     dev = resolve_device(device)
     dtype = torch_dtype(cfg.param_dtype)
-    gen = torch.Generator().manual_seed(seed)
+    gen = torch.Generator(resolve_device(draw_device)).manual_seed(seed)
     norm_init, _ = layers.make_norm(cfg)
     params: Dict[str, Any] = {
         "embed": layers.embed_init(gen, cfg.vocab_padded, cfg.d_model, dtype,
@@ -597,3 +608,183 @@ def prefill_step_paged(params: Dict[str, Any], cfg: ModelConfig,
         rows = torch.arange(x.shape[0], device=x.device)
         x = x[rows, last_rows[own].long()][:, None]
     return _lm_head(params, cfg, x, tp), cache
+
+
+# -- the dense path: teacher-forced forward, prefill, contiguous decode ------
+
+
+def _check_full(img_embeds, remat: str) -> None:
+    if img_embeds is not None or remat != "none":
+        raise ValueError(
+            "image embeddings and remat come with the VLM and train path, "
+            "ROADMAP item 1.18")
+
+
+def _conv_tail(p_mamba: Dict[str, Any], cfg: ModelConfig,
+               h: torch.Tensor) -> torch.Tensor:
+    """The pre-activation conv window a decode takes over from a prefill:
+    the last ``d_conv - 1`` pre-conv rows of ``h``, (B, d_conv - 1,
+    conv_ch)."""
+    return ssm._project_in(p_mamba, cfg, h[:, -(cfg.ssm.d_conv - 1):, :])[1]
+
+
+def _apply_layer_full(p: Dict[str, Any], cfg: ModelConfig, x: torch.Tensor,
+                      positions: torch.Tensor, collect_cache: bool):
+    """One layer over a whole sequence x (B, S, d): (x, moe aux, and with
+    ``collect_cache`` the layer's cache rows or final states)."""
+    _, norm_fn = layers.make_norm(cfg)
+    h = norm_fn(p["norm1"], x)
+    cache = None
+    if "mla" in p:
+        if collect_cache:
+            att, cache = mla.mla_full_with_cache(p["mla"], cfg, h, positions)
+        else:
+            att = mla.mla_full(p["mla"], cfg, h, positions)
+    elif "attn" in p:
+        if collect_cache:
+            att, cache = attention.attention_full_with_cache(
+                p["attn"], cfg, h, positions)
+        else:
+            att = attention.attention_full(p["attn"], cfg, h, positions)
+    elif collect_cache:
+        att, state = ssm.mamba_full(p["mamba"], cfg, h, return_state=True)
+        cache = {"ssm_state": state,
+                 "conv_state": _conv_tail(p["mamba"], cfg, h)}
+    else:
+        att = ssm.mamba_full(p["mamba"], cfg, h)
+    x = x + att
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if "moe" in p:
+        f, aux = moe.moe_ffn(p["moe"], cfg, norm_fn(p["norm2"], x))
+    elif "ffn" in p:
+        f = layers.swiglu(p["ffn"], norm_fn(p["norm2"], x))
+    else:
+        return x, aux, cache
+    return x + f, aux, cache
+
+
+def _run_full(params: Dict[str, Any], cfg: ModelConfig,
+              tokens: torch.Tensor, collect_cache: bool):
+    """Every layer over tokens (B, S): (x (B, S, d) after the last layer,
+    summed moe aux, and the layers' caches in layer order)."""
+    x = layers.embed(params["embed"], tokens).to(
+        torch_dtype(cfg.compute_dtype))
+    B, S, _ = x.shape
+    positions = torch.arange(S, dtype=torch.int32,
+                             device=x.device)[None, :].expand(B, S)
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    caches = []
+    for p in params["layers"]:
+        x, aux, cache = _apply_layer_full(p, cfg, x, positions,
+                                          collect_cache)
+        aux_total = aux_total + aux
+        caches.append(cache)
+    return x, aux_total, caches
+
+
+def forward(params: Dict[str, Any], cfg: ModelConfig, tokens: torch.Tensor,
+            *, img_embeds=None, remat: str = "none"
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Teacher-forced forward.  tokens (B, S) -> (fp32 logits (B, S,
+    vocab_padded), summed MoE load-balance aux).  Every MoE layer routes
+    all B * S tokens as one group, as the reference's does.  Image
+    embeddings and ``remat`` (the VLM and train path) raise a
+    ``ValueError`` that names ROADMAP item 1.18."""
+    _check_full(img_embeds, remat)
+    x, aux, _ = _run_full(params, cfg, tokens, False)
+    return _lm_head(params, cfg, x), aux
+
+
+def _stack_caches(caches: list) -> Dict[str, Any]:
+    """The layers' cache rows (or states) as the dense cache's stacks,
+    one a key over the layers that have it, in layer order."""
+    out: Dict[str, list] = {}
+    for cache in caches:
+        for key, leaf in (cache or {}).items():
+            out.setdefault(key, []).append(leaf)
+    return {key: torch.stack(leaves) for key, leaves in out.items()}
+
+
+def prefill(params: Dict[str, Any], cfg: ModelConfig, tokens: torch.Tensor,
+            *, img_embeds=None, remat: str = "none"
+            ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """Process the prompt tokens (B, S): (fp32 logits of the last token
+    (B, 1, vocab_padded), the dense cache of :func:`init_cache`'s layout
+    holding the prompt's S rows, with ``pos`` S).  Mamba layers hand over
+    their final state and their last ``d_conv - 1`` pre-conv rows.  The
+    options of :func:`forward` raise as they do there."""
+    _check_full(img_embeds, remat)
+    x, _, caches = _run_full(params, cfg, tokens, True)
+    cache: Dict[str, Any] = {"pos": int(tokens.shape[1])}
+    cache.update(_stack_caches(caches))
+    return _lm_head(params, cfg, x[:, -1:]), cache
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda"
+               ) -> Dict[str, Any]:
+    """The dense (wave) cache: ``pos`` 0, a host int every slot shares,
+    and zeroed contiguous caches in the compute dtype, one stack a kind
+    over its layers in layer order: ``k``/``v`` (n_attn, batch, max_len,
+    KV, D), or for MLA ``c`` (n_attn, batch, max_len, kv_lora_rank) and
+    ``k_rope`` (n_attn, batch, max_len, qk_rope_dim); and for mamba layers
+    ``ssm_state`` (n_mamba, batch, nh, d_state, head_dim) fp32 and
+    ``conv_state`` (n_mamba, batch, d_conv - 1, conv_ch).  A stack with
+    no layer is left out.  Layer ``j`` of a stack is a contiguous slice
+    of it."""
+    check_served(cfg)
+    dev = resolve_device(device)
+    dtype = torch_dtype(cfg.compute_dtype)
+    n_attn = count_layers(cfg, LayerKind.ATTN)
+    n_mamba = count_layers(cfg, LayerKind.MAMBA)
+    cache: Dict[str, Any] = {"pos": 0}
+    if n_attn:
+        cache.update(
+            mla.init_mla_cache(cfg, batch, max_len, dtype, n_attn, dev)
+            if cfg.mla is not None else
+            attention.init_cache(cfg, batch, max_len, dtype, n_attn, dev))
+    if n_mamba:
+        cache.update(ssm.init_mamba_cache(cfg, batch, dtype, n_mamba, dev))
+    return cache
+
+
+def decode_step(params: Dict[str, Any], cfg: ModelConfig,
+                tokens: torch.Tensor, cache: Dict[str, Any]
+                ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """One wave step: tokens (B, 1) + the dense cache -> (fp32 logits (B,
+    1, vocab_padded), the cache).
+
+    Every slot sits at ``cache["pos"]``, a host int, so the step never
+    waits on the device to read it; it makes the (B,) ``valid_len = pos +
+    1`` once and every attention layer shares it.  Each attention layer
+    writes its new K/V (or latent) row at ``pos`` and attends over rows
+    ``[0, pos]``: a grouped-query layer through the contiguous
+    flash-decode kernel, an MLA layer in the absorbed form in torch ops.
+    A mamba layer advances every slot's state by its token.  An MoE layer
+    routes the step's B tokens as one group.  The caches and states are
+    updated in place (each state is replaced by a new tensor's values,
+    never aliased), ``pos`` is advanced, and the same dict is returned.
+    """
+    pos = cache["pos"]
+    first = "c" if cfg.mla is not None else "k"
+    if first in cache and pos >= cache[first].shape[2]:
+        raise ValueError(f"the cache holds {cache[first].shape[2]} rows; "
+                         f"no room for a token at position {pos}")
+    x = layers.embed(params["embed"], tokens).to(
+        torch_dtype(cfg.compute_dtype))
+    valid_len = attention.valid_lengths(pos, x.shape[0], x.device)
+    _, norm_fn = layers.make_norm(cfg)
+    for p, (kind, j) in zip(params["layers"], layer_pools(cfg)):
+        h = norm_fn(p["norm1"], x)
+        if "mla" in p:
+            x = x + mla.mla_decode_dense(p["mla"], cfg, h, cache["c"][j],
+                                         cache["k_rope"][j], pos, valid_len)
+        elif kind == LayerKind.ATTN:
+            x = x + attention.attention_decode(
+                p["attn"], cfg, h, cache["k"][j], cache["v"][j], pos,
+                valid_len)
+        else:
+            x = x + _mamba(p["mamba"], cfg, h, cache, j, None)
+        if "norm2" in p:
+            x = x + _ffn(p, cfg, norm_fn(p["norm2"], x), None)
+    cache["pos"] = pos + 1
+    return _lm_head(params, cfg, x), cache

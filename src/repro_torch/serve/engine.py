@@ -1,6 +1,7 @@
-"""Slot-level continuously batched serving engine over a paged KV cache.
+"""Slot-level continuously batched serving engine over a paged KV cache,
+and the lockstep wave scheduler over a dense cache.
 
-Port of the continuous schedulers of ``repro/serve/engine.py``.  A fixed
+Port of ``repro/serve/engine.py``, both of its schedulers.  A fixed
 set of ``max_batch`` slots advances through fused steps, every slot at its
 own cache position.  With ``prefill_chunk == 1`` every step is one
 :func:`~repro_torch.models.transformer.decode_step_paged`, one token per
@@ -50,9 +51,21 @@ the reference's threefry key of ``(sample_seed, uid, index)``
 (:mod:`repro_torch.serve.sampling`).  With ``spec_k > 0`` and a draft
 model, :class:`~repro_torch.serve.speculative.SpeculativeDecoder` drains
 the queue: the draft proposes up to ``spec_k`` tokens a slot and one chunk
-step of the target verifies them.  The reference's wave scheduler (1.12)
-and encoder-decoder architectures (1.18) are refused with a
-``ValueError`` that names their ROADMAP item.
+step of the target verifies them.
+
+``scheduler="wave"`` is the reference's lockstep golden baseline: up to
+``max_batch`` queued requests are admitted as one wave into a fresh dense
+cache (:func:`~repro_torch.models.transformer.init_cache`), and every slot
+advances one token a fused step
+(:func:`~repro_torch.models.transformer.decode_step`, every slot at one
+position) until the wave's longest request is done; the next wave starts
+only then.  Prompts are fed one token a step, idle slots feed token 0 and
+finished ones their last token.  Both schedulers feed every request the
+same tokens, so their greedy streams are equal, and the continuous one
+takes no more fused steps.  The wave scheduler serves from the dense
+cache in the compute dtype on one device: chunked prefill, quantized or
+bf16 pools, prefix sharing, speculation and a mesh are refused with the
+reference's messages.
 """
 
 from __future__ import annotations
@@ -142,16 +155,26 @@ class Request:
         return self.first_token_step - self.submitted_step
 
 
-def _validate(cfg, scheduler, prefill_chunk, prefill_budget, kv_dtype,
-              spec_k, draft_cfg, draft_params, spec_adaptive, mesh) -> None:
+def _validate(cfg, scheduler, max_len, block_size, prefill_chunk,
+              prefill_budget, kv_dtype, share_prefixes, spec_k, draft_cfg,
+              draft_params, spec_adaptive, mesh) -> None:
     """Raise ValueError for a bad option, with the reference's messages,
-    and for the reference's wave scheduler, which the port lacks."""
+    in the reference's order."""
     transformer.check_served(cfg)
     if scheduler not in SCHEDULERS:
         raise ValueError(f"scheduler must be one of {SCHEDULERS}, "
                          f"got {scheduler!r}")
+    if scheduler == "continuous" and max_len % block_size:
+        # the wave scheduler's dense cache never touches the pool
+        raise ValueError(f"max_len {max_len} must be a multiple of "
+                         f"block_size {block_size}")
     if prefill_chunk < 1:
         raise ValueError(f"prefill_chunk must be >= 1, got {prefill_chunk}")
+    if prefill_chunk > 1 and scheduler != "continuous":
+        raise ValueError(
+            "chunked prefill (prefill_chunk > 1) requires the "
+            "continuous scheduler; wave mode replays prompts densely"
+        )
     if prefill_budget is not None and prefill_budget < 1:
         raise ValueError(
             f"prefill_budget must be >= 1 (or None), got {prefill_budget}"
@@ -159,6 +182,16 @@ def _validate(cfg, scheduler, prefill_chunk, prefill_budget, kv_dtype,
     if kv_dtype not in transformer.KV_DTYPES:
         raise ValueError(f"kv_dtype must be one of {transformer.KV_DTYPES}, "
                          f"got {kv_dtype!r}")
+    if kv_dtype != "f32" and scheduler != "continuous":
+        raise ValueError(
+            "quantized KV blocks require the continuous scheduler; "
+            "wave mode serves from the dense unquantized cache"
+        )
+    if share_prefixes and scheduler != "continuous":
+        raise ValueError(
+            "prefix sharing requires the continuous scheduler's "
+            "paged block pool"
+        )
     if spec_k < 0:
         raise ValueError(f"spec_k must be >= 0 (0 = off), got {spec_k}")
     if spec_k > 0:
@@ -198,9 +231,6 @@ def _validate(cfg, scheduler, prefill_chunk, prefill_budget, kv_dtype,
                     f"serve mesh must carry ('data', 'model') axes, "
                     f"got {mesh.axis_names}"
                 )
-    if scheduler == "wave":
-        raise ValueError(
-            "not ported yet: the wave scheduler is ROADMAP item 1.12")
 
 
 class ServeEngine:
@@ -214,11 +244,9 @@ class ServeEngine:
                  draft_cfg: Optional[ModelConfig] = None,
                  draft_params=None, spec_adaptive: bool = False,
                  mesh=None, device="cuda"):
-        _validate(cfg, scheduler, prefill_chunk, prefill_budget, kv_dtype,
-                  spec_k, draft_cfg, draft_params, spec_adaptive, mesh)
-        if max_len % block_size:
-            raise ValueError(f"max_len {max_len} must be a multiple of "
-                             f"block_size {block_size}")
+        _validate(cfg, scheduler, max_len, block_size, prefill_chunk,
+                  prefill_budget, kv_dtype, share_prefixes, spec_k,
+                  draft_cfg, draft_params, spec_adaptive, mesh)
         self.device = resolve_device(device)
         if mesh is not None and mesh.device != self.device:
             raise ValueError(f"the mesh's rank runs on {mesh.device}, the "
@@ -356,6 +384,11 @@ class ServeEngine:
             mesh=self.mesh,
         )
 
+    def _decode(self, tokens, cache):
+        """A wave step over the dense cache: logits (B, 1, vocab_padded)."""
+        return transformer.decode_step(self.params, self.cfg,
+                                       self._dev(tokens), cache)
+
     def _prefill(self, tokens, cache, positions, block_tables, lengths):
         """A chunk step: logits (B, 1, vocab_padded) of each slot's last
         fed row (row 0 for a slot fed nothing), this rank's slots' under
@@ -421,7 +454,8 @@ class ServeEngine:
         ``prefill_chunk``), each feeding no rows; with speculation, the
         ``spec_k + 1`` wide verification step and the draft's step.  All
         block tables point at the null block and the cache is thrown
-        away.  On CUDA this
+        away.  A wave engine runs one step of its dense decode on a
+        throwaway dense cache.  On CUDA this
         builds and loads the kernel libraries and warms the matmul
         libraries at each width, so the first request's TTFT measures
         scheduling and not set-up.  The dummy cache has the engine's
@@ -429,6 +463,12 @@ class ServeEngine:
         on engine counters.
         """
         B = self.max_batch
+        if self.scheduler == "wave":
+            cache = transformer.init_cache(self.cfg, B, self.max_len,
+                                           self.device)
+            logits, _ = self._decode(np.zeros((B, 1), np.int32), cache)
+            logits.cpu()
+            return
         cache = self._new_cache()
         pos = np.zeros(B, np.int32)
         bt = np.zeros((B, self.max_len // self.block_size), np.int32)
@@ -486,7 +526,8 @@ class ServeEngine:
         appending, so the served stream is unchanged.  Picks ``uid``'s
         slot, or the deepest busy slot (max cache position, lowest slot
         index on ties).  Returns the preempted uid, or None when nothing
-        was preemptible.  Only callable from a step hook while draining.
+        was preemptible.  Only callable from a step hook while the
+        continuous scheduler is draining (a wave engine raises).
         """
         live = self._live
         if live is None:
@@ -527,6 +568,76 @@ class ServeEngine:
         live["positions"][b] = 0
         live["tokens"][b, :] = 0
         live["slot_req"][b] = None
+
+    # -- wave scheduler (lockstep over a dense cache, the golden baseline) ----
+
+    def _run_wave(self, wave: List[Request]) -> None:
+        """Run one wave to its horizon: every slot advances one token a
+        fused step over a fresh dense cache, prompts first, until every
+        request of the wave is done.  The step hooks run before each step
+        with ``busy=True``; what they submit lands in the next wave."""
+        B = self.max_batch
+        cache = transformer.init_cache(self.cfg, B, self.max_len,
+                                       self.device)
+        prompt_len = np.array(
+            [len(r.prompt) for r in wave] + [1] * (B - len(wave)), np.int32)
+        horizon = int(max(len(r.prompt) + r.max_new_tokens for r in wave))
+        if horizon > self.max_len:  # unreachable: submit() already rejects
+            raise RequestTooLong(f"wave horizon {horizon} > {self.max_len}")
+        tokens = np.zeros((B, 1), np.int32)
+        for s, r in enumerate(wave):
+            tokens[s, 0] = r.prompt[0]
+            r.started_s = time.time()
+        slots: List[Optional[Request]] = list(wave) + [None] * (B - len(wave))
+
+        for t in range(horizon - 1):
+            self._call_hooks(busy=True)  # arrivals land in the NEXT wave
+            self._note_busy([r is not None and not r.done for r in slots])
+            logits, cache = self._decode(tokens, cache)
+            self.steps += 1
+            nxt = self._select(logits, slots)[:, 0]
+            for s, r in enumerate(wave):
+                if r.done:
+                    continue
+                if t + 1 < prompt_len[s]:
+                    tokens[s, 0] = r.prompt[t + 1]  # still consuming prompt
+                    continue
+                tok = int(nxt[s])
+                self._note_first_token(r)
+                r.generated.append(tok)
+                tokens[s, 0] = tok
+                if len(r.generated) >= r.max_new_tokens or tok == r.eos_id:
+                    r.done = True
+                    r.finished_s = time.time()
+            if all(r.done for r in wave):
+                break
+        for r in wave:
+            self._finish(r)
+
+    def _drain_waves(self, max_waves: int) -> None:
+        """Admit the queue's first ``max_batch`` requests as a wave, run
+        it to its horizon, and repeat until the queue is empty and no
+        hook promises more work; raises after ``max_waves`` waves."""
+        waves = 0
+        idle_spins = 0
+        while True:
+            pending = self._call_hooks(busy=False)
+            if not self.queue:
+                if not pending:
+                    break
+                idle_spins += 1  # hooks promise work; let them deliver
+                if idle_spins > _MAX_IDLE_SPINS:
+                    raise RuntimeError(
+                        "step hooks report pending work but never submit"
+                    )
+                continue
+            idle_spins = 0
+            if waves >= max_waves:
+                raise RuntimeError("serve loop did not drain")
+            wave = [self.queue.popleft()
+                    for _ in range(min(self.max_batch, len(self.queue)))]
+            self._run_wave(wave)
+            waves += 1
 
     # -- continuous scheduler (per-slot positions, paged blocks) ---------------
 
@@ -699,10 +810,16 @@ class ServeEngine:
 
     # -- public ----------------------------------------------------------------
 
-    def run_until_drained(self, *, max_steps: Optional[int] = None
+    def run_until_drained(self, max_waves: int = 1000, *,
+                          max_steps: Optional[int] = None
                           ) -> Dict[int, Request]:
+        """Drain the queue: in waves (at most ``max_waves``) under the
+        wave scheduler, else through the continuous drain (speculative
+        where a draft is set) with its runaway guard, or ``max_steps``."""
         t0 = time.time()
-        if self._spec is not None:
+        if self.scheduler == "wave":
+            self._drain_waves(max_waves)
+        elif self._spec is not None:
             self._spec.drain(self, max_steps)
         else:
             self._drain_continuous(max_steps)

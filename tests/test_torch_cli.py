@@ -70,12 +70,13 @@ def test_cli_prompts_follow_the_reference_sampling(tmp_path):
     ["--record"],
 ])
 def test_cli_refuses_unported_options(flags, tmp_path, capsys):
-    """``--scheduler wave`` (1.12) and ``--record`` (1.15) are refused with
-    their ROADMAP item.  The speculative and sampling flags (1.13) are
-    served, over a mesh too, and land in the report; ``--spec-adaptive``
-    without ``--spec-k`` raises the reference engine's error."""
+    """``--record`` (1.15) is refused with its ROADMAP item.  The wave
+    scheduler (1.12) serves, and its report names it.  The speculative
+    and sampling flags (1.13) are served, over a mesh too, and land in
+    the report; ``--spec-adaptive`` without ``--spec-k`` raises the
+    reference engine's error."""
     argv = ["--device", "cpu", "--requests", "2", "--max-new", "3"]
-    if flags[0] in ("--scheduler", "--record"):
+    if flags[0] == "--record":
         with pytest.raises(SystemExit) as exc:
             serve.main(argv + flags)
         assert exc.value.code == 2
@@ -90,7 +91,9 @@ def test_cli_refuses_unported_options(flags, tmp_path, capsys):
     assert serve.main(argv + flags + ["--out", str(out)]) == 0
     report = json.loads(out.read_text())
     assert [r["new_tokens"] for r in report["requests"]] == [3, 3]
-    if "--spec-k" in flags:
+    if flags[0] == "--scheduler":
+        assert report["scheduler"] == report["stats"]["scheduler"] == "wave"
+    elif "--spec-k" in flags:
         assert report["draft"] == "gpt2-124m" and report["spec_k"] == 2
         assert report["stats"]["acceptance_rate"] == 1.0
         if "--mesh" in flags:  # rank 0 printed in its own process

@@ -111,6 +111,41 @@ def test_decode_step_on_the_card_matches_the_cpu(cuda):
                                atol=1e-4)
 
 
+def test_init_drawn_on_the_card_is_seeded_and_keeps_the_law(cuda):
+    """``init_lm(draw_device="cuda")``: the same seed gives the same
+    numbers, each leaf the CPU draw's shape and dtype, matrices clipped at
+    two standard deviations of their fan-in (moe experts and mamba
+    mixers drawn by generators of their own on the card too)."""
+    for arch in ("qwen3-1.7b", "deepseek-moe-16b", "mamba2-370m"):
+        cfg = configs.get_smoke_config(arch)
+        a, b = (transformer.init_lm(cfg, seed=5, device="cuda",
+                                    draw_device="cuda") for _ in range(2))
+        host = transformer.init_lm(cfg, seed=5, device="cpu")
+
+        def leaves(tree, path=""):
+            if isinstance(tree, dict):
+                return [x for k, v in tree.items()
+                        for x in leaves(v, f"{path}/{k}")]
+            if isinstance(tree, list):
+                return [x for i, v in enumerate(tree)
+                        for x in leaves(v, f"{path}/{i}")]
+            return [(path, tree)]
+
+        drawn = 0
+        for (path, x), (_, y), (_, h) in zip(leaves(a), leaves(b),
+                                             leaves(host)):
+            assert x.is_cuda and torch.equal(x, y), path
+            assert (x.shape, x.dtype) == (h.shape, h.dtype), path
+            h = h.float()
+            if h.numel() >= 4096 and float(h.std()) > 0:  # a drawn matrix
+                x = x.float().cpu()
+                # the clip, 2 std of the fan-in, is the host draw's max
+                assert float(x.abs().max()) <= float(h.abs().max()), path
+                assert abs(float(x.std()) / float(h.std()) - 1) < 0.05, path
+                drawn += 1
+        assert drawn > 5, arch
+
+
 def _prefill_inputs(device, B, C, KV, G, D, bs, nb, dtype, seed=0, spare=2):
     """q, chunk K/V, pools with ``spare`` blocks no table names, a
     shuffled table, ragged q_start (0 and a block edge among them) and

@@ -126,6 +126,31 @@ def test_truncated_normal_many_does_not_depend_on_threads(monkeypatch):
     assert all(torch.equal(x, y) for x, y in zip(a, b))
 
 
+def test_a_draw_is_the_clipped_scaled_stream_of_its_generator():
+    """On a CPU generator a draw is the generator's fp32 normal stream,
+    clipped at two standard deviations and scaled by the fan-in, then
+    cast: the port's seeded numbers, the same on every device they are
+    moved to; ``init_lm``'s default ``draw_device`` is that CPU
+    stream."""
+    got = layers.truncated_normal(torch.Generator().manual_seed(4),
+                                  (25, 40), 1.0, torch.bfloat16, "cpu")
+    want = torch.randn((25, 40), generator=torch.Generator().manual_seed(4))
+    assert torch.equal(got, (want.clamp(-2.0, 2.0) * 0.2).to(torch.bfloat16))
+    _, cfg = _cfgs(d_model=64)
+    a = transformer.init_lm(cfg, seed=3, device="cpu")
+    b = transformer.init_lm(cfg, seed=3, device="cpu", draw_device="cpu")
+
+    def leaves(tree):
+        if isinstance(tree, dict):
+            return [x for v in tree.values() for x in leaves(v)]
+        if isinstance(tree, list):
+            return [x for v in tree for x in leaves(v)]
+        return [tree]
+
+    assert len(leaves(a)) > 10
+    assert all(torch.equal(x, y) for x, y in zip(leaves(a), leaves(b)))
+
+
 def test_softplus_follows_jax_past_torchs_threshold():
     x = np.array([-30.0, -1.0, 0.0, 19.5, 20.5, 40.0], np.float32)
     np.testing.assert_allclose(ssm._softplus(_t(x)).numpy(),
