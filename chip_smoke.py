@@ -135,6 +135,23 @@ non-zero):
             ones; then the sampler on (8, 5, 151936) random logits on the
             card against the CPU: threefry keys and uniforms bit-equal,
             token mismatches only at near ties (gap under 1e-5).
+   scenario  the port's scenario runner (``run_cell``, twins included)
+            at full width in bf16 on serve's and serve-chunked's weights:
+            gpt2-124m under both schedulers and every fault plan (7
+            cells: Poisson 0.5 arrivals, prompts 4..64, early stop 0.1, 16
+            requests of up to 32 tokens, 8 slots), and one qwen3-1.7b cell
+            chunked by 64 (budget 256) and preempted (8 requests, prompts
+            64..256, 16 tokens).  Every cell serves every request within
+            its default SLOs; preempt cells preempt, device-loss cells
+            restart, malformed cells reject the two injected uids; the
+            gpt2 cells equal their twins exactly, the qwen3 cell its fault
+            twin and token-by-token twin up to bf16 near ties; 2.1 runs
+            in the continuous cells, 2.3 in the wave cells, 2.2 in the
+            qwen3 cell.  Prints each cell's tok/s, steps, preemptions,
+            restarts, rejections, twin verdict, launches and seconds.
+   parity-scenario  the smoke matrix's 7 gpt2-124m cells on the card and
+            on the CPU with the same f32 smoke weights: every cell ok on
+            both, and the card's streams the CPU's up to near ties.
 6. parity   GPU and CPU engines must give the same greedy streams: gpt2-124m
             at full width token by token, and qwen3-1.7b at full width cut
             to 4 layers, chunked on the card, chunked on the CPU and token
@@ -260,6 +277,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -2584,8 +2602,9 @@ def phase_parity_int8(torch, np):
     toks = np.random.default_rng(13).integers(0, cfg.vocab, (2, T))
     toks = torch.from_numpy(toks.astype(np.int32))
     got = {}
+    weights = _cpu_and_card(transformer.init_lm(cfg, seed=0, device="cpu"))
     for dev in ("cuda", "cpu"):
-        params = transformer.init_lm(cfg, seed=0, device=dev)
+        params = weights[dev]
         bt = torch.arange(1, 9, dtype=torch.int32).reshape(2, 4).to(dev)
         for kv_dtype in (("int8", "f32") if dev == "cuda" else ("int8",)):
             reset_counts(kernel)
@@ -2661,6 +2680,13 @@ def _top2_gap(torch, cfg, params, tokens, block_size, kv_dtype="f32"):
     return float(top[0] - top[1])
 
 
+def _cpu_and_card(params) -> dict:
+    """The CPU's parameters and a copy on the card: the same numbers the
+    seeded init gives on either device (it draws on the CPU), drawn
+    once."""
+    return {"cpu": params, "cuda": tree_to(params, "cuda")}
+
+
 def _drain(cfg, params, prompts, device, **kw):
     from repro_torch.serve.engine import Request, ServeEngine
 
@@ -2702,8 +2728,7 @@ def phase_parity(torch, np):
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab, size=int(rng.integers(4, 17)))
                .astype(np.int32) for _ in range(PARITY_REQUESTS)]
-    params = {d: transformer.init_lm(cfg, seed=0, device=d)
-              for d in ("cuda", "cpu")}
+    params = _cpu_and_card(transformer.init_lm(cfg, seed=0, device="cpu"))
     kw = dict(max_batch=4, max_len=64, block_size=16)
     streams = {d: _drain(cfg, params[d], prompts, d, **kw)
                for d in ("cuda", "cpu")}
@@ -2730,8 +2755,7 @@ def phase_parity_chunked(torch, np):
     rng = np.random.default_rng(2)
     prompts = [rng.integers(0, cfg.vocab, size=int(rng.integers(20, 81)))
                .astype(np.int32) for _ in range(PARITY_REQUESTS)]
-    params = {d: transformer.init_lm(cfg, seed=0, device=d)
-              for d in ("cuda", "cpu")}
+    params = _cpu_and_card(transformer.init_lm(cfg, seed=0, device="cpu"))
     kw = dict(max_batch=4, max_len=96, block_size=16)
     chunked = dict(kw, prefill_chunk=16, prefill_budget=32)
     reset_counts(kernel)
@@ -3252,13 +3276,12 @@ def phase_parity_spec(torch, np):
     f32 = dict(param_dtype="float32", compute_dtype="float32",
                n_layers=SPEC_PARITY_LAYERS)
     dcfg = dataclasses.replace(configs.get_config("gpt2-124m"), **f32)
-    dparams = {d: transformer.init_lm(dcfg, seed=1, device=d)
-               for d in ("cuda", "cpu")}
+    dparams = _cpu_and_card(transformer.init_lm(dcfg, seed=1, device="cpu"))
     out = {}
     for arch in ("qwen3-1.7b", "mamba2-370m"):
         cfg = dataclasses.replace(configs.get_config(arch), **f32)
-        params = {d: transformer.init_lm(cfg, seed=0, device=d)
-                  for d in ("cuda", "cpu")}
+        params = _cpu_and_card(transformer.init_lm(cfg, seed=0,
+                                                   device="cpu"))
         rng = np.random.default_rng(4)
         prompts = [rng.integers(0, dcfg.vocab, size=int(rng.integers(4, 33)))
                    .astype(np.int32) for _ in range(PARITY_REQUESTS)]
@@ -3325,6 +3348,213 @@ def phase_parity_spec(torch, np):
           "layers": SPEC_PARITY_LAYERS, "draft": dcfg.name,
           "spec_k": SPEC_K, "requests": PARITY_REQUESTS,
           "new_tokens": PARITY_NEW, "runs": out})
+
+
+# -- the scenario matrix ------------------------------------------------------
+
+
+#: the scenario phase's gpt2-124m matrix, sized like the serve phases:
+#: both schedulers and every fault plan (preempt has no slots to steal
+#: under the wave), so 7 cells
+SCENARIO_SIZING = dict(requests=16, max_new=32, max_batch=8, max_len=256,
+                       block_size=16)
+#: its qwen3-1.7b cell: chunked by 64 under a budget of 256, preempted,
+#: held to its fault twin and its token-by-token chunk twin
+SCENARIO_QWEN = dict(requests=8, max_new=16, max_batch=8, max_len=512,
+                     block_size=16, prefill_chunks=[64], prefill_budget=256,
+                     faults=["preempt"], schedulers=["continuous"])
+#: the injected uids a malformed cell must reject
+MALFORMED_UIDS = {100_000, 100_001}
+
+
+def _scenario_spec(arch, lo, hi, **over):
+    from repro_torch.scenarios import (ArrivalSpec, EosSpec, MatrixSpec,
+                                       PromptSpec)
+
+    kw = dict(arrivals=[ArrivalSpec(kind="poisson", rate=0.5)],
+              prompts=[PromptSpec(kind="uniform", lo=lo, hi=hi)],
+              eos=[EosSpec(p_early=0.1)], archs=[arch],
+              schedulers=["continuous", "wave"],
+              faults=["none", "preempt", "device-loss", "malformed"])
+    kw.update(over)
+    return MatrixSpec(**kw)
+
+
+#: one diverged stream in ``CellResult.golden_diffs`` (the runner's
+#: ``_diff_tokens`` format: the twin, the uid, this cell's tokens, the
+#: twin's); any other diff (a request missing on one side) is no near tie
+DIVERGED = re.compile(r"(?:\[vs (?P<twin>[^\]]+)\] )?uid (?P<uid>\d+): "
+                      r"tokens diverged \((?P<got>\[[\d, ]*\]) != "
+                      r"(?P<want>\[[\d, ]*\])\)")
+
+
+def _diff_ties(torch, cfg, params, prompts, diffs):
+    """For each of a cell's golden diffs, where its stream leaves the
+    twin's and the card's bf16 top-2 gap there (``_bf16_gap``), which must
+    be a near tie (at most ``WAVE_TIE_ULPS`` ulps of the top logit)."""
+    ties = []
+    for diff in diffs:
+        m = DIVERGED.fullmatch(diff)
+        require(m is not None, f"not a diverged stream: {diff}")
+        uid = int(m["uid"])
+        got, want = json.loads(m["got"]), json.loads(m["want"])
+        i = next((i for i, (x, y) in enumerate(zip(got, want)) if x != y),
+                 None)
+        require(i is not None, f"request {uid}: streams of {len(got)} and "
+                f"{len(want)} tokens")
+        gap, top_ulp = _bf16_gap(torch, cfg, params,
+                                 prompts[uid].tolist() + want[:i])
+        ties.append({"twin": m["twin"] or "fault", "uid": uid, "index": i,
+                     "top2_gap": gap, "top_ulp": top_ulp})
+        require(gap <= WAVE_TIE_ULPS * top_ulp,
+                f"request {uid} leaves its twin at token {i} with top-2 "
+                f"gap {gap}")
+    return ties
+
+
+def phase_scenario(torch, np, params):
+    """The port's scenario runner at full width on the card, twins
+    included (``run_cell``), on the weights earlier phases drew
+    (``params``: arch -> (cfg, weights), bf16): gpt2-124m under both
+    schedulers and every fault plan (7 cells), and one qwen3-1.7b cell,
+    chunked by 64 and preempted.  Every cell meets its default SLOs with
+    no error; preempt cells preempt, device-loss cells restart, malformed
+    cells reject the two injected uids.  The gpt2 cells' streams equal
+    their twins' exactly (8-row steps, the same launches); the qwen3
+    cell's equal its fault twin's and its token-by-token chunk twin's up
+    to near ties (its chunk step and the token step round differently).
+    Launches are counted a cell, twins included: 2.1 in the continuous
+    cells, 2.3 in the wave cells, 2.2 in the qwen3 cell.  Returns the
+    launches over the phase."""
+    from repro_torch.kernels.flash_decode import kernel
+    from repro_torch.scenarios import runner, sample_trace
+
+    t_phase = time.time()
+    dev = str(torch.device("cuda", torch.cuda.current_device()))
+    cells = (_scenario_spec("gpt2-124m", 4, 64, **SCENARIO_SIZING).cells()
+             + _scenario_spec("qwen3-1.7b", 64, 256,
+                              **SCENARIO_QWEN).cells())
+    require(len(cells) == 8, f"{len(cells)} scenario cells, not 8")
+    for arch, entry in params.items():
+        runner._PARAMS[(arch, dev)] = entry
+    total = {}
+    rows = []
+    try:
+        for cell in cells:
+            cfg, weights = params[cell.arch]
+            t0 = time.time()
+            torch.cuda.synchronize()
+            reset_counts(kernel)
+            r = runner.run_cell(cell, device="cuda")
+            torch.cuda.synchronize()
+            counts = read_counts(kernel)
+            seconds = time.time() - t0
+            for k, v in counts.items():
+                total[k] = total.get(k, 0) + v
+            require(not r.error, f"{cell.cell_id}: {r.error}")
+            require(not r.slo_failures,
+                    f"{cell.cell_id}: SLOs {r.slo_failures}")
+            require(r.stats["requests"] == cell.requests,
+                    f"{cell.cell_id}: {r.stats['requests']} of "
+                    f"{cell.requests} requests served")
+            if cell.fault == "preempt":
+                require(r.stats["preemptions"] >= 1,
+                        f"{cell.cell_id}: no preemption")
+            if cell.fault == "device-loss":
+                require(r.restarts >= 1, f"{cell.cell_id}: no restart")
+            if cell.fault == "malformed":
+                require({u for u, _ in r.rejected} == MALFORMED_UIDS,
+                        f"{cell.cell_id}: rejected {r.rejected}")
+            if cell.scheduler == "wave":
+                require(counts["flash_decode"] > 0
+                        and counts["flash_decode_paged"] == 0,
+                        f"{cell.cell_id}: {counts}")
+            else:
+                require(counts["flash_decode_paged"] > 0
+                        and counts["flash_decode"] == 0,
+                        f"{cell.cell_id}: {counts}")
+            if cell.prefill_chunk > 1:
+                require(counts["flash_prefill_paged"] > 0,
+                        f"{cell.cell_id}: {counts}")
+            ties = {}
+            if cell.arch == "gpt2-124m":
+                require(r.golden_checked == (cell.fault != "none")
+                        and r.golden_ok,
+                        f"{cell.cell_id}: twins differ: {r.golden_diffs}")
+            else:
+                require(r.golden_checked, f"{cell.cell_id}: no twin")
+                prompts = {s.uid: s.prompt
+                           for s in sample_trace(cell, cfg.vocab)}
+                ties = _diff_ties(torch, cfg, weights, prompts,
+                                  r.golden_diffs)
+            rows.append({"cell": cell.cell_id, "tok_s": r.stats["tok_s"],
+                         "fused_steps": r.stats["fused_steps"],
+                         "new_tokens": r.stats["new_tokens"],
+                         "preemptions": r.stats["preemptions"],
+                         "restarts": r.restarts,
+                         "rejected": [u for u, _ in r.rejected],
+                         "twin": "equal" if r.golden_ok else "near ties",
+                         "ties": ties,
+                         "ttft_p95_steps": r.stats["ttft_p95_steps"],
+                         "launches": counts, "seconds": seconds})
+    finally:
+        for arch in params:
+            runner._PARAMS.pop((arch, dev), None)
+    emit({"phase": "scenario", "cells": rows, "launches": total,
+          "seconds": time.time() - t_phase})
+    return total
+
+
+def phase_parity_scenario(torch, np):
+    """The smoke matrix's gpt2-124m cells (both schedulers, every fault
+    plan: 7) through ``run_cell`` on the card and on the CPU with the
+    same f32 smoke weights: every cell ok on both, twins included, and
+    the card's streams the CPU's up to near ties (``_divergences``)."""
+    import repro_torch.configs as configs
+    from repro_torch.models import transformer
+    from repro_torch.scenarios import runner, sample_trace, smoke_matrix
+
+    t0 = time.time()
+    cfg = configs.get_smoke_config("gpt2-124m")
+    cpu = transformer.init_lm(cfg, seed=0, device="cpu")
+    keys = {"cpu": ("gpt2-124m", "cpu"),
+            "cuda": ("gpt2-124m",
+                     str(torch.device("cuda", torch.cuda.current_device())))}
+    runner._PARAMS[keys["cpu"]] = (cfg, cpu)
+    runner._PARAMS[keys["cuda"]] = (cfg, tree_to(cpu, "cuda"))
+    cells = [c for c in smoke_matrix().cells() if c.arch == "gpt2-124m"]
+    require(len(cells) == 7, f"{len(cells)} gpt2 smoke cells, not 7")
+    rows = []
+    try:
+        for cell in cells:
+            res = {}
+            for dev in ("cuda", "cpu"):
+                r = runner.run_cell(cell, device=dev)
+                require(r.ok, f"{cell.cell_id} on {dev}: {r.error} "
+                        f"{r.golden_diffs} {r.slo_failures}")
+                res[dev] = r
+            uids = sorted(res["cpu"].tokens)
+            require(sorted(res["cuda"].tokens) == uids,
+                    f"{cell.cell_id}: served uids differ")
+            prompts = {s.uid: s.prompt for s in sample_trace(cell,
+                                                             cfg.vocab)}
+            gaps = _divergences(torch, cfg, cpu, [prompts[u] for u in uids],
+                                [res["cpu"].tokens[u] for u in uids],
+                                [res["cuda"].tokens[u] for u in uids],
+                                cell.block_size)
+            rows.append({"cell": cell.cell_id,
+                         "streams_equal": (res["cuda"].tokens
+                                           == res["cpu"].tokens),
+                         "divergences": gaps,
+                         "fused_steps": {d: r.stats["fused_steps"]
+                                         for d, r in res.items()},
+                         "restarts": res["cuda"].restarts,
+                         "preemptions": res["cuda"].stats["preemptions"]})
+    finally:
+        for key in keys.values():
+            runner._PARAMS.pop(key, None)
+    emit({"phase": "parity-scenario", "arch": cfg.name, "dtype": "float32",
+          "cells": rows, "seconds": time.time() - t0})
 
 
 # -- mixture of experts, SSM and hybrid ------------------------------------
@@ -4199,6 +4429,7 @@ def main() -> int:
     import numpy as np
 
     import repro_torch
+    import repro_torch.configs as configs
     from repro_torch.core.device import resolve_device
     from repro_torch.kernels import build
     from repro_torch.kernels.flash_decode import kernel, ref
@@ -4293,6 +4524,10 @@ def main() -> int:
         "gpt2": phase_serve_spec(torch, SPEC_ARGV, "serve-spec",
                                  gpt2_params, spec_rows)}
     phase_serve_sampled(torch, np, gpt2_params, greedy)
+    scenario_counts = phase_scenario(torch, np, {
+        "gpt2-124m": (configs.get_config("gpt2-124m"), gpt2_params),
+        "qwen3-1.7b": (configs.get_config("qwen3-1.7b"), chunked_params)})
+    phase_parity_scenario(torch, np)
     del gpt2_params
     torch.cuda.empty_cache()
     phase_serve_smoke(torch)
@@ -4328,6 +4563,7 @@ def main() -> int:
          "source": SOURCE_DIR + "flash_decode_paged.cu",
          "replaces": f"{TPU_KERNELS}:256",
          "launches": counts["flash_decode_paged"],
+         "scenario_launches": scenario_counts["flash_decode_paged"],
          "serve_moe_launches": moe_counts["flash_decode_paged"],
          "serve_jamba_launches": jamba_counts["flash_decode_paged"],
          "serve_spec_launches": {
@@ -4338,6 +4574,7 @@ def main() -> int:
          "source": SOURCE_DIR + "flash_prefill_paged.cu",
          "replaces": f"{TPU_KERNELS}:573,620",
          "launches": counts["flash_prefill_paged"],
+         "scenario_launches": scenario_counts["flash_prefill_paged"],
          "serve_moe_launches": moe_counts["flash_prefill_paged"],
          "serve_jamba_launches": jamba_counts["flash_prefill_paged"],
          "deepseek-moe-16b": moe_prefill_row,
@@ -4367,6 +4604,7 @@ def main() -> int:
          "source": SOURCE_DIR + "flash_decode_paged.cu",
          "replaces": f"{TPU_KERNELS}:256,573",
          "launches": counts["decode_commits"],
+         "scenario_launches": scenario_counts["decode_commits"],
          "serve_moe_launches": moe_counts["decode_commits"],
          "serve_jamba_launches": jamba_counts["decode_commits"],
          "shape": "qwen3-1.7b serve, bf16",
@@ -4426,6 +4664,7 @@ def main() -> int:
          "replaces": f"{TPU_KERNELS}:89",
          "launches": hpc_counts["flash_decode"],
          "serve_wave_launches": wave_launches,
+         "scenario_launches": scenario_counts["flash_decode"],
          "wave_shapes": {f"{arch} B{WAVE_B} S{WAVE_S} len {WAVE_LEN}": row
                          for arch, row in wave_rows.items()},
          "shape": "qwen3-1.7b heads, B32 S4096 ragged, bf16",
