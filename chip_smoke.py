@@ -149,9 +149,23 @@ non-zero):
             in the continuous cells, 2.3 in the wave cells, 2.2 in the
             qwen3 cell.  Prints each cell's tok/s, steps, preemptions,
             restarts, rejections, twin verdict, launches and seconds.
-   parity-scenario  the smoke matrix's 7 gpt2-124m cells on the card and
-            on the CPU with the same f32 smoke weights: every cell ok on
-            both, and the card's streams the CPU's up to near ties.
+   parity-scenario  the smoke matrix's 7 gpt2-124m cells and its 7
+            qwen3-1.7b cells on the card and on the CPU with the same f32
+            smoke weights: every cell ok on both, and the card's streams
+            the CPU's up to near ties.
+   perf-ledger  the perf ledger (``repro_torch.perf``) in a fresh
+            ``$REPRO_ARTIFACT_DIR``: the default serve command with
+            ``--record`` twice on the card and once with ``--device cpu``
+            (two runs in series h100/fp32, one in grace-core/fp32; the
+            exact counters equal across all three; ``env.gpu`` the
+            ``nvidia-smi`` line; kernel 2.1 once a layer a step); ``python
+            -m repro_torch.perf gate`` on the second card run against the
+            first with no counter regressed (its exit code and its tok/s
+            and latency deltas printed, not judged); the scenario phase's
+            8 cells recorded through ``record_cell`` twice, each second
+            record gating clean; the analysis phase's report recorded and
+            re-triaged: the Fig. 8 class of every ``@h100`` row equals the
+            one the report printed.  Prints the phase's seconds.
 6. parity   GPU and CPU engines must give the same greedy streams: gpt2-124m
             at full width token by token, and qwen3-1.7b at full width cut
             to 4 layers, chunked on the card, chunked on the CPU and token
@@ -355,6 +369,8 @@ JAMBA_PARITY_FF = 1024
 #: mamba2-370m's depth in parity-mesh
 MAMBA_MESH_LAYERS = 4
 PARITY_REQUESTS, PARITY_NEW, PARITY_TOP2_GAP = 4, 8, 1e-3
+#: the archs whose smoke-matrix cells parity-scenario runs card against CPU
+PARITY_SCENARIO_ARCHS = ("gpt2-124m", "qwen3-1.7b")
 #: the reference's teacher-forced budget for qwen3-1.7b int8 pools against
 #: its f32 cache
 PARITY_INT8_BUDGET = 0.11
@@ -2232,7 +2248,7 @@ def phase_analysis(torch, np, problems):
     emit({"phase": "analysis", "cells": cells, "launches": counts,
           "waves": report["service"]["waves"],
           "wall_s": report["service"]["wall_s"]})
-    return counts
+    return counts, report, cells
 
 
 # -- serving ------------------------------------------------------------------
@@ -3425,7 +3441,7 @@ def phase_scenario(torch, np, params):
     to near ties (its chunk step and the token step round differently).
     Launches are counted a cell, twins included: 2.1 in the continuous
     cells, 2.3 in the wave cells, 2.2 in the qwen3 cell.  Returns the
-    launches over the phase."""
+    launches over the phase and the cells' results."""
     from repro_torch.kernels.flash_decode import kernel
     from repro_torch.scenarios import runner, sample_trace
 
@@ -3439,6 +3455,7 @@ def phase_scenario(torch, np, params):
         runner._PARAMS[(arch, dev)] = entry
     total = {}
     rows = []
+    results = []
     try:
         for cell in cells:
             cfg, weights = params[cell.arch]
@@ -3449,6 +3466,7 @@ def phase_scenario(torch, np, params):
             torch.cuda.synchronize()
             counts = read_counts(kernel)
             seconds = time.time() - t0
+            results.append(r)
             for k, v in counts.items():
                 total[k] = total.get(k, 0) + v
             require(not r.error, f"{cell.cell_id}: {r.error}")
@@ -3502,59 +3520,218 @@ def phase_scenario(torch, np, params):
             runner._PARAMS.pop((arch, dev), None)
     emit({"phase": "scenario", "cells": rows, "launches": total,
           "seconds": time.time() - t_phase})
-    return total
+    return total, results
 
 
 def phase_parity_scenario(torch, np):
-    """The smoke matrix's gpt2-124m cells (both schedulers, every fault
-    plan: 7) through ``run_cell`` on the card and on the CPU with the
-    same f32 smoke weights: every cell ok on both, twins included, and
-    the card's streams the CPU's up to near ties (``_divergences``)."""
+    """The smoke matrix's gpt2-124m cells and its qwen3-1.7b cells (both
+    schedulers, every fault plan: 7 an arch) through ``run_cell`` on the
+    card and on the CPU with the same f32 smoke weights: every cell ok on
+    both, twins included, and the card's streams the CPU's up to near
+    ties (``_divergences``)."""
     import repro_torch.configs as configs
     from repro_torch.models import transformer
     from repro_torch.scenarios import runner, sample_trace, smoke_matrix
 
     t0 = time.time()
-    cfg = configs.get_smoke_config("gpt2-124m")
-    cpu = transformer.init_lm(cfg, seed=0, device="cpu")
-    keys = {"cpu": ("gpt2-124m", "cpu"),
-            "cuda": ("gpt2-124m",
-                     str(torch.device("cuda", torch.cuda.current_device())))}
-    runner._PARAMS[keys["cpu"]] = (cfg, cpu)
-    runner._PARAMS[keys["cuda"]] = (cfg, tree_to(cpu, "cuda"))
-    cells = [c for c in smoke_matrix().cells() if c.arch == "gpt2-124m"]
-    require(len(cells) == 7, f"{len(cells)} gpt2 smoke cells, not 7")
+    dev = str(torch.device("cuda", torch.cuda.current_device()))
     rows = []
-    try:
-        for cell in cells:
-            res = {}
-            for dev in ("cuda", "cpu"):
-                r = runner.run_cell(cell, device=dev)
-                require(r.ok, f"{cell.cell_id} on {dev}: {r.error} "
-                        f"{r.golden_diffs} {r.slo_failures}")
-                res[dev] = r
-            uids = sorted(res["cpu"].tokens)
-            require(sorted(res["cuda"].tokens) == uids,
-                    f"{cell.cell_id}: served uids differ")
-            prompts = {s.uid: s.prompt for s in sample_trace(cell,
-                                                             cfg.vocab)}
-            gaps = _divergences(torch, cfg, cpu, [prompts[u] for u in uids],
-                                [res["cpu"].tokens[u] for u in uids],
-                                [res["cuda"].tokens[u] for u in uids],
-                                cell.block_size)
-            rows.append({"cell": cell.cell_id,
-                         "streams_equal": (res["cuda"].tokens
-                                           == res["cpu"].tokens),
-                         "divergences": gaps,
-                         "fused_steps": {d: r.stats["fused_steps"]
-                                         for d, r in res.items()},
-                         "restarts": res["cuda"].restarts,
-                         "preemptions": res["cuda"].stats["preemptions"]})
-    finally:
-        for key in keys.values():
-            runner._PARAMS.pop(key, None)
-    emit({"phase": "parity-scenario", "arch": cfg.name, "dtype": "float32",
-          "cells": rows, "seconds": time.time() - t0})
+    for arch in PARITY_SCENARIO_ARCHS:
+        cfg = configs.get_smoke_config(arch)
+        cpu = transformer.init_lm(cfg, seed=0, device="cpu")
+        keys = {"cpu": (arch, "cpu"), "cuda": (arch, dev)}
+        runner._PARAMS[keys["cpu"]] = (cfg, cpu)
+        runner._PARAMS[keys["cuda"]] = (cfg, tree_to(cpu, "cuda"))
+        cells = [c for c in smoke_matrix().cells() if c.arch == arch]
+        require(len(cells) == 7, f"{len(cells)} {arch} smoke cells, not 7")
+        try:
+            for cell in cells:
+                res = {}
+                for d in ("cuda", "cpu"):
+                    r = runner.run_cell(cell, device=d)
+                    require(r.ok, f"{cell.cell_id} on {d}: {r.error} "
+                            f"{r.golden_diffs} {r.slo_failures}")
+                    res[d] = r
+                uids = sorted(res["cpu"].tokens)
+                require(sorted(res["cuda"].tokens) == uids,
+                        f"{cell.cell_id}: served uids differ")
+                prompts = {s.uid: s.prompt
+                           for s in sample_trace(cell, cfg.vocab)}
+                gaps = _divergences(torch, cfg, cpu,
+                                    [prompts[u] for u in uids],
+                                    [res["cpu"].tokens[u] for u in uids],
+                                    [res["cuda"].tokens[u] for u in uids],
+                                    cell.block_size)
+                rows.append({"cell": cell.cell_id,
+                             "streams_equal": (res["cuda"].tokens
+                                               == res["cpu"].tokens),
+                             "divergences": gaps,
+                             "fused_steps": {d: r.stats["fused_steps"]
+                                             for d, r in res.items()},
+                             "restarts": res["cuda"].restarts,
+                             "preemptions":
+                                 res["cuda"].stats["preemptions"]})
+        finally:
+            for key in keys.values():
+                runner._PARAMS.pop(key, None)
+    emit({"phase": "parity-scenario", "archs": list(PARITY_SCENARIO_ARCHS),
+          "dtype": "float32", "cells": rows, "seconds": time.time() - t0})
+
+
+# -- the perf ledger ------------------------------------------------------------
+
+
+#: the default serve command's ledger key, and the stats of its row that
+#: are exact (no wall clock): equal on the card and on the CPU
+LEDGER_SERVE_KEY = "serve/gpt2-124m@continuous"
+LEDGER_EXACT = ("fused_steps", "busy_slot_steps", "slot_steps", "new_tokens",
+                "ttft_p50_steps", "ttft_p95_steps")
+
+
+def phase_perf_ledger(torch, card, scenario_results, analysis_report,
+                      analysis_cells):
+    """The perf ledger in a fresh artifact directory (``$REPRO_ARTIFACT_DIR``
+    set for the phase, restored after).  The default serve command with
+    ``--record`` twice on the card and once with ``--device cpu``: two
+    runs in series h100/fp32, one in grace-core/fp32, their
+    :data:`LEDGER_EXACT` counters equal, the card's ``env.gpu`` the
+    ``nvidia-smi`` line ``card``, kernel 2.1 once a layer a step (the
+    warm-up's step included; counts set to 0 before each command, read
+    after).  ``python -m repro_torch.perf gate`` (its ``main``) on the
+    second card run resolves the first as its baseline and regresses no
+    counter of the triage's; its exit code and its tok/s and latency
+    deltas are printed, not judged (the serve tok/s moves by up to 40%
+    between runs).  The scenario phase's cells recorded through
+    ``record_cell`` twice: each second record gates clean against its
+    first.  The analysis phase's service report recorded through the
+    service CLI's ``--record`` path (chip the first swept, h100; dtype
+    "mixed": fp32 and bf16 cells), its ``run_id`` and ``trajectory``
+    stamped, then every ``@h100`` row re-triaged: its Fig. 8 class that of
+    the report.  The trajectory exports one ``BENCH_<seq>.json`` a run into
+    the temporary directory."""
+    import os
+    import tempfile
+
+    import repro_torch.configs as configs
+    from repro_torch.kernels.flash_decode import kernel
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.perf import (capture_env, default_ledger,
+                                  export_trajectory, gate_run, triage)
+    from repro_torch.perf.__main__ import main as perf_main
+    from repro_torch.scenarios import runner
+    from repro_torch.serve import analysis_service as service_cli
+
+    t0 = time.time()
+    layers = configs.get_smoke_config("gpt2-124m").n_layers
+    saved = os.environ.get("REPRO_ARTIFACT_DIR")
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-ledger-") as tmp:
+        os.environ["REPRO_ARTIFACT_DIR"] = tmp
+        try:
+            launches = []
+            for argv in ([], [], ["--device", "cpu"]):
+                torch.cuda.synchronize()
+                reset_counts(kernel)
+                require(serve_cli.main(argv + ["--record"]) == 0,
+                        f"serve {argv} --record")
+                torch.cuda.synchronize()
+                launches.append(read_counts(kernel))
+            ledger = default_ledger()
+            runs = ledger.runs()
+            require(ledger.root == os.path.join(tmp, "torch", "perf"),
+                    f"ledger at {ledger.root}")
+            require([r.env.series_key() for r in runs]
+                    == ["h100/fp32", "h100/fp32", "grace-core/fp32"]
+                    and all(list(r.metrics) == [LEDGER_SERVE_KEY]
+                            for r in runs),
+                    f"serve runs {[(r.env.series_key(), list(r.metrics)) for r in runs]}")
+            rows = [r.metrics[LEDGER_SERVE_KEY] for r in runs]
+            exact = [{n: row[n] for n in LEDGER_EXACT} for row in rows]
+            require(exact[0] == exact[1] == exact[2],
+                    f"exact counters differ: {exact}")
+            require(runs[0].env.gpu == runs[1].env.gpu == card
+                    and runs[2].env.gpu == card,
+                    f"env.gpu {runs[0].env.gpu!r}, nvidia-smi {card!r}")
+            steps = exact[0]["fused_steps"]
+            for n, want in zip(launches, (layers * (steps + 1),) * 2
+                               + (0,)):
+                require(n["flash_decode_paged"] == want
+                        and (want > 0 or not any(n.values())),
+                        f"launches {n} for {steps} steps of {layers} "
+                        f"layers and the warm-up's step")
+            gate_out = os.path.join(tmp, "gate.json")
+            rc = perf_main(["gate", "--run", runs[1].run_id,
+                            "--out", gate_out])
+            with open(gate_out) as f:
+                gate = json.load(f)
+            require(gate["baseline_id"] == runs[0].run_id,
+                    f"gate baseline {gate['baseline_id']}")
+            counter_regressions = [
+                r for r in gate["comparison"]["regressions"]
+                if r["metric"] in triage._COUNTER_METRICS]
+            require(not counter_regressions,
+                    f"counters regressed: {counter_regressions}")
+            deltas = {d["metric"]: d["rel_delta"]
+                      for d in gate["comparison"]["deltas"]
+                      if d["metric"] in ("tok_s", "p50_latency_s",
+                                         "p95_latency_s", "ttft_p50_s",
+                                         "ttft_p95_s")}
+
+            env = capture_env(chip="h100")
+            first = [runner.record_cell(r, env=env)
+                     for r in scenario_results]
+            require(len({k for r in first for k in r.metrics}) == 8,
+                    f"{len(first)} scenario rows")
+            for r, before in zip(scenario_results, first):
+                again = runner.record_cell(r, env=env)
+                g = gate_run(again, ledger)
+                require(g.ok and g.baseline_id == before.run_id,
+                        f"{r.cell.cell_id}: re-recorded gate {g.describe()}")
+
+            # the service's own --record path, on an idle service that
+            # resolves the same ledger (its drained one held the full-size
+            # problems on the card)
+            report = dict(analysis_report)
+            arun = service_cli.record(service_cli.AnalysisService(),
+                                      report, ("h100", "grace-core"))
+            require(arun.env.chip == "h100"
+                    and report["run_id"] == arun.run_id
+                    and report["trajectory"]["runs"] == 3 + 16 + 1,
+                    f"analysis run {arun.env.series_key()} "
+                    f"{report['trajectory']}")
+            printed = {f"{c['workload']}@{c['chip']}/{c['dtype']}":
+                       c["class"] for c in analysis_cells}
+            require(set(arun.metrics) == set(printed),
+                    f"analysis rows {sorted(arun.metrics)}")
+            classes = {}
+            for key in sorted(arun.metrics):
+                t = triage._triage_one(key, [], arun, arun, {})
+                classes[key] = int(t.class_after)
+            h100 = [k for k in classes if "@h100/" in k]
+            require(h100 and all(classes[k] == printed[k] for k in h100),
+                    f"re-triaged classes {classes} against {printed}")
+            exported = export_trajectory(ledger, os.path.join(tmp, "bench"))
+            require(len(exported) == len(ledger.runs()) == 3 + 16 + 1,
+                    f"{len(exported)} trajectory points")
+        finally:
+            if saved is None:
+                os.environ.pop("REPRO_ARTIFACT_DIR", None)
+            else:
+                os.environ["REPRO_ARTIFACT_DIR"] = saved
+    emit({"phase": "perf-ledger", "serve_runs": [
+              {"run_id": r.run_id, "series": r.env.series_key(),
+               "gpu": r.env.gpu, "tok_s": row["tok_s"], **e}
+              for r, row, e in zip(runs, rows, exact)],
+          "launches": launches, "gate_exit_code": rc,
+          "gate_deltas": deltas,
+          "gate_regressions": [r["metric"] for r in
+                               gate["comparison"]["regressions"]],
+          "scenario_rows": len(first),
+          "analysis_rows": len(arun.metrics),
+          "analysis_series": arun.env.series_key(),
+          "h100_classes": {k: classes[k] for k in h100},
+          "classes_equal_off_h100": sum(classes[k] == printed[k]
+                                        for k in classes if k not in h100),
+          "seconds": time.time() - t0})
 
 
 # -- mixture of experts, SSM and hybrid ------------------------------------
@@ -4497,7 +4674,8 @@ def main() -> int:
     fd_rows = flash_decode_timing(torch, np)
     wave_rows = wave_decode_timing(torch, np)
     torch.cuda.empty_cache()
-    hpc_counts = phase_analysis(torch, np, problems)
+    hpc_counts, analysis_report, analysis_cells = phase_analysis(
+        torch, np, problems)
     del problems
     torch.cuda.empty_cache()
 
@@ -4524,13 +4702,16 @@ def main() -> int:
         "gpt2": phase_serve_spec(torch, SPEC_ARGV, "serve-spec",
                                  gpt2_params, spec_rows)}
     phase_serve_sampled(torch, np, gpt2_params, greedy)
-    scenario_counts = phase_scenario(torch, np, {
+    scenario_counts, scenario_results = phase_scenario(torch, np, {
         "gpt2-124m": (configs.get_config("gpt2-124m"), gpt2_params),
         "qwen3-1.7b": (configs.get_config("qwen3-1.7b"), chunked_params)})
     phase_parity_scenario(torch, np)
     del gpt2_params
     torch.cuda.empty_cache()
     phase_serve_smoke(torch)
+    phase_perf_ledger(torch, card, scenario_results, analysis_report,
+                      analysis_cells)
+    del scenario_results
     phase_parity(torch, np)
     phase_parity_chunked(torch, np)
     phase_parity_spec(torch, np)

@@ -38,7 +38,9 @@ served arch is self-speculation), and ``--temperature T --top-k K
 --sample-seed S`` samples each request's canonical stream.
 ``--scheduler wave`` serves in lockstep waves over the dense cache (the
 reference's golden baseline; the summary's prefix is ``[wave]``).
-Options the port does not serve yet are refused.
+``--record`` appends the serve report to the perf ledger
+(``$REPRO_ARTIFACT_DIR/torch/perf``), stamped ``h100`` on the card and
+``grace-core`` on the CPU, and prints the run id.
 """
 
 from __future__ import annotations
@@ -127,12 +129,6 @@ def build_report(args: argparse.Namespace, engine: ServeEngine,
     }
 
 
-#: reference options the port refuses, with the ROADMAP item porting them
-_UNPORTED = {
-    "record": (False, "--record (perf ledger): ROADMAP item 1.15"),
-}
-
-
 def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="gpt2-124m",
@@ -175,11 +171,10 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default=None,
                     help="write the serve report JSON here")
-    ap.add_argument("--record", action="store_true")
+    ap.add_argument("--record", action="store_true",
+                    help="append the serve report to the perf ledger "
+                         "(repro_torch.perf)")
     args = ap.parse_args(argv)
-    for name, (default, why) in _UNPORTED.items():
-        if getattr(args, name) != default:
-            ap.error(f"not ported yet: {why}")
     if args.spec_k > 0 and not args.draft:
         ap.error("--spec-k requires --draft <arch>")
     if args.mesh is not None:
@@ -343,15 +338,33 @@ def serve_on_mesh(args: argparse.Namespace, params=None,
                           args, params, device=args.device, timeout=timeout)
 
 
+def record(args: argparse.Namespace, report: dict, argv=None):
+    """Append ``report`` to the default perf ledger as one BenchRun, its
+    env stamped with the chip of ``--device`` (``h100`` on the card, the
+    reference's ``grace-core`` on the CPU), and print the run id."""
+    from repro_torch.perf.ledger import (capture_env, default_ledger,
+                                         device_chip)
+
+    run = default_ledger().record_sources(
+        serving=report, env=capture_env(chip=device_chip(args.device)),
+        meta={"argv": " ".join(argv)} if argv else None,
+    )
+    print(f"recorded serving run {run.run_id} (seq {run.seq}) "
+          f"-> perf ledger")
+    return run
+
+
 def main(argv=None) -> int:
     args = parse_args(argv)
     if args.mesh is not None:
-        serve_on_mesh(args)
-        return 0
-    engine = make_engine(args)
-    if args.warmup:
-        engine.warmup()
-    serve(args, engine)
+        report = serve_on_mesh(args)
+    else:
+        engine = make_engine(args)
+        if args.warmup:
+            engine.warmup()
+        report = serve(args, engine)
+    if args.record:
+        record(args, report, argv)
     return 0
 
 

@@ -5,8 +5,8 @@ equivalence and per-cell SLO gating.
 Port of ``repro.scenarios``: :mod:`repro_torch.scenarios.matrix` (axes ->
 seeded cells), :mod:`repro_torch.scenarios.traffic` (cell -> reproducible
 request trace), :mod:`repro_torch.scenarios.faults` (fault plans), and
-:mod:`repro_torch.scenarios.runner` (execution, twin diffing).  Recording
-cells in the perf ledger waits for ROADMAP item 1.15.
+:mod:`repro_torch.scenarios.runner` (execution, twin diffing, recording
+cells in the perf ledger).
 CLI: ``python -m repro_torch.scenarios {list,run,gate}``.
 """
 

@@ -6,6 +6,7 @@
                                           [--jobs N] [--device cuda|cpu]
                                           [--out report.json]
                                           [--report-md matrix.md] [--no-twin]
+                                          [--record]
     python -m repro_torch.scenarios gate  [--matrix ...] [--only GLOB]
                                           [--jobs N] [--device cuda|cpu]
                                           [--out ...] [--report-md ...]
@@ -17,8 +18,9 @@ The reference CLI's commands, options and exit codes
 faulted cells also run their fault-free golden twin and diff the served
 token streams — and checks per-cell SLOs; it exits non-zero only on cell
 *errors*.  ``gate`` also fails on any golden-twin divergence or SLO
-violation.  A glob that matches no cell exits 2.  ``--record`` (the perf
-ledger) is refused until ROADMAP item 1.15 ports the ledger.
+violation.  A glob that matches no cell exits 2.  ``--record`` appends one
+perf-ledger run per cell that did not error (``python -m repro_torch.perf
+list`` shows them, keyed ``scenario/<cell_id>``).
 """
 
 from __future__ import annotations
@@ -29,11 +31,7 @@ import sys
 from typing import Optional, Sequence
 
 from repro_torch.scenarios.matrix import MATRICES, load_matrix
-from repro_torch.scenarios.runner import (
-    LEDGER_ITEM,
-    format_matrix_markdown,
-    run_matrix,
-)
+from repro_torch.scenarios.runner import format_matrix_markdown, run_matrix
 
 
 def _add_select(ap: argparse.ArgumentParser) -> None:
@@ -51,7 +49,8 @@ def _add_run(ap: argparse.ArgumentParser) -> None:
                          "cell)")
     ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     ap.add_argument("--record", action="store_true",
-                    help=f"not ported yet ({LEDGER_ITEM})")
+                    help="append one perf-ledger BenchRun per cell "
+                         "(repro_torch.perf)")
     ap.add_argument("--no-twin", action="store_true",
                     help="skip golden-twin execution/diffing (faster, "
                          "forfeits the equivalence check)")
@@ -81,7 +80,8 @@ def _print_summary(results) -> None:
 def _run(args: argparse.Namespace, *, strict: bool) -> int:
     spec = load_matrix(args.matrix)
     results = run_matrix(spec, only=args.only, jobs=args.jobs,
-                         check_twin=not args.no_twin, device=args.device)
+                         check_twin=not args.no_twin, record=args.record,
+                         device=args.device)
     if not results:
         print(f"error: no cells match --only {args.only!r}", file=sys.stderr)
         return 2
@@ -130,8 +130,6 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     args = ap.parse_args(argv)
     if args.cmd == "list":
         return cmd_list(args)
-    if args.record:
-        ap.error(f"not ported yet: --record ({LEDGER_ITEM})")
     return _run(args, strict=args.cmd == "gate")
 
 

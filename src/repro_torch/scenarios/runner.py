@@ -31,8 +31,9 @@ each rank cuts its shards and runs the feeder, the fault hook and, for
 ``device-loss``, the whole resilient loop over a checkpoint directory of
 its own.  The hooks read only the engine's step counter and host state,
 which every rank shares, so every rank fails and restores at the same
-step; rank 0 returns the tokens and stats.  Recording cells in the perf
-ledger waits for ROADMAP item 1.15.
+step; rank 0 returns the tokens and stats.  :func:`record_cell` (and
+``run_matrix(record=True)``) appends a cell to the perf ledger
+(:mod:`repro_torch.perf`), keyed ``scenario/<cell_id>``.
 """
 
 from __future__ import annotations
@@ -60,9 +61,6 @@ from repro_torch.scenarios import faults as faults_mod
 from repro_torch.scenarios.matrix import MatrixSpec, Scenario
 from repro_torch.scenarios.traffic import RequestSpec, sample_trace
 from repro_torch.serve.engine import Request, RequestTooLong, ServeEngine
-
-#: why recording is refused, named as the serve CLI names it
-LEDGER_ITEM = "the perf ledger: ROADMAP item 1.15"
 
 # one model per (architecture, device), shared across every cell (and
 # thread): (arch, str(resolved device)) -> (cfg, params)
@@ -548,34 +546,53 @@ def run_cell(cell: Scenario, *, check_twin: bool = True,
     return result
 
 
-def record_cell(result: CellResult, ledger=None):
-    """Recording a cell in the perf ledger is not ported yet: raises."""
-    raise NotImplementedError(f"not ported yet: recording a scenario cell "
-                              f"needs {LEDGER_ITEM}")
+def record_cell(result: CellResult, ledger=None, *, env=None):
+    """Append one BenchRun for this cell to the perf ledger; the row is
+    keyed ``scenario/<cell_id>`` so ``python -m repro_torch.perf gate``
+    compares each cell only against its own trajectory.  ``env`` (a
+    :class:`~repro_torch.perf.ledger.RunEnv`) defaults to the process's
+    stamp on the reference's default chip."""
+    from repro_torch.perf.ledger import default_ledger, metrics_from_scenario
+
+    ledger = ledger or default_ledger()
+    return ledger.record(
+        metrics_from_scenario(result.report()), env=env,
+        meta={"sources": ["scenario"], "scenario": result.cell.cell_id,
+              "fault": result.cell.fault},
+    )
 
 
 def run_matrix(spec: MatrixSpec, *, only: Optional[str] = None,
                jobs: int = 1, check_twin: bool = True,
                record: bool = False, ledger=None,
                device="cuda") -> List[CellResult]:
-    """Expand and run the matrix on ``device``.
+    """Expand and run the matrix on ``device``; optionally record one
+    BenchRun per cell that did not error, stamped with the chip of
+    ``device`` (``h100`` on the card, ``grace-core`` on the CPU).
 
     ``only`` is an fnmatch glob over cell ids (``"*device-loss"``,
     ``"*continuous*gpt2*"``); ``jobs > 1`` fans cells over a thread pool,
-    one engine (cache and block pool) a cell.  ``record`` (the perf
-    ledger) is refused before any cell runs.
+    one engine (cache and block pool) a cell.
     """
-    if record:
-        record_cell(None, ledger)
     cells = spec.cells()
     if only:
         cells = [c for c in cells if fnmatch.fnmatch(c.cell_id, only)]
     if jobs > 1 and len(cells) > 1:
         with ThreadPoolExecutor(max_workers=jobs) as pool:
-            return list(pool.map(
+            results = list(pool.map(
                 lambda c: run_cell(c, check_twin=check_twin, device=device),
                 cells))
-    return [run_cell(c, check_twin=check_twin, device=device) for c in cells]
+    else:
+        results = [run_cell(c, check_twin=check_twin, device=device)
+                   for c in cells]
+    if record:
+        from repro_torch.perf.ledger import capture_env, device_chip
+
+        env = capture_env(chip=device_chip(device))
+        for r in results:
+            if not r.error:
+                record_cell(r, ledger=ledger, env=env)
+    return results
 
 
 def format_matrix_markdown(results: List[CellResult]) -> str:

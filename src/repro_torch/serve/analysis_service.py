@@ -6,10 +6,12 @@ Submit requests (workload x chips x dtypes), admit them in waves of up to
 wave's cells over a thread pool.  A cell that fails fails its request
 only.  With ``time_roi`` each cell's ROI is timed on ``device``.
 
-The reference's artifact cache and store, its perf-ledger trajectory and
-its tuning outlook are not ported yet: the CLI's ``--store-dir`` and
-``--no-store`` name ROADMAP 1.17, ``--record`` names 1.15, and the report
-carries no ``tuning`` or ``trajectory`` block and no compile counts.
+The report's ``trajectory`` block is the perf ledger's state
+(:mod:`repro_torch.perf`), and the CLI's ``--record`` appends the report
+to that ledger and stamps the run id into it.  The reference's artifact
+cache and store and its tuning outlook are not ported yet: the CLI's
+``--store-dir`` and ``--no-store`` name ROADMAP 1.17, and the report
+carries no ``tuning`` block and no compile counts.
 
 CLI (emits a JSON report):
 
@@ -175,14 +177,41 @@ class AnalysisService:
         self.wall_s += time.perf_counter() - t0
         return self.completed
 
+    def perf_ledger(self):
+        """The perf ledger this service's reports belong to: the process
+        default (``$REPRO_ARTIFACT_DIR/torch/perf``) while the service has
+        no artifact store of its own (ROADMAP 1.17)."""
+        from repro_torch.perf import default_ledger
+
+        return default_ledger()
+
+    def _trajectory(self) -> Dict[str, Any]:
+        """Perf-ledger context for this report: how many trajectory points
+        this service's ledger holds and the latest run id, so a consumer
+        can line this report up against the recorded history.  Advisory —
+        never raises (an empty/unreadable ledger reports zero runs)."""
+        try:
+            runs = self.perf_ledger().runs()
+            return {
+                "runs": len(runs),
+                "latest_run_id": runs[-1].run_id if runs else None,
+                "series": sorted({r.env.series_key() for r in runs}),
+            }
+        except Exception:  # noqa: BLE001 — trajectory context is advisory
+            return {"runs": 0, "latest_run_id": None, "series": []}
+
     def report(self) -> Dict[str, Any]:
-        """Machine-readable drain report; ``schema`` versions its shape."""
+        """Machine-readable drain report; ``schema`` versions its shape.
+        ``trajectory`` is the perf ledger's current state; the CLI's
+        ``--record`` appends this very report to that ledger and stamps
+        the resulting ``run_id`` into the payload."""
         reqs = [self.completed[uid].to_dict() for uid in sorted(self.completed)]
         n_cells = sum(len(r["results"]) for r in reqs)
         return {
             "kind": "analysis_service_report",
             "schema": 1,
             "requests": reqs,
+            "trajectory": self._trajectory(),
             "service": {
                 "requests": len(reqs),
                 "cells": n_cells,
@@ -199,6 +228,35 @@ class AnalysisService:
 # ---------------------------------------------------------------------------
 # CLI
 # ---------------------------------------------------------------------------
+
+
+def record(service: AnalysisService, report: Dict[str, Any],
+           chips: Sequence[str]):
+    """Append ``report`` to the service's perf ledger and stamp its
+    ``run_id`` and the updated ``trajectory`` into it; returns the run, or
+    None when every request errored.  The run's series must be what was
+    served, or series-scoped gating never finds it: the chip is the first
+    swept, the dtype the one the cells share, else ``"mixed"``."""
+    from repro_torch.perf import capture_env
+
+    if report["service"]["cells"] == 0:
+        print("[perf ledger: nothing to record — every request errored]",
+              file=sys.stderr)
+        return None
+    dtypes = {res["dtype"]
+              for req in report["requests"] for res in req["results"]}
+    ledger = service.perf_ledger()
+    run = ledger.record_sources(
+        analyses=report,
+        env=capture_env(chip=chips[0],
+                        dtype=dtypes.pop() if len(dtypes) == 1 else "mixed"),
+        meta={"kind": "analysis_service"},
+    )
+    report["run_id"] = run.run_id
+    report["trajectory"] = service._trajectory()  # now includes this run
+    print(f"[perf ledger: recorded run {run.run_id[:12]} "
+          f"(seq {run.seq}) -> {ledger.root}]", file=sys.stderr)
+    return run
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
@@ -227,7 +285,9 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     ap.add_argument("--no-store", action="store_true",
                     help="not ported yet (ROADMAP 1.17)")
     ap.add_argument("--record", action="store_true",
-                    help="not ported yet (ROADMAP 1.15)")
+                    help="append this report to the perf trajectory ledger "
+                         "(repro_torch.perf) and stamp its run_id into the "
+                         "payload")
     ap.add_argument("--out", default=None,
                     help="write the JSON report here (default: stdout)")
     ap.add_argument("--list", action="store_true",
@@ -236,8 +296,6 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
 
     if args.store_dir is not None or args.no_store:
         ap.error("not ported yet: the artifact store is ROADMAP item 1.17")
-    if args.record:
-        ap.error("not ported yet: the perf ledger is ROADMAP item 1.15")
     if args.list:
         for name in list_workloads():
             print(name)
@@ -256,6 +314,9 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                        source=args.source, time_roi=args.time_roi)
     service.run_until_drained()
     report = service.report()
+
+    if args.record:
+        record(service, report, args.chips)
 
     results = [r for req in service.completed.values() for r in req.results]
     print(format_table(results), file=sys.stderr)

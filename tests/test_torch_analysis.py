@@ -496,8 +496,14 @@ def test_cli_drains_every_kernel_workload_by_default():
         "kernel/spmv": 3, "kernel/stream-triad": 2}
 
 
-def test_cli_refuses_what_is_not_ported_and_unknown_workloads(tmp_path):
-    for flags, item in [(["--record"], "1.15"), (["--no-store"], "1.17"),
+def test_cli_refuses_what_is_not_ported_and_unknown_workloads(
+        tmp_path, monkeypatch):
+    """``--store-dir``/``--no-store`` (1.17) are refused; ``--record``
+    (1.15) appends the report to the perf ledger, as the reference's
+    ``analysis_service.py:345-372`` does: chip the first swept, dtype the
+    one the cells share, and ``run_id`` and ``trajectory`` stamped into
+    the report."""
+    for flags, item in [(["--no-store"], "1.17"),
                         (["--store-dir", str(tmp_path)], "1.17")]:
         with pytest.raises(SystemExit) as exc:
             main(flags)
@@ -508,3 +514,21 @@ def test_cli_refuses_what_is_not_ported_and_unknown_workloads(tmp_path):
                  "--chips", "h100", "--out", str(out)]) == 0
     assert json.loads(out.read_text())["requests"][0]["results"][0][
         "perf_class"] == 2
+
+    from repro_torch.perf import default_ledger
+
+    monkeypatch.setenv("REPRO_ARTIFACT_DIR", str(tmp_path / "art"))
+    assert main(["--device", "cpu", "--workloads", "kernel/jacobi2d",
+                 "kernel/gemm", "--chips", "h100", "grace-core", "--record",
+                 "--out", str(out)]) == 0
+    report = json.loads(out.read_text())
+    (run,) = default_ledger().runs()
+    assert report["run_id"] == run.run_id
+    assert report["trajectory"] == {"runs": 1, "latest_run_id": run.run_id,
+                                    "series": ["h100/fp32"]}
+    assert run.meta == {"kind": "analysis_service",
+                        "sources": ["analysis"]}
+    assert sorted(run.metrics) == [
+        "kernel/gemm@grace-core/fp32", "kernel/gemm@h100/fp32",
+        "kernel/jacobi2d@grace-core/fp32", "kernel/jacobi2d@h100/fp32"]
+    assert run.metric("kernel/jacobi2d@h100/fp32", "perf_class") == 2

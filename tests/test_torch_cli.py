@@ -1,6 +1,6 @@
 """``python -m repro_torch.launch.serve`` on the CPU: it serves (chunked
-prefill included), writes the reference CLI's report fields, and refuses
-what the port lacks."""
+prefill included), writes the reference CLI's report fields, and records
+its report in the perf ledger."""
 
 import argparse
 import json
@@ -69,18 +69,30 @@ def test_cli_prompts_follow_the_reference_sampling(tmp_path):
                            "--spec-k", "2"], ["--temperature", "0.8"],
     ["--record"],
 ])
-def test_cli_refuses_unported_options(flags, tmp_path, capsys):
-    """``--record`` (1.15) is refused with its ROADMAP item.  The wave
+def test_cli_refuses_unported_options(flags, tmp_path, capsys,
+                                      monkeypatch):
+    """Every option the reference CLI has is served now.  ``--record``
+    (1.15) appends the serve report to the perf ledger under
+    ``$REPRO_ARTIFACT_DIR/torch/perf`` and prints the run id.  The wave
     scheduler (1.12) serves, and its report names it.  The speculative
     and sampling flags (1.13) are served, over a mesh too, and land in
     the report; ``--spec-adaptive`` without ``--spec-k`` raises the
     reference engine's error."""
     argv = ["--device", "cpu", "--requests", "2", "--max-new", "3"]
     if flags[0] == "--record":
-        with pytest.raises(SystemExit) as exc:
-            serve.main(argv + flags)
-        assert exc.value.code == 2
-        assert "ROADMAP item" in capsys.readouterr().err
+        from repro_torch.perf import default_ledger
+
+        monkeypatch.setenv("REPRO_ARTIFACT_DIR", str(tmp_path))
+        assert serve.main(argv + flags) == 0
+        (run,) = default_ledger().runs()
+        assert default_ledger().root == str(tmp_path / "torch" / "perf")
+        assert f"recorded serving run {run.run_id} (seq 1)" in \
+            capsys.readouterr().out
+        assert run.env.series_key() == "grace-core/fp32"
+        assert run.meta == {"argv": " ".join(argv + flags),
+                            "sources": ["serving"]}
+        row = run.metrics["serve/gpt2-124m@continuous"]
+        assert row["requests"] == 2 and row["new_tokens"] == 6
         return
     if flags == ["--spec-adaptive"]:
         with pytest.raises(ValueError, match=r"^spec_adaptive requires "
@@ -168,3 +180,23 @@ def test_cli_defaults_to_cuda_and_raises_without_a_card():
         pytest.skip("this machine has a card")
     with pytest.raises(RuntimeError, match="cuda"):
         serve.main(["--requests", "1"])
+
+
+def test_launch_serve_counts_rejections_instead_of_crashing(tmp_path):
+    """Submit-time RequestTooLong is counted and reported by the serve
+    CLI, never a crash, and the ledger row counts the rejections
+    (``tests/test_scenarios.py``)."""
+    from repro_torch.perf.ledger import metrics_from_serving
+
+    out = tmp_path / "serve.json"
+    # every sampled prompt (4..16 tokens) + a 100-token budget overflows
+    # the 64-token slot cache: all submissions must be rejected
+    assert serve.main(["--device", "cpu", "--requests", "3", "--max-new",
+                       "100", "--max-len", "64", "--out", str(out)]) == 0
+    report = json.loads(out.read_text())
+    assert report["rejected"] == 3
+    assert len(report["rejections"]) == 3
+    assert all("exceeds" in r["reason"] for r in report["rejections"])
+    assert report["stats"]["requests"] == 0  # nothing reached the engine
+    (_, row), = metrics_from_serving(report).items()
+    assert row["rejected"] == 3

@@ -2,8 +2,8 @@
 speculation and the mesh, against the JAX runner and their twins.
 
 Mirrors the sharing cells of ``tests/test_scenarios.py``, the speculate
-cells of ``tests/test_speculative.py`` (without their perf-ledger lines,
-which wait for ROADMAP item 1.15), and its mesh cells: a ``1x1`` cell and
+cells of ``tests/test_speculative.py`` with their perf-ledger rows, and
+its mesh cells (with the ledger's ``/m<DxM>`` key): a ``1x1`` cell and
 a ``1x1`` device-loss cell, each equal to the JAX runner's and to its
 unsharded twin, and a ``1x2`` cell over gloo equal to its unsharded twin.
 A meshed cell runs inside spawned ranks (``launch/mesh.spawn``, at most
@@ -55,7 +55,14 @@ def test_shared_cell_matches_sharing_off_twin_with_fewer_blocks():
     assert r.stats["shared_block_hits"] > 0
     assert r.stats["block_dedup_ratio"] > 1.0
     assert r.stats["physical_blocks"] < r.stats["logical_blocks"]
-    assert r.report()["prompt_sharing"] == "shared"
+    rep = r.report()
+    assert rep["prompt_sharing"] == "shared"
+    from repro_torch.perf.ledger import metrics_from_scenario
+
+    (key, row), = metrics_from_scenario(rep).items()
+    assert key.endswith("/shared")
+    assert row["block_dedup_ratio"] > 1.0
+    assert row["physical_blocks"] < row["logical_blocks"]
 
 
 def test_shared_preempt_cell_matches_both_twins():
@@ -88,6 +95,31 @@ def test_spec_cell_matches_spec_off_twin():
     assert r.report()["spec_k"] == 4
 
 
+def test_spec_cell_ledger_row():
+    """The speculate cell's ledger row (``tests/test_speculative.py``):
+    keyed ``.../spec4``, full acceptance, the twin held; the reference's
+    row on the JAX runner's result of the same cell, exact counters
+    equal."""
+    from repro.perf.ledger import metrics_from_scenario as ref_metrics
+    from repro_torch.perf.ledger import metrics_from_scenario
+    import repro.scenarios.runner as ref_runner
+    from torch_scenario_checks import ref_cell
+
+    cell = _spec_cell()
+    rep = run(cell).report()
+    assert rep["spec_k"] == 4
+    (key, row), = metrics_from_scenario(rep).items()
+    assert key.endswith("/spec4")
+    assert row["acceptance_rate"] == 1.0
+    assert row["golden_ok"] is True
+    (rkey, rrow), = ref_metrics(
+        ref_runner.run_cell(ref_cell(cell)).report()).items()
+    assert rkey == key and set(rrow) == set(row)
+    for name in row:
+        if not name.endswith(("_s", "tok_s")):
+            assert row[name] == rrow[name], name
+
+
 def test_spec_cell_survives_preemption():
     """Preempting mid-speculation must rewind AND replay cleanly: the
     faulted spec cell still matches its fault-free golden twin and its
@@ -110,6 +142,20 @@ def test_mesh_cell_matches_unsharded_twin():
     assert r.stats["mesh_devices"] == 1
     assert r.stats["device_lane_utilization"] > 0
     assert r.report()["mesh"] == "1x1"
+
+
+def test_mesh_cell_ledger_key_forks():
+    """A meshed cell's ledger row is keyed by its ``/m<DxM>`` cell id, with
+    the device lane utilization (``tests/test_scenarios.py``)."""
+    from repro_torch.perf.ledger import metrics_from_scenario
+
+    cell = _cell(meshes=["1x1"])
+    rows = metrics_from_scenario(run(cell).report())
+    (key,) = rows
+    assert key == f"scenario/{cell.cell_id}"
+    assert key.endswith("/m1x1")
+    assert rows[key]["device_lane_utilization"] > 0
+    assert rows[key]["mesh_devices"] == 1
 
 
 def test_mesh_device_loss_cell_restarts_resharded():

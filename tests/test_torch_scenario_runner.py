@@ -7,14 +7,16 @@ smoke parameters (``init_model(PRNGKey(0))``, carried across with
 fault plan, under both schedulers and with ``prefill_chunk`` 4, must serve
 the JAX runner's streams, rejections (uids and reasons) and exact stats,
 and each faulted or chunked cell must equal its twins.  The contract tests
-of ``tests/test_scenarios.py`` that run cells follow, except those that
-read the perf ledger (ROADMAP item 1.15).
+of ``tests/test_scenarios.py`` that run cells follow, and those that read
+the perf ledger.
 """
 
 import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.perf import Ledger, gate_run  # noqa: E402
+from repro_torch.perf.ledger import metrics_from_scenario  # noqa: E402
 from repro_torch.scenarios import SLOSpec  # noqa: E402
 from repro_torch.scenarios import runner  # noqa: E402
 import torch_threads  # noqa: E402
@@ -83,13 +85,72 @@ def test_slo_violation_fails_cell():
     assert r.error == "" and r.slo_failures and not r.ok
 
 
-def test_run_matrix_only_filter_and_markdown():
+def test_run_matrix_only_filter_and_markdown(tmp_path):
     spec = _tiny_matrix(faults=["none", "malformed"])
-    results = runner.run_matrix(spec, only="*malformed", device="cpu")
+    results = runner.run_matrix(spec, only="*malformed", record=True,
+                                ledger=Ledger(str(tmp_path)), device="cpu")
     assert [r.cell.fault for r in results] == ["malformed"]
     md = runner.format_matrix_markdown(results)
     assert "| cell |" in md and results[0].cell.cell_id in md
     assert results[0].tokens == run(_cell("malformed")).tokens
+    assert Ledger(str(tmp_path)).latest() is not None
+
+
+# ---------------------------------------------------------------------------
+# ledger recording + perf gate (tests/test_scenarios.py)
+# ---------------------------------------------------------------------------
+
+
+def test_metrics_from_scenario_schema():
+    """The preempt cell's row: the reference's keys, and on the JAX
+    runner's result of the same cell the reference's row, its exact
+    counters equal."""
+    import repro.scenarios.runner as ref_runner
+    from repro.perf.ledger import metrics_from_scenario as ref_metrics
+    from torch_scenario_checks import ref_cell
+
+    cell = _cell("preempt")
+    metrics = metrics_from_scenario(run(cell).report())
+    (key, row), = metrics.items()
+    assert key == cell.ledger_key
+    assert key.startswith("scenario/")
+    for name in ("tok_s", "slot_utilization", "ttft_p50_s", "ttft_p95_s",
+                 "preemptions", "rejected", "restarts"):
+        assert name in row, f"missing {name}"
+    assert row["golden_ok"] is True and row["slo_ok"] is True
+    (rkey, rrow), = ref_metrics(
+        ref_runner.run_cell(ref_cell(cell)).report()).items()
+    assert rkey == key and set(rrow) == set(row)
+    assert {n: row[n] for n in row if not n.endswith("_s")} == {
+        n: rrow[n] for n in rrow if not n.endswith("_s")}
+
+
+def test_recorded_cell_gates_against_its_own_trajectory(tmp_path):
+    ledger = Ledger(str(tmp_path))
+    r = run(_cell("preempt"))
+    first = runner.record_cell(r, ledger=ledger)
+    assert first.meta["sources"] == ["scenario"]
+    # identical stats re-recorded: the per-cell gate must PASS (the
+    # latest-comparable fallback pairs runs on the shared scenario/ key)
+    second = runner.record_cell(r, ledger=ledger)
+    gate = gate_run(second, ledger, tuning_store=None)
+    assert gate.ok, [x.describe() for x in gate.comparison.regressions]
+    assert r.cell.ledger_key in second.metrics
+
+
+def test_golden_flip_and_new_faults_regress(tmp_path):
+    ledger = Ledger(str(tmp_path))
+    r = run(_cell("preempt"))
+    good = metrics_from_scenario(r.report())
+    ledger.record(good)
+    key = r.cell.ledger_key
+    bad = {key: dict(good[key], golden_ok=False,
+                     rejected=good[key]["rejected"] + 1)}
+    worse = ledger.record(bad)
+    gate = gate_run(worse, ledger, tuning_store=None)
+    assert not gate.ok
+    names = {x.metric for x in gate.comparison.regressions}
+    assert {"golden_ok", "rejected"} <= names
 
 
 def test_run_matrix_threads_serve_the_sequential_streams():
@@ -102,12 +163,26 @@ def test_run_matrix_threads_serve_the_sequential_streams():
         assert r.ok and r.tokens == run(r.cell).tokens
 
 
-def test_record_is_refused_naming_the_ledger_item():
-    with pytest.raises(NotImplementedError,
-                       match="the perf ledger: ROADMAP item 1.15"):
-        runner.record_cell(run(_cell("preempt")))
-    with pytest.raises(NotImplementedError, match="ROADMAP item 1.15"):
-        runner.run_matrix(_tiny_matrix(), record=True, device="cpu")
+def test_record_is_refused_naming_the_ledger_item(tmp_path):
+    """Recording is ported (ROADMAP 1.15): ``record_cell`` appends the
+    cell's ``scenario/<cell_id>`` row, and ``run_matrix(record=True)``
+    one run per cell that did not error, stamped with the chip of its
+    device."""
+    from repro_torch.perf import Ledger
+
+    ledger = Ledger(str(tmp_path))
+    r = run(_cell("preempt"))
+    first = runner.record_cell(r, ledger=ledger)
+    assert first.meta == {"sources": ["scenario"],
+                          "scenario": r.cell.cell_id, "fault": "preempt"}
+    assert list(first.metrics) == [r.cell.ledger_key]
+    results = runner.run_matrix(_tiny_matrix(faults=["none", "malformed"]),
+                                record=True, ledger=ledger, device="cpu")
+    runs = ledger.runs()
+    assert [x.seq for x in runs] == [1, 2, 3]
+    assert [list(x.metrics) for x in runs[1:]] == [
+        [c.cell.ledger_key] for c in results]
+    assert {x.env.series_key() for x in runs} == {"grace-core/fp32"}
 
 
 def test_ttft_tracked_per_request():
@@ -131,6 +206,10 @@ def test_chunked_preempt_cell_matches_both_twins():
     rep = r.report()
     assert rep["prefill_chunk"] == 8 and rep["prefill_budget"] == 8
     assert r.stats["ttft_p95_steps"] >= 1.0
+    (key, row), = metrics_from_scenario(rep).items()
+    assert key.endswith("/pc8")
+    assert row["prefill_chunk"] == 8
+    assert row["ttft_p95_steps"] >= 1.0
 
 
 def test_slo_ttft_steps_ceiling():

@@ -9,8 +9,8 @@ that run no engine, and the port's CLI.
 * Traces: ``sample_trace`` (and ``MalformedPlan.mutate_trace``) equal the
   reference's byte for byte for every cell of ``full_matrix()``.
 * The CLI prints the reference CLI's cell ids, gates on the CPU, exits 2
-  on a glob that matches nothing, and refuses ``--record`` (the perf
-  ledger, ROADMAP item 1.15).
+  on a glob that matches nothing, and records its cells in the perf
+  ledger with ``--record``.
 """
 
 import dataclasses
@@ -390,11 +390,11 @@ def test_speculate_axis_expansion():
 # ---------------------------------------------------------------------------
 
 
-def _cli(*argv, timeout=120):
+def _cli(*argv, timeout=120, env=None):
     # one thread: beside the other test workers, and with the first call
     # of torch's vector math on one thread (see tests/torch_threads.py)
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src"),
-           "OMP_NUM_THREADS": "1"}
+           "OMP_NUM_THREADS": "1", **(env or {})}
     return subprocess.run([sys.executable, "-m", "repro_torch.scenarios",
                            *argv], capture_output=True, text=True, env=env,
                           timeout=timeout, cwd=ROOT)
@@ -431,7 +431,16 @@ def test_cli_gate_fails_on_no_match():
     assert "no cells match" in proc.stderr
 
 
-def test_cli_refuses_record():
-    proc = _cli("run", "--device", "cpu", "--record")
-    assert proc.returncode == 2
-    assert "the perf ledger: ROADMAP item 1.15" in proc.stderr
+def test_cli_refuses_record(tmp_path):
+    """``run --record`` (ROADMAP 1.15, no longer refused) appends one
+    perf-ledger run per cell to ``$REPRO_ARTIFACT_DIR/torch/perf``."""
+    from repro_torch.perf import Ledger
+
+    proc = _cli("run", "--device", "cpu", "--only", "*gpt2-124m/malformed",
+                "--record", env={"REPRO_ARTIFACT_DIR": str(tmp_path)})
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    runs = Ledger(str(tmp_path / "torch" / "perf")).runs()
+    assert sorted(k for r in runs for k in r.metrics) == [
+        "scenario/poisson0.5/u4-12/eos0.1/continuous/gpt2-124m/malformed",
+        "scenario/poisson0.5/u4-12/eos0.1/wave/gpt2-124m/malformed"]
+    assert all(r.meta["fault"] == "malformed" for r in runs)

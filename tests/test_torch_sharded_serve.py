@@ -338,3 +338,79 @@ def test_cross_mesh_where_the_rules_fall_back(tmp_path):
             per["none"]["device_lane_utilization"])
     pools = verdict["workloads"]["qwen3-int8-shared-chunked"]["1x4"]["pools"]
     assert pools["scales_replicated"] and pools["codes_max_diff"] <= 1
+
+
+# ---------------------------------------------------------------------------
+# Ledger and gate wiring (tests/test_sharded_serve.py::TestLedgerMeshForks)
+# ---------------------------------------------------------------------------
+
+
+class TestLedgerMeshForks:
+    def _report(self, **over):
+        stats = {
+            "requests": 4, "new_tokens": 32, "fused_steps": 17,
+            "tok_s": 100.0, "p50_latency_s": 0.1, "p95_latency_s": 0.2,
+            "ttft_p50_s": 0.05, "ttft_p95_s": 0.1, "slot_utilization": 0.8,
+            "busy_slot_steps": 53, "slot_steps": 68,
+            "scheduler": "continuous", "preemptions": 0,
+            "device_lane_utilization": 0.65, "mesh_devices": 4,
+        }
+        rep = {"kind": "serve_report", "arch": "gpt2-124m",
+               "scheduler": "continuous", "stats": stats,
+               "spec_k": 0, "requests": []}
+        rep.update(over)
+        return rep
+
+    def _rows(self, **over):
+        """The port's rows, which must be the reference's."""
+        from repro.perf.ledger import metrics_from_serving as ref_rows
+        from repro_torch.perf.ledger import metrics_from_serving
+
+        rows = metrics_from_serving(self._report(**over))
+        assert rows == ref_rows(self._report(**over))
+        return rows
+
+    def test_mesh_key_fork(self):
+        rows = self._rows(mesh="2x2")
+        (key,) = rows
+        assert key == "serve/gpt2-124m@continuous+mesh2x2"
+        assert rows[key]["mesh_devices"] == 4
+        assert rows[key]["device_lane_utilization"] == 0.65
+
+    def test_no_mesh_no_fork(self):
+        rows = self._rows()
+        (key,) = rows
+        assert key == "serve/gpt2-124m@continuous"
+
+    def test_adapt_fork_orders_before_mesh(self):
+        rows = self._rows(mesh="2x1", spec_k=2, spec_adaptive=True)
+        (key,) = rows
+        assert key == "serve/gpt2-124m@continuous+spec2+adapt+mesh2x1"
+
+    def test_device_lane_utilization_gated_at_tol0(self):
+        # the new metrics are exact-trajectory gates: any drop regresses
+        from repro_torch.perf.compare import SPECS
+        assert SPECS["device_lane_utilization"].worse == "lower"
+        assert SPECS["device_lane_utilization"].rel_tol == 0.0
+        assert not SPECS["device_lane_utilization"].noisy
+        assert SPECS["mesh_devices"].worse == "lower"
+        assert SPECS["mesh_devices"].rel_tol == 0.0
+
+    def test_gate_flags_lane_utilization_drop(self):
+        from repro_torch.perf.compare import compare_runs
+        from repro_torch.perf.ledger import BenchRun, capture_env
+        key = "serve/gpt2-124m@continuous+mesh2x2"
+
+        def run(seq, dlu):
+            return BenchRun(
+                run_id=f"r{seq}", seq=seq, timestamp=float(seq),
+                env=capture_env(),
+                metrics={key: {"tok_s": 100.0, "mesh_devices": 4,
+                               "device_lane_utilization": dlu}})
+
+        drop = compare_runs(run(1, 0.65), run(2, 0.60))
+        assert any(r.metric == "device_lane_utilization"
+                   for r in drop.regressions)
+        same = compare_runs(run(1, 0.65), run(3, 0.65))
+        assert not any(r.metric == "device_lane_utilization"
+                       for r in same.regressions)

@@ -10,8 +10,9 @@ how many target steps a stream costs, never its tokens: self-speculation
 accepts every draft, and an adversarial draft (gpt2 drawn with init seed
 123) is rejected, rewound, and on the stateful archs restored and
 replayed, with the block pool's invariants clean after every step.  The
-reference's scenario-matrix cases wait for ROADMAP 1.14 and its ledger
-fork for 1.15.
+ledger's ``+spec<k>`` fork keys the port's report as the reference keys
+the JAX engine's, with equal counters; the reference's scenario-matrix
+cases are mirrored in ``tests/test_torch_scenario_axes.py``.
 """
 
 import jax
@@ -356,3 +357,43 @@ def test_slot_state_is_a_copy_and_restore_is_masked():
     gcfg = _model("gpt2-124m")[2]
     assert transformer.slot_state(
         transformer.init_paged_cache(gcfg, B, 32, 8, "cpu")) == {}
+
+
+# -- ledger: the +spec<k> fork (tests/test_speculative.py) ---------------------
+
+
+def test_ledger_forks_spec_key_with_counters():
+    """``metrics_from_serving`` forks ``+spec<k>`` on the port's report,
+    with the reference's keys and exact counters on the JAX engine's."""
+    from repro.perf.ledger import metrics_from_serving as ref_metrics
+    from repro_torch.perf.ledger import _SERVING_INT_METRICS
+    from repro_torch.perf.ledger import metrics_from_serving
+
+    def report(eng, spec_k):
+        return {"kind": "serve_report", "arch": "gpt2-124m",
+                "scheduler": "continuous", "spec_k": spec_k,
+                "stats": eng.stats(), "requests": []}
+
+    for spec_k, kw in ((4, dict(spec_k=4, draft=("gpt2-124m", 0))),
+                       (0, {})):
+        port = metrics_from_serving(report(_serve("gpt2-124m", **kw),
+                                           spec_k))
+        ref = ref_metrics(report(_serve("gpt2-124m", jax_engine=True, **kw),
+                                 spec_k))
+        (key, row), = port.items()
+        assert list(ref) == [key]
+        assert key == ("serve/gpt2-124m@continuous+spec4" if spec_k
+                       else "serve/gpt2-124m@continuous")
+        assert set(row) == set(ref[key])
+        exact = sorted(n for n in row if n in _SERVING_INT_METRICS)
+        assert {n: row[n] for n in exact} == {n: ref[key][n] for n in exact}
+        if spec_k:
+            for name in ("spec_k", "drafted_tokens", "accepted_tokens",
+                         "rejected_tokens", "draft_steps", "target_steps",
+                         "acceptance_rate"):
+                assert name in row, name
+            assert row["acceptance_rate"] == 1.0
+            assert isinstance(row["drafted_tokens"], int)
+        else:
+            assert row["drafted_tokens"] == 0
+            assert row["acceptance_rate"] == 0.0
