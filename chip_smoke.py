@@ -89,6 +89,16 @@ non-zero):
             workloads, on the h100 and grace-core models, ROIs timed on the
             card: every kernel of the suite launches, and no roofline share
             is above 1.05.
+   analysis-compiled  the compiled event source through the same service:
+            the registry's seven kernel workloads and the five
+            ``vectorization_report`` workloads on the h100 and grace-core
+            models, ``source="compiled"``, ROIs timed on the card, over a
+            fresh store directory: no error, one recording a workload (12
+            for 24 cells), every kernel of the registry workloads launched
+            in the timed ROIs, the example workloads' classes those the
+            CPU tests pin; then a second drain through the service CLI in
+            a subprocess on the same directory: no recording, 12 store
+            hits, every result equal to the first drain's but ``wall_s``.
 4. serve    ``repro_torch.launch.serve`` at the full width of gpt2-124m
             (bf16): every request completes, and the decode kernel runs 12
             times (once per attention layer) per fused step, each launch
@@ -2249,6 +2259,128 @@ def phase_analysis(torch, np, problems):
           "waves": report["service"]["waves"],
           "wall_s": report["service"]["wall_s"]})
     return counts, report, cells
+
+
+#: Fig. 8 classes of the vectorization_report workloads on h100 and on
+#: grace-core, as ``tests/test_torch_compiled_events.py`` pins them
+EXAMPLE_CLASSES = {"gemm-512": 4, "stream-triad": 2, "gather-reduce": 3,
+                   "scan-8-layers": 4, "fft2d": 2}
+
+#: the entry points the registry's kernel workloads launch
+REGISTRY_KERNELS = ("gemm", "stream_triad", "spmv_blockell", "jacobi_step",
+                    "rx_gate", "flash_decode", "flash_prefill_paged")
+
+#: the second drain: the service CLI over the same store, with the
+#: example's workloads registered first (the CLI serves registered names)
+SECOND_DRAIN = """
+import sys
+from repro_torch.analysis import list_workloads, register
+from repro_torch.examples import vectorization_report
+from repro_torch.serve import analysis_service
+examples = vectorization_report.build_workloads()
+for wl in examples:
+    register(wl, replace=True)
+names = list_workloads(tags=("kernel",)) + [wl.name for wl in examples]
+sys.exit(analysis_service.main([
+    "--device", "cuda", "--source", "compiled", "--store-dir", sys.argv[1],
+    "--chips", "h100", "grace-core", "--max-batch", "16",
+    "--workloads", *names, "--out", sys.argv[2]]))
+"""
+
+
+def phase_analysis_compiled(torch):
+    """The compiled event source (see the module docstring's
+    ``analysis-compiled``).  Recordings run on the CPU; the ROIs, timed on
+    the card, launch the kernels: their counts are set to 0 just before
+    the drain and read just after."""
+    import os
+    import tempfile
+
+    from repro_torch.analysis import list_workloads
+    from repro_torch.examples import vectorization_report
+    from repro_torch.kernels.flash_decode import kernel as fd
+    from repro_torch.kernels.qc_gate import kernel as qc
+    from repro_torch.serve.analysis_service import AnalysisService
+
+    t0 = time.time()
+    workloads = (list_workloads(tags=("kernel",))
+                 + vectorization_report.build_workloads())
+    chips = ("h100", "grace-core")
+    entries = {**hpc_entries(), "rx_gate": qc.rx_gate,
+               "flash_decode": fd.flash_decode,
+               "flash_prefill_paged": fd.flash_prefill_paged}
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-store-") as store:
+        svc = AnalysisService(max_batch=16, jobs=1, device="cuda",
+                              store=store)
+        for wl in workloads:
+            svc.submit(wl, chips=chips, source="compiled", time_roi=True)
+        for name in REGISTRY_KERNELS:
+            entries[name].launches = 0
+        torch.cuda.synchronize()
+        svc.run_until_drained()
+        torch.cuda.synchronize()
+        counts = {name: entries[name].launches for name in REGISTRY_KERNELS}
+        first = svc.report()
+        service = first["service"]
+        require(service["errors"] == 0,
+                f"analysis-compiled errors: "
+                f"{[r['error'] for r in first['requests'] if r['error']]}")
+        require(service["cells"] == 2 * len(workloads),
+                f"{service['cells']} cells")
+        require(service["compiles"] == len(workloads)
+                and service["store_hits"] == 0,
+                f"first drain: {service['compiles']} recordings, "
+                f"{service['store_hits']} store hits")
+        require(all(n > 0 for n in counts.values()),
+                f"a registry kernel never launched in the ROIs: {counts}")
+        results = [res for req in first["requests"] for res in req["results"]]
+        classes = {(r["workload"], r["chip"]): r["perf_class"]
+                   for r in results}
+        for name, cls in EXAMPLE_CLASSES.items():
+            for chip in chips:
+                require(classes[name, chip] == cls,
+                        f"{name}@{chip}: class {classes[name, chip]}, "
+                        f"the CPU tests pin {cls}")
+        first_s = time.time() - t0
+        out = os.path.join(store, "second.json")
+        proc = subprocess.run(
+            [sys.executable, "-c", SECOND_DRAIN, store, out],
+            capture_output=True, text=True, timeout=300, cwd=str(ROOT),
+            env={**os.environ, "PYTHONPATH": str(SRC)})
+        require(proc.returncode == 0,
+                f"second drain exited {proc.returncode}: "
+                f"{proc.stderr[-2000:]}")
+        with open(out) as f:
+            second = json.load(f)
+
+    again = second["service"]
+    require(again["compiles"] == 0
+            and again["store_hits"] == len(workloads),
+            f"second drain: {again['compiles']} recordings, "
+            f"{again['store_hits']} store hits")
+
+    def strip(report):
+        return [{k: v for k, v in res.items() if k != "wall_s"}
+                for req in report["requests"] for res in req["results"]]
+
+    require(strip(second) == strip(first),
+            "second drain's results differ from the first's")
+    emit({"phase": "analysis-compiled",
+          "cells": [{"workload": r["workload"], "chip": r["chip"],
+                     "class": r["perf_class"], "flops": r["flops"],
+                     "hbm_bytes": r["hbm_bytes"],
+                     "mxu_flops": r["events"]["mxu_flops"],
+                     "wall_s": r["wall_s"]} for r in results],
+          "classes_h100": {r["workload"]: r["perf_class"] for r in results
+                           if r["chip"] == "h100"},
+          "launches": counts,
+          "recordings": service["compiles"],
+          "record_s": svc.cache.record_s,
+          "first_drain_s": first_s,
+          "second_drain": {"recordings": again["compiles"],
+                           "store_hits": again["store_hits"],
+                           "wall_s": again["wall_s"]},
+          "seconds": time.time() - t0})
 
 
 # -- serving ------------------------------------------------------------------
@@ -4677,6 +4809,7 @@ def main() -> int:
     hpc_counts, analysis_report, analysis_cells = phase_analysis(
         torch, np, problems)
     del problems
+    phase_analysis_compiled(torch)
     torch.cuda.empty_cache()
 
     engine, _, report = phase_serve(torch, SERVE_ARGV, "serve")

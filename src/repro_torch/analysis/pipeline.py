@@ -7,34 +7,161 @@ Eq. 1 metrics (VB, R_ins, AI — Sec. 3.3), the adapted roofline (Eq. 2)
 and the Fig. 8 decision tree into a single call that returns a typed,
 serializable report, with an optional ROI timed on the workload's device.
 
-Event sources: the workload's analytic flops/bytes model (``"analytic"``,
-which ``"auto"`` resolves to).  The reference's ``"compiled"`` source (XLA
-artifacts), its persistent artifact cache and store, and its autotuner
-outlook are not ported: asking for them raises, naming ROADMAP 1.17, and
-``SVEAnalysis.tuning`` stays ``None``.
+Event sources (``source=``):
+
+* ``"analytic"`` — the workload's Sec.-3.3-style flops/bytes model;
+* ``"compiled"`` — record one run of the workload's callable on the CPU
+  and walk the recording (``core.op_cost``, ``counters.
+  events_from_compiled``): the port's counterpart of the reference's XLA
+  artifact, for any PyTorch callable;
+* ``"auto"`` (default) — analytic when the model is present, else compiled.
+
+``analyze_sweep`` amortizes recording: events are chip-independent
+(GLOBAL quantities), so a multi-chip / multi-ELEN sweep records each
+workload exactly once via ``ArtifactCache`` — and, backed by the
+persistent :class:`~repro_torch.analysis.store.ArtifactStore`, at most
+once across *processes*.  ``analyze_sweep(..., jobs=N)`` fans the
+(workload x chip x dtype) cells over a thread pool; single-flight
+deduplication in the cache makes concurrent cells of the same workload
+wait on one recording rather than race.  The reference's autotuner
+outlook is ROADMAP 1.17.3: ``SVEAnalysis.tuning`` stays ``None``.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import threading
 from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Dict, Iterable, List, Optional, Sequence, Union
 
 import torch
 
+from repro_torch.analysis.store import (
+    ArtifactStore, _store_for, default_store, workload_fingerprint,
+)
 from repro_torch.analysis.workload import Workload, get_workload, list_workloads
 from repro_torch.core import hw, metrics
-from repro_torch.core.counters import Events, events_from_analytic
+from repro_torch.core.counters import (
+    Events, events_from_analytic, events_from_compiled,
+)
 from repro_torch.core.decision_tree import Decision, PerfClass, classify
 from repro_torch.core.device import resolve_device
 from repro_torch.core.metrics import VectorizationReport
+from repro_torch.core.op_cost import Recording, record
 from repro_torch.core.profiler import Profiler, block_until_ready
 from repro_torch.core.roofline import AdaptedRoofline, adapted_roofline
 
 WorkloadLike = Union[str, Workload]
 
-_UNPORTED = "not ported yet: {} is ROADMAP item 1.17"
+#: Sentinel: resolve ``store.default_store()`` lazily, at first use (so the
+#: ``$REPRO_ARTIFACT_DIR`` override is honored even for module-level caches).
+DEFAULT_STORE = "default"
+
+
+# ---------------------------------------------------------------------------
+# Recorded-artifact cache (the sweep's record-once guarantee)
+# ---------------------------------------------------------------------------
+
+
+class ArtifactCache:
+    """In-memory + optionally disk-backed cache of per-workload Events.
+
+    Events are chip-independent (global flops/bytes/collective quantities),
+    so one recording serves every (chip, dtype) cell of a sweep.  Lookups
+    are **single-flight**: under a parallel sweep, concurrent cells for the
+    same workload block on one leader's recording instead of recording N
+    times.
+
+    ``store`` adds a persistent layer keyed by workload fingerprint (see
+    :mod:`repro_torch.analysis.store`): pass an :class:`ArtifactStore`, the
+    :data:`DEFAULT_STORE` sentinel for the shared default directory, any
+    other string as a directory path, or ``None`` (default) for a
+    process-local, memory-only cache.
+
+    ``compiles`` (recordings, under the reference's name) / ``hits`` /
+    ``store_hits`` are exposed for tests and cost accounting (``hits``
+    counts in-memory hits only); ``record_s`` sums the recordings' seconds.
+    """
+
+    def __init__(self, store: Union[ArtifactStore, str, None] = None) -> None:
+        # keyed by fingerprint (content address), not object identity: two
+        # workloads sharing a name but differing in shapes/dtypes/body get
+        # different keys, and the cache never pins request Workloads (and
+        # their example tensors) for the process lifetime
+        self._events: Dict[str, Events] = {}
+        self._store = store
+        self._lock = threading.Lock()
+        self._inflight: Dict[str, threading.Event] = {}
+        self.compiles = 0
+        self.hits = 0
+        self.store_hits = 0
+        self.record_s = 0.0
+
+    @property
+    def store(self) -> Optional[ArtifactStore]:
+        if isinstance(self._store, str):
+            if self._store == DEFAULT_STORE:
+                return default_store()
+            return _store_for(self._store)  # one store per directory
+        return self._store
+
+    def events_for(self, wl: Workload) -> Events:
+        if wl.fn is None:
+            raise ValueError(f"{wl.name}: no callable to record")
+        key = workload_fingerprint(wl)
+        while True:
+            with self._lock:
+                if key in self._events:
+                    self.hits += 1
+                    return self._events[key]
+                flight = self._inflight.get(key)
+                if flight is None:
+                    # become the leader for this workload
+                    self._inflight[key] = threading.Event()
+                    break
+            # another thread is recording this workload: wait, then re-check
+            # (if the leader failed, the loop elects a new leader)
+            flight.wait()
+        try:
+            ev = self._load_or_record(wl, key)
+            with self._lock:
+                self._events[key] = ev
+            return ev
+        finally:
+            with self._lock:
+                self._inflight.pop(key).set()
+
+    def _load_or_record(self, wl: Workload, fingerprint: str) -> Events:
+        store = self.store
+        if store is not None:
+            ev = store.get(fingerprint)
+            if ev is not None:
+                with self._lock:
+                    self.store_hits += 1
+                return ev
+        with self._lock:
+            self.compiles += 1
+        rec = record(wl.fn, wl.example_args())
+        with self._lock:
+            self.record_s += rec.seconds
+        ev = events_from_compiled(rec, n_devices=wl.n_devices)
+        if store is not None:
+            store.put(fingerprint, ev, workload=wl.name)
+        return ev
+
+    def clear(self) -> None:
+        with self._lock:
+            self._events.clear()
+            self.compiles = 0
+            self.hits = 0
+            self.store_hits = 0
+            self.record_s = 0.0
+
+
+#: Module-level default cache shared by bare ``analyze`` calls — persistent
+#: across processes via the default ArtifactStore.
+DEFAULT_CACHE = ArtifactCache(store=DEFAULT_STORE)
 
 
 # ---------------------------------------------------------------------------
@@ -46,14 +173,14 @@ _UNPORTED = "not ported yet: {} is ROADMAP item 1.17"
 class SVEAnalysis:
     """Everything the paper derives about one workload on one chip model.
 
-    ``tuning`` is always ``None`` in the port: the autotuner is not ported
-    yet (ROADMAP 1.17).
+    ``tuning`` is always ``None`` in the port: the autotuner's outlook is
+    ROADMAP 1.17.3.
     """
 
     workload: str
     chip: str
     dtype: str
-    source: str  # "analytic" | "compiled" (analyze_events)
+    source: str  # "analytic" | "compiled"
     events: Events
     report: VectorizationReport
     roofline: AdaptedRoofline
@@ -214,34 +341,47 @@ def analyze(
     source: str = "auto",
     time_roi: bool = False,
     device: Union[str, torch.device] = "cuda",
-    cache: Any = None,
-    store: Any = None,
+    cache: Optional[ArtifactCache] = None,
+    store: Union[ArtifactStore, str, None] = None,
 ) -> SVEAnalysis:
     """Run the paper's full method on one workload, on one chip model.
 
-    Analytic events -> Eq. 1 metrics -> adapted roofline (Eq. 2) -> Fig. 8
-    decision tree, plus, with ``time_roi``, the workload's ROI timed on
-    ``device`` (its example arguments are moved there once).  ``device``
-    is read only by the timing.
+    Events (analytic, or recorded once and cached) -> Eq. 1 metrics ->
+    adapted roofline (Eq. 2) -> Fig. 8 decision tree, plus, with
+    ``time_roi``, the workload's ROI timed on ``device`` (its example
+    arguments are moved there once).  ``device`` is read only by the
+    timing: recordings run on the CPU (:mod:`repro_torch.core.op_cost`).
+
+    Without ``cache``, events come from the module-level ``DEFAULT_CACHE``
+    (persistent via the default ArtifactStore, so repeat processes record
+    nothing); pass ``store`` to persist under a specific store instead, or
+    an explicit memory-only ``ArtifactCache()`` to bypass persistence.
     """
-    if cache is not None or store is not None:
-        raise ValueError(_UNPORTED.format("the artifact cache/store"))
     wl = _resolve(wl)
+    if cache is None:
+        cache = ArtifactCache(store=store) if store is not None else DEFAULT_CACHE
     dtype = dtype or wl.dtype
     if source not in ("auto", "analytic", "compiled"):
         raise ValueError(f"source must be auto|analytic|compiled, got {source!r}")
-    if source == "compiled" or not wl.has_analytic_model:
-        raise ValueError(_UNPORTED.format(
-            f"{wl.name}: the compiled event source"))
-    ev = events_from_analytic(
-        flops=wl.flops,
-        hbm_bytes=wl.hbm_bytes,
-        gather_bytes=wl.gather_bytes,
-        collective_bytes=wl.collective_bytes,
-        n_devices=wl.n_devices,
-    )
-    ev.nonvec_flops = wl.flops * (1.0 - wl.vectorizable_fraction)
-    report = wl.report(chip, dtype=dtype)
+    if source == "auto":
+        source = "analytic" if wl.has_analytic_model else "compiled"
+
+    if source == "analytic":
+        if not wl.has_analytic_model:
+            raise ValueError(f"{wl.name}: no analytic model for source='analytic'")
+        ev = events_from_analytic(
+            flops=wl.flops,
+            hbm_bytes=wl.hbm_bytes,
+            gather_bytes=wl.gather_bytes,
+            collective_bytes=wl.collective_bytes,
+            n_devices=wl.n_devices,
+        )
+        ev.nonvec_flops = wl.flops * (1.0 - wl.vectorizable_fraction)
+        report = wl.report(chip, dtype=dtype)
+    else:
+        ev = cache.events_for(wl)
+        report = _report_from_events(wl.name, dtype, ev, chip)
+
     rl = adapted_roofline(chip, dtype)
     decision = classify(report, chip, roofline=rl)
     wall = _time_roi(wl, resolve_device(device)) if time_roi else None
@@ -249,7 +389,7 @@ def analyze(
         workload=wl.name,
         chip=chip.name,
         dtype=dtype,
-        source="analytic",
+        source=source,
         events=ev,
         report=report,
         roofline=rl,
@@ -280,6 +420,20 @@ def analyze_events(
     )
 
 
+def analyze_compiled(
+    name: str,
+    recording: Recording,
+    chip: hw.ChipSpec = hw.GRACE_CORE,
+    *,
+    dtype: str = "fp32",
+    n_devices: int = 1,
+) -> SVEAnalysis:
+    """Analyze an already-taken :class:`~repro_torch.core.op_cost.Recording`
+    (``op_cost.record(fn, args)``)."""
+    ev = events_from_compiled(recording, n_devices=n_devices)
+    return analyze_events(name, ev, chip, dtype=dtype)
+
+
 def analyze_sweep(
     workloads: Optional[Iterable[WorkloadLike]] = None,
     chips: Sequence[hw.ChipSpec] = (hw.GRACE_CORE, hw.TPU_V5E),
@@ -288,15 +442,25 @@ def analyze_sweep(
     source: str = "auto",
     time_roi: bool = False,
     device: Union[str, torch.device] = "cuda",
+    cache: Optional[ArtifactCache] = None,
+    store: Union[ArtifactStore, str, None] = None,
     jobs: int = 1,
 ) -> List[SVEAnalysis]:
-    """``analyze`` over a (workload x chip x dtype) grid.
+    """``analyze`` over a (workload x chip x dtype) grid, recording each
+    workload at most once (events are chip-independent; see ArtifactCache).
 
     ``workloads`` defaults to every registered workload; ``dtypes`` defaults
-    to each workload's own dtype.  ``jobs > 1`` fans the cells over a
-    thread pool; results come back in the serial (workload, chip, dtype)
-    order.
+    to each workload's own dtype.  Without an explicit ``cache``, the sweep
+    is backed by the persistent default ArtifactStore (or ``store``), so a
+    repeat sweep in a fresh process records nothing.
+
+    ``jobs > 1`` fans the cells over a thread pool.  Results come back in
+    the serial (workload, chip, dtype) order, and the cache's single-flight
+    guarantee keeps the recording count at one per unique workload
+    regardless of concurrency.
     """
+    if cache is None:
+        cache = ArtifactCache(store=store if store is not None else DEFAULT_STORE)
     names = list(workloads) if workloads is not None else list_workloads()
     cells: List[tuple] = []
     for w in names:
@@ -308,7 +472,7 @@ def analyze_sweep(
     def run_cell(cell: tuple) -> SVEAnalysis:
         wl, chip, dtype = cell
         return analyze(wl, chip, dtype=dtype, source=source,
-                       time_roi=time_roi, device=device)
+                       time_roi=time_roi, device=device, cache=cache)
 
     if jobs <= 1 or len(cells) <= 1:
         return [run_cell(c) for c in cells]

@@ -19,7 +19,7 @@ Registration is either eager::
 or lazy (``register_lazy``), which defers building example arguments until
 the workload is requested — how the kernel registry registers itself.
 Discovery finds the port's kernel registry; the reference's 13 paper
-applications (``benchmarks/apps.py``) are not ported yet (ROADMAP 1.17).
+applications (``benchmarks/apps.py``) are not ported yet (ROADMAP 1.17.4).
 """
 
 from __future__ import annotations
@@ -38,9 +38,9 @@ class Workload:
 
     ``args`` may be the literal argument tuple or a zero-argument thunk
     returning it (resolved once, on first use).  The analytic model fields
-    (``flops`` / ``hbm_bytes`` / ``gather_bytes``) are what the port's
-    pipeline analyzes; a workload without them cannot be analyzed until
-    the compiled source is ported (ROADMAP 1.17).
+    (``flops`` / ``hbm_bytes`` / ``gather_bytes``) are optional: a
+    workload without them is analysed from a recording of one run of
+    ``fn`` (the compiled source, :mod:`repro_torch.core.op_cost`).
     """
 
     name: str

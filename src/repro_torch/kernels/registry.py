@@ -16,10 +16,12 @@ registers the kernel's example :class:`~repro_torch.analysis.workload.
 Workload` (``kernel/<name>``), at the reference's problem size with its
 analytic flops/bytes model, so ``repro_torch.analysis.analyze`` reaches
 every kernel.  Example arguments come from a seeded ``torch.Generator`` on
-the CPU; ``analyze(..., time_roi=True)`` moves them to the card.
+the CPU; ``analyze(..., time_roi=True)`` moves them to the card, and
+``analyze(..., source="compiled")`` records the plain version on CPU
+copies of them.
 
 The reference's autotuner state (tuned configs, tuning spaces) is not
-ported yet (ROADMAP 1.17).  The tile keywords (``bm/bn/bk``,
+ported yet (ROADMAP 1.17.3).  The tile keywords (``bm/bn/bk``,
 ``block_rows``, ``block_outer``, ``block_s``, ``block_c``) are checked as the reference checks them, so the same
 calls fail, but each CUDA kernel's tile is its own: mapping tiling axes to
 CUDA launch configurations is the tuning port's job.

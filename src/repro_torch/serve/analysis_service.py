@@ -4,19 +4,27 @@ across from :mod:`repro.serve.analysis_service`.
 Submit requests (workload x chips x dtypes), admit them in waves of up to
 ``max_batch``, drain until the queue is empty; ``jobs > 1`` fans each
 wave's cells over a thread pool.  A cell that fails fails its request
-only.  With ``time_roi`` each cell's ROI is timed on ``device``.
+only.  With ``time_roi`` each cell's ROI is timed on ``device``.  All
+waves share one :class:`~repro_torch.analysis.pipeline.ArtifactCache`, by
+default backed by the persistent
+:class:`~repro_torch.analysis.store.ArtifactStore`, so:
+
+* requests naming the same workload in one wave (or across waves) trigger
+  a single recording (single-flight),
+* a service restart re-serves previously analysed workloads with zero
+  recordings (store hits; the report's ``compiles`` counts recordings).
 
 The report's ``trajectory`` block is the perf ledger's state
 (:mod:`repro_torch.perf`), and the CLI's ``--record`` appends the report
-to that ledger and stamps the run id into it.  The reference's artifact
-cache and store and its tuning outlook are not ported yet: the CLI's
-``--store-dir`` and ``--no-store`` name ROADMAP 1.17, and the report
-carries no ``tuning`` block and no compile counts.
+to that ledger and stamps the run id into it.  The reference's tuning
+outlook is ROADMAP 1.17.3: the report carries no ``tuning`` block.
 
-CLI (emits a JSON report):
+CLI (emits a JSON report; run it twice with the same ``--store-dir`` and
+the second run records nothing):
 
     python -m repro_torch.serve.analysis_service --device cpu \\
-        --workloads kernel/gemm kernel/spmv --chips grace-core h100
+        --workloads kernel/gemm kernel/spmv --chips grace-core h100 \\
+        --source compiled --store-dir DIR
 """
 
 from __future__ import annotations
@@ -30,7 +38,14 @@ from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
-from repro_torch.analysis.pipeline import SVEAnalysis, analyze, format_table
+from repro_torch.analysis.pipeline import (
+    DEFAULT_STORE,
+    ArtifactCache,
+    SVEAnalysis,
+    analyze,
+    format_table,
+)
+from repro_torch.analysis.store import ArtifactStore
 from repro_torch.analysis.workload import Workload, get_workload, list_workloads
 from repro_torch.core import hw
 
@@ -78,14 +93,24 @@ class AnalysisRequest:
 
 
 class AnalysisService:
-    """Queue/wave engine serving SVE analyses; ROIs are timed on
-    ``device``."""
+    """Queue/wave engine serving SVE analyses against a shared store; ROIs
+    are timed on ``device``."""
 
-    def __init__(self, *, max_batch: int = 8, jobs: int = 1,
-                 device: str = "cuda") -> None:
+    def __init__(
+        self,
+        *,
+        max_batch: int = 8,
+        jobs: int = 1,
+        device: str = "cuda",
+        cache: Optional[ArtifactCache] = None,
+        store: Union[ArtifactStore, str, None] = None,
+    ) -> None:
         self.max_batch = max_batch
         self.jobs = max(int(jobs), 1)
         self.device = device
+        self.cache = cache or ArtifactCache(
+            store=store if store is not None else DEFAULT_STORE
+        )
         self.queue: deque = deque()
         self.completed: Dict[int, AnalysisRequest] = {}
         self.waves = 0
@@ -123,8 +148,9 @@ class AnalysisService:
     # -- one wave -------------------------------------------------------------
 
     def _run_wave(self, wave: List[AnalysisRequest]) -> None:
-        """Batch the wave's requests into one fan-out: cells from different
-        requests interleave freely."""
+        """Batch the wave's requests into one fan-out against the shared
+        cache: cells from different requests interleave freely; cells naming
+        the same workload dedupe to one recording (single-flight)."""
         plan: List[Tuple[AnalysisRequest, Workload, hw.ChipSpec, str]] = []
         for req in wave:
             try:
@@ -136,11 +162,12 @@ class AnalysisService:
 
         def run_cell(item):
             req, wl, chip, dtype = item
-            # a cell that fails to analyze must not take the drain (and
-            # every other in-flight request) down with it
+            # a cell that fails to record or analyze must not take the
+            # drain (and every other in-flight request) down with it
             try:
                 return analyze(wl, chip, dtype=dtype, source=req.source,
-                               time_roi=req.time_roi, device=self.device)
+                               time_roi=req.time_roi, device=self.device,
+                               cache=self.cache)
             except Exception as e:  # noqa: BLE001 — reported per request
                 return e
 
@@ -178,12 +205,18 @@ class AnalysisService:
         return self.completed
 
     def perf_ledger(self):
-        """The perf ledger this service's reports belong to: the process
-        default (``$REPRO_ARTIFACT_DIR/torch/perf``) while the service has
-        no artifact store of its own (ROADMAP 1.17)."""
-        from repro_torch.perf import default_ledger
+        """The perf ledger that corresponds to THIS service's store: the
+        ``perf/`` sibling of its artifact directory (the default layout,
+        ``$REPRO_ARTIFACT_DIR/torch/perf``), or the process default when
+        the service runs store-less."""
+        import os
 
-        return default_ledger()
+        from repro_torch.perf import Ledger, default_ledger
+
+        store = self.cache.store
+        if store is None:
+            return default_ledger()
+        return Ledger(os.path.join(store.cache_dir, "perf"))
 
     def _trajectory(self) -> Dict[str, Any]:
         """Perf-ledger context for this report: how many trajectory points
@@ -219,6 +252,9 @@ class AnalysisService:
                 "max_batch": self.max_batch,
                 "jobs": self.jobs,
                 "wall_s": self.wall_s,
+                "compiles": self.cache.compiles,
+                "cache_hits": self.cache.hits,
+                "store_hits": self.cache.store_hits,
                 "errors": sum(1 for r in reqs if r["error"]),
                 "device": str(self.device),
             },
@@ -281,9 +317,11 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     ap.add_argument("--device", default="cuda",
                     help="device the ROIs are timed on: cuda or cpu")
     ap.add_argument("--store-dir", default=None,
-                    help="not ported yet (ROADMAP 1.17)")
+                    help="artifact store directory (default: "
+                         "$REPRO_ARTIFACT_DIR/torch or "
+                         "~/.cache/repro/artifacts/torch)")
     ap.add_argument("--no-store", action="store_true",
-                    help="not ported yet (ROADMAP 1.17)")
+                    help="memory-only cache; never touch the disk store")
     ap.add_argument("--record", action="store_true",
                     help="append this report to the perf trajectory ledger "
                          "(repro_torch.perf) and stamp its run_id into the "
@@ -294,15 +332,18 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                     help="list registered workloads and exit")
     args = ap.parse_args(argv)
 
-    if args.store_dir is not None or args.no_store:
-        ap.error("not ported yet: the artifact store is ROADMAP item 1.17")
     if args.list:
         for name in list_workloads():
             print(name)
         return 0
 
+    if args.no_store:
+        cache = ArtifactCache()
+    else:
+        cache = ArtifactCache(store=ArtifactStore(args.store_dir)
+                              if args.store_dir else DEFAULT_STORE)
     service = AnalysisService(max_batch=args.max_batch, jobs=args.jobs,
-                              device=args.device)
+                              device=args.device, cache=cache)
     known = set(list_workloads())
     names = args.workloads if args.workloads else sorted(known)
     unknown = [n for n in names if n not in known]
@@ -323,7 +364,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     svc = report["service"]
     print(
         f"[{svc['requests']} requests / {svc['cells']} cells in "
-        f"{svc['waves']} waves, {svc['wall_s']:.2f}s]",
+        f"{svc['waves']} waves: {svc['compiles']} compiles, "
+        f"{svc['store_hits']} store hits, {svc['wall_s']:.2f}s]",
         file=sys.stderr,
     )
     payload = json.dumps(report, indent=1)

@@ -36,6 +36,8 @@ from repro.serve.analysis_service import (  # noqa: E402
     AnalysisService as RefService,
 )
 from repro_torch import analysis  # noqa: E402
+from repro_torch.analysis import ArtifactCache as PortCache  # noqa: E402
+from repro_torch.analysis import ArtifactStore  # noqa: E402
 from repro_torch.analysis import (  # noqa: E402
     SVEAnalysis, Workload, analyze, analyze_events, analyze_sweep,
     format_table, get_workload, list_workloads, register, register_lazy,
@@ -352,15 +354,22 @@ def test_analyze_events_equals_reference():
         assert _comparable(got) == _comparable(want)
 
 
-def test_unported_sources_and_stores_name_the_roadmap_item():
-    with pytest.raises(ValueError, match="1.17"):
-        analyze("kernel/gemm", source="compiled")
-    with pytest.raises(ValueError, match="1.17"):
-        analyze(Workload(name="no-model", fn=torch.ones, args=(3,)))
-    with pytest.raises(ValueError, match="1.17"):
-        analyze("kernel/gemm", cache=object())
-    with pytest.raises(ValueError, match="1.17"):
-        analyze("kernel/gemm", store="/nowhere")
+def test_unported_sources_and_stores_name_the_roadmap_item(tmp_path):
+    """What this test once saw refused is ported (ROADMAP 1.17.1-2): the
+    compiled source, a workload without an analytic model (``"auto"``
+    resolves it to the compiled source, as the reference's does),
+    ``cache=`` and ``store=``.  An unknown source is still refused."""
+    cache = PortCache()
+    compiled = analyze("kernel/gemm", source="compiled", cache=cache)
+    assert compiled.source == "compiled" and cache.compiles == 1
+    assert compiled.events.mxu_flops == 2 * 256**3
+    nomodel = analyze(Workload(name="no-model", fn=torch.ones, args=(3,)),
+                      cache=cache)
+    assert nomodel.source == "compiled" and cache.compiles == 2
+    assert analyze("kernel/gemm", cache=cache).source == "analytic"
+    stored = analyze("kernel/gemm", source="compiled", store=str(tmp_path))
+    assert stored.to_dict() == compiled.to_dict()
+    assert len(ArtifactStore(str(tmp_path)).entries()) == 1
     with pytest.raises(ValueError, match="source must be"):
         analyze("kernel/gemm", source="hlo")
 
@@ -440,9 +449,12 @@ def test_service_failures_are_captured_per_request():
     ok = svc.submit(AnalysisRequest(uid=-1, workload="kernel/gemm"))
     svc.run_until_drained()
     assert "builder exploded" in bad.error and bad.results == []
-    assert "1.17" in nomodel.error
+    # a workload without an analytic model analyses through the compiled
+    # source (ROADMAP 1.17.1), where it once failed its request
+    assert nomodel.error is None
+    assert [r.source for r in nomodel.results] == ["compiled"]
     assert ok.error is None and ok.results[0].perf_class == PerfClass.SPEEDUP
-    assert svc.report()["service"]["errors"] == 2
+    assert svc.report()["service"]["errors"] == 1
     assert [r.uid for r in (bad, nomodel, ok)] == [0, 1, 2]
 
 
@@ -498,16 +510,22 @@ def test_cli_drains_every_kernel_workload_by_default():
 
 def test_cli_refuses_what_is_not_ported_and_unknown_workloads(
         tmp_path, monkeypatch):
-    """``--store-dir``/``--no-store`` (1.17) are refused; ``--record``
-    (1.15) appends the report to the perf ledger, as the reference's
-    ``analysis_service.py:345-372`` does: chip the first swept, dtype the
-    one the cells share, and ``run_id`` and ``trajectory`` stamped into
-    the report."""
-    for flags, item in [(["--no-store"], "1.17"),
-                        (["--store-dir", str(tmp_path)], "1.17")]:
-        with pytest.raises(SystemExit) as exc:
-            main(flags)
-        assert exc.value.code == 2
+    """``--store-dir``/``--no-store``, once refused, are ported (ROADMAP
+    1.17.2) and accepted; ``--record`` (1.15) appends the report to the
+    perf ledger, as the reference's ``analysis_service.py:345-372`` does:
+    chip the first swept, dtype the one the cells share, and ``run_id`` and
+    ``trajectory`` stamped into the report.  The ledger rides the store:
+    ``<store-dir>/perf``, and the default store's is the default ledger."""
+    from repro_torch.perf import Ledger
+
+    store = tmp_path / "store"
+    for flags in (["--no-store"], ["--store-dir", str(store), "--record"]):
+        assert main(["--device", "cpu", "--workloads", "kernel/qc-gate",
+                     "--source", "compiled", *flags,
+                     "--out", str(tmp_path / "s.json")]) == 0
+    (stored,) = Ledger(str(store / "perf")).runs()
+    assert sorted(stored.metrics) == ["kernel/qc-gate@grace-core/fp32"]
+    assert len(ArtifactStore(str(store)).entries()) == 1
     assert main(["--device", "cpu", "--workloads", "kernel/nope"]) == 2
     out = tmp_path / "r.json"
     assert main(["--device", "cpu", "--workloads", "kernel/jacobi2d",

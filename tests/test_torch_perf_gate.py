@@ -6,11 +6,11 @@
   rolling-median-of-K); comparison is noise-aware per metric spec; triage
   maps synthetic before/after Events deltas onto all four Fig. 8
   PerfClass outcomes with the Eq. 2 quantities that justify them; and the
-  gate's exit codes.  Two lines of the reference's tests have no
+  gate's exit codes.  One line of the reference's tests has no
   counterpart yet: the benchmark CLI's policy check (the port's
-  benchmarks are ROADMAP 1.17.4) and the end-to-end test's compiled,
-  store-backed re-run with zero recompiles (the compiled source and the
-  artifact cache are 1.17.1-2); its analytic re-run stands in.
+  benchmarks are ROADMAP 1.17.4).  The end-to-end test runs 1 and 3
+  through the compiled, store-backed source, run 3 with zero recordings,
+  as the reference's does.
 * Parity: the same seeded metric dicts recorded in a ``repro.perf.Ledger``
   and a ``repro_torch.perf.Ledger`` give equal comparisons, gate
   verdicts, exit codes, triages and markdown (run ids aside, which are
@@ -39,7 +39,9 @@ import repro.perf as ref_perf  # noqa: E402
 import repro.perf.gate as ref_gate  # noqa: E402
 import repro.perf.triage as ref_triage  # noqa: E402
 from repro.analysis.store import ArtifactStore as RefStore  # noqa: E402
-from repro_torch.analysis import analyze, analyze_events  # noqa: E402
+from repro_torch.analysis import (  # noqa: E402
+    ArtifactCache, analyze, analyze_events,
+)
 from repro_torch.analysis.store import ArtifactStore  # noqa: E402
 from repro_torch.analysis.workload import get_workload  # noqa: E402
 from repro_torch.core import hw  # noqa: E402
@@ -579,15 +581,16 @@ def test_markdown_and_trajectory_export(tmp_path):
 def test_end_to_end_gate_contract(tmp_path):
     """record -> perturb a kernel's traffic -> gate exits non-zero naming
     the PerfClass transition with AI vs AI_IRV; the unperturbed re-run
-    exits zero against the pinned healthy baseline.  (The reference runs
-    1 and 3 through the compiled, store-backed source and also holds run 3
-    to zero recompiles; the port analyses them analytically until ROADMAP
-    1.17.1-2 ports that source and the cache.)"""
+    exits zero AND records nothing (store-backed), as the reference's
+    runs 1 and 3 do through the compiled source."""
+    events_store = str(tmp_path / "events")
     ledger = Ledger(str(tmp_path / "perf"))
     wl = get_workload("kernel/gemm")
 
-    # -- run 1: the healthy baseline
-    a1 = analyze(wl, hw.GRACE_CORE, source="analytic")
+    # -- run 1: the healthy baseline, recorded through a persistent store
+    cache1 = ArtifactCache(store=events_store)
+    a1 = analyze(wl, hw.GRACE_CORE, source="compiled", cache=cache1)
+    assert cache1.compiles == 1
     run1 = ledger.record(metrics_from_analysis([a1]), env=ENV)
     assert gate_run(run1, ledger, tuning_store=None).ok  # nothing to regress
 
@@ -611,9 +614,12 @@ def test_end_to_end_gate_contract(tmp_path):
     assert t.ai_irv == pytest.approx(rl.ai_irv)
     assert "AI_IRV" in t.narrative and "Class" in t.narrative
 
-    # -- run 3: the unperturbed re-run gates clean against the healthy
-    # baseline
-    a3 = analyze(wl, hw.GRACE_CORE, source="analytic")
+    # -- run 3: unperturbed re-run in a fresh cache (= a fresh process):
+    # store hit, ZERO recordings, and the gate against the healthy
+    # baseline exits zero
+    cache2 = ArtifactCache(store=events_store)
+    a3 = analyze(wl, hw.GRACE_CORE, source="compiled", cache=cache2)
+    assert cache2.compiles == 0 and cache2.store_hits == 1
     run3 = ledger.record(metrics_from_analysis([a3]), env=ENV)
     g3 = gate_run(run3, ledger, policy=f"pinned:{run1.run_id[:12]}",
                   tuning_store=None)
