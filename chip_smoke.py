@@ -10,8 +10,10 @@ Phases, each printing one JSON line (any failure raises and exits
 non-zero):
 
 1. env      torch/CUDA versions and the card's name and power limit.
-2. build    nvcc builds of the eight kernel libraries for sm_90a, in
-            parallel (the GEMM's two routes are a library each).
+2. build    nvcc builds of the fourteen kernel libraries for sm_90a, in
+            parallel (the GEMM's two routes are a library each; each
+            tunable kernel's launch variants other than the default are a
+            ``*_variants`` library beside it).
 3. kernel   each kernel against its plain version at gpt2-124m's,
             qwen3-1.7b's, deepseek-moe-16b's and jamba-1.5-large-398b's
             attention shapes (12 heads of 64; 8 KV heads of 128, 2 query
@@ -99,6 +101,29 @@ non-zero):
             CPU tests pin; then a second drain through the service CLI in
             a subprocess on the same directory: no recording, 12 store
             hits, every result equal to the first drain's but ``wall_s``.
+   tuning   the roofline-guided autotuner (``repro_torch.tuning``) over
+            the tunable kernels' launch variants: every candidate of every
+            space (the GEMM's two routes, the four STREAM ops, Jacobi2D,
+            the RX gate, the contiguous flash-decode's splits, the
+            prefill's tiles) launched once at the registry's example
+            problem in each of its space's dtypes and held against its
+            plain version with that kernel's own tolerance (the decode
+            also at a cache of twice its largest split, the prefill also
+            at qwen3's heads and block size), each wrapper's
+            ``variant_launches`` showing every variant; then ``python -m
+            repro_torch.tuning --dtypes space --keep 2`` twice in
+            subprocesses over a fresh ``$REPRO_ARTIFACT_DIR`` (11 records,
+            then the same 11 cached with 0 timing runs); in this process
+            ``load_tuned`` of every tunable kernel from that store,
+            ``analyze("kernel/gemm", h100).tuning["record"]`` equal to the
+            stored config, ``GEMM.kernel`` launching it, a non-empty
+            ``tuned_state_hash()``, then every config cleared; last, one
+            tune with every candidate timed at each full-size problem
+            (GEMM 8192^3 bf16 and fp32, flash-decode B32 S4096 qwen3
+            heads bf16, the prefill at qwen3's serve shapes, STREAM triad
+            2^21 x 128, Jacobi2D 16384^2, the RX gate at 28 qubits), each
+            candidate first held against the plain version on the same
+            full-size inputs, then its device ms beside the default's.
 4. serve    ``repro_torch.launch.serve`` at the full width of gpt2-124m
             (bf16): every request completes, and the decode kernel runs 12
             times (once per attention layer) per fused step, each launch
@@ -2381,6 +2406,364 @@ def phase_analysis_compiled(torch):
                            "store_hits": again["store_hits"],
                            "wall_s": again["wall_s"]},
           "seconds": time.time() - t0})
+
+
+# -- the autotuner --------------------------------------------------------------
+
+
+#: the CLI the tuning phase runs twice in a fresh artifact directory
+TUNING_CLI = ["-m", "repro_torch.tuning", "--dtypes", "space", "--keep", "2"]
+
+
+def tuning_wrappers():
+    """{registry kernel with a space: the wrapper whose
+    ``variant_launches`` counts its launches by variant}."""
+    from repro_torch.kernels.flash_decode import kernel as fd
+    from repro_torch.kernels.qc_gate import kernel as qc
+
+    gemm, jacobi, _, stream = hpc_modules()
+    wrappers = {"gemm": gemm.gemm}
+    wrappers.update({f"stream-{op}": getattr(stream, f"stream_{op}")
+                     for op in STREAM_OPS})
+    wrappers.update({"jacobi2d": jacobi.jacobi_step, "qc-gate": qc.rx_gate,
+                     "flash-decode": fd.flash_decode,
+                     "flash-prefill": fd.flash_prefill_paged})
+    return wrappers
+
+
+def variant_key(name, cfg, args):
+    """The key a tunable wrapper counts a launch of config ``cfg`` under."""
+    if name == "gemm":
+        from repro_torch.kernels.gemm import kernel as gemm
+
+        x, y = args[0], args[1]
+        plan = gemm.gemm_plan(x.shape[0], y.shape[1], x.shape[1], x.dtype,
+                              True, cfg["tile_m"], cfg["tile_n"],
+                              cfg["tile_k"], cfg["stages"])
+        return (plan.route, *plan.tile, plan.stages)
+    if name.startswith("stream"):
+        return (cfg["threads"], cfg["vecs"])
+    if name == "flash-prefill":
+        return (cfg["q_tile"], cfg["key_tile"])
+    return next(iter(cfg.values()))
+
+
+def tuning_examples():
+    """{registry kernel: its example arguments on the CPU}: the registry's
+    workloads, and the STREAM triad's arrays for the other three ops."""
+    from repro_torch.analysis import get_workload
+
+    out = {name: tuple(get_workload(f"kernel/{name}").example_args())
+           for name in ("gemm", "stream-triad", "jacobi2d", "qc-gate",
+                        "flash-decode", "flash-prefill")}
+    a, b, q = out["stream-triad"]
+    out.update({"stream-copy": (a,), "stream-scale": (a, q),
+                "stream-add": (a, b)})
+    return out
+
+
+def tuning_wide_examples(torch, np):
+    """{registry kernel: fp32 arguments on the card} where the registry's
+    example cannot tell the variants apart: the contiguous decode at a
+    cache of twice the largest ``split_rows`` (so every split is a real
+    split), and the prefill at qwen3-1.7b's heads and the serve path's
+    block size (the D=128 instantiations a full-size tune times)."""
+    from repro_torch.kernels import registry
+
+    KV, G, D = ARCH_HEADS["qwen3-1.7b"]
+    S = 2 * max(registry.get_kernel("flash-decode")
+                .tuning_space.axes["split_rows"])
+    gen = torch.Generator(device="cuda").manual_seed(43)
+    kw = dict(device="cuda", generator=gen)
+    q = torch.randn((2, KV, G, D), **kw)
+    k, v = (torch.randn((2, S, KV, D), **kw) for _ in range(2))
+    vl = torch.tensor([S, S // 2 + 77], dtype=torch.int32, device="cuda")
+    C, bs, nb = PREFILL_C, KERNEL_BS, PREFILL_NB
+    q_start = np.random.default_rng(8).integers(0, nb * bs - C + 1, size=2)
+    pre = prefill_inputs(torch, 2, C, KV, G, D, bs, nb, torch.float32,
+                         q_start.tolist(), [C, C], seed=9)
+    return {"flash-decode": (q, k, v, vl), "flash-prefill": tuple(pre[:7])}
+
+
+def variant_close(torch, name, got, want):
+    """(max abs err, ok) with the tolerance of each kernel's own check."""
+    if name == "gemm":
+        return gemm_close(torch, got, want)
+    if name.startswith("stream") or name == "jacobi2d":
+        err, ok, _ = exact_close(torch, got, want)
+        return err, ok
+    if name == "qc-gate":
+        return rx_equal(torch, got, want)
+    if name == "flash-decode":
+        return decode_close(torch, got, want)
+    # the prefill: (out, k_pool, v_pool), outputs at the kernel phase's
+    # tolerance and the committed pools bit-equal
+    tol = TOLERANCE[dtype_name(got[0].dtype)]
+    err = (got[0].float() - want[0].float()).abs().max().item()
+    ok = (torch.allclose(got[0].float(), want[0].float(), atol=tol,
+                         rtol=tol)
+          and torch.equal(got[1], want[1]) and torch.equal(got[2], want[2]))
+    return err, bool(ok)
+
+
+def check_tuning_variants(torch, np):
+    """Every candidate of every space, at the registry's example problem
+    (and, for the decode and the prefill, at :func:`tuning_wide_examples`)
+    in each of the space's dtypes, launched once through ``ops.kernel`` and
+    held against ``ops.interpret`` (the plain version) on a second copy of
+    the same arguments; each wrapper's ``variant_launches`` must show every
+    variant launched.  Returns {kernel: {variant: launches}}."""
+    from repro_torch.kernels import registry
+    from repro_torch.tuning.tune import _cast_args
+
+    examples, wide = tuning_examples(), tuning_wide_examples(torch, np)
+    launched = {}
+    for name, wrapper in tuning_wrappers().items():
+        ops = registry.get_kernel(name)
+        space = ops.tuning_space
+        wrapper.variant_launches.clear()
+        cases, want_keys = [], set()
+        problems = [("example", examples[name])]
+        if name in wide:
+            problems.append(("wide", wide[name]))
+        for problem, args in problems:
+            for dtype in space.dtypes:
+                base = _cast_args(args, dtype)
+                for raw in space.configs():
+                    cfg = space.validate(raw, base)
+                    if cfg is None:  # another route's variant
+                        continue
+                    # the example's short cache collapses every split
+                    # onto one config: launch each as it was asked for
+                    cfg = dict(raw) if name == "flash-decode" else cfg
+                    kw = {**space.fixed, **cfg}
+                    got_args, want_args = (
+                        [a.to("cuda", copy=True)
+                         if isinstance(a, torch.Tensor) else a
+                         for a in base] for _ in range(2))
+                    got = ops.kernel(*got_args, **kw)
+                    want = ops.interpret(*want_args, **kw)
+                    torch.cuda.synchronize()
+                    err, ok = variant_close(torch, name, got, want)
+                    want_keys.add(variant_key(name, cfg, got_args))
+                    cases.append({"problem": problem, "dtype": dtype,
+                                  "config": cfg, "max_abs_err": err,
+                                  "ok": bool(ok)})
+        launched[name] = dict(wrapper.variant_launches)
+        report_cases("tuning", f"{name} variants", cases)
+        missing = want_keys - set(launched[name])
+        require(not missing, f"{name}: variants never launched: {missing}")
+    return launched
+
+
+def tuning_full_problems(torch, np):
+    """(registry kernel, label, arguments on the card) of the full-size
+    tunes, made from seeded generators, one at a time."""
+    gen = torch.Generator(device="cuda").manual_seed(41)
+    kw = dict(device="cuda", generator=gen)
+    x, y = (torch.randn((GEMM_N, GEMM_N), **kw) for _ in range(2))
+    yield "gemm", f"{GEMM_N}^3 bf16", (x.bfloat16(), y.bfloat16())
+    yield "gemm", f"{GEMM_N}^3 fp32", (x, y)
+    del x, y
+    (q, k, v, vl), _ = decode_problem(torch, np, ARCH_HEADS["qwen3-1.7b"],
+                                      "ragged", 42)
+    yield "flash-decode", (f"B{DENSE_B} S{DENSE_S} qwen3-1.7b heads, "
+                           f"ragged, bf16"), (q, k, v, vl)
+    del q, k, v, vl
+    KV, G, D = ARCH_HEADS["qwen3-1.7b"]
+    q_start = np.random.default_rng(6).integers(0, 449, size=PREFILL_B)
+    args = prefill_inputs(torch, PREFILL_B, PREFILL_C, KV, G, D, KERNEL_BS,
+                          PREFILL_NB, torch.bfloat16, q_start.tolist(),
+                          [PREFILL_C] * PREFILL_B, seed=7)
+    yield "flash-prefill", (f"serve qwen3-1.7b: B{PREFILL_B} C{PREFILL_C} "
+                            f"nb{PREFILL_NB} bs{KERNEL_BS}, bf16"), \
+        tuple(args[:7])
+    del args
+    a, b = (torch.randn(STREAM_SHAPE, **kw) for _ in range(2))
+    yield "stream-triad", "2^21 x 128 fp32", (a, b, 3.0)
+    del a, b
+    yield "jacobi2d", f"{JACOBI_N}^2 fp32", (
+        torch.randn((JACOBI_N, JACOBI_N), **kw),)
+    re, im = (torch.randn((1 << RX_FULL_QUBITS,), **kw) for _ in range(2))
+    yield "qc-gate", f"{RX_FULL_QUBITS} qubits, qubit 0, fp32", (re, im)
+
+
+def check_full_size(torch, name, ops, args, configs):
+    """Each of ``configs`` launched once through ``ops.kernel`` on copies of
+    the full-size ``args`` and held against one ``ops.interpret`` call on
+    the same inputs, with the tolerance of the kernel's own check, before
+    anything is timed.  Returns {str(config): max abs err}."""
+    space = ops.tuning_space
+
+    def fresh():
+        return [a.clone() if isinstance(a, torch.Tensor) else a
+                for a in args]
+
+    want = ops.interpret(*fresh(), **space.fixed)
+    errs = {}
+    for cfg in configs:
+        got = ops.kernel(*fresh(), **space.fixed, **cfg)
+        torch.cuda.synchronize()
+        err, ok = variant_close(torch, name, got, want)
+        require(ok, f"{name} {cfg} != plain at full size: {err}")
+        errs[str(cfg)] = err
+        del got
+    del want
+    return errs
+
+
+def tuning_full_size(torch, np):
+    """At each full-size problem: every candidate held against the plain
+    version (:func:`check_full_size`), the tuner with every candidate timed
+    (``keep`` = the candidate count, nothing persisted, nothing applied),
+    and each candidate's device ms (median of CUDA events) beside the
+    default's and its roofline prediction.  Returns one row a problem."""
+    from repro_torch.core import hw
+    from repro_torch.kernels import registry
+    from repro_torch.tuning import prune, tune
+    from repro_torch.tuning.space import canonical_dtype
+
+    rows = []
+    for name, label, args in tuning_full_problems(torch, np):
+        ops = registry.get_kernel(name)
+        space = ops.tuning_space
+        dtype = canonical_dtype(args[0].dtype)
+        survivors, _ = prune(space, args, hw.H100, dtype, keep=1 << 20)
+        errs = check_full_size(torch, name, ops, args,
+                               [cfg for cfg, _ in survivors])
+        rec = tune(ops, args, chip=hw.H100, keep=len(survivors), store=None,
+                   apply=False, repeats=3, device=None)
+        variants = []
+        for cfg, predicted in survivors:
+            kw = {**space.fixed, **cfg}
+            variants.append({
+                "config": cfg, "predicted_ms": predicted * 1e3,
+                "ms": device_ms(torch, lambda: ops.kernel(*args, **kw),
+                                reps=20, warmup=3),
+                "default": cfg == rec.default_config,
+                "max_abs_err": errs[str(cfg)]})
+        default_ms = next(v["ms"] for v in variants if v["default"])
+        best = min(variants, key=lambda v: v["ms"])
+        row = {"kernel": name, "problem": label, "dtype": dtype,
+               "default_config": rec.default_config,
+               "default_ms": default_ms, "best_config": best["config"],
+               "best_ms": best["ms"], "tuned_config": rec.config,
+               "tuned_best_ms": rec.best_time_s * 1e3,
+               "tuned_default_ms": rec.default_time_s * 1e3,
+               "timed": rec.timed, "variants": variants}
+        emit({"phase": "tuning", "full_size": row})
+        rows.append(row)
+        del args
+        torch.cuda.empty_cache()
+    return rows
+
+
+def tuning_entry(launches, rows, names, source, route=None, dtype=None):
+    """The ``variants`` of a kernel's line in the last JSON: the source of
+    its launch variants other than the default, each variant's launches in
+    the tuning phase's check, and the full-size tunes of ``names``."""
+    counts = {f"{name} {key}": n for name in names
+              for key, n in launches[name].items()
+              if route is None or key[0] == route}
+    return {"source": source, "launches": counts,
+            "full_size": [r for r in rows if r["kernel"] in names
+                          and (dtype is None or r["dtype"] == dtype)]}
+
+
+def phase_tuning(torch, np):
+    """The roofline-guided autotuner on the card (see the module
+    docstring's ``tuning``).  Leaves no tuned config installed."""
+    import os
+    import tempfile
+
+    from repro_torch.analysis import analyze
+    from repro_torch.core import hw
+    from repro_torch.kernels import registry
+    from repro_torch.perf.ledger import tuned_state_hash
+    from repro_torch.tuning import load_tuned, tunable_kernels
+
+    t0 = time.time()
+    launched = check_tuning_variants(torch, np)
+    check_s = time.time() - t0
+
+    env_key = "REPRO_ARTIFACT_DIR"
+    old_env = os.environ.get(env_key)
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-tuning-") as art:
+        reports = []
+        for _ in range(2):
+            out = os.path.join(art, f"tuning{len(reports)}.json")
+            proc = subprocess.run(
+                [sys.executable, *TUNING_CLI, "--out", out],
+                capture_output=True, text=True, timeout=300, cwd=str(ROOT),
+                env={**os.environ, "PYTHONPATH": str(SRC), env_key: art})
+            require(proc.returncode == 0,
+                    f"tuning CLI exited {proc.returncode}: "
+                    f"{proc.stderr[-2000:]}")
+            with open(out) as f:
+                reports.append(json.load(f))
+        first, second = reports
+        n_cells = sum(len(registry.get_kernel(k).tuning_space.dtypes)
+                      for k in tunable_kernels())
+        require(len(first["records"]) == n_cells
+                and not any(r["cached"] for r in first["records"])
+                and first["stats"]["timing_runs"] > 0,
+                f"first tuning CLI: {first['stats']}")
+        require(len(second["records"]) == n_cells
+                and all(r["cached"] for r in second["records"])
+                and second["stats"]["timing_runs"] == 0,
+                f"second tuning CLI: {second['stats']}")
+        require([r["config"] for r in first["records"]]
+                == [r["config"] for r in second["records"]],
+                "the second CLI's configs differ from the first's")
+
+        # in process: the CLI's records picked up without timing
+        os.environ[env_key] = art
+        try:
+            records = {name: load_tuned(name, chip=hw.H100)
+                       for name in tunable_kernels()}
+            require(all(r is not None and r.cached
+                        for r in records.values()),
+                    f"load_tuned missed: {records}")
+            outlook = analyze("kernel/gemm", hw.H100).tuning
+            require(outlook["record"] == records["gemm"].config,
+                    f"analyze's tuning record {outlook['record']} != the "
+                    f"stored {records['gemm'].config}")
+            tuned_hash = tuned_state_hash()
+            require(tuned_hash != "", "tuned_state_hash() is empty")
+            # .kernel resolves the installed config
+            from repro_torch.kernels.gemm import kernel as gemm
+
+            x, y = (a.cuda() for a in tuning_examples()["gemm"])
+            gemm.gemm.variant_launches.clear()
+            registry.GEMM.kernel(x, y)
+            resolved = dict(gemm.gemm.variant_launches)
+            want = variant_key("gemm", records["gemm"].config, (x, y))
+            require(resolved == {want: 1},
+                    f"GEMM.kernel launched {resolved}, not the tuned {want}")
+        finally:
+            for ops in registry.KERNELS.values():
+                ops.clear_tuned()
+            if old_env is None:
+                os.environ.pop(env_key, None)
+            else:
+                os.environ[env_key] = old_env
+        require(tuned_state_hash() == "", "a tuned config was left installed")
+
+    t1 = time.time()
+    full = tuning_full_size(torch, np)
+    emit({"phase": "tuning", "variant_launches": {
+              k: {str(key): n for key, n in v.items()}
+              for k, v in launched.items()},
+          "check_s": check_s,
+          "cli": {"records": len(first["records"]),
+                  "first": first["stats"], "second": second["stats"],
+                  "configs": {f"{r['kernel']}/{r['dtype']}": r["config"]
+                              for r in first["records"]}},
+          "analyze_gemm_record": outlook["record"],
+          "tuned_state_hash": tuned_hash, "gemm_kernel_resolved": str(want),
+          "full_size_s": time.time() - t1,
+          "seconds": time.time() - t0})
+    return launched, full
 
 
 # -- serving ------------------------------------------------------------------
@@ -4810,6 +5193,7 @@ def main() -> int:
         torch, np, problems)
     del problems
     phase_analysis_compiled(torch)
+    tuning_launches, tuning_rows = phase_tuning(torch, np)
     torch.cuda.empty_cache()
 
     engine, _, report = phase_serve(torch, SERVE_ARGV, "serve")
@@ -4898,6 +5282,9 @@ def main() -> int:
              for arch, line in spec_lines.items()},
          "speculative": {f"{arch} C {C}": row
                          for (arch, C), row in spec_rows.items()},
+         "variants": tuning_entry(
+             tuning_launches, tuning_rows, ["flash-prefill"],
+             SOURCE_DIR + "flash_prefill_variants.cu"),
          **prefill_row},
         {"name": "flash_decode_paged_int8", "route": "cuda",
          "source": SOURCE_DIR + "flash_decode_paged.cu",
@@ -4950,15 +5337,29 @@ def main() -> int:
          "source": HPC_SOURCES + "stream/csrc/stream.cu",
          "replaces": f"{TPU_HPC}stream/kernel.py:38",
          "launches": sum(hpc_counts[f"stream_{op}"] for op in STREAM_OPS),
+         "variants": tuning_entry(
+             tuning_launches, tuning_rows,
+             [f"stream-{op}" for op in STREAM_OPS],
+             HPC_SOURCES + "stream/csrc/stream_variants.cu"),
          **hpc_rows["stream_triad"]},
         {"name": "gemm", "route": "cuda",
          "source": HPC_SOURCES + "gemm/csrc/gemm_simt.cu",
          "replaces": f"{TPU_HPC}gemm/kernel.py:56",
-         "launches": hpc_counts["gemm_simt"], **hpc_rows["gemm"]},
+         "launches": hpc_counts["gemm_simt"],
+         "variants": tuning_entry(
+             tuning_launches, tuning_rows, ["gemm"],
+             HPC_SOURCES + "gemm/csrc/gemm_simt_variants.cu", "simt",
+             "fp32"),
+         **hpc_rows["gemm"]},
         {"name": "gemm_bf16", "route": "cuda",
          "source": HPC_SOURCES + "gemm/csrc/gemm_wgmma.cu",
          "replaces": f"{TPU_HPC}gemm/kernel.py:56",
-         "launches": hpc_counts["gemm_wgmma"], **hpc_rows["gemm_bf16"]},
+         "launches": hpc_counts["gemm_wgmma"],
+         "variants": tuning_entry(
+             tuning_launches, tuning_rows, ["gemm"],
+             HPC_SOURCES + "gemm/csrc/gemm_wgmma_variants.cu", "wgmma",
+             "bf16"),
+         **hpc_rows["gemm_bf16"]},
         {"name": "spmv_blockell", "route": "cuda",
          "source": HPC_SOURCES + "spmv/csrc/spmv.cu",
          "replaces": f"{TPU_HPC}spmv/kernel.py:52",
@@ -4972,7 +5373,11 @@ def main() -> int:
         {"name": "jacobi_step", "route": "cuda",
          "source": HPC_SOURCES + "jacobi2d/csrc/jacobi2d.cu",
          "replaces": f"{TPU_HPC}jacobi2d/kernel.py:52",
-         "launches": hpc_counts["jacobi_step"], **hpc_rows["jacobi_step"]},
+         "launches": hpc_counts["jacobi_step"],
+         "variants": tuning_entry(
+             tuning_launches, tuning_rows, ["jacobi2d"],
+             HPC_SOURCES + "jacobi2d/csrc/jacobi2d_variants.cu"),
+         **hpc_rows["jacobi_step"]},
         {"name": "flash_decode", "route": "cuda",
          "source": SOURCE_DIR + "flash_decode_paged.cu",
          "replaces": f"{TPU_KERNELS}:89",
@@ -4984,6 +5389,10 @@ def main() -> int:
          "shape": "qwen3-1.7b heads, B32 S4096 ragged, bf16",
          "ms_by_shape": {f"{arch} {lengths}": row["ms"]
                          for (arch, lengths), row in fd_rows.items()},
+         "variants": tuning_entry(tuning_launches, tuning_rows,
+                                  ["flash-decode"], "launch argument "
+                                  "split_rows of " + SOURCE_DIR
+                                  + "flash_decode_paged.cu"),
          **fd_rows["qwen3-1.7b", "ragged"]},
         {"name": "rx_gate", "route": "cuda",
          "source": HPC_SOURCES + "qc_gate/csrc/rx_gate.cu",
@@ -4992,6 +5401,9 @@ def main() -> int:
          "shape": "28 qubits, qubit 13, fp32",
          "ms_by_qubit": {q: row["ms"] for q, row in rx_gates.items()},
          "layer_ms": {n: row["ms"] for n, row in rx_layers.items()},
+         "variants": tuning_entry(
+             tuning_launches, tuning_rows, ["qc-gate"],
+             HPC_SOURCES + "qc_gate/csrc/rx_gate_variants.cu"),
          **rx_gates[13]},
     ]})
     print(card, flush=True)

@@ -23,8 +23,9 @@ persistent :class:`~repro_torch.analysis.store.ArtifactStore`, at most
 once across *processes*.  ``analyze_sweep(..., jobs=N)`` fans the
 (workload x chip x dtype) cells over a thread pool; single-flight
 deduplication in the cache makes concurrent cells of the same workload
-wait on one recording rather than race.  The reference's autotuner
-outlook is ROADMAP 1.17.3: ``SVEAnalysis.tuning`` stays ``None``.
+wait on one recording rather than race.  Kernel workloads also
+carry the autotuner's tuned-vs-default outlook (``SVEAnalysis.tuning``, see
+:mod:`repro_torch.tuning`).
 """
 
 from __future__ import annotations
@@ -173,8 +174,10 @@ DEFAULT_CACHE = ArtifactCache(store=DEFAULT_STORE)
 class SVEAnalysis:
     """Everything the paper derives about one workload on one chip model.
 
-    ``tuning`` is always ``None`` in the port: the autotuner's outlook is
-    ROADMAP 1.17.3.
+    ``tuning`` (kernel workloads only) is the autotuner's analytic outlook:
+    the default vs roofline-best launch variant, the predicted tuned-vs-
+    default speedup, and — when the tuning store already holds a record for
+    this (kernel, chip, dtype) — the persisted winning config.
     """
 
     workload: str
@@ -259,7 +262,10 @@ class SVEAnalysis:
             "bound": self.bound,
             "class": f"{int(self.perf_class)} {self.perf_class.name}",
             "speedup_pred": f"{self.predicted_speedup:.3g}",
-            "tuned": "",
+            "tuned": (
+                "" if not self.tuning
+                else f"{self.tuning['predicted_speedup']:.3g}x"
+            ),
             "wall_s": "" if self.wall_s is None else f"{self.wall_s:.5f}",
         }
 
@@ -318,6 +324,26 @@ def _report_from_events(
     )
 
 
+def _tuning_outlook(
+    wl: Workload, chip: hw.ChipSpec, dtype: str
+) -> Optional[Dict[str, Any]]:
+    """Autotuner outlook for kernel workloads (model + store lookup only —
+    never records or times; never raises into the analysis)."""
+    if not wl.name.startswith("kernel/"):
+        return None
+    try:
+        from repro_torch.kernels.registry import KERNELS
+
+        ops = KERNELS.get(wl.name[len("kernel/"):])
+        if ops is None or ops.tuning_space is None:
+            return None
+        from repro_torch.tuning import outlook
+
+        return outlook(ops, wl.example_args(), chip, dtype=dtype)
+    except Exception:  # noqa: BLE001 — the outlook is advisory, not load-bearing
+        return None
+
+
 def _time_roi(wl: Workload, device: torch.device) -> Optional[float]:
     """ROI wall time through the paper's profiler API (Sec. 3.1): one warm
     call, then one timed call, each waited for on the card."""
@@ -351,6 +377,8 @@ def analyze(
     ``time_roi``, the workload's ROI timed on ``device`` (its example
     arguments are moved there once).  ``device`` is read only by the
     timing: recordings run on the CPU (:mod:`repro_torch.core.op_cost`).
+    Kernel workloads carry the autotuner's roofline-predicted tuned-vs-
+    default speedup and any persisted tuned config (``result.tuning``).
 
     Without ``cache``, events come from the module-level ``DEFAULT_CACHE``
     (persistent via the default ArtifactStore, so repeat processes record
@@ -395,6 +423,7 @@ def analyze(
         roofline=rl,
         decision=decision,
         wall_s=wall,
+        tuning=_tuning_outlook(wl, chip, dtype),
     )
 
 

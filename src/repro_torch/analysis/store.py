@@ -12,7 +12,8 @@ determines its recording —
     which operators run, shapes do),
   * a structural hash of the callable's bytecode (code, consts, names,
     closure values, defaults, ``functools.partial`` bindings and
-    ``__wrapped__``, which covers ``KernelOps``), and
+    ``__wrapped__``, which covers ``KernelOps``, and a ``KernelOps``'s
+    active tuned config), and
   * the device count, the torch version and the cost model's version,
 
 so a re-run of ``analyze`` / ``analyze_sweep`` / the analysis service in a
@@ -79,6 +80,11 @@ def _code_token(fn: Any, parts: list, seen: set) -> None:
     """
     code = getattr(fn, "__code__", None)
     if code is None:
+        # callables may advertise extra behavioral state (a KernelOps with
+        # an active tuned config launches another variant)
+        extra = getattr(fn, "fingerprint_extra", None)
+        if extra:
+            parts.append(str(extra))
         # KernelOps (functools.update_wrapper) carry the wrapper here
         wrapped = getattr(fn, "__wrapped__", None)
         if wrapped is not None and id(wrapped) not in seen:

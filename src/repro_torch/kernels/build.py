@@ -8,7 +8,11 @@ module on machines without ``nvcc``.
 
 Every library exports ``<symbol>_launch`` functions that return a CUDA
 error code (0 for success) and one ``const char *<error_string>(int)``
-that names a code.
+that names a code.  A tunable kernel's source is a header (``*.cuh``)
+templated over its launch shape: one library instantiates the default
+variant, and a ``*_variants`` library the tuner's others
+(:mod:`repro_torch.tuning.spaces`), so the default is built as before and
+the variants' ``nvcc`` runs beside it.
 """
 
 from __future__ import annotations
@@ -33,15 +37,28 @@ LIBRARIES: Dict[str, Tuple[Path, str]] = {
     "flash_prefill_paged": (
         KERNELS / "flash_decode/csrc/flash_prefill_paged.cu",
         "flash_prefill_error_string"),
+    "flash_prefill_variants": (
+        KERNELS / "flash_decode/csrc/flash_prefill_variants.cu",
+        "flash_prefill_error_string"),
     "stream": (KERNELS / "stream/csrc/stream.cu", "stream_error_string"),
+    "stream_variants": (KERNELS / "stream/csrc/stream_variants.cu",
+                        "stream_error_string"),
     "jacobi2d": (KERNELS / "jacobi2d/csrc/jacobi2d.cu",
                  "jacobi2d_error_string"),
+    "jacobi2d_variants": (KERNELS / "jacobi2d/csrc/jacobi2d_variants.cu",
+                          "jacobi2d_error_string"),
     "spmv": (KERNELS / "spmv/csrc/spmv.cu", "spmv_error_string"),
     "gemm_wgmma": (KERNELS / "gemm/csrc/gemm_wgmma.cu",
                    "gemm_wgmma_error_string"),
+    "gemm_wgmma_variants": (KERNELS / "gemm/csrc/gemm_wgmma_variants.cu",
+                            "gemm_wgmma_error_string"),
     "gemm_simt": (KERNELS / "gemm/csrc/gemm_simt.cu",
                   "gemm_simt_error_string"),
+    "gemm_simt_variants": (KERNELS / "gemm/csrc/gemm_simt_variants.cu",
+                           "gemm_simt_error_string"),
     "rx_gate": (KERNELS / "qc_gate/csrc/rx_gate.cu", "rx_gate_error_string"),
+    "rx_gate_variants": (KERNELS / "qc_gate/csrc/rx_gate_variants.cu",
+                         "rx_gate_error_string"),
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -69,12 +86,13 @@ def _nvcc() -> str:
 
 
 def _tag() -> str:
-    """Hash of every source, the shared headers and the flags: editing any
-    of them rebuilds every library."""
+    """Hash of every source, the shared headers, the packages' own headers
+    and the flags: editing any of them rebuilds every library."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for name in sorted(LIBRARIES):
         h.update(LIBRARIES[name][0].read_bytes())
-    for header in sorted(INCLUDE.glob("*.cuh")):
+    dirs = {INCLUDE} | {source.parent for source, _ in LIBRARIES.values()}
+    for header in sorted(p for d in dirs for p in d.glob("*.cuh")):
         h.update(header.read_bytes())
     return h.hexdigest()[:16]
 

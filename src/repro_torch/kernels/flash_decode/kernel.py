@@ -27,6 +27,17 @@ the shapes alone: :func:`decode_plan` splits each slot's rows across blocks
 :func:`prefill_plan` sizes the attention's tiles and shared memory.
 ``*_plain`` are the same functions, with the same checks, in plain PyTorch
 on any device.
+
+Launch variants, the tuner's space (:mod:`repro_torch.tuning.spaces`):
+:func:`flash_decode` takes ``split_rows``, the rows a split walks (any
+positive multiple of :data:`DECODE_TILE`: it is a launch argument), and
+:func:`flash_prefill_paged` and :func:`flash_prefill` take ``q_tile`` and
+``key_tile``, the query vectors a block and the key rows a tile the
+attention is compiled for (:data:`PREFILL_TILES`; the default in
+``csrc/flash_prefill_paged.cu`` for every pair, the others in
+``csrc/flash_prefill_variants.cu`` for :data:`VARIANT_PAIRS` only).  A
+value no variant covers raises on every device.  The defaults are the
+constants the serve path runs.
 """
 
 from __future__ import annotations
@@ -60,6 +71,14 @@ DECODE_SPLIT = 256
 PREFILL_VECTORS = 64
 #: key rows a prefill attention tile stages, at most
 PREFILL_KEYS = 64
+#: the compiled (q_tile, key_tile) variants of the prefill attention, the
+#: default first
+PREFILL_TILES = ((PREFILL_VECTORS, PREFILL_KEYS), (64, 32), (32, 64),
+                 (32, 32))
+#: (q, pool) dtype pairs the prefill variants other than the default are
+#: compiled for
+VARIANT_PAIRS = ((torch.float32, torch.float32),
+                 (torch.bfloat16, torch.bfloat16))
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -71,6 +90,8 @@ _ARGTYPES: Dict[tuple, list] = {
         [_P] * 7 + [_I] * 8 + [_P],
     ("flash_prefill_paged", "flash_prefill_paged_launch"):
         [_P] * 13 + [_I] * 13 + [_P],
+    ("flash_prefill_variants", "flash_prefill_variant_launch"):
+        [_P] * 13 + [_I] * 15 + [_P],
     ("flash_prefill_paged", "flash_commit_paged_launch"):
         [_P] * 11 + [_I] * 9 + [_P],
 }
@@ -102,24 +123,34 @@ class DecodePlan(NamedTuple):
     counters: int
 
 
-def decode_split_rows(unit: int) -> int:
+def check_split(split: int) -> None:
+    """Raise unless ``split`` is a positive multiple of
+    :data:`DECODE_TILE`, the decode's ``split_rows`` launch variants."""
+    if split < DECODE_TILE or split % DECODE_TILE:
+        raise ValueError(f"split_rows {split} is not a positive multiple "
+                         f"of {DECODE_TILE}")
+
+
+def decode_split_rows(unit: int, split: int = DECODE_SPLIT) -> int:
     """Rows a decode split walks: the largest multiple of ``unit`` (the
     pool's block size, or :data:`DECODE_TILE` for the contiguous cache)
-    not above :data:`DECODE_SPLIT`, and at least one ``unit``."""
-    return unit * max(1, DECODE_SPLIT // unit)
+    not above ``split``, and at least one ``unit``."""
+    return unit * max(1, split // unit)
 
 
 @functools.lru_cache(maxsize=256)
 def decode_plan(rows: int, unit: int, B: int, KV: int, G: int,
-                D: int) -> DecodePlan:
+                D: int, split: int = DECODE_SPLIT) -> DecodePlan:
     """The decode kernel's split of ``rows`` rows a slot (``nb * bs``
     paged, ``S`` contiguous) into splits of :func:`decode_split_rows` of
-    ``unit``, from the shapes alone: the split boundaries depend on
-    ``rows`` and ``unit`` only, never on KV, a head offset or B, so a head
-    slice's launch splits its rows as the unsharded launch does.  With
-    more than one split each (slot, query head, split) keeps a partial of
-    D + 2 floats and each (slot, query head) a counter."""
-    split = decode_split_rows(unit)
+    ``unit`` and ``split``, from the shapes alone: the split boundaries
+    depend on ``rows``, ``unit`` and ``split`` only, never on KV, a head
+    offset or B, so a head slice's launch splits its rows as the unsharded
+    launch does.  With more than one split each (slot, query head, split)
+    keeps a partial of D + 2 floats and each (slot, query head) a counter.
+    Raises on a ``split`` :func:`check_split` refuses."""
+    check_split(split)
+    split = decode_split_rows(unit, split)
     splits = max(1, -(-rows // split))
     if splits == 1:
         return DecodePlan(split, 1, 0, 0)
@@ -441,19 +472,21 @@ def _check_dense(q, k, v, valid_len, block_s) -> None:
 
 
 def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                 valid_len: torch.Tensor, *,
-                 block_s: int = 512) -> torch.Tensor:
+                 valid_len: torch.Tensor, *, block_s: int = 512,
+                 split_rows: int = DECODE_SPLIT) -> torch.Tensor:
     """One-token GQA attention over a contiguous KV cache.
 
     q (B, KV, G, D); k/v (B, S, KV, D) in q's dtype; valid_len (B,) int32:
     rows at or past ``valid_len[b]`` are never read, and a slot with
     ``valid_len`` 0 gives zeros.  ``block_s`` is the TPU kernel's tile,
     checked as the reference checks it (``S % min(block_s, S) == 0``); the
-    CUDA kernel reads K and V in place, in splits of
-    :func:`decode_plan` rows.  Returns (B, KV, G, D) in q's dtype.
+    CUDA kernel reads K and V in place, in splits of ``split_rows`` rows
+    (:func:`decode_plan`, which checks it on the card: its launch
+    arguments are cached).  Returns (B, KV, G, D) in q's dtype.
     """
     _check_dense(q, k, v, valid_len, block_s)
     if q.device.type == "cpu":
+        check_split(split_rows)
         return ref.decode_plain(q, k, v, valid_len)
     build.require_cuda("flash_decode_paged", (q, k, v, valid_len))
     B, KV, G, D = q.shape
@@ -461,6 +494,7 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check_head_dim(D)
     out = torch.empty_like(q)
     if out.numel() == 0:
+        check_split(split_rows)
         return out
     kp, vp = k.data_ptr(), v.data_ptr()
     if (kp | vp) % 16:
@@ -468,23 +502,27 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dev = q.device
     stream = build.stream_of(q)
     split, partial, counters = _decode_args(
-        dev, (dev.index, stream, S, DECODE_TILE, B, KV, G, D))
+        dev, (dev.index, stream, S, DECODE_TILE, B, KV, G, D, split_rows))
     err = _launcher("flash_decode_paged", "flash_decode_launch")(
         q.data_ptr(), kp, vp, valid_len.data_ptr(), out.data_ptr(), partial,
         counters, B, KV, G, D, S, split, _DTYPE_CODE[q.dtype],
         dev.index or 0, stream)
     build.raise_on("flash_decode_paged", err)
     flash_decode.launches += 1
+    flash_decode.variant_launches[split_rows] = \
+        flash_decode.variant_launches.get(split_rows, 0) + 1
     return out
 
 
 flash_decode.launches = 0
+flash_decode.variant_launches = {}
 
 
 def flash_decode_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                       valid_len: torch.Tensor, *,
-                       block_s: int = 512) -> torch.Tensor:
+                       valid_len: torch.Tensor, *, block_s: int = 512,
+                       split_rows: int = DECODE_SPLIT) -> torch.Tensor:
     _check_dense(q, k, v, valid_len, block_s)
+    check_split(split_rows)
     return ref.decode_plain(q, k, v, valid_len)
 
 
@@ -501,9 +539,28 @@ class PrefillPlan(NamedTuple):
     smem: int
 
 
+def check_prefill_tiles(q_tile: int, key_tile: int, q_dtype: torch.dtype,
+                        pool_dtype: torch.dtype) -> None:
+    """Raise unless the attention is compiled for (``q_tile``,
+    ``key_tile``) at this (q, pool) pair: :data:`PREFILL_TILES`, the
+    default for every pair and the others for :data:`VARIANT_PAIRS`."""
+    tiles = (q_tile, key_tile)
+    if tiles not in PREFILL_TILES:
+        raise ValueError(f"the prefill attention has no launch variant "
+                         f"(q_tile, key_tile) = {tiles}; it has "
+                         f"{PREFILL_TILES}")
+    if tiles != PREFILL_TILES[0] and (q_dtype, pool_dtype) not in \
+            VARIANT_PAIRS:
+        raise ValueError(f"the prefill variant {tiles} is compiled for "
+                         f"{VARIANT_PAIRS} only, not a {q_dtype} q over "
+                         f"{pool_dtype} pools")
+
+
 @functools.lru_cache(maxsize=256)
 def prefill_plan(C: int, G: int, D: int, bs: int, nb: int,
-                 q_dtype: torch.dtype, pool_dtype: torch.dtype) -> PrefillPlan:
+                 q_dtype: torch.dtype, pool_dtype: torch.dtype,
+                 q_tile: int = PREFILL_VECTORS,
+                 key_tile: int = PREFILL_KEYS) -> PrefillPlan:
     """The prefill attention's tiles and shared memory for these shapes,
     as ``prefill_attend_mma`` and ``prefill_attend_simt`` lay them out;
     the launch is given this size, and nothing else computes it.
@@ -515,18 +572,20 @@ def prefill_plan(C: int, G: int, D: int, bs: int, nb: int,
     q, then K and V twice, in bf16 on the mma route; on the simt route q
     and p in fp32, the raw stages in the pools' dtype, fp32 copies of the
     K and V tiles for bf16 and int8 pools, and the stages' scales for
-    int8.  The table row (``nb`` ints) comes last.  Raises when G exceeds
-    :data:`PREFILL_VECTORS` or the block needs more than
+    int8.  The table row (``nb`` ints) comes last.  ``q_tile`` and
+    ``key_tile`` name a launch variant (:func:`check_prefill_tiles`) and
+    take the places of :data:`PREFILL_VECTORS` and :data:`PREFILL_KEYS`.
+    Raises when G exceeds ``q_tile`` or the block needs more than
     :data:`SMEM_LIMIT` bytes.
     """
-    if G > PREFILL_VECTORS:
+    check_prefill_tiles(q_tile, key_tile, q_dtype, pool_dtype)
+    if G > q_tile:
         raise ValueError(f"G={G} query heads a KV head exceed the "
-                         f"{PREFILL_VECTORS} query vectors of a block")
-    rows = max(1, min(C, PREFILL_VECTORS // G))
-    key_tile = bs * (PREFILL_KEYS // bs) if bs <= PREFILL_KEYS else \
-        PREFILL_KEYS
+                         f"{q_tile} query vectors of a block")
+    rows = max(1, min(C, q_tile // G))
+    kt = bs * (key_tile // bs) if bs <= key_tile else key_tile
     item = pool_dtype.itemsize
-    nv, nk = PREFILL_VECTORS, PREFILL_KEYS
+    nv, nk = q_tile, key_tile
     if (q_dtype, pool_dtype) == (torch.bfloat16, torch.bfloat16):
         route = "mma"
         smem = (nv + 4 * nk) * (2 * D + 16)
@@ -540,7 +599,7 @@ def prefill_plan(C: int, G: int, D: int, bs: int, nb: int,
     if smem > SMEM_LIMIT:
         raise ValueError(f"G={G}, D={D}, bs={bs}, nb={nb} need {smem} bytes "
                          f"of shared memory, over {SMEM_LIMIT}")
-    return PrefillPlan(rows, key_tile, route, smem)
+    return PrefillPlan(rows, kt, route, smem)
 
 
 def _check_chunk(q, k_new, v_new, k_pool, v_pool, k_scale, v_scale,
@@ -638,7 +697,8 @@ def flash_prefill_paged(q: torch.Tensor, k_new: torch.Tensor,
                         v_pool: torch.Tensor, block_tables: torch.Tensor,
                         q_start: torch.Tensor, q_len: torch.Tensor,
                         k_scale=None, v_scale=None, *, k_amax=None,
-                        v_amax=None) -> torch.Tensor:
+                        v_amax=None, q_tile: int = PREFILL_VECTORS,
+                        key_tile: int = PREFILL_KEYS) -> torch.Tensor:
     """Chunked prefill over a paged KV cache: commit, then causal
     attention.
 
@@ -655,13 +715,16 @@ def flash_prefill_paged(q: torch.Tensor, k_new: torch.Tensor,
     pool row keeps its bytes and its scale.  ``k_amax``/``v_amax`` go to
     the commit, as :func:`commit_paged` takes them.  Returns (B, C, KV, G,
     D) in q's dtype.  On the card: the commit kernel, then the attention
-    kernel, on the current stream.
+    kernel (the launch variant ``q_tile`` x ``key_tile``), on the current
+    stream.
     """
     quantized = _check_prefill(q, k_new, v_new, k_pool, v_pool,
                                block_tables, q_start, q_len, k_scale,
                                v_scale)
     _check_amax(k_amax, v_amax, quantized, tuple(q.shape[:2]), q)
     if q.device.type == "cpu":
+        # on the card the cached prefill_plan checks the tiles
+        check_prefill_tiles(q_tile, key_tile, q.dtype, k_pool.dtype)
         return ref.flash_prefill_paged_ref(q, k_new, v_new, k_pool, v_pool,
                                            block_tables, q_start, q_len,
                                            k_scale, v_scale, k_amax=k_amax,
@@ -672,36 +735,48 @@ def flash_prefill_paged(q: torch.Tensor, k_new: torch.Tensor,
     bs = k_pool.shape[1]
     nb = block_tables.shape[1]
     _check_head_dim(D)
-    plan = prefill_plan(C, G, D, bs, nb, q.dtype, k_pool.dtype)
+    plan = prefill_plan(C, G, D, bs, nb, q.dtype, k_pool.dtype, q_tile,
+                        key_tile)
     out = torch.empty_like(q)
     if q.numel() == 0:
         return out
     qp, kp, vp = q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr()
     if (qp | kp | vp) % 16:
         raise ValueError(_UNALIGNED)
-    err = _launcher("flash_prefill_paged", "flash_prefill_paged_launch")(
-        qp, k_new.data_ptr(), v_new.data_ptr(), kp, vp, _ptr(k_scale),
-        _ptr(v_scale), _ptr(k_amax), _ptr(v_amax), block_tables.data_ptr(),
-        q_start.data_ptr(), q_len.data_ptr(), out.data_ptr(), B, C, KV, G,
-        D, bs, nb, plan.rows,
-        plan.key_tile, plan.smem, _DTYPE_CODE[q.dtype],
-        _DTYPE_CODE[k_pool.dtype], q.device.index or 0, build.stream_of(q),
-    )
-    build.raise_on("flash_prefill_paged", err)
+    args = [qp, k_new.data_ptr(), v_new.data_ptr(), kp, vp, _ptr(k_scale),
+            _ptr(v_scale), _ptr(k_amax), _ptr(v_amax), block_tables.data_ptr(),
+            q_start.data_ptr(), q_len.data_ptr(), out.data_ptr(), B, C, KV, G,
+            D, bs, nb, plan.rows,
+            plan.key_tile, plan.smem, _DTYPE_CODE[q.dtype],
+            _DTYPE_CODE[k_pool.dtype]]
+    tiles = (q_tile, key_tile)
+    if tiles == PREFILL_TILES[0]:
+        library, symbol = "flash_prefill_paged", "flash_prefill_paged_launch"
+    else:
+        library = "flash_prefill_variants"
+        symbol = "flash_prefill_variant_launch"
+        args += tiles
+    err = _launcher(library, symbol)(*args, q.device.index or 0,
+                                     build.stream_of(q))
+    build.raise_on(library, err)
     flash_prefill_paged.launches += 1
     by_width = flash_prefill_paged.launches_by_width
     by_width[C] = by_width.get(C, 0) + 1
+    by_tiles = flash_prefill_paged.variant_launches
+    by_tiles[tiles] = by_tiles.get(tiles, 0) + 1
     return out
 
 
 flash_prefill_paged.launches = 0
+#: (q_tile, key_tile) -> launches of that variant
+flash_prefill_paged.variant_launches = {}
 #: chunk width C -> launches at that width (speculative decoding runs the
 #: draft's rounds at width 1 and verification at ``spec_k + 1``)
 flash_prefill_paged.launches_by_width = {}
 
 
 def _prefill_op(fn, q, k_new, v_new, k_pool, v_pool, block_tables, q_start,
-                q_len, k_scale, v_scale, block_c, block_s):
+                q_len, k_scale, v_scale, block_c, block_s, tiles):
     if q.dim() != 5:
         raise ValueError(f"q must be (B, C, KV, G, D), got {tuple(q.shape)}")
     B, C = q.shape[:2]
@@ -715,7 +790,7 @@ def _prefill_op(fn, q, k_new, v_new, k_pool, v_pool, block_tables, q_start,
     if q_len is None:
         q_len = torch.full((B,), C, dtype=torch.int32, device=q.device)
     out = fn(q, k_new, v_new, k_pool, v_pool, block_tables, q_start, q_len,
-             k_scale, v_scale)
+             k_scale, v_scale, **tiles)
     scales = () if k_scale is None else (k_scale, v_scale)
     return (out, k_pool, v_pool, *scales)
 
@@ -724,27 +799,35 @@ def flash_prefill(q: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor,
                   k_pool: torch.Tensor, v_pool: torch.Tensor,
                   block_tables: torch.Tensor, q_start: torch.Tensor,
                   q_len=None, *, k_scale=None, v_scale=None,
-                  block_c: int = 8, block_s: int = 0):
+                  block_c: int = 8, block_s: int = 0,
+                  q_tile: int = PREFILL_VECTORS,
+                  key_tile: int = PREFILL_KEYS):
     """Chunked prefill with the reference's argument list: returns (out,
     k_pool, v_pool), and ``k_scale, v_scale`` after them with int8 pools,
     committed in place by :func:`flash_prefill_paged` (the reference
     returns new arrays).  ``q_len`` defaults to the chunk width C.
     ``block_c`` and ``block_s`` are the TPU kernel's tiles, checked as the
     reference checks them (C divisible by ``min(block_c, C)``, the block
-    size by ``block_s`` when it is not 0).
+    size by ``block_s`` when it is not 0); ``q_tile`` and ``key_tile`` the
+    CUDA launch variant, as :func:`flash_prefill_paged` takes them.
     """
     return _prefill_op(flash_prefill_paged, q, k_new, v_new, k_pool, v_pool,
                        block_tables, q_start, q_len, k_scale, v_scale,
-                       block_c, block_s)
+                       block_c, block_s,
+                       dict(q_tile=q_tile, key_tile=key_tile))
 
 
 def flash_prefill_plain(q, k_new, v_new, k_pool, v_pool, block_tables,
                         q_start, q_len=None, *, k_scale=None, v_scale=None,
-                        block_c: int = 8, block_s: int = 0):
+                        block_c: int = 8, block_s: int = 0,
+                        q_tile: int = PREFILL_VECTORS,
+                        key_tile: int = PREFILL_KEYS):
     """:func:`flash_prefill` with the plain version on any device."""
-    def plain(*args):
+    def plain(*args, q_tile, key_tile):
         _check_prefill(*args)
+        check_prefill_tiles(q_tile, key_tile, args[0].dtype, args[3].dtype)
         return ref.flash_prefill_paged_ref(*args)
 
     return _prefill_op(plain, q, k_new, v_new, k_pool, v_pool, block_tables,
-                       q_start, q_len, k_scale, v_scale, block_c, block_s)
+                       q_start, q_len, k_scale, v_scale, block_c, block_s,
+                       dict(q_tile=q_tile, key_tile=key_tile))

@@ -16,9 +16,18 @@ the dtype, the shape and the operands' alignment alone:
 * ``"simt"`` (``csrc/gemm_simt.cu``): fp32 on the CUDA cores (TF32 stays
   off, so fp32 has no tensor-core path), and bf16 that TMA cannot address.
 
+Each route has launch variants (:data:`VARIANTS`), the tuner's space
+(:mod:`repro_torch.tuning.spaces`): the keywords ``tile_m``, ``tile_n``,
+``tile_k`` and ``stages`` name one of the planned route's, each left out
+taking the route's default (today's tile, :data:`WGMMA_TILE` and
+:data:`SIMT_TILE`), and :func:`gemm_plan` raises on a combination the route
+has not compiled.  The default variants are built in ``csrc/gemm_wgmma.cu``
+and ``csrc/gemm_simt.cu``, the others in the ``*_variants.cu`` beside them.
+
 :func:`gemm_plain` runs the plain version on any device, with the same
-checks.  ``gemm.launches`` counts the calls that launched a kernel and
-``gemm.route_launches`` the same calls by route.
+checks.  ``gemm.launches`` counts the calls that launched a kernel,
+``gemm.route_launches`` the same calls by route and
+``gemm.variant_launches`` by (route, tile_m, tile_n, tile_k, stages).
 """
 
 from __future__ import annotations
@@ -35,9 +44,17 @@ from repro_torch.kernels.gemm import ref
 #: dtype codes of the C interface
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 ROUTES = ("wgmma", "simt")
-#: block tile (bm, bn, bk) and stages of each route, as the sources define
+#: block tile (bm, bn, bk) and stages of each route's default variant, as
+#: the sources define
 WGMMA_TILE, WGMMA_STAGES = (128, 256, 64), 4
 SIMT_TILE, SIMT_STAGES = (128, 128, 16), 2
+#: route -> its compiled launch variants (tile_m, tile_n, tile_k, stages),
+#: the default first
+VARIANTS = {
+    "wgmma": ((*WGMMA_TILE, WGMMA_STAGES), (128, 256, 64, 3),
+              (128, 128, 64, 4)),
+    "simt": ((*SIMT_TILE, SIMT_STAGES), (128, 64, 16, 2), (64, 64, 16, 2)),
+}
 #: tiles of this many block rows are walked column by column, so that the
 #: blocks in flight share their A rows and B columns in the L2
 GROUP_M = 16
@@ -45,8 +62,14 @@ GROUP_M = 16
 SMEM_LIMIT = 232448
 _MAX_GRID = 2 ** 31 - 1
 _ARGTYPES = {
-    "wgmma": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
-    "simt": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 9 + [ctypes.c_void_p],
+    "gemm_wgmma": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6
+    + [ctypes.c_void_p],
+    "gemm_wgmma_variants": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8
+    + [ctypes.c_void_p],
+    "gemm_simt": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 9
+    + [ctypes.c_void_p],
+    "gemm_simt_variants": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 11
+    + [ctypes.c_void_p],
 }
 
 
@@ -70,11 +93,29 @@ class GemmPlan(NamedTuple):
     whole_tiles: bool
 
 
+def variant(route: str, tile_m=None, tile_n=None, tile_k=None,
+            stages=None) -> Tuple[int, int, int, int]:
+    """The launch variant of ``route`` the keywords name, each one left
+    out (None) taking the route's default; raises when the route has not
+    compiled it."""
+    default = VARIANTS[route][0]
+    got = tuple(d if v is None else v for v, d in
+                zip((tile_m, tile_n, tile_k, stages), default))
+    if got not in VARIANTS[route]:
+        raise ValueError(f"gemm route {route} has no launch variant "
+                         f"(tile_m, tile_n, tile_k, stages) = {got}; it has "
+                         f"{VARIANTS[route]}")
+    return got
+
+
 @functools.lru_cache(maxsize=256)
 def gemm_plan(M: int, N: int, K: int, dtype: torch.dtype,
-              aligned: bool = True) -> GemmPlan:
+              aligned: bool = True, tile_m=None, tile_n=None, tile_k=None,
+              stages=None) -> GemmPlan:
     """The route and launch of an (M, K) @ (K, N) product in ``dtype``;
-    ``aligned``: both operands start on a 16-byte boundary.
+    ``aligned``: both operands start on a 16-byte boundary; ``tile_m``,
+    ``tile_n``, ``tile_k`` and ``stages`` name a launch variant of the
+    route (:func:`variant`), by default the route's default.
 
     bf16 takes the wgmma route when K % 8 == 0, N % 8 == 0 and ``aligned``:
     a 128 x 256 tile a block, a ring of 4 stages of 64-deep K slices (A
@@ -85,21 +126,24 @@ def gemm_plan(M: int, N: int, K: int, dtype: torch.dtype,
     row of A (B, C) is moved in 16-byte vectors only when ``aligned`` and K
     (N, N) is a multiple of the elements in 16 bytes; C is allocated by the
     wrapper, so it is always aligned; ``whole_tiles`` when both operands
-    are vectors and the tile divides M, N and K.  Raises on a shape no
-    route takes.
+    are vectors and the tile divides M, N and K.  The other variants change
+    the tile and the stages in these formulas.  Raises on a shape no route
+    takes and on a variant the route has not compiled.
     """
     if dtype not in _DTYPE_CODE:
         raise TypeError(f"gemm takes float32 or bfloat16, got {dtype}")
     if min(M, N, K) < 1 or max(M, N, K) > 2 ** 31 - 1:
         raise ValueError(f"gemm cannot take ({M}, {N}, {K})")
     if dtype == torch.bfloat16 and K % 8 == 0 and N % 8 == 0 and aligned:
-        route, tile, stages = "wgmma", WGMMA_TILE, WGMMA_STAGES
-        bm, bn, bk = tile
+        route = "wgmma"
+        *tile, stages = variant(route, tile_m, tile_n, tile_k, stages)
+        bm, bn, bk = tile = tuple(tile)
         smem = stages * (bm * bk + bk * bn) * 2 + 1024 + 2 * stages * 8
         vec_a = vec_b = vec_c = whole = False
     else:
-        route, tile, stages = "simt", SIMT_TILE, SIMT_STAGES
-        bm, bn, bk = tile
+        route = "simt"
+        *tile, stages = variant(route, tile_m, tile_n, tile_k, stages)
+        bm, bn, bk = tile = tuple(tile)
         smem = stages * (bm * bk + bk * bn) * 4
         per = 16 // dtype.itemsize
         vec_a, vec_b, vec_c = aligned and K % per == 0, \
@@ -153,37 +197,56 @@ def _check(x, y, bm: int, bn: int, bk: int) -> int:
     return bk
 
 
+def _plan(x, y, tile_m, tile_n, tile_k, stages) -> GemmPlan:
+    M, K = x.shape
+    return gemm_plan(M, y.shape[1], K, x.dtype,
+                     x.data_ptr() % 16 == 0 and y.data_ptr() % 16 == 0,
+                     tile_m, tile_n, tile_k, stages)
+
+
 def gemm(x: torch.Tensor, y: torch.Tensor, *, bm: int = 128, bn: int = 128,
-         bk: int = 128) -> torch.Tensor:
+         bk: int = 128, tile_m=None, tile_n=None, tile_k=None,
+         stages=None) -> torch.Tensor:
     """x (M, K) @ y (K, N) -> (M, N) in x's dtype, fp32 accumulation."""
     bk = _check(x, y, bm, bn, bk)
+    plan = _plan(x, y, tile_m, tile_n, tile_k, stages)
     if x.device.type == "cpu":
         return ref.gemm_plain(x, y, bk)
     build.require_cuda("gemm", (x, y))
     M, K = x.shape
     N = y.shape[1]
-    plan = gemm_plan(M, N, K, x.dtype,
-                     x.data_ptr() % 16 == 0 and y.data_ptr() % 16 == 0)
     out = torch.empty((M, N), dtype=x.dtype, device=x.device)
-    library = f"gemm_{plan.route}"
-    fn = build.function(library, f"{library}_launch", _ARGTYPES[plan.route])
+    key = (plan.route, *plan.tile, plan.stages)
+    default = key[1:] == VARIANTS[plan.route][0]
+    library = f"gemm_{plan.route}" + ("" if default else "_variants")
+    symbol = f"gemm_{plan.route}_" + ("launch" if default
+                                      else "variant_launch")
+    fn = build.function(library, symbol, _ARGTYPES[library])
+    args = [x.data_ptr(), y.data_ptr(), out.data_ptr(), M, N, K]
     if plan.route == "wgmma":
-        err = fn(x.data_ptr(), y.data_ptr(), out.data_ptr(), M, N, K,
-                 plan.grid, plan.smem, x.device.index, build.stream_of(x))
+        args += [] if default else [plan.tile[1], plan.stages]
+        args += [plan.grid, plan.smem, x.device.index]
     else:
-        err = fn(x.data_ptr(), y.data_ptr(), out.data_ptr(), M, N, K,
-                 _DTYPE_CODE[x.dtype], plan.vec_a, plan.vec_b, plan.vec_c,
-                 plan.whole_tiles, plan.grid, build.stream_of(x))
+        args += [_DTYPE_CODE[x.dtype], plan.vec_a, plan.vec_b, plan.vec_c,
+                 plan.whole_tiles]
+        args += [] if default else [plan.tile[0], plan.tile[1]]
+        args += [plan.grid]
+    err = fn(*args, build.stream_of(x))
     build.raise_on(library, err)
     gemm.launches += 1
     gemm.route_launches[plan.route] += 1
+    gemm.variant_launches[key] = gemm.variant_launches.get(key, 0) + 1
     return out
 
 
 gemm.launches = 0
 gemm.route_launches = dict.fromkeys(ROUTES, 0)
+gemm.variant_launches = {}
 
 
 def gemm_plain(x: torch.Tensor, y: torch.Tensor, *, bm: int = 128,
-               bn: int = 128, bk: int = 128) -> torch.Tensor:
-    return ref.gemm_plain(x, y, _check(x, y, bm, bn, bk))
+               bn: int = 128, bk: int = 128, tile_m=None, tile_n=None,
+               tile_k=None, stages=None) -> torch.Tensor:
+    bk = _check(x, y, bm, bn, bk)
+    _plan(x, y, tile_m, tile_n, tile_k, stages)
+    return ref.gemm_plain(x, y, bk)

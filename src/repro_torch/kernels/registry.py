@@ -20,17 +20,24 @@ the CPU; ``analyze(..., time_roi=True)`` moves them to the card, and
 ``analyze(..., source="compiled")`` records the plain version on CPU
 copies of them.
 
-The reference's autotuner state (tuned configs, tuning spaces) is not
-ported yet (ROADMAP 1.17.3).  The tile keywords (``bm/bn/bk``,
-``block_rows``, ``block_outer``, ``block_s``, ``block_c``) are checked as the reference checks them, so the same
-calls fail, but each CUDA kernel's tile is its own: mapping tiling axes to
-CUDA launch configurations is the tuning port's job.
+The TPU tile keywords (``bm/bn/bk``, ``block_rows``, ``block_outer``,
+``block_s``, ``block_c``) are checked as the reference checks them, so the
+same calls fail; each CUDA kernel's launch shape is its own, named by the
+keywords of its compiled launch variants.  A kernel registered with a
+:class:`~repro_torch.tuning.space.TuningSpace` over those keywords
+(:mod:`repro_torch.tuning.spaces`; SpMV has none, as in the reference) is
+reachable by the roofline-guided autotuner (``repro_torch.tuning``): after
+a ``tune()`` or ``load_tuned()`` the ops object resolves its best-known
+config on ``__call__``, ``.kernel`` and ``.interpret``, explicit keywords
+always winning.  A tuned config resolves only through these surfaces: the
+serve engine calls ``flash_decode_paged``, ``flash_prefill_paged`` and
+``flash_decode`` directly, so tuning never changes a serve step.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -41,22 +48,129 @@ from repro_torch.kernels.jacobi2d import kernel as _jac_k, ref as _jac_r
 from repro_torch.kernels.qc_gate import kernel as _qc_k, ref as _qc_r
 from repro_torch.kernels.spmv import kernel as _spmv_k, ref as _spmv_r
 from repro_torch.kernels.stream import kernel as _stream_k, ref as _stream_r
+from repro_torch.tuning import spaces as _spaces
+from repro_torch.tuning.space import TuningSpace, canonical_dtype
 
 
 class KernelOps:
     """Call surface for one registered kernel (wrapper / kernel / plain /
-    ref)."""
+    ref).
+
+    When a :class:`TuningSpace` is attached and a tuned config is active
+    (installed by ``repro_torch.tuning.tune``/``load_tuned``), calls
+    resolve the tuned keywords automatically: the config is validated
+    against the actual call arguments (clamp + the plan functions'
+    constraint) and merged only for keywords the caller did not pass —
+    explicit kwargs always win.
+    """
 
     def __init__(self, name: str, kernel_fn: Callable, plain_fn: Callable,
-                 ref_fn: Optional[Callable] = None) -> None:
+                 ref_fn: Optional[Callable] = None, *,
+                 tuning_space: Optional[TuningSpace] = None) -> None:
         self.name = name
         self.raw = kernel_fn
         self._plain = plain_fn
         self._ref = ref_fn
+        self.tuning_space = tuning_space
+        self._tuned: Dict[Tuple[str, str], Dict[str, Any]] = {}
+        self._active: Optional[Tuple[str, str]] = None
         functools.update_wrapper(self, kernel_fn, updated=())
 
+    # -- tuned-config state --------------------------------------------------
+
+    def set_tuned(
+        self,
+        config: Dict[str, Any],
+        *,
+        chip: str = "",
+        dtype: str = "",
+        activate: bool = True,
+    ) -> None:
+        """Install a best-known config for (chip, dtype); ``activate`` makes
+        it the one calls resolve (most-recent-tune-wins semantics)."""
+        key = (chip, dtype)
+        self._tuned[key] = dict(config)
+        if activate:
+            self._active = key
+
+    def tuned_config(
+        self, chip: Optional[str] = None, dtype: Optional[str] = None
+    ) -> Optional[Dict[str, Any]]:
+        """The active tuned config (no args), or the one for (chip, dtype)."""
+        if chip is None and dtype is None:
+            if self._active is None:
+                return None
+            return dict(self._tuned[self._active])
+        cfg = self._tuned.get((chip or "", dtype or ""))
+        return dict(cfg) if cfg is not None else None
+
+    def clear_tuned(self) -> None:
+        self._tuned.clear()
+        self._active = None
+
+    def load_tuned(self, **kw: Any):
+        """Pick up a persisted TuningRecord for this kernel (zero timing);
+        see :func:`repro_torch.tuning.load_tuned` for the keyword surface."""
+        from repro_torch.tuning import load_tuned
+
+        return load_tuned(self, **kw)
+
+    @property
+    def fingerprint_extra(self) -> str:
+        """Behavioral state the artifact fingerprint must see: an active
+        tuned config changes what a call launches."""
+        if self._active is None:
+            return ""
+        cfg = self._tuned.get(self._active)
+        return f"tuned:{sorted(cfg.items())!r}" if cfg else ""
+
+    def _resolve_active(self, args: Tuple) -> Optional[Dict[str, Any]]:
+        """The config to resolve for THIS call: prefer the entry tuned for
+        the call's element type (a multi-dtype sweep leaves one config per
+        dtype), falling back to the most recently activated one."""
+        if self._active is None:
+            return None
+        chip, _ = self._active
+        for a in args:
+            dt = getattr(a, "dtype", None)
+            if dt is not None:
+                cfg = self._tuned.get((chip, canonical_dtype(dt)))
+                if cfg is not None:
+                    return cfg
+                break
+        return self._tuned.get(self._active)
+
+    def _tuned_kwargs(self, args: Tuple, kw: Dict[str, Any]) -> Dict[str, Any]:
+        """Merge the active tuned config into ``kw`` for keys the caller
+        did not pass, after re-validating it against these arguments.
+
+        Validation sees the call as it would actually execute: caller-passed
+        axis values override the tuned ones (explicit kwargs win), and only
+        the surviving tuned keys are merged; a config that does not fit the
+        call (another route's GEMM variant, say) is dropped whole.
+        """
+        cfg = self._resolve_active(args)
+        if not cfg:
+            return kw
+        space = self.tuning_space
+        if space is not None:
+            view = {**cfg, **{k: v for k, v in kw.items() if k in space.axes}}
+            extra = {k: v for k, v in kw.items() if k not in space.axes}
+            try:
+                valid = space.validate(view, args, extra=extra)
+            except Exception:
+                valid = None
+            if valid is None:  # the call's config does not fit: fall back
+                return kw
+            cfg = valid
+        for k, v in cfg.items():
+            kw.setdefault(k, v)
+        return kw
+
+    # -- call surfaces -------------------------------------------------------
+
     def __call__(self, *args: Any, **kw: Any):
-        return self.raw(*args, **kw)
+        return self.raw(*args, **self._tuned_kwargs(args, kw))
 
     def kernel(self, *args: Any, **kw: Any):
         cpu = [a for a in args if isinstance(a, torch.Tensor) and not a.is_cuda]
@@ -65,10 +179,10 @@ class KernelOps:
                 f"{self.name}.kernel runs the CUDA kernel and needs CUDA "
                 f"tensors, got {cpu[0].device}; .interpret is the plain "
                 f"version")
-        return self.raw(*args, **kw)
+        return self.raw(*args, **self._tuned_kwargs(args, kw))
 
     def interpret(self, *args: Any, **kw: Any):
-        return self._plain(*args, **kw)
+        return self._plain(*args, **self._tuned_kwargs(args, kw))
 
     def ref(self, *args: Any, **kw: Any):
         if self._ref is None:
@@ -76,6 +190,13 @@ class KernelOps:
         return self._ref(*args, **kw)
 
     def __repr__(self) -> str:
+        if self._active is not None and self._tuned.get(self._active):
+            chip, dtype = self._active
+            cfg = " ".join(
+                f"{k}={v}" for k, v in sorted(self._tuned[self._active].items())
+            )
+            where = f" @ {chip}/{dtype}" if (chip or dtype) else ""
+            return f"KernelOps({self.name!r}, tuned[{cfg}]{where})"
         return f"KernelOps({self.name!r})"
 
 
@@ -99,17 +220,19 @@ def register_kernel(
     plain: Callable,
     ref: Optional[Callable] = None,
     workload: Optional[Callable[[], Workload]] = None,
+    tuning_space: Optional[TuningSpace] = None,
 ) -> KernelOps:
     """Register a kernel entry point.
 
     ``kernel`` is the wrapper (CUDA kernel on the card, plain version on the
     CPU), ``plain`` the plain version with the same signature, ``workload``
     a zero-arg builder of the kernel's example Workload, registered lazily
-    as ``kernel/<name>``.
+    as ``kernel/<name>``, ``tuning_space`` the keywords of its launch
+    variants for ``repro_torch.tuning``.
     """
     if name in KERNELS:
         raise ValueError(f"kernel {name!r} already registered")
-    ops = KernelOps(name, kernel, plain, ref)
+    ops = KernelOps(name, kernel, plain, ref, tuning_space=tuning_space)
     KERNELS[name] = ops
     if workload is not None:
         _WORKLOAD_BUILDERS[f"kernel/{name}"] = workload
@@ -278,25 +401,29 @@ def _flash_decode_workload() -> Workload:
 
 GEMM = register_kernel(
     "gemm", _gemm_k.gemm, plain=_gemm_k.gemm_plain, ref=_gemm_r.gemm_ref,
-    workload=_gemm_workload,
+    workload=_gemm_workload, tuning_space=_spaces.gemm_space(),
 )
 
 STREAM_COPY = register_kernel(
     "stream-copy", _stream_k.stream_copy, plain=_stream_k.stream_copy_plain,
     ref=_stream_r.copy_ref,
+    tuning_space=_spaces.stream_space(n_arrays=1, flops_per_elem=0.0),
 )
 STREAM_SCALE = register_kernel(
     "stream-scale", _stream_k.stream_scale,
     plain=_stream_k.stream_scale_plain, ref=_stream_r.scale_ref,
+    tuning_space=_spaces.stream_space(n_arrays=1, flops_per_elem=1.0),
 )
 STREAM_ADD = register_kernel(
     "stream-add", _stream_k.stream_add, plain=_stream_k.stream_add_plain,
     ref=_stream_r.add_ref,
+    tuning_space=_spaces.stream_space(n_arrays=2, flops_per_elem=1.0),
 )
 STREAM_TRIAD = register_kernel(
     "stream-triad", _stream_k.stream_triad,
     plain=_stream_k.stream_triad_plain, ref=_stream_r.triad_ref,
     workload=_stream_workload,
+    tuning_space=_spaces.stream_space(n_arrays=2, flops_per_elem=2.0),
 )
 
 SPMV = register_kernel(
@@ -311,19 +438,22 @@ SPMV_FIXED = register_kernel(
 JACOBI_STEP = register_kernel(
     "jacobi2d", _jac_k.jacobi_step, plain=_jac_k.jacobi_step_plain,
     ref=_jac_r.jacobi_ref, workload=_jacobi_workload,
+    tuning_space=_spaces.jacobi2d_space(),
 )
 
 RX_GATE = register_kernel(
     "qc-gate", _qc_k.rx_gate, plain=_qc_k.rx_gate_plain,
-    workload=_qc_workload,
+    workload=_qc_workload, tuning_space=_spaces.qc_gate_space(),
 )
 
 FLASH_DECODE = register_kernel(
     "flash-decode", _fd_k.flash_decode, plain=_fd_k.flash_decode_plain,
     ref=_fd_r.decode_ref, workload=_flash_decode_workload,
+    tuning_space=_spaces.flash_decode_space(),
 )
 
 FLASH_PREFILL = register_kernel(
     "flash-prefill", _fd_k.flash_prefill, plain=_fd_k.flash_prefill_plain,
     ref=_fd_r.prefill_paged_ref, workload=_flash_prefill_workload,
+    tuning_space=_spaces.flash_prefill_space(),
 )

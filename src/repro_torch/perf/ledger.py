@@ -123,8 +123,8 @@ def tuned_state_hash() -> str:
     This is the staleness signal the gate's triage keys on: a run recorded
     under one set of tuned configs and a run recorded under another are not
     the same experiment, even at the same git SHA.  Empty string when no
-    kernel holds a tuned config — always, until tuning is ported (ROADMAP
-    1.17.3).
+    kernel holds a tuned config (``repro_torch.tuning`` installs them;
+    ``KernelOps.clear_tuned`` drops them).
     """
     try:
         from repro_torch.kernels.registry import KERNELS

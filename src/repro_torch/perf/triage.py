@@ -23,10 +23,8 @@ wall-clock noise.  A port of :mod:`repro.perf.triage`.
 from __future__ import annotations
 
 import dataclasses
-import os
 from typing import Any, Dict, List, Mapping, Optional, Tuple
 
-from repro_torch.analysis.store import ArtifactStore, _default_dir, _store_for
 from repro_torch.core import hw
 from repro_torch.core.decision_tree import Decision, PerfClass, classify
 from repro_torch.core.metrics import VectorizationReport
@@ -136,37 +134,24 @@ class Triage:
 # ---------------------------------------------------------------------------
 
 
-#: the tuning-record payload version the reference's ``save_record`` writes
-TUNING_VERSION = 1
-
-
-def resolve_tuning_store(tuning_store: Any) -> Optional[ArtifactStore]:
-    """None -> no scan; ``"default"`` -> ``<the port's artifact dir>/tuning``
-    (the layout of the reference's ``tuning/records.py``); any other string
-    -> a store rooted at that directory; an ArtifactStore passes through."""
-    if tuning_store is None or isinstance(tuning_store, ArtifactStore):
-        return tuning_store
-    if tuning_store == "default":
-        return _store_for(os.path.join(_default_dir(), "tuning"))
-    return _store_for(str(tuning_store))
-
-
 def _store_configs(tuning_store: Any) -> Dict[Tuple[str, str, str], set]:
     """(kernel, chip, dtype) -> set of persisted config tokens.
 
     Enumerates the tuning store through ``iter_json``: the payloads carry
     the identity triple (``tuning_version`` 1, ``record.{kernel,chip,dtype,
     config}``), so a run is suspect only when its config matches none of
-    the store's known-best configs for its triple.  The port has no
-    writer of such a store until tuning is ported (ROADMAP 1.17.3): today
-    the scan reads a store that the reference's ``save_record`` wrote, and
-    the port's default store stays empty, so the suspect never fires on
-    it.  A store that cannot be opened gives no configs (triage is
-    advisory and never raises).
+    the store's known-best configs for its triple.  ``"default"`` is the
+    port's tuning store, ``<the port's artifact dir>/tuning``, which
+    ``repro_torch.tuning`` writes; the payloads are the reference's, so a
+    store the reference's ``save_record`` wrote reads the same.  A store
+    that cannot be opened gives no configs (triage is advisory and never
+    raises).
     """
+    from repro_torch.tuning.records import TUNING_VERSION, resolve_store
+
     out: Dict[Tuple[str, str, str], set] = {}
     try:
-        store = resolve_tuning_store(tuning_store)
+        store = resolve_store(tuning_store)
     except Exception:  # noqa: BLE001 — triage is advisory, never raises
         return out
     if store is None:
@@ -201,7 +186,7 @@ def _suspects(
         known = ", ".join(repr(c) for c in sorted(store_cfgs))
         out.append(
             f"stale TuningRecord: run used {cfg_after!r}, store best is "
-            f"{known} — re-run the tuner"
+            f"{known} — re-run `python -m repro_torch.tuning`"
         )
     if baseline.env.tuned_hash != run.env.tuned_hash:
         out.append(

@@ -16,8 +16,9 @@ default backed by the persistent
 
 The report's ``trajectory`` block is the perf ledger's state
 (:mod:`repro_torch.perf`), and the CLI's ``--record`` appends the report
-to that ledger and stamps the run id into it.  The reference's tuning
-outlook is ROADMAP 1.17.3: the report carries no ``tuning`` block.
+to that ledger and stamps the run id into it.  Its ``tuning`` block is
+the autotuner's outlook of every kernel cell served
+(:mod:`repro_torch.tuning`).
 
 CLI (emits a JSON report; run it twice with the same ``--store-dir`` and
 the second run records nothing):
@@ -235,15 +236,32 @@ class AnalysisService:
 
     def report(self) -> Dict[str, Any]:
         """Machine-readable drain report; ``schema`` versions its shape.
+        ``tuning`` summarizes the autotuner outlook of every kernel cell
+        served: per (kernel, chip, dtype), the roofline-best launch
+        variant, its predicted speedup over the kernel's default, and the
+        persisted tuned config when the tuning store holds one.
         ``trajectory`` is the perf ledger's current state; the CLI's
         ``--record`` appends this very report to that ledger and stamps
         the resulting ``run_id`` into the payload."""
         reqs = [self.completed[uid].to_dict() for uid in sorted(self.completed)]
         n_cells = sum(len(r["results"]) for r in reqs)
+        tuned: Dict[str, Any] = {}
+        for uid in sorted(self.completed):
+            for res in self.completed[uid].results:
+                t = res.tuning
+                if not t:
+                    continue
+                key = f"{t['kernel']}@{res.chip}/{res.dtype}"
+                tuned[key] = {
+                    "best_config": t["best_config"],
+                    "predicted_speedup": t["predicted_speedup"],
+                    "record": t["record"],
+                }
         return {
             "kind": "analysis_service_report",
             "schema": 1,
             "requests": reqs,
+            "tuning": tuned,
             "trajectory": self._trajectory(),
             "service": {
                 "requests": len(reqs),

@@ -98,7 +98,10 @@ def test_stages_fit_an_h100_block(dtype):
 
 
 def _constants(source: str) -> dict:
-    text = (CSRC / source).read_text()
+    """The constants of a route's default variant: its source and the
+    header that holds the kernel template."""
+    text = (CSRC / source).read_text() + (CSRC / source).with_suffix(
+        ".cuh").read_text()
     return {name: int(value) for name, value in
             re.findall(r"\b(k[A-Z]\w*) = (\d+)\b", text)}
 
