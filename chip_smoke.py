@@ -310,6 +310,37 @@ non-zero):
             CPU): chunked on the card, chunked on the CPU and token by
             token on the card give the same greedy streams, up to near
             ties.
+9. train    last, on a card with nothing else held: the port's train
+            stack (``repro_torch.launch.train.train``) at qwen3-1.7b's
+            full width (28 layers, 2.03 B parameters, bf16 params with an
+            fp32 master and moments, fp32 logits of 151,936 columns), 6
+            steps of 4 x 2048 tokens, every layer recomputed in the
+            backward pass, no checkpoint: a finite loss and grad norm at
+            every step, every leaf of the master moved, the peak of
+            allocated memory under the card's and no kernel of phases 3-5
+            launched (the train path reaches none).  Prints the step's ms
+            and tokens/s, 6 N T over the step time as a share of the bf16
+            peak, the peak memory, the card's ``nvidia-smi`` line, and for
+            the last two steps under ``torch.profiler`` kernels a step and
+            the device's idle share over their interval.
+   train-resume  gpt2-124m at full width (8 x 512 tokens, 6 steps)
+            through the resilient loop over a checkpoint store, a
+            checkpoint every 3 steps and one injected device loss before
+            step 4, against the same job without a fault or a store: one
+            restart, final params and optimizer state bit-equal (or,
+            where the card's step is not bit-for-bit repeatable, within
+            parity-train's bounds, with the aten ops named that may add
+            with atomics), and the faulted run's peak of allocated memory
+            at most 1.2 times the clean run's.
+   parity-train  one train step of each of the ten decoder archs' smoke
+            configs (f32, TF32 off) on the card against the CPU from the
+            same weights and batch: the loss at rtol 1e-5, every gradient
+            and the params after the step at rtol 1e-4 and atol 1e-5, the
+            moments m and v at those bounds carried through their update;
+            the card's update against AdamW replayed on the CPU from the
+            card's gradients, within a tenth of the step's lr; per arch
+            whether the card's gradients repeat bit for bit, and the
+            step's aten ops that may add with atomics.
 
 Each phase line also goes to stderr as one short line.  ``WATCHDOG_S``
 seconds after its start the script stops itself: every thread's stack and
@@ -325,6 +356,7 @@ the JAX package ``repro``.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import re
 import statistics
@@ -5105,6 +5137,497 @@ def phase_parity_mesh(torch):
     return commits, jamba
 
 
+# -- the train stack ----------------------------------------------------------
+
+
+#: the train phase's job: qwen3-1.7b at full width (28 layers, d 2048,
+#: 2.03 B parameters, bf16 params with an fp32 master), 4 rows of 2048
+#: tokens, every layer recomputed in the backward pass; no checkpoint (the
+#: state is about 32 GB)
+TRAIN_JOB = dict(arch="qwen3-1.7b", smoke=False, steps=6, batch=4, seq=2048,
+                 remat="full", device="cuda", log_every=1)
+#: train profiles from this step to the last (their times are left out of
+#: the step median); the profiler starts before the first and stops after
+#: the last, outside the interval its idle share is taken over
+TRAIN_PROFILED_FROM = 4
+#: train's device time by words of the kernel's name (lower case), the
+#: first group that matches: the products in fp32 (the flash tiles'
+#: einsums; TF32 is off) and in bf16 (the projections, FFNs and LM head),
+#: copies and casts, the other elementwise kernels, reductions
+TRAIN_GROUPS = (("gemm_fp32", ("f32f32", "sgemm")),
+                ("gemm_bf16", ("bf16", "nvjet", "gemm")),
+                ("copy", ("copy", "memcpy", "memset", "catarray")),
+                ("elementwise", ("elementwise",)),
+                ("reduce", ("reduce", "softmax", "norm")))
+#: the train-resume phase's job: gpt2-124m at full width (about 2 GB of
+#: state), the paper's training example's rows; a checkpoint every 3
+#: steps and one injected fault at step 4
+RESUME_JOB = dict(arch="gpt2-124m", smoke=False, steps=6, batch=8, seq=512,
+                  remat="full", device="cuda", log_every=1, ckpt_every=3)
+RESUME_FAULT_STEP = 4
+#: the most train-resume's faulted run may allocate at its peak, against
+#: the clean run's
+RESUME_PEAK_RATIO = 1.2
+#: parity-train's bounds, card against CPU (f32, TF32 off), for every
+#: arch; the moments carry the gradients' bound through their update
+#: (``m`` at ``(1 - b1) atol``, ``sqrt(v)`` at ``sqrt(1 - b2) atol``)
+TRAIN_LOSS_RTOL = 1e-5
+TRAIN_TOL = dict(rtol=1e-4, atol=1e-5)
+#: the card's AdamW update (params after less params before) against the
+#: update replayed on the CPU from the card's gradients: at most this
+#: share of the step's lr apart, and the replay's largest move at least
+#: :data:`UPDATE_MIN_SHARE` of it (an update that does nothing, or moves
+#: the other way, parts by the whole lr or twice it)
+UPDATE_TOL_SHARE = 0.1
+UPDATE_MIN_SHARE = 0.5
+#: how long train-resume's fault waits for the step-3 checkpoint's commit
+COMMIT_WAIT_S = 120
+#: parity-train's shape: the reference's smoke shape, 2 rows of 32 tokens,
+#: and its batch's seed
+PARITY_TRAIN_SEQ, PARITY_TRAIN_BATCH = 32, 2
+PARITY_TRAIN_SEED = 0
+#: the H100's dense bf16 peak (NVIDIA's data sheet), for the model-flops
+#: share of a train step
+BF16_PEAK_FLOPS = 989e12
+#: aten ops that may accumulate with atomics on CUDA, so that a step that
+#: runs them need not be bit-for-bit repeatable (the ops PyTorch's
+#: ``torch.use_deterministic_algorithms`` names for CUDA); ``index_put``
+#: counts only with ``accumulate=True``
+NONDETERMINISTIC_CUDA_OPS = ("index_add", "index_add_", "scatter_add",
+                             "scatter_add_", "scatter_reduce",
+                             "index_put(accumulate)", "put_", "cumsum",
+                             "index_copy")
+
+
+def _op_census(torch, fn):
+    """``fn()``'s result and the names of the aten ops it (and the
+    backward it runs) dispatched, ``index_put`` marked when it
+    accumulates."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Census(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops = set()
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            kwargs = kwargs or {}
+            name = func.overloadpacket.__name__
+            if "index_put" in name and (kwargs.get("accumulate") or (
+                    len(args) > 3 and args[3] is True)):
+                name = "index_put(accumulate)"
+            self.ops.add(name)
+            return func(*args, **kwargs)
+
+    with Census() as census:
+        out = fn()
+    return out, sorted(census.ops)
+
+
+def _tree_diff(torch, got, want):
+    """(max abs difference, leaves that differ) of two trees of tensors,
+    compared on the CPU in fp32."""
+    from repro_torch.optim.adamw import tree_leaves
+
+    worst, differ = 0.0, 0
+    for g, w in zip(tree_leaves(got), tree_leaves(want)):
+        d = (g.detach().float().cpu() - w.detach().float().cpu()).abs()
+        if d.numel() and float(d.max()) > 0:
+            differ += 1
+            worst = max(worst, float(d.max()))
+    return worst, differ
+
+
+def _worst(torch, got, want, rtol, atol):
+    """(the largest ``|got - want| / (atol + rtol |want|)`` over two trees,
+    1 or less where ``allclose`` holds, and the leaf index it is at)."""
+    from repro_torch.optim.adamw import tree_leaves
+
+    worst, at = 0.0, None
+    for i, (g, w) in enumerate(zip(tree_leaves(got), tree_leaves(want))):
+        g, w = g.detach().float().cpu(), w.detach().float().cpu()
+        r = float(((g - w).abs() / (atol + rtol * w.abs())).max())
+        if r > worst:
+            worst, at = r, i
+    return worst, at
+
+
+def _trees_close(torch, got, want, rtol, atol) -> bool:
+    return _worst(torch, got, want, rtol, atol)[0] <= 1.0
+
+
+def _update_diff(torch, new, old, want_new, want_old):
+    """(the largest difference of the two updates ``new - old`` and
+    ``want_new - want_old`` over two pairs of trees, the largest element
+    of the second update), in fp32 on the CPU."""
+    from repro_torch.optim.adamw import tree_leaves
+
+    worst, largest = 0.0, 0.0
+    for n, o, wn, wo in zip(*map(tree_leaves, (new, old, want_new,
+                                               want_old))):
+        d = n.detach().float().cpu() - o.detach().float().cpu()
+        w = wn.detach().float().cpu() - wo.detach().float().cpu()
+        worst = max(worst, float((d - w).abs().max()))
+        largest = max(largest, float(w.abs().max()))
+    return worst, largest
+
+
+def phase_train(torch, np, kernel, card):
+    """``launch.train.train`` on :data:`TRAIN_JOB`: qwen3-1.7b at full
+    width, 6 steps of 4 x 2048 tokens, remat full.  Requires a finite loss
+    and grad norm at every step, every leaf of the fp32 master moved off
+    its init, the peak of allocated memory under the card's memory and no
+    flash kernel launched (the train path reaches none).  Prints the
+    step's ms (median of the unprofiled steps after the first), tokens/s,
+    ``6 N T`` over the step time as a share of the bf16 peak, the peak
+    memory, and, for the steps from :data:`TRAIN_PROFILED_FROM` on under
+    ``torch.profiler`` (device activity), kernels a step, their device
+    time by :data:`TRAIN_GROUPS`, and the device's idle share over those
+    steps' interval, as the profile phases take it: one less their device
+    time over the interval's wall time (null, and flagged, should the
+    device time exceed it); and for each step the host's stalls that
+    leave the device idle, its milliseconds in Python's garbage collector
+    and the caching allocator's retries."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch import train as launch
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.train import steps as steps_mod
+
+    t0 = time.time()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(kernel)
+    job = launch.TrainJob(**TRAIN_JOB)
+    stamps, window, host = [], [], []
+    prof = profile(activities=[ProfilerActivity.CUDA])
+    # the host's own stalls, read at each step's start: milliseconds in
+    # Python's garbage collector, and the caching allocator's retries (a
+    # failed cudaMalloc that frees the cache and tries again)
+    gc_ms, gc_start = [0.0], [0.0]
+
+    def on_gc(phase, info):
+        if phase == "start":
+            gc_start[0] = time.perf_counter()
+        else:
+            gc_ms[0] += (time.perf_counter() - gc_start[0]) * 1e3
+
+    def host_mark():
+        host.append((gc_ms[0], torch.cuda.memory_stats().get(
+            "num_alloc_retries", 0)))
+
+    def hook(step):  # before each step: the previous step has ended
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        host_mark()
+        if step == TRAIN_PROFILED_FROM:
+            prof.start()
+            window.append(time.perf_counter())
+
+    gc.callbacks.append(on_gc)
+    try:
+        out = launch.train(job, hook=hook)
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        host_mark()
+    finally:
+        gc.callbacks.remove(on_gc)
+    window.append(stamps[-1])
+    prof.stop()
+    counts = read_counts(kernel)
+    peak = torch.cuda.max_memory_allocated()
+    total = torch.cuda.get_device_properties(0).total_memory
+    step_s = np.diff(stamps)
+    timed = step_s[1:TRAIN_PROFILED_FROM]
+    step_ms = statistics.median(timed) * 1e3
+    hist = out["history"]
+    require([m["step"] for m in hist] == list(range(job.steps)),
+            f"train logged steps {[m['step'] for m in hist]}")
+    require(all(np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"])
+                for m in hist), f"train: a loss or grad norm is not "
+            f"finite: {hist}")
+    require(not any(counts.values()),
+            f"train launched a kernel of the serve path: {counts}")
+    require(peak < total, f"train peak {peak} B over the card's {total}")
+    cfg = out["cfg"]
+    state = out["state"]
+    del out
+    init = steps_mod.init_model(cfg, seed=job.seed, device="cuda",
+                                draw_device="cuda")
+    moved = [not torch.equal(m, p.float()) for m, p in zip(
+        tree_leaves(state["opt"]["master"]), tree_leaves(init))]
+    changed = sum(int((a != b).sum()) for a, b in zip(
+        tree_leaves(state["params"]), tree_leaves(init)))
+    n_params = sum(p.numel() for p in tree_leaves(init))
+    del init, state
+    torch.cuda.empty_cache()
+    require(all(moved), f"train: {moved.count(False)} of {len(moved)} "
+            f"master leaves never moved")
+    rows = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+    busy_ms = sum(e.self_device_time_total for e in rows) / 1e3
+    profiled = job.steps - TRAIN_PROFILED_FROM
+    groups = {}
+    for e in rows:
+        group = next((g for g, words in TRAIN_GROUPS
+                      if any(w in e.key.lower() for w in words)), "other")
+        groups[group] = groups.get(group, 0.0) \
+            + e.self_device_time_total / 1e3 / profiled
+    require(busy_ms > 0, "the profiler saw no device time in train")
+    window_ms = (window[1] - window[0]) * 1e3
+    idle = 1.0 - busy_ms / window_ms
+    tokens = job.batch * job.seq
+    n_model = cfg.param_count()
+    top = sorted(rows, key=lambda e: -e.self_device_time_total)[:8]
+    emit({"phase": "train", "arch": cfg.name, "layers": cfg.n_layers,
+          "d_model": cfg.d_model, "parameters": n_params,
+          "param_count": n_model, "batch": job.batch, "seq": job.seq,
+          "remat": job.remat, "steps": job.steps,
+          "loss": [m["loss"] for m in hist],
+          "grad_norm": [m["grad_norm"] for m in hist],
+          "lr": [m["lr"] for m in hist],
+          "step_ms_each": [s * 1e3 for s in step_s],
+          "gc_ms_each": [b[0] - a[0] for a, b in zip(host, host[1:])],
+          "alloc_retries_each": [b[1] - a[1]
+                                 for a, b in zip(host, host[1:])],
+          "step_ms": step_ms, "tokens_per_s": tokens / step_ms * 1e3,
+          "model_flops_share_bf16": 6 * n_model * tokens
+          / (step_ms / 1e3) / BF16_PEAK_FLOPS,
+          "peak_allocated_bytes": peak, "card_memory_bytes": total,
+          "bf16_param_elements_changed": changed,
+          "profiled_steps": list(range(TRAIN_PROFILED_FROM, job.steps)),
+          "profiled_ms": window_ms,
+          "kernels_per_step": sum(e.count for e in rows) / profiled,
+          "device_busy_ms": busy_ms,
+          "device_idle_share": idle if idle >= 0 else None,
+          "device_busy_over_wall": idle < 0,
+          "device_ms_per_step_by_group": groups,
+          "top": [{"kernel": e.key[:80],
+                   "device_ms_per_step": e.self_device_time_total / 1e3
+                   / profiled,
+                   "calls_per_step": e.count / profiled} for e in top],
+          "serve_kernel_launches": counts, "nvidia_smi": card,
+          "seconds": time.time() - t0})
+
+
+def phase_train_resume(torch, np):
+    """``launch.train.train`` on :data:`RESUME_JOB` (gpt2-124m at full
+    width) twice: through the resilient loop over a checkpoint store in a
+    fresh directory, with one ``SimulatedDeviceLoss`` raised before step
+    :data:`RESUME_FAULT_STEP` (as the scenario harness's device-loss plan
+    raises it), and straight through without a fault or a store.  Requires
+    one restart, the store's last step the job's, and final params and
+    optimizer state bit-equal to the unfaulted run's, or, where the card's
+    step is not bit-for-bit repeatable, within parity-train's bounds with
+    the ops named that may make it so; and the faulted run's peak of
+    allocated memory at most :data:`RESUME_PEAK_RATIO` times the clean
+    run's (the restart drops the failed state and restores onto a template
+    of shapes, so the card never holds two states)."""
+    import tempfile
+
+    from repro_torch.launch import train as launch
+    from repro_torch.scenarios.faults import SimulatedDeviceLoss
+    from repro_torch.checkpoint import CheckpointStore
+
+    t0 = time.time()
+    armed = [True]
+    every = RESUME_JOB["ckpt_every"]
+    restore_at = RESUME_FAULT_STEP // every * every
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as d:
+        marker = Path(d) / f"step_{restore_at:08d}" / "_COMMITTED"
+
+        def crash(step):
+            # the fault strikes once the last checkpoint before it has
+            # committed (the store writes it on a thread), so the restart
+            # restores it
+            if step == RESUME_FAULT_STEP and armed[0]:
+                deadline = time.time() + COMMIT_WAIT_S
+                while not marker.exists() and time.time() < deadline:
+                    time.sleep(0.05)
+                armed[0] = False
+                raise SimulatedDeviceLoss(
+                    f"injected device loss before step {step}")
+
+        faulted = launch.train(launch.TrainJob(**RESUME_JOB, ckpt_dir=d),
+                               hook=crash)
+        last = CheckpointStore(d).latest_step()
+    peak_faulted = torch.cuda.max_memory_allocated()
+    # off the card, so that the clean run's peak is its own
+    faulted["state"] = tree_to(faulted["state"], "cpu")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.time()
+    clean = launch.train(launch.TrainJob(**RESUME_JOB))
+    t2 = time.time()
+    peak_clean = torch.cuda.max_memory_allocated()
+    require(peak_faulted <= RESUME_PEAK_RATIO * peak_clean,
+            f"train-resume: the faulted run's peak {peak_faulted} B is over "
+            f"{RESUME_PEAK_RATIO} x the clean run's {peak_clean} B")
+    require(faulted["restarts"] == 1 and not armed[0],
+            f"train-resume restarted {faulted['restarts']} times")
+    require(last == RESUME_JOB["steps"], f"train-resume: the store's last "
+            f"step is {last}")
+    logged = [m["step"] for m in faulted["history"]]
+    steps = RESUME_JOB["steps"]
+    require(logged == list(range(RESUME_FAULT_STEP))
+            + list(range(restore_at, steps)),
+            f"train-resume: the faulted run logged steps {logged}, not a "
+            f"replay from the step-{restore_at} checkpoint")
+    state_f, state_c = faulted["state"], clean["state"]
+    worst, differ = _tree_diff(torch, state_f, state_c)
+    bit_equal = differ == 0
+    ops = []
+    if not bit_equal:
+        batch = _train_batch(torch, np, clean["cfg"], RESUME_JOB["seq"],
+                             RESUME_JOB["batch"])
+        _, census = _op_census(torch, lambda: _grads(
+            clean["cfg"], state_c["params"], batch))
+        ops = [op for op in census if op in NONDETERMINISTIC_CUDA_OPS]
+        require(_trees_close(torch, state_f["params"], state_c["params"],
+                             **TRAIN_TOL) and
+                _trees_close(torch, state_f["opt"]["master"],
+                             state_c["opt"]["master"], **TRAIN_TOL),
+                f"train-resume: faulted and clean runs part by {worst} "
+                f"in {differ} leaves (ops {ops})")
+    emit({"phase": "train-resume", "arch": faulted["cfg"].name,
+          "batch": RESUME_JOB["batch"], "seq": RESUME_JOB["seq"],
+          "steps": RESUME_JOB["steps"],
+          "ckpt_every": RESUME_JOB["ckpt_every"],
+          "fault_step": RESUME_FAULT_STEP, "restored_step": restore_at,
+          "restarts": faulted["restarts"], "logged_steps": logged,
+          "last_checkpoint": last, "bit_equal": bit_equal,
+          "max_abs_diff": worst, "leaves_differing": differ,
+          "nondeterministic_ops": ops,
+          "peak_allocated_faulted": peak_faulted,
+          "peak_allocated_clean": peak_clean,
+          "loss_faulted": [m["loss"] for m in faulted["history"]],
+          "loss_clean": [m["loss"] for m in clean["history"]],
+          "faulted_s": t1 - t0, "clean_s": t2 - t1,
+          "seconds": time.time() - t0})
+    del faulted, clean, state_f, state_c
+    torch.cuda.empty_cache()
+
+
+def _train_batch(torch, np, cfg, seq, batch, device="cuda"):
+    """A batch laid out as the pipeline's (Zipf tokens, next-token labels,
+    the VLM's unit-Gaussian image embeddings before the text), as tensors
+    on ``device``, drawn from a fixed numpy seed: the pipeline seeds with
+    a string's hash, which Python randomizes per process, so every run
+    would hold the card to another batch, and a batch that puts a
+    router at a near tie (one run's jamba loss parted by 9.96e-6 of its
+    value) shows in some runs and not in others."""
+    rng = np.random.default_rng(PARITY_TRAIN_SEED)
+    n_img = cfg.n_img_tokens if cfg.family == "vlm" else 0
+    z = rng.zipf(1.2, size=(batch, seq - n_img + 1)).astype(np.int64)
+    tokens = torch.from_numpy(((z - 1) % cfg.vocab).astype(np.int32))
+    out = {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}
+    if n_img:
+        out["img_embeds"] = torch.from_numpy(rng.standard_normal(
+            (batch, n_img, cfg.d_model), dtype=np.float32))
+    return {k: v.contiguous().to(device) for k, v in out.items()}
+
+
+def _grads(cfg, params, batch):
+    """(gradients, metrics) of one step's loss, without remat."""
+    from repro_torch.train import steps as steps_mod
+
+    return steps_mod.loss_and_grads(params, cfg, batch,
+                                    steps_mod.RunConfig(remat="none"))
+
+
+def phase_parity_train(torch, np):
+    """Each of the ten decoder archs' smoke configs (f32; TF32 is off):
+    from the same weights (the port's seeded init, drawn on the CPU) and
+    batch (:func:`_train_batch`, from a fixed seed), one train step on the
+    card against the CPU's: the loss at rtol 1e-5; every gradient, the
+    params after the step and the moments ``m`` and ``v`` at
+    :data:`TRAIN_TOL` (the moments' atol carried through their update).
+    At the first step's lr (3e-6 in the warm-up) an update that does
+    nothing stays under that atol, so the card's update is also held,
+    within :data:`UPDATE_TOL_SHARE` of the lr, to AdamW replayed on the
+    CPU from the card's gradients.  Printed for each arch: the worst ratio
+    of a difference to its bound (1 or less passes), whether the card's
+    gradients computed twice are bit-equal, and which aten ops of the step
+    may accumulate with atomics (:data:`NONDETERMINISTIC_CUDA_OPS`)."""
+    import repro_torch.configs as configs
+    from repro_torch.models import transformer
+    from repro_torch.optim import adamw
+    from repro_torch.train import steps as steps_mod
+
+    t0 = time.time()
+    rows = {}
+    for arch in configs.ALL_ARCHS:
+        cfg = configs.get_smoke_config(arch)
+        cpu_p = transformer.init_lm(cfg, seed=0, device="cpu")
+        card_p = tree_to(cpu_p, "cuda")
+        b_cpu = _train_batch(torch, np, cfg, PARITY_TRAIN_SEQ,
+                             PARITY_TRAIN_BATCH, device="cpu")
+        b_card = {k: v.to("cuda") for k, v in b_cpu.items()}
+        g_cpu, m_cpu = _grads(cfg, cpu_p, b_cpu)
+        (g_card, m_card), census = _op_census(
+            torch, lambda: _grads(cfg, card_p, b_card))
+        g_again, _ = _grads(cfg, card_p, b_card)
+        repeatable = _tree_diff(torch, g_card, g_again)[1] == 0
+        run = steps_mod.RunConfig(remat="none")
+        opt = run.opt
+        step = steps_mod.make_train_step(cfg, run)
+        p_cpu, o_cpu, s_cpu = step(cpu_p, adamw.init_opt_state(cpu_p, opt),
+                                   b_cpu)
+        p_card, o_card, s_card = step(card_p,
+                                      adamw.init_opt_state(card_p, opt),
+                                      b_card)
+        lr = float(s_cpu["lr"])
+        upd_card, _, _ = adamw.apply_update(
+            card_p, g_card, adamw.init_opt_state(card_p, opt), opt)
+        upd_cpu, _, _ = adamw.apply_update(
+            cpu_p, tree_to(g_card, "cpu"), adamw.init_opt_state(cpu_p, opt),
+            opt)
+        upd_diff, upd_largest = _update_diff(torch, upd_card, card_p,
+                                             upd_cpu, cpu_p)
+        loss = (float(m_card["loss"]), float(m_cpu["loss"]))
+        tol = TRAIN_TOL
+        m_tol = dict(rtol=tol["rtol"], atol=(1 - opt.b1) * tol["atol"])
+        v_tol = dict(rtol=tol["rtol"], atol=(1 - opt.b2) ** 0.5 * tol["atol"])
+        sqrt_v = [adamw.tree_map(torch.sqrt, o["v"]) for o in (o_card, o_cpu)]
+        grad_worst = _worst(torch, g_card, g_cpu, **tol)
+        param_worst = _worst(torch, p_card, p_cpu, **tol)
+        m_worst = _worst(torch, o_card["m"], o_cpu["m"], **m_tol)
+        v_worst = _worst(torch, *sqrt_v, **v_tol)
+        row = {"loss_card": loss[0], "loss_cpu": loss[1], "tolerance": tol,
+               "grad_max_abs_diff": _tree_diff(torch, g_card, g_cpu)[0],
+               "grad_worst_ratio": grad_worst,
+               "param_max_abs_diff": _tree_diff(torch, p_card, p_cpu)[0],
+               "param_worst_ratio": param_worst,
+               "m_worst_ratio": m_worst, "sqrt_v_worst_ratio": v_worst,
+               "lr": lr, "update_max_abs_diff": upd_diff,
+               "update_largest": upd_largest}
+        require(abs(loss[0] - loss[1]) <= TRAIN_LOSS_RTOL * abs(loss[1]),
+                f"parity-train {arch}: loss {loss[0]} on the card, "
+                f"{loss[1]} on the CPU")
+        for what, worst in (("gradients", grad_worst),
+                            ("params after the step", param_worst),
+                            ("m", m_worst), ("sqrt(v)", v_worst)):
+            require(worst[0] <= 1.0, f"parity-train {arch}: {what} part "
+                    f"past their bound: {row}")
+        require(float(s_card["lr"]) == lr and int(o_card["step"]) == int(
+            o_cpu["step"]) == 1, f"parity-train {arch}: lr "
+            f"{float(s_card['lr'])} against {lr}, steps {o_card['step']} "
+            f"and {o_cpu['step']}")
+        require(upd_diff <= UPDATE_TOL_SHARE * lr
+                and upd_largest >= UPDATE_MIN_SHARE * lr,
+                f"parity-train {arch}: the card's update parts from the "
+                f"CPU's replay of it by {upd_diff} (lr {lr}, the replay's "
+                f"largest move {upd_largest})")
+        rows[arch] = {**row, "grads_repeatable": repeatable,
+                      "atomic_ops": [op for op in census
+                                     if op in NONDETERMINISTIC_CUDA_OPS]}
+    emit({"phase": "parity-train", "seq": PARITY_TRAIN_SEQ,
+          "batch": PARITY_TRAIN_BATCH, "archs": rows,
+          "seconds": time.time() - t0})
+
+
 def main() -> int:
     import torch
 
@@ -5255,6 +5778,11 @@ def main() -> int:
     jamba_counts = phase_serve_jamba(torch, np)
     torch.cuda.empty_cache()
     phase_parity_jamba(torch, np)
+    # the train stack last, on a card with nothing else held
+    torch.cuda.empty_cache()
+    phase_train(torch, np, kernel, card)
+    phase_train_resume(torch, np)
+    phase_parity_train(torch, np)
 
     emit({"kernels": [
         {"name": "flash_decode_paged", "route": "cuda",

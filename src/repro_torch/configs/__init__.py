@@ -2,8 +2,10 @@
 
 ``get_config(arch)`` / ``get_smoke_config(arch)`` return the same
 ``ModelConfig`` values as :mod:`repro.configs`, for the architectures the
-port serves: the reference's six serve archs.  The reference registry
-also builds JAX input specs, so the port keeps its own, free of JAX.
+port runs: every decoder arch of the reference (its six serve archs, the
+dense olmo-1b, qwen2.5-14b and qwen3-32b, and internvl2-76b behind its
+image-embedding stub).  The reference registry also builds JAX input
+specs, so the port keeps its own, free of JAX.
 """
 
 from __future__ import annotations
@@ -20,6 +22,10 @@ _ARCH_MODULES = {
     "mamba2-370m": "mamba2_370m",
     "jamba-1.5-large-398b": "jamba_1_5_large_398b",
     "deepseek-v2-lite-16b": "deepseek_v2_lite_16b",
+    "olmo-1b": "olmo_1b",
+    "qwen2.5-14b": "qwen2_5_14b",
+    "qwen3-32b": "qwen3_32b",
+    "internvl2-76b": "internvl2_76b",
 }
 
 ALL_ARCHS: List[str] = list(_ARCH_MODULES)
@@ -29,8 +35,8 @@ def _module(arch: str):
     if arch not in _ARCH_MODULES:
         raise KeyError(
             f"unknown arch {arch!r}; the port has {sorted(_ARCH_MODULES)} "
-            f"(the reference's other archs come with the train stack, ROADMAP "
-            f"item 1.18)"
+            f"(the reference's encoder-decoder whisper-large-v3 comes with "
+            f"ROADMAP item 1.18.2)"
         )
     return importlib.import_module(
         f"repro_torch.configs.{_ARCH_MODULES[arch]}")

@@ -26,6 +26,8 @@ import time
 from collections import deque
 from typing import Any, Callable, Dict
 
+import torch
+
 from repro_torch.checkpoint import CheckpointStore
 
 log = logging.getLogger("repro_torch.fault_tolerance")
@@ -39,6 +41,18 @@ class FaultToleranceConfig:
     straggler_factor: float = 2.0
     straggler_window: int = 32
     async_save: bool = True
+
+
+def _shapes_only(tree: Any) -> Any:
+    """``tree`` with each tensor leaf replaced by an empty one of its shape
+    and dtype on the meta device (no storage)."""
+    if isinstance(tree, dict):
+        return {k: _shapes_only(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_shapes_only(v) for v in tree)
+    if isinstance(tree, torch.Tensor):
+        return torch.empty(tree.shape, dtype=tree.dtype, device="meta")
+    return tree
 
 
 class StragglerDetector:
@@ -84,8 +98,14 @@ class ResilientLoop:
         latest = self.store.latest_step()
         if latest is None:
             return 0, self.make_initial_state()
+        template = self.make_initial_state()
+        if self.device is not None:
+            # placing every array on the device, the restore reads only the
+            # template's structure, shapes and dtypes: keep those and free
+            # its storage before the checkpoint's arrays land there
+            template = _shapes_only(template)
         step, state, _ = self.store.restore(
-            self.make_initial_state(), step=latest, device=self.device
+            template, step=latest, device=self.device
         )
         log.info("restored checkpoint at step %d", step)
         return step, state
@@ -103,15 +123,19 @@ class ResilientLoop:
                         step, state, blocking=not self.cfg.async_save,
                         extra={"data_step": step},
                     )
+                continue
             except KeyboardInterrupt:
                 raise
             except Exception as e:  # noqa: BLE001 — restart on any step fault
                 self.restarts += 1
-                log.error("step %d failed (%s); restart %d", step, e,
+                log.error("step %d failed (%s); restart %d", step, str(e),
                           self.restarts)
                 if self.restarts > self.cfg.max_restarts:
                     raise
-                step, state = self._restore_or_init()
+            # out of the handler, so that neither the exception's frames nor
+            # ``state`` hold the failed step's tensors during the restore
+            state = None
+            step, state = self._restore_or_init()
         self.store.wait()
         return {
             "final_step": step,

@@ -1,7 +1,8 @@
 """Mamba-2 mixer (SSD, state-space duality, arXiv:2405.21060).
 
 Port of ``repro/models/ssm.py``: ``init_mamba``, ``mamba_full`` (the
-chunked SSD forward, forward only), ``init_mamba_cache`` and
+chunked SSD forward, which the train path differentiates through its
+torch ops), ``init_mamba_cache`` and
 ``mamba_decode`` (the one-token recurrence ``S <- exp(dt*A) S + dt * B (x)
 x``, read out as ``y = C . S + D x``), with the reference's parameter names
 and layouts, so its sharding rules and parameter trees apply unchanged.
@@ -213,8 +214,9 @@ def _ssd_chunk(x_c, B_c, C_c, dt_c, A, D, S_prev):
 def mamba_full(params, cfg, x: torch.Tensor, *,
                initial_state: Optional[torch.Tensor] = None,
                return_state: bool = False):
-    """Chunked SSD forward (no autograd is asked of it).  x: (B, S, d) ->
-    (B, S, d) [, final state (B, nh, N, P) fp32]."""
+    """Chunked SSD forward, differentiable (no op writes in place into a
+    tensor autograd saves).  x: (B, S, d) -> (B, S, d) [, final state (B,
+    nh, N, P) fp32]."""
     s, d, di, nh, _ = _dims(cfg)
     Bsz, S, _ = x.shape
     Q = min(s.chunk, S)

@@ -1,6 +1,7 @@
-"""Decoder-only LM core of the port: the teacher-forced forward, prefill
-and a dense decode, and paged decode and chunked prefill, for
-attention (GQA or MLA), SSM and hybrid models with dense or MoE FFNs.
+"""Decoder-only LM core of the port: the teacher-forced forward (the
+train path, with image embeddings and remat) and its loss, prefill and a
+dense decode, and paged decode and chunked prefill, for attention (GQA or
+MLA), SSM and hybrid models with dense or MoE FFNs.
 
 Port of the serving paths of ``repro/models/transformer.py`` for
 architectures whose layers are attention layers (grouped-query, or
@@ -11,11 +12,14 @@ MoE FFN (:mod:`repro_torch.models.moe`) or, where ``d_ff`` is 0, none:
 ``init_lm``, ``init_paged_cache``, ``paged_block_bytes``,
 ``copy_paged_block``, ``reset_paged_slots``, ``slot_state``,
 ``restore_slot_state``, ``decode_step_paged`` and ``prefill_step_paged``,
-with the reference's pool storage dtypes (:data:`KV_DTYPES`); and the
+with the reference's pool storage dtypes (:data:`KV_DTYPES`); the
 dense path of the wave scheduler: ``forward``, ``prefill``, ``init_cache``
 and ``decode_step`` over contiguous caches, every slot at one position
 (the dense decode's grouped-query attention runs the contiguous
-flash-decode kernel).  Layer
+flash-decode kernel); and the train path: ``forward`` with image
+embeddings before the text (the VLM stub) and a remat policy
+(:data:`REMAT_POLICIES`), differentiable through every mixer and FFN,
+and ``lm_loss``.  Layer
 ``i`` takes its kind from the superblock (:func:`layer_kind`).  The
 reference's ``first_block`` and its ``lax.scan`` over stacked
 superblocks become one list of per-layer
@@ -54,6 +58,8 @@ from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import (checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import LayerKind, ModelConfig
 from repro_torch.core.device import resolve_device
@@ -79,13 +85,16 @@ _STATE_KEYS = ("ssm_state", "conv_state")
 
 
 def check_served(cfg: ModelConfig) -> None:
-    """Raise unless ``cfg`` is an architecture the port serves: dense or
-    MoE attention models (grouped-query or MLA), and SSM or hybrid models
-    of attention layers and Mamba-2 mixers, with dense, MoE or no FFNs."""
+    """Raise unless ``cfg`` is an architecture the port runs: dense (GQA,
+    with qk-norm, QKV bias or OLMo's non-parametric LayerNorm), VLM (a
+    dense LM behind the image-embedding stub) or MoE attention models
+    (grouped-query or MLA), and SSM or hybrid models of attention layers
+    and Mamba-2 mixers, with dense, MoE or no FFNs."""
     kinds = set(cfg.layer_pattern)
     mixers = {LayerKind.ATTN, LayerKind.MAMBA}
     family_ok = {
         "dense": cfg.moe is None and kinds == {LayerKind.ATTN},
+        "vlm": cfg.moe is None and kinds == {LayerKind.ATTN},
         "moe": cfg.moe is not None and kinds == {LayerKind.ATTN},
         "ssm": LayerKind.MAMBA in kinds,
         "hybrid": kinds == mixers,
@@ -94,9 +103,9 @@ def check_served(cfg: ModelConfig) -> None:
             or (LayerKind.MAMBA in kinds) != (cfg.ssm is not None)
             or cfg.is_encoder_decoder):
         raise ValueError(
-            f"{cfg.name}: the port serves dense, MoE (with GQA or MLA), SSM "
-            f"and hybrid (attention and Mamba-2) models; encoder-decoder "
-            f"archs come with models/whisper.py, ROADMAP item 1.18"
+            f"{cfg.name}: the port runs dense, VLM, MoE (with GQA or MLA), "
+            f"SSM and hybrid (attention and Mamba-2) models; encoder-decoder "
+            f"archs come with models/whisper.py, ROADMAP item 1.18.2"
         )
 
 
@@ -217,7 +226,8 @@ def _map_tree(tree: Mapping, fn) -> Dict[str, Any]:
 
 
 def params_from_numpy(tree: Mapping, cfg: ModelConfig, device="cuda", *,
-                      mesh=None) -> Dict[str, Any]:
+                      mesh=None, dtype: Optional[torch.dtype] = None
+                      ) -> Dict[str, Any]:
     """The reference's parameter tree (nested dicts of numpy arrays, e.g.
     ``np.asarray`` of every leaf of ``repro.train.steps.init_model``) as
     the port's parameters.
@@ -232,11 +242,15 @@ def params_from_numpy(tree: Mapping, cfg: ModelConfig, device="cuda", *,
     stacked leaf) layer ``s * len(superblock) + i`` after it.  With
     ``mesh`` each leaf is cut to this rank's shard by the reference's
     rules (:func:`~repro_torch.distributed.sharding.serve_param_shardings`)
-    before it is converted.
+    before it is converted.  With ``dtype`` every leaf takes that dtype:
+    a tree of the parameters' shape that is not parameters (an optimizer
+    state's moments or masters, gradients) carries across the same way.
     """
     check_served(cfg)
     dev = resolve_device(device)
-    dtype = torch_dtype(cfg.param_dtype)
+    fixed = dtype is not None
+    if not fixed:
+        dtype = torch_dtype(cfg.param_dtype)
     first = cfg.moe is not None and cfg.moe.first_dense
     keys = {"embed", "final_norm", "lm_head", "blocks"}
     if first:
@@ -258,7 +272,7 @@ def params_from_numpy(tree: Mapping, cfg: ModelConfig, device="cuda", *,
         fp32 = [("moe", "router")] + [("mamba", k)
                                       for k in ("A_log", "D", "dt_bias")]
         for group, key in fp32:
-            if group in sub:
+            if group in sub and not fixed:
                 out[group][key] = leaf(pick(sub[group][key]), torch.float32)
         return out
 
@@ -613,11 +627,29 @@ def prefill_step_paged(params: Dict[str, Any], cfg: ModelConfig,
 # -- the dense path: teacher-forced forward, prefill, contiguous decode ------
 
 
-def _check_full(img_embeds, remat: str) -> None:
-    if img_embeds is not None or remat != "none":
-        raise ValueError(
-            "image embeddings and remat come with the VLM and train path, "
-            "ROADMAP item 1.18")
+#: remat policies of :func:`forward`, the reference's ``_remat``: none;
+#: ``full`` recomputes each layer in the backward pass, saving only its
+#: input; ``dots`` saves a layer's products with no batch dimension (the
+#: 2-D matmuls, ``aten.mm``/``aten.addmm``, as the reference's
+#: ``dots_with_no_batch_dims_saveable`` does) and recomputes the rest
+REMAT_POLICIES = ("none", "full", "dots")
+
+_DOTS = [torch.ops.aten.mm.default, torch.ops.aten.addmm.default]
+
+
+def _remat(fn, policy: str):
+    """``fn`` wrapped by the remat ``policy``: a layer under
+    ``torch.utils.checkpoint`` (non-reentrant), selective for ``dots``."""
+    if policy == "none":
+        return fn
+    if policy == "full":
+        return lambda *args: checkpoint(fn, *args, use_reentrant=False)
+    if policy == "dots":
+        return lambda *args: checkpoint(
+            fn, *args, use_reentrant=False,
+            context_fn=lambda: create_selective_checkpoint_contexts(_DOTS))
+    raise ValueError(f"unknown remat policy {policy!r}; have "
+                     f"{REMAT_POLICIES}")
 
 
 def _conv_tail(p_mamba: Dict[str, Any], cfg: ModelConfig,
@@ -664,19 +696,27 @@ def _apply_layer_full(p: Dict[str, Any], cfg: ModelConfig, x: torch.Tensor,
 
 
 def _run_full(params: Dict[str, Any], cfg: ModelConfig,
-              tokens: torch.Tensor, collect_cache: bool):
-    """Every layer over tokens (B, S): (x (B, S, d) after the last layer,
-    summed moe aux, and the layers' caches in layer order)."""
+              tokens: torch.Tensor, collect_cache: bool, img_embeds=None,
+              remat: str = "none"):
+    """Every layer over tokens (B, S_text), after ``img_embeds`` (B,
+    S_img, d) where given: (x (B, S, d) after the last layer, summed moe
+    aux, and the layers' caches in layer order).  Each layer runs under
+    the ``remat`` policy."""
     x = layers.embed(params["embed"], tokens).to(
         torch_dtype(cfg.compute_dtype))
+    if img_embeds is not None:
+        x = torch.cat([img_embeds.to(device=x.device, dtype=x.dtype), x],
+                      dim=1)
     B, S, _ = x.shape
     positions = torch.arange(S, dtype=torch.int32,
                              device=x.device)[None, :].expand(B, S)
+    layer_fn = _remat(
+        lambda p, x: _apply_layer_full(p, cfg, x, positions, collect_cache),
+        remat)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     caches = []
     for p in params["layers"]:
-        x, aux, cache = _apply_layer_full(p, cfg, x, positions,
-                                          collect_cache)
+        x, aux, cache = layer_fn(p, x)
         aux_total = aux_total + aux
         caches.append(cache)
     return x, aux_total, caches
@@ -685,14 +725,38 @@ def _run_full(params: Dict[str, Any], cfg: ModelConfig,
 def forward(params: Dict[str, Any], cfg: ModelConfig, tokens: torch.Tensor,
             *, img_embeds=None, remat: str = "none"
             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Teacher-forced forward.  tokens (B, S) -> (fp32 logits (B, S,
-    vocab_padded), summed MoE load-balance aux).  Every MoE layer routes
-    all B * S tokens as one group, as the reference's does.  Image
-    embeddings and ``remat`` (the VLM and train path) raise a
-    ``ValueError`` that names ROADMAP item 1.18."""
-    _check_full(img_embeds, remat)
-    x, aux, _ = _run_full(params, cfg, tokens, False)
+    """Teacher-forced forward.  tokens (B, S_text) -> (fp32 logits (B, S,
+    vocab_padded), summed MoE load-balance aux).  With ``img_embeds`` (B,
+    S_img, d) the sequence is [img, text] (the InternVL-style stub
+    frontend) and S = S_img + S_text.  Every MoE layer routes all B * S
+    tokens as one group, as the reference's does.  ``remat`` (one of
+    :data:`REMAT_POLICIES`) trades the backward pass's memory for
+    recomputation and leaves the values as they are."""
+    x, aux, _ = _run_full(params, cfg, tokens, False, img_embeds, remat)
     return _lm_head(params, cfg, x), aux
+
+
+def lm_loss(logits: torch.Tensor, labels: torch.Tensor, *,
+            mask: Optional[torch.Tensor] = None,
+            real_vocab: Optional[int] = None) -> torch.Tensor:
+    """Token-mean cross entropy, the reference's ``lm_loss``.  logits (B,
+    S, V) fp32; labels (B, S) integers, -1 to ignore.  ``real_vocab``
+    masks the padded tail of the vocab with -1e30.  The gold logit is
+    rounded to bf16 and widened back, as the reference's bf16 one-hot
+    contraction reads it (rounded after the gather, which rounds the same
+    element without a bf16 copy of every logit)."""
+    V = logits.shape[-1]
+    if real_vocab is not None and real_vocab < V:
+        pad = torch.arange(V, device=logits.device) >= real_vocab
+        logits = logits.masked_fill(pad, -1e30)
+    if mask is None:
+        mask = labels >= 0
+    labels_safe = labels.long().clamp_min(0)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, labels_safe[..., None])[..., 0] \
+        .to(torch.bfloat16).float()
+    nll = (lse - gold) * mask
+    return nll.sum() / mask.sum().clamp_min(1)
 
 
 def _stack_caches(caches: list) -> Dict[str, Any]:
@@ -708,14 +772,13 @@ def _stack_caches(caches: list) -> Dict[str, Any]:
 def prefill(params: Dict[str, Any], cfg: ModelConfig, tokens: torch.Tensor,
             *, img_embeds=None, remat: str = "none"
             ) -> Tuple[torch.Tensor, Dict[str, Any]]:
-    """Process the prompt tokens (B, S): (fp32 logits of the last token
-    (B, 1, vocab_padded), the dense cache of :func:`init_cache`'s layout
-    holding the prompt's S rows, with ``pos`` S).  Mamba layers hand over
-    their final state and their last ``d_conv - 1`` pre-conv rows.  The
-    options of :func:`forward` raise as they do there."""
-    _check_full(img_embeds, remat)
-    x, _, caches = _run_full(params, cfg, tokens, True)
-    cache: Dict[str, Any] = {"pos": int(tokens.shape[1])}
+    """Process the prompt tokens (B, S_text), after ``img_embeds`` where
+    given, as :func:`forward` does: (fp32 logits of the last token (B, 1,
+    vocab_padded), the dense cache of :func:`init_cache`'s layout holding
+    the prompt's S rows, with ``pos`` S).  Mamba layers hand over their
+    final state and their last ``d_conv - 1`` pre-conv rows."""
+    x, _, caches = _run_full(params, cfg, tokens, True, img_embeds, remat)
+    cache: Dict[str, Any] = {"pos": int(x.shape[1])}
     cache.update(_stack_caches(caches))
     return _lm_head(params, cfg, x[:, -1:]), cache
 

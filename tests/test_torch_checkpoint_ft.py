@@ -241,6 +241,42 @@ def test_resilient_loop_resumes_from_disk(tmp_path):
     assert torch.equal(out["state"]["w"], torch.full((4, 4), 8.0))
 
 
+def test_resilient_loop_frees_the_failed_state_before_it_restores(tmp_path):
+    """On a restart the failed step's state is gone before the template is
+    built, and with a device the restore gets a template of shapes only
+    (meta tensors), so the device never holds two states at once."""
+    import weakref
+
+    store = CheckpointStore(str(tmp_path))
+    cfg = FaultToleranceConfig(checkpoint_every=2, async_save=False)
+    failed, freed, templates = [], [], []
+
+    def step_fn(step, st):
+        if step == 3 and not failed:
+            failed.append(weakref.ref(st["w"]))
+            raise RuntimeError("injected failure @ 3")
+        return {"w": st["w"] + 1.0, "step_f": st["step_f"]}
+
+    def make_initial_state():
+        freed.append(all(ref() is None for ref in failed))
+        return _state(0.0)
+
+    restore = store.restore
+
+    def spy(template, **kw):
+        templates.append(template["w"].device.type)
+        return restore(template, **kw)
+
+    store.restore = spy
+    out = ResilientLoop(store, cfg, step_fn, make_initial_state,
+                        device="cpu").run(total_steps=6)
+    assert out["restarts"] == 1
+    assert torch.equal(out["state"]["w"], torch.full((4, 4), 6.0))
+    assert out["state"]["w"].device.type == "cpu"
+    assert freed == [True, True]
+    assert templates == ["meta"]
+
+
 def test_straggler_detector():
     det = StragglerDetector(factor=2.0, window=16)
     for _ in range(10):

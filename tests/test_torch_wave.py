@@ -243,11 +243,9 @@ def test_wave_warmup_stats_and_oversized_requests():
 def test_dense_entry_points_refuse_what_they_lack():
     m = model("gpt2-124m")
     tok = torch.zeros((1, 4), dtype=torch.int32)
-    for kw in (dict(img_embeds=torch.zeros((1, 2, m.cfg.d_model))),
-               dict(remat="full")):
-        for fn in (transformer.forward, transformer.prefill):
-            with pytest.raises(ValueError, match=r"ROADMAP item 1\.18"):
-                fn(m.params, m.cfg, tok, **kw)
+    for fn in (transformer.forward, transformer.prefill):
+        with pytest.raises(ValueError, match="unknown remat policy 'some'"):
+            fn(m.params, m.cfg, tok, remat="some")
     _, cache = transformer.prefill(m.params, m.cfg, tok)
     with pytest.raises(ValueError, match="no room for a token at "
                        "position 4"):
