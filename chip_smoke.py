@@ -332,8 +332,9 @@ non-zero):
             parity-train's bounds, with the aten ops named that may add
             with atomics), and the faulted run's peak of allocated memory
             at most 1.2 times the clean run's.
-   parity-train  one train step of each of the ten decoder archs' smoke
-            configs (f32, TF32 off) on the card against the CPU from the
+   parity-train  one train step of each of the eleven archs' smoke
+            configs (f32, TF32 off; whisper's encoder-decoder included)
+            on the card against the CPU from the
             same weights and batch: the loss at rtol 1e-5, every gradient
             and the params after the step at rtol 1e-4 and atol 1e-5, the
             moments m and v at those bounds carried through their update;
@@ -341,6 +342,29 @@ non-zero):
             card's gradients, within a tenth of the step's lr; per arch
             whether the card's gradients repeat bit for bit, and the
             step's aten ops that may add with atomics.
+10. whisper-train  train's job on whisper-large-v3 at full width (32
+            encoder and 32 decoder layers, 2.02 B parameters): 4 steps of
+            4 x 2048 decoder tokens over 512 post-conv frames a row, remat
+            full, the last under the profiler; train's checks, and ``6
+            (N_enc F + N_dec T)`` over the step time as a share of the
+            bf16 peak (the formula printed).
+   whisper-decode  whisper-large-v3 at full width in bf16 through the
+            step functions: 8 slots over 1500 frames each, a 4-token
+            prompt prefilled into a 448-row cache, 127 greedy decode
+            steps; kernel 2.3 twice a decoder layer a step (the
+            self-attention over the cache, the cross-attention over the
+            1500 encoder rows) and no other serve kernel, finite logits,
+            the step logits over the first 16 tokens within 5% of the
+            teacher-forced forward's largest, and its argmax wherever no
+            such difference can flip it; prints prefill ms, decode step
+            ms, tokens/s, the cross K/V's bytes, whether two runs give
+            equal streams, and profiles of 8 steps and of the prefill.
+            Kernel 2.3 is timed at these shapes (``timing-whisper``) in
+            the kernel phase.
+   parity-whisper  the smoke config in f32, card against CPU from the
+            same weights: the forward's, the prefill's and 16 decode
+            steps' logits at rtol 1e-4 and atol 1e-5, equal greedy
+            streams, and kernel 2.3 launched twice a layer a step.
 
 Each phase line also goes to stderr as one short line.  ``WATCHDOG_S``
 seconds after its start the script stops itself: every thread's stack and
@@ -358,6 +382,7 @@ from __future__ import annotations
 import dataclasses
 import gc
 import json
+import math
 import re
 import statistics
 import subprocess
@@ -3470,6 +3495,8 @@ def phase_parity_wave(torch, np):
         cfg = dataclasses.replace(configs.get_smoke_config(arch),
                                   param_dtype="float32",
                                   compute_dtype="float32")
+        if cfg.is_encoder_decoder:  # the serve engine refuses it
+            continue
         rng = np.random.default_rng(3)
         prompts = [rng.integers(0, cfg.vocab, size=int(rng.integers(4, 17)))
                    .astype(np.int32) for _ in range(6)]
@@ -5199,6 +5226,33 @@ NONDETERMINISTIC_CUDA_OPS = ("index_add", "index_add_", "scatter_add",
                              "index_copy")
 
 
+#: whisper-train's job: whisper-large-v3 at full width (32 + 32 layers,
+#: 2.02 B parameters, bf16 params with an fp32 master and moments), 4 x
+#: 2048 decoder tokens over 512 post-conv frames a row, remat full; 4
+#: steps, the last profiled (61,484 kernels a step to parse)
+WHISPER_TRAIN_JOB = dict(TRAIN_JOB, arch="whisper-large-v3", steps=4)
+WHISPER_PROFILED_STEP = 3
+#: whisper-decode's traffic: 8 slots, Whisper's 30-s window of 1500
+#: encoder frames, a 4-token prompt, 128 greedy tokens, a cache of 448
+#: rows (Whisper's decoder limit)
+WHISPER_B, WHISPER_FRAMES, WHISPER_PROMPT = 8, 1500, 4
+WHISPER_NEW, WHISPER_MAX_LEN = 128, 448
+#: whisper-decode's check against the teacher-forced forward on the
+#: stream's own tokens, both in bf16: over its first tokens the step
+#: logits within this share of the forward's largest (an H100 run read
+#: 0.018: 0.094 of 5.16), and its tokens the forward's argmax wherever the
+#: forward's top-2 gap is over twice the largest logit difference (where
+#: no difference that small can flip it)
+WHISPER_CHECKED, WHISPER_LOGITS_SHARE = 16, 0.05
+#: whisper-decode's second run profiles this many decode steps from this
+#: one (kernels a step, device time by group, the idle share)
+WHISPER_PROFILED_FROM, WHISPER_PROFILED = 32, 8
+#: timing-whisper's split_rows launch variants at the cross shape
+WHISPER_SPLITS = (128, 256, 512, 768, 1024, 1536)
+#: parity-whisper: the smoke config's decode steps card against CPU
+WHISPER_PARITY_STEPS = 16
+
+
 def _op_census(torch, fn):
     """``fn()``'s result and the names of the aten ops it (and the
     backward it runs) dispatched, ``index_put`` marked when it
@@ -5272,22 +5326,60 @@ def _update_diff(torch, new, old, want_new, want_old):
     return worst, largest
 
 
-def phase_train(torch, np, kernel, card):
-    """``launch.train.train`` on :data:`TRAIN_JOB`: qwen3-1.7b at full
-    width, 6 steps of 4 x 2048 tokens, remat full.  Requires a finite loss
+def dense_model_flops(cfg, params, job):
+    """(model flops of one train step, the formula): ``6 N T``, N the
+    config's parameter count and T the step's tokens."""
+    n = cfg.param_count()
+    tokens = job.batch * job.seq
+    return 6 * n * tokens, f"6 N T, N {n:.0f}, T {tokens}"
+
+
+def whisper_model_flops(cfg, params, job):
+    """(model flops of one train step, the formula) for the
+    encoder-decoder: ``6 (N_enc F + N_dec T)``, F the step's encoder
+    frames and T its decoder tokens; N_enc the parameters a frame meets
+    (the encoder's layers and norm, and each decoder layer's cross
+    ``wk``/``wv``, which project the encoder's output), N_dec those a
+    token meets (the decoder's other parameters and the LM head; the
+    embedding is a lookup)."""
+    from repro_torch.optim.adamw import tree_leaves
+
+    def count(tree):
+        return sum(t.numel() for t in tree_leaves(tree))
+
+    cross = sum(count(p["xattn"][k]) for p in params["dec_layers"]
+                for k in ("wk", "wv"))
+    n_enc = count(params["enc_layers"]) + count(params["enc_norm"]) + cross
+    n_dec = (count(params["dec_layers"]) - cross
+             + count(params["final_norm"]) + count(params["lm_head"]))
+    frames = job.batch * max(job.seq // 4, 8)
+    tokens = job.batch * job.seq
+    return (6 * (n_enc * frames + n_dec * tokens),
+            f"6 (N_enc F + N_dec T), N_enc {n_enc}, F {frames}, "
+            f"N_dec {n_dec}, T {tokens}")
+
+
+def phase_train(torch, np, kernel, card, job_kw=TRAIN_JOB, phase="train",
+                model_flops=dense_model_flops,
+                profiled_from=TRAIN_PROFILED_FROM):
+    """``launch.train.train`` on ``job_kw`` (:data:`TRAIN_JOB`: qwen3-1.7b
+    at full width, 6 steps of 4 x 2048 tokens, remat full; or
+    :data:`WHISPER_TRAIN_JOB`).  Requires a finite loss
     and grad norm at every step, every leaf of the fp32 master moved off
     its init, the peak of allocated memory under the card's memory and no
     flash kernel launched (the train path reaches none).  Prints the
     step's ms (median of the unprofiled steps after the first), tokens/s,
     ``6 N T`` over the step time as a share of the bf16 peak, the peak
-    memory, and, for the steps from :data:`TRAIN_PROFILED_FROM` on under
+    memory, and, for the steps from ``profiled_from`` on under
     ``torch.profiler`` (device activity), kernels a step, their device
     time by :data:`TRAIN_GROUPS`, and the device's idle share over those
     steps' interval, as the profile phases take it: one less their device
     time over the interval's wall time (null, and flagged, should the
     device time exceed it); and for each step the host's stalls that
     leave the device idle, its milliseconds in Python's garbage collector
-    and the caching allocator's retries."""
+    and the caching allocator's retries.  ``model_flops`` gives the step's
+    model flops and their formula, printed beside their share of the
+    bf16 peak."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.launch import train as launch
@@ -5298,7 +5390,7 @@ def phase_train(torch, np, kernel, card):
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     reset_counts(kernel)
-    job = launch.TrainJob(**TRAIN_JOB)
+    job = launch.TrainJob(**job_kw)
     stamps, window, host = [], [], []
     prof = profile(activities=[ProfilerActivity.CUDA])
     # the host's own stalls, read at each step's start: milliseconds in
@@ -5320,7 +5412,7 @@ def phase_train(torch, np, kernel, card):
         torch.cuda.synchronize()
         stamps.append(time.perf_counter())
         host_mark()
-        if step == TRAIN_PROFILED_FROM:
+        if step == profiled_from:
             prof.start()
             window.append(time.perf_counter())
 
@@ -5338,7 +5430,7 @@ def phase_train(torch, np, kernel, card):
     peak = torch.cuda.max_memory_allocated()
     total = torch.cuda.get_device_properties(0).total_memory
     step_s = np.diff(stamps)
-    timed = step_s[1:TRAIN_PROFILED_FROM]
+    timed = step_s[1:profiled_from]
     step_ms = statistics.median(timed) * 1e3
     hist = out["history"]
     require([m["step"] for m in hist] == list(range(job.steps)),
@@ -5347,8 +5439,8 @@ def phase_train(torch, np, kernel, card):
                 for m in hist), f"train: a loss or grad norm is not "
             f"finite: {hist}")
     require(not any(counts.values()),
-            f"train launched a kernel of the serve path: {counts}")
-    require(peak < total, f"train peak {peak} B over the card's {total}")
+            f"{phase} launched a kernel of the serve path: {counts}")
+    require(peak < total, f"{phase} peak {peak} B over the card's {total}")
     cfg = out["cfg"]
     state = out["state"]
     del out
@@ -5359,26 +5451,20 @@ def phase_train(torch, np, kernel, card):
     changed = sum(int((a != b).sum()) for a, b in zip(
         tree_leaves(state["params"]), tree_leaves(init)))
     n_params = sum(p.numel() for p in tree_leaves(init))
+    flops, flops_formula = model_flops(cfg, init, job)
     del init, state
     torch.cuda.empty_cache()
-    require(all(moved), f"train: {moved.count(False)} of {len(moved)} "
+    require(all(moved), f"{phase}: {moved.count(False)} of {len(moved)} "
             f"master leaves never moved")
-    rows = [e for e in prof.key_averages() if e.self_device_time_total > 0]
-    busy_ms = sum(e.self_device_time_total for e in rows) / 1e3
-    profiled = job.steps - TRAIN_PROFILED_FROM
-    groups = {}
-    for e in rows:
-        group = next((g for g, words in TRAIN_GROUPS
-                      if any(w in e.key.lower() for w in words)), "other")
-        groups[group] = groups.get(group, 0.0) \
-            + e.self_device_time_total / 1e3 / profiled
-    require(busy_ms > 0, "the profiler saw no device time in train")
+    profiled = job.steps - profiled_from
+    dev = _device_groups(prof, profiled, top=8)
+    busy_ms = dev["device_busy_ms"] * profiled
+    require(busy_ms > 0, f"the profiler saw no device time in {phase}")
     window_ms = (window[1] - window[0]) * 1e3
     idle = 1.0 - busy_ms / window_ms
     tokens = job.batch * job.seq
     n_model = cfg.param_count()
-    top = sorted(rows, key=lambda e: -e.self_device_time_total)[:8]
-    emit({"phase": "train", "arch": cfg.name, "layers": cfg.n_layers,
+    emit({"phase": phase, "arch": cfg.name, "layers": cfg.n_layers,
           "d_model": cfg.d_model, "parameters": n_params,
           "param_count": n_model, "batch": job.batch, "seq": job.seq,
           "remat": job.remat, "steps": job.steps,
@@ -5390,21 +5476,20 @@ def phase_train(torch, np, kernel, card):
           "alloc_retries_each": [b[1] - a[1]
                                  for a, b in zip(host, host[1:])],
           "step_ms": step_ms, "tokens_per_s": tokens / step_ms * 1e3,
-          "model_flops_share_bf16": 6 * n_model * tokens
-          / (step_ms / 1e3) / BF16_PEAK_FLOPS,
+          "model_flops": flops, "model_flops_formula": flops_formula,
+          "model_flops_share_bf16": flops / (step_ms / 1e3)
+          / BF16_PEAK_FLOPS,
+          "loss_0_over_ln_vocab": hist[0]["loss"] / math.log(cfg.vocab),
           "peak_allocated_bytes": peak, "card_memory_bytes": total,
           "bf16_param_elements_changed": changed,
-          "profiled_steps": list(range(TRAIN_PROFILED_FROM, job.steps)),
+          "profiled_steps": list(range(profiled_from, job.steps)),
           "profiled_ms": window_ms,
-          "kernels_per_step": sum(e.count for e in rows) / profiled,
+          "kernels_per_step": dev["kernels"],
           "device_busy_ms": busy_ms,
           "device_idle_share": idle if idle >= 0 else None,
           "device_busy_over_wall": idle < 0,
-          "device_ms_per_step_by_group": groups,
-          "top": [{"kernel": e.key[:80],
-                   "device_ms_per_step": e.self_device_time_total / 1e3
-                   / profiled,
-                   "calls_per_step": e.count / profiled} for e in top],
+          "device_ms_per_step_by_group": dev["device_ms_by_group"],
+          "top": dev["top"],
           "serve_kernel_launches": counts, "nvidia_smi": card,
           "seconds": time.time() - t0})
 
@@ -5512,7 +5597,8 @@ def phase_train_resume(torch, np):
 
 def _train_batch(torch, np, cfg, seq, batch, device="cuda"):
     """A batch laid out as the pipeline's (Zipf tokens, next-token labels,
-    the VLM's unit-Gaussian image embeddings before the text), as tensors
+    the VLM's unit-Gaussian image embeddings before the text, the
+    encoder-decoder's unit-Gaussian frames), as tensors
     on ``device``, drawn from a fixed numpy seed: the pipeline seeds with
     a string's hash, which Python randomizes per process, so every run
     would hold the card to another batch, and a batch that puts a
@@ -5526,6 +5612,9 @@ def _train_batch(torch, np, cfg, seq, batch, device="cuda"):
     if n_img:
         out["img_embeds"] = torch.from_numpy(rng.standard_normal(
             (batch, n_img, cfg.d_model), dtype=np.float32))
+    if cfg.is_encoder_decoder:
+        out["enc_frames"] = torch.from_numpy(rng.standard_normal(
+            (batch, max(seq // 4, 8), cfg.d_model), dtype=np.float32))
     return {k: v.contiguous().to(device) for k, v in out.items()}
 
 
@@ -5538,7 +5627,8 @@ def _grads(cfg, params, batch):
 
 
 def phase_parity_train(torch, np):
-    """Each of the ten decoder archs' smoke configs (f32; TF32 is off):
+    """Each of the eleven archs' smoke configs (f32; TF32 is off), the
+    encoder-decoder included:
     from the same weights (the port's seeded init, drawn on the CPU) and
     batch (:func:`_train_batch`, from a fixed seed), one train step on the
     card against the CPU's: the loss at rtol 1e-5; every gradient, the
@@ -5552,7 +5642,6 @@ def phase_parity_train(torch, np):
     gradients computed twice are bit-equal, and which aten ops of the step
     may accumulate with atomics (:data:`NONDETERMINISTIC_CUDA_OPS`)."""
     import repro_torch.configs as configs
-    from repro_torch.models import transformer
     from repro_torch.optim import adamw
     from repro_torch.train import steps as steps_mod
 
@@ -5560,7 +5649,7 @@ def phase_parity_train(torch, np):
     rows = {}
     for arch in configs.ALL_ARCHS:
         cfg = configs.get_smoke_config(arch)
-        cpu_p = transformer.init_lm(cfg, seed=0, device="cpu")
+        cpu_p = steps_mod.init_model(cfg, seed=0, device="cpu")
         card_p = tree_to(cpu_p, "cuda")
         b_cpu = _train_batch(torch, np, cfg, PARITY_TRAIN_SEQ,
                              PARITY_TRAIN_BATCH, device="cpu")
@@ -5625,6 +5714,348 @@ def phase_parity_train(torch, np):
                                      if op in NONDETERMINISTIC_CUDA_OPS]}
     emit({"phase": "parity-train", "seq": PARITY_TRAIN_SEQ,
           "batch": PARITY_TRAIN_BATCH, "archs": rows,
+          "seconds": time.time() - t0})
+
+
+# -- whisper: the encoder-decoder ---------------------------------------------
+
+
+def whisper_decode_timing(torch, np):
+    """Kernel 2.3 at whisper-large-v3's decode shapes (bf16, 20 KV heads,
+    G 1, D 64, 8 slots): the cross-attention over 1500 encoder rows, every
+    one valid (S not a power of two, nor a multiple of the 256-row
+    split), and the self-attention over a 448-row cache at the decode's
+    middle length: each against its plain version (the cross shape also
+    in fp32), then kernel, plain and library ms beside the least time for
+    the live rows.  The library yardstick is one SDPA call (with a length
+    mask for the self-attention).  Returns {"cross": row, "self": row}."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_decode import kernel as fd
+    from repro_torch.kernels.flash_decode import ref as fd_ref
+
+    cfg_heads = (20, 1, 64)
+    KV, G, D = cfg_heads
+    rows = {}
+    for name, S, length in (
+            ("cross", WHISPER_FRAMES, WHISPER_FRAMES),
+            ("self", WHISPER_MAX_LEN, WHISPER_PROMPT + WHISPER_NEW // 2)):
+        gen = torch.Generator(device="cuda").manual_seed(83)
+        kw = dict(device="cuda", generator=gen)
+        q = torch.randn((WHISPER_B, KV, G, D), **kw).to(torch.bfloat16)
+        k, v = (torch.randn((WHISPER_B, S, KV, D), **kw).to(torch.bfloat16)
+                for _ in range(2))
+        valid = np.full(WHISPER_B, length)
+        vl = torch.tensor(valid, dtype=torch.int32, device="cuda")
+        args = (q, k, v, vl)
+
+        def kernel():
+            return fd.flash_decode(*args, block_s=S)
+
+        out = kernel()
+        err, ok = decode_close(torch, out, fd.flash_decode_plain(
+            *args, block_s=S))
+        require(ok, f"flash_decode != plain at whisper's {name} shape: "
+                    f"{err}")
+        args32 = [x.float() if x.is_floating_point() else x for x in args]
+        err32, ok32 = decode_close(
+            torch, fd.flash_decode(*args32, block_s=S),
+            fd.flash_decode_plain(*args32, block_s=S))
+        require(ok32, f"flash_decode != plain at whisper's {name} shape in "
+                      f"fp32: {err32}")
+        del args32
+        qh = q.reshape(WHISPER_B, KV * G, 1, D)
+        kh, vh = (x.transpose(1, 2).contiguous() for x in (k, v))
+        mask = None if length == S else (
+            torch.arange(S, device="cuda")[None, :]
+            < vl[:, None])[:, None, None, :]
+
+        def library():
+            return F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask)
+
+        lib_err = (library().reshape(out.shape).float()
+                   - out.float()).abs().max().item()
+        require(lib_err <= 2 * TOLERANCE["bfloat16"],
+                f"SDPA yardstick disagrees at whisper's {name} shape: "
+                f"{lib_err}")
+        bound_ms, bound_by = bound(fd_ref.decode_work_terms(q, k, valid),
+                                   "bfloat16")
+        row = {"max_abs_err": err, "fp32_max_abs_err": err32,
+               "ms": device_ms(torch, kernel, reps=50),
+               "plain_ms": device_ms(torch, lambda: fd.flash_decode_plain(
+                   *args, block_s=S), reps=20),
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "library_ms": device_ms(torch, library, reps=50),
+               "host_us": host_us(torch, kernel)}
+        if name == "cross":  # the tuner's split_rows space at this shape
+            row["ms_by_split_rows"] = {
+                split: device_ms(torch, lambda split=split: fd.flash_decode(
+                    *args, block_s=S, split_rows=split), reps=50)
+                for split in WHISPER_SPLITS}
+        rows[name] = row
+        emit({"phase": "timing-whisper", "kernel": "flash_decode",
+              "attention": name, "B": WHISPER_B, "S": S, "KV": KV, "G": G,
+              "D": D, "valid_len": length, "dtype": "bfloat16",
+              "tolerance": CLOSE_TOL, **row})
+    return rows
+
+
+def _whisper_greedy(torch, cfg, params, frames, prompt, steps, max_len,
+                    sync=False, hook=None):
+    """Prefill ``prompt`` after ``frames`` into a cache of ``max_len``
+    rows, then ``steps`` greedy decode steps, through the step functions:
+    (the stream (B, 1 + steps) int32, the logits of the prefill and of
+    every step (B, 1 + steps, vocab) fp32, the cache, the prefill's ms
+    and each step's ms, timed with the card synchronized when ``sync``).
+    ``hook`` is called with each decode step's index before it runs, and
+    with ``steps`` after the last."""
+    from repro_torch.train import steps as steps_mod
+
+    prefill = steps_mod.make_prefill_step(cfg)
+    decode = steps_mod.make_decode_step(cfg)
+    if sync:
+        torch.cuda.synchronize()
+    t = time.perf_counter()
+    logits, cache = prefill(params, enc_frames=frames, tokens=prompt,
+                            max_len=max_len)
+    outs = [logits[:, -1, :cfg.vocab]]
+    tokens = [outs[-1].argmax(-1).to(torch.int32)]
+    if sync:
+        torch.cuda.synchronize()
+    stamps = [time.perf_counter()]
+    prefill_ms = (stamps[0] - t) * 1e3
+    for i in range(steps):
+        if hook is not None:
+            hook(i)
+        logits, cache = decode(params, tokens=tokens[-1][:, None],
+                               cache=cache)
+        outs.append(logits[:, -1, :cfg.vocab])
+        tokens.append(outs[-1].argmax(-1).to(torch.int32))
+        if sync:
+            torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+    if hook is not None:
+        hook(steps)
+    step_ms = [(b - a) * 1e3 for a, b in zip(stamps, stamps[1:])]
+    return (torch.stack(tokens, 1), torch.stack(outs, 1), cache, prefill_ms,
+            step_ms)
+
+
+def _device_groups(prof, calls: int, top: int = 5) -> dict:
+    """A profile's device time for each of ``calls`` calls: busy ms,
+    kernels, ms by :data:`TRAIN_GROUPS`, and its ``top`` kernels' ms and
+    launches."""
+    rows = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+    groups = {}
+    for e in rows:
+        group = next((g for g, words in TRAIN_GROUPS
+                      if any(w in e.key.lower() for w in words)), "other")
+        groups[group] = groups.get(group, 0.0) \
+            + e.self_device_time_total / 1e3 / calls
+    first = sorted(rows, key=lambda e: -e.self_device_time_total)[:top]
+    return {"device_busy_ms": sum(e.self_device_time_total
+                                  for e in rows) / 1e3 / calls,
+            "kernels": sum(e.count for e in rows) / calls,
+            "device_ms_by_group": groups,
+            "top": [{"kernel": e.key[:80],
+                     "device_ms": e.self_device_time_total / 1e3 / calls,
+                     "calls": e.count / calls} for e in first]}
+
+
+def phase_whisper_decode(torch, np, kernel):
+    """whisper-large-v3 at full width (bf16, 32 + 32 layers, drawn on the
+    card) through ``steps.make_prefill_step`` and ``make_decode_step``:
+    8 slots, each over its own 1500 post-conv frames (Whisper's 30-s
+    window), a 4-token prompt prefilled into a cache of 448 rows, then
+    127 greedy decode steps (128 tokens a slot).  Requires finite logits,
+    kernel 2.3 launched exactly 2 x 32 times a decode step (each decoder
+    layer's self-attention and cross-attention) and no other serve
+    kernel, and, against the teacher-forced ``forward`` over the stream's
+    own first 16 tokens, the step logits within
+    :data:`WHISPER_LOGITS_SHARE` of its largest logit and the tokens its
+    argmax wherever its top-2 gap is over twice their largest difference.
+    The logits bound and the argmax check are a sanity bound on the
+    bf16 path as a whole (how many positions the argmax check covered is
+    printed); the kernel itself is held against its plain version in
+    ``timing-whisper``.  Prints the prefill's ms, the decode step's median
+    ms, tokens/s, the launches, the cross K/V's bytes, and whether a
+    second run, stopped after the profiled steps, gives the same streams
+    that far, with a profile of its prefill and of 8 of its decode steps
+    (kernels, device time by group, idle share)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    import repro_torch.configs as configs
+    from repro_torch.models import whisper
+
+    t0 = time.time()
+    cfg = configs.get_config("whisper-large-v3")
+    t_draw = time.time()
+    params = whisper.init_whisper(cfg, seed=0, device="cuda",
+                                  draw_device="cuda")
+    torch.cuda.synchronize()
+    draw_s = time.time() - t_draw
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    frames = torch.randn((WHISPER_B, WHISPER_FRAMES, cfg.d_model),
+                         device="cuda", generator=gen).to(torch.bfloat16)
+    prompt = torch.from_numpy(np.random.default_rng(5).integers(
+        0, cfg.vocab, (WHISPER_B, WHISPER_PROMPT)).astype(np.int32)).cuda()
+    steps = WHISPER_NEW - 1
+    n_dec = whisper.n_dec_layers(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(kernel)
+    stream, logits, cache, prefill_ms, step_ms = _whisper_greedy(
+        torch, cfg, params, frames, prompt, steps, WHISPER_MAX_LEN,
+        sync=True)
+    counts = read_counts(kernel)
+    peak = torch.cuda.max_memory_allocated()
+    require(bool(torch.isfinite(logits).all()),
+            "whisper-decode: a logit is not finite")
+    require(counts["flash_decode"] == 2 * n_dec * steps
+            and not any(counts[k] for k in SERVE_KERNELS
+                        if k != "flash_decode"),
+            f"whisper-decode: {counts} for {steps} steps of {n_dec} "
+            f"decoder layers")
+    require(cache["pos"] == WHISPER_PROMPT + steps,
+            f"whisper-decode: cache at {cache['pos']}")
+    cross_bytes = sum(cache[k].numel() * cache[k].element_size()
+                      for k in ("cross_k", "cross_v"))
+    self_bytes = sum(cache[k].numel() * cache[k].element_size()
+                     for k in ("k", "v"))
+    del cache
+    # a second run up to the last profiled step: its prefill (with the
+    # first token's argmax) profiled, then its decode steps from
+    # WHISPER_PROFILED_FROM
+    again_steps = WHISPER_PROFILED_FROM + WHISPER_PROFILED
+    pre = profile(activities=[ProfilerActivity.CUDA])
+    prof = profile(activities=[ProfilerActivity.CUDA])
+    window = []
+
+    def hook(i):
+        if i in (0, WHISPER_PROFILED_FROM, again_steps):
+            torch.cuda.synchronize()
+        if i == 0:
+            pre.stop()
+        if i == WHISPER_PROFILED_FROM:
+            prof.start()
+            window.append(time.perf_counter())
+        elif i == again_steps:
+            window.append(time.perf_counter())
+            prof.stop()
+
+    pre.start()
+    again = _whisper_greedy(torch, cfg, params, frames, prompt, again_steps,
+                            WHISPER_MAX_LEN, hook=hook)[0]
+    step_prof = _device_groups(prof, WHISPER_PROFILED)
+    step_prof["wall_ms"] = (window[1] - window[0]) * 1e3 / WHISPER_PROFILED
+    step_prof["device_idle_share"] = \
+        1.0 - step_prof["device_busy_ms"] / step_prof["wall_ms"]
+    prefill_prof = _device_groups(pre, 1)
+    # the stream's first tokens against the teacher-forced forward on the
+    # same tokens: its logits, and its argmax away from near ties
+    with torch.no_grad():
+        full = torch.cat([prompt, stream[:, :WHISPER_CHECKED - 1]], 1)
+        flogits, _ = whisper.forward(params, cfg, frames, full)
+    top = flogits[:, WHISPER_PROMPT - 1:, :cfg.vocab].float()
+    diff = (top - logits[:, :WHISPER_CHECKED]).abs().max().item()
+    scale = top.abs().max().item()
+    require(diff <= WHISPER_LOGITS_SHARE * scale,
+            f"whisper-decode: the step logits part from the forward's by "
+            f"{diff}, over {WHISPER_LOGITS_SHARE} of its largest {scale}")
+    want = top.argmax(-1).to(torch.int32)
+    gap = top.topk(2, dim=-1).values
+    gap = gap[..., 0] - gap[..., 1]
+    wide = gap > 2 * diff
+    differ = (want != stream[:, :WHISPER_CHECKED])
+    require(not bool((differ & wide).any()),
+            f"whisper-decode: the stream parts from the forward's argmax "
+            f"where its top-2 gap is over {2 * diff}: "
+            f"{differ.nonzero().tolist()}")
+    del flogits, params, logits
+    torch.cuda.empty_cache()
+    decode_s = sum(step_ms) / 1e3
+    emit({"phase": "whisper-decode", "arch": cfg.name,
+          "layers": [cfg.enc_layers, n_dec], "d_model": cfg.d_model,
+          "dtype": cfg.param_dtype, "slots": WHISPER_B,
+          "frames": WHISPER_FRAMES, "prompt": WHISPER_PROMPT,
+          "decode_steps": steps, "max_len": WHISPER_MAX_LEN,
+          "draw_s": draw_s, "prefill_ms": prefill_ms,
+          "decode_step_ms": statistics.median(step_ms[1:]),
+          "decode_step_ms_first": step_ms[0],
+          "tokens_per_s": WHISPER_B * steps / decode_s,
+          "flash_decode_launches": counts["flash_decode"],
+          "flash_decode_launches_per_step": counts["flash_decode"] / steps,
+          "serve_kernel_launches": counts,
+          "cross_kv_bytes": cross_bytes, "self_kv_bytes": self_bytes,
+          "peak_allocated_bytes": peak,
+          "streams_equal_twice": bool(torch.equal(
+              stream[:, :again_steps + 1], again)),
+          "streams_compared_tokens": again_steps + 1,
+          "checked_tokens": WHISPER_CHECKED,
+          "forward_logits_max_abs_diff": diff,
+          "forward_logits_max_abs": scale,
+          "forward_top2_gap_median": gap.median().item(),
+          "forward_argmax_differs": int(differ.sum()),
+          "forward_argmax_positions": differ.numel(),
+          "forward_argmax_positions_checked": int(wide.sum()),
+          "profiled_steps": [WHISPER_PROFILED_FROM,
+                             WHISPER_PROFILED_FROM + WHISPER_PROFILED],
+          "decode_step_profile": step_prof, "prefill_profile": prefill_prof,
+          "seconds": time.time() - t0})
+    return counts["flash_decode"]
+
+
+def phase_parity_whisper(torch, np, kernel):
+    """whisper-large-v3's smoke config (f32, TF32 off) on the card against
+    the CPU from the same weights (the port's seeded init, drawn on the
+    CPU): 3 slots over 24 frames (not a multiple of the kernel's tile), a
+    4-token prompt prefilled into a cache of 20 rows, then
+    :data:`WHISPER_PARITY_STEPS` greedy decode steps on each.  Requires
+    the teacher-forced ``forward``'s, the prefill's and every step's
+    logits at rtol 1e-4 and atol 1e-5, equal greedy streams, and kernel
+    2.3 launched twice a decoder layer a step on the card."""
+    import repro_torch.configs as configs
+    from repro_torch.models import whisper
+
+    t0 = time.time()
+    cfg = configs.get_smoke_config("whisper-large-v3")
+    cpu = whisper.init_whisper(cfg, seed=0, device="cpu")
+    card = tree_to(cpu, "cuda")
+    rng = np.random.default_rng(9)
+    frames = torch.from_numpy(rng.standard_normal((3, 24, cfg.d_model),
+                                                  dtype=np.float32))
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab, (3, 4))
+                              .astype(np.int32))
+    max_len = 4 + WHISPER_PARITY_STEPS
+    reset_counts(kernel)
+    got = _whisper_greedy(torch, cfg, card, frames.cuda(), prompt.cuda(),
+                          WHISPER_PARITY_STEPS, max_len)
+    counts = read_counts(kernel)
+    want = _whisper_greedy(torch, cfg, cpu, frames, prompt,
+                           WHISPER_PARITY_STEPS, max_len)
+    n_dec = whisper.n_dec_layers(cfg)
+    require(counts["flash_decode"] == 2 * n_dec * WHISPER_PARITY_STEPS,
+            f"parity-whisper: {counts} for {WHISPER_PARITY_STEPS} steps of "
+            f"{n_dec} decoder layers")
+    streams_equal = torch.equal(got[0].cpu(), want[0])
+    require(streams_equal, f"parity-whisper: greedy streams differ: "
+            f"{got[0].cpu().tolist()} against {want[0].tolist()}")
+    tol = dict(rtol=1e-4, atol=1e-5)
+    step_close = torch.allclose(got[1].cpu(), want[1], **tol)
+    step_err = (got[1].cpu() - want[1]).abs().max().item()
+    with torch.no_grad():
+        full = torch.cat([prompt, want[0][:, :-1]], 1)
+        f_card, _ = whisper.forward(card, cfg, frames.cuda(), full.cuda())
+        f_cpu, _ = whisper.forward(cpu, cfg, frames, full)
+    fwd_err = (f_card.cpu() - f_cpu).abs().max().item()
+    require(step_close and torch.allclose(f_card.cpu(), f_cpu, **tol),
+            f"parity-whisper: logits part, prefill and steps by {step_err}, "
+            f"forward by {fwd_err}")
+    emit({"phase": "parity-whisper", "arch": cfg.name, "slots": 3,
+          "frames": 24, "prompt": 4, "decode_steps": WHISPER_PARITY_STEPS,
+          "tolerance": tol, "step_logits_max_abs_diff": step_err,
+          "forward_logits_max_abs_diff": fwd_err,
+          "streams_equal": streams_equal,
+          "flash_decode_launches": counts["flash_decode"],
           "seconds": time.time() - t0})
 
 
@@ -5711,6 +6142,7 @@ def main() -> int:
     rx_gates, rx_layers = rx_timing(torch)
     fd_rows = flash_decode_timing(torch, np)
     wave_rows = wave_decode_timing(torch, np)
+    whisper_rows = whisper_decode_timing(torch, np)
     torch.cuda.empty_cache()
     hpc_counts, analysis_report, analysis_cells = phase_analysis(
         torch, np, problems)
@@ -5783,6 +6215,13 @@ def main() -> int:
     phase_train(torch, np, kernel, card)
     phase_train_resume(torch, np)
     phase_parity_train(torch, np)
+    # the encoder-decoder, on a card with nothing else held
+    torch.cuda.empty_cache()
+    phase_train(torch, np, kernel, card, WHISPER_TRAIN_JOB, "whisper-train",
+                whisper_model_flops, WHISPER_PROFILED_STEP)
+    torch.cuda.empty_cache()
+    whisper_launches = phase_whisper_decode(torch, np, kernel)
+    phase_parity_whisper(torch, np, kernel)
 
     emit({"kernels": [
         {"name": "flash_decode_paged", "route": "cuda",
@@ -5914,6 +6353,11 @@ def main() -> int:
          "scenario_launches": scenario_counts["flash_decode"],
          "wave_shapes": {f"{arch} B{WAVE_B} S{WAVE_S} len {WAVE_LEN}": row
                          for arch, row in wave_rows.items()},
+         "whisper_decode_launches": whisper_launches,
+         "whisper_shapes": {
+             f"{name} B{WHISPER_B} S{S} KV20 G1 D64": whisper_rows[name]
+             for name, S in (("cross", WHISPER_FRAMES),
+                             ("self", WHISPER_MAX_LEN))},
          "shape": "qwen3-1.7b heads, B32 S4096 ragged, bf16",
          "ms_by_shape": {f"{arch} {lengths}": row["ms"]
                          for (arch, lengths), row in fd_rows.items()},

@@ -2,9 +2,10 @@
 
 ``get_config(arch)`` / ``get_smoke_config(arch)`` return the same
 ``ModelConfig`` values as :mod:`repro.configs`, for the architectures the
-port runs: every decoder arch of the reference (its six serve archs, the
-dense olmo-1b, qwen2.5-14b and qwen3-32b, and internvl2-76b behind its
-image-embedding stub).  The reference registry also builds JAX input
+port runs: every arch of the reference (its six serve archs, the dense
+olmo-1b, qwen2.5-14b and qwen3-32b, internvl2-76b behind its
+image-embedding stub, and the encoder-decoder whisper-large-v3 behind its
+post-conv frame stub).  The reference registry also builds JAX input
 specs, so the port keeps its own, free of JAX.
 """
 
@@ -26,6 +27,7 @@ _ARCH_MODULES = {
     "qwen2.5-14b": "qwen2_5_14b",
     "qwen3-32b": "qwen3_32b",
     "internvl2-76b": "internvl2_76b",
+    "whisper-large-v3": "whisper_large_v3",
 }
 
 ALL_ARCHS: List[str] = list(_ARCH_MODULES)
@@ -34,10 +36,7 @@ ALL_ARCHS: List[str] = list(_ARCH_MODULES)
 def _module(arch: str):
     if arch not in _ARCH_MODULES:
         raise KeyError(
-            f"unknown arch {arch!r}; the port has {sorted(_ARCH_MODULES)} "
-            f"(the reference's encoder-decoder whisper-large-v3 comes with "
-            f"ROADMAP item 1.18.2)"
-        )
+            f"unknown arch {arch!r}; the port has {sorted(_ARCH_MODULES)}")
     return importlib.import_module(
         f"repro_torch.configs.{_ARCH_MODULES[arch]}")
 

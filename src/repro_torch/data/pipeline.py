@@ -4,7 +4,8 @@ Port of ``repro/data/pipeline.py``, in numpy as the reference has it:
 batches are a function of (seed, step), so a restart needs to checkpoint
 only the integer step, and each host materializes only its slice of the
 global batch (``host_slice``).  Token streams are Zipf-distributed; the
-VLM's image embeddings are unit-Gaussian stubs.
+VLM's image embeddings and the encoder-decoder's post-conv audio frames are
+unit-Gaussian stubs.
 
 Each draw's generator is seeded with ``hash(role) % 2**31``, the
 reference's expression.  Python randomizes ``str`` hashes per process, so
@@ -48,17 +49,26 @@ def global_batch(
     host_slice: Optional[slice] = None,
 ) -> Dict[str, Any]:
     """Materialize (a host's slice of) the training batch for ``step``:
-    int32 ``tokens`` and next-token ``labels`` (B, S), and for a VLM fp32
+    int32 ``tokens`` and next-token ``labels`` (B, S); for an
+    encoder-decoder fp32 ``enc_frames`` (B, max(S // 4, 8), d_model), the
+    post-conv frames, beside S decoder tokens; for a VLM fp32
     ``img_embeds`` (B, n_img_tokens, d_model) before S - n_img_tokens
-    text tokens.  Encoder-decoder archs come with ROADMAP item 1.18.2."""
-    if model_cfg.is_encoder_decoder:
-        raise ValueError(f"{model_cfg.name}: encoder-decoder batches come "
-                         f"with models/whisper.py, ROADMAP item 1.18.2")
+    text tokens."""
     B, S = shape.global_batch, shape.seq_len
     sl = host_slice or slice(0, B)
     nb = sl.stop - sl.start
     out: Dict[str, Any] = {}
     rng = _rng(data_cfg, step, "tokens")
+    if model_cfg.is_encoder_decoder:
+        s_enc = max(S // 4, 8)
+        frames_rng = _rng(data_cfg, step, "frames")
+        all_tokens = _tokens(rng, (B, S + 1), model_cfg.vocab,
+                             data_cfg.zipf_a)
+        out["enc_frames"] = frames_rng.standard_normal(
+            (nb, s_enc, model_cfg.d_model), dtype=np.float32)
+        out["tokens"] = all_tokens[sl, :-1]
+        out["labels"] = all_tokens[sl, 1:]
+        return out
     if model_cfg.family == "vlm":
         n_img = model_cfg.n_img_tokens
         s_text = S - n_img

@@ -1,6 +1,6 @@
 """Mixture-of-Experts FFN: shared + fine-grained routed experts (DeepSeekMoE).
 
-Port of the global layout of ``repro/models/moe.py``.  Dispatch is
+Port of ``repro/models/moe.py``.  Dispatch is
 GShard-style with a capacity factor: each token's top-k assignments are
 scattered into an expert buffer (position = rank of the assignment among
 its expert's, from an exclusive cumsum over the one-hot assignment matrix
@@ -11,8 +11,19 @@ fp32 whatever the compute dtype.
 
 Two entries:
 
-* :func:`moe_ffn` is the reference's function: every token of ``x (B, S,
-  d)`` is one routing group of B*S tokens.
+* :func:`moe_ffn` is the reference's function, in the layout the active
+  :class:`~repro_torch.distributed.context.MeshPlan` selects, by the
+  reference's tests: *global* (the default), every token of ``x (B, S,
+  d)`` one routing group of B*S tokens; *hierarchical*, Z = ``n_data``
+  groups of B*S/Z tokens (one a data shard), each routed with its own
+  capacity, the aux the mean of the groups'; *shard_map*, routing and
+  capacity per data shard with the experts in ``n_model`` slices whose
+  partial combines are summed.  Under a plan whose mesh is a
+  :class:`~repro_torch.launch.mesh.MeshShape` every data shard runs in
+  this one process, and there the slices' partial combines sum to the
+  whole combine, so shard_map computes the hierarchical layout at Z =
+  ``n_data``; a mesh of ranks, where the slices live on different ranks,
+  is the train mesh's (ROADMAP item 1.18.2).
 * :func:`moe_ffn_rows` is the serve path's: each sequence position of
   ``x`` is its own group of B tokens with capacity ``_capacity(m, B)``,
   so a chunk of w rows routes and drops exactly as the reference's chunk
@@ -43,6 +54,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import context as mesh_ctx
 from repro_torch.models import layers
 from repro_torch.models.layers import MeshContext
 
@@ -82,20 +94,26 @@ def _top_k(probs: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
 
 
 def _route(params, m, xf: torch.Tensor, aux: bool = True):
-    """(T, d) -> gates (T, K), idx (T, K) and the Switch load-balance aux
-    ``E * sum_e f_e * p_e`` (None with ``aux=False``)."""
+    """(..., T, d) -> gates (..., T, K), idx (..., T, K) and the Switch
+    load-balance aux ``E * sum_e f_e * p_e`` of each group of T tokens,
+    shape (...) (None with ``aux=False``)."""
     E, K = m.n_routed, m.top_k
-    T = xf.shape[0]
+    T = xf.shape[-2]
     logits = xf.float() @ params["router"].float()
-    probs = torch.softmax(logits, dim=-1)  # (T, E)
+    probs = torch.softmax(logits, dim=-1)  # (..., T, E)
     gates, idx = _top_k(probs, K)
     gates = gates / gates.sum(-1, keepdim=True).clamp_min(1e-9)
     if not aux:
         return gates, idx, None
-    me = probs.mean(dim=0)
-    ce = torch.zeros(E, dtype=torch.float32, device=xf.device).index_add_(
-        0, idx.reshape(-1), torch.ones(T * K, device=xf.device)) / (T * K)
-    return gates, idx, E * torch.sum(me * ce)
+    groups = probs.shape[:-2]
+    G = math.prod(groups)
+    me = probs.mean(dim=-2).reshape(G, E)
+    offs = torch.arange(G, device=xf.device)[:, None] * E
+    counts = torch.zeros(G * E, dtype=torch.float32, device=xf.device)
+    counts.index_add_(0, (idx.reshape(G, T * K) + offs).reshape(-1),
+                      torch.ones(G * T * K, device=xf.device))
+    ce = counts.view(G, E) / (T * K)
+    return gates, idx, (E * torch.sum(me * ce, dim=-1)).reshape(groups)
 
 
 def _dispatch(m, xf: torch.Tensor, idx: torch.Tensor, C: int):
@@ -158,20 +176,61 @@ def _shared_experts(params, x: torch.Tensor) -> torch.Tensor:
 
 def moe_ffn(params, cfg, x: torch.Tensor) -> Tuple[torch.Tensor,
                                                   torch.Tensor]:
-    """x: (B, S, d) -> (y, aux): the reference's global layout, all B*S
-    tokens one routing group."""
+    """x: (B, S, d) -> (y, aux) in the layout the active plan selects (the
+    module docstring): Z = ``n_data`` routing groups where its mesh is set
+    for shard_map, B splits over its data shards and its model axis over
+    the experts, or where it asks for hierarchical, Z > 1 splits B and
+    each shard has at least ``top_k`` tokens; else the global layout, all
+    B*S tokens one routing group."""
+    m = cfg.moe
+    B, S, _ = x.shape
+    plan = mesh_ctx.current()
+    Z = plan.n_data
+    if plan.moe_impl == "shard_map" and plan.mesh is not None:
+        grouped = B % Z == 0 and m.n_routed % plan.n_model == 0
+    else:
+        # B % Z: a token shard must be whole sequences of one data shard
+        grouped = (plan.moe_hierarchical and Z > 1 and B % Z == 0
+                   and B * S // Z >= m.top_k)
+    if not grouped:
+        return _moe_ffn_grouped(params, cfg, x, 1)
+    _check_one_process(plan)
+    return _moe_ffn_grouped(params, cfg, x, Z)
+
+
+def _check_one_process(plan) -> None:
+    """Raise :class:`~repro_torch.launch.mesh.MeshShapeError` for a plan
+    over a mesh of ranks: the layouts compute every data shard in this one
+    process, and MoE across ranks comes with the train mesh, ROADMAP item
+    1.18.2."""
+    from repro_torch.launch.mesh import MeshShapeError, ServeMesh
+
+    if isinstance(plan.mesh, ServeMesh):
+        raise MeshShapeError(
+            f"the {plan.moe_impl} MoE layout over a mesh of ranks comes "
+            f"with the train mesh, ROADMAP item 1.18.2; plan it over a "
+            f"MeshShape", shape=(plan.n_data, plan.n_model),
+            n_devices=plan.mesh.size)
+
+
+def _moe_ffn_grouped(params, cfg, x: torch.Tensor, Z: int
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Z routing groups of T/Z tokens (group z holds batch rows ``[z *
+    B/Z, (z + 1) * B/Z)``), each routed with capacity ``_capacity(m,
+    T/Z)`` into its own rows of one ``(E, Z * C, d)`` buffer; the aux is
+    the mean of the groups'.  Z = 1 is the global layout, Z = ``n_data``
+    the hierarchical one."""
     m = cfg.moe
     B, S, d = x.shape
-    T = B * S
-    xf = x.reshape(T, d)
+    Tl = B * S // Z
+    xf = x.reshape(Z, Tl, d)
     gates, idx, aux = _route(params, m, xf)
-    C = _capacity(m, T)
-    buf, slot, keep = _dispatch(m, xf[None], idx[None], C)
+    buf, slot, keep = _dispatch(m, xf, idx, _capacity(m, Tl))
     out_buf = _expert_gemms(params, buf, x.dtype)
-    y = _combine(out_buf, slot, keep, gates[None], m.top_k, x.dtype)[0]
+    y = _combine(out_buf, slot, keep, gates, m.top_k, x.dtype)  # (Z, Tl, d)
     if m.n_shared > 0:
         y = y + _shared_experts(params, xf)
-    return y.reshape(B, S, d), aux
+    return y.reshape(B, S, d), aux.mean()
 
 
 def moe_ffn_rows(params, cfg, x: torch.Tensor,

@@ -63,6 +63,7 @@ from torch.utils.checkpoint import (checkpoint,
 
 from repro_torch.configs.base import LayerKind, ModelConfig
 from repro_torch.core.device import resolve_device
+from repro_torch.distributed import context as mesh_ctx
 from repro_torch.distributed import sharding
 from repro_torch.models import attention, layers, mla, moe, ssm
 
@@ -103,9 +104,12 @@ def check_served(cfg: ModelConfig) -> None:
             or (LayerKind.MAMBA in kinds) != (cfg.ssm is not None)
             or cfg.is_encoder_decoder):
         raise ValueError(
-            f"{cfg.name}: the port runs dense, VLM, MoE (with GQA or MLA), "
-            f"SSM and hybrid (attention and Mamba-2) models; encoder-decoder "
-            f"archs come with models/whisper.py, ROADMAP item 1.18.2"
+            f"{cfg.name}: this path runs dense, VLM, MoE (with GQA or MLA), "
+            f"SSM and hybrid (attention and Mamba-2) models; an "
+            f"encoder-decoder arch trains, prefills and decodes through "
+            f"models/whisper.py's forward, prefill and decode_step (ROADMAP "
+            f"item 1.18.2), and the serve engine refuses it, as the "
+            f"reference's does"
         )
 
 
@@ -710,9 +714,13 @@ def _run_full(params: Dict[str, Any], cfg: ModelConfig,
     B, S, _ = x.shape
     positions = torch.arange(S, dtype=torch.int32,
                              device=x.device)[None, :].expand(B, S)
-    layer_fn = _remat(
-        lambda p, x: _apply_layer_full(p, cfg, x, positions, collect_cache),
-        remat)
+    plan = mesh_ctx.current()
+
+    def layer(p, x):  # a remat's recompute runs under the forward's plan
+        with mesh_ctx.use_plan(plan):
+            return _apply_layer_full(p, cfg, x, positions, collect_cache)
+
+    layer_fn = _remat(layer, remat)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     caches = []
     for p in params["layers"]:

@@ -143,10 +143,10 @@ def opt_state_from_numpy(tree: Dict[str, Any], cfg, opt_cfg: AdamWConfig,
     ``m``, ``v`` and ``master``, each leaf a numpy array, e.g. ``np.asarray``
     of every leaf of ``repro.optim.adamw.init_opt_state`` or of a train
     step's output) as the port's: the moments and masters through the
-    parameters' layout map
-    (:func:`~repro_torch.models.transformer.params_from_numpy`), in
+    parameters' layout map of ``cfg``'s family
+    (:func:`~repro_torch.train.steps.params_from_numpy`), in
     ``opt_cfg.state_dtype`` and fp32, and the step on the host."""
-    from repro_torch.models.transformer import params_from_numpy
+    from repro_torch.train.steps import params_from_numpy
 
     sdt = _state_dtype(opt_cfg)
     state = {"step": torch.tensor(int(np.asarray(tree["step"])),

@@ -1,20 +1,20 @@
 """Step functions: the train step, and the prefill and decode steps, for
-the decoder archs.
+every family.
 
 Port of ``repro/train/steps.py``.  ``make_train_step(cfg, run)`` closes
-over the model (a dense, MoE, SSM or hybrid LM, or the VLM stub) and the
-run options (remat policy, microbatching, MoE aux weight) and returns
-``(params, opt_state, batch) -> (params, opt_state, metrics)``, with
-``batch`` a dict of tensors (``tokens``, ``labels`` and for the VLM
-``img_embeds``).  The step is functional, as the reference's is: the
-caller's trees stay valid.  ``donate=True``, the counterpart of
-``jax.jit(..., donate_argnums=(0, 1))``, updates params and optimizer
-state in place instead, so a step holds one copy of them.
+over the model (a dense, MoE, SSM or hybrid LM, the VLM stub, or the
+encoder-decoder, :mod:`repro_torch.models.whisper`) and the run options
+(remat policy, microbatching, MoE aux weight) and returns ``(params,
+opt_state, batch) -> (params, opt_state, metrics)``, with ``batch`` a
+dict of tensors (``tokens``, ``labels``, for the VLM ``img_embeds`` and
+for the encoder-decoder ``enc_frames``).  The step is functional, as the
+reference's is: the caller's trees stay valid.  ``donate=True``, the
+counterpart of ``jax.jit(..., donate_argnums=(0, 1))``, updates params and
+optimizer state in place instead, so a step holds one copy of them.
 
 Gradient accumulation: with ``run.microbatches > 1`` the batch is split on
 its leading axis and ``grad.float() / n`` is summed over the microbatches,
 then cast to each param's dtype, as the reference's ``lax.scan`` does.
-Encoder-decoder archs (whisper) come with ROADMAP item 1.18.2.
 """
 
 from __future__ import annotations
@@ -25,7 +25,7 @@ from typing import Any, Dict, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import transformer
+from repro_torch.models import transformer, whisper
 from repro_torch.optim import adamw
 from repro_torch.optim.adamw import tree_leaves, tree_map
 
@@ -46,26 +46,34 @@ class RunConfig:
 OPTIMIZED_RUN = RunConfig(remat="full", microbatches=1)
 
 
-def _decoder_only(cfg: ModelConfig) -> None:
-    if cfg.is_encoder_decoder:
-        raise ValueError(f"{cfg.name}: encoder-decoder archs come with "
-                         f"models/whisper.py, ROADMAP item 1.18.2")
-
-
 def init_model(cfg: ModelConfig, *, seed: int = 0, device="cuda",
                draw_device="cpu") -> Dict[str, Any]:
     """The port's seeded init of ``cfg``'s parameters
-    (:func:`repro_torch.models.transformer.init_lm`)."""
-    _decoder_only(cfg)
-    return transformer.init_lm(cfg, seed=seed, device=device,
-                               draw_device=draw_device)
+    (:func:`repro_torch.models.whisper.init_whisper` for an
+    encoder-decoder, else :func:`repro_torch.models.transformer.init_lm`)."""
+    init = whisper.init_whisper if cfg.is_encoder_decoder \
+        else transformer.init_lm
+    return init(cfg, seed=seed, device=device, draw_device=draw_device)
+
+
+def params_from_numpy(tree, cfg: ModelConfig, device="cuda", **kw
+                      ) -> Dict[str, Any]:
+    """The reference's parameter tree of ``cfg`` (or a tree of its shape,
+    with ``dtype=``) as the port's, by the family's layout map."""
+    convert = whisper.params_from_numpy if cfg.is_encoder_decoder \
+        else transformer.params_from_numpy
+    return convert(tree, cfg, device, **kw)
 
 
 def model_forward(params, cfg: ModelConfig, batch: Dict[str, Any], *,
                   remat: str):
-    """(logits, aux, labels): with ``img_embeds`` in the batch the image
-    positions, which carry no labels, are cut from the logits."""
-    _decoder_only(cfg)
+    """(logits, aux, labels) aligned per family: with ``img_embeds`` in
+    the batch the image positions, which carry no labels, are cut from
+    the logits."""
+    if cfg.is_encoder_decoder:
+        logits, aux = whisper.forward(params, cfg, batch["enc_frames"],
+                                      batch["tokens"], remat=remat)
+        return logits, aux, batch.get("labels")
     img = batch.get("img_embeds")
     logits, aux = transformer.forward(params, cfg, batch["tokens"],
                                       img_embeds=img, remat=remat)
@@ -105,7 +113,6 @@ def make_train_step(cfg: ModelConfig, run: RunConfig, *,
     metrics)``; metrics ``loss``, ``moe_aux``, ``grad_norm`` and ``lr``
     are 0-d tensors.  With ``donate`` the given params and state are
     updated in place and returned."""
-    _decoder_only(cfg)
 
     def accumulated(params, batch):
         n = run.microbatches
@@ -147,8 +154,18 @@ def make_train_step(cfg: ModelConfig, run: RunConfig, *,
 
 def make_prefill_step(cfg: ModelConfig, run: RunConfig = OPTIMIZED_RUN):
     """``prefill_step(params, *, tokens, img_embeds=None)``: the dense
-    :func:`~repro_torch.models.transformer.prefill`, without autograd."""
-    _decoder_only(cfg)
+    :func:`~repro_torch.models.transformer.prefill`; for an
+    encoder-decoder ``prefill_step(params, *, enc_frames, tokens,
+    max_len=None)``, :func:`~repro_torch.models.whisper.prefill`.  Without
+    autograd."""
+    if cfg.is_encoder_decoder:
+
+        @torch.no_grad()
+        def prefill_step(params, *, enc_frames, tokens, max_len=None):
+            return whisper.prefill(params, cfg, enc_frames, tokens,
+                                   remat=run.remat, max_len=max_len)
+
+        return prefill_step
 
     @torch.no_grad()
     def prefill_step(params, *, tokens, img_embeds=None):
@@ -160,12 +177,14 @@ def make_prefill_step(cfg: ModelConfig, run: RunConfig = OPTIMIZED_RUN):
 
 def make_decode_step(cfg: ModelConfig):
     """``decode_fn(params, *, tokens, cache)``: the dense
-    :func:`~repro_torch.models.transformer.decode_step`, without
-    autograd."""
-    _decoder_only(cfg)
+    :func:`~repro_torch.models.transformer.decode_step`, or for an
+    encoder-decoder :func:`~repro_torch.models.whisper.decode_step`,
+    without autograd."""
+    step = whisper.decode_step if cfg.is_encoder_decoder \
+        else transformer.decode_step
 
     @torch.no_grad()
     def decode_fn(params, *, tokens, cache):
-        return transformer.decode_step(params, cfg, tokens, cache)
+        return step(params, cfg, tokens, cache)
 
     return decode_fn

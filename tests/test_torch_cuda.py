@@ -936,6 +936,56 @@ def test_dense_decode_kernel_never_reads_rows_past_valid_len(cuda):
     torch.testing.assert_close(out1, out2, rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2),
+                                       (torch.float32, 1e-5)])
+@pytest.mark.parametrize("S,length", [(1500, 1500), (448, 68), (24, 24)])
+def test_dense_decode_kernel_at_whisper_shapes(cuda, dtype, tol, S, length):
+    """Whisper's decode: 20 KV heads, G 1, D 64, 8 slots, over 1500
+    encoder rows every one valid (not a multiple of the 256-row split),
+    a 448-row self-attention cache, and a cache under one tile."""
+    gen = torch.Generator(device=cuda).manual_seed(S)
+    q = torch.randn((8, 20, 1, 64), device=cuda, generator=gen).to(dtype)
+    k, v = (torch.randn((8, S, 20, 64), device=cuda, generator=gen).to(dtype)
+            for _ in range(2))
+    valid = torch.full((8,), length, dtype=torch.int32, device=cuda)
+    out = fd_kernel.flash_decode(q, k, v, valid, block_s=S)
+    torch.testing.assert_close(
+        out.float(), fd_kernel.flash_decode_plain(q, k, v, valid,
+                                                  block_s=S).float(),
+        rtol=tol, atol=tol)
+
+
+def test_whisper_decode_on_the_card_matches_the_cpu(cuda):
+    """whisper's smoke config (f32): prefill and 6 decode steps on the
+    card against the CPU, kernel 2.3 twice a decoder layer a step."""
+    from repro_torch.models import whisper
+
+    cfg = configs.get_smoke_config("whisper-large-v3")
+    rng = np.random.default_rng(4)
+    frames = torch.from_numpy(rng.standard_normal((2, 24, cfg.d_model),
+                                                  dtype=np.float32))
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 10))
+                              .astype(np.int32))
+    logits = {}
+    for dev in ("cpu", "cuda"):
+        params = whisper.init_whisper(cfg, seed=3, device=dev)
+        out, cache = whisper.prefill(params, cfg, frames.to(dev),
+                                     tokens[:, :4].to(dev), max_len=10)
+        before = fd_kernel.flash_decode.launches
+        steps = [out]
+        for t in range(4, 10):
+            out, cache = whisper.decode_step(params, cfg,
+                                             tokens[:, t:t + 1].to(dev),
+                                             cache)
+            steps.append(out)
+        if dev == "cuda":
+            assert fd_kernel.flash_decode.launches - before == \
+                2 * whisper.n_dec_layers(cfg) * 6
+        logits[dev] = torch.cat(steps, 1).cpu()
+    torch.testing.assert_close(logits["cuda"], logits["cpu"], rtol=1e-4,
+                               atol=1e-5)
+
+
 def test_dense_decode_kernel_refuses_what_it_was_not_built_for(cuda):
     args = _dense_inputs(cuda, 4, 2, 1, 48, 64, torch.float32)
     with pytest.raises(ValueError, match="head dim"):

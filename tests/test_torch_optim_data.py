@@ -244,21 +244,23 @@ def test_host_slices_tile_the_global_batch(nproc):
     np.testing.assert_array_equal(np.concatenate(parts, 0), full["tokens"])
 
 
-def test_vlm_stub_matches_input_specs_and_whisper_is_refused():
-    cfg = configs.get_smoke_config("internvl2-76b")
+@pytest.mark.parametrize("arch", ["internvl2-76b", "whisper-large-v3"])
+def test_modality_stubs_match_input_specs(arch):
+    """The VLM's image embeddings and the encoder-decoder's post-conv
+    frames (max(S // 4, 8) of them, beside S tokens) have the shapes and
+    dtypes of the reference's ``input_specs``."""
+    cfg = configs.get_smoke_config(arch)
     b = pipeline.global_batch(cfg, SMOKE, pipeline.DataConfig(), 0)
-    specs = ref_configs.input_specs(
-        ref_configs.get_smoke_config("internvl2-76b"),
-        RefShape("smoke", 16, 4, "train"))
+    specs = ref_configs.input_specs(ref_configs.get_smoke_config(arch),
+                                    RefShape("smoke", 16, 4, "train"))
     assert set(b) == set(specs)
     for k in b:
         assert tuple(b[k].shape) == tuple(specs[k].shape), k
-    whisper = ref_configs.get_smoke_config("whisper-large-v3")
-    with pytest.raises(ValueError, match=r"1\.18\.2"):
-        pipeline.global_batch(whisper, SMOKE, pipeline.DataConfig(), 0)
+        assert b[k].dtype == np.dtype(specs[k].dtype), k
 
 
-@pytest.mark.parametrize("arch", ["qwen3-1.7b", "internvl2-76b"])
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "internvl2-76b",
+                                  "whisper-large-v3"])
 @pytest.mark.parametrize("sliced", [False, True])
 def test_batches_equal_the_reference_in_one_process(arch, sliced):
     """The reference's ``hash(role)`` seeds are per process; in one

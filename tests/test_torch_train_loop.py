@@ -147,6 +147,26 @@ def test_donated_step_equals_the_functional_step(one_thread):
     assert float(m_f["loss"]) == float(m_d["loss"])
 
 
+def test_prefill_and_decode_steps_run_whisper():
+    """The step functions dispatch an encoder-decoder to
+    ``models/whisper.py``: prefill into a cache of 8 rows, then a step."""
+    from repro_torch.models import whisper
+
+    a = checks.arch("whisper-large-v3")
+    params = a.params()
+    batch = checks.fixed_batch(a, 0)
+    frames = torch.from_numpy(batch["enc_frames"])
+    tok = torch.from_numpy(batch["tokens"][:, :3])
+    logits, cache = steps.make_prefill_step(a.cfg)(
+        params, enc_frames=frames, tokens=tok, max_len=8)
+    want, _ = whisper.prefill(params, a.cfg, frames, tok)
+    assert torch.equal(logits, want) and cache["pos"] == 3
+    out, cache = steps.make_decode_step(a.cfg)(params, tokens=tok[:, :1],
+                                               cache=cache)
+    assert tuple(out.shape) == (tok.shape[0], 1, a.cfg.vocab_padded)
+    assert cache["pos"] == 4 and not out.requires_grad
+
+
 def test_prefill_and_decode_steps_are_the_dense_path():
     a = checks.arch("qwen3-1.7b")
     params = a.params()
@@ -166,11 +186,13 @@ def _job(**kw):
                               "device": "cpu", "log_every": 1, **kw})
 
 
-def test_train_survives_an_injected_fault(tmp_path, one_thread):
+@pytest.mark.parametrize("arch", ["gpt2-124m", "whisper-large-v3"])
+def test_train_survives_an_injected_fault(tmp_path, one_thread, arch):
     """A step fault at step 4 (the scenario harness's device-loss signal)
     restarts once from the step-3 checkpoint; the final params equal a run
-    without the fault bit for bit."""
-    clean = launch.train(_job(ckpt_dir=str(tmp_path / "clean"),
+    without the fault bit for bit, for a decoder LM and for the
+    encoder-decoder."""
+    clean = launch.train(_job(arch=arch, ckpt_dir=str(tmp_path / "clean"),
                               ckpt_every=3))
     armed = [True]
     marker = tmp_path / "faulted" / "step_00000003" / "_COMMITTED"
@@ -185,7 +207,8 @@ def test_train_survives_an_injected_fault(tmp_path, one_thread):
             armed[0] = False
             raise SimulatedDeviceLoss("injected device loss at step 4")
 
-    faulted = launch.train(_job(ckpt_dir=str(tmp_path / "faulted"),
+    faulted = launch.train(_job(arch=arch,
+                                ckpt_dir=str(tmp_path / "faulted"),
                                 ckpt_every=3), hook=crash)
     assert clean["restarts"] == 0 and faulted["restarts"] == 1
     # steps 0-3, then the replay from the step-3 checkpoint
@@ -194,7 +217,7 @@ def test_train_survives_an_injected_fault(tmp_path, one_thread):
     for x, y in zip(tree_leaves(clean["state"]["params"]),
                     tree_leaves(faulted["state"]["params"])):
         assert torch.equal(x, y)
-    straight = launch.train(_job())
+    straight = launch.train(_job(arch=arch))
     for x, y in zip(tree_leaves(clean["state"]), tree_leaves(
             straight["state"])):
         assert torch.equal(x, y)
@@ -241,7 +264,8 @@ def test_train_holds_one_state_at_a_time(tmp_path, monkeypatch):
     assert len(built) == 4 and templates == [{"meta"}]
 
 
-@pytest.mark.parametrize("arch", ["internvl2-76b", "deepseek-moe-16b"])
+@pytest.mark.parametrize("arch", ["internvl2-76b", "deepseek-moe-16b",
+                                  "whisper-large-v3"])
 def test_train_runs_other_archs_with_remat(arch):
     out = launch.train(_job(arch=arch, remat="full", microbatches=2))
     assert out["cfg"].name == checks.arch(arch).cfg.name
@@ -255,9 +279,11 @@ def test_model_axis_above_one_raises():
     assert launch.main(["--device", "cpu", "--model-axis", "2"]) == 2
 
 
-def test_cli_trains_on_the_cpu(capsys):
-    assert launch.main(["--device", "cpu", "--arch", "gpt2-124m", "--smoke",
-                        "--steps", "20"]) == 0
+@pytest.mark.parametrize("arch,steps", [("gpt2-124m", 20),
+                                        ("whisper-large-v3", 3)])
+def test_cli_trains_on_the_cpu(capsys, arch, steps):
+    assert launch.main(["--device", "cpu", "--arch", arch, "--smoke",
+                        "--steps", str(steps)]) == 0
     assert "done in" in capsys.readouterr().out
 
 

@@ -2,12 +2,12 @@
 (``tests/test_torch_train_*.py``): the port's ``steps.model_forward``,
 ``loss_fn``, ``loss_and_grads`` and train step held against
 ``repro.train.steps`` on the reference's weights and batches, for each
-decoder arch's smoke config.
+arch's smoke config (whisper's encoder-decoder included).
 
 The weights come from ``repro.train.steps.init_model(PRNGKey(0), cfg)``
-through ``transformer.params_from_numpy``; the reference's gradients and
-optimizer states carry across through the same layout map
-(``params_from_numpy(..., dtype=)``, ``adamw.opt_state_from_numpy``).  The
+through ``steps.params_from_numpy`` (the family's layout map); the
+reference's gradients and optimizer states carry across through the same
+map (``params_from_numpy(..., dtype=)``, ``adamw.opt_state_from_numpy``).  The
 port's pipeline is held equal to ``repro.data.pipeline.global_batch`` in
 one process; the parity checks run on :func:`fixed_batch`'s batches, the
 same in every process.  The reference's steps are jitted.
@@ -64,7 +64,7 @@ class Arch:
     tree: dict  # the reference's params as numpy
 
     def params(self) -> dict:
-        return transformer.params_from_numpy(self.tree, self.cfg, "cpu")
+        return steps.params_from_numpy(self.tree, self.cfg, "cpu")
 
 
 @functools.lru_cache(maxsize=None)
@@ -83,7 +83,8 @@ def ref_batch(a: Arch, step: int, seq=SEQ, batch=BATCH, seed=0) -> dict:
 
 def fixed_batch(a: Arch, step: int, seq=SEQ, batch=BATCH, seed=0) -> dict:
     """A batch laid out as the pipeline's (Zipf tokens and next-token
-    labels, the VLM's unit-Gaussian image embeddings before the text),
+    labels, the VLM's unit-Gaussian image embeddings before the text, the
+    encoder-decoder's unit-Gaussian frames, max(seq // 4, 8) of them),
     drawn from numpy seeded by (seed, step) alone.  The pipeline's own
     seeds hash a string, which Python randomizes per process, so each test
     process would hold the two packages to other batches; a fixed one
@@ -97,6 +98,9 @@ def fixed_batch(a: Arch, step: int, seq=SEQ, batch=BATCH, seed=0) -> dict:
     if n_img:
         out["img_embeds"] = rng.standard_normal(
             (batch, n_img, a.cfg.d_model), dtype=np.float32)
+    if a.cfg.is_encoder_decoder:
+        out["enc_frames"] = rng.standard_normal(
+            (batch, max(seq // 4, 8), a.cfg.d_model), dtype=np.float32)
     return out
 
 
@@ -110,8 +114,8 @@ def to_torch(batch: dict) -> dict:
 
 def as_port_tree(a: Arch, tree, dtype=torch.float32) -> dict:
     """A reference tree of the parameters' shape as the port's."""
-    return transformer.params_from_numpy(jax.tree.map(np.asarray, tree),
-                                         a.cfg, "cpu", dtype=dtype)
+    return steps.params_from_numpy(jax.tree.map(np.asarray, tree), a.cfg,
+                                   "cpu", dtype=dtype)
 
 
 def assert_trees_close(got, want, what, **tol) -> None:
