@@ -13,7 +13,9 @@ non-zero):
 2. build    nvcc builds of the fourteen kernel libraries for sm_90a, in
             parallel (the GEMM's two routes are a library each; each
             tunable kernel's launch variants other than the default are a
-            ``*_variants`` library beside it).
+            ``*_variants`` library beside it; the decode library's seven
+            translation units compile at once, then link), with each
+            library's seconds.
 3. kernel   each kernel against its plain version at gpt2-124m's,
             qwen3-1.7b's, deepseek-moe-16b's and jamba-1.5-large-398b's
             attention shapes (12 heads of 64; 8 KV heads of 128, 2 query
@@ -101,6 +103,25 @@ non-zero):
             CPU tests pin; then a second drain through the service CLI in
             a subprocess on the same directory: no recording, 12 store
             hits, every result equal to the first drain's but ``wall_s``.
+   suite    the paper's 13 apps (``repro_torch.suite.apps``) at the
+            reference's sizes, each analysed on grace-core and h100 with
+            its ROI timed on the card: the RX gate (kernel 2.9) launched 16
+            times a QC layer and no other kernel of the suite (the other
+            apps run torch ops); each app's output on the card against the
+            CPU's from the same inputs within the CPU tests' bounds; the
+            apps the paper sizes at those sizes (QC 21 qubits, 21
+            launches, the state against 21 plain passes on the card;
+            STREAM 1024 MB; DGEMM/SGEMM 12288^2; Jacobi2D 16384^2; the LLM
+            apps at gpt2-124m FULL; YOLOv3 608^2), each by ``measure``
+            (best of at least 5) with its AI and H100 roofline share; the
+            driver (``python -m repro_torch.suite.run``'s ``main``) in
+            process: Fig. 3 and Table 3 with ``--device cuda --chip h100
+            --record`` into a temporary ledger, its CSVs, ``summary.json``
+            with the card's ``nvidia-smi`` line, and Table 3 equal to the
+            CPU's (``AGREEMENT 13/13``).
+   quickstart  ``repro_torch.examples.quickstart`` twice over a fresh
+            store: finite losses, the train step recorded once, then 0
+            recordings and a store hit.
    tuning   the roofline-guided autotuner (``repro_torch.tuning``) over
             the tunable kernels' launch variants: every candidate of every
             space (the GEMM's two routes, the four STREAM ops, Jacobi2D,
@@ -2462,6 +2483,304 @@ def phase_analysis_compiled(torch):
           "second_drain": {"recordings": again["compiles"],
                            "store_hits": again["store_hits"],
                            "wall_s": again["wall_s"]},
+          "seconds": time.time() - t0})
+
+
+# -- the paper's application suite, its driver and the quickstart -------------
+
+
+#: the card against the CPU, per app, with the CPU tests' bounds
+#: (``tests/test_torch_suite_apps.py``, port against reference): rtol, and
+#: atol as a share of the CPU output's largest magnitude.  LLM-training:
+#: its loss at rtol 1e-5, grad norm at 1e-4, params at rtol 1e-4 and atol
+#: 1e-5 (``parity-train``'s).
+SUITE_TOL = {
+    "LLM-inference": (1e-4, 1e-5), "QC-simulator": (0.0, 0.0),
+    "FFT1D": (1e-5, 4e-6), "FFT2D": (1e-5, 4e-6), "STREAM": (0.0, 0.0),
+    "DGEMM": (1e-5, 4e-6), "SGEMM": (2.0 ** -8, 2.0 ** -8),
+    "SpMV": (1e-5, 1e-6), "Jacobi2D": (0.0, 0.0), "YOLOv3": (1e-5, 4e-6),
+    "AlexNet": (1e-5, 4e-6), "AutoDock": (1e-5, 0.0)}
+#: the apps at the paper's sizes: (builder, its argument, what it builds)
+SUITE_PAPER = (("_qc_app", 21, "QC at 21 qubits"),
+               ("_stream_app", 1024, "STREAM at 1024 MB"),
+               ("_gemm_apps", 12288, "DGEMM and SGEMM at 12288^2"),
+               ("_jacobi_app", 16384, "Jacobi2D at 16384^2"),
+               ("_llm_apps", "gpt2-124m", "LLM apps at gpt2-124m FULL"),
+               ("_yolo_app", 608, "YOLOv3 at 608^2"))
+#: the benchmarks the driver runs on the card, in process
+SUITE_DRIVER = ("fig3_vectorization", "table3_decision_tree")
+
+
+def _outputs(out) -> list:
+    from repro_torch.optim.adamw import tree_leaves
+
+    return tree_leaves(list(out) if isinstance(out, tuple) else [out])
+
+
+def suite_close(torch, name, got, want):
+    """(max abs err, ok) of an app's output on the card against the same
+    app's on the CPU from the same inputs (:data:`SUITE_TOL`)."""
+    if name == "LLM-training":
+        (gp, _, gm), (wp, _, wm) = got, want
+        scalars_ok = all(
+            abs(float(gm[k]) - float(wm[k])) <= rtol * abs(float(wm[k]))
+            for k, rtol in (("loss", 1e-5), ("grad_norm", 1e-4)))
+        pairs, ok = list(zip(_outputs(gp), _outputs(wp))), scalars_ok
+        tols = [(1e-4, 1e-5)] * len(pairs)
+    else:
+        pairs, ok = list(zip(_outputs(got), _outputs(want))), True
+        rtol, share = SUITE_TOL[name]
+        tols = [(rtol, share * w.float().abs().max().item())
+                for _, w in pairs]
+    err = 0.0
+    for (g, w), (rtol, atol) in zip(pairs, tols):
+        g, w = g.detach().float().cpu(), w.detach().float()
+        ok = ok and g.shape == w.shape
+        diff = (g - w).abs()
+        err = max(err, diff.max().item())
+        ok = ok and bool((diff <= atol + rtol * w.abs()).all())
+    return err, ok
+
+
+def suite_paper_sizes(torch):
+    """The apps the paper sizes, each at that size on the card, timed by
+    ``measure`` (warm-up, at least 5 repeats, best of), with its AI and
+    its share of the H100 roofline (the least time for its analytic flops
+    and bytes at the peaks of the dtype it runs in, over the best-of).  QC
+    at 21 qubits also one layer with its launches counted (21) and its
+    state against 21 passes of the plain gate on the card.  Returns the
+    rows and the RX gate's launches."""
+    import repro_torch.configs as configs
+    from repro_torch.kernels.qc_gate import kernel as qc
+    from repro_torch.kernels.qc_gate import ref as qc_ref
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.suite import apps
+
+    rows, launches = [], {}
+    for builder, size, what in SUITE_PAPER:
+        arg = configs.get_config(size) if builder == "_llm_apps" else size
+        built = getattr(apps, builder)(arg)
+        for app in (built if isinstance(built, list) else [built]):
+            t0 = time.time()
+            args = app.args_on(torch.device("cuda"))
+            torch.cuda.synchronize()
+            draw_s = time.time() - t0
+            row = {"app": app.name, "problem": app.problem, "what": what,
+                   "draw_s": draw_s}
+            if app.name == "QC-simulator":
+                qc.rx_gate.launches = 0
+                got = app.fn(*args)
+                torch.cuda.synchronize()
+                launches["layer_21"] = qc.rx_gate.launches
+                require(qc.rx_gate.launches == size,
+                        f"QC at {size} qubits: {qc.rx_gate.launches} "
+                        f"launches of the RX gate, not {size}")
+                want = args
+                for q in range(size):
+                    want = qc.rx_gate_plain(*want, q, 0.25)
+                err, bit = rx_equal(torch, got, want)
+                require(bit or err <= 1e-6,
+                        f"QC at {size} qubits: {err} off 21 plain passes")
+                layer_ms, layer_by = bound(
+                    qc_ref.work_terms(args[0], gates=size), "float32")
+                row.update({"max_abs_err": err, "bit_equal": bit,
+                            "layer_bound_ms": layer_ms,
+                            "layer_bound_by": layer_by})
+                qc.rx_gate.launches = 0
+            dtype = dtype_name(tree_leaves(list(args))[0].dtype)
+            wall = apps.measure(app, device="cuda")
+            if app.name == "QC-simulator":
+                launches["measure_21"] = qc.rx_gate.launches
+            bound_ms, bound_by = bound(
+                {"flops": app.flops, "bytes": app.hbm_bytes}, dtype)
+            row.update({"dtype": dtype, "best_ms": wall * 1e3, "ai": app.ai,
+                        "bound_ms": bound_ms, "bound_by": bound_by,
+                        "roofline_share": bound_ms / 1e3 / wall,
+                        "seconds": time.time() - t0})
+            rows.append(row)
+            emit({"phase": "suite", "paper_size": row})
+        # the apps hold their inputs, on the host and on the card
+        del built, app, args
+        torch.cuda.empty_cache()
+    return rows, launches
+
+
+def suite_driver(torch, card):
+    """``python -m repro_torch.suite.run``'s ``main`` in process, on the
+    card with ``--chip h100 --record`` into a fresh ``$REPRO_ARTIFACT_DIR``
+    (restored after): Fig. 3 (every app timed on the card), then Table 3;
+    then Table 3 with ``--device cpu``.  Each exits 0 and writes its CSV
+    and ``summary.json``; the card's summary carries the card's
+    ``nvidia-smi`` line; the ledger holds the two card runs in h100/fp32;
+    the card's Table 3 equals the CPU's.  Returns (lines, RX launches)."""
+    import contextlib
+    import csv
+    import io
+    import os
+    import tempfile
+
+    from repro_torch.kernels.qc_gate import kernel as qc
+    from repro_torch.perf import default_ledger
+    from repro_torch.suite import run as suite_run
+
+    saved = os.environ.get("REPRO_ARTIFACT_DIR")
+    lines = {}
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-suite-") as tmp:
+        os.environ["REPRO_ARTIFACT_DIR"] = tmp
+        try:
+            tables = {}
+            qc.rx_gate.launches = 0
+            for name, device in (*((n, "cuda") for n in SUITE_DRIVER),
+                                 ("table3_decision_tree", "cpu")):
+                out = os.path.join(tmp, f"{name}-{device}")
+                argv = ["--only", name, "--device", device, "--out", out]
+                if device == "cuda":
+                    argv += ["--chip", "h100", "--record"]
+                printed = io.StringIO()
+                t0 = time.time()
+                with contextlib.redirect_stdout(printed):
+                    rc = suite_run.main(argv)
+                require(rc == 0, f"suite driver {argv}: exit code {rc}: "
+                        f"{printed.getvalue()[-2000:]}")
+                with open(os.path.join(out, f"{name}.csv")) as f:
+                    tables[name, device] = list(csv.DictReader(f))
+                with open(os.path.join(out, "summary.json")) as f:
+                    summary = json.load(f)
+                require(summary["passed"] == 1 and summary["failed"] == 0,
+                        f"suite driver {argv}: summary {summary}")
+                if device == "cuda":
+                    require(summary["env"]["gpu"] == card
+                            and summary["env"]["chip"] == "h100",
+                            f"summary env {summary['env']}, nvidia-smi "
+                            f"{card!r}")
+                lines[f"{name}@{device}"] = {
+                    "rc": rc, "rows": len(tables[name, device]),
+                    "seconds": time.time() - t0}
+            driver_launches = qc.rx_gate.launches
+            fig3 = tables["fig3_vectorization", "cuda"]
+            require(len(fig3) == 13 and all(
+                float(r["wall_s_cuda"]) > 0 for r in fig3),
+                f"fig3 on the card: {fig3}")
+            card_t3 = tables["table3_decision_tree", "cuda"]
+            require(card_t3 == tables["table3_decision_tree", "cpu"]
+                    and card_t3[-1]["app"] == "AGREEMENT 13/13",
+                    f"Table 3 on the card {card_t3[-1]}, on the CPU "
+                    f"{tables['table3_decision_tree', 'cpu'][-1]}")
+            runs = default_ledger().runs()
+            require([r.env.series_key() for r in runs]
+                    == ["h100/fp32", "h100/fp32"],
+                    f"ledger runs {[r.env.series_key() for r in runs]}")
+        finally:
+            if saved is None:
+                os.environ.pop("REPRO_ARTIFACT_DIR", None)
+            else:
+                os.environ["REPRO_ARTIFACT_DIR"] = saved
+    lines["agreement"] = card_t3[-1]["app"]
+    lines["fig3_wall_s_cuda"] = {r["app"]: float(r["wall_s_cuda"])
+                                 for r in fig3}
+    return lines, driver_launches
+
+
+def phase_suite(torch, card):
+    """The paper's 13 apps (``repro_torch.suite.apps``) at the reference's
+    sizes on the card: each ``analyze(app, chip, time_roi=True,
+    device="cuda")`` on grace-core and h100, the launch counts set to 0
+    just before and read just after (the QC app's RX gate, kernel 2.9, 16
+    launches a layer, two layers a call; no other kernel of the suite
+    launches: the other apps run torch ops, as the reference's run jnp);
+    then one call of each app on the card against one on the CPU from the
+    same inputs (:func:`suite_close`), the QC layer's 16 launches counted;
+    then the apps at the paper's sizes (:func:`suite_paper_sizes`) and
+    the driver (:func:`suite_driver`).  Returns the RX gate's launches."""
+    from repro_torch.analysis import analyze
+    from repro_torch.core import hw
+    from repro_torch.kernels.qc_gate import kernel as qc
+    from repro_torch.suite import apps
+
+    t0 = time.time()
+    suite = apps.suite()
+    entries = {**hpc_entries(), "rx_gate": qc.rx_gate}
+    for fn in entries.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    cells = []
+    for name, app in suite.items():
+        for chip in (hw.GRACE_CORE, hw.H100):
+            res = analyze(app, chip, time_roi=True, device="cuda")
+            require(res.wall_s is not None and res.wall_s > 0,
+                    f"{name}@{chip.name}: wall_s {res.wall_s}")
+            cells.append({"app": name, "chip": chip.name,
+                          "class": int(res.perf_class), "ai": res.ai,
+                          "bound": res.bound, "wall_s": res.wall_s})
+    torch.cuda.synchronize()
+    counts = {name: fn.launches for name, fn in entries.items()}
+    # two ROI calls (warm, timed) of one 16-gate layer on each of two chips
+    require(counts["rx_gate"] == 16 * 2 * 2
+            and not any(n for k, n in counts.items() if k != "rx_gate"),
+            f"suite analysis launches {counts}")
+    launches = {"analysis": counts["rx_gate"]}
+    parity = {}
+    for name, app in suite.items():
+        qc.rx_gate.launches = 0
+        got = app.fn(*app.args_on(torch.device("cuda")))
+        torch.cuda.synchronize()
+        if name == "QC-simulator":
+            launches["layer_16"] = qc.rx_gate.launches
+            require(qc.rx_gate.launches == 16,
+                    f"QC layer: {qc.rx_gate.launches} launches, not 16")
+        want = app.fn(*app.args_on(torch.device("cpu")))
+        err, ok = suite_close(torch, name, got, want)
+        parity[name] = {"max_abs_err": err, "ok": ok}
+    bad = {n: p for n, p in parity.items() if not p["ok"]}
+    require(not bad, f"apps on the card differ from the CPU: {bad}")
+    analysis_s = time.time() - t0
+    paper_rows, paper_launches = suite_paper_sizes(torch)
+    launches.update(paper_launches)
+    driver, launches["driver"] = suite_driver(torch, card)
+    require(launches["driver"] > 0 and launches["driver"] % 16 == 0,
+            f"the driver's Fig. 3 launched the RX gate "
+            f"{launches['driver']} times")
+    emit({"phase": "suite", "cells": cells, "card_vs_cpu": parity,
+          "launches": launches, "analysis_s": analysis_s,
+          "paper_sizes": paper_rows, "driver": driver,
+          "seconds": time.time() - t0})
+    return launches
+
+
+def phase_quickstart(torch):
+    """``repro_torch.examples.quickstart`` twice in process on the card
+    against a fresh store: a finite loss each time; the first run records
+    the train step (at least one recording), the second records nothing
+    and hits the store."""
+    import contextlib
+    import io
+    import math
+    import tempfile
+
+    from repro_torch.examples import quickstart
+
+    t0 = time.time()
+    runs = []
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-quickstart-") as st:
+        for _ in range(2):
+            printed = io.StringIO()
+            with contextlib.redirect_stdout(printed):
+                res = quickstart.run("cuda", st)
+            runs.append({"loss": res["loss"], "grad_norm": res["grad_norm"],
+                         "recordings": res["recordings"],
+                         "store_hits": res["store_hits"],
+                         "class": int(res["analysis"].perf_class),
+                         "flops": res["analysis"].events.flops,
+                         "tail": printed.getvalue().strip().splitlines()[-1]})
+    first, second = runs
+    require(all(math.isfinite(r["loss"]) for r in runs),
+            f"quickstart losses {[r['loss'] for r in runs]}")
+    require(first["recordings"] >= 1,
+            f"first quickstart run: {first['recordings']} recordings")
+    require(second["recordings"] == 0 and second["store_hits"] >= 1,
+            f"second quickstart run: {second['recordings']} recordings, "
+            f"{second['store_hits']} store hits")
+    emit({"phase": "quickstart", "runs": runs,
           "seconds": time.time() - t0})
 
 
@@ -6094,6 +6413,8 @@ def main() -> int:
     built = build.build(force=True)
     emit({"phase": "build", "seconds": time.time() - t0, "libraries": {
         name: {"library": str(lib.relative_to(ROOT)),
+               "seconds": build.SECONDS[name],
+               "units": 1 + len(build.PARTS.get(name, ())),
                "ptxas": [ln.strip() for ln in log.splitlines()
                          if "registers" in ln or "spill" in ln]}
         for name, (lib, log) in built.items()}})
@@ -6148,6 +6469,9 @@ def main() -> int:
         torch, np, problems)
     del problems
     phase_analysis_compiled(torch)
+    suite_launches = phase_suite(torch, card)
+    torch.cuda.empty_cache()
+    phase_quickstart(torch)
     tuning_launches, tuning_rows = phase_tuning(torch, np)
     torch.cuda.empty_cache()
 
@@ -6225,7 +6549,7 @@ def main() -> int:
 
     emit({"kernels": [
         {"name": "flash_decode_paged", "route": "cuda",
-         "source": SOURCE_DIR + "flash_decode_paged.cu",
+         "source": SOURCE_DIR + "flash_decode_paged.cuh",
          "replaces": f"{TPU_KERNELS}:256",
          "launches": counts["flash_decode_paged"],
          "scenario_launches": scenario_counts["flash_decode_paged"],
@@ -6254,7 +6578,7 @@ def main() -> int:
              SOURCE_DIR + "flash_prefill_variants.cu"),
          **prefill_row},
         {"name": "flash_decode_paged_int8", "route": "cuda",
-         "source": SOURCE_DIR + "flash_decode_paged.cu",
+         "source": SOURCE_DIR + "flash_decode_paged.cuh",
          "replaces": f"{TPU_KERNELS}:256",
          "launches": shared_counts["flash_decode_paged"], **qdecode_row},
         {"name": "flash_prefill_paged_int8", "route": "cuda",
@@ -6262,14 +6586,14 @@ def main() -> int:
          "replaces": f"{TPU_KERNELS}:573,620",
          "launches": shared_counts["flash_prefill_paged"], **qprefill_row},
         {"name": "flash_decode_paged_sharded", "route": "cuda",
-         "source": SOURCE_DIR + "flash_decode_paged.cu",
+         "source": SOURCE_DIR + "flash_decode_paged.cuh",
          "replaces": f"{TPU_KERNELS}:264",
          "launches": mesh_launches,
          "parity_mesh_jamba_launches": jamba_mesh_launches,
          "shape": "qwen3-1.7b serve, slice (0, 2) of 8 KV heads, bf16",
          "jamba-1.5-large-398b": jamba_sharded_row, **sharded_row},
         {"name": "flash_decode_paged_commit", "route": "cuda",
-         "source": SOURCE_DIR + "flash_decode_paged.cu",
+         "source": SOURCE_DIR + "flash_decode_paged.cuh",
          "replaces": f"{TPU_KERNELS}:256,573",
          "launches": counts["decode_commits"],
          "scenario_launches": scenario_counts["decode_commits"],
@@ -6282,7 +6606,7 @@ def main() -> int:
                                             torch.bfloat16],
          **fused_rows["qwen3-1.7b", torch.bfloat16]},
         {"name": "flash_decode_paged_commit_int8", "route": "cuda",
-         "source": SOURCE_DIR + "flash_decode_paged.cu",
+         "source": SOURCE_DIR + "flash_decode_paged.cuh",
          "replaces": f"{TPU_KERNELS}:256,573",
          "launches": shared_counts["decode_commits"],
          "shape": "qwen3-1.7b serve, int8 pools",
@@ -6346,7 +6670,7 @@ def main() -> int:
              HPC_SOURCES + "jacobi2d/csrc/jacobi2d_variants.cu"),
          **hpc_rows["jacobi_step"]},
         {"name": "flash_decode", "route": "cuda",
-         "source": SOURCE_DIR + "flash_decode_paged.cu",
+         "source": SOURCE_DIR + "flash_decode_paged.cuh",
          "replaces": f"{TPU_KERNELS}:89",
          "launches": hpc_counts["flash_decode"],
          "serve_wave_launches": wave_launches,
@@ -6364,12 +6688,13 @@ def main() -> int:
          "variants": tuning_entry(tuning_launches, tuning_rows,
                                   ["flash-decode"], "launch argument "
                                   "split_rows of " + SOURCE_DIR
-                                  + "flash_decode_paged.cu"),
+                                  + "flash_decode_paged.cuh"),
          **fd_rows["qwen3-1.7b", "ragged"]},
         {"name": "rx_gate", "route": "cuda",
          "source": HPC_SOURCES + "qc_gate/csrc/rx_gate.cu",
          "replaces": f"{TPU_QC}:63",
          "launches": hpc_counts["rx_gate"],
+         "suite_launches": suite_launches,
          "shape": "28 qubits, qubit 13, fp32",
          "ms_by_qubit": {q: row["ms"] for q, row in rx_gates.items()},
          "layer_ms": {n: row["ms"] for n, row in rx_layers.items()},

@@ -17,9 +17,8 @@ Registration is either eager::
         return x + 2.0 * y
 
 or lazy (``register_lazy``), which defers building example arguments until
-the workload is requested — how the kernel registry registers itself.
-Discovery finds the port's kernel registry; the reference's 13 paper
-applications (``benchmarks/apps.py``) are not ported yet (ROADMAP 1.17.4).
+the workload is requested — how the kernel registry and the paper's
+application suite (:mod:`repro_torch.suite.apps`) register themselves.
 """
 
 from __future__ import annotations
@@ -77,12 +76,13 @@ class Workload:
 
     def args_on(self, device: torch.device) -> Tuple[Any, ...]:
         """The example arguments with every tensor moved to ``device``,
-        moved once and kept (tensors already there are not copied)."""
+        through nested dicts, lists and tuples (an app's ``(params, opt,
+        batch)``), moved once and kept (tensors already there are not
+        copied)."""
         key = str(device)
         if key not in self._device_args:
             self._device_args[key] = tuple(
-                a.to(device) if isinstance(a, torch.Tensor) else a
-                for a in self.example_args())
+                _moved(a, device) for a in self.example_args())
         return self._device_args[key]
 
     @property
@@ -133,6 +133,16 @@ class Workload:
         )
 
 
+def _moved(x: Any, device: torch.device) -> Any:
+    if isinstance(x, torch.Tensor):
+        return x.to(device)
+    if isinstance(x, dict):
+        return {k: _moved(v, device) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return type(x)(_moved(v, device) for v in x)
+    return x
+
+
 # ---------------------------------------------------------------------------
 # Global registry
 # ---------------------------------------------------------------------------
@@ -147,18 +157,22 @@ _discovered = False
 def _discover() -> None:
     """(Re-)register the built-in workload providers.
 
-    The provider is the port's kernel registry.  It exposes an idempotent
-    registration hook (module import alone is not enough: after
-    ``clear_registry`` the module is still cached in ``sys.modules``, so
-    its import-time side effects would never re-run).
+    The providers are the port's kernel registry and the paper's 13-app
+    suite (:mod:`repro_torch.suite.apps`, inside the package, so always
+    importable).  Each exposes an idempotent registration hook (module
+    import alone is not enough: after ``clear_registry`` the modules are
+    still cached in ``sys.modules``, so their import-time side effects
+    would never re-run).
     """
     global _discovered
     if _discovered:
         return
     _discovered = True
     import repro_torch.kernels.registry as _kreg
+    import repro_torch.suite.apps as _apps
 
     _kreg.register_builtin_workloads()
+    _apps.register_app_workloads()
 
 
 def register(wl: Workload, *, name: Optional[str] = None, replace: bool = False) -> Workload:

@@ -12,7 +12,10 @@ that names a code.  A tunable kernel's source is a header (``*.cuh``)
 templated over its launch shape: one library instantiates the default
 variant, and a ``*_variants`` library the tuner's others
 (:mod:`repro_torch.tuning.spaces`), so the default is built as before and
-the variants' ``nvcc`` runs beside it.
+the variants' ``nvcc`` runs beside it.  A library whose kernels take
+long to compile is split into translation units (:data:`PARTS`), each
+compiled by an ``nvcc`` of its own beside every other library's, then
+linked into the library.
 """
 
 from __future__ import annotations
@@ -22,6 +25,9 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
+import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Dict, Sequence, Tuple
 
@@ -60,8 +66,25 @@ LIBRARIES: Dict[str, Tuple[Path, str]] = {
     "rx_gate_variants": (KERNELS / "qc_gate/csrc/rx_gate_variants.cu",
                          "rx_gate_error_string"),
 }
+#: library name -> the translation units compiled beside its source and
+#: linked with it: the decode library's 144 kernels, one dtype pair's (or
+#: the contiguous cache's) 24 a unit, which alone took the whole build's
+#: wall time as one unit (101 s of a 101 s build on the H100's host)
+PARTS: Dict[str, Tuple[Path, ...]] = {
+    "flash_decode_paged": tuple(
+        KERNELS / f"flash_decode/csrc/flash_decode_{part}.cu"
+        for part in ("f32_f32", "f32_bf16", "f32_int8", "bf16_bf16",
+                     "bf16_int8", "contiguous")),
+}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+#: the flags of one translation unit compiled to an object (linked later)
+_OBJECT_FLAGS = tuple(f for f in NVCC_FLAGS if f != "-shared") + ("-c",)
+
+#: library name -> wall seconds of its compiles (and link) in the last
+#: :func:`build` that built it (all start together, so the largest is the
+#: build's)
+SECONDS: Dict[str, float] = {}
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _fns: Dict[Tuple[str, str], object] = {}
@@ -91,41 +114,89 @@ def _tag() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for name in sorted(LIBRARIES):
         h.update(LIBRARIES[name][0].read_bytes())
+        for part in PARTS.get(name, ()):
+            h.update(part.read_bytes())
     dirs = {INCLUDE} | {source.parent for source, _ in LIBRARIES.values()}
     for header in sorted(p for d in dirs for p in d.glob("*.cuh")):
         h.update(header.read_bytes())
     return h.hexdigest()[:16]
 
 
+def _compile(name: str, lib: Path) -> Tuple[int, str]:
+    """Compile library ``name`` into ``lib``: one ``nvcc`` for a single
+    source; for a library of :data:`PARTS`, one ``nvcc -c`` a translation
+    unit, all at once, then one link.  Returns (exit code, output)."""
+    sources = (LIBRARIES[name][0],) + PARTS.get(name, ())
+    include = ["-I", str(INCLUDE)]
+    if len(sources) == 1:
+        jobs = [[_nvcc(), *NVCC_FLAGS, *include, "-o", str(lib),
+                 str(sources[0])]]
+        objects = []
+    else:
+        objects = [lib.with_name(f"{lib.name}.{i}.o")
+                   for i in range(len(sources))]
+        jobs = [[_nvcc(), *_OBJECT_FLAGS, *include, "-o", str(obj), str(src)]
+                for obj, src in zip(objects, sources)]
+    logs = []
+    try:
+        # outputs to files, not pipes: no compiler waits on a full pipe
+        outs = [tempfile.TemporaryFile(mode="w+") for _ in jobs]
+        procs = [subprocess.Popen(cmd, stdout=out, stderr=subprocess.STDOUT)
+                 for cmd, out in zip(jobs, outs)]
+        codes = [proc.wait() for proc in procs]
+        for out in outs:
+            out.seek(0)
+            logs.append(out.read())
+            out.close()
+        code = next((c for c in codes if c != 0), 0)
+        if code == 0 and objects:
+            link = subprocess.run(
+                [_nvcc(), *NVCC_FLAGS, "-o", str(lib), *map(str, objects)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            code = link.returncode
+            logs.append(link.stdout)
+    finally:
+        for obj in objects:
+            obj.unlink(missing_ok=True)
+    return code, "".join(logs)
+
+
 def build(force: bool = False) -> Dict[str, Tuple[Path, str]]:
     """Compile every kernel library; returns {name: (path, compiler
     output)}, the output empty for a library that was already built.
 
-    One ``nvcc`` per source, all started together.  ``force`` rebuilds
-    existing libraries.  Each build goes to a temporary name first, so a
-    concurrent loader never sees half a file.
+    One ``nvcc`` per source (per translation unit for a library of
+    :data:`PARTS`), all started together.  ``force`` rebuilds existing
+    libraries.  Each build goes to a temporary name first, so a concurrent
+    loader never sees half a file.
     """
     tag = _tag()
     result: Dict[str, Tuple[Path, str]] = {}
-    running = {}
-    for name, (source, _) in LIBRARIES.items():
+    todo = {}
+    for name in LIBRARIES:
         out_dir = build_dir(name)
         out_dir.mkdir(parents=True, exist_ok=True)
         lib = out_dir / f"lib{name}_{tag}.so"
         if lib.exists() and not force:
             result[name] = (lib, "")
             continue
+        todo[name] = lib
+
+    def finish(name: str):
+        lib = todo[name]
         tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-        proc = subprocess.Popen(
-            [_nvcc(), *NVCC_FLAGS, "-I", str(INCLUDE), "-o", str(tmp),
-             str(source)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        running[name] = (proc, tmp, lib)
+        t0 = time.perf_counter()
+        code, log = _compile(name, tmp)
+        SECONDS[name] = time.perf_counter() - t0
+        return name, code, tmp, lib, log
+
+    # a thread a library, so each one's seconds end when it is built
+    with ThreadPoolExecutor(max_workers=max(len(todo), 1)) as pool:
+        finished = list(pool.map(finish, todo))
     failed = []
-    for name, (proc, tmp, lib) in running.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            failed.append(f"{name}: nvcc exit code {proc.returncode}:\n{log}")
+    for name, code, tmp, lib, log in finished:
+        if code != 0:
+            failed.append(f"{name}: nvcc exit code {code}:\n{log}")
             continue
         os.replace(tmp, lib)
         result[name] = (lib, log)

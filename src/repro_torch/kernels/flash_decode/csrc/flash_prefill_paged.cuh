@@ -63,7 +63,7 @@
 //     blocks no table names keep their bytes without aliasing.  It also
 //     runs alone (flash_commit_paged_launch): a mesh rank commits the
 //     other data ranks' decode rows with it.  A decode step's own rows are
-//     committed by the decode kernel (flash_decode_paged.cu, kCommit) with
+//     committed by the decode kernel (flash_decode_paged.cuh, kCommit) with
 //     the same arithmetic, bit for bit;
 //   * attend: one thread block per (KV head, slot, tile of `rows` chunk
 //     rows): rows * G <= 64 query vectors (64 rows at G = 1, 32 at G = 2,

@@ -104,16 +104,20 @@ def make_problem(n_rows: int, n_cols: int, *, row_block: int = 8,
                  max_nnz: int = 64, width_pad: int = 128,
                  dtype: torch.dtype = torch.float32, zipf_a: float = 1.3,
                  generator: Optional[torch.Generator] = None,
-                 device="cpu"):
+                 device="cpu", row_nnz: Optional[torch.Tensor] = None):
     """Random ragged sparse matrix in block-ELL layout (Zipf row lengths —
     the irregularity that defeats fixed-width SIMD in the paper), drawn
     from ``generator`` on ``device``: (values, col_idx int32, row_nnz
-    int32).  The same law as the reference's, not its bits."""
+    int32).  The same law as the reference's, not its bits.  A given
+    ``row_nnz`` (nb, row_block) is taken as the row lengths instead of
+    drawing them (the application suite draws the reference's own)."""
     nb = -(-n_rows // row_block)
     width = -(-max_nnz // width_pad) * width_pad
     kw = dict(generator=generator, device=device)
-    u = torch.rand((nb, row_block), **kw)
-    row_nnz = (1 + (max_nnz - 1) * u ** zipf_a).to(torch.int32)
+    if row_nnz is None:
+        u = torch.rand((nb, row_block), **kw)
+        row_nnz = (1 + (max_nnz - 1) * u ** zipf_a).to(torch.int32)
+    row_nnz = row_nnz.to(device=device, dtype=torch.int32)
     col_idx = torch.randint(0, n_cols, (nb, row_block, width),
                             dtype=torch.int32, **kw)
     values = torch.randn((nb, row_block, width), **kw).to(dtype)

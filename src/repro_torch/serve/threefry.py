@@ -4,7 +4,9 @@ The torch counterpart of what ``jax.random`` computes inside the
 reference sampler (``repro/serve/sampling.py``, ``_jit_sample``), so a
 sampled stream of the port draws the reference's own keys: a key is a pair
 of uint32 words; :func:`prng_key` is ``jax.random.PRNGKey``, :func:`fold_in`
-is ``jax.random.fold_in``, :func:`random_bits` the 32-bit draw of a key
+is ``jax.random.fold_in``, :func:`split` ``jax.random.split`` (the
+application suite's SpMV draws its row lengths from a split key),
+:func:`random_bits` the 32-bit draw of a key
 under ``jax_threefry_partitionable`` (element ``i`` of a draw is ``x0 ^
 x1`` of the block cipher applied to the counter pair ``(i >> 32, i &
 0xFFFFFFFF)``), :func:`uniform` and :func:`gumbel` the float draws built
@@ -68,12 +70,21 @@ def fold_in(key: Key, data: torch.Tensor) -> Key:
     return threefry2x32(key, torch.zeros_like(data), data & _M32)
 
 
+def split(key: Key, num: int = 2) -> Key:
+    """``jax.random.split(key, num)`` under partitionable threefry: key
+    ``i`` of the ``num`` is the cipher of the counter pair ``(i >> 32, i &
+    0xFFFFFFFF)``.  Returns the batch of keys, two int64 tensors ``(...,
+    num)`` (``(k0[..., i], k1[..., i])`` is key ``i``)."""
+    k0, k1 = key
+    i = torch.arange(num, dtype=torch.int64, device=k0.device)
+    return threefry2x32((k0[..., None], k1[..., None]), i >> 32, i & _M32)
+
+
 def random_bits(key: Key, n: int) -> torch.Tensor:
     """32-bit draws ``(..., n)`` of each key of the batch ``(...)``, as
-    ``jax.random.bits`` gives them under partitionable threefry."""
-    k0, k1 = key
-    i = torch.arange(n, dtype=torch.int64, device=k0.device)
-    x0, x1 = threefry2x32((k0[..., None], k1[..., None]), i >> 32, i & _M32)
+    ``jax.random.bits`` gives them under partitionable threefry: the two
+    words of :func:`split`'s keys, xored."""
+    x0, x1 = split(key, n)
     return x0 ^ x1
 
 

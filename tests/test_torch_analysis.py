@@ -504,19 +504,30 @@ def test_cli_prints_a_json_report():
 
 
 def test_cli_drains_every_kernel_workload_by_default():
-    """With no --workloads the service analyses the seven kernel workloads,
-    the reference's, timing each ROI on --device."""
+    """With no --workloads the service analyses every registered workload,
+    as the reference's does from a checkout: the seven kernel workloads,
+    the reference's, and the 13 paper apps (registered as ``app/<name>``
+    since the suite is ported; a result names the app), timing each ROI
+    on --device."""
     proc = _cli("--device", "cpu", "--chips", "h100", "--time-roi")
     assert proc.returncode == 0, proc.stderr
     report = json.loads(proc.stdout)
     got = {r["workload"]: (r["perf_class"], r["wall_s"] > 0)
            for req in report["requests"] for r in req["results"]}
-    assert sorted(got) == ref_list_workloads(tags=("kernel",))
+    assert sorted(got) == sorted(
+        ref_list_workloads(tags=("kernel",))
+        + [n[len("app/"):] for n in ref_list_workloads(tags=("app",))])
     assert all(timed for _, timed in got.values())
-    assert {n: c for n, (c, _) in got.items()} == {
+    assert {n: c for n, (c, _) in got.items()
+            if n.startswith("kernel/")} == {
         "kernel/flash-decode": 4, "kernel/flash-prefill": 4,
         "kernel/gemm": 4, "kernel/jacobi2d": 2, "kernel/qc-gate": 2,
         "kernel/spmv": 3, "kernel/stream-triad": 2}
+    assert {n: c for n, (c, _) in got.items()
+            if not n.startswith("kernel/")} == {
+        "AlexNet": 4, "AutoDock": 4, "DGEMM": 4, "FFT1D": 1, "FFT2D": 1,
+        "Jacobi2D": 4, "LLM-inference": 4, "LLM-training": 4,
+        "QC-simulator": 4, "SGEMM": 4, "STREAM": 2, "SpMV": 3, "YOLOv3": 4}
 
 
 def test_cli_refuses_what_is_not_ported_and_unknown_workloads(

@@ -117,3 +117,18 @@ def test_works_on_batches_of_any_shape():
                            torch.arange(6, dtype=torch.int64).view(2, 3))
     assert threefry.random_bits(key, 5).shape == (2, 3, 5)
     assert threefry.categorical(key, torch.zeros(2, 3, 9)).shape == (2, 3)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 4, 123456, 2**32 - 1])
+@pytest.mark.parametrize("num", [1, 2, 3, 7])
+def test_split_is_bit_equal_to_jax(seed, num):
+    want = np.asarray(jax.random.split(jax.random.PRNGKey(seed), num))
+    k0, k1 = threefry.split(threefry.prng_key(seed), num)
+    got = np.stack([k0.numpy(), k1.numpy()], -1).astype(np.uint32)
+    np.testing.assert_array_equal(got, want.astype(np.uint32))
+    # each split key draws the reference's uniforms
+    for i in range(num):
+        np.testing.assert_array_equal(
+            threefry.uniform((k0[i], k1[i]), 64).numpy(),
+            np.asarray(jax.random.uniform(jax.random.split(
+                jax.random.PRNGKey(seed), num)[i], (64,))))
