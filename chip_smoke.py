@@ -404,6 +404,7 @@ import dataclasses
 import gc
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
@@ -3697,29 +3698,12 @@ def phase_parity_chunked(torch, np):
 #: same for qwen3-1.7b's vocab
 WAVE_ARGV = SERVE_ARGV + ["--scheduler", "wave"]
 WAVE_STEPS = 182
-#: the wave's and the continuous run's bf16 streams may part at a near tie
-#: of the two paths' roundings: the top-2 gap there, in bf16 ulps of the
-#: top logit (the LM head's output is bf16), must be at most this
-WAVE_TIE_ULPS = 4
 #: kernel 2.3 at the wave's shapes: 8 slots, every one at 96 of 256 rows
 WAVE_B, WAVE_S, WAVE_LEN = 8, 256, 96
 
 
 def _argv_for(argv, arch):
     return [arch if a == "gpt2-124m" else a for a in argv]
-
-
-def _bf16_gap(torch, cfg, params, tokens):
-    """Top-2 logit gap of the next token after ``tokens`` on the card
-    (the teacher-forced forward, bf16), and the bf16 ulp of the top."""
-    from repro_torch.models import transformer
-
-    logits, _ = transformer.forward(
-        params, cfg, torch.tensor([tokens], dtype=torch.int32,
-                                  device="cuda"))
-    top = logits[0, -1, :cfg.vocab].float().topk(2).values
-    return float(top[0] - top[1]), float(ulp(torch, top[:1],
-                                             torch.bfloat16)[0])
 
 
 def phase_serve_wave(torch, np, params, continuous):
@@ -3730,8 +3714,10 @@ def phase_serve_wave(torch, np, params, continuous):
     ``WAVE_STEPS`` fused steps with exactly one launch of 2.3 a
     grouped-query layer a step and none of 2.1 or 2.2 (phase_serve's
     checks).  Streams are compared with the continuous run's: each
-    request's first divergence must be a bf16 near tie.  Returns arch ->
-    2.3's launches."""
+    request's first divergence must be a bf16 near tie
+    (``runner.TIE_ULPS``).  Returns arch -> 2.3's launches."""
+    from repro_torch.scenarios import runner
+
     launches = {}
     for arch, weights in params.items():
         if arch not in continuous:
@@ -3755,10 +3741,11 @@ def phase_serve_wave(torch, np, params, continuous):
                 continue
             i = next(i for i, (x, y) in enumerate(zip(a, b)) if x != y)
             tokens = engine.completed[uid].prompt.tolist() + a[:i]
-            gap, top_ulp = _bf16_gap(torch, cfg, engine.params, tokens)
+            gap, top_ulp = runner.top2_gap(cfg, engine.params, tokens,
+                                           "cuda")
             gaps.append({"uid": uid, "index": i, "top2_gap": gap,
                          "top_ulp": top_ulp})
-            require(gap <= WAVE_TIE_ULPS * top_ulp,
+            require(gap <= runner.TIE_ULPS * top_ulp,
                     f"{arch} request {uid}: the wave leaves the continuous "
                     f"stream at token {i} with top-2 gap {gap}")
         emit({"phase": "serve-wave-vs-continuous", "arch": cfg.name,
@@ -4289,38 +4276,6 @@ def _scenario_spec(arch, lo, hi, **over):
     return MatrixSpec(**kw)
 
 
-#: one diverged stream in ``CellResult.golden_diffs`` (the runner's
-#: ``_diff_tokens`` format: the twin, the uid, this cell's tokens, the
-#: twin's); any other diff (a request missing on one side) is no near tie
-DIVERGED = re.compile(r"(?:\[vs (?P<twin>[^\]]+)\] )?uid (?P<uid>\d+): "
-                      r"tokens diverged \((?P<got>\[[\d, ]*\]) != "
-                      r"(?P<want>\[[\d, ]*\])\)")
-
-
-def _diff_ties(torch, cfg, params, prompts, diffs):
-    """For each of a cell's golden diffs, where its stream leaves the
-    twin's and the card's bf16 top-2 gap there (``_bf16_gap``), which must
-    be a near tie (at most ``WAVE_TIE_ULPS`` ulps of the top logit)."""
-    ties = []
-    for diff in diffs:
-        m = DIVERGED.fullmatch(diff)
-        require(m is not None, f"not a diverged stream: {diff}")
-        uid = int(m["uid"])
-        got, want = json.loads(m["got"]), json.loads(m["want"])
-        i = next((i for i, (x, y) in enumerate(zip(got, want)) if x != y),
-                 None)
-        require(i is not None, f"request {uid}: streams of {len(got)} and "
-                f"{len(want)} tokens")
-        gap, top_ulp = _bf16_gap(torch, cfg, params,
-                                 prompts[uid].tolist() + want[:i])
-        ties.append({"twin": m["twin"] or "fault", "uid": uid, "index": i,
-                     "top2_gap": gap, "top_ulp": top_ulp})
-        require(gap <= WAVE_TIE_ULPS * top_ulp,
-                f"request {uid} leaves its twin at token {i} with top-2 "
-                f"gap {gap}")
-    return ties
-
-
 def phase_scenario(torch, np, params):
     """The port's scenario runner at full width on the card, twins
     included (``run_cell``), on the weights earlier phases drew
@@ -4336,7 +4291,7 @@ def phase_scenario(torch, np, params):
     cells, 2.3 in the wave cells, 2.2 in the qwen3 cell.  Returns the
     launches over the phase and the cells' results."""
     from repro_torch.kernels.flash_decode import kernel
-    from repro_torch.scenarios import runner, sample_trace
+    from repro_torch.scenarios import runner
 
     t_phase = time.time()
     dev = str(torch.device("cuda", torch.cuda.current_device()))
@@ -4351,7 +4306,6 @@ def phase_scenario(torch, np, params):
     results = []
     try:
         for cell in cells:
-            cfg, weights = params[cell.arch]
             t0 = time.time()
             torch.cuda.synchronize()
             reset_counts(kernel)
@@ -4387,17 +4341,17 @@ def phase_scenario(torch, np, params):
             if cell.prefill_chunk > 1:
                 require(counts["flash_prefill_paged"] > 0,
                         f"{cell.cell_id}: {counts}")
-            ties = {}
+            # the runner's own verdict: a twin's divergence at a bf16 near
+            # tie is in r.ties (runner.judge_ties), any other one a diff
+            ties = r.ties
+            require(r.golden_ok, f"{cell.cell_id}: twins differ: "
+                    f"{r.golden_diffs}")
             if cell.arch == "gpt2-124m":
                 require(r.golden_checked == (cell.fault != "none")
-                        and r.golden_ok,
-                        f"{cell.cell_id}: twins differ: {r.golden_diffs}")
+                        and not ties,
+                        f"{cell.cell_id}: twins tie at {ties}")
             else:
                 require(r.golden_checked, f"{cell.cell_id}: no twin")
-                prompts = {s.uid: s.prompt
-                           for s in sample_trace(cell, cfg.vocab)}
-                ties = _diff_ties(torch, cfg, weights, prompts,
-                                  r.golden_diffs)
             rows.append({"cell": cell.cell_id, "tok_s": r.stats["tok_s"],
                          "fused_steps": r.stats["fused_steps"],
                          "new_tokens": r.stats["new_tokens"],
@@ -5545,6 +5499,40 @@ NONDETERMINISTIC_CUDA_OPS = ("index_add", "index_add_", "scatter_add",
                              "index_copy")
 
 
+#: parity-train-mesh: the models (f32, TF32 off) and the meshes of ranks
+#: that train them, against the one-rank card step: gpt2-124m at full
+#: width, qwen3-1.7b cut to 4 layers (as parity-mesh) and deepseek-moe-16b
+#: cut to its dense first layer and one MoE layer of 64 experts (32 a rank
+#: on a model axis of 2); 2 steps of 4 rows of 32 tokens (deepseek: 768
+#: assignments over 64 experts of capacity 16, which binds)
+TRAIN_MESH_MODELS = (("gpt2-124m", None), ("qwen3-1.7b", 4),
+                     ("deepseek-moe-16b", 2))
+TRAIN_MESH_SHAPES = ("1x1", "2x1", "1x2", "2x2")
+TRAIN_MESH_STEPS, TRAIN_MESH_BATCH, TRAIN_MESH_SEQ = 2, 4, 32
+#: where ZeRO off runs beside ZeRO on, bit-equal, a model to its shapes
+#: (deepseek's unsharded state on four ranks and the one-rank references
+#: the ranks read would not fit the card beside each other)
+TRAIN_MESH_ZERO_OFF = {"gpt2-124m": ("2x2",), "qwen3-1.7b": ("2x2",),
+                       "deepseek-moe-16b": ()}
+#: train-mesh: the trainer for qwen3-1.7b at full width cut to 4 layers
+#: (``--layers 4``), bf16 params with fp32 masters, 4 x 512 tokens, ZeRO
+#: on: one step through ``launch.train.train`` on one device, then 4
+#: steps of its per-rank path ``launch.train.train_on`` on a 2x2 mesh of
+#: ranks sharing the card; the mesh's first loss within this many bf16
+#: ulps of the one-device step's (the same seeded weights and batch)
+TRAIN_MESH_BF16 = dict(layers=4, batch=4, seq=512, steps=4, shape="2x2")
+TRAIN_MESH_LOSS_ULPS = 2
+TRAIN_MESH_TIMEOUT = 600
+#: the jobs of each spawn of 2x2 ranks, in order (the bf16 run first, so
+#: that rank 0 builds its state on a card its process holds nothing of):
+#: card memory the ranks shared through CUDA IPC is not all given back
+#: while they live (three f32 models in one spawn ran the card out of
+#: memory on the third), so deepseek, the largest, starts from fresh
+#: processes
+TRAIN_MESH_SPAWNS = (("train-mesh", "gpt2-124m", "qwen3-1.7b"),
+                     ("deepseek-moe-16b",))
+
+
 #: whisper-train's job: whisper-large-v3 at full width (32 + 32 layers,
 #: 2.02 B parameters, bf16 params with an fp32 master and moments), 4 x
 #: 2048 decoder tokens over 512 post-conv frames a row, remat full; 4
@@ -6037,6 +6025,193 @@ def phase_parity_train(torch, np):
 
 
 # -- whisper: the encoder-decoder ---------------------------------------------
+
+
+def _mesh_batches(cfg, seq, batch, steps):
+    """``steps`` global batches of the pipeline (numpy), drawn here."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import pipeline
+
+    shape = ShapeConfig("train_mesh", seq, batch, "train")
+    return [pipeline.global_batch(cfg, shape, pipeline.DataConfig(), s)
+            for s in range(steps)]
+
+
+def phase_train_mesh(torch, np, card):
+    """The train step on (data, model) meshes of ranks sharing the card
+    over gloo, their flat gradient and parameter buffers read through
+    CUDA IPC, in the spawns of 2x2 ranks of :data:`TRAIN_MESH_SPAWNS`
+    (``repro_torch.train.mesh_check``, each shape a mesh of a spawn's
+    first ranks).
+
+    ``parity-train-mesh`` (f32), a line a model of
+    :data:`TRAIN_MESH_MODELS`, on 1x1, 2x1, 1x2 and 2x2 (each model's
+    one-rank card step, no mesh, runs first on rank 0 from the same
+    seeded init and batches): every rank's shards of params, ``m`` and
+    ``v`` within :data:`TRAIN_TOL` of the one-rank step's same shards
+    (read in place from rank 0), and each step's loss, grad norm and aux
+    within its rtol; ZeRO off bit-equal to ZeRO on (every rank's digest
+    of its shards) where :data:`TRAIN_MESH_ZERO_OFF` runs it; deepseek's
+    dropped assignments above 0 and the same on every shape.
+
+    ``train-mesh`` (bf16, :data:`TRAIN_MESH_BF16`): the trainer for
+    qwen3-1.7b with ``--layers 4``, one step on one device through its
+    entry point ``launch.train.train``, then the steps on 2x2 (ZeRO on)
+    through ``launch.train.train_on``, what ``train`` runs on each rank
+    it spawns (each rank drawing the seeded init a block at a time): a
+    step's ms on the host clock to its metrics on the host (the median
+    after the first) and tokens/s, rank 0's peak allocated bytes while it
+    built its state (below the one-device run's) and over the steps, its
+    optimizer state's bytes with ZeRO and without, its collectives'
+    calls, bytes and host-staged bytes a step, the logits' all-gather
+    over ``model`` a step (its bytes from this run's shapes), and the
+    first loss within :data:`TRAIN_MESH_LOSS_ULPS` bf16 ulps of the
+    one-device step's."""
+    import repro_torch.configs as configs
+    from repro_torch.data import pipeline
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import layers as layers_mod
+    from repro_torch.scenarios.runner import bf16_ulp
+    from repro_torch.train import mesh_check
+    from repro_torch.train import steps as steps_mod
+
+    t0 = time.time()
+    # the ranks need most of the card: whatever earlier phases left in
+    # this process (reference cycles included) goes first
+    gc.collect()
+    torch.cuda.empty_cache()
+    parent_bytes = torch.cuda.memory_allocated()
+    bf = TRAIN_MESH_BF16
+    job = launch_train.TrainJob(
+        arch="qwen3-1.7b", smoke=False, layers=bf["layers"],
+        steps=bf["steps"], batch=bf["batch"], seq=bf["seq"], remat="none",
+        log_every=1, device="cuda", zero=True)
+    data_cfg = pipeline.DataConfig(seed=job.seed)
+    t_one = time.time()
+    one = launch_train.train(dataclasses.replace(job, steps=1),
+                             data_cfg=data_cfg, keep_state=False)
+    t_one = time.time() - t_one
+    gc.collect()
+    torch.cuda.empty_cache()
+    run = steps_mod.RunConfig(remat="none")
+    f32 = dict(param_dtype="float32", compute_dtype="float32")
+    # the ranks draw this process's batches, as ``train`` has them do
+    jobs = {"train-mesh": {
+        "name": "train-mesh", "kind": "train", "mesh": bf["shape"],
+        "job": dataclasses.replace(job, mesh=bf["shape"]),
+        "data_cfg": pipeline.with_role_hashes(data_cfg),
+        "keep_state": False}}
+    cfgs = {}
+    for arch, layers in TRAIN_MESH_MODELS:
+        cfg = dataclasses.replace(configs.get_config(arch), **f32)
+        if layers is not None:
+            cfg = dataclasses.replace(cfg, n_layers=layers)
+        cfgs[arch] = cfg
+        jobs[arch] = {
+            "name": arch, "kind": "steps", "cfg": cfg, "run": run,
+            "batches": _mesh_batches(cfg, TRAIN_MESH_SEQ, TRAIN_MESH_BATCH,
+                                     TRAIN_MESH_STEPS),
+            "seed": 0, "shapes": TRAIN_MESH_SHAPES, "zeros": (True, False),
+            "zero_shapes": TRAIN_MESH_ZERO_OFF[arch], "one_rank": True,
+            "tol": TRAIN_TOL}
+    out, spawn_s = {}, {}
+    for names in TRAIN_MESH_SPAWNS:
+        t_spawn = time.time()
+        out.update(mesh_mod.spawn(
+            mesh_check.run_jobs, 2, 2, [jobs[n] for n in names],
+            device="cuda", build=False, timeout=TRAIN_MESH_TIMEOUT))
+        spawn_s["+".join(names)] = time.time() - t_spawn
+    del jobs
+    for arch, _ in TRAIN_MESH_MODELS:
+        res = out[arch]
+        want = res["one_rank"]
+        row = {}
+        for shape in TRAIN_MESH_SHAPES:
+            r = res[(shape, True)]
+            for h, w in zip(r["history"], want):
+                for key in ("loss", "grad_norm", "moe_aux"):
+                    require(abs(h[key] - w[key]) <= TRAIN_TOL["rtol"]
+                            * abs(w[key]) + 1e-7,
+                            f"parity-train-mesh {arch} {shape}: {key} "
+                            f"{h[key]} against {w[key]}")
+            require(r["within_tol"], f"parity-train-mesh {arch} {shape}: "
+                    f"the state parts from the one-rank step's: {r}")
+            row[shape] = {k: v for k, v in r.items()
+                          if k.startswith("max_abs_err") or k in (
+                              "dropped", "opt_bytes", "ms", "counters")}
+            row[shape]["loss"] = [h["loss"] for h in r["history"]]
+            if (shape, False) in res:
+                require(res[(shape, "zero_bit_equal")],
+                        f"parity-train-mesh {arch} {shape}: ZeRO off "
+                        f"parts from ZeRO on")
+                row[shape]["zero_off_bit_equal"] = True
+        drops = {shape: row[shape]["dropped"] for shape in row}
+        if cfgs[arch].moe is not None:
+            require(min(drops.values()) > 0
+                    and len(set(drops.values())) == 1,
+                    f"parity-train-mesh {arch}: dropped {drops}")
+        emit({"phase": "parity-train-mesh", "model": arch,
+              "layers": cfgs[arch].n_layers, "dtype": "float32",
+              "steps": TRAIN_MESH_STEPS, "batch": TRAIN_MESH_BATCH,
+              "seq": TRAIN_MESH_SEQ, "tolerance": TRAIN_TOL,
+              "one_rank_loss": [h["loss"] for h in want],
+              "one_rank_s": res["one_rank_s"], "shapes": row,
+              "zero_off_shapes": list(TRAIN_MESH_ZERO_OFF[arch]),
+              "job_seconds": res["seconds"]})
+
+    res = out["train-mesh"]
+    cfg = launch_train.job_configs(job)[0]
+    hist = res["history"]
+    steps_n = len(hist)
+    require(steps_n == bf["steps"], f"train-mesh: {steps_n} steps logged")
+    step_ms = statistics.median(res["step_ms"][1:])
+    tokens = bf["batch"] * bf["seq"]
+    loss, want = hist[0]["loss"], one["history"][0]["loss"]
+    ulp = float(bf16_ulp(torch.tensor([want]))[0])
+    require(abs(loss - want) <= TRAIN_MESH_LOSS_ULPS * ulp,
+            f"train-mesh: first loss {loss} against the one-device step's "
+            f"{want} (bf16 ulp {ulp})")
+    mem, one_mem = res["memory"], one["memory"]
+    require(mem["init_peak_bytes"] < one_mem["init_peak_bytes"],
+            f"train-mesh: rank 0 peaked at {mem['init_peak_bytes']} bytes "
+            f"building its state, the one-device run at "
+            f"{one_mem['init_peak_bytes']}")
+    c = res["collectives"]
+    d, m = mesh_mod.parse_mesh(bf["shape"])
+    tp = layers_mod.MeshContext(mesh_mod.MeshShape(d, m), cfg,
+                                bf["batch"] // d, train=True)
+    # the logits (B/D, S, V) fp32 a data rank, gathered over ``model``
+    # once a step where the rules split the vocab: each rank puts in its
+    # V/M columns and receives all M ranks'; gloo stages both via the host
+    logits_in = (bf["batch"] // d * bf["seq"] * cfg.vocab_padded // m * 4
+                 if tp.vocab_split else 0)
+    emit({"phase": "train-mesh", "arch": cfg.name, "layers": cfg.n_layers,
+          "dtype": cfg.compute_dtype, "mesh": bf["shape"],
+          "entry": "launch.train.train (one device), "
+                   "launch.train.train_on (each rank)",
+          "backend": "gloo, flat buffers over CUDA IPC",
+          "tokens_per_step": tokens, "step_ms": step_ms,
+          "step_ms_all": res["step_ms"],
+          "tokens_per_s": tokens / (step_ms / 1e3),
+          "init_peak_allocated_bytes_rank0": mem["init_peak_bytes"],
+          "step_peak_allocated_bytes_rank0": mem["step_peak_bytes"],
+          "one_device_init_peak_bytes": one_mem["init_peak_bytes"],
+          "one_device_step_peak_bytes": one_mem["step_peak_bytes"],
+          "opt_state_bytes_rank0_zero": mem["opt_state_bytes"],
+          "opt_state_bytes_rank0_without_zero":
+              mem["opt_state_bytes_without_zero"],
+          "collective_calls_per_step": c["calls"] / steps_n,
+          "collective_bytes_per_step": c["bytes"] / steps_n,
+          "host_staged_bytes_per_step": c["host_bytes"] / steps_n,
+          "logits_gather_bytes_per_step": {
+              "put_in": logits_in, "gathered": m * logits_in,
+              "host_staged": (1 + m) * logits_in},
+          "loss": [h["loss"] for h in hist], "one_device_first_loss": want,
+          "one_device_step_ms": one["step_ms"][0], "one_device_s": t_one,
+          "nvidia_smi": card, "parent_allocated_bytes": parent_bytes,
+          "spawn_s_by_spawn": spawn_s,
+          "seconds_both_phases": time.time() - t0})
 
 
 def whisper_decode_timing(torch, np):
@@ -6539,6 +6714,8 @@ def main() -> int:
     phase_train(torch, np, kernel, card)
     phase_train_resume(torch, np)
     phase_parity_train(torch, np)
+    torch.cuda.empty_cache()
+    phase_train_mesh(torch, np, card)
     # the encoder-decoder, on a card with nothing else held
     torch.cuda.empty_cache()
     phase_train(torch, np, kernel, card, WHISPER_TRAIN_JOB, "whisper-train",

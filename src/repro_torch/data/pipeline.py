@@ -10,29 +10,45 @@ unit-Gaussian stubs.
 Each draw's generator is seeded with ``hash(role) % 2**31``, the
 reference's expression.  Python randomizes ``str`` hashes per process, so
 a batch is a pure function of (seed, step) within one process, and equals
-the reference's batch drawn in the same process.
+the reference's batch drawn in the same process.  The ranks of a train
+mesh are processes of their own: a ``DataConfig`` made by
+:func:`with_role_hashes` carries one process's hashes to them, so that
+every rank draws that process's batches.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 
 
+#: the roles a batch draws
+ROLES = ("tokens", "frames", "img")
+
+
 @dataclasses.dataclass(frozen=True)
 class DataConfig:
     seed: int = 0
     zipf_a: float = 1.2  # token distribution skew
+    #: (role, hash % 2**31) pairs that stand in for this process's hashes
+    role_hashes: Optional[Tuple[Tuple[str, int], ...]] = None
+
+
+def with_role_hashes(cfg: DataConfig) -> DataConfig:
+    """``cfg`` carrying this process's ``hash(role) % 2**31`` of every
+    role, which any process then draws with."""
+    return dataclasses.replace(cfg, role_hashes=tuple(
+        (role, hash(role) % (2**31)) for role in ROLES))
 
 
 def _rng(cfg: DataConfig, step: int, role: str) -> np.random.Generator:
-    return np.random.default_rng(
-        np.random.SeedSequence([cfg.seed, step, hash(role) % (2**31)])
-    )
+    h = (dict(cfg.role_hashes)[role] if cfg.role_hashes is not None
+         else hash(role) % (2**31))
+    return np.random.default_rng(np.random.SeedSequence([cfg.seed, step, h]))
 
 
 def _tokens(rng, shape, vocab: int, a: float) -> np.ndarray:
@@ -91,3 +107,25 @@ def host_slice_for(process_index: int, process_count: int,
                    global_batch_size: int) -> slice:
     per = global_batch_size // process_count
     return slice(process_index * per, (process_index + 1) * per)
+
+
+def rank_rows(batch: Dict[str, Any], data_index: int, n_data: int,
+              microbatches: int = 1) -> Dict[str, Any]:
+    """Data rank ``data_index``'s rows of a global ``batch`` (every leaf
+    split on its leading axis): its :func:`host_slice_for` block of each
+    of the ``microbatches`` consecutive microbatches, in order, so that
+    its local microbatch i is its block of the global microbatch i (one
+    microbatch: its block of the batch).  The rows are those of the
+    global draw, the image embeddings' and frames' included (the
+    ``host_slice`` of :func:`global_batch` draws its stubs' first rows,
+    as the reference's does)."""
+    B = next(iter(batch.values())).shape[0]
+    if B % (n_data * microbatches):
+        raise ValueError(f"batch {B} does not split into {microbatches} "
+                         f"microbatch(es) over {n_data} data rank(s)")
+    per_mb = B // microbatches
+    rows = np.concatenate([
+        np.arange(B)[i * per_mb:(i + 1) * per_mb][
+            host_slice_for(data_index, n_data, per_mb)]
+        for i in range(microbatches)])
+    return {k: v[rows] for k, v in batch.items()}

@@ -9,11 +9,13 @@ tests and single-device runs never see one.
 
 The plan's ``mesh`` is a :class:`~repro_torch.launch.mesh.MeshShape` (axis
 sizes, no ranks; the MoE layouts then compute every data shard in this one
-process) or a rank's :class:`~repro_torch.launch.mesh.ServeMesh`.  The
-reference's sequence-parallel residual layout (``seq_parallel``,
-``shard_seq``) and its sharding hints (``constrain``) change no value;
-they come with the train mesh of ranks (ROADMAP item 1.18.2), where they
-gain a body.
+process) or a rank's mesh of a train mesh of ranks
+(:func:`~repro_torch.launch.mesh.make_train_mesh`; the layouts then run
+across the ranks, ``models.moe._moe_ffn_ranks``).  The reference's
+sequence-parallel residual layout (``seq_parallel``, ``shard_seq``) and
+its sharding hints (``constrain``) change no value and nothing on the
+trainer's path sets them; they come with the dry-run cells (ROADMAP item
+1.19), which do.
 """
 
 from __future__ import annotations
@@ -68,8 +70,8 @@ def use_plan(plan: MeshPlan):
 
 def plan_for_mesh(mesh, *, moe_impl: str = "global") -> MeshPlan:
     """The plan of ``mesh`` (anything with ``axis_names`` and
-    ``axis_size``): its ``pod``/``data`` axes as the data axes, ``model``
-    as the model axis."""
+    ``axis_size``, a train mesh of ranks included): its ``pod``/``data``
+    axes as the data axes, ``model`` as the model axis."""
     names = tuple(mesh.axis_names)
     data_axes = tuple(a for a in ("pod", "data") if a in names)
     n_data = 1

@@ -55,6 +55,22 @@ def _shapes_only(tree: Any) -> Any:
     return tree
 
 
+class FaultAt:
+    """A step hook (``launch.train.train(job, hook=...)``) that raises the
+    first time it sees step ``step``: an injected fault, which the
+    resilient loop survives by restoring the newest checkpoint.  Pickled
+    to each rank of a mesh, it fires on every rank at that step."""
+
+    def __init__(self, step: int):
+        self.step = step
+        self.fired = False
+
+    def __call__(self, step: int) -> None:
+        if step == self.step and not self.fired:
+            self.fired = True
+            raise RuntimeError(f"injected fault at step {step}")
+
+
 class StragglerDetector:
     def __init__(self, factor: float, window: int):
         self.factor = factor

@@ -1,10 +1,11 @@
 """Divisibility-aware sharding rules for tensor-parallel serving, and the
 cut of a full tensor to one rank's shard.
 
-Port of the serving rules of ``repro/distributed/sharding.py``: the
-parameter rules (``_RULES``, ``spec_for_path``,
-``serve_param_shardings``), ``batch_spec``, ``paged_cache_spec``,
-``paged_cache_shardings`` and ``replicated``.  A spec is a tuple with one
+Port of ``repro/distributed/sharding.py``: the parameter rules
+(``_RULES``, ``spec_for_path``, ``param_shardings`` for training and
+``serve_param_shardings`` for serving), ``batch_spec``,
+``paged_cache_spec``, ``paged_cache_shardings``, ``replicated``, and
+ZeRO's ``zero_shard_spec`` and ``opt_state_shardings``.  A spec is a tuple with one
 entry a dimension: None (replicated), an axis name, or a tuple of axis
 names.  A mesh is anything with ``axis_names`` and ``axis_size(name)``
 (:class:`repro_torch.launch.mesh.MeshShape`, or a rank's ``ServeMesh``).
@@ -18,6 +19,15 @@ or to replication.  The paged K/V pools split their head axis over
 ``model`` (their block axis stays replicated, so any slot's table can name
 any block), their int8 scale pools stay whole, and the serving slots split
 over ``data`` where ``data`` divides them.
+
+Training places parameters by the rules alone (no serving exception), and
+ZeRO adds the data axes to the first dim of each optimizer-state leaf
+that is not split and that they divide.  The port's parameters are one
+dict a layer where the reference stacks the layers of a superblock, so
+each rule and ZeRO's placement read a layer's own leaf: a leaf the
+reference splits on its stacked layer dim is split here on its first
+divisible dim of its own.  A rank's leaf is its block of the spec
+(:func:`local_shard`); placement never changes a value.
 """
 
 from __future__ import annotations
@@ -111,6 +121,65 @@ def spec_for_path(path: str, shape, mesh) -> Spec:
                     return _pad_spec(cand, len(shape))
             return (None,) * len(shape)
     return (None,) * len(shape)
+
+
+def param_shardings(params, mesh):
+    """The spec tree the train step places a parameter tree by: each
+    leaf's :func:`spec_for_path` on its full shape."""
+    return map_paths(params, lambda path, leaf: spec_for_path(
+        path, tuple(leaf.shape), mesh))
+
+
+def zero_shard_spec(param_spec: Spec, shape, mesh) -> Spec:
+    """``param_spec`` with the data axes added to the first unsplit dim
+    of ``shape`` that they divide (ZeRO), or as it is when there is none
+    or the mesh has no data axes."""
+    dp = data_axes(mesh)
+    dp_size = 1
+    for a in dp:
+        dp_size *= axis_size(mesh, a)
+    if not dp:
+        return tuple(param_spec)
+    dims = list(param_spec) + [None] * (len(shape) - len(param_spec))
+    for i, (d, s) in enumerate(zip(shape, dims)):
+        if s is None and d % dp_size == 0 and d > 0:
+            dims[i] = dp if len(dp) > 1 else dp[0]
+            return tuple(dims)
+    return tuple(dims)
+
+
+def opt_state_shardings(params, p_specs, mesh, *, zero: bool = True):
+    """The spec tree of AdamW's per-parameter state (``m``, ``v``,
+    ``master``): the parameters' specs, with ZeRO's data axes added where
+    ``zero``."""
+    if not zero:
+        return p_specs
+    return _map2(params, p_specs, lambda leaf, spec: zero_shard_spec(
+        spec, tuple(leaf.shape), mesh))
+
+
+def _map2(tree, other, fn):
+    if isinstance(tree, Mapping):
+        return {k: _map2(v, other[k], fn) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_map2(v, other[i], fn) for i, v in enumerate(tree)]
+    return fn(tree, other)
+
+
+def train_params(params, mesh):
+    """This rank's shard of every leaf of a full parameter tree by
+    :func:`param_shardings`: views of the full leaves."""
+    coords = {name: mesh.axis_index(name) for name in mesh.axis_names}
+    return map_paths(params, lambda path, leaf: local_shard(
+        leaf, spec_for_path(path, tuple(leaf.shape), mesh), mesh, coords))
+
+
+def data_dim(spec: Spec):
+    """The dim of ``spec`` that names the data axis, or None."""
+    for i, axes in enumerate(spec):
+        if axes is not None and "data" in _names(axes):
+            return i
+    return None
 
 
 def map_paths(tree, fn, prefix: str = ""):

@@ -1,12 +1,16 @@
-"""Serving meshes of ranks: a ``DxM`` mesh is ``D*M`` processes in one
+"""Meshes of ranks: a ``DxM`` mesh is ``D*M`` processes in one
 ``torch.distributed`` group, laid out as a (data, model) grid.
 
-Port of the serving half of ``repro/launch/mesh.py`` (``MeshShapeError``,
-``parse_mesh``, ``make_serve_mesh``).  Where the reference's mesh is a grid
-of devices in one process, the port's is a grid of ranks: rank ``d * M +
-m`` sits at (d, m), and :func:`make_serve_mesh` gives each rank a
-:class:`ServeMesh` with one subgroup along each axis, its backend and its
-device.  :func:`spawn` starts the ranks and runs a function on each.
+Port of ``repro/launch/mesh.py`` (``MeshShapeError``, ``parse_mesh``,
+``make_serve_mesh`` and, for training, ``make_host_mesh(model_axis)``).
+Where the reference's mesh is a grid of devices in one process, the
+port's is a grid of ranks: rank ``d * M + m`` sits at (d, m), and
+:func:`make_serve_mesh` gives each rank a :class:`ServeMesh` with one
+subgroup along each axis, its backend and its device.  The train mesh,
+:func:`make_train_mesh`, is the same grid over any ``D*M`` ranks of the
+group, so that one spawn of ranks carries several meshes (1x1, 2x1 and
+1x2 beside its own 2x2) as subgroups.  :func:`spawn` starts the ranks and
+runs a function on each.
 
 The backend is chosen explicitly: NCCL only when every rank has a card of
 its own, gloo otherwise.  On one card the ranks share it over gloo (NCCL
@@ -34,8 +38,9 @@ from repro_torch.distributed.collectives import Collectives
 AXES = ("data", "model")
 #: how to start the ranks, named in the errors of a mesh without them
 LAUNCH_HINT = ("launch through `python -m repro_torch.launch.serve --mesh "
-               "DxM` or `python -m repro_torch.serve.mesh_check`, which "
-               "spawn the ranks (repro_torch.launch.mesh.spawn)")
+               "DxM`, `python -m repro_torch.launch.train --mesh DxM` or "
+               "`python -m repro_torch.serve.mesh_check`, which spawn the "
+               "ranks (repro_torch.launch.mesh.spawn)")
 
 
 class MeshShapeError(ValueError):
@@ -100,7 +105,9 @@ class ServeMesh(MeshShape):
     is the subgroup of the ranks that differ from it only along ``axis``:
     ``groups["model"]`` its data row, ``groups["data"]`` its model column.
     ``comm`` runs and counts the collectives; ``device`` is where this
-    rank's tensors live.
+    rank's tensors live.  A mesh over some of the group's ranks
+    (:func:`make_train_mesh`) also has ``groups["mesh"]``, all of its
+    ranks.
     """
 
     def __init__(self, data: int, model: int, rank: int, backend: str,
@@ -111,7 +118,9 @@ class ServeMesh(MeshShape):
         self.backend = backend
         self.device = device
         self.groups = groups
-        self.comm = Collectives(backend)
+        # gloo on CUDA: the ranks share the card (NCCL when each has one)
+        self.comm = Collectives(backend, shared_card=backend == "gloo"
+                                and device.type == "cuda")
 
     def axis_index(self, name: str) -> int:
         return {"data": self.data_index,
@@ -132,6 +141,13 @@ class ServeMesh(MeshShape):
         """All-reduce MAX of ``x`` over ``axis``."""
         return self.comm.all_reduce_max(x, self.groups.get(axis),
                                         self.axis_size(axis))
+
+    def gather_objects(self, obj) -> list:
+        """Every rank of this mesh's picklable ``obj``, in rank order (not
+        counted: a report's rows, not the model's work)."""
+        out = [None] * self.size
+        dist.all_gather_object(out, obj, group=self.groups.get("mesh"))
+        return out
 
 
 def choose_backend(device, world: int) -> str:
@@ -175,6 +191,50 @@ def make_serve_mesh(data: int = 1, model: int = 1, *, device="cuda"
         if rank % model == m:
             groups["data"] = g
     return ServeMesh(data, model, rank, dist.get_backend(),
+                     resolve_device(device), groups)
+
+
+def make_train_mesh(data: int = 1, model: int = 1, *, device="cuda",
+                    ranks=None) -> Optional[ServeMesh]:
+    """This rank's place in a ``data x model`` train mesh over the group's
+    ranks ``ranks`` (the first ``data * model`` by default, in increasing
+    order), laid out as :func:`make_serve_mesh` lays the whole group; None
+    on a rank outside it.  The serve mesh check runs its smaller shapes on
+    such meshes too, inside one spawn.  Every rank of the group must call it with the same arguments, in
+    the same order as its other calls: each subgroup is created on every
+    rank.  Raises MeshShapeError, as :func:`make_serve_mesh` does, when
+    the group has fewer ranks than the mesh needs."""
+    shape = MeshShape(data, model)
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    ranks = list(range(shape.size)) if ranks is None else list(ranks)
+    if (not dist.is_initialized() or len(ranks) != shape.size
+            or max(ranks) >= world):
+        have = (f"the process group has {world} rank(s)"
+                if dist.is_initialized() else "no process group is "
+                "initialized in this process")
+        raise MeshShapeError(
+            f"mesh {data}x{model} needs {shape.size} rank(s), {have}; "
+            f"{LAUNCH_HINT}", shape=(data, model), n_devices=world)
+    me = dist.get_rank()
+    groups = {}
+    rows = [[ranks[d * model + m] for m in range(model)]
+            for d in range(data)]
+    cols = [[ranks[d * model + m] for d in range(data)]
+            for m in range(model)]
+    for axis, members in (("model", rows), ("data", cols)):
+        if len(members[0]) == 1:  # an axis of one rank runs no collective
+            continue
+        for group_ranks in members:
+            g = dist.new_group(group_ranks)
+            if me in group_ranks:
+                groups[axis] = g
+    if len(ranks) < world:  # the mesh's own group, for its reports
+        g = dist.new_group(sorted(ranks))
+        if me in ranks:
+            groups["mesh"] = g
+    if me not in ranks:
+        return None
+    return ServeMesh(data, model, ranks.index(me), dist.get_backend(),
                      resolve_device(device), groups)
 
 
@@ -225,14 +285,16 @@ def _rank_main(rank, data, model, port, backend, device, fn, inputs,
 
 
 def spawn(fn: Callable[..., Any], data: int, model: int, *args,
-          device="cuda", timeout: float = 600.0) -> Any:
+          device="cuda", timeout: float = 600.0, build: bool = True,
+          collective_timeout: Optional[float] = None) -> Any:
     """Run ``fn(mesh, *args)`` on each rank of a ``data x model`` mesh of
     new processes, and return rank 0's result.
 
     ``fn`` and ``args`` are pickled (``fn`` by import path).  On CUDA the
-    kernel libraries are built here first, so the ranks only load them.
-    The ranks' collectives time out after ``timeout`` seconds, and so does
-    the whole call: then, or when a rank raises or dies, every rank is
+    kernel libraries are built here first, so the ranks only load them
+    (``build=False`` skips that, for work that launches no kernel).
+    The ranks' collectives time out after ``collective_timeout`` seconds
+    (``timeout`` unless given), the whole call after ``timeout``: then, or when a rank raises or dies, every rank is
     stopped and a RuntimeError carries what went wrong.  Each rank drops
     its arguments before it ends, and on CUDA the memory the ranks shared
     is then collected here (``torch.cuda.ipc_collect``), so tensors passed
@@ -243,16 +305,17 @@ def spawn(fn: Callable[..., Any], data: int, model: int, *args,
 
     shape = MeshShape(data, model)
     world = shape.size
-    if torch.device(device).type == "cuda":
-        from repro_torch.kernels import build
-        build.build()
+    if build and torch.device(device).type == "cuda":
+        from repro_torch.kernels import build as kernels
+        kernels.build()
     backend = choose_backend(device, world)
     port = free_port()
     ctx = mp.get_context("spawn")
     results, inputs = ctx.Queue(), ctx.Queue()
     procs = [ctx.Process(target=_rank_main,
                          args=(rank, data, model, port, backend, device, fn,
-                               inputs, timeout, results))
+                               inputs, collective_timeout or timeout,
+                               results))
              for rank in range(world)]
     for p in procs:
         p.start()

@@ -31,7 +31,9 @@ cell merges the fresh row unconverted instead.
 
 Under a mesh (a :class:`~repro_torch.models.layers.MeshContext`) each rank
 projects q/k/v for its own slots and its own heads (column-parallel), and
-``wo`` is row-parallel.  Where the K/V pools split their heads it attends
+``wo`` is row-parallel; a train step's teacher-forced attention runs
+:class:`~repro_torch.models.flash._Flash` forward and backward on this
+rank's heads the same way.  Where the K/V pools split their heads it attends
 over its local heads: the decode through the head-sharded decode kernel,
 the chunk through the chunked-prefill kernel.  The pools' block axis is
 whole on every rank, and with prefix sharing a slot on one data rank may
@@ -82,37 +84,54 @@ def _project_qkv(params: dict, cfg, x: torch.Tensor,
                  mesh: Optional[MeshContext] = None):
     """x (B, S, d), positions (B, S) -> q (B,S,H,D), k and v (B,S,KV,D):
     under ``mesh`` the attention's heads, this rank's where the pools
-    split their heads and all of them (gathered over ``model``) where
-    they do not."""
+    split their heads (in a train step, where the projections split on
+    whole heads) and all of them (gathered over ``model``) where they do
+    not."""
     B, S, _ = x.shape
     hd = cfg.head_dim
+    if mesh is not None and any(mesh.qkv_split):
+        x = mesh.copy(x)
     q, k, v = (layers.dense(params[name], x) for name in ("wq", "wk", "wv"))
     if mesh is not None and not mesh.heads:
         q, k, v = (mesh.mesh.gather(t, "model", dim=-1) if split else t
                    for t, split in zip((q, k, v), mesh.qkv_split))
     q, k, v = (t.reshape(B, S, -1, hd) for t in (q, k, v))
     if cfg.qk_norm:
-        q = layers.rms_norm(params["q_norm"], q, cfg.norm_eps)
-        k = layers.rms_norm(params["k_norm"], k, cfg.norm_eps)
+        qn, kn = params["q_norm"], params["k_norm"]
+        if mesh is not None and mesh.heads:  # read on this rank's heads
+            qn, kn = ({"scale": mesh.copy(n["scale"])} for n in (qn, kn))
+        q = layers.rms_norm(qn, q, cfg.norm_eps)
+        k = layers.rms_norm(kn, k, cfg.norm_eps)
     cos, sin = layers.rope_cos_sin(positions, hd, cfg.rope_theta)
     return layers.apply_rope(q, cos, sin), layers.apply_rope(k, cos, sin), v
 
 
+def train_context(mesh: Optional[MeshContext]) -> Optional[MeshContext]:
+    """``mesh`` where it splits the attention's projections, else None:
+    the teacher-forced paths take their heads from it."""
+    return mesh if mesh is not None and any(mesh.qkv_split) else None
+
+
 def attention_full(params: dict, cfg, x: torch.Tensor,
                    positions: torch.Tensor, *, causal: bool = True,
-                   kv_override=None) -> torch.Tensor:
+                   kv_override=None,
+                   mesh: Optional[MeshContext] = None) -> torch.Tensor:
     """Teacher-forced attention over a whole sequence: x (B, S, d),
     positions (B, S) -> (B, S, d).  ``kv_override=(k, v)`` (B, Sk, KV, D)
     attends to those keys instead, without the causal mask
-    (cross-attention)."""
+    (cross-attention).  Under a train step's ``mesh``, on this rank's
+    heads (or every head, gathered, where a split cuts one), ``wo``
+    row-parallel."""
     B, S, _ = x.shape
     hd, kv = cfg.head_dim, cfg.n_kv_heads
-    q, k, v = _project_qkv(params, cfg, x, positions)
+    mesh = train_context(mesh)
+    q, k, v = _project_qkv(params, cfg, x, positions, mesh)
     if kv_override is not None:
         k, v = kv_override
         causal = False
-    out = flash_attention(q.reshape(B, S, kv, -1, hd), k, v, causal=causal)
-    return layers.dense(params["wo"], out.reshape(B, S, -1))
+    out = flash_attention(q.reshape(B, S, k.shape[2], -1, hd), k, v,
+                          causal=causal)
+    return _out_proj(params, out.reshape(B, S, -1), mesh)
 
 
 def attention_full_with_cache(params: dict, cfg, x: torch.Tensor,
@@ -194,8 +213,7 @@ def _out_proj(params: dict, out: torch.Tensor,
         return layers.dense(params["wo"], out)
     w = params["wo"]["w"]
     if not mesh.heads:  # every head attended here: keep this rank's rows
-        i = mesh.mesh.axis_index("model")
-        out = out[..., i * w.shape[0]:(i + 1) * w.shape[0]]
+        out = mesh.own(out)
     return layers.row_parallel(out @ w.to(out.dtype), mesh.mesh,
                                params["wo"].get("b"))
 

@@ -6,13 +6,19 @@ tensors with the reference's names and layouts (a dense weight is
 by leaf.  Norm math runs in fp32 whatever the compute dtype and is cast
 back.
 
-Tensor parallelism: a :class:`MeshContext` carries one serve step's view
-of a mesh of ranks, and the layers it is passed to run on this rank's
-shards of the parameters (:mod:`repro_torch.distributed.sharding`):
+Tensor parallelism: a :class:`MeshContext` carries one serve or train
+step's view of a mesh of ranks, and the layers it is passed to run on this
+rank's shards of the parameters (:mod:`repro_torch.distributed.sharding`):
 row-parallel products are summed over ``model`` in fp32 and take their
 bias once after the sum, the embedding looks up only this rank's vocab
 rows and sums over ``model`` (exact: one term is nonzero), and every rule
-that does not divide leaves its weights whole.
+that does not divide leaves its weights whole.  A train step's context
+(``train=True``) runs over a
+:class:`~repro_torch.distributed.tensor_parallel.TrainView` of the mesh,
+whose sums and gathers carry gradients, and its :meth:`MeshContext.copy`
+marks where a whole tensor enters split work (Megatron's ``f``): the
+column-parallel inputs, and the replicated vectors a rank reads only its
+heads of.
 """
 
 from __future__ import annotations
@@ -25,6 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.distributed import sharding
+from repro_torch.distributed import tensor_parallel
 
 
 def truncated_normal(gen: torch.Generator, shape, scale: float, dtype,
@@ -126,16 +133,27 @@ class MeshContext:
     some is refused.  ``state_rows`` indexes this rank's slots in the
     slot axis of its states: all of its rows where the states split their
     slots over ``data``, else the rows of ``slots``.
+
+    With ``train=True`` the context is a train step's over ``mesh``, a
+    :class:`~repro_torch.distributed.tensor_parallel.TrainView`: ``batch``
+    is this data rank's rows, all of which it computes; ``heads`` says
+    whether ``wq``, ``wk`` and ``wv`` all split on whole heads (then
+    attention runs on this rank's heads; where a split cuts a head, q, k
+    and v are gathered over ``model``); the mamba flags read the train
+    rules, which split the mixers on every mesh shape.
     """
 
-    def __init__(self, mesh, cfg, batch: int):
+    def __init__(self, mesh, cfg, batch: int, *, train: bool = False):
         self.mesh = mesh
         self.batch = batch
-        self.slots = sharding.local_slots(mesh, batch)
+        self.train = train
+        self.slots = (slice(0, batch) if train
+                      else sharding.local_slots(mesh, batch))
         self.split_slots = self.slots.stop - self.slots.start < batch
         d, hd, vp = cfg.d_model, cfg.head_dim, cfg.vocab_padded
         h, kv = cfg.n_heads * hd, cfg.n_kv_heads * hd
-        many = mesh.axis_size("model") > 1
+        n_model = mesh.axis_size("model")
+        many = n_model > 1
 
         def split(path, shape) -> bool:
             return many and "model" in sharding.spec_for_path(path, shape,
@@ -158,6 +176,9 @@ class MeshContext:
             "moe/wi_gate", (m.n_routed, d, m.d_ff_expert))
         self.shared_split = m is not None and m.n_shared > 0 and split(
             "moe/shared/wo", (m.n_shared * m.d_ff_expert, d))
+        if train:
+            self.heads = (all(self.qkv_split) and cfg.n_heads % n_model == 0
+                          and cfg.n_kv_heads % n_model == 0)
         self.mla_split = False
         if cfg.mla is not None:
             self.mla_split = self._mla_split(cfg, split, mesh)
@@ -168,18 +189,18 @@ class MeshContext:
         di, nh = s.d_inner(d), s.n_heads(d)
         state = (1, batch, nh, s.d_state, s.head_dim)
         conv = (1, batch, s.d_conv - 1, di + 2 * s.n_groups * s.d_state)
+        rule = sharding.spec_for_path if train else sharding.serve_spec
 
         def mixer(path, shape) -> bool:
-            return many and "model" in sharding.serve_spec(
-                "mamba/" + path, shape, mesh)
+            return many and "model" in rule("mamba/" + path, shape, mesh)
 
         flags = (mixer("wz/w", (d, di)), mixer("wx/w", (d, di)),
                  mixer("wdt/w", (d, nh)), mixer("conv_x_w", (s.d_conv, di)),
-                 mixer("out_proj/w", (di, d)),
-                 "model" in sharding.paged_cache_spec("ssm_state", state,
-                                                      mesh),
-                 "model" in sharding.paged_cache_spec("conv_state", conv,
-                                                      mesh))
+                 mixer("out_proj/w", (di, d)))
+        if not train:  # the serve path's states split with the weights
+            flags += ("model" in sharding.paged_cache_spec(
+                "ssm_state", state, mesh), "model" in
+                sharding.paged_cache_spec("conv_state", conv, mesh))
         if any(flags) and not all(flags):
             raise ValueError(
                 f"{cfg.name}: a model axis of {mesh.axis_size('model')} "
@@ -187,9 +208,26 @@ class MeshContext:
                 f"not others; serve it on a model axis that divides "
                 f"d_inner, the SSM heads and the conv channels")
         self.mamba_split = all(flags)
-        if sharding.paged_cache_spec("ssm_state", state, mesh)[1] is not None:
+        if not train and sharding.paged_cache_spec(
+                "ssm_state", state, mesh)[1] is not None:
             self.state_rows = slice(None)
 
+    def copy(self, x: torch.Tensor) -> torch.Tensor:
+        """``x``, a tensor every rank of ``model`` holds whole, as it
+        enters work split over ``model``: in a train step its gradient is
+        summed over ``model`` (Megatron's ``f``); serving needs nothing."""
+        if not self.train:
+            return x
+        return tensor_parallel.copy_to(x, self.mesh.base, "model")
+
+    def own(self, x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+        """This rank's ``1/M`` block of ``dim`` of ``x``, a tensor every
+        rank of ``model`` holds whole; in a train step its gradient's
+        blocks are gathered back."""
+        if self.train:
+            return tensor_parallel.split_to(x, self.mesh.base, "model", dim)
+        per = x.shape[dim] // self.mesh.axis_size("model")
+        return x.narrow(dim, self.mesh.axis_index("model") * per, per)
 
     @staticmethod
     def _mla_split(cfg, split, mesh) -> bool:
@@ -305,6 +343,8 @@ def swiglu(params: dict, x: torch.Tensor,
            mesh: Optional[MeshContext] = None) -> torch.Tensor:
     """SwiGLU FFN; with ``mesh`` and split weights, gate and up are
     column-parallel and the down projection row-parallel."""
+    if mesh is not None and mesh.ffn_split:
+        x = mesh.copy(x)
     g = x @ params["wi_gate"].to(x.dtype)
     u = x @ params["wi_up"].to(x.dtype)
     y = (F.silu(g) * u) @ params["wo"].to(x.dtype)

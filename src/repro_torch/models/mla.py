@@ -86,18 +86,25 @@ def init_mla(gen: torch.Generator, cfg, dtype, device) -> dict:
 
 
 def _q_and_latent(params: dict, cfg, x: torch.Tensor,
-                  positions: torch.Tensor):
+                  positions: torch.Tensor,
+                  mesh: Optional[MeshContext] = None):
     """x (B, S, d), positions (B, S) -> q_nope (B,S,h,nope), q_rope
     (B,S,h,rope) rotated, c (B,S,lora) normed, k_rope (B,S,rope) rotated;
-    ``h`` is the heads ``wq`` holds (this rank's under a model split)."""
+    ``h`` is the heads ``wq`` holds (this rank's under a model split).
+    Under a train step's split ``mesh``, the whole latent rows enter this
+    rank's heads through :meth:`~MeshContext.copy`."""
     B, S, _ = x.shape
     ml = cfg.mla
-    q = layers.dense(params["wq"], x).reshape(
+    train = _split(mesh) and mesh.train
+    xq = mesh.copy(x) if train else x
+    q = layers.dense(params["wq"], xq).reshape(
         B, S, -1, ml.qk_nope_dim + ml.qk_rope_dim)
     q_nope, q_rope = q[..., :ml.qk_nope_dim], q[..., ml.qk_nope_dim:]
     ckv = layers.dense(params["w_dkv"], x)
     c, k_rope = ckv[..., :ml.kv_lora_rank], ckv[..., ml.kv_lora_rank:]
     c = layers.rms_norm(params["kv_norm"], c, cfg.norm_eps)
+    if train:
+        c, k_rope = mesh.copy(c), mesh.copy(k_rope)
     cos, sin = layers.rope_cos_sin(positions, ml.qk_rope_dim, cfg.rope_theta)
     # k_rope as one more head of q_rope: one rotation for both
     rot = layers.apply_rope(torch.cat((q_rope, k_rope[:, :, None, :]), dim=2),
@@ -106,14 +113,16 @@ def _q_and_latent(params: dict, cfg, x: torch.Tensor,
 
 
 def _full(params: dict, cfg, x: torch.Tensor, positions: torch.Tensor,
-          causal: bool):
+          causal: bool, mesh: Optional[MeshContext] = None):
     """Decompressed attention over x (B, S, d): K/V of every head from
     the latent rows, the shared ``k_rope`` broadcast to every head, and
     the chunked flash path with KV = h, G = 1.  Returns (y (B, S, d), c
-    (B, S, lora), k_rope (B, S, rope))."""
+    (B, S, lora), k_rope (B, S, rope)).  Under a train step's split
+    ``mesh``, on this rank's heads with ``wo`` row-parallel."""
     B, S, _ = x.shape
     ml = cfg.mla
-    q_nope, q_rope, c, k_rope = _q_and_latent(params, cfg, x, positions)
+    q_nope, q_rope, c, k_rope = _q_and_latent(params, cfg, x, positions,
+                                              mesh)
     h = q_nope.shape[2]
     k_nope = layers.dense(params["w_uk"], c).reshape(B, S, h, ml.qk_nope_dim)
     v = layers.dense(params["w_uv"], c).reshape(B, S, h, ml.v_head_dim)
@@ -121,14 +130,21 @@ def _full(params: dict, cfg, x: torch.Tensor, positions: torch.Tensor,
     k_cat = torch.cat([k_nope, k_rope[:, :, None, :].expand(
         B, S, h, ml.qk_rope_dim)], dim=-1)
     out = flash_attention(q_cat[:, :, :, None, :], k_cat, v, causal=causal)
-    return (layers.dense(params["wo"], out.reshape(B, S, -1)), c, k_rope)
+    out = out.reshape(B, S, -1)
+    if not _split(mesh):
+        return layers.dense(params["wo"], out), c, k_rope
+    return (layers.row_parallel(out @ params["wo"]["w"].to(out.dtype),
+                                mesh.mesh, params["wo"].get("b")), c, k_rope)
 
 
 def mla_full(params: dict, cfg, x: torch.Tensor, positions: torch.Tensor,
-             *, causal: bool = True) -> torch.Tensor:
+             *, causal: bool = True,
+             mesh: Optional[MeshContext] = None) -> torch.Tensor:
     """Teacher-forced MLA over x (B, S, d), positions (B, S): decompress
-    and run the chunked flash path.  Returns (B, S, d)."""
-    return _full(params, cfg, x, positions, causal)[0]
+    and run the chunked flash path.  Returns (B, S, d).  Under a train
+    step's ``mesh`` whose rules split the MLA projections, on this rank's
+    heads."""
+    return _full(params, cfg, x, positions, causal, mesh)[0]
 
 
 def mla_full_with_cache(params: dict, cfg, x: torch.Tensor,

@@ -99,7 +99,7 @@ def _own(v: torch.Tensor, n_local: int, mesh: Optional[MeshContext]
     if not _split(mesh):
         return v
     i = mesh.mesh.axis_index("model")
-    return v[i * n_local:(i + 1) * n_local]
+    return mesh.copy(v)[i * n_local:(i + 1) * n_local]
 
 
 def _project_in(params, cfg, x):
@@ -147,7 +147,9 @@ def _gated_out(params, cfg, y_flat, z, mesh: Optional[MeshContext] = None):
                             layers.rms_norm(params["norm"], g, cfg.norm_eps))
     g32 = g.float()
     di = cfg.ssm.d_inner(cfg.d_model)
-    ss = mesh.mesh.sum(g32.square().sum(dim=-1, keepdim=True), "model")
+    # the whole sum of squares enters every rank's channels
+    ss = mesh.copy(mesh.mesh.sum(g32.square().sum(dim=-1, keepdim=True),
+                                 "model"))
     y = g32 * torch.rsqrt(ss / di + cfg.norm_eps)
     y = (y * _own(params["norm"]["scale"], g.shape[-1], mesh).float()
          ).to(g.dtype)
@@ -213,20 +215,37 @@ def _ssd_chunk(x_c, B_c, C_c, dt_c, A, D, S_prev):
 
 def mamba_full(params, cfg, x: torch.Tensor, *,
                initial_state: Optional[torch.Tensor] = None,
-               return_state: bool = False):
+               return_state: bool = False,
+               mesh: Optional[MeshContext] = None):
     """Chunked SSD forward, differentiable (no op writes in place into a
     tensor autograd saves).  x: (B, S, d) -> (B, S, d) [, final state (B,
-    nh, N, P) fp32]."""
+    nh, N, P) fp32].  Under a train step's ``mesh`` whose rules split the
+    mixer, on this rank's heads and channels: ``wBC`` and the B/C conv run
+    whole, and their output enters the heads through
+    :meth:`~MeshContext.copy`."""
     s, d, di, nh, _ = _dims(cfg)
     Bsz, S, _ = x.shape
     Q = min(s.chunk, S)
     nc = -(-S // Q)
     pad = nc * Q - S
+    split = _split(mesh)
 
-    z, xBC, dt = _project_in(params, cfg, x)
+    if split:  # x enters the column-parallel wz/wx/wdt
+        xs = mesh.copy(x)
+        z, dt = layers.dense(params["wz"], xs), layers.dense(params["wdt"],
+                                                             xs)
+        xBC = torch.cat([layers.dense(params["wx"], xs),
+                         layers.dense(params["wBC"], x)], dim=-1)
+    else:
+        z, xBC, dt = _project_in(params, cfg, x)
     cw, cb = _conv_w_b(params)
     xBC = _window_conv(F.pad(xBC, (0, 0, cw.shape[0] - 1, 0)), cw, cb)
-    xs, Bm, Cm, dt, A, D = _heads(params, cfg, xBC, dt)
+    if split:
+        di_l = params["conv_x_w"].shape[-1]
+        xBC = torch.cat([xBC[..., :di_l], mesh.copy(xBC[..., di_l:])],
+                        dim=-1)
+    xs, Bm, Cm, dt, A, D = _heads(params, cfg, xBC, dt, mesh)
+    nh = xs.shape[-2]
     if pad:
         xs, Bm, Cm = (F.pad(t, (0, 0, 0, 0, 0, pad)) for t in (xs, Bm, Cm))
         dt = F.pad(dt, (0, 0, 0, pad))
@@ -240,8 +259,8 @@ def mamba_full(params, cfg, x: torch.Tensor, *,
         y_c, S_state = _ssd_chunk(xs[:, rows], Bm[:, rows], Cm[:, rows],
                                   dt[:, rows], A, D, S_state)
         ys.append(y_c)
-    y = torch.cat(ys, dim=1).reshape(Bsz, nc * Q, di)[:, :S].to(x.dtype)
-    out = _gated_out(params, cfg, y, z)
+    y = torch.cat(ys, dim=1).reshape(Bsz, nc * Q, -1)[:, :S].to(x.dtype)
+    out = _gated_out(params, cfg, y, z, mesh)
     if return_state:
         return out, S_state
     return out

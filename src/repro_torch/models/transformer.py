@@ -49,7 +49,12 @@ model-only mesh, states over ``data`` on a data-only one, and both are
 whole on a 2-D mesh).  The steps then take
 every slot's tokens and tables, run this rank's slots
 (:func:`~repro_torch.distributed.sharding.local_slots`) on its shards, and
-return those slots' logits, gathered over ``model``.
+return those slots' logits, gathered over ``model``.  A train step on a
+mesh of ranks runs :func:`forward` under a train
+:class:`~repro_torch.models.layers.MeshContext` on its data rank's rows
+and its shards by the train rules
+(:func:`~repro_torch.distributed.sharding.param_shardings`), every split
+region differentiable (:mod:`repro_torch.distributed.tensor_parallel`).
 """
 
 from __future__ import annotations
@@ -166,7 +171,7 @@ def torch_dtype(name: str) -> torch.dtype:
 
 
 def init_lm(cfg: ModelConfig, *, seed: int = 0, device="cuda",
-            mesh=None, draw_device="cpu") -> Dict[str, Any]:
+            mesh=None, draw_device="cpu", place=None) -> Dict[str, Any]:
     """The port's own seeded init (it does not reproduce the reference's
     numbers; use :func:`params_from_numpy` for those).  With ``mesh``,
     this rank's shards of the same numbers (drawn whole on the CPU, then
@@ -176,7 +181,12 @@ def init_lm(cfg: ModelConfig, *, seed: int = 0, device="cuda",
     that they do not depend on the device the model runs on; on the card
     (``draw_device="cuda"``) they are other numbers of the same law, drawn
     in seconds where the CPU takes a minute for a full-width model of
-    billions of parameters."""
+    billions of parameters.
+
+    With ``place``, each block of leaves (the embedding, a norm, a layer's
+    mixer or FFN) goes through ``place(path, block)`` as soon as it is
+    drawn, ``path`` its keys in the tree (``("layers", 3, "moe")``), and
+    the tree keeps what it returns; the draws are the same either way."""
     check_served(cfg)
     if mesh is not None:
         return shard_params(init_lm(cfg, seed=seed, device="cpu",
@@ -185,30 +195,36 @@ def init_lm(cfg: ModelConfig, *, seed: int = 0, device="cuda",
     dtype = torch_dtype(cfg.param_dtype)
     gen = torch.Generator(resolve_device(draw_device)).manual_seed(seed)
     norm_init, _ = layers.make_norm(cfg)
+    put = place or (lambda _, block: block)
     params: Dict[str, Any] = {
-        "embed": layers.embed_init(gen, cfg.vocab_padded, cfg.d_model, dtype,
-                                   dev),
-        "final_norm": norm_init(dtype, dev),
+        "embed": put(("embed",), layers.embed_init(
+            gen, cfg.vocab_padded, cfg.d_model, dtype, dev)),
+        "final_norm": put(("final_norm",), norm_init(dtype, dev)),
     }
     if not cfg.tie_embeddings:
-        params["lm_head"] = layers.dense_init(gen, cfg.d_model,
-                                              cfg.vocab_padded, dtype, dev)
+        params["lm_head"] = put(("lm_head",), layers.dense_init(
+            gen, cfg.d_model, cfg.vocab_padded, dtype, dev))
     params["layers"] = []
     for i in range(cfg.n_layers):
-        layer = {"norm1": norm_init(dtype, dev)}
+        layer: Dict[str, Any] = {}
+
+        def add(name, block, i=i, layer=layer):
+            layer[name] = put(("layers", i, name), block)
+
+        add("norm1", norm_init(dtype, dev))
         if is_moe_layer(cfg, i) or cfg.d_ff > 0:
-            layer["norm2"] = norm_init(dtype, dev)
+            add("norm2", norm_init(dtype, dev))
         if layer_kind(cfg, i) == LayerKind.ATTN and cfg.mla is not None:
-            layer["mla"] = mla.init_mla(gen, cfg, dtype, dev)
+            add("mla", mla.init_mla(gen, cfg, dtype, dev))
         elif layer_kind(cfg, i) == LayerKind.ATTN:
-            layer["attn"] = attention.init_attention(gen, cfg, dtype, dev)
+            add("attn", attention.init_attention(gen, cfg, dtype, dev))
         else:
-            layer["mamba"] = ssm.init_mamba(gen, cfg, dtype, dev)
+            add("mamba", ssm.init_mamba(gen, cfg, dtype, dev))
         if is_moe_layer(cfg, i):
-            layer["moe"] = moe.init_moe(gen, cfg, dtype, dev)
+            add("moe", moe.init_moe(gen, cfg, dtype, dev))
         elif cfg.d_ff > 0:  # d_ff 0: a pure mamba block, mixer only
-            layer["ffn"] = layers.swiglu_init(gen, cfg.d_model, cfg.d_ff,
-                                              dtype, dev)
+            add("ffn", layers.swiglu_init(gen, cfg.d_model, cfg.d_ff, dtype,
+                                          dev))
         params["layers"].append(layer)
     return params
 
@@ -559,12 +575,14 @@ def _lm_head(params: Dict[str, Any], cfg: ModelConfig, x: torch.Tensor,
     columns, gathered over ``model``."""
     _, norm_fn = layers.make_norm(cfg)
     x = norm_fn(params["final_norm"], x)
+    split = tp is not None and (tp.vocab_split if cfg.tie_embeddings
+                                else tp.head_split)
+    if split:
+        x = tp.copy(x)
     if cfg.tie_embeddings:
         logits = layers.unembed(params["embed"], x)
-        split = tp is not None and tp.vocab_split
     else:
         logits = layers.dense(params["lm_head"], x).float()
-        split = tp is not None and tp.head_split
     return tp.mesh.gather(logits, "model", dim=-1) if split else logits
 
 
@@ -665,9 +683,11 @@ def _conv_tail(p_mamba: Dict[str, Any], cfg: ModelConfig,
 
 
 def _apply_layer_full(p: Dict[str, Any], cfg: ModelConfig, x: torch.Tensor,
-                      positions: torch.Tensor, collect_cache: bool):
+                      positions: torch.Tensor, collect_cache: bool,
+                      tp: Optional[layers.MeshContext] = None):
     """One layer over a whole sequence x (B, S, d): (x, moe aux, and with
-    ``collect_cache`` the layer's cache rows or final states)."""
+    ``collect_cache`` the layer's cache rows or final states).  Under a
+    train step's ``tp``, on this rank's shards."""
     _, norm_fn = layers.make_norm(cfg)
     h = norm_fn(p["norm1"], x)
     cache = None
@@ -675,25 +695,26 @@ def _apply_layer_full(p: Dict[str, Any], cfg: ModelConfig, x: torch.Tensor,
         if collect_cache:
             att, cache = mla.mla_full_with_cache(p["mla"], cfg, h, positions)
         else:
-            att = mla.mla_full(p["mla"], cfg, h, positions)
+            att = mla.mla_full(p["mla"], cfg, h, positions, mesh=tp)
     elif "attn" in p:
         if collect_cache:
             att, cache = attention.attention_full_with_cache(
                 p["attn"], cfg, h, positions)
         else:
-            att = attention.attention_full(p["attn"], cfg, h, positions)
+            att = attention.attention_full(p["attn"], cfg, h, positions,
+                                           mesh=tp)
     elif collect_cache:
         att, state = ssm.mamba_full(p["mamba"], cfg, h, return_state=True)
         cache = {"ssm_state": state,
                  "conv_state": _conv_tail(p["mamba"], cfg, h)}
     else:
-        att = ssm.mamba_full(p["mamba"], cfg, h)
+        att = ssm.mamba_full(p["mamba"], cfg, h, mesh=tp)
     x = x + att
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if "moe" in p:
-        f, aux = moe.moe_ffn(p["moe"], cfg, norm_fn(p["norm2"], x))
+        f, aux = moe.moe_ffn(p["moe"], cfg, norm_fn(p["norm2"], x), tp)
     elif "ffn" in p:
-        f = layers.swiglu(p["ffn"], norm_fn(p["norm2"], x))
+        f = layers.swiglu(p["ffn"], norm_fn(p["norm2"], x), tp)
     else:
         return x, aux, cache
     return x + f, aux, cache
@@ -701,12 +722,12 @@ def _apply_layer_full(p: Dict[str, Any], cfg: ModelConfig, x: torch.Tensor,
 
 def _run_full(params: Dict[str, Any], cfg: ModelConfig,
               tokens: torch.Tensor, collect_cache: bool, img_embeds=None,
-              remat: str = "none"):
+              remat: str = "none", tp: Optional[layers.MeshContext] = None):
     """Every layer over tokens (B, S_text), after ``img_embeds`` (B,
     S_img, d) where given: (x (B, S, d) after the last layer, summed moe
     aux, and the layers' caches in layer order).  Each layer runs under
     the ``remat`` policy."""
-    x = layers.embed(params["embed"], tokens).to(
+    x = layers.embed(params["embed"], tokens, tp).to(
         torch_dtype(cfg.compute_dtype))
     if img_embeds is not None:
         x = torch.cat([img_embeds.to(device=x.device, dtype=x.dtype), x],
@@ -718,7 +739,7 @@ def _run_full(params: Dict[str, Any], cfg: ModelConfig,
 
     def layer(p, x):  # a remat's recompute runs under the forward's plan
         with mesh_ctx.use_plan(plan):
-            return _apply_layer_full(p, cfg, x, positions, collect_cache)
+            return _apply_layer_full(p, cfg, x, positions, collect_cache, tp)
 
     layer_fn = _remat(layer, remat)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -731,7 +752,7 @@ def _run_full(params: Dict[str, Any], cfg: ModelConfig,
 
 
 def forward(params: Dict[str, Any], cfg: ModelConfig, tokens: torch.Tensor,
-            *, img_embeds=None, remat: str = "none"
+            *, img_embeds=None, remat: str = "none", mesh=None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Teacher-forced forward.  tokens (B, S_text) -> (fp32 logits (B, S,
     vocab_padded), summed MoE load-balance aux).  With ``img_embeds`` (B,
@@ -739,17 +760,30 @@ def forward(params: Dict[str, Any], cfg: ModelConfig, tokens: torch.Tensor,
     frontend) and S = S_img + S_text.  Every MoE layer routes all B * S
     tokens as one group, as the reference's does.  ``remat`` (one of
     :data:`REMAT_POLICIES`) trades the backward pass's memory for
-    recomputation and leaves the values as they are."""
-    x, aux, _ = _run_full(params, cfg, tokens, False, img_embeds, remat)
-    return _lm_head(params, cfg, x), aux
+    recomputation and leaves the values as they are.
+
+    Under a train step's ``mesh`` (a
+    :class:`~repro_torch.models.layers.MeshContext` with ``train=True``)
+    the tokens are this data rank's rows and the parameters this rank's
+    shards (:func:`~repro_torch.distributed.sharding.param_shardings`):
+    the embedding and LM head are vocab-parallel where the rules split
+    them, the logits are gathered over ``model`` (every vocab column on
+    every rank), and an MoE layer routes in the layout of the active plan
+    across the data ranks (:func:`~repro_torch.models.moe.moe_ffn`)."""
+    x, aux, _ = _run_full(params, cfg, tokens, False, img_embeds, remat,
+                          mesh)
+    return _lm_head(params, cfg, x, mesh), aux
 
 
 def lm_loss(logits: torch.Tensor, labels: torch.Tensor, *,
             mask: Optional[torch.Tensor] = None,
-            real_vocab: Optional[int] = None) -> torch.Tensor:
+            real_vocab: Optional[int] = None,
+            count: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Token-mean cross entropy, the reference's ``lm_loss``.  logits (B,
     S, V) fp32; labels (B, S) integers, -1 to ignore.  ``real_vocab``
-    masks the padded tail of the vocab with -1e30.  The gold logit is
+    masks the padded tail of the vocab with -1e30.  ``count`` divides the
+    summed loss in place of the mask's own count (a data rank's share of
+    the loss over the global batch's tokens).  The gold logit is
     rounded to bf16 and widened back, as the reference's bf16 one-hot
     contraction reads it (rounded after the gather, which rounds the same
     element without a bf16 copy of every logit)."""
@@ -764,7 +798,9 @@ def lm_loss(logits: torch.Tensor, labels: torch.Tensor, *,
     gold = logits.gather(-1, labels_safe[..., None])[..., 0] \
         .to(torch.bfloat16).float()
     nll = (lse - gold) * mask
-    return nll.sum() / mask.sum().clamp_min(1)
+    if count is None:
+        count = mask.sum()
+    return nll.sum() / count.clamp_min(1)
 
 
 def _stack_caches(caches: list) -> Dict[str, Any]:

@@ -75,41 +75,46 @@ def _init_cross_attn(gen, cfg, dtype, device) -> dict:
 
 
 def init_whisper(cfg: ModelConfig, *, seed: int = 0, device="cuda",
-                 draw_device="cpu") -> Dict[str, Any]:
+                 draw_device="cpu", place=None) -> Dict[str, Any]:
     """The port's own seeded init, laid out as
     :func:`~repro_torch.models.transformer.init_lm`'s (it does not
     reproduce the reference's numbers; :func:`params_from_numpy` carries
     those).  The numbers are drawn on ``draw_device``: on the CPU they do
     not depend on the device the model runs on; on the card they are
-    other numbers of the same law, drawn in a fraction of the time."""
+    other numbers of the same law, drawn in a fraction of the time.
+    ``place`` sees each block as it is drawn, as ``init_lm``'s does."""
     check_encoder_decoder(cfg)
     dev = resolve_device(device)
     dtype = torch_dtype(cfg.param_dtype)
     gen = torch.Generator(resolve_device(draw_device)).manual_seed(seed)
     norm_init, _ = layers.make_norm(cfg)
     d, f = cfg.d_model, cfg.d_ff
+    put = place or (lambda _, block: block)
 
-    def enc_layer():
-        return {"norm1": norm_init(dtype, dev),
-                "attn": attention.init_attention(gen, cfg, dtype, dev),
-                "norm2": norm_init(dtype, dev),
-                "ffn": layers.swiglu_init(gen, d, f, dtype, dev)}
+    def block(path, names):
+        """The layer at ``path``, its blocks drawn in ``names``' order."""
+        draw = {"norm1": lambda: norm_init(dtype, dev),
+                "attn": lambda: attention.init_attention(gen, cfg, dtype,
+                                                         dev),
+                "norm_x": lambda: norm_init(dtype, dev),
+                "xattn": lambda: _init_cross_attn(gen, cfg, dtype, dev),
+                "norm2": lambda: norm_init(dtype, dev),
+                "ffn": lambda: layers.swiglu_init(gen, d, f, dtype, dev)}
+        return {name: put(path + (name,), draw[name]()) for name in names}
 
-    def dec_layer():
-        return {"norm1": norm_init(dtype, dev),
-                "attn": attention.init_attention(gen, cfg, dtype, dev),
-                "norm_x": norm_init(dtype, dev),
-                "xattn": _init_cross_attn(gen, cfg, dtype, dev),
-                "norm2": norm_init(dtype, dev),
-                "ffn": layers.swiglu_init(gen, d, f, dtype, dev)}
-
+    enc = ("norm1", "attn", "norm2", "ffn")
+    dec = ("norm1", "attn", "norm_x", "xattn", "norm2", "ffn")
     return {
-        "embed": layers.embed_init(gen, cfg.vocab_padded, d, dtype, dev),
-        "enc_layers": [enc_layer() for _ in range(cfg.enc_layers)],
-        "dec_layers": [dec_layer() for _ in range(n_dec_layers(cfg))],
-        "enc_norm": norm_init(dtype, dev),
-        "final_norm": norm_init(dtype, dev),
-        "lm_head": layers.dense_init(gen, d, cfg.vocab_padded, dtype, dev),
+        "embed": put(("embed",), layers.embed_init(gen, cfg.vocab_padded, d,
+                                                   dtype, dev)),
+        "enc_layers": [block(("enc_layers", i), enc)
+                       for i in range(cfg.enc_layers)],
+        "dec_layers": [block(("dec_layers", i), dec)
+                       for i in range(n_dec_layers(cfg))],
+        "enc_norm": put(("enc_norm",), norm_init(dtype, dev)),
+        "final_norm": put(("final_norm",), norm_init(dtype, dev)),
+        "lm_head": put(("lm_head",), layers.dense_init(
+            gen, d, cfg.vocab_padded, dtype, dev)),
     }
 
 
@@ -147,25 +152,42 @@ def params_from_numpy(tree: Mapping, cfg: ModelConfig, device="cuda", *,
 # -- the train path -----------------------------------------------------------
 
 
-def _cross_kv(p: dict, cfg, enc_out: torch.Tensor):
+def _cross_kv(p: dict, cfg, enc_out: torch.Tensor,
+              mesh: Optional[layers.MeshContext] = None):
     """A decoder layer's cross K and V over the encoder's output: (B, Se,
-    KV, D) each."""
+    KV, D) each; under a train step's ``mesh``, this rank's heads, or all
+    of them gathered where a split cuts one."""
     B, Se, _ = enc_out.shape
-    kv, hd = cfg.n_kv_heads, cfg.head_dim
-    k = layers.dense(p["wk"], enc_out).reshape(B, Se, kv, hd)
-    v = layers.dense(p["wv"], enc_out).reshape(B, Se, kv, hd)
-    return k, v
+    hd = cfg.head_dim
+    mesh = attention.train_context(mesh)
+    if mesh is not None:
+        enc_out = mesh.copy(enc_out)
+    k = layers.dense(p["wk"], enc_out)
+    v = layers.dense(p["wv"], enc_out)
+    if mesh is not None and not mesh.heads:
+        k, v = (mesh.mesh.gather(t, "model", dim=-1) if split else t
+                for t, split in zip((k, v), mesh.qkv_split[1:]))
+    return k.reshape(B, Se, -1, hd), v.reshape(B, Se, -1, hd)
 
 
 def _cross_attend(p: dict, cfg, x: torch.Tensor, k: torch.Tensor,
-                  v: torch.Tensor) -> torch.Tensor:
+                  v: torch.Tensor,
+                  mesh: Optional[layers.MeshContext] = None) -> torch.Tensor:
     """Position-free cross-attention of x (B, S, d) over k/v (B, Se, KV, D),
-    no mask: (B, S, d)."""
+    no mask: (B, S, d); under a train step's ``mesh`` on the heads of
+    :func:`_cross_kv`, ``wo`` row-parallel."""
     B, S, _ = x.shape
-    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = layers.dense(p["wq"], x).reshape(B, S, kv, h // kv, hd)
+    hd = cfg.head_dim
+    mesh = attention.train_context(mesh)
+    if mesh is not None:
+        x = mesh.copy(x)
+    q = layers.dense(p["wq"], x)
+    if mesh is not None and not mesh.heads and mesh.qkv_split[0]:
+        q = mesh.mesh.gather(q, "model", dim=-1)
+    kv = k.shape[2]
+    q = q.reshape(B, S, kv, -1, hd)
     out = flash_attention(q, k, v, causal=False)
-    return layers.dense(p["wo"], out.reshape(B, S, h * hd))
+    return attention._out_proj(p, out.reshape(B, S, -1), mesh)
 
 
 def _policy(remat: str) -> str:
@@ -183,10 +205,12 @@ def _positions(B: int, S: int, device) -> torch.Tensor:
 
 
 def encode(params: Dict[str, Any], cfg: ModelConfig,
-           enc_frames: torch.Tensor, *, remat: str = "none") -> torch.Tensor:
+           enc_frames: torch.Tensor, *, remat: str = "none",
+           mesh: Optional[layers.MeshContext] = None) -> torch.Tensor:
     """enc_frames (B, Se, d) -> the encoder's output (B, Se, d) in the
     compute dtype: non-causal self-attention with RoPE at positions 0..Se-1
-    and a SwiGLU a block, then the encoder's norm."""
+    and a SwiGLU a block, then the encoder's norm.  Under a train step's
+    ``mesh``, on this rank's shards."""
     x = enc_frames.to(torch_dtype(cfg.compute_dtype))
     B, Se, _ = x.shape
     positions = _positions(B, Se, x.device)
@@ -195,8 +219,8 @@ def encode(params: Dict[str, Any], cfg: ModelConfig,
     def block(p, x):
         h = norm_fn(p["norm1"], x)
         x = x + attention.attention_full(p["attn"], cfg, h, positions,
-                                         causal=False)
-        return x + layers.swiglu(p["ffn"], norm_fn(p["norm2"], x))
+                                         causal=False, mesh=mesh)
+        return x + layers.swiglu(p["ffn"], norm_fn(p["norm2"], x), mesh)
 
     fn = _remat(block, _policy(remat))
     for p in params["enc_layers"]:
@@ -206,12 +230,17 @@ def encode(params: Dict[str, Any], cfg: ModelConfig,
 
 def forward(params: Dict[str, Any], cfg: ModelConfig,
             enc_frames: torch.Tensor, tokens: torch.Tensor, *,
-            remat: str = "none") -> Tuple[torch.Tensor, torch.Tensor]:
+            remat: str = "none", mesh: Optional[layers.MeshContext] = None
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Teacher-forced forward: (fp32 logits (B, Sd, vocab_padded), an aux
     of 0).  ``remat`` other than none recomputes each block in the
-    backward pass."""
-    enc_out = encode(params, cfg, enc_frames, remat=remat)
-    x = layers.embed(params["embed"], tokens).to(
+    backward pass.  Under a train step's ``mesh`` (the rows of this data
+    rank, this rank's shards), every projection by the reference's rules:
+    heads over ``model`` for the self- and cross-attention, the SwiGLUs
+    column then row-parallel, the embedding and LM head over the vocab,
+    the logits gathered over ``model``."""
+    enc_out = encode(params, cfg, enc_frames, remat=remat, mesh=mesh)
+    x = layers.embed(params["embed"], tokens, mesh).to(
         torch_dtype(cfg.compute_dtype))
     B, Sd, _ = x.shape
     positions = _positions(B, Sd, x.device)
@@ -220,15 +249,16 @@ def forward(params: Dict[str, Any], cfg: ModelConfig,
     def block(p, x, enc_out):
         h = norm_fn(p["norm1"], x)
         x = x + attention.attention_full(p["attn"], cfg, h, positions,
-                                         causal=True)
-        k, v = _cross_kv(p["xattn"], cfg, enc_out)
-        x = x + _cross_attend(p["xattn"], cfg, norm_fn(p["norm_x"], x), k, v)
-        return x + layers.swiglu(p["ffn"], norm_fn(p["norm2"], x))
+                                         causal=True, mesh=mesh)
+        k, v = _cross_kv(p["xattn"], cfg, enc_out, mesh)
+        x = x + _cross_attend(p["xattn"], cfg, norm_fn(p["norm_x"], x), k, v,
+                              mesh)
+        return x + layers.swiglu(p["ffn"], norm_fn(p["norm2"], x), mesh)
 
     fn = _remat(block, _policy(remat))
     for p in params["dec_layers"]:
         x = fn(p, x, enc_out)
-    return (_lm_head(params, cfg, x),
+    return (_lm_head(params, cfg, x, mesh),
             torch.zeros((), dtype=torch.float32, device=x.device))
 
 

@@ -20,7 +20,12 @@ Every faulted cell is diffed against its fault-free **golden twin** (same
 seed, same traffic — the fault axis is excluded from seed derivation):
 served token streams must match uid-for-uid, token-for-token.  A twin
 mismatch, an SLO violation, or a cell error all fail the cell; the gate
-CLI turns failed cells into a non-zero exit.
+CLI turns failed cells into a non-zero exit.  One exception, for a cell
+that computes in bf16: its chunk step and a fault's replay round
+differently from the token step, so a stream that parts from its fault
+or chunk twin at a near tie (:func:`judge_ties`: a top-2 logit gap of at
+most :data:`TIE_ULPS` bf16 ulps of the top logit, on the cell's weights)
+is listed in the cell's ``ties`` with its gap instead of its diffs.
 
 Cells run on ``device`` ("cuda" unless the caller asks for the CPU), with
 one set of parameters an architecture and device (:data:`_PARAMS`: the
@@ -40,6 +45,8 @@ from __future__ import annotations
 
 import dataclasses
 import fnmatch
+import json
+import re
 import shutil
 import tempfile
 import threading
@@ -48,6 +55,7 @@ from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
 
 import repro_torch.configs as configs
 from repro_torch.checkpoint import CheckpointStore
@@ -389,6 +397,8 @@ class CellResult:
     restarts: int = 0
     golden_checked: bool = False
     golden_diffs: List[str] = dataclasses.field(default_factory=list)
+    #: twin divergences judged near ties (:func:`judge_ties`), with gaps
+    ties: List[Dict[str, Any]] = dataclasses.field(default_factory=list)
     slo_failures: List[str] = dataclasses.field(default_factory=list)
     error: str = ""
 
@@ -428,6 +438,9 @@ class CellResult:
                 {"uid": uid, "new_tokens": len(toks)}
                 for uid, toks in sorted(self.tokens.items())
             ],
+            # a bf16 cell's near ties with their gaps (the reference's
+            # report has no such field, and an f32 cell none)
+            **({"ties": self.ties} if self.ties else {}),
         }
 
 
@@ -445,6 +458,67 @@ def _diff_tokens(faulted: Dict[int, List[int]],
     for uid in sorted(set(faulted) - set(golden)):
         diffs.append(f"uid {uid}: served here, absent from the golden twin")
     return diffs
+
+
+#: a bf16 cell's stream may part from its fault or chunk twin at a near
+#: tie of their roundings: the top-2 logit gap at the first divergence, in
+#: bf16 ulps of the top logit (the LM head's output is bf16), must be at
+#: most this
+TIE_ULPS = 4
+
+#: one diverged stream of ``CellResult.golden_diffs`` (``_diff_tokens``'s
+#: format: the twin, the uid, this cell's tokens, the twin's); any other
+#: diff (a request missing on one side) is no near tie
+DIVERGED = re.compile(r"(?:\[vs (?P<twin>[^\]]+)\] )?uid (?P<uid>\d+): "
+                      r"tokens diverged \((?P<got>\[[\d, ]*\]) != "
+                      r"(?P<want>\[[\d, ]*\])\)")
+
+
+def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
+    """Spacing of bf16 numbers at |x| (normal range), as fp32."""
+    e = torch.floor(torch.log2(x.abs().float().clamp_min(1e-30)))
+    return torch.exp2(e - 7)
+
+
+@torch.no_grad()
+def top2_gap(cfg, params, tokens: List[int], device) -> Tuple[float, float]:
+    """The top-2 gap of the next token's logits after ``tokens`` (the
+    teacher-forced forward on ``device``) and the bf16 ulp of the top."""
+    logits, _ = transformer.forward(
+        params, cfg, torch.tensor([tokens], dtype=torch.int32,
+                                  device=resolve_device(device)))
+    top = logits[0, -1, :cfg.vocab].float().topk(2).values
+    return float(top[0] - top[1]), float(bf16_ulp(top[:1])[0])
+
+
+def judge_ties(cfg, params, prompts: Dict[int, Any], diffs: List[str],
+               device) -> Tuple[List[Dict[str, Any]], List[str]]:
+    """(near ties, the other diffs) of a cell's golden diffs: a diverged
+    stream whose top-2 gap where it leaves the twin's (the twin's tokens
+    before it, after ``prompts[uid]``) is at most :data:`TIE_ULPS` bf16
+    ulps of the top logit is a tie, listed with its gap; every other diff
+    stays one."""
+    ties, rest = [], []
+    for diff in diffs:
+        m = DIVERGED.fullmatch(diff)
+        got = want = i = None
+        if m is not None:
+            got, want = json.loads(m["got"]), json.loads(m["want"])
+            i = next((i for i, (x, y) in enumerate(zip(got, want))
+                      if x != y), None)
+        if i is None:
+            rest.append(diff)
+            continue
+        uid = int(m["uid"])
+        gap, top_ulp = top2_gap(cfg, params,
+                                list(prompts[uid]) + want[:i], device)
+        if gap <= TIE_ULPS * top_ulp:
+            ties.append({"twin": m["twin"] or "fault", "uid": uid,
+                         "index": i, "top2_gap": gap, "top_ulp": top_ulp})
+        else:
+            rest.append(f"{diff} [top-2 gap {gap} > {TIE_ULPS} x "
+                        f"{top_ulp}]")
+    return ties, rest
 
 
 def run_cell(cell: Scenario, *, check_twin: bool = True,
@@ -482,6 +556,14 @@ def run_cell(cell: Scenario, *, check_twin: bool = True,
             f"[vs prefill_chunk=1] {d}"
             for d in _diff_tokens(result.tokens, ctwin.tokens)
         ]
+    cfg, params = (_params_for(cell.arch, device) if result.golden_diffs
+                   else (None, None))
+    if cfg is not None and cfg.compute_dtype != "float32":
+        # the fault and chunk twins' diffs: near ties of bf16 roundings
+        prompts = {s.uid: s.prompt.tolist()
+                   for s in sample_trace(cell, cfg.vocab)}
+        result.ties, result.golden_diffs = judge_ties(
+            cfg, params, prompts, result.golden_diffs, device)
     if cell.prompt_sharing == "shared" and check_twin:
         # the sharing axis gets golden treatment too: the COW engine must
         # serve the sharing-disabled twin's exact streams while actually

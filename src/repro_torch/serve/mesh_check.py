@@ -221,8 +221,6 @@ def _serve_on_mesh(mesh, workloads, kw, base_pools, params
     workload on its shards of ``params[name]``, hold int8 pools against
     the baseline's, and gather every rank's pool comparison and counters
     to each rank."""
-    import torch.distributed as dist
-
     out = {}
     for name, arch, overrides in workloads:
         before = _rank_counts(mesh)
@@ -233,10 +231,30 @@ def _serve_on_mesh(mesh, workloads, kw, base_pools, params
         if pools is not None:
             mine["pools"] = compare_pools(pools, base_pools[name],
                                           mesh.model_index, mesh.model)
-        ranks: List[Any] = [None] * mesh.size
-        dist.all_gather_object(ranks, mine)
-        res["ranks"] = ranks
+        res["ranks"] = mesh.gather_objects(mine)
         out[name] = res
+    return out
+
+
+def _serve_on_meshes(world, shapes, workloads, kw, base_pools, params
+                     ) -> Dict[str, Any]:
+    """One rank's part of :func:`run_check` on every shape: each shape a
+    mesh of the spawn's first ranks (:func:`_serve_on_mesh` on those in
+    it); {shape: its results} on rank 0."""
+    import torch
+
+    from repro_torch.launch.mesh import make_train_mesh, parse_mesh
+
+    out = {}
+    for shape in shapes:
+        d, m = parse_mesh(shape)
+        mesh = make_train_mesh(d, m, device=world.device,
+                               ranks=range(d * m))
+        if mesh is not None:
+            out[shape] = _serve_on_mesh(mesh, workloads, kw, base_pools,
+                                        params)
+        if world.device.type == "cuda":
+            torch.cuda.empty_cache()
     return out
 
 
@@ -274,9 +292,12 @@ def run_check(meshes: Sequence[Optional[str]],
     """Serve every workload on every mesh shape; diff against unsharded.
 
     The ``None`` baseline is always run (prepended when absent) in this
-    process; each ``DxM`` shape spawns its ranks once for all workloads.
-    Each workload's parameters are built once, here, and reach the ranks
-    shared (through CUDA IPC on the card), which cut their shards.
+    process; the ``DxM`` shapes run in one spawn of ranks, as large as the
+    largest data and model axes, whose first ``D*M`` ranks serve each
+    shape as a mesh of their own (:func:`~repro_torch.launch.mesh.
+    make_train_mesh`), all workloads at a time.  Each workload's
+    parameters are built once, here, and reach the ranks shared (through
+    CUDA IPC on the card), which cut their shards.
     """
     import repro_torch.configs as configs
     from repro_torch.launch.mesh import parse_mesh, spawn
@@ -306,13 +327,16 @@ def run_check(meshes: Sequence[Optional[str]],
         base[name] = out
     live = [w for w in workloads if w[0] in base]
     results["streams"] = {name: out["streams"] for name, out in base.items()}
+    meshed = [s for s in shapes if s is not None]
+    by_shape = {None: base}
+    if meshed:
+        dims = [parse_mesh(s) for s in meshed]
+        by_shape.update(spawn(
+            _serve_on_meshes, max(d for d, _ in dims),
+            max(m for _, m in dims), meshed, live, kw, base_pools, params,
+            device=device, timeout=timeout * len(meshed)))
     for shape in shapes:
-        if shape is None:
-            by_name = base
-        else:
-            by_name = spawn(_serve_on_mesh, *parse_mesh(shape), live, kw,
-                            base_pools, params, device=device,
-                            timeout=timeout)
+        by_name = by_shape[shape]
         for name, _, _ in live:
             out = by_name[name]
             row = {

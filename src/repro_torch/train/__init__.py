@@ -1,6 +1,7 @@
 """train of the PyTorch port (see repro.train)."""
 
 from repro_torch.train.steps import (  # noqa: F401
+    BASELINE_RUN,
     OPTIMIZED_RUN,
     RunConfig,
     init_model,

@@ -1063,3 +1063,46 @@ def test_default_serve_cli_on_the_card_matches_the_cpu(cuda):
                             if args.device == "cuda" else 0)
         streams[args.device] = [r["tokens"] for r in report["requests"]]
     assert streams["cuda"] == streams["cpu"]
+
+
+# -- the train mesh's flat collectives over CUDA IPC ---------------------------
+
+
+def _flat_collectives(mesh):
+    """On each rank of a 2x1 mesh sharing the card: the IPC reduce-scatter,
+    all-reduce and all-gather of flat buffers against the same collectives
+    staged through the host (gloo), bit for bit."""
+    from repro_torch.distributed.collectives import Collectives
+
+    group, n, i = mesh.groups["data"], 2, mesh.data_index
+    gen = torch.Generator("cuda").manual_seed(7 + i)
+    x = torch.randn(4096 + 3, generator=gen, device="cuda")
+    staged = Collectives("gloo", shared_card=False)
+    comm = mesh.comm
+    assert comm.shared_card
+    out = {}
+    flat = comm.shared_flat("t", x.numel(), x.dtype, x.device, group, n)
+    flat.copy_(x)
+    mine, rest = comm.reduce_scatter_flat(flat, group, n, i, tail=3)
+    want_mine, want_rest = staged.reduce_scatter_flat(x.clone(), group, n, i,
+                                                      tail=3)
+    out["reduce_scatter"] = (torch.equal(mine, want_mine)
+                             and torch.equal(rest, want_rest))
+    flat.copy_(x)
+    out["all_reduce"] = torch.equal(comm.all_reduce_flat(flat, group, n),
+                                    staged.all_reduce_flat(x.clone(), group,
+                                                           n))
+    flat.copy_(x)
+    out["all_gather"] = torch.equal(comm.all_gather_flat(flat, group, n),
+                                    staged.all_gather_flat(x, group, n))
+    out["host_bytes"] = comm.counters()["host_bytes"]
+    return out
+
+
+def test_flat_collectives_over_ipc_equal_the_staged_ones(cuda):
+    from repro_torch.launch import mesh as mesh_mod
+
+    got = mesh_mod.spawn(_flat_collectives, 2, 1, device="cuda",
+                         build=False, timeout=120)
+    assert got == {"reduce_scatter": True, "all_reduce": True,
+                   "all_gather": True, "host_bytes": 0}

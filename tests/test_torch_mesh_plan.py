@@ -31,7 +31,9 @@ import repro_torch.configs as port_configs  # noqa: E402
 from repro_torch.distributed import context as ctx  # noqa: E402
 from repro_torch.launch.mesh import (MeshShape, MeshShapeError,  # noqa: E402
                                      ServeMesh)
+from repro_torch.distributed.tensor_parallel import TrainView  # noqa: E402
 from repro_torch.models import moe  # noqa: E402
+from repro_torch.models.layers import MeshContext  # noqa: E402
 from repro_torch.train import steps  # noqa: E402
 import torch_threads  # noqa: E402
 import torch_train_checks as checks  # noqa: E402
@@ -66,9 +68,9 @@ def _ref_hierarchical(rcfg, rp, x, Z):
             rp, jnp.asarray(x))
 
 
-def _port(params, cfg, x, plan):
+def _port(params, cfg, x, plan, mesh=None):
     with ctx.use_plan(plan):
-        return moe.moe_ffn(params, cfg, torch.from_numpy(x))
+        return moe.moe_ffn(params, cfg, torch.from_numpy(x), mesh)
 
 
 def _assert_y(y, aux, ry, raux):
@@ -189,10 +191,18 @@ def test_shard_map_moe_matches_the_reference_shard_map_on_one_device():
 
 @pytest.mark.parametrize("impl", ["hierarchical", "shard_map"])
 def test_a_mesh_of_ranks_names_the_roadmap_item(impl):
-    _, cfg, _, params, x = _moe_setup()
-    ranks = ServeMesh(2, 1, 0, "gloo", torch.device("cpu"), {})
-    with pytest.raises(MeshShapeError, match=r"1\.18\.2"):
-        _port(params, cfg, x, ctx.plan_for_mesh(ranks, moe_impl=impl))
+    """A plan over a mesh of ranks, refused until ROADMAP item 1.18.2,
+    now runs its layout across the ranks under a train step's
+    ``MeshContext`` (``_moe_ffn_ranks``; the layouts on meshes of spawned
+    ranks are ``tests/test_torch_train_mesh_moe.py``'s): on a mesh of one
+    rank, the reference's layout at Z = 1."""
+    rcfg, cfg, rp, params, x = _moe_setup()
+    ranks = ServeMesh(1, 1, 0, "gloo", torch.device("cpu"), {})
+    tp = MeshContext(TrainView(ranks), cfg, x.shape[0], train=True)
+    y, aux = _port(params, cfg, x, ctx.plan_for_mesh(ranks, moe_impl=impl),
+                   tp)
+    ry, raux = _ref_hierarchical(rcfg, rp, x, 1)
+    _assert_y(y, aux, ry, raux)
 
 
 @pytest.mark.parametrize("impl", ["hierarchical", "shard_map"])

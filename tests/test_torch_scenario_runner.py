@@ -228,3 +228,51 @@ def test_cells_run_on_the_card_unless_asked():
         assert r.ok and r.stats["requests"] == 4
     else:
         assert not r.ok and "torch.cuda.is_available() is False" in r.error
+
+
+# -- the near-tie rule of bf16 twins ---------------------------------------------
+
+
+def _synthetic_forward(top, second):
+    """A teacher-forced forward whose next-token logits are ``top`` at
+    token 3, ``second`` at token 5 and 0 elsewhere."""
+    def forward(params, cfg, tokens):
+        logits = torch.zeros((1, tokens.shape[1], 16))
+        logits[0, -1, 3], logits[0, -1, 5] = top, second
+        return logits, torch.zeros(())
+    return forward
+
+
+@pytest.mark.parametrize("ulps, tie", [(0, True), (4, True), (5, False)])
+def test_a_twin_diff_is_a_near_tie_within_the_rule(monkeypatch, ulps, tie):
+    """A diverged stream whose top-2 gap where it leaves its twin is at
+    most ``TIE_ULPS`` bf16 ulps of the top logit is a tie, reported with
+    its gap; one ulp over the rule it stays a diff.  The top logit 8.0
+    has a bf16 ulp of 1/16."""
+    cfg = type("Cfg", (), {"vocab": 16})()
+    gap = ulps / 16
+    monkeypatch.setattr(runner.transformer, "forward",
+                        _synthetic_forward(8.0, 8.0 - gap))
+    diffs = ["[vs prefill_chunk=1] uid 2: tokens diverged "
+             "([7, 3, 1] != [7, 5, 1])",
+             "uid 4: served in golden twin, missing here"]
+    ties, rest = runner.judge_ties(cfg, None, {2: [9, 9]}, diffs, "cpu")
+    assert rest[-1] == diffs[1]  # a missing request is never a tie
+    if tie:
+        assert ties == [{"twin": "prefill_chunk=1", "uid": 2, "index": 1,
+                         "top2_gap": gap, "top_ulp": 1 / 16}]
+        assert rest == diffs[1:]
+    else:
+        assert ties == [] and len(rest) == 2
+        assert rest[0].startswith(diffs[0]) and "top-2 gap" in rest[0]
+    assert runner.TIE_ULPS == 4
+
+
+def test_an_f32_cell_judges_no_ties():
+    """The tie rule reads only cells that compute in bf16: the smoke
+    cells (f32) keep exact twins."""
+    cell = _cell("preempt", archs=["qwen3-1.7b"], prefill_chunks=[4],
+                 prefill_budget=8)
+    r = run(cell)
+    assert r.ties == [] and r.golden_ok
+    assert "ties" not in r.report()  # as the reference's report
